@@ -1,0 +1,12 @@
+"""deeplearning4j_tpu_torch: the PyTorch/CUDA port of deeplearning4j_tpu.
+
+The JAX package ``deeplearning4j_tpu`` is the reference; this package
+mirrors its module paths and reads and writes the same config JSON and
+checkpoint zip. It imports torch and numpy, never jax and nothing of
+the JAX package. Entry points take ``device`` (default ``"cuda"``) and
+raise without a card unless ``device="cpu"`` is passed.
+
+Ported so far: the transformer LM's serving path
+(``python -m deeplearning4j_tpu_torch serve``) through the hand-written
+flash-attention forward kernel (``csrc/flash_attention_fwd.cu``).
+"""

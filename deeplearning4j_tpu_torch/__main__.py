@@ -1,0 +1,4 @@
+from deeplearning4j_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    main()

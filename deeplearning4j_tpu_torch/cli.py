@@ -1,0 +1,74 @@
+"""Command line (counterpart of ``deeplearning4j_tpu/cli.py``). Ported
+so far: ``serve``.
+
+    python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+__all__ = ["main"]
+
+
+def _parse_model_spec(spec):
+    """[NAME=]PATH: an existing file wins outright (a bare path may
+    itself contain '='); otherwise split on the first '=' when the
+    prefix looks like a name."""
+    name, sep, path = spec.partition("=")
+    if os.path.exists(spec) or not sep or os.sep in name or "/" in name:
+        name, path = "default", spec
+    return name, path
+
+
+def _cmd_serve(args):
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, verify_checkpoint)
+    registry = ModelRegistry()
+    for spec in args.model:
+        name, path = _parse_model_spec(spec)
+        verify_checkpoint(path)
+        version = registry.register(name, restore_model(
+            path, device=args.device))
+        print(f"registered {name} v{version} from {path} on {args.device}")
+    server = ModelServer(registry, port=args.port, host=args.host,
+                         max_batch_size=args.max_batch_size,
+                         queue_limit=args.queue_limit, wait_ms=args.wait_ms)
+    server.start()
+    print(f"serving on http://{args.host}:{server.port}/ (/v1/predict "
+          f"/v1/models /healthz; ctrl-c drains and stops)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("draining...")
+        server.stop(drain=True)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    v = sub.add_parser("serve", help="model-serving HTTP server "
+                                     "(dynamic batching, admission control)")
+    v.add_argument("--model", action="append", required=True,
+                   metavar="[NAME=]PATH",
+                   help="model zip to host; repeatable; NAME defaults to "
+                        "'default'")
+    v.add_argument("--device", default="cuda",
+                   help="torch device the models run on (default cuda; "
+                        "cpu for a machine without a card)")
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=8080)
+    v.add_argument("--max-batch-size", type=int, default=32,
+                   help="rows per coalesced predict call")
+    v.add_argument("--queue-limit", type=int, default=256,
+                   help="pending requests before load-shed (429)")
+    v.add_argument("--wait-ms", type=float, default=2.0,
+                   help="batch collection window")
+    v.set_defaults(fn=_cmd_serve)
+    args = p.parse_args(argv)
+    return args.fn(args)

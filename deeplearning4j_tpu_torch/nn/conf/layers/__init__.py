@@ -1,0 +1,17 @@
+"""Layer configs ported so far; importing this package registers their
+``@type`` names."""
+
+from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
+    SelfAttentionLayer, TransformerEncoderLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.base import (
+    LAYER_REGISTRY, BaseLayer, FeedForwardLayer, Layer, layer_from_dict,
+    register_layer)
+from deeplearning4j_tpu_torch.nn.conf.layers.core import (
+    EmbeddingSequenceLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.output import (OutputLayer,
+                                                            RnnOutputLayer)
+
+__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
+           "layer_from_dict", "LAYER_REGISTRY", "EmbeddingSequenceLayer",
+           "SelfAttentionLayer", "TransformerEncoderLayer", "OutputLayer",
+           "RnnOutputLayer"]
