@@ -4,9 +4,10 @@ self-attention on the flash-attention forward (``ops/attention.py``:
 the CUDA kernel on the card, its plain version on the CPU) and the
 pre-LN transformer block.
 
-Ported so far: the full-sequence ``apply`` of both layers. The
-sequence-parallel branches and the streaming / decode methods are not
-ported yet.
+Ported so far: the full-sequence ``apply`` of both layers, for
+inference and training (the attention is differentiable through the
+backward kernels). The sequence-parallel branches and the streaming /
+decode methods are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,11 +67,14 @@ class SelfAttentionLayer(BaseLayer):
                 p[name] = torch.zeros(d)
         return p, {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
         """``mask``: optional (B, T) 0/1. Padded keys leave the softmax
         (the kernel's kv_mask); padded query rows are zeroed here, the
         caller's side of the masking contract."""
         from deeplearning4j_tpu_torch.ops.attention import flash_attention
+        x = self.apply_input_dropout(x, training=training,
+                                     generator=generator)
         B, T, _ = x.shape
         q, k, v = self._project_qkv(params, x)
         if mask is not None:
@@ -147,9 +151,14 @@ class TransformerEncoderLayer(BaseLayer):
                 causal=self.causal, weight_init=self.weight_init)
         return self._attn
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        # the block drops nothing itself; its inner attention layer is
+        # built without dropout (as in the JAX package)
         h = layer_norm(x, params["ln1_g"], params["ln1_b"])
-        a, _ = self._ensure_attn().apply(params["attn"], {}, h, mask=mask)
+        a, _ = self._ensure_attn().apply(params["attn"], {}, h,
+                                         training=training,
+                                         generator=generator, mask=mask)
         x = x + a
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         act = self.activation_fn()

@@ -8,9 +8,12 @@ on tensors:
 - ``output_type(input_type)``: config-time shape inference;
 - ``initialize(generator, input_type)``: ``(params, state)``, dicts of
   CPU tensors sampled from a ``torch.Generator``;
-- ``apply(params, state, x, *, mask=None)``: inference forward,
-  returns ``(out, state)``. Training (dropout, losses) is not ported
-  yet.
+- ``apply(params, state, x, *, training=False, generator=None,
+  mask=None)``: forward, returns ``(out, state)``; with ``training`` a
+  layer drops its input (``dropout``) with bits drawn from the
+  ``torch.Generator`` it is given, where the JAX layer folds an rng key;
+- ``regularization_loss(params)``: L1/L2 terms added to the score;
+- ``has_loss()``: output layers (``output.py``) carry a loss.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.weights import init_weight
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
-           "layer_from_dict", "LAYER_REGISTRY"]
+           "layer_from_dict", "LAYER_REGISTRY", "dropout_keep_mask"]
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -46,13 +49,21 @@ def layer_from_dict(d: dict) -> "Layer":
     return LAYER_REGISTRY[tname].from_dict(d)
 
 
+def dropout_keep_mask(shape, keep: float, generator: torch.Generator,
+                      device) -> torch.Tensor:
+    """Bernoulli(keep) bits for inverted dropout, from ``generator`` (on
+    ``device``). torch and jax.random give different bits from one seed;
+    a parity test replaces this function to feed both the same mask."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
 @dataclasses.dataclass
 class Layer:
     """Root of the layer-config hierarchy."""
 
     name: Optional[str] = None
-    # probability of DROPPING an input activation (identity at
-    # inference, the only mode ported so far)
+    # probability of DROPPING an input activation (inverted-dropout
+    # scaling at train time, identity at inference)
     dropout: float = 0.0
     constraints: Tuple[dict, ...] = ()
 
@@ -66,8 +77,25 @@ class Layer:
                    input_type: InputType):
         return {}, {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
         raise NotImplementedError
+
+    def has_loss(self) -> bool:
+        return False
+
+    def regularization_loss(self, params):
+        return 0.0
+
+    # DL4J applies a layer's dropout to its input (BaseLayer
+    # preOutputWithPreNorm -> Dropout.applyDropout)
+    def apply_input_dropout(self, x, *, training, generator):
+        if not training or self.dropout <= 0.0 or generator is None:
+            return x
+        keep = 1.0 - self.dropout
+        m = dropout_keep_mask(x.shape, keep, generator, x.device)
+        return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
 
     # ---- serde ----
     def to_dict(self) -> dict:
@@ -117,6 +145,19 @@ class BaseLayer(Layer):
         return init_weight(generator, shape, self.weight_init, fan_in,
                            fan_out, distribution=self.weight_distribution,
                            dtype=dtypes.policy().param_dtype)
+
+    def regularization_loss(self, params):
+        reg = 0.0
+        for k, p in params.items():
+            is_bias = k == "b"
+            l1 = self.l1_bias if is_bias else self.l1
+            l2 = self.l2_bias if is_bias else self.l2
+            if l1:
+                reg = reg + l1 * p.abs().sum()
+            if l2:
+                # DL4J convention: 0.5 * l2 * ||w||^2
+                reg = reg + 0.5 * l2 * (p * p).sum()
+        return reg
 
 
 @dataclasses.dataclass

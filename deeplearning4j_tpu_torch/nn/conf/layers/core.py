@@ -38,7 +38,9 @@ class EmbeddingSequenceLayer(FeedForwardLayer):
         return {"W": self._sample_w(generator, (self.n_in, self.n_out),
                                     self.n_in, self.n_out)}, {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        # no input dropout: ids are not activations (as in the JAX layer)
         if x.dim() == 3 and x.shape[-1] == 1:
             x = x[..., 0]
         return embedding_lookup(params["W"], x), state

@@ -1,19 +1,22 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written CUDA kernels and
+their plain PyTorch versions.
 
-Counterpart of ``deeplearning4j_tpu/ops/attention.py``. The TPU kernel
-it replaces is ``_fwd_kernel`` there (launched by
-``pallas_flash_attention``); the Hopper kernel is
-``csrc/flash_attention_fwd.cu``, which states its design and bound. At
-the LM shape (B=8, T=1024, H=16, D=64, causal) one call is ~1.7e10
-FLOPs against ~134 MB, so on an H100 it is bound by operations: at
-least 0.26 ms at the 67 TFLOP/s CUDA-core f32 rate.
+Counterpart of ``deeplearning4j_tpu/ops/attention.py``. The TPU kernels
+it replaces are ``_fwd_kernel`` (launched by ``pallas_flash_attention``)
+and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
+``pallas_flash_attention_bwd``); the Hopper kernels are
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``,
+which state their designs and bounds. At the LM shape (B=8, T=1024,
+H=16, D=64, causal) all three are bound by operations on an H100: the
+forward does 4*D FLOPs per live (query, key) pair, dq 6*D and dk/dv
+8*D, at least 0.26 / 0.39 / 0.51 ms at the 67 TFLOP/s CUDA-core f32
+rate.
 
-Layout is the JAX package's: q, k, v are (B, T, H, D); o is (B, T, H,
-D) and lse is (B, H, T) float32. The optional ``kv_mask`` is a (B, T)
-0/1 key-padding mask: masked keys leave the softmax (-1e30 before the
-max), a row that sees no key outputs 0 with lse = -1e30, and padded
-QUERY rows are the caller's to zero.
+Layout is the JAX package's: q, k, v, o, do are (B, T, H, D); lse and
+delta are (B, H, T) float32. The optional ``kv_mask`` is a (B, T) 0/1
+key-padding mask: masked keys leave the softmax (-1e30 before the max),
+a row that sees no key outputs 0 with lse = -1e30 (and gets dq = 0),
+and padded QUERY rows are the caller's to zero.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
@@ -23,8 +26,10 @@ products accumulate in f32 on the CUDA cores ('highest' semantics).
 'default' is accepted for the JAX signature; the TPU's bf16 passes, TF32
 and bf16 inputs are not ported yet.
 
-Forward only: the backward kernels (``_dq_kernel``, ``_dkv_kernel``)
-and the autograd wiring belong to the training slice.
+``flash_attention`` is differentiable: with grad enabled it runs through
+an autograd Function that keeps (o, lse) from the forward and calls the
+backward kernels; the mask gets no gradient, as the JAX package's
+custom VJP gives it a zero cotangent.
 """
 
 from __future__ import annotations
@@ -36,7 +41,11 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ["flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_cuda", "flash_attention_fwd_plain"]
+           "flash_attention_fwd_cuda", "flash_attention_fwd_plain",
+           "flash_attention_bwd", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_plain", "flash_attention_bwd_dq_cuda",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_cuda",
+           "flash_attention_bwd_dkv_plain"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
@@ -92,13 +101,11 @@ def flash_attention_fwd_plain(q, k, v, kv_mask=None, *, causal=False,
     return o, lse
 
 
-def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
-                             precision="default"
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream.
-    Returns (o, lse). ``flash_attention_fwd_cuda.launches`` counts the
-    launches."""
-    _check(q, k, v, kv_mask, precision)
+def _kernel_inputs(q, tensors):
+    """The CUDA kernels' checks and operand layout: CUDA tensors, a head
+    dim they were built for, a grid they can launch, and every (B, T, H,
+    D) operand with a contiguous last dimension and 16-byte aligned rows
+    (copied only where that does not hold already)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -108,36 +115,65 @@ def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
                          f"{_HEAD_DIMS}")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's 65535")
-    ins = []
-    for t in (q, k, v):
+    out = []
+    for t in tensors:
         if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             t = t.contiguous()
-        ins.append(t)
-    q, k, v = ins
+        out.append(t)
+    return out
+
+
+def _entry(source: str, symbol: str, n_ptr: int, n_strides: int):
+    """The C entry ``symbol`` of ``csrc/<source>.cu``, with its argument
+    types set: pointers, B/T/H/D, strides, scale, causal, stream."""
+    from deeplearning4j_tpu_torch.ops import native
+    fn = getattr(native.load(source), symbol)
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = ([ptr] * n_ptr + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * n_strides
+                       + [ctypes.c_float, ctypes.c_int, ptr])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(fn, name, q, pointers, tensors, causal):
+    """Call ``fn`` on q's current stream; raise on a launch error."""
+    B, T, H, D = q.shape
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*pointers, B, T, H, D, *strides, 1.0 / math.sqrt(D),
+                 int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
+                             precision="default"
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream.
+    Returns (o, lse). ``flash_attention_fwd_cuda.launches`` counts the
+    launches."""
+    _check(q, k, v, kv_mask, precision)
+    q, k, v = _kernel_inputs(q, (q, k, v))
+    B, T, H, D = q.shape
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
     o = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    from deeplearning4j_tpu_torch.ops import native
-    fn = native.load("flash_attention_fwd").dl4j_flash_attention_fwd_f32
-    if fn.argtypes is None:
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 6 + [ctypes.c_int] * 4 + [i64] * 12
-                       + [ctypes.c_float, ctypes.c_int, ptr])
-        fn.restype = ctypes.c_int
-    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 None if kv_mask is None else kv_mask.data_ptr(),
-                 o.data_ptr(), lse.data_ptr(), B, T, H, D, *strides,
-                 1.0 / math.sqrt(D), int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
-                           f"cudaError {err}")
+    fn = _entry("flash_attention_fwd", "dl4j_flash_attention_fwd_f32",
+                6, 12)
+    _launch(fn, "flash_attention_fwd", q,
+            [_ptr(t) for t in (q, k, v, kv_mask, o, lse)], (q, k, v, o),
+            causal)
     flash_attention_fwd_cuda.launches += 1
     return o, lse
 
@@ -164,10 +200,199 @@ def flash_attention_fwd(q, k, v, kv_mask=None, *, causal: bool = False,
     return (o, lse) if return_lse else o
 
 
+# --------------------------------------------------------------- backward
+
+def _check_bwd(q, k, v, lse, do, kv_mask, o=None):
+    _check(q, k, v, kv_mask, "default")
+    B, T, H, _ = q.shape
+    operands = [("do", do, q.shape), ("lse", lse, (B, H, T))]
+    if o is not None:
+        operands.append(("o", o, q.shape))
+    for name, t, shape in operands:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def _recompute_p(q, k, lse, kv_mask, causal):
+    """The TPU kernels' p: exp(q.k * scale - lse), 0 where the row saw no
+    key (lse <= -1e30/2) and where causal or kv_mask hides the key.
+    (B, H, Tq, Tk)."""
+    T, D = q.shape[1], q.shape[3]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
+    live = torch.ones((1, 1, T, T), dtype=torch.bool, device=q.device)
+    if causal:
+        live = torch.tril(live)
+    if kv_mask is not None:
+        live = live & (kv_mask > 0)[:, None, None, :]
+    live = live & (lse > _NEG_INF / 2)[..., None]
+    return torch.where(live, torch.exp(s - lse[..., None]),
+                       torch.zeros((), device=q.device))
+
+
+def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, kv_mask=None, *,
+                                 causal=False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_dq_kernel``'s function in plain PyTorch: delta = rowsum(do·o),
+    p recomputed from lse, ds = p·(do·vᵀ − delta)·scale, dq = ds·k.
+    Returns (dq, delta (B, H, T))."""
+    _check_bwd(q, k, v, lse, do, kv_mask, o)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    delta = (do * o).sum(-1).permute(0, 2, 1)
+    p = _recompute_p(q, k, lse, kv_mask, causal)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k), delta
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, kv_mask=None,
+                                  *, causal=False
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_dkv_kernel``'s function in plain PyTorch: dv = pᵀ·do and
+    dk = dsᵀ·q, with the dq pass's delta. Returns (dk, dv)."""
+    _check_bwd(q, k, v, lse, do, kv_mask)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    p = _recompute_p(q, k, lse, kv_mask, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.einsum("bhqk,bqhd->bkhd", ds, q), dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_mask=None, *,
+                              causal=False):
+    """The backward in plain PyTorch, as the two TPU kernels compute it
+    (each recomputes p from lse). Returns (dq, dk, dv)."""
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, o, lse, do, kv_mask,
+                                             causal=causal)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do,
+                                           kv_mask, causal=causal)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
+                                causal=False
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dq entry of ``csrc/flash_attention_bwd.cu`` (its delta
+    pre-pass, then the dq kernel) on the current stream. Returns (dq,
+    delta). ``flash_attention_bwd_dq_cuda.launches`` counts the
+    launches."""
+    _check_bwd(q, k, v, lse, do, kv_mask, o)
+    q, k, v, o, do = _kernel_inputs(q, (q, k, v, o, do))
+    B, T, H, D = q.shape
+    lse = lse.contiguous()
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+    dq = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    if dq.numel() == 0:
+        return dq, delta
+    fn = _entry("flash_attention_bwd", "dl4j_flash_attention_bwd_dq_f32",
+                9, 18)
+    _launch(fn, "flash_attention_bwd_dq", q,
+            [_ptr(t) for t in (q, k, v, o, do, lse, kv_mask, dq, delta)],
+            (q, k, v, o, do, dq), causal)
+    flash_attention_bwd_dq_cuda.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq_cuda.launches = 0
+
+
+def flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask=None,
+                                 *, causal=False
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dk/dv kernel of ``csrc/flash_attention_bwd.cu`` on the
+    current stream, with the dq pass's delta. Returns (dk, dv).
+    ``flash_attention_bwd_dkv_cuda.launches`` counts the launches."""
+    _check_bwd(q, k, v, lse, do, kv_mask)
+    if tuple(delta.shape) != tuple(lse.shape) \
+            or delta.dtype != torch.float32 or delta.device != q.device:
+        raise ValueError(f"delta must be float32 {tuple(lse.shape)} on "
+                         f"{q.device}")
+    q, k, v, do = _kernel_inputs(q, (q, k, v, do))
+    B, T, H, D = q.shape
+    lse, delta = lse.contiguous(), delta.contiguous()
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+    dk = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
+    dv = torch.empty((B, T, H, D), dtype=torch.float32, device=q.device)
+    if dk.numel() == 0:
+        return dk, dv
+    fn = _entry("flash_attention_bwd", "dl4j_flash_attention_bwd_dkv_f32",
+                9, 18)
+    _launch(fn, "flash_attention_bwd_dkv", q,
+            [_ptr(t) for t in (q, k, v, do, lse, delta, kv_mask, dk, dv)],
+            (q, k, v, do, dk, dv), causal)
+    flash_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv_cuda.launches = 0
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_mask=None, *,
+                             causal=False):
+    """Both backward kernels: dq (with delta), then dk/dv. Returns (dq,
+    dk, dv)."""
+    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask,
+                                            causal=causal)
+    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask,
+                                          causal=causal)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,
+                        causal: bool = False):
+    """Counterpart of ``pallas_flash_attention_bwd``: (q, k, v, o, lse,
+    do) -> (dq, dk, dv). CPU tensors take the plain version, CUDA
+    tensors the kernels."""
+    if q.device.type == "cuda":
+        return flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_mask,
+                                        causal=causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, kv_mask,
+                                         causal=causal)
+    raise ValueError(f"flash attention runs on cuda or cpu, not "
+                     f"{q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``flash_attention_fwd``, keeping (o, lse);
+    backward through ``flash_attention_bwd``. The mask is data: it gets
+    no gradient (the JAX package's zero cotangent)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal, precision):
+        o, lse = flash_attention_fwd(q, k, v, kv_mask, causal=causal,
+                                     precision=precision)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, kv_mask,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     kv_mask: Optional[torch.Tensor] = None,
                     precision: str = "default") -> torch.Tensor:
     """The layers' entry point, as in the JAX package: (B, T, H, D) ->
-    (B, T, H, D). An int or bool ``kv_mask`` is taken as 0/1."""
+    (B, T, H, D). An int or bool ``kv_mask`` is taken as 0/1. With grad
+    enabled and an input that requires it, the call goes through the
+    autograd Function (forward and backward kernels); otherwise (e.g.
+    under ``torch.inference_mode``) it is the forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, precision)
     return flash_attention_fwd(q, k, v, kv_mask, causal=causal,
                                precision=precision, return_lse=False)

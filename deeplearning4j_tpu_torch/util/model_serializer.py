@@ -4,11 +4,12 @@ written by the port (counterpart of
 
 The zip holds ``configuration.json``, ``coefficients.npz`` (arrays keyed
 by their path in the params structure, e.g. ``1/attn/Wq``, ``3/b``),
-``state.npz``, ``metadata.json`` and ``manifest.json`` (CRC32 of every
-other entry). A zip either package writes restores in the other. The
-updater state is not written (training is not ported yet); a JAX
-restore then keeps its fresh optimizer state, as for any zip without
-``updater_state.npz``.
+``updater_state.npz`` (the updater's state under optax's own paths,
+e.g. ``0/.count``, ``0/.mu/1/attn/Wq``), ``state.npz``,
+``metadata.json`` and ``manifest.json`` (CRC32 of every other entry).
+A zip either package writes restores in the other, and training
+resumes from it in either. A zip whose updater state does not fit the
+config's updater keeps the fresh state, as the JAX restore does.
 """
 
 from __future__ import annotations
@@ -98,12 +99,28 @@ def _unflatten_like(flat: Dict[str, np.ndarray], template, prefix=""):
     return out
 
 
+def _tensors_like(tree, template):
+    """``tree`` (numpy leaves) as tensors of the template's leaf dtypes
+    and devices."""
+    if isinstance(template, dict):
+        return {k: _tensors_like(tree[k], v) for k, v in template.items()}
+    if isinstance(template, list):
+        return [_tensors_like(a, v) for a, v in zip(tree, template)]
+    return torch.as_tensor(np.asarray(tree), dtype=template.dtype,
+                           device=template.device)
+
+
 def write_model(model, path: str) -> None:
-    """Write ``model`` (a port MultiLayerNetwork) as a checkpoint zip."""
+    """Write ``model`` (a port MultiLayerNetwork) as a checkpoint zip,
+    with its updater state when it has one."""
     entries: Dict[str, bytes] = {
         "configuration.json": model.conf.to_json().encode(),
         "coefficients.npz": _save_npz(model.params),
         "state.npz": _save_npz(model.state or []),
+    }
+    if model.opt_state is not None:
+        entries["updater_state.npz"] = _save_npz(model.opt_state)
+    entries.update({
         "metadata.json": json.dumps({
             "format_version": _FORMAT,
             "network_type": type(model).__name__,
@@ -111,7 +128,7 @@ def write_model(model, path: str) -> None:
             "epoch_count": int(model.epoch_count),
             "normalizer": None,
         }).encode(),
-    }
+    })
     manifest = {"format_version": _FORMAT,
                 "crc32": {n: zlib.crc32(d) & 0xFFFFFFFF
                           for n, d in entries.items()}}
@@ -166,7 +183,8 @@ def verify_checkpoint(path: str) -> dict:
 
 def restore_model(path: str, *, device="cuda"):
     """Rebuild a MultiLayerNetwork from a checkpoint zip (written by
-    either package) on ``device``."""
+    either package) on ``device``, with its updater state when the zip
+    has one that fits the config's updater."""
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
@@ -185,7 +203,10 @@ def restore_model(path: str, *, device="cuda"):
         # the config's own params give the structure and shapes to check
         template, state_template = model._sample_params(0)
         arrays = {}
-        for entry in ("coefficients.npz", "state.npz"):
+        entries = ["coefficients.npz", "state.npz"]
+        if "updater_state.npz" in z.namelist():
+            entries.append("updater_state.npz")
+        for entry in entries:
             with np.load(io.BytesIO(z.read(entry))) as arch:
                 arrays[entry] = {k: arch[k] for k in arch.files}
     model.set_params(params_from_jax(
@@ -194,6 +215,14 @@ def restore_model(path: str, *, device="cuda"):
     model.state = params_from_jax(
         _unflatten_like(arrays["state.npz"], state_template),
         device=device)
+    model._build_optimizer()
+    if "updater_state.npz" in arrays:
+        try:
+            model.opt_state = _tensors_like(
+                _unflatten_like(arrays["updater_state.npz"],
+                                model.opt_state), model.opt_state)
+        except KeyError:
+            pass    # the optimizer config changed: keep the fresh state
     model.iteration_count = meta.get("iteration_count", 0)
     model.epoch_count = meta.get("epoch_count", 0)
     return model
