@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Builds every hand-written kernel of ``deeplearning4j_tpu_torch/csrc``
-for sm_90a (and fails if ``ptxas`` reports a spill), holds each kernel
+for sm_90a (and fails if ``ptxas`` reports a spill), counts the
+tensor-core (HMMA) instructions of each kernel function in the built
+libraries (and fails if a backward kernel has none), holds each kernel
 (the flash-attention forward, dq and dk/dv) against its plain PyTorch
 version on the card, serves the full-width transformer LM (V=2048,
 D=1024, L=8, H=16, T=1024; random weights from a seed) through
@@ -43,8 +45,13 @@ ATOL, RTOL = 2e-5, 2e-4
 # whole-model gradients, kernels vs plain attention: relative to each
 # gradient's largest entry (f32 sums in another order through 8 layers)
 GRAD_RTOL = 1e-4
-# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense TF32
+# on the tensor cores, HBM3
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
+# An f32-accurate product on the tensor cores takes three TF32 passes
+# (csrc/tf32_mma.cuh): 165 TFLOP/s, the fastest f32-accurate route on
+# the card, so the bound every kernel is held to
+PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 
 
 def log(*a):
@@ -66,12 +73,23 @@ def time_ms(fn, iters=20, warmup=3):
     return t0.elapsed_time(t1) / iters
 
 
+def bound(flops, nbytes):
+    """The least time for ``flops`` f32-accurate operations that move
+    ``nbytes``: the larger of the operations over the 3xTF32 tensor-core
+    rate and the bytes over HBM bandwidth. ``bound_cuda_core_ms`` takes
+    the operations at the f32 CUDA-core rate instead (the bound of the
+    kernels before they used the tensor cores)."""
+    t_ops, t_bytes = flops / PEAK_F32_ACCURATE_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_cuda_core_ms": max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3}
+
+
 def attention_bound(B, T_, H, D, causal, kv_mask=None):
-    """(bound_ms, bound_by) for one flash forward on these inputs: the
-    larger of the bytes it must move (q, k, v, mask read once; o, lse
-    written once) over HBM bandwidth and the operations its live
-    (query, key) pairs need (2D for q.k, 2D for p.v) over the f32
-    CUDA-core peak."""
+    """``bound`` of one flash forward on these inputs: the bytes it must
+    move (q, k, v, mask read once; o, lse written once) and the
+    operations its live (query, key) pairs need (2D for q.k, 2D for
+    p.v)."""
     import torch
     live = torch.ones(T_, T_, dtype=torch.bool)
     if causal:
@@ -84,9 +102,7 @@ def attention_bound(B, T_, H, D, causal, kv_mask=None):
     flops = 4.0 * D * pairs
     nbytes = 4.0 * (4 * B * T_ * H * D + B * H * T_
                     + (0 if kv_mask is None else B * T_))
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops, nbytes)
 
 
 def kernel_phase(attn):
@@ -140,22 +156,23 @@ def kernel_phase(attn):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
-    bound_ms, bound_by = attention_bound(B, T, HEADS, 64, True)
+    b = attention_bound(B, T, HEADS, 64, True)
     log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D=64) causal: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); kernel at "
-        f"{100 * bound_ms / ms:.1f}% of the bound")
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); kernel at "
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound, "
+        f"{100 * b['bound_cuda_core_ms'] / ms:.1f}% of the CUDA-core bound "
+        f"{b['bound_cuda_core_ms']:.4f} ms")
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "deeplearning4j_tpu/ops/attention.py:71",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
             "library_ms": library_ms}
 
 
 def backward_bound(B, T_, H, D, causal, which):
-    """(bound_ms, bound_by) for one backward kernel on these inputs:
+    """``bound`` of one backward kernel on these inputs:
     dq does 6D FLOPs per live (query, key) pair (s, dp, dq) and reads
     q, k, v, o, do, lse (+ mask), writing dq and delta; dk/dv does 8D
     (s, dp, dv, dk) and reads q, k, v, do, lse, delta (+ mask), writing
@@ -164,9 +181,7 @@ def backward_bound(B, T_, H, D, causal, which):
     flops = (6.0 if which == "dq" else 8.0) * D * live * B * H
     # six (B, T, H, D) operands and two (B, H, T) rows either way
     nbytes = 4.0 * (6 * B * T_ * H * D + 2 * B * H * T_)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops, nbytes)
 
 
 def backward_kernel_phase(attn):
@@ -243,18 +258,19 @@ def backward_kernel_phase(attn):
     records = []
     for which, name, line in (("dq", "flash_attention_bwd_dq", 263),
                               ("dkv", "flash_attention_bwd_dkv", 312)):
-        bound_ms, bound_by = backward_bound(B, T, HEADS, 64, True, which)
+        b = backward_bound(B, T, HEADS, 64, True, which)
         log(f"{name} at (B={B}, T={T}, H={HEADS}, D=64) causal: kernel "
             f"{ms[which]:.4f} ms, plain {plain_ms[which]:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}); kernel at "
-            f"{100 * bound_ms / ms[which]:.1f}% of the bound")
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}); kernel at "
+            f"{100 * b['bound_ms'] / ms[which]:.1f}% of the bound, "
+            f"{100 * b['bound_cuda_core_ms'] / ms[which]:.1f}% of the "
+            f"CUDA-core bound {b['bound_cuda_core_ms']:.4f} ms")
         records.append({
             "name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"deeplearning4j_tpu/ops/attention.py:{line}",
             "max_abs_err": err[which], "ms": ms[which],
-            "plain_ms": plain_ms[which], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            "plain_ms": plain_ms[which], **b, "library_ms": library_ms})
     log(f"whole backward: dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} "
         f"ms; torch.autograd.grad through scaled_dot_product_attention "
         f"(f32, causal) {library_ms:.4f} ms (the library_ms of both "
@@ -442,8 +458,7 @@ def kernel_family(name):
     name = name.lower()
     for key, family in (("flash_fwd_kernel", "flash_attention_fwd"),
                         ("dkv_kernel", "flash_attention_bwd_dkv"),
-                        ("dq_kernel", "flash_attention_bwd_dq"),
-                        ("delta_kernel", "flash_attention_bwd_dq")):
+                        ("dq_kernel", "flash_attention_bwd_dq")):
         if key in name:
             return family
     if any(s in name for s in ("gemm", "cutlass", "xmma")):
@@ -608,6 +623,31 @@ def train_phase(attn, card):
     return launches
 
 
+def tensor_core_ops(native):
+    """HMMA (tensor-core) instructions in each kernel function of the
+    built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
+    Fails if a backward kernel has none (a build that fell back to FMA
+    code)."""
+    tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", native._target(name)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            m = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)ILi(\d+)E",
+                          part.split("\n", 1)[0])
+            counts[f"{m.group(1)}<{m.group(2)}>"] = len(
+                re.findall(r"\bHMMA\b", part))
+    log("tensor-core (HMMA) instructions per kernel function (cuobjdump "
+        "-sass): " + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+    backward = [k for k in counts if k.startswith(("dq_kernel", "dkv_kernel"))]
+    assert len(backward) == 6, counts
+    for k in backward:
+        assert counts[k] > 0, f"{k} has no tensor-core instruction"
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -639,9 +679,14 @@ def main():
             assert not spills or spills.groups() == ("0", "0"), \
                 f"{name}.cu spills registers: {line.strip()}"
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
+    hmma = tensor_core_ops(native)
 
     fwd = kernel_phase(attn)
     dq, dkv = backward_kernel_phase(attn)
+    # the instantiations the main path launches (D = 64)
+    fwd["tensor_core_ops"] = hmma["flash_fwd_kernel<64>"]
+    dq["tensor_core_ops"] = hmma["dq_kernel<64>"]
+    dkv["tensor_core_ops"] = hmma["dkv_kernel<64>"]
     # each path's launches: counts set to 0 just before it, read after
     fwd["launches"] = slice_phase(attn, card)
     train_launches = train_phase(attn, card)
@@ -650,8 +695,8 @@ def main():
     records = [fwd, dq, dkv]
     for record in records:
         assert record["launches"] > 0, record
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms",
-                    "max_abs_err"):
+        for key in ("ms", "plain_ms", "bound_ms", "bound_cuda_core_ms",
+                    "library_ms", "max_abs_err"):
             assert math.isfinite(record[key]), (key, record[key])
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), float32 in, float32 out.
+// Flash-attention backward for Hopper (sm_90a), float32 in, float32 out,
+// every product on the tensor cores at f32 accuracy (3xTF32).
 //
 // Replaces the two Pallas TPU kernels of deeplearning4j_tpu/ops/
 // attention.py launched by pallas_flash_attention_bwd: _dq_kernel and
@@ -16,35 +17,56 @@
 //
 // Bound on an H100: at the LM shape (B=8, T=1024, H=16, D=64, causal)
 // there are 6.7e7 live (query, key) pairs; dq does 6*D FLOPs per pair
-// (s, dp, dq: 2.6e10, >= 0.385 ms at the 67 TFLOP/s CUDA-core f32 rate)
-// and dk/dv 8*D (s, dp, dv, dk: 3.4e10, >= 0.513 ms), against ~0.2 GB
-// of operands (~0.06 ms at 3.35 TB/s). Both are bound by operations, so
-// every operand of the inner products stays on chip:
+// (s, dp, dq: 2.6e10) and dk/dv 8*D (s, dp, dv, dk: 3.4e10), against
+// ~0.2 GB of operands (~0.06 ms at 3.35 TB/s). The fastest f32-accurate
+// route for the products is three TF32 passes on the tensor cores, 495 /
+// 3 = 165 TFLOP/s: >= 0.156 ms for dq and >= 0.208 ms for dk/dv (the
+// CUDA cores' 67 TFLOP/s f32 would give 0.385 / 0.513 ms). Both kernels
+// are bound by operations, so the design feeds the tensor cores from
+// shared memory and keeps everything else on chip:
 //
-//   - delta: one warp per (b, h, t) row, a pre-pass of the dq entry;
-//   - dq: one CTA per (64-row query tile, b*h), one thread per query
-//     row, as the forward: q and do tiles staged once in shared memory
-//     (rows padded by four floats for conflict-free float4 reads of a
-//     thread's own row), K/V in 32-key tiles read back as float4
-//     broadcasts. The D-float dq accumulator and 32 scores (16 at
-//     D = 128, so nothing spills) live in
-//     registers; p and then ds go through a [key][thread] shared array,
-//     so scores and dp are never held at once;
-//   - dk/dv: one CTA per (64-key tile, b*h), TWO threads per key row,
-//     each holding interleaved float4 halves of the row's dk and dv
-//     accumulators (D floats a thread in all, as dq); a pair adds its
-//     half dot products with one shuffle. K and V rows stay in shared
-//     memory (rows padded by eight floats), q/do in 32-query tiles
-//     (16 at D = 128);
+//   - products: mma.sync m16n8k8 with TF32 operands and f32 accumulators
+//     (tf32_mma.cuh), each operand split hi + lo (hi rounded to nearest)
+//     and the product taken as lo.hi + hi.lo + hi.hi. In dq: s = q.k^T,
+//     dp = do.v^T, dq += ds.k; in dk/dv: s^T = k.q^T, dp^T = v.do^T, dv
+//     += p^T.do, dk += ds^T.q. exp (as exp2 of one fma), the masks and
+//     p (dp - delta) scale stay f32 on the CUDA cores, in the
+//     accumulator registers. What limits the kernels is instruction
+//     issue beside the tensor cores (fragment loads, the operand split,
+//     the softmax): the split costs three instructions an element, not
+//     the nine that cvt.rna on both halves compiles to on sm_90;
+//   - p and ds reach the next product without moving: the C fragment of
+//     a score tile is read as the A fragment of the next product with
+//     its depth (key or query) order permuted, and the B operand's rows
+//     are read in the same order (tf32_mma.cuh), so there is no trip
+//     through shared memory and no shuffle;
+//   - CTAs of 4 warps, each warp owning 16 rows: 64 query rows in dq, 64
+//     key rows in dk/dv. The accumulators are C fragments: D/2 floats a
+//     thread for dq, D for dk and dv together. Each streamed tile's
+//     products go into a partial that is added to the accumulator with
+//     f32 adds (dk/dv: at D <= 64, where the partials fit in registers):
+//     the tensor core truncates its sums, and one accumulator over a
+//     whole row of 1024 keys or queries gathers that bias (dk/dv's error
+//     against the plain version was ~5x larger without the partials);
+//   - the resident tiles (q and do in dq, k and v in dk/dv) are copied
+//     once; the streamed tiles (k, v and the kv_mask in dq; q, do, lse
+//     and delta in dk/dv) go through a two-stage ring in dynamic shared
+//     memory with cp.async, the next tile's copy issued before this
+//     tile's products. Every tile row is padded to D + 4 floats, so
+//     every fragment load is free of bank conflicts and no operand needs
+//     a transposed copy;
+//   - delta is computed in the dq CTA's prologue for its own rows, while
+//     the first copies fly, and written for dk/dv;
 //   - causal: dq stops at its last row's diagonal, dk/dv starts at the
-//     first query tile that reaches its first key; the heaviest tiles
-//     are scheduled first.
+//     first query tile that reaches its first key; the grid runs over
+//     (b*h, tile) with the heaviest tiles of every head first.
 //
-// Any T (the ragged edge masked), D in {32, 64, 128}, strides in
-// elements (the last dimension contiguous, rows 16-byte aligned).
+// Any T (the ragged edge is zero-filled by the copies and masked), D in
+// {32, 64, 128} (streamed tiles of 32 rows, so nothing spills), strides
+// in elements (the last dimension contiguous, rows 16-byte aligned).
 //
 // C interface (loaded with ctypes), one entry per TPU kernel, each
-// returning cudaGetLastError() after its launches (0 on success); they
+// returning cudaGetLastError() after its launch (0 on success); they
 // allocate nothing:
 //   dl4j_flash_attention_bwd_dq_f32   writes dq and delta (B, H, T);
 //   dl4j_flash_attention_bwd_dkv_f32  reads delta, writes dk and dv.
@@ -52,201 +74,246 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kBlockQ = 64;    // dq: query rows per CTA, one thread each
-constexpr int kBlockKV = 64;   // dk/dv: key rows per CTA
-constexpr int kThreadsKV = 2 * kBlockKV;   // two threads per key row
+using tf32mma::Frag;
 
-// Keys per shared tile in dq, queries per shared tile in dk/dv: the
-// tile's scores live in registers beside D accumulator floats, so at
-// D = 128 the tile halves to stay within 255 registers without spills.
-__host__ __device__ constexpr int tile_rows(int D) {
-  return D == 128 ? 16 : 32;
-}
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // query rows (dq) / key rows (dk/dv)
+constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kDead = kNegInf * 0.5f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// p = exp(s * scale - lse) as exp2 of one fused multiply-add
+__device__ __forceinline__ float softmax_p(float s, float scale_log2,
+                                           float lse_log2) {
+  return exp2f(fmaf(s, scale_log2, -lse_log2));
+}
 
 struct Strides {
   long long b, t, h;
 };
 
-__global__ void delta_kernel(const float* __restrict__ o,
-                             const float* __restrict__ dout,
-                             float* __restrict__ delta, int rows, int T,
-                             int H, int D, Strides so, Strides sdo) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;   // uniform across the warp
-  const int bh = row / T;
-  const int t = row - bh * T;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const float* orow = o + b * so.b + t * so.t + h * so.h;
-  const float* drow = dout + b * sdo.b + t * sdo.t + h * sdo.h;
-  float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[row] = acc;   // row == bh * T + t
+// Shared-memory layout in floats: two resident kRows x S tiles, then
+// kStages ring stages of two streamed R x S tiles and two R-float rows.
+// R is the streamed tile's rows: keys in dq, queries in dk/dv. 32 keeps
+// the scores and the partials of a tile in registers beside the
+// accumulators without spills (measured on an H100: with 64, dk/dv's
+// partials spill at D = 64, and dq is no faster).
+template <int D>
+struct Layout {
+  static constexpr int S = D + 4;                 // padded row stride
+  static constexpr int R = 32;
+  static constexpr int kResident = 2 * kRows * S;
+  static constexpr int kStage = 2 * R * S + 2 * R;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kResident + kStages * kStage);
+};
+
+// rows [r0, r0 + rows) of a (T, D) operand into a padded shared tile;
+// rows at or past T are zero-filled
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long stride, int r0,
+                                          int rows, int T) {
+  constexpr int S = D + 4, D4 = D / 4;
+  for (int i = threadIdx.x; i < rows * D4; i += kThreads) {
+    const int r = i / D4;
+    const int c = (i - r * D4) * 4;
+    const bool in = r0 + r < T;
+    tf32mma::cp_async16(dst + r * S + c,
+                        src + (in ? r0 + r : 0) * stride + c, in);
+  }
+}
+
+// element i (one per thread, 0 <= i < n) of a length-T row from i0 into
+// shared memory; zero past T
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int i0, int n, int T, int i) {
+  if (i >= 0 && i < n) {
+    const bool in = i0 + i < T;
+    tf32mma::cp_async4(dst + i, src + (in ? i0 + i : 0), in);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kBlockQ)
+__global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, const float* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ kv_mask, float* __restrict__ dq,
-          int T, int H, Strides sq, Strides sk, Strides sv, Strides sdo,
-          Strides sdq, float scale, int causal) {
-  constexpr int QS = D + 4;        // padded q / do row stride (floats)
-  constexpr int D4 = D / 4;
-  constexpr int kBlockK = tile_rows(D);
+          float* __restrict__ delta, int T, int H, Strides sq, Strides sk,
+          Strides sv, Strides so, Strides sdo, Strides sdq, float scale,
+          int causal) {
+  using L = Layout<D>;
+  constexpr int S = L::S, R = L::R;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // kBlockQ x QS
-  float* do_s = q_s + kBlockQ * QS;                // kBlockQ x QS
-  float* k_s = do_s + kBlockQ * QS;                // kBlockK x D
-  float* v_s = k_s + kBlockK * D;                  // kBlockK x D
-  float* p_s = v_s + kBlockK * D;                  // kBlockK x kBlockQ
-  float* live_s = p_s + kBlockK * kBlockQ;         // kBlockK
+  float* q_s = reinterpret_cast<float*>(smem4);   // kRows x S
+  float* do_s = q_s + kRows * S;                   // kRows x S
+  float* ring = do_s + kRows * S;                  // kStages x kStage
 
-  const int tid = threadIdx.x;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;   // heaviest first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = q_tile * kBlockQ;
-  const int qi = q0 + tid;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int r0 = 16 * warp;                              // the warp's rows
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = o + b * so.b + h * so.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* maskb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+
+  // stage st <- keys [k0, k0 + R): k, v and the kv_mask
+  auto load_tile = [&](int k0, int st) {
+    float* k_s = ring + st * L::kStage;
+    copy_rows<D>(k_s, kb, sk.t, k0, R, T);
+    copy_rows<D>(k_s + R * S, vb, sv.t, k0, R, T);
+    if (maskb) copy_vec(k_s + 2 * R * S, maskb, k0, R, T, tid);
+  };
+
+  copy_rows<D>(q_s, qb, sq.t, q0, kRows, T);
+  copy_rows<D>(do_s, dob, sdo.t, q0, kRows, T);
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int n_tiles = (k_end + R - 1) / R;
+  load_tile(0, 0);
+  tf32mma::cp_async_commit();
+
+  // delta = rowsum(do * o) of the warp's 16 rows, read from device
+  // memory while the copies fly; a thread keeps rows g and g + 8
+  float row_delta[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int row = q0 + r0 + i;
+    float acc = 0.f;
+    if (row < T) {   // uniform across the warp
+      const float* orow = ob + row * so.t;
+      const float* drow = dob + row * sdo.t;
+      for (int c = lane; c < D; c += 32) acc = fmaf(orow[c], drow[c], acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (row < T && lane == 0) delta[(long long)bh * T + row] = acc;
+    if (i == g) row_delta[0] = acc;
+    if (i == g + 8) row_delta[1] = acc;
+  }
+  const float scale_log2 = scale * kLog2e;
+  int row_idx[2];
+  float lse_log2[2];
+  bool row_live[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row_idx[hh] = q0 + r0 + g + 8 * hh;
+    const float row_lse = row_idx[hh] < T
+                              ? lse[(long long)bh * T + row_idx[hh]]
+                              : kNegInf;
+    row_live[hh] = row_lse > kDead;
+    lse_log2[hh] = row_lse * kLog2e;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    tf32mma::cp_async_wait<0>();   // this tile has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (it + 1 < n_tiles) load_tile((it + 1) * R, (it + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int k0 = it * R;
+    const float* k_s = ring + (it % kStages) * L::kStage;
+    const float* v_s = k_s + R * S;
+    const float* live_s = v_s + R * S;
+
+    // s = q.k^T and dp = do.v^T for the warp's 16 rows x R keys
+    float s[R / 8][4], dp[R / 8][4];
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 8) {
+      Frag aq[4], ado[4];
+      tf32mma::load_a<S>(aq, q_s, r0, c, g, t);
+      tf32mma::load_a<S>(ado, do_s, r0, c, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bk[2], bv[2];
+        tf32mma::load_b_t<S>(bk, k_s, 8 * n, c, g, t);
+        tf32mma::mma3(s[n], aq, bk);
+        tf32mma::load_b_t<S>(bv, v_s, 8 * n, c, g, t);
+        tf32mma::mma3(dp[n], ado, bv);
+      }
+    }
+
+    // ds = p (dp - delta) scale, in place of s (C layout: element e is
+    // row g + 8 (e >> 1), key column 2t + (e & 1) of the 8-key group)
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int key = k0 + col;
+        const bool ok = row_live[hh] &&
+                        (maskb ? live_s[col] > 0.f : key < T) &&
+                        (!causal || key <= row_idx[hh]);
+        const float p = ok ? softmax_p(s[n][e], scale_log2, lse_log2[hh])
+                           : 0.f;
+        s[n][e] = p * (dp[n][e] - row_delta[hh]) * scale;
+      }
+    }
+
+    // dq += ds . k, ds's C fragments the A operand as they stand; summed
+    // into a tile partial and added to dq with f32 adds: the tensor core
+    // truncates its sums, and one accumulator over many tiles would
+    // gather that bias
+    float part[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      Frag a[4];
+      tf32mma::as_a(a, s[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        Frag bk[2];
+        tf32mma::load_b_pairs<S>(bk, k_s, 8 * j, 8 * n, g, t);
+        tf32mma::mma3(part[n], a, bk);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
   float* dqb = dq + b * sdq.b + h * sdq.h;
-
-  for (int i = tid; i < kBlockQ * D4; i += kBlockQ) {
-    const int r = i / D4;
-    const int c = (i - r * D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 y = x;
-    if (q0 + r < T) {
-      x = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.t + c);
-      y = *reinterpret_cast<const float4*>(dob + (q0 + r) * sdo.t + c);
-    }
-    *reinterpret_cast<float4*>(q_s + r * QS + c) = x;
-    *reinterpret_cast<float4*>(do_s + r * QS + c) = y;
-  }
-  const float row_lse = (qi < T) ? lse[(long long)bh * T + qi] : kNegInf;
-  const float row_delta = (qi < T) ? delta[(long long)bh * T + qi] : 0.f;
-  const bool row_live = row_lse > kDead;
-
-  float acc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-
-  const int k_end = causal ? min(T, q0 + kBlockQ) : T;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBlockK * D4; i += kBlockQ) {
-      const int r = i / D4;
-      const int c = (i - r * D4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < T) {
-        kx = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.t + c);
-        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * sv.t + c);
-      }
-      *reinterpret_cast<float4*>(k_s + r * D + c) = kx;
-      *reinterpret_cast<float4*>(v_s + r * D + c) = vx;
-    }
-    if (tid < kBlockK) {
-      const int kj = k0 + tid;
-      live_s[tid] = (kj < T && (kv_mask == nullptr ||
-                                kv_mask[(long long)b * T + kj] > 0.f))
-                        ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    // p = exp(q.k * scale - lse) for the 32 keys, into p_s
-    float s[kBlockK];
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row_idx[hh] >= T) continue;
+    float* row = dqb + row_idx[hh] * sdq.t + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 qc = *reinterpret_cast<const float4*>(q_s + tid * QS + c);
-#pragma unroll
-      for (int j = 0; j < kBlockK; ++j) {
-        const float4 kc = *reinterpret_cast<const float4*>(k_s + j * D + c);
-        s[j] = fmaf(qc.x, kc.x, s[j]);
-        s[j] = fmaf(qc.y, kc.y, s[j]);
-        s[j] = fmaf(qc.z, kc.z, s[j]);
-        s[j] = fmaf(qc.w, kc.w, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const bool ok = row_live && live_s[j] > 0.f &&
-                      (!causal || k0 + j <= qi);
-      p_s[j * kBlockQ + tid] = ok ? expf(s[j] * scale - row_lse) : 0.f;
-    }
-
-    // dp = do.v in the same registers, then ds = p (dp - delta) scale
-    // in place of p (each thread touches only its own p column)
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 dc = *reinterpret_cast<const float4*>(do_s + tid * QS + c);
-#pragma unroll
-      for (int j = 0; j < kBlockK; ++j) {
-        const float4 vc = *reinterpret_cast<const float4*>(v_s + j * D + c);
-        s[j] = fmaf(dc.x, vc.x, s[j]);
-        s[j] = fmaf(dc.y, vc.y, s[j]);
-        s[j] = fmaf(dc.z, vc.z, s[j]);
-        s[j] = fmaf(dc.w, vc.w, s[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      float* p = p_s + j * kBlockQ + tid;
-      *p = *p * (s[j] - row_delta) * scale;
-    }
-
-    // dq += ds . k
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; ++j) {
-      const float ds = p_s[j * kBlockQ + tid];
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 kc = *reinterpret_cast<const float4*>(k_s + j * D + c);
-        acc[c] = fmaf(ds, kc.x, acc[c]);
-        acc[c + 1] = fmaf(ds, kc.y, acc[c + 1]);
-        acc[c + 2] = fmaf(ds, kc.z, acc[c + 2]);
-        acc[c + 3] = fmaf(ds, kc.w, acc[c + 3]);
-      }
-    }
-  }
-
-  // dq through the q tile, stored coalesced
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    *reinterpret_cast<float4*>(q_s + tid * QS + c) =
-        make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
-  }
-  __syncthreads();
-  for (int i = tid; i < kBlockQ * D4; i += kBlockQ) {
-    const int r = i / D4;
-    const int c = (i - r * D4) * 4;
-    if (q0 + r < T)
-      *reinterpret_cast<float4*>(dqb + (q0 + r) * sdq.t + c) =
-          *reinterpret_cast<const float4*>(q_s + r * QS + c);
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsKV)
+__global__ void __launch_bounds__(kThreads)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
@@ -254,163 +321,163 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            float* __restrict__ dv, int T, int H, Strides sq, Strides sk,
            Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
            int causal) {
-  constexpr int KS = D + 8;        // padded k / v row stride (floats)
-  constexpr int D4 = D / 4;
-  constexpr int C2 = D / 8;        // float4 chunks a thread owns per row
-  constexpr int kBlockQ2 = tile_rows(D);
+  using L = Layout<D>;
+  constexpr int S = L::S, R = L::R;
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);   // kBlockKV x KS
-  float* v_s = k_s + kBlockKV * KS;                // kBlockKV x KS
-  float* q_s = v_s + kBlockKV * KS;                // kBlockQ2 x D
-  float* do_s = q_s + kBlockQ2 * D;                // kBlockQ2 x D
-  float* p_s = do_s + kBlockQ2 * D;                // kBlockQ2 x kThreadsKV
-  float* ds_s = p_s + kBlockQ2 * kThreadsKV;       // kBlockQ2 x kThreadsKV
-  float* lse_s = ds_s + kBlockQ2 * kThreadsKV;     // kBlockQ2
-  float* delta_s = lse_s + kBlockQ2;               // kBlockQ2
+  float* k_s = reinterpret_cast<float*>(smem4);   // kRows x S
+  float* v_s = k_s + kRows * S;                    // kRows x S
+  float* ring = v_s + kRows * S;                   // kStages x kStage
 
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;          // key row of the tile
-  const int half = tid & 1;        // which interleaved float4 chunks
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.x * kBlockKV;   // heaviest (causal) first
-  const int kj = k0 + r;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * kRows;   // heaviest (causal) first
+  const int r0 = 16 * warp;            // the warp's key rows
 
   const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* lseb = lse + (long long)bh * T;
   const float* deltab = delta + (long long)bh * T;
 
-  for (int i = tid; i < kBlockKV * D4; i += kThreadsKV) {
-    const int rr = i / D4;
-    const int c = (i - rr * D4) * 4;
-    float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 vx = kx;
-    if (k0 + rr < T) {
-      kx = *reinterpret_cast<const float4*>(kb + (k0 + rr) * sk.t + c);
-      vx = *reinterpret_cast<const float4*>(vb + (k0 + rr) * sv.t + c);
-    }
-    *reinterpret_cast<float4*>(k_s + rr * KS + c) = kx;
-    *reinterpret_cast<float4*>(v_s + rr * KS + c) = vx;
-  }
-  const bool key_live = kj < T && (kv_mask == nullptr ||
-                                   kv_mask[(long long)b * T + kj] > 0.f);
+  // stage st <- queries [q0, q0 + R): q, do, lse and delta
+  auto load_tile = [&](int q0, int st) {
+    float* q_s = ring + st * L::kStage;
+    copy_rows<D>(q_s, qb, sq.t, q0, R, T);
+    copy_rows<D>(q_s + R * S, dob, sdo.t, q0, R, T);
+    copy_vec(q_s + 2 * R * S, lseb, q0, R, T, tid);
+    copy_vec(q_s + 2 * R * S + R, deltab, q0, R, T, tid - R);
+  };
 
-  float dk_acc[D / 2], dv_acc[D / 2];
-#pragma unroll
-  for (int d = 0; d < D / 2; ++d) {
-    dk_acc[d] = 0.f;
-    dv_acc[d] = 0.f;
-  }
+  copy_rows<D>(k_s, k + b * sk.b + h * sk.h, sk.t, k0, kRows, T);
+  copy_rows<D>(v_s, v + b * sv.b + h * sv.h, sv.t, k0, kRows, T);
+  const int q_begin = causal ? k0 : 0;   // R divides kRows
+  const int n_tiles = (T - q_begin + R - 1) / R;
+  load_tile(q_begin, 0);
+  tf32mma::cp_async_commit();
 
-  const int q_begin = causal ? (k0 / kBlockQ2) * kBlockQ2 : 0;
-  for (int q0 = q_begin; q0 < T; q0 += kBlockQ2) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBlockQ2 * D4; i += kThreadsKV) {
-      const int rr = i / D4;
-      const int c = (i - rr * D4) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 y = x;
-      if (q0 + rr < T) {
-        x = *reinterpret_cast<const float4*>(qb + (q0 + rr) * sq.t + c);
-        y = *reinterpret_cast<const float4*>(dob + (q0 + rr) * sdo.t + c);
-      }
-      *reinterpret_cast<float4*>(q_s + rr * D + c) = x;
-      *reinterpret_cast<float4*>(do_s + rr * D + c) = y;
-    }
-    if (tid < kBlockQ2) {
-      const bool in = q0 + tid < T;
-      lse_s[tid] = in ? lseb[q0 + tid] : kNegInf;
-      delta_s[tid] = in ? deltab[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // s = k.q for the 32 queries: half dot products, then the pair's sum
-    float s[kBlockQ2];
+  const float scale_log2 = scale * kLog2e;
+  int key[2];
+  bool key_live[2];
 #pragma unroll
-    for (int i = 0; i < kBlockQ2; ++i) s[i] = 0.f;
-#pragma unroll 2
-    for (int cc = 0; cc < C2; ++cc) {
-      const int c = 8 * cc + 4 * half;
-      const float4 kc = *reinterpret_cast<const float4*>(k_s + r * KS + c);
-#pragma unroll
-      for (int i = 0; i < kBlockQ2; ++i) {
-        const float4 qc = *reinterpret_cast<const float4*>(q_s + i * D + c);
-        s[i] = fmaf(kc.x, qc.x, s[i]);
-        s[i] = fmaf(kc.y, qc.y, s[i]);
-        s[i] = fmaf(kc.z, qc.z, s[i]);
-        s[i] = fmaf(kc.w, qc.w, s[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBlockQ2; ++i) {
-      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-      const bool ok = key_live && lse_s[i] > kDead &&
-                      (!causal || kj <= q0 + i);
-      p_s[i * kThreadsKV + tid] = ok ? expf(s[i] * scale - lse_s[i]) : 0.f;
-    }
-
-    // dp = v.do in the same registers, then ds = p (dp - delta) scale
-#pragma unroll
-    for (int i = 0; i < kBlockQ2; ++i) s[i] = 0.f;
-#pragma unroll 2
-    for (int cc = 0; cc < C2; ++cc) {
-      const int c = 8 * cc + 4 * half;
-      const float4 vc = *reinterpret_cast<const float4*>(v_s + r * KS + c);
-#pragma unroll
-      for (int i = 0; i < kBlockQ2; ++i) {
-        const float4 dc = *reinterpret_cast<const float4*>(do_s + i * D + c);
-        s[i] = fmaf(vc.x, dc.x, s[i]);
-        s[i] = fmaf(vc.y, dc.y, s[i]);
-        s[i] = fmaf(vc.z, dc.z, s[i]);
-        s[i] = fmaf(vc.w, dc.w, s[i]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kBlockQ2; ++i) {
-      s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
-      ds_s[i * kThreadsKV + tid] =
-          p_s[i * kThreadsKV + tid] * (s[i] - delta_s[i]) * scale;
-    }
-
-    // dv += p^T . do, dk += ds^T . q (own columns only: no sync)
-#pragma unroll 2
-    for (int i = 0; i < kBlockQ2; ++i) {
-      const float p = p_s[i * kThreadsKV + tid];
-      const float ds = ds_s[i * kThreadsKV + tid];
-#pragma unroll
-      for (int cc = 0; cc < C2; ++cc) {
-        const int c = 8 * cc + 4 * half;
-        const float4 dc = *reinterpret_cast<const float4*>(do_s + i * D + c);
-        const float4 qc = *reinterpret_cast<const float4*>(q_s + i * D + c);
-        dv_acc[4 * cc] = fmaf(p, dc.x, dv_acc[4 * cc]);
-        dv_acc[4 * cc + 1] = fmaf(p, dc.y, dv_acc[4 * cc + 1]);
-        dv_acc[4 * cc + 2] = fmaf(p, dc.z, dv_acc[4 * cc + 2]);
-        dv_acc[4 * cc + 3] = fmaf(p, dc.w, dv_acc[4 * cc + 3]);
-        dk_acc[4 * cc] = fmaf(ds, qc.x, dk_acc[4 * cc]);
-        dk_acc[4 * cc + 1] = fmaf(ds, qc.y, dk_acc[4 * cc + 1]);
-        dk_acc[4 * cc + 2] = fmaf(ds, qc.z, dk_acc[4 * cc + 2]);
-        dk_acc[4 * cc + 3] = fmaf(ds, qc.w, dk_acc[4 * cc + 3]);
-      }
-    }
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = k0 + r0 + g + 8 * hh;
+    key_live[hh] = key[hh] < T &&
+                   (kv_mask == nullptr ||
+                    kv_mask[(long long)b * T + key[hh]] > 0.f);
   }
 
-  // each pair stores its row: 32 contiguous bytes per chunk step
-  if (kj < T) {
-    float* dkr = dk + b * sdk.b + kj * sdk.t + h * sdk.h;
-    float* dvr = dv + b * sdv.b + kj * sdv.t + h * sdv.h;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-    for (int cc = 0; cc < C2; ++cc) {
-      const int c = 8 * cc + 4 * half;
-      *reinterpret_cast<float4*>(dkr + c) =
-          make_float4(dk_acc[4 * cc], dk_acc[4 * cc + 1],
-                      dk_acc[4 * cc + 2], dk_acc[4 * cc + 3]);
-      *reinterpret_cast<float4*>(dvr + c) =
-          make_float4(dv_acc[4 * cc], dv_acc[4 * cc + 1],
-                      dv_acc[4 * cc + 2], dv_acc[4 * cc + 3]);
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    tf32mma::cp_async_wait<0>();   // this tile has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (it + 1 < n_tiles)
+      load_tile(q_begin + (it + 1) * R, (it + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int q0 = q_begin + it * R;
+    const float* q_s = ring + (it % kStages) * L::kStage;
+    const float* do_s = q_s + R * S;
+    const float* lse_s = do_s + R * S;
+    const float* delta_s = lse_s + R;
+
+    // s^T = k.q^T and dp^T = v.do^T for the warp's 16 keys x R queries
+    float s[R / 8][4], dp[R / 8][4];
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 8) {
+      Frag ak[4], av[4];
+      tf32mma::load_a<S>(ak, k_s, r0, c, g, t);
+      tf32mma::load_a<S>(av, v_s, r0, c, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bq[2], bdo[2];
+        tf32mma::load_b_t<S>(bq, q_s, 8 * n, c, g, t);
+        tf32mma::mma3(s[n], ak, bq);
+        tf32mma::load_b_t<S>(bdo, do_s, 8 * n, c, g, t);
+        tf32mma::mma3(dp[n], av, bdo);
+      }
+    }
+
+    // p^T in place of s, ds^T in place of dp (C layout: element e is
+    // key row g + 8 (e >> 1), query column 2t + (e & 1) of the group)
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int qi = q0 + col;
+        const float row_lse = lse_s[col];
+        const bool ok = key_live[hh] && qi < T && row_lse > kDead &&
+                        (!causal || key[hh] <= qi);
+        const float p = ok ? softmax_p(s[n][e], scale_log2,
+                                       row_lse * kLog2e)
+                           : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - delta_s[col]) * scale;
+      }
+    }
+
+    // dv += p^T . do and dk += ds^T . q, the C fragments as A operands,
+    // into tile partials added with f32 adds as in dq where they fit in
+    // registers (D <= 64; at D = 128 they would spill)
+    constexpr bool kPartial = D <= 64;
+    float pk_buf[D / 8][4], pv_buf[D / 8][4];
+    float(&pk)[D / 8][4] = kPartial ? pk_buf : dk_acc;
+    float(&pv)[D / 8][4] = kPartial ? pv_buf : dv_acc;
+    if constexpr (kPartial) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pk[n][e] = pv[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      Frag ap[4], ads[4];
+      tf32mma::as_a(ap, s[j]);
+      tf32mma::as_a(ads, dp[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        Frag bdo[2], bq[2];
+        tf32mma::load_b_pairs<S>(bdo, do_s, 8 * j, 8 * n, g, t);
+        tf32mma::mma3(pv[n], ap, bdo);
+        tf32mma::load_b_pairs<S>(bq, q_s, 8 * j, 8 * n, g, t);
+        tf32mma::mma3(pk[n], ads, bq);
+      }
+    }
+    if constexpr (kPartial) {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk_acc[n][e] += pk[n][e];
+          dv_acc[n][e] += pv[n][e];
+        }
+    }
+  }
+
+  float* dkb = dk + b * sdk.b + h * sdk.h;
+  float* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (key[hh] >= T) continue;
+    float* dkr = dkb + key[hh] * sdk.t + 2 * t;
+    float* dvr = dvb + key[hh] * sdv.t + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dkr + 8 * n) =
+          make_float2(dk_acc[n][2 * hh], dk_acc[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * n) =
+          make_float2(dv_acc[n][2 * hh], dv_acc[n][2 * hh + 1]);
     }
   }
 }
@@ -422,25 +489,15 @@ int launch_dq(const float* q, const float* k, const float* v,
               int H, Strides sq, Strides sk, Strides sv, Strides so,
               Strides sdo, Strides sdq, float scale, int causal,
               cudaStream_t stream) {
-  const int rows = B * H * T;
-  constexpr int kRowsPerBlock = 8;   // one warp per row
-  delta_kernel<<<(rows + kRowsPerBlock - 1) / kRowsPerBlock,
-                 32 * kRowsPerBlock, 0, stream>>>(o, dout, delta, rows, T,
-                                                  H, D, so, sdo);
-  cudaError_t err = cudaGetLastError();
+  const size_t smem = Layout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  constexpr int kBlockK = tile_rows(D);
-  const size_t smem = sizeof(float) * (2 * kBlockQ * (D + 4) +
-                                       2 * kBlockK * D +
-                                       kBlockK * kBlockQ + kBlockK);
-  err = cudaFuncSetAttribute(dq_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ, B * H);
-  dq_kernel<D><<<grid, kBlockQ, smem, stream>>>(
-      q, k, v, dout, lse, delta, kv_mask, dq, T, H, sq, sk, sv, sdo, sdq,
-      scale, causal);
+  const dim3 grid(B * H, (T + kRows - 1) / kRows);
+  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, dout, lse, kv_mask, dq, delta, T, H, sq, sk, sv, so, sdo,
+      sdq, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -451,17 +508,13 @@ int launch_dkv(const float* q, const float* k, const float* v,
                int H, Strides sq, Strides sk, Strides sv, Strides sdo,
                Strides sdk, Strides sdv, float scale, int causal,
                cudaStream_t stream) {
-  constexpr int kBlockQ2 = tile_rows(D);
-  const size_t smem = sizeof(float) * (2 * kBlockKV * (D + 8) +
-                                       2 * kBlockQ2 * D +
-                                       2 * kBlockQ2 * kThreadsKV +
-                                       2 * kBlockQ2);
+  const size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBlockKV - 1) / kBlockKV, B * H);
-  dkv_kernel<D><<<grid, kThreadsKV, smem, stream>>>(
+  const dim3 grid(B * H, (T + kRows - 1) / kRows);
+  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, kv_mask, dk, dv, T, H, sq, sk, sv, sdo,
       sdk, sdv, scale, causal);
   return static_cast<int>(cudaGetLastError());

@@ -9,8 +9,8 @@ and ``_dq_kernel`` / ``_dkv_kernel`` (launched by
 which state their designs and bounds. At the LM shape (B=8, T=1024,
 H=16, D=64, causal) all three are bound by operations on an H100: the
 forward does 4*D FLOPs per live (query, key) pair, dq 6*D and dk/dv
-8*D, at least 0.26 / 0.39 / 0.51 ms at the 67 TFLOP/s CUDA-core f32
-rate.
+8*D, at least 0.10 / 0.16 / 0.21 ms at 165 TFLOP/s, the rate of
+f32-accurate products on the tensor cores (three TF32 passes).
 
 Layout is the JAX package's: q, k, v, o, do are (B, T, H, D); lse and
 delta are (B, H, T) float32. The optional ``kv_mask`` is a (B, T) 0/1
@@ -21,10 +21,12 @@ and padded QUERY rows are the caller's to zero.
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
 
-Both ``precision`` values give exact float32 here: inputs are f32 and
-products accumulate in f32 on the CUDA cores ('highest' semantics).
-'default' is accepted for the JAX signature; the TPU's bf16 passes, TF32
-and bf16 inputs are not ported yet.
+Both ``precision`` values give float32 results here ('highest'
+semantics): inputs are f32; the forward kernel multiplies on the CUDA
+cores, the backward kernels on the tensor cores in three TF32 passes
+(csrc/tf32_mma.cuh), both accumulating in f32, and all agree with the
+plain versions within f32 tolerances. 'default' is accepted for the JAX
+signature; the TPU's bf16 passes and bf16 inputs are not ported yet.
 
 ``flash_attention`` is differentiable: with grad enabled it runs through
 an autograd Function that keeps (o, lse) from the forward and calls the
@@ -277,10 +279,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, kv_mask=None, *,
 def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
                                 causal=False
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the dq entry of ``csrc/flash_attention_bwd.cu`` (its delta
-    pre-pass, then the dq kernel) on the current stream. Returns (dq,
-    delta). ``flash_attention_bwd_dq_cuda.launches`` counts the
-    launches."""
+    """Launch the dq kernel of ``csrc/flash_attention_bwd.cu``, which
+    also writes delta, on the current stream. Returns (dq, delta).
+    ``flash_attention_bwd_dq_cuda.launches`` counts the launches."""
     _check_bwd(q, k, v, lse, do, kv_mask, o)
     q, k, v, o, do = _kernel_inputs(q, (q, k, v, o, do))
     B, T, H, D = q.shape

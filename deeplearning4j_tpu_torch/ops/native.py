@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Builds run at first use,
 into ``build/kernels/`` at the root of the checkout, keyed by a hash of
-the source and the flags, and never when a module is imported: the CPU
+the source, the shared headers (``csrc/*.cuh``) and the flags, and never
+when a module is imported: the CPU
 test suite imports every module on machines with no ``nvcc``.
 """
 
@@ -44,8 +45,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    """The build path of ``csrc/<name>.cu``: keyed by the source, every
+    header in ``csrc/`` (any of them may be included) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    digest = hashlib.sha256()
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(f.encode() + b"\0" + src.read() + b"\0")
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 

@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Time this checkout's hand-written kernels against another checkout's,
+in turns, on one NVIDIA card.
+
+    git archive <commit> deeplearning4j_tpu_torch/csrc | tar -x -C build/other
+    python3 kernel_ab.py build/other/deeplearning4j_tpu_torch/csrc
+
+Builds every ``csrc/*.cu`` of this checkout and of the other directory
+with the same ``nvcc`` flags, then times each kernel entry (the
+flash-attention forward, dq and dk/dv) at the LM shape (B=8, T=1024,
+H=16, D=64, causal, float32) with CUDA events, in the order other,
+this, this, other, and prints one JSON line of the times in ms. The C
+interfaces must be the same in both (they are each kernel's contract);
+the other's outputs are held against this checkout's plain versions
+first. It imports nothing of JAX or of the JAX package.
+"""
+
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+B, T, H, D = 8, 1024, 16, 64
+
+
+def main(argv):
+    import torch
+    if len(argv) != 2 or not os.path.isdir(argv[1]):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.ops import native
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+
+    other_dir = os.path.abspath(argv[1])
+    names = sorted(f[:-3] for f in os.listdir(native.CSRC_DIR)
+                   if f.endswith(".cu"))
+    native.build_all(names)
+    out_dir = os.path.join(native.BUILD_DIR, "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {n: subprocess.Popen(
+        [native._nvcc(), *native.NVCC_FLAGS, "-o",
+         os.path.join(out_dir, n + ".so"), os.path.join(other_dir, n + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in names}
+    libs = {}
+    for n, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the other {n}.cu:\n{log}")
+        libs[n] = {"this": native.load(n),
+                   "other": ctypes.CDLL(os.path.join(out_dir, n + ".so"))}
+
+    def use(side):
+        for n in names:
+            native._libs[n] = libs[n][side]
+
+    def time_ms(fn, iters=20, warmup=3):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(B, T, H, D, device="cuda", generator=g)
+                   for _ in range(4))
+    o, lse = attn.flash_attention_fwd_plain(q, k, v, causal=True)
+    _, delta = attn.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                 causal=True)
+    entries = {
+        "flash_attention_fwd": lambda: attn.flash_attention_fwd_cuda(
+            q, k, v, causal=True),
+        "flash_attention_bwd_dq": lambda: attn.flash_attention_bwd_dq_cuda(
+            q, k, v, o, lse, do, causal=True),
+        "flash_attention_bwd_dkv": lambda: attn.flash_attention_bwd_dkv_cuda(
+            q, k, v, lse, delta, do, causal=True)}
+    plain = (o, lse, *attn.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                     causal=True))
+    for side in ("other", "this"):
+        use(side)
+        got = (*entries["flash_attention_fwd"](),
+               entries["flash_attention_bwd_dq"]()[0],
+               *entries["flash_attention_bwd_dkv"]())
+        for a, b in zip(got, plain):
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
+    times = {name: [] for name in entries}
+    order = ("other", "this", "this", "other")
+    for side in order:
+        use(side)
+        for name, fn in entries.items():
+            times[name].append(time_ms(fn))
+    use("this")
+    print(json.dumps({"card": card, "shape": [B, T, H, D], "causal": True,
+                      "order": order, "ms": times}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

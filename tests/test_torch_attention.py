@@ -155,6 +155,30 @@ def test_kernel_build_is_from_repo_sources(monkeypatch, tmp_path):
         native._nvcc()
 
 
+def test_kernel_build_key_covers_shared_headers(monkeypatch, tmp_path):
+    # an edited csrc/*.cuh must not leave a stale library in build/kernels
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(native, "CSRC_DIR", str(tmp_path))
+    first = native._target("k")
+    assert os.path.dirname(first) == native.BUILD_DIR
+    assert native._target("k") == first            # stable while unedited
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = native._target("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert native._target("k") not in (first, second)
+
+
+def test_backward_kernels_include_the_shared_header():
+    with open(os.path.join(native.CSRC_DIR, "flash_attention_bwd.cu")) as f:
+        assert '#include "tf32_mma.cuh"' in f.read()
+    with open(os.path.join(native.CSRC_DIR, "tf32_mma.cuh")) as f:
+        header = f.read()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert "+ 0x1000u) & 0xffffe000u" in header   # hi: _tf32 above
+
+
 # ------------------------------------------------------------- backward
 
 def _bwd_inputs(seed, B, T, H, D, masked):
@@ -281,6 +305,117 @@ def test_bwd_inputs_are_checked(bad):
         tattn.flash_attention_bwd(*t, o, lse, g)
 
 
+# ------------------------------------------- 3xTF32: the kernels' arithmetic
+#
+# The backward kernels run every product on the tensor cores as three
+# TF32 passes (csrc/tf32_mma.cuh). These tests emulate that arithmetic in
+# float32 on the CPU and hold it to the same tolerance the card is held
+# to; one pass is shown to miss it.
+
+def _tf32(x):
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds, and as the
+    kernels round an operand's hi part: to nearest, ties away from zero,
+    the low 13 mantissa bits dropped."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """float32 -> TF32 as the tensor core reads an unrounded operand (the
+    kernels' lo part): the low 13 mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(eq, a, b, passes):
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _bwd_tf32(q, k, v, o, lse, do, kv_mask, causal, passes):
+    """The kernels' backward with its five products in ``passes`` TF32
+    passes; exp, the masks, delta and p (dp - delta) scale in f32."""
+    T, D = q.shape[1], q.shape[3]
+    scale = 1.0 / np.sqrt(D)
+
+    def mm(eq, a, b):
+        return _mm_tf32(eq, a, b, passes)
+    s = mm("bqhd,bkhd->bhqk", q, k)
+    live = torch.ones((1, 1, T, T), dtype=torch.bool)
+    if causal:
+        live = torch.tril(live)
+    if kv_mask is not None:
+        live = live & (kv_mask > 0)[:, None, None, :]
+    live = live & (lse > -1e30 / 2)[..., None]
+    p = torch.where(live, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros(()))
+    delta = (do * o).sum(-1).permute(0, 2, 1)
+    ds = p * (mm("bqhd,bkhd->bhqk", do, v) - delta[..., None]) * scale
+    return (mm("bhqk,bkhd->bqhd", ds, k), mm("bhqk,bqhd->bkhd", ds, q),
+            mm("bhqk,bqhd->bkhd", p, do))
+
+
+def test_tf32_rounding_emulation():
+    one = 1.0
+    x = torch.tensor([one, one + 2 ** -10, one + 2 ** -11, one + 2 ** -12,
+                      -(one + 2 ** -11), one + 3 * 2 ** -11, 0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, one + 2 ** -10, one + 2 ** -10, one,
+                         -(one + 2 ** -10), one + 2 * 2 ** -10, 0.0],
+                        dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)   # ties go away from zero
+    y = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 1, 4096).astype(np.float32))
+    hi = _tf32(y)
+    assert torch.all(hi.view(torch.int32) & 0x1FFF == 0)
+    assert float(((y - hi).abs() / y.abs()).max()) <= 2 ** -11
+    lo = _tf32_truncated(y - hi)
+    assert torch.all(lo.abs() <= (y - hi).abs())      # toward zero
+    assert float(((y - hi - lo).abs() / y.abs()).max()) <= 2 ** -21
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_three_tf32_passes_meet_the_f32_tolerance(causal, masked):
+    q, k, v, do, mask = _bwd_inputs(60 + 2 * causal + masked, 2, 128, 2,
+                                    64, masked)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    g = torch.from_numpy(do)
+    m = None if mask is None else torch.from_numpy(mask)
+    o, lse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    want = tattn.flash_attention_bwd_plain(*t, o, lse, g, m, causal=causal)
+    three = _bwd_tf32(*t, o, lse, g, m, causal, passes=3)
+    for got, ref in zip(three, want):
+        torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+    one = _bwd_tf32(*t, o, lse, g, m, causal, passes=1)
+    for name, got, ref in zip(("dq", "dk", "dv"), one, want):
+        assert not torch.allclose(got, ref, atol=ATOL, rtol=RTOL), name
+
+
+def test_c_fragment_feeds_the_next_product_as_a():
+    """tf32_mma.cuh's as_a / load_b_pairs, lane by lane in numpy: with
+    A = (c0, c2, c1, c3) and B's depth rows (2t, 2t + 1), the m16n8k8
+    product of a C tile with M equals C . M."""
+    rng = np.random.default_rng(3)
+    c_tile = rng.normal(0, 1, (16, 8))
+    m = rng.normal(0, 1, (8, 8))
+    a_mat, b_mat = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        c = (c_tile[g, 2 * t], c_tile[g, 2 * t + 1],
+             c_tile[g + 8, 2 * t], c_tile[g + 8, 2 * t + 1])
+        a = (c[0], c[2], c[1], c[3])                    # as_a
+        b = (m[2 * t, g], m[2 * t + 1, g])              # load_b_pairs
+        # where the PTX layouts put each register of the lane
+        a_mat[g, t], a_mat[g + 8, t] = a[0], a[1]
+        a_mat[g, t + 4], a_mat[g + 8, t + 4] = a[2], a[3]
+        b_mat[t, g], b_mat[t + 4, g] = b
+    np.testing.assert_allclose(a_mat @ b_mat, c_tile @ m, rtol=1e-12)
+
+
 # ------------------------------------------------------------- card only
 
 @pytest.fixture
@@ -390,3 +525,52 @@ def test_autograd_on_card_launches_both_backward_kernels(cuda_device):
     want = torch.autograd.grad(o2.square().sum(), t)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+def _bwd_on_card(device, q, k, v, do, mask, causal):
+    t = [torch.from_numpy(a).to(device) for a in (q, k, v)]
+    g = torch.from_numpy(do).to(device)
+    m = None if mask is None else torch.from_numpy(mask).to(device)
+    o, lse = tattn.flash_attention_fwd(*t, m, causal=causal)
+    return t, g, m, o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_kernels_give_the_same_bits_twice(cuda_device, masked, causal):
+    # no atomics: the sums run in one order on every launch
+    q, k, v, do, mask = _bwd_inputs(11 + causal, 2, 333, 4, 64, masked)
+    t, g, m, o, lse = _bwd_on_card(cuda_device, q, k, v, do, mask, causal)
+    runs = []
+    for _ in range(2):
+        dq, delta = tattn.flash_attention_bwd_dq_cuda(*t, o, lse, g, m,
+                                                      causal=causal)
+        dk, dv = tattn.flash_attention_bwd_dkv_cuda(*t, lse, delta, g, m,
+                                                    causal=causal)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 65, 127])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_kernels_at_tile_edges_on_card(cuda_device, T, D, causal):
+    # batch 0 tail-padded, batch 1 fully masked, batch 2 unmasked
+    q, k, v, do, mask = _bwd_inputs(T + D + causal, 3, T, 2, D, True)
+    t, g, m, o, lse = _bwd_on_card(cuda_device, q, k, v, do, mask, causal)
+    dq, delta = tattn.flash_attention_bwd_dq_cuda(*t, o, lse, g, m,
+                                                  causal=causal)
+    dk, dv = tattn.flash_attention_bwd_dkv_cuda(*t, lse, delta, g, m,
+                                                causal=causal)
+    torch.cuda.synchronize()
+    pdq, pdelta = tattn.flash_attention_bwd_dq_plain(*t, o, lse, g, m,
+                                                     causal=causal)
+    pdk, pdv = tattn.flash_attention_bwd_dkv_plain(*t, lse, pdelta, g, m,
+                                                   causal=causal)
+    for a, b in ((dq, pdq), (delta, pdelta), (dk, pdk), (dv, pdv)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    assert torch.all(dq[1] == 0)
