@@ -6,7 +6,8 @@
 Builds every hand-written kernel of ``deeplearning4j_tpu_torch/csrc``
 for sm_90a (and fails if ``ptxas`` reports a spill), counts the
 tensor-core (HMMA) instructions of each kernel function in the built
-libraries (and fails if a backward kernel has none), holds each kernel
+libraries (and fails if any of the nine, three kernels at D = 32, 64
+and 128, has none), holds each kernel
 (the flash-attention forward, dq and dk/dv) against its plain PyTorch
 version on the card, serves the full-width transformer LM (V=2048,
 D=1024, L=8, H=16, T=1024; random weights from a seed) through
@@ -626,8 +627,9 @@ def train_phase(attn, card):
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
-    Fails if a backward kernel has none (a build that fell back to FMA
-    code)."""
+    Fails unless all nine kernel functions (the forward, dq and dk/dv,
+    each at D = 32, 64 and 128) are there and each has at least one (a
+    build that fell back to FMA code has none)."""
     tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
     counts = {}
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -641,10 +643,12 @@ def tensor_core_ops(native):
                 re.findall(r"\bHMMA\b", part))
     log("tensor-core (HMMA) instructions per kernel function (cuobjdump "
         "-sass): " + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-    backward = [k for k in counts if k.startswith(("dq_kernel", "dkv_kernel"))]
-    assert len(backward) == 6, counts
-    for k in backward:
-        assert counts[k] > 0, f"{k} has no tensor-core instruction"
+    expected = {f"{kernel}<{d}>" for kernel in ("flash_fwd_kernel",
+                                                "dq_kernel", "dkv_kernel")
+                for d in (32, 64, 128)}
+    assert set(counts) == expected, counts
+    for k, n in counts.items():
+        assert n > 0, f"{k} has no tensor-core instruction"
     return counts
 
 

@@ -1,35 +1,62 @@
-// Flash-attention forward for Hopper (sm_90a), float32 in, float32 out.
+// Flash-attention forward for Hopper (sm_90a), float32 in, float32 out,
+// both products on the tensor cores at f32 accuracy (3xTF32).
 //
 // Replaces the Pallas TPU kernel deeplearning4j_tpu/ops/attention.py:
 // _fwd_kernel (launched by pallas_flash_attention). Same function:
 // exact softmax attention with the online max / denominator recurrence,
 // optional causal mask, optional (B, T) key-padding mask, the -1e30
-// sentinel rules, o = acc / max(l, 1e-30) and lse = m + log(l) (or
-// -1e30 for a row that saw no key), lse stored (B, H, T).
+// sentinel rules (a masked score is -1e30 before the max, p = 0 where
+// s <= -1e30/2, the rescale is 0 where the old max is), o = acc /
+// max(l, 1e-30) and lse = m + log(l) (or -1e30 for a row that saw no
+// key), lse stored (B, H, T). No atomics: every launch gives the same
+// bits.
 //
-// Bound on an H100: at the LM shape (B=8, T=1024, H=16, D=64, causal)
-// the work is ~1.7e10 FLOPs against ~134 MB of q/k/v/o, so the kernel is
-// bound by operations (>= 0.26 ms at the 67 TFLOP/s CUDA-core f32 rate)
-// long before bytes (>= 0.04 ms at 3.35 TB/s). The design therefore
-// keeps every operand of the inner products on chip:
+// Bound on an H100 SXM (data-sheet peaks, at its 700 W power limit): 4*D
+// FLOPs per live (query, key) pair (2D for q.k^T, 2D for p.v); at the LM
+// shape (B=8, T=1024, H=16, D=64, causal) that is 6.7e7 pairs, 1.7e10
+// FLOPs, against ~0.13 GB of q, k, v, o and lse (~0.04 ms at 3.35 TB/s).
+// The fastest f32-accurate route for the products is three TF32 passes
+// on the tensor cores, 495 / 3 = 165 TFLOP/s: >= 0.104 ms, bound by
+// operations (the CUDA cores' 67 TFLOP/s f32 would give 0.257 ms). So
+// the design feeds the tensor cores from registers and shared memory and
+// keeps everything else on chip:
 //
-//   - one CTA per (64-row query tile, b*h); one thread per query row;
-//   - the q tile is staged once in shared memory (rows padded by four
-//     floats so each thread's float4 reads of its own row do not
-//     conflict); K and V are staged in 32-key tiles by coalesced float4
-//     loads and read back as float4 broadcasts (every thread of a warp
-//     reads the same address);
-//   - the 32 scores of a tile live in registers, the f32 accumulator of
-//     the row (D floats) lives in registers; the tile's probabilities go
-//     through a [key][thread] shared array, which keeps the P.V loop a
-//     rolled loop without bank conflicts;
-//   - causal CTAs stop at their last row's diagonal, and the heaviest
-//     causal tiles are scheduled first.
+//   - products: mma.sync m16n8k8 with TF32 operands and f32 accumulators
+//     (tf32_mma.cuh), each operand split hi + lo and the product taken
+//     as lo.hi + hi.lo + hi.hi: s = q.k^T, then o += p.v. The masks, the
+//     row max, exp (as exp2: q is scaled by scale * log2(e) before its
+//     split, so the logits come out in base 2) and the rescale stay f32
+//     on the CUDA cores, in the accumulator registers;
+//   - CTAs of 4 warps, each warp owning 16 query rows (64 a CTA); a
+//     thread holds rows g and g + 8 of its warp. The row max of a tile is
+//     reduced over the 4 lanes that share a row (two shuffles) before the
+//     rescale; l stays a per-lane partial, reduced once at the end;
+//   - q is resident for the whole key loop, so it is split into hi and lo
+//     once per CTA, not once per key tile, in place in shared memory
+//     beside a lo tile. Held in registers instead, q's fragments cost the
+//     SM its third CTA at D = 64 and ran slower on an H100; at D = 32
+//     they gained nothing;
+//   - p reaches p.v without moving: the C fragments of the score tile
+//     are read as A fragments with the key order permuted, and v's rows
+//     are read in the same order (tf32_mma.cuh), so there is no trip
+//     through shared memory and no shuffle;
+//   - the accumulator is D/8 C fragments (D/2 floats a thread). Each
+//     tile's p.v goes into a partial that is added to acc * corr with an
+//     f32 fma: the tensor core truncates its sums, and one accumulator
+//     over a whole row of keys would gather that bias;
+//   - k, v and the kv_mask row stream through a two-stage ring in dynamic
+//     shared memory with cp.async, the next tile's copy issued before
+//     this tile's products. Rows are padded to D + 4 floats, so every
+//     fragment load is free of bank conflicts. A tile is 32 keys, so
+//     nothing spills at D = 32, 64 and 128;
+//   - causal: a CTA stops at its last row's diagonal, a warp skips a tile
+//     that lies wholly past its last row, and the grid runs over (b*h,
+//     tile) with the heaviest tiles of every head first.
 //
 // Unlike the TPU kernel there is no block-divisibility rule: the ragged
-// edge of T is masked, so any T works. The TPU's (8, 128) lane layouts
-// and its sequential 'arbitrary' grid axis with VMEM scratch are not
-// carried over: the key loop runs inside the CTA.
+// edge of T is zero-filled by the copies and masked, so any T works. The
+// TPU's sequential 'arbitrary' grid axis with VMEM scratch becomes the
+// key loop inside the CTA.
 //
 // C interface (loaded with ctypes): dl4j_flash_attention_fwd_f32 returns
 // cudaGetLastError() after the launch (0 on success). It allocates
@@ -38,158 +65,264 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per CTA, one thread each
-constexpr int kBlockK = 32;   // keys per shared-memory tile
+using tf32mma::Frag;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;   // query rows per CTA
+constexpr int kStages = 2;
 constexpr float kNegInf = -1e30f;
 constexpr float kDead = kNegInf * 0.5f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, t, h;
 };
 
+// 2^x on the special-function unit, results under 2^-126 flushed to 0:
+// they vanish anyway in a sum whose largest term is 1
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared-memory layout in floats: the q tile (kRows x S, which becomes
+// q's hi halves) and the tile of its lo halves, then kStages ring stages
+// of a k and a v tile (R x S each) and R kv_mask entries.
 template <int D>
-__global__ void __launch_bounds__(kBlockQ)
+struct Layout {
+  static constexpr int S = D + 4;                 // padded row stride
+  static constexpr int R = 32;                    // keys per streamed tile
+  // CTAs an SM should hold: three at D = 64, the LM's head size, which
+  // caps a thread at 168 registers
+  static constexpr int kMinBlocks = D == 64 ? 3 : 1;
+  static constexpr int kQ = 2 * kRows * S;
+  static constexpr int kStage = 2 * R * S + R;
+  static constexpr size_t kBytes = sizeof(float) * (kQ + kStages * kStage);
+};
+
+// rows [r0, r0 + ROWS) of a (T, D) operand into a padded shared tile;
+// rows at or past T are zero-filled. A thread copies the same four
+// columns of every (kThreads / (D / 4))-th row, so its offsets are
+// fixed and the loop unrolls.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long stride, int r0,
+                                          int T) {
+  constexpr int S = D + 4, D4 = D / 4, kStep = kThreads / D4;
+  static_assert(ROWS % kStep == 0, "whole passes over the rows");
+  const int r = threadIdx.x / D4, c = (threadIdx.x % D4) * 4;
+#pragma unroll
+  for (int j = 0; j < ROWS / kStep; ++j) {
+    const int row = r0 + r + j * kStep;
+    const bool in = row < T;
+    tf32mma::cp_async16(dst + (r + j * kStep) * S + c,
+                        src + (in ? row : 0) * stride + c, in);
+  }
+}
+
+// element i (one per thread, 0 <= i < n) of a length-T row from i0 into
+// shared memory; zero past T
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int i0, int n, int T, int i) {
+  if (i < n) {
+    const bool in = i0 + i < T;
+    tf32mma::cp_async4(dst + i, src + (in ? i0 + i : 0), in);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, Layout<D>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const float* __restrict__ kv_mask,
                  float* __restrict__ o, float* __restrict__ lse,
                  int T, int H, Strides sq, Strides sk, Strides sv,
                  Strides so, float scale, int causal) {
-  constexpr int QS = D + 4;        // padded q row stride (floats)
-  constexpr int D4 = D / 4;
+  using L = Layout<D>;
+  constexpr int S = L::S, R = L::R, N = D / 8;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // kBlockQ x QS
-  float* k_s = q_s + kBlockQ * QS;                 // kBlockK x D
-  float* v_s = k_s + kBlockK * D;                  // kBlockK x D
-  float* p_s = v_s + kBlockK * D;                  // kBlockK x kBlockQ
-  float* live_s = p_s + kBlockK * kBlockQ;         // kBlockK
+  float* q_s = reinterpret_cast<float*>(smem4);   // q, then its hi halves
+  uint32_t* qlo_s = reinterpret_cast<uint32_t*>(q_s + kRows * S);
+  float* ring = q_s + L::kQ;                       // kStages x kStage
 
-  const int tid = threadIdx.x;
-  const int q_tile = gridDim.x - 1 - blockIdx.x;   // heaviest first
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = q_tile * kBlockQ;
-  const int qi = q0 + tid;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int r0 = 16 * warp;                              // the warp's rows
 
-  const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
+  const float* maskb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+
+  // stage st <- keys [k0, k0 + R): k, v and the kv_mask
+  auto load_tile = [&](int k0, int st) {
+    float* k_s = ring + st * L::kStage;
+    copy_rows<D, R>(k_s, kb, sk.t, k0, T);
+    copy_rows<D, R>(k_s + R * S, vb, sv.t, k0, T);
+    if (maskb) copy_vec(k_s + 2 * R * S, maskb, k0, R, T, tid);
+  };
+
+  copy_rows<D, kRows>(q_s, q + b * sq.b + h * sq.h, sq.t, q0, T);
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int n_tiles = (k_end + R - 1) / R;
+  load_tile(0, 0);
+  tf32mma::cp_async_commit();
+  tf32mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // the warp's q rows, times scale * log2(e), split into hi and lo once
+  // for the whole key loop
+  tf32mma::split_rows<S, D>(q_s, qlo_s, r0, scale * kLog2e, lane);
+  __syncwarp();
+  const uint32_t* qhi_s = reinterpret_cast<const uint32_t*>(q_s);
+
+  int row[2];
+  float m[2], l[2];   // base-2 running max; this lane's share of the sum
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = q0 + r0 + g + 8 * hh;
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
+  }
+  float acc[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    tf32mma::cp_async_wait<0>();   // this tile has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (it + 1 < n_tiles) load_tile((it + 1) * R, (it + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int k0 = it * R;
+    // causal: every key of the tile lies past the warp's last row, so
+    // the tile would leave m, l and acc as they are
+    if (causal && k0 > q0 + r0 + 15) continue;
+    const float* k_s = ring + (it % kStages) * L::kStage;
+    const float* v_s = k_s + R * S;
+    const float* live_s = v_s + R * S;
+
+    // s = q.k^T in base 2 for the warp's 16 rows x R keys
+    float s[R / 8][4];
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      Frag a[4];
+      tf32mma::load_a_split<S>(a, qhi_s, qlo_s, r0, 8 * c, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bk[2];
+        tf32mma::load_b_t<S>(bk, k_s, 8 * n, 8 * c, g, t);
+        tf32mma::mma3(s[n], a, bk);
+      }
+    }
+
+    // the masks (-1e30 before the max), skipped where the warp's rows see
+    // every key of the tile; then the tile's row max over the 4 lanes
+    // that share a row (C layout: element e is row g + 8 (e >> 1), key
+    // column 2t + (e & 1) of the 8-key group)
+    if (maskb || k0 + R > T || (causal && k0 + R - 1 > q0 + r0)) {
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * n + 2 * t + (e & 1);
+          const int key = k0 + col;
+          const bool ok = (maskb ? live_s[col] > 0.f : key < T) &&
+                          (!causal || key <= row[e >> 1]);
+          s[n][e] = ok ? s[n][e] : kNegInf;
+        }
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    // a row that has seen no key keeps m = -1e30 and subtracts 0, so its
+    // p and its rescale are exp2(-1e30) = 0: the sentinel rules
+    float corr[2], m_sub[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      m_sub[hh] = m_new <= kDead ? 0.f : m_new;
+      corr[hh] = exp2_ftz(m[hh] - m_sub[hh]);
+      m[hh] = m_new;
+    }
+    // p in place of s
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_ftz(s[n][e] - m_sub[e >> 1]);
+        rowsum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = fmaf(l[hh], corr[hh], rowsum[hh]);
+
+    // o += p.v, p's C fragments the A operand as they stand, into a tile
+    // partial added to acc * corr in f32
+    float part[N][4];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      Frag a[4];
+      tf32mma::as_a(a, s[j]);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        Frag bv[2];
+        tf32mma::load_b_pairs<S>(bv, v_s, 8 * j, 8 * n, g, t);
+        tf32mma::mma3(part[n], a, bv);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], corr[e >> 1], part[n][e]);
+  }
+
+  // o = acc / max(l, 1e-30), each row stored as float2 pairs; one lane of
+  // the four that share a row writes its lse
   float* ob = o + b * so.b + h * so.h;
-
-  for (int i = tid; i < kBlockQ * D4; i += kBlockQ) {
-    const int r = i / D4;
-    const int c = (i - r * D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T)
-      x = *reinterpret_cast<const float4*>(qb + (q0 + r) * sq.t + c);
-    *reinterpret_cast<float4*>(q_s + r * QS + c) = x;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
   }
-
-  float acc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-
-  const int k_end = causal ? min(T, q0 + kBlockQ) : T;
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int i = tid; i < kBlockK * D4; i += kBlockQ) {
-      const int r = i / D4;
-      const int c = (i - r * D4) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < T) {
-        kx = *reinterpret_cast<const float4*>(kb + (k0 + r) * sk.t + c);
-        vx = *reinterpret_cast<const float4*>(vb + (k0 + r) * sv.t + c);
-      }
-      *reinterpret_cast<float4*>(k_s + r * D + c) = kx;
-      *reinterpret_cast<float4*>(v_s + r * D + c) = vx;
-    }
-    if (tid < kBlockK) {
-      const int kj = k0 + tid;
-      live_s[tid] = (kj < T && (kv_mask == nullptr ||
-                                kv_mask[(long long)b * T + kj] > 0.f))
-                        ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    // s = q . k for the 32 keys of the tile
-    float s[kBlockK];
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row[hh] >= T) continue;
+    const float denom = fmaxf(l[hh], 1e-30f);
+    float* out = ob + row[hh] * so.t + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) s[j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < D; c += 4) {
-      const float4 qc = *reinterpret_cast<const float4*>(q_s + tid * QS + c);
-#pragma unroll
-      for (int j = 0; j < kBlockK; ++j) {
-        const float4 kc = *reinterpret_cast<const float4*>(k_s + j * D + c);
-        s[j] = fmaf(qc.x, kc.x, s[j]);
-        s[j] = fmaf(qc.y, kc.y, s[j]);
-        s[j] = fmaf(qc.z, kc.z, s[j]);
-        s[j] = fmaf(qc.w, kc.w, s[j]);
-      }
-    }
-
-    // masks (-1e30 before the max), then the online-softmax update
-    float m_cur = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const bool ok = live_s[j] > 0.f && (!causal || k0 + j <= qi);
-      s[j] = ok ? s[j] * scale : kNegInf;
-      m_cur = fmaxf(m_cur, s[j]);
-    }
-    const float m_new = fmaxf(m, m_cur);
-    const float corr = (m <= kDead) ? 0.f : expf(m - m_new);
-    float p_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = (s[j] <= kDead) ? 0.f : expf(s[j] - m_new);
-      p_sum += p;
-      p_s[j * kBlockQ + tid] = p;
-    }
-    l = l * corr + p_sum;
-    m = m_new;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
-
-    // acc += p . v (each thread reads only its own p column: no sync)
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; ++j) {
-      const float p = p_s[j * kBlockQ + tid];
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 vc = *reinterpret_cast<const float4*>(v_s + j * D + c);
-        acc[c] = fmaf(p, vc.x, acc[c]);
-        acc[c + 1] = fmaf(p, vc.y, acc[c + 1]);
-        acc[c + 2] = fmaf(p, vc.z, acc[c + 2]);
-        acc[c + 3] = fmaf(p, vc.w, acc[c + 3]);
-      }
-    }
-  }
-
-  // o = acc / max(l, 1e-30) through the q tile, stored coalesced
-  const float denom = fmaxf(l, 1e-30f);
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < D; c += 4) {
-    *reinterpret_cast<float4*>(q_s + tid * QS + c) =
-        make_float4(acc[c] / denom, acc[c + 1] / denom, acc[c + 2] / denom,
-                    acc[c + 3] / denom);
-  }
-  if (qi < T)
-    lse[(long long)bh * T + qi] = (l > 0.f) ? m + logf(denom) : kNegInf;
-  __syncthreads();
-  for (int i = tid; i < kBlockQ * D4; i += kBlockQ) {
-    const int r = i / D4;
-    const int c = (i - r * D4) * 4;
-    if (q0 + r < T)
-      *reinterpret_cast<float4*>(ob + (q0 + r) * so.t + c) =
-          *reinterpret_cast<const float4*>(q_s + r * QS + c);
+    for (int n = 0; n < N; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
+          acc[n][2 * hh] / denom, acc[n][2 * hh + 1] / denom);
+    if (t == 0)
+      lse[(long long)bh * T + row[hh]] =
+          l[hh] > 0.f ? m[hh] * kLn2 + logf(denom) : kNegInf;
   }
 }
 
@@ -198,14 +331,13 @@ int launch(const float* q, const float* k, const float* v,
            const float* kv_mask, float* o, float* lse, int B, int T, int H,
            Strides sq, Strides sk, Strides sv, Strides so, float scale,
            int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kBlockQ * (D + 4) + 2 * kBlockK * D +
-                                       kBlockK * kBlockQ + kBlockK);
+  const size_t smem = Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<D><<<grid, kBlockQ, smem, stream>>>(
+  const dim3 grid(B * H, (T + kRows - 1) / kRows);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       q, k, v, kv_mask, o, lse, T, H, sq, sk, sv, so, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }

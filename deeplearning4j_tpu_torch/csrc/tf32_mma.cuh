@@ -99,6 +99,41 @@ __device__ __forceinline__ void load_b_pairs(Frag (&b)[2], const float* s,
   b[1] = split(p[S]);
 }
 
+// A resident A operand split once, for a loop that multiplies it with
+// many tiles of another: rows [r0, r0 + 16) of a row-major shared tile
+// (stride S, K columns), times `scale`, are replaced by their hi halves,
+// and their lo halves go to `lo` (same layout). The warp's lanes take
+// whole float4 groups; __syncwarp() before reading them back with
+// load_a_split.
+template <int S, int K>
+__device__ __forceinline__ void split_rows(float* s, uint32_t* lo, int r0,
+                                           float scale, int lane) {
+  constexpr int K4 = K / 4;
+  for (int i = lane; i < 16 * K4; i += 32) {
+    const int at = (r0 + i / K4) * S + (i % K4) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(s + at);
+    const Frag f0 = split(scale * x.x), f1 = split(scale * x.y),
+               f2 = split(scale * x.z), f3 = split(scale * x.w);
+    *reinterpret_cast<uint4*>(s + at) = make_uint4(f0.hi, f1.hi, f2.hi,
+                                                   f3.hi);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(f0.lo, f1.lo, f2.lo,
+                                                    f3.lo);
+  }
+}
+
+// load_a's fragment from the two halves split_rows left in shared memory.
+template <int S>
+__device__ __forceinline__ void load_a_split(Frag (&a)[4],
+                                             const uint32_t* hi,
+                                             const uint32_t* lo, int r0,
+                                             int c0, int g, int t) {
+  const int i = (r0 + g) * S + c0 + t;
+  a[0] = Frag{hi[i], lo[i]};
+  a[1] = Frag{hi[i + 8 * S], lo[i + 8 * S]};
+  a[2] = Frag{hi[i + 4], lo[i + 4]};
+  a[3] = Frag{hi[i + 8 * S + 4], lo[i + 8 * S + 4]};
+}
+
 // A C fragment (16 x 8 f32) as the A operand of the next product.
 __device__ __forceinline__ void as_a(Frag (&a)[4], const float (&c)[4]) {
   a[0] = split(c[0]);

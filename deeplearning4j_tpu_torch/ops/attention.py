@@ -22,11 +22,11 @@ Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
 
 Both ``precision`` values give float32 results here ('highest'
-semantics): inputs are f32; the forward kernel multiplies on the CUDA
-cores, the backward kernels on the tensor cores in three TF32 passes
-(csrc/tf32_mma.cuh), both accumulating in f32, and all agree with the
-plain versions within f32 tolerances. 'default' is accepted for the JAX
-signature; the TPU's bf16 passes and bf16 inputs are not ported yet.
+semantics): inputs are f32; all three kernels multiply on the tensor
+cores in three TF32 passes (csrc/tf32_mma.cuh), accumulating in f32,
+and agree with the plain versions within f32 tolerances. 'default' is
+accepted for the JAX signature; the TPU's bf16 passes and bf16 inputs
+are not ported yet.
 
 ``flash_attention`` is differentiable: with grad enabled it runs through
 an autograd Function that keeps (o, lse) from the forward and calls the

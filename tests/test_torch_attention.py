@@ -307,10 +307,10 @@ def test_bwd_inputs_are_checked(bad):
 
 # ------------------------------------------- 3xTF32: the kernels' arithmetic
 #
-# The backward kernels run every product on the tensor cores as three
-# TF32 passes (csrc/tf32_mma.cuh). These tests emulate that arithmetic in
-# float32 on the CPU and hold it to the same tolerance the card is held
-# to; one pass is shown to miss it.
+# The kernels run every product on the tensor cores as three TF32 passes
+# (csrc/tf32_mma.cuh). These tests emulate that arithmetic in float32 on
+# the CPU and hold it to the same tolerance the card is held to; one pass
+# is shown to miss it.
 
 def _tf32(x):
     """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds, and as the
@@ -393,6 +393,47 @@ def test_three_tf32_passes_meet_the_f32_tolerance(causal, masked):
     one = _bwd_tf32(*t, o, lse, g, m, causal, passes=1)
     for name, got, ref in zip(("dq", "dk", "dv"), one, want):
         assert not torch.allclose(got, ref, atol=ATOL, rtol=RTOL), name
+
+
+def _fwd_tf32(q, k, v, kv_mask, causal, passes):
+    """The forward kernel's arithmetic with its two products in
+    ``passes`` TF32 passes: q scaled by scale * log2(e) before its split,
+    s = q.k^T in base 2, the masks, max and exp2 in f32, then p (the
+    probabilities, unnormalized) as an operand of p.v."""
+    T, D = q.shape[1], q.shape[3]
+    s = _mm_tf32("bqhd,bkhd->bhqk", q * (np.log2(np.e) / np.sqrt(D)), k,
+                 passes)
+    live = torch.ones((1, 1, T, T), dtype=torch.bool)
+    if causal:
+        live = torch.tril(live)
+    if kv_mask is not None:
+        live = live & (kv_mask > 0)[:, None, None, :]
+    s = s.masked_fill(~live, -1e30)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(m <= -1e30 / 2, torch.zeros(()), m)
+    p = torch.exp2(s - m)
+    l = p.sum(-1)
+    o = _mm_tf32("bhqk,bkhd->bqhd", p, v, passes)
+    o = o / l.clamp_min(1e-30).permute(0, 2, 1)[..., None]
+    lse = torch.where(l > 0, m[..., 0] * np.log(2) + torch.log(l),
+                      torch.full((), -1e30))
+    return o, lse
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_forward_three_tf32_passes_meet_the_f32_tolerance(causal, masked):
+    q, k, v, mask = _inputs(70 + 2 * causal + masked, 2, 128, 2, 64, masked)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask)
+    want_o, want_lse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    o, lse = _fwd_tf32(*t, m, causal, passes=3)
+    torch.testing.assert_close(o, want_o, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL, rtol=RTOL)
+    if masked:                        # the row that saw no key
+        assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
+    one, _ = _fwd_tf32(*t, m, causal, passes=1)
+    assert not torch.allclose(one, want_o, atol=ATOL, rtol=RTOL)
 
 
 def test_c_fragment_feeds_the_next_product_as_a():
@@ -574,3 +615,35 @@ def test_bwd_kernels_at_tile_edges_on_card(cuda_device, T, D, causal):
     for a, b in ((dq, pdq), (delta, pdelta), (dk, pdk), (dv, pdv)):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
     assert torch.all(dq[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_gives_the_same_bits_twice(cuda_device, masked, causal):
+    # no atomics: the sums run in one order on every launch
+    q, k, v, mask = _inputs(13 + causal, 2, 333, 4, 64, masked)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    runs = [tattn.flash_attention_fwd_cuda(*t, m, causal=causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 65, 127])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_at_tile_edges_on_card(cuda_device, T, D, causal):
+    # batch 0 tail-padded, batch 1 fully masked, batch 2 unmasked
+    q, k, v, mask = _inputs(T + D + causal, 3, T, 2, D, True)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
+    m = torch.from_numpy(mask).to(cuda_device)
+    o, lse = tattn.flash_attention_fwd_cuda(*t, m, causal=causal)
+    torch.cuda.synchronize()
+    po, plse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    torch.testing.assert_close(o, po, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, plse, atol=ATOL, rtol=RTOL)
+    assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
