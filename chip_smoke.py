@@ -8,13 +8,17 @@ for sm_90a (and fails if ``ptxas`` reports a spill), counts the
 tensor-core (HMMA) instructions of each kernel function in the built
 libraries (and fails if any of the nine, three kernels at D = 32, 64
 and 128, has none), holds each kernel
-(the flash-attention forward, dq and dk/dv) against its plain PyTorch
-version on the card, serves the full-width transformer LM (V=2048,
-D=1024, L=8, H=16, T=1024; random weights from a seed) through
-``ModelServer`` ``/v1/predict`` and checks what comes back, then trains
-the same LM with Adam for a few steps through ``fit`` (B=8), holds one
-step against the same step on the plain attention, and resumes it from
-a checkpoint. It imports nothing of JAX or of the JAX package. Any
+(the flash-attention forward, dq and dk/dv, the paged decode attention)
+against its plain PyTorch version on the card, serves the full-width
+transformer LM (V=2048, D=1024, L=8, H=16, T=1024; random weights from
+a seed) through ``ModelServer`` ``/v1/predict`` and checks what comes
+back, trains the same LM with Adam for a few steps through ``fit``
+(B=8), holds one step against the same step on the plain attention,
+resumes it from a checkpoint, then generates with it through
+``/v1/generate`` (continuous batching over paged KV, 8 slots, 16
+concurrent requests and two prefix-cache repeats; greedy ids held
+against the plain-attention reference) and times one decode step. It
+imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 2 and prints no result.
@@ -624,6 +628,404 @@ def train_phase(attn, card):
     return launches
 
 
+PAGE, CAPACITY, SLOTS = 16, 1024, 8   # ModelServer's generate settings
+GEN_REQUESTS, GEN_TOKENS = 16, 64
+PROMPT_MIN, PROMPT_MAX = 16, 512       # prompt lengths, drawn uniformly
+# greedy ids of the served path vs the plain-attention reference may part
+# only where the reference's top two probabilities are this close
+TIE_RTOL = 1e-5
+
+
+def device_ms(fn, iters=50):
+    """Device time of one call of ``fn``: the CUDA kernels' time in a
+    torch.profiler window of ``iters`` warm calls, over ``iters``. Fails if
+    the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def decode_bound(S, t, H, D, pos, P):
+    """``bound`` of one decode-attention call: the live k/v rows (each
+    read once), q, the page table and o; 4D FLOPs per live (query, key)
+    pair."""
+    pairs = sum(p + i + 1 for p in pos for i in range(t)) * H
+    live_rows = sum(p + t for p in pos)
+    nbytes = 4.0 * (2 * live_rows * H * D + 2 * S * t * H * D + S * P)
+    return bound(4.0 * D * pairs, nbytes)
+
+
+def paged_inputs(g, S, t, D, pos, ps=PAGE, P=CAPACITY // PAGE):
+    """q, pools and a shuffled page table (pages 1..S*P; 0 is scratch) for
+    slots at ``pos``, with HEADS heads."""
+    import torch
+    N, H = S * P + 1, HEADS
+    kp = torch.randn(N, ps, H, D, device="cuda", generator=g)
+    vp = torch.randn(N, ps, H, D, device="cuda", generator=g)
+    q = torch.randn(S, t, H, D, device="cuda", generator=g)
+    table = (torch.randperm(N - 1, device="cuda", generator=g)[:S * P]
+             .reshape(S, P).int() + 1)
+    return q, kp, vp, table, torch.tensor(pos, dtype=torch.int32)
+
+
+def decode_kernel_phase(da):
+    """Hold the paged decode-attention kernel against its plain version
+    on the card at D = 32, 64, 128; time it at the decode shape (S=8
+    slots, H=16, D=64, t=1, every slot at position 511 of a 1024-token
+    page table of 16-token pages). Returns its record (without
+    launches)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(2)
+    max_err = 0.0
+    for D in (32, 64, 128):
+        cases = []
+        q, kp, vp, table, pos = paged_inputs(
+            g, 8, 1, D, [0, 1, 15, 16, 17, 511, 1023, 0])
+        table[7] = 0                  # inactive slot: scratch page, pos 0
+        cases.append(("t=1 paged, pages edges, one inactive slot",
+                      q, kp, vp, table, pos))
+        q, kp, vp, table, pos = paged_inputs(g, 2, 1, D, [40, 300])
+        table[1, :2] = table[0, :2]   # a prefix shared by two slots
+        cases.append(("shared prefix pages", q, kp, vp, table, pos))
+        cases.append(("t=4 at 300", *paged_inputs(g, 1, 4, D, [300])))
+        cases.append(("t=128 at 0 and 300",
+                      *paged_inputs(g, 2, 128, D, [0, 300])))
+        q, kp, vp, _, pos = paged_inputs(g, 3, 1, D, [1023, 5, 0],
+                                         ps=CAPACITY, P=1)
+        cases.append(("dense cache, page_size = capacity", q, kp, vp,
+                      torch.arange(3, dtype=torch.int32,
+                                   device="cuda")[:, None], pos))
+        for what, q, kp, vp, table, pos in cases:
+            o = da.decode_attention_cuda(q, kp, vp, table, pos)
+            torch.cuda.synchronize()
+            ref = da.decode_attention_plain(q, kp, vp, table, pos)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(o, ref, atol=ATOL, rtol=RTOL)
+            err = (o - ref).abs().max().item()
+            max_err = max(max_err, err)
+            log(f"decode kernel D={D} {what} {tuple(q.shape)} pos "
+                f"{pos.tolist()}: max |kernel - plain| = {err:.3e} (atol "
+                f"{ATOL}, rtol {RTOL})")
+        del cases, q, kp, vp, table, o, ref
+
+    S, D, P = SLOTS, 64, CAPACITY // PAGE
+    pos_list = [511] * S
+    q, kp, vp, table, pos = paged_inputs(g, S, 1, D, pos_list)
+    # the library yardstick, never called by the port: gather each slot's
+    # virtual cache and run scaled_dot_product_attention under the
+    # positional mask (built once, outside the timed callable)
+    k_pos = torch.arange(P * PAGE, device="cuda")
+    mask = (k_pos[None, :] <= pos.to(q.device)[:, None])[:, None, None, :]
+    tl = table.long()
+
+    def library():
+        k = kp[tl].reshape(S, P * PAGE, HEADS, D).transpose(1, 2)
+        v = vp[tl].reshape(S, P * PAGE, HEADS, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
+                                              attn_mask=mask)
+
+    torch.testing.assert_close(
+        library().transpose(1, 2),
+        da.decode_attention_cuda(q, kp, vp, table, pos), atol=ATOL,
+        rtol=RTOL)
+    calls = {"kernel": lambda: da.decode_attention_cuda(q, kp, vp, table,
+                                                          pos),
+             "plain": lambda: da.decode_attention_plain(q, kp, vp, table,
+                                                         pos),
+             "library": library}
+    # a call's host work (checks, ctypes) outlasts this kernel, so CUDA
+    # events over back-to-back calls time the host; the device time per
+    # call comes from torch.profiler
+    per_call = {k: time_ms(fn, iters=100, warmup=10)
+                for k, fn in calls.items()}
+    ms, plain_ms, library_ms = (device_ms(calls[k])
+                                for k in ("kernel", "plain", "library"))
+    b = decode_bound(S, 1, HEADS, D, pos_list, P)
+    log(f"decode_attention at (S={S}, t=1, H={HEADS}, D={D}, pos 511, "
+        f"page_size {PAGE}), device time per call (torch.profiler): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); kernel at "
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound. CUDA events over "
+        f"back-to-back calls: kernel {per_call['kernel']:.4f}, plain "
+        f"{per_call['plain']:.4f}, library {per_call['library']:.4f} ms "
+        "a call")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "deeplearning4j_tpu/nn/conf/layers/attention.py:290",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": library_ms}
+
+
+class plain_decode_attention:
+    """Within the block, every decode attention runs on the plain
+    version (the kernel's reference), on the card."""
+
+    def __init__(self, da):
+        self.da = da
+
+    def __enter__(self):
+        self.saved = self.da.decode_attention
+        self.da.decode_attention = self.da.decode_attention_plain
+
+    def __exit__(self, *exc):
+        self.da.decode_attention = self.saved
+
+
+def post_generate(port, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/generate",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def check_greedy(net, da, prompt, ids):
+    """Hold served greedy ids against ``streaming_session(capacity,
+    batch=1).generate`` on the plain decode attention. A mismatch passes
+    only at a step where the reference's top two probabilities are
+    within TIE_RTOL of each other (then the comparison stops there).
+    Returns the number of ids compared."""
+    import numpy as np
+    with plain_decode_attention(da):
+        ref = net.streaming_session(capacity=CAPACITY, batch=1).generate(
+            np.asarray(prompt)[None], GEN_TOKENS)[0].cpu().numpy()
+    ids = np.asarray(ids)
+    bad = np.flatnonzero(ids != ref)
+    if bad.size == 0:
+        return ids.size
+    m = int(bad[0])
+    with plain_decode_attention(da):          # the reference at step m
+        sess = net.streaming_session(capacity=CAPACITY, batch=1)
+        probs = sess.step(np.asarray(prompt, np.float32)[None, :, None])
+        for tok in ref[:m]:
+            probs = sess.step(np.full((1, 1, 1), tok, np.float32))
+        top2 = probs[0, -1].double().topk(2).values.cpu().numpy()
+    gap = (top2[0] - top2[1]) / top2[0]
+    assert gap <= TIE_RTOL, (
+        f"served ids part from the reference at step {m} ({ids[m]} vs "
+        f"{ref[m]}), where its top two probabilities are {top2} (relative "
+        f"gap {gap:.3e} > {TIE_RTOL})")
+    log(f"near tie: served ids part from the reference at step {m} "
+        f"({ids[m]} vs {ref[m]}); reference top two probabilities {top2}, "
+        f"relative gap {gap:.3e} <= {TIE_RTOL}; comparison stops there")
+    return m
+
+
+def profile_decode_step(sess, x, active):
+    """Device time of one warm decode step by kernel family, from
+    torch.profiler, and the share of the window the card sat idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.step_slots(x, active)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families, n, host = {}, 0, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((evt.self_cpu_time_total, evt.key, evt.count))
+            continue
+        name = evt.key.lower()
+        fam = ("decode_attention" if "decode_attention_kernel" in name
+               else "gemm" if any(s in name for s in (
+                   "gemm", "gemv", "cutlass", "xmma", "splitk"))
+               else "other")
+        families[fam] = families.get(fam, 0.0) + evt.self_device_time_total
+        n += evt.count
+    busy_ms = sum(families.values()) / 1e3
+    if busy_ms == 0:
+        log("profiler: no device time recorded; breakdown not measured")
+        return
+    log("decode step device time by kernel family (torch.profiler, one warm "
+        f"step at {SLOTS} active slots, {n} kernels): " + ", ".join(
+            f"{k} {v / 1e3:.3f} ms ({100 * v / 1e3 / busy_ms:.1f}%)"
+            for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        + f"; busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
+          f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%")
+    log("decode step host time, heaviest ops by self CPU time (under the "
+        "profiler): " + ", ".join(
+            f"{k} {us / 1e3:.3f} ms x{c}" for us, k, c in
+            sorted(host, reverse=True)[:10]))
+
+
+def time_decode_step(net, da, card):
+    """One decode step at SLOTS active slots near position 512, on the
+    kernel and on the plain decode attention (CUDA events over the step,
+    host clock beside), and its profiler breakdown."""
+    import numpy as np
+    import torch
+    sess = net.paged_slot_streaming_session(capacity=CAPACITY, slots=SLOTS,
+                                            page_size=PAGE)
+    for s in range(SLOTS):
+        # distinct prompts: no prefix sharing; the pages' contents do not
+        # change the step's work
+        sess.bind(s, sess.reserve(np.arange(512) * (s + 1) % V,
+                                  GEN_TOKENS))
+    active = np.ones(SLOTS, bool)
+    x = np.ones((SLOTS, 1, 1), np.float32)
+
+    def step_ms(n=20):
+        sess.slot_pos[:] = 500
+        for _ in range(3):
+            sess.step_slots(x, active)
+        torch.cuda.synchronize()
+        ev, host = [], []
+        for _ in range(n):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            t0.record()
+            sess.step_slots(x, active)
+            t1.record()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - h0) * 1e3)
+            ev.append(t0.elapsed_time(t1))
+        return sorted(ev)[n // 2], sorted(host)[n // 2]
+
+    kernel = step_ms()
+    with plain_decode_attention(da):
+        plain = step_ms()
+    log(f"one decode step at {SLOTS} active slots, positions 503-523, "
+        f"CUDA events (median of 20, {card}): decode kernel {kernel[0]:.3f} "
+        f"ms (host {kernel[1]:.3f} ms), plain decode attention "
+        f"{plain[0]:.3f} ms (host {plain[1]:.3f} ms)")
+    sess.slot_pos[:] = 511
+    profile_decode_step(sess, x, active)
+
+
+def generate_phase(da, card):
+    """Serve the full-width LM through ``/v1/generate``
+    (ModelServer(slots=8, capacity=1024, page_size=16), the default 512
+    pages): GEN_REQUESTS concurrent requests, then two that repeat a
+    finished prompt (prefix-cache hits). Holds greedy ids against the
+    plain-attention reference, counts the decode kernel's launches
+    against the batcher's steps, checks the pages return to what the
+    prefix cache holds, and times the path. Returns the launch count."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(lm_config()),
+                            device="cuda").init(seed=0)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, GEN_REQUESTS)
+    bodies = []
+    for i, n in enumerate(lengths):
+        body = {"model": "lm", "prompt": rng.integers(0, V, n).tolist(),
+                "n_tokens": GEN_TOKENS}
+        if i % 4 == 3:                # 4 of 16 sample at temperature 0.8
+            body.update(temperature=0.8, seed=100 + i)
+        bodies.append(body)
+    repeat = next(b for b in bodies if "temperature" not in b
+                  and len(b["prompt"]) >= 64)
+    registry = ModelRegistry()
+    registry.register("lm", net)
+    server = ModelServer(registry, slots=SLOTS, capacity=CAPACITY,
+                         page_size=PAGE)
+    server.start()
+    try:
+        batcher, _ = server.batcher_for("lm")
+        assert batcher._paged and batcher.session.pages_total() == \
+            SLOTS * CAPACITY // PAGE          # the default pool
+        post_generate(server.port, {"model": "lm", "prompt": [1, 2, 3],
+                                    "n_tokens": 2})       # warm
+        replies = [None] * GEN_REQUESTS
+        lat = [0.0] * GEN_REQUESTS
+        errors = []
+        barrier = threading.Barrier(GEN_REQUESTS)
+
+        def client(i):
+            try:
+                barrier.wait(timeout=60)
+                t = time.perf_counter()
+                replies[i] = post_generate(server.port, bodies[i])
+                lat[i] = time.perf_counter() - t
+            except Exception as e:       # reported and failed below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(GEN_REQUESTS)]
+        batcher.ttft_s.clear()
+        batcher.itl_s.clear()
+        steps0 = batcher.device_steps
+        da.decode_attention_cuda.launches = 0          # main path only
+        t_burst = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t_burst
+        assert not errors, f"requests failed: {errors}"
+        assert not any(th.is_alive() for th in threads), "client hung"
+        ttft, itl = sorted(batcher.ttft_s), sorted(batcher.itl_s)
+        again = [post_generate(server.port, repeat) for _ in range(2)]
+        launches = da.decode_attention_cuda.launches
+        steps = batcher.device_steps - steps0
+        for _ in range(500):          # slots release just after replying
+            if batcher.active_slots() == 0:
+                break
+            time.sleep(0.01)
+        sess = batcher.session
+        cached = {p for chain in sess.prefix_cache._entries.values()
+                  for p in chain}
+        log(f"/v1/generate: {GEN_REQUESTS} concurrent requests (prompts "
+            f"{int(lengths.min())}-{int(lengths.max())} ids, {GEN_TOKENS} "
+            f"tokens each, 4 at temperature 0.8) + 2 repeats; {steps} "
+            f"decode steps, decode_attention launches {launches}; prefix "
+            f"hits {batcher.prefix_hits}; pages in use {sess.pages_in_use()}"
+            f" = {len(cached)} held by the prefix cache")
+        assert all(code == 200 for code, _ in replies + again)
+        assert launches > 0 and launches == LAYERS * steps, (launches, steps)
+        assert batcher.prefix_hits >= 1
+        assert sess.pages_in_use() == len(cached)
+    finally:
+        server.stop(drain=True)
+
+    compared = 0
+    for body, (_, reply) in zip(bodies + [repeat] * 2, replies + again):
+        ids = reply["ids"]
+        assert len(ids) == GEN_TOKENS and all(0 <= t < V for t in ids)
+        if "temperature" not in body:
+            compared += check_greedy(net, da, body["prompt"], ids)
+    n_greedy = sum("temperature" not in b for b in bodies) + 2
+    assert again[0][1]["ids"] == again[1][1]["ids"]
+    log(f"greedy ids vs streaming_session.generate on the plain decode "
+        f"attention: {compared} of {n_greedy * GEN_TOKENS} ids compared "
+        "and equal")
+    log(f"generate latency ({card}): {GEN_REQUESTS * GEN_TOKENS / wall:.1f} "
+        f"generated tokens/s end to end over the burst ({wall:.3f} s); "
+        f"request latency median {sorted(lat)[GEN_REQUESTS // 2]:.3f} s, max "
+        f"{max(lat):.3f} s; time to first token median "
+        f"{ttft[len(ttft) // 2]:.3f} s, max {ttft[-1]:.3f} s; inter-token "
+        f"median {1e3 * itl[len(itl) // 2]:.3f} ms (host clock)")
+    time_decode_step(net, da, card)
+    del net
+    torch.cuda.empty_cache()
+    return launches
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -660,6 +1062,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.ops import decode_attention as da
     from deeplearning4j_tpu_torch.ops import native
 
     card = subprocess.run(
@@ -687,6 +1090,7 @@ def main():
 
     fwd = kernel_phase(attn)
     dq, dkv = backward_kernel_phase(attn)
+    dec = decode_kernel_phase(da)
     # the instantiations the main path launches (D = 64)
     fwd["tensor_core_ops"] = hmma["flash_fwd_kernel<64>"]
     dq["tensor_core_ops"] = hmma["dq_kernel<64>"]
@@ -696,7 +1100,8 @@ def main():
     train_launches = train_phase(attn, card)
     dq["launches"] = train_launches["flash_attention_bwd_dq"]
     dkv["launches"] = train_launches["flash_attention_bwd_dkv"]
-    records = [fwd, dq, dkv]
+    dec["launches"] = generate_phase(da, card)
+    records = [fwd, dq, dkv, dec]
     for record in records:
         assert record["launches"] > 0, record
         for key in ("ms", "plain_ms", "bound_ms", "bound_cuda_core_ms",

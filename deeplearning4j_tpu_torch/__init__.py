@@ -6,7 +6,9 @@ checkpoint zip. It imports torch and numpy, never jax and nothing of
 the JAX package. Entry points take ``device`` (default ``"cuda"``) and
 raise without a card unless ``device="cpu"`` is passed.
 
-Ported so far: the transformer LM's serving path
-(``python -m deeplearning4j_tpu_torch serve``) through the hand-written
-flash-attention forward kernel (``csrc/flash_attention_fwd.cu``).
+Ported so far: the transformer LM's serving (``/v1/predict``), training
+(``fit``) and generate (``/v1/generate``, streaming and paged-KV decode
+sessions) paths, through hand-written CUDA kernels: the flash-attention
+forward and backward (``csrc/flash_attention_{fwd,bwd}.cu``) and the
+paged decode attention (``csrc/decode_attention.cu``).
 """

@@ -1,7 +1,8 @@
 """Command line (counterpart of ``deeplearning4j_tpu/cli.py``). Ported
-so far: ``serve``.
+so far: ``serve`` (``/v1/predict`` and ``/v1/generate``).
 
-    python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080
+    python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
+        --slots 8 --capacity 1024
 """
 
 from __future__ import annotations
@@ -37,10 +38,14 @@ def _cmd_serve(args):
         print(f"registered {name} v{version} from {path} on {args.device}")
     server = ModelServer(registry, port=args.port, host=args.host,
                          max_batch_size=args.max_batch_size,
-                         queue_limit=args.queue_limit, wait_ms=args.wait_ms)
+                         queue_limit=args.queue_limit, wait_ms=args.wait_ms,
+                         slots=args.slots, capacity=args.capacity,
+                         kv_mode=args.kv_mode, page_size=args.page_size,
+                         kv_pages=args.kv_pages)
     server.start()
     print(f"serving on http://{args.host}:{server.port}/ (/v1/predict "
-          f"/v1/models /healthz; ctrl-c drains and stops)", flush=True)
+          f"/v1/generate /v1/models /healthz; ctrl-c drains and stops)",
+          flush=True)
     try:
         while True:
             time.sleep(3600)
@@ -52,8 +57,9 @@ def _cmd_serve(args):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    v = sub.add_parser("serve", help="model-serving HTTP server "
-                                     "(dynamic batching, admission control)")
+    v = sub.add_parser("serve", help="model-serving HTTP server (dynamic "
+                                     "+ continuous batching, admission "
+                                     "control)")
     v.add_argument("--model", action="append", required=True,
                    metavar="[NAME=]PATH",
                    help="model zip to host; repeatable; NAME defaults to "
@@ -69,6 +75,22 @@ def main(argv=None):
                    help="pending requests before load-shed (429)")
     v.add_argument("--wait-ms", type=float, default=2.0,
                    help="batch collection window")
+    v.add_argument("--slots", type=int, default=4,
+                   help="continuous-batching KV-cache slots")
+    v.add_argument("--capacity", type=int, default=256,
+                   help="max prompt+generated tokens per request")
+    v.add_argument("--kv-mode", choices=("auto", "paged", "dense"),
+                   default="auto",
+                   help="decode KV cache: 'paged' = refcounted page pool + "
+                        "prefix cache (slot count bounded by memory), "
+                        "'dense' = per-slot capacity rows, 'auto' pages "
+                        "every model that has no recurrent state")
+    v.add_argument("--page-size", type=int, default=16,
+                   help="tokens per KV page (paged mode)")
+    v.add_argument("--kv-pages", type=int, default=None,
+                   help="total pages in the pool (default: memory parity "
+                        "with the dense session, "
+                        "slots * ceil(capacity/page_size))")
     v.set_defaults(fn=_cmd_serve)
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,1 +1,2 @@
-"""Executors (ported so far: MultiLayerNetwork inference)."""
+"""Executors (ported so far: MultiLayerNetwork inference and training)
+and the streaming, paged-KV and speculative decode sessions."""

@@ -14,7 +14,11 @@ Training is the JAX package's ``_train_core`` written eagerly: the loss
 (``nn/conf/updaters.py``, optax's rules and state layout, per-layer
 overrides and ``gradient_clip``), then the layer constraints. The
 parameters are updated in place. ``output`` runs under
-``torch.inference_mode``. Not ported yet (ROADMAP queue A7): tBPTT,
+``torch.inference_mode``. ``rnn_time_step`` and the streaming
+sessions (``streaming_session``, ``slot_streaming_session``,
+``paged_slot_streaming_session``) decode token by token over KV caches
+(``models/streaming.py``, ``models/paged_kv.py``). Not ported yet
+(ROADMAP queue A7): tBPTT,
 k-step fusion, AOT warmup, listeners, health and meshes; asking for
 them raises ``NotImplementedError``.
 """
@@ -94,6 +98,7 @@ class MultiLayerNetwork(nn.Module):
         self.score_value: object = float("nan")
         self._optimizer: Optional[updaters_mod.Transform] = None
         self._generator: Optional[torch.Generator] = None
+        self._rnn_state: Optional[list] = None
 
     # ---- parameters ----
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
@@ -301,6 +306,74 @@ class MultiLayerNetwork(nn.Module):
         with torch.no_grad():
             loss, _ = self._loss(self._batch_tuple(ds), training=False)
         return float(loss)
+
+    # ---- stateful streaming inference (reference rnnTimeStep) ----
+    def rnn_time_step(self, x) -> torch.Tensor:
+        """Feed the next (B, C) step or (B, t, C) chunk and return the
+        output for it, carrying each attention layer's KV cache (grown by
+        concatenation) to the next call. Recurrent layers are not ported
+        yet (ROADMAP A5)."""
+        if self.params is None:
+            self.init()
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        x = torch.as_tensor(x, device=self.device)
+        squeeze = x.dim() == 2
+        if squeeze:                      # (B, C) -> one timestep
+            x = x[:, None, :]
+        if self._rnn_state is None:
+            self._rnn_state = [None] * len(self.layers)
+        params = self.params
+        h = x
+        with torch.inference_mode():
+            for i, layer in enumerate(self.layers):
+                if hasattr(layer, "apply_stream"):
+                    h, self._rnn_state[i] = layer.apply_stream(
+                        params[i], self._rnn_state[i], h)
+                else:
+                    h, _ = layer.apply(params[i], self.state[i], h,
+                                       training=False)
+        if squeeze and h.dim() == 3:
+            h = h[:, -1, :]
+        return h
+
+    def rnn_clear_previous_state(self):
+        self._rnn_state = None
+
+    def streaming_session(self, capacity: int, batch: int):
+        """Bounded-cache streaming inference: the counterpart of the
+        eager ``rnn_time_step`` with fixed-capacity KV caches updated in
+        place (see models/streaming.py). ``capacity`` is the longest
+        sequence the session can stream before ``reset()``."""
+        from deeplearning4j_tpu_torch.models.streaming import (
+            StreamingSession)
+        if self.params is None:
+            self.init()
+        return StreamingSession(self, capacity, batch)
+
+    def slot_streaming_session(self, capacity: int, slots: int):
+        """Per-slot-position streaming session for continuous batching:
+        each of the ``slots`` rows is an independent decode stream (see
+        ``serving.continuous.ContinuousBatcher``)."""
+        from deeplearning4j_tpu_torch.models.streaming import (
+            SlotStreamingSession)
+        if self.params is None:
+            self.init()
+        return SlotStreamingSession(self, capacity, slots)
+
+    def paged_slot_streaming_session(self, capacity: int, slots: int,
+                                     page_size: int = 16, n_pages=None):
+        """Paged-KV continuous-batching session: per-slot page tables
+        into one refcounted page pool, so concurrent slot count is
+        bounded by total KV memory (``n_pages * page_size`` tokens),
+        plus prompt-prefix sharing between slots (see
+        ``models/paged_kv.py``)."""
+        from deeplearning4j_tpu_torch.models.paged_kv import (
+            PagedSlotSession)
+        if self.params is None:
+            self.init()
+        return PagedSlotSession(self, slots=slots, capacity=capacity,
+                                page_size=page_size, n_pages=n_pages)
 
     def set_listeners(self, *listeners):
         raise NotImplementedError(f"training listeners {_NOT_PORTED}")

@@ -4,10 +4,17 @@ self-attention on the flash-attention forward (``ops/attention.py``:
 the CUDA kernel on the card, its plain version on the CPU) and the
 pre-LN transformer block.
 
-Ported so far: the full-sequence ``apply`` of both layers, for
-inference and training (the attention is differentiable through the
-backward kernels). The sequence-parallel branches and the streaming /
-decode methods are not ported yet.
+Ported: the full-sequence ``apply`` of both layers, for inference and
+training (the attention is differentiable through the backward
+kernels), and the streaming / decode methods: the eager
+``apply_stream`` (a cache grown by concatenation, for
+``rnn_time_step``), the fixed-capacity ``zero_stream_cache`` /
+``apply_stream_bounded`` and the paged ``zero_page_pool`` /
+``apply_stream_paged``. Every decode method writes the new k/v into its
+cache in place and attends through ``ops/decode_attention.py`` (the
+paged decode kernel on the card): a dense cache is the paged call with
+one page per row. Positions are host data, as in the sessions that own
+them. The sequence-parallel branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +31,39 @@ from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
     layer_norm)
 
 __all__ = ["SelfAttentionLayer", "TransformerEncoderLayer"]
+
+
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor on ``device``; to a card through pinned memory and
+    without a sync, so a step's small index uploads do not stall it."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+def _row_table(n: int, device) -> torch.Tensor:
+    """The page table of a dense cache: row b is page b."""
+    return torch.arange(n, dtype=torch.int32, device=device)[:, None]
+
+
+def _write_kv(cache, table, pos, k, v) -> None:
+    """Write the t new keys/values of every row s at positions
+    ``pos[s] .. pos[s] + t - 1`` of its virtual cache (page
+    ``table[s, p // page_size]``, offset ``p % page_size``), IN PLACE:
+    the counterpart of the JAX session's donated buffers
+    (``dynamic_update_slice`` / ``.at[page_ids, offs].set``), so a step
+    moves O(t) cache bytes and never copies the cache. Rows written by
+    several slots at once (inactive slots all on the scratch page) keep
+    one of the writes, as in JAX."""
+    S, t = k.shape[:2]
+    ps = cache["k"].shape[1]
+    wpos = (_to_device(pos.long(), k.device)[:, None]
+            + torch.arange(t, device=k.device)[None, :])          # (S, t)
+    pages = table.long().gather(1, torch.div(wpos, ps,
+                                             rounding_mode="floor"))
+    offs = torch.remainder(wpos, ps)
+    cache["k"][pages, offs] = k
+    cache["v"][pages, offs] = v
 
 
 @register_layer
@@ -75,7 +115,6 @@ class SelfAttentionLayer(BaseLayer):
         from deeplearning4j_tpu_torch.ops.attention import flash_attention
         x = self.apply_input_dropout(x, training=training,
                                      generator=generator)
-        B, T, _ = x.shape
         q, k, v = self._project_qkv(params, x)
         if mask is not None:
             out = flash_attention(q, k, v, causal=self.causal,
@@ -83,12 +122,11 @@ class SelfAttentionLayer(BaseLayer):
             out = out * mask[:, :, None, None].to(out.dtype)
         else:
             out = flash_attention(q, k, v, causal=self.causal)
-        proj = out.reshape(B, T, self.n_out) @ params["Wo"]
-        if self.out_bias:
-            proj = proj + params["bo"]
-        return proj, state
+        return self._out_proj(params, out), state
 
     def _project_qkv(self, params, x):
+        """The shared q/k/v projection and head split: one
+        implementation for apply and every streaming method."""
         B, T, _ = x.shape
         H = self.n_heads
         Dh = self.n_out // H
@@ -101,6 +139,93 @@ class SelfAttentionLayer(BaseLayer):
             v = v + params["bv"]
         return (q.reshape(B, T, H, Dh), k.reshape(B, T, H, Dh),
                 v.reshape(B, T, H, Dh))
+
+    def _out_proj(self, params, out):
+        B, T = out.shape[:2]
+        proj = out.reshape(B, T, self.n_out) @ params["Wo"]
+        if self.out_bias:
+            proj = proj + params["bo"]
+        return proj
+
+    def _require_causal(self, method: str) -> None:
+        if not self.causal:
+            raise ValueError(
+                f"{method} requires causal=True: streaming non-causal "
+                "attention would need future timesteps — use output() on "
+                "the full sequence instead")
+
+    # ---- stateful streaming inference (rnnTimeStep contract): the
+    #      attention analog of a recurrent carry is the KV cache ----
+    def apply_stream(self, params, cache, x):
+        """Incremental decode: ``x`` is the NEW (B, t, C) chunk;
+        ``cache`` holds the k/v history (None at sequence start).
+        Returns (out, new_cache); feeding chunks sequentially equals one
+        full-sequence causal forward. The eager path: the cache grows by
+        concatenation, no static length."""
+        self._require_causal("apply_stream")
+        q, k, v = self._project_qkv(params, x)
+        if cache is None:
+            n_cached = 0
+            k_full, v_full = k, v
+        else:
+            n_cached = cache["k"].shape[1]
+            k_full = torch.cat([cache["k"], k], dim=1)
+            v_full = torch.cat([cache["v"], v], dim=1)
+        out = _stream_attention(q, k_full, v_full, n_cached)
+        return self._out_proj(params, out), {"k": k_full, "v": v_full}
+
+    def zero_stream_cache(self, batch: int, capacity: int, device="cpu"):
+        """A fixed-capacity float32 {'k', 'v'} cache, (batch, capacity,
+        H, Dh) each: two distinct buffers, written in place."""
+        H = self.n_heads
+        Dh = self.n_out // H
+        return {"k": torch.zeros((batch, capacity, H, Dh),
+                                 dtype=torch.float32, device=device),
+                "v": torch.zeros((batch, capacity, H, Dh),
+                                 dtype=torch.float32, device=device)}
+
+    def apply_stream_bounded(self, params, cache, x, pos):
+        """One decode step over a fixed-capacity cache: ``x`` is the new
+        (B, t, C) chunk, ``cache`` a {'k', 'v'} of (B, CAP, H, Dh),
+        ``pos`` the count of valid cached tokens (an int, or one per row:
+        the slot session's per-slot positions), host data. Writes the
+        chunk at [pos, pos + t) in place and attends the new queries over
+        the cache: query i (global pos + i) sees keys k_pos <= pos + i,
+        which hides unwritten and stale positions and in-chunk future
+        tokens. Returns (out, cache); the caller advances pos and keeps
+        pos + t <= CAP."""
+        self._require_causal("apply_stream_bounded")
+        table = _row_table(x.shape[0], x.device)
+        return self.apply_stream_paged(params, cache, table, pos, x)
+
+    # ---- paged (block) KV cache: one physical pool of fixed-size pages
+    #      per layer; each slot sees a VIRTUAL contiguous cache through
+    #      its page table (models/paged_kv.py) ----
+    def zero_page_pool(self, n_pages: int, page_size: int, device="cpu"):
+        """Physical page pool for this layer: ``zero_stream_cache`` with
+        (batch, capacity) = (n_pages, page_size); a page IS a
+        page_size-token cache row."""
+        return self.zero_stream_cache(n_pages, page_size, device)
+
+    def apply_stream_paged(self, params, pool, table, pos, x):
+        """One decode step over paged caches for ALL slots at once.
+        ``x`` is the new (S, t, C) chunk (one row per slot), ``pool``
+        the physical {'k', 'v'} pages of (n_pages, page_size, H, Dh),
+        ``table`` the (S, P) per-slot page table (a tensor on x's
+        device), ``pos`` the (S,) per-slot positions (host data). Writes
+        each slot's new k/v at its (page, offset) in place (written
+        pages are slot-exclusive; shared prefix pages are read-only and
+        diverge by copy-on-write at admission, host-side), then attends
+        each slot's queries over its virtual cache of P * page_size
+        positions. Returns (out, pool)."""
+        self._require_causal("apply_stream_paged")
+        from deeplearning4j_tpu_torch.ops.decode_attention import (
+            decode_attention, host_positions)
+        q, k, v = self._project_qkv(params, x)
+        pos = host_positions(pos, x.shape[0])
+        _write_kv(pool, table, pos, k, v)
+        out = decode_attention(q, pool["k"], pool["v"], table, pos)
+        return self._out_proj(params, out), pool
 
 
 @register_layer
@@ -160,7 +285,58 @@ class TransformerEncoderLayer(BaseLayer):
                                          training=training,
                                          generator=generator, mask=mask)
         x = x + a
+        return x + self._mlp_half(params, x), state
+
+    def _mlp_half(self, params, x):
+        """Pre-LN MLP residual branch, shared by apply and every
+        streaming method (per token, so streaming needs no carry)."""
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         act = self.activation_fn()
-        return x + act(h @ params["W1"] + params["b1"]) @ params["W2"] \
-            + params["b2"], state
+        return act(h @ params["W1"] + params["b1"]) @ params["W2"] \
+            + params["b2"]
+
+    def _stream_block(self, params, x, attend):
+        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+        a, carry = attend(self._ensure_attn(), params["attn"], h)
+        x = x + a
+        return x + self._mlp_half(params, x), carry
+
+    def apply_stream(self, params, cache, x):
+        """Incremental decode through the block: the inner attention
+        carries the KV cache (see SelfAttentionLayer.apply_stream)."""
+        return self._stream_block(
+            params, x, lambda attn, p, h: attn.apply_stream(p, cache, h))
+
+    def zero_stream_cache(self, batch: int, capacity: int, device="cpu"):
+        return self._ensure_attn().zero_stream_cache(batch, capacity,
+                                                     device)
+
+    def apply_stream_bounded(self, params, cache, x, pos):
+        """Bounded-cache decode step through the block (see
+        SelfAttentionLayer.apply_stream_bounded)."""
+        return self._stream_block(
+            params, x,
+            lambda attn, p, h: attn.apply_stream_bounded(p, cache, h, pos))
+
+    def zero_page_pool(self, n_pages: int, page_size: int, device="cpu"):
+        return self._ensure_attn().zero_page_pool(n_pages, page_size,
+                                                  device)
+
+    def apply_stream_paged(self, params, pool, table, pos, x):
+        """Paged-cache decode step through the block (see
+        SelfAttentionLayer.apply_stream_paged)."""
+        return self._stream_block(
+            params, x,
+            lambda attn, p, h: attn.apply_stream_paged(p, pool, table, pos,
+                                                       h))
+
+
+def _stream_attention(q, k_full, v_full, n_cached: int):
+    """Attention of the NEW chunk's queries over the full cached + new
+    history, causal within the chunk: new position i (global n_cached +
+    i) sees keys [0, n_cached + i]. The history is a dense cache: one
+    page per row, so it goes through the same decode attention."""
+    from deeplearning4j_tpu_torch.ops.decode_attention import (
+        decode_attention)
+    return decode_attention(q, k_full, v_full,
+                            _row_table(q.shape[0], q.device), n_cached)

@@ -1,0 +1,186 @@
+"""Paged decode attention: a hand-written CUDA kernel and its plain
+PyTorch version.
+
+The one attention function of every decode path in the port: the
+batcher's step (t = 1), the speculative verify chunk (t = k), streaming
+prefill chunks (t = T0) and the eager ``rnn_time_step``. A dense cache
+is the same call with ``page_size = capacity`` and ``table =
+arange(B)[:, None]``.
+
+Inputs: ``q`` (S, t, H, Dh) float32; ``k_pool``, ``v_pool`` (N,
+page_size, H, Dh) float32; ``table`` (S, P) integer page ids; ``pos``
+(S,) the global position of each slot's first new query, on the HOST
+(the sessions keep positions on the host; the kernel takes them by
+value, so checking them costs no device sync). For slot s, query i,
+head h::
+
+    o[s, i, h] = softmax_j(q . k_j * Dh^-0.5) . v_j,  j <= pos[s] + i
+
+with key j at ``k_pool[table[s, j // page_size], j % page_size, h]``.
+That is the JAX package's masked full-capacity softmax
+(``SelfAttentionLayer.apply_stream_paged`` / ``apply_stream_bounded``,
+``_stream_attention``): a masked logit there is -1e30 and exp(-1e30 -
+max) == 0 in f32, so reading only the live keys changes nothing.
+
+It replaces no Pallas kernel but the XLA einsums of those methods; the
+kernel is ``csrc/decode_attention.cu``, which states its design and
+bound. Dispatch: a CPU tensor goes to the plain version, a CUDA tensor
+to the kernel or an error. There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+__all__ = ["decode_attention", "decode_attention_cuda",
+           "decode_attention_plain", "host_positions"]
+
+_NEG_INF = -1e30
+_HEAD_DIMS = (32, 64, 128)
+_MAX_SLOTS = 512        # positions a launch carries (kMaxSlots)
+
+
+def host_positions(pos, n: int) -> torch.Tensor:
+    """``pos`` (an int for every row, or n of them: a sequence, numpy
+    array or CPU tensor) as a contiguous (n,) int32 CPU tensor."""
+    if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
+        raise ValueError("decode positions are host data; got a tensor on "
+                         f"{pos.device} (pass the session's host copy)")
+    p = np.asarray(pos.numpy() if isinstance(pos, torch.Tensor) else pos)
+    if p.ndim == 0:
+        p = np.full((n,), int(p))
+    if p.shape != (n,):
+        raise ValueError(f"pos must be a scalar or ({n},), got {p.shape}")
+    if p.dtype.kind not in "iu":
+        raise TypeError(f"pos must be integer, got {p.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(p, dtype=np.int32))
+
+
+def _check(q, k_pool, v_pool, table, pos):
+    """Shapes, dtypes, devices and positions; returns pos as host
+    int32."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (S, t, H, Dh), got {tuple(q.shape)}")
+    S, t, H, D = q.shape
+    if S > _MAX_SLOTS:
+        raise ValueError(f"{S} slots exceed the {_MAX_SLOTS} one call "
+                         "carries")
+    for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if p.dim() != 4 or p.shape[2:] != (H, D):
+            raise ValueError(f"{name} must be (N, page_size, {H}, {D}), "
+                             f"got {tuple(p.shape)}")
+        if p.device != q.device:
+            raise ValueError(f"{name} is on {p.device}, q on {q.device}")
+    if k_pool.shape != v_pool.shape:
+        raise ValueError(f"k_pool {tuple(k_pool.shape)} and v_pool "
+                         f"{tuple(v_pool.shape)} differ")
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 (the only dtype "
+                            f"ported so far), got {x.dtype}")
+    if table.dim() != 2 or table.shape[0] != S:
+        raise ValueError(f"table must be ({S}, P), got {tuple(table.shape)}")
+    if table.dtype.is_floating_point or table.dtype == torch.bool:
+        raise TypeError(f"table must hold integer page ids, got "
+                        f"{table.dtype}")
+    if table.device != q.device:
+        raise ValueError(f"table is on {table.device}, q on {q.device}")
+    pos = host_positions(pos, S)
+    span = table.shape[1] * k_pool.shape[1]
+    if S and t and (int(pos.min()) < 0 or int(pos.max()) + t > span):
+        raise ValueError(
+            f"positions [{int(pos.min())}, {int(pos.max())}] + t={t} leave "
+            f"the page table's {table.shape[1]} x {k_pool.shape[1]} = "
+            f"{span} positions")
+    return pos
+
+
+def decode_attention_plain(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, the JAX step written out:
+    gather each slot's virtual cache (S, P * page_size, H, Dh), einsum,
+    ``where(k_pos <= q_pos, ., -1e30)``, softmax, einsum."""
+    pos = _check(q, k_pool, v_pool, table, pos)
+    S, t, H, D = q.shape
+    ps = k_pool.shape[1]
+    table = table.long()
+    P = table.shape[1]
+    k = k_pool[table].reshape(S, P * ps, H, D)
+    v = v_pool[table].reshape(S, P * ps, H, D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (D ** -0.5)
+    k_pos = torch.arange(P * ps, device=q.device)[None, None, :]
+    q_pos = (pos.to(q.device).long()[:, None]
+             + torch.arange(t, device=q.device)[None, :])[:, :, None]
+    logits = torch.where((k_pos <= q_pos)[:, None], logits,
+                         torch.full((), _NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _entry():
+    from deeplearning4j_tpu_torch.ops import native
+    fn = native.load("decode_attention").dl4j_decode_attention_f32
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = ([ptr] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ptr])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_attention_cuda(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+    """Launch ``csrc/decode_attention.cu`` once on q's current stream.
+    Returns o (S, t, H, Dh).
+    ``decode_attention_cuda.launches`` counts the launches."""
+    pos = _check(q, k_pool, v_pool, table, pos)
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    S, t, H, D = q.shape
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of the kernel's "
+                         f"{_HEAD_DIMS}")
+    for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
+        # the pools are written in place by the sessions: never copied
+        if not p.is_contiguous() or p.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    q = q.contiguous()
+    if q.data_ptr() % 16:
+        # a contiguous view at an odd offset: the kernel reads q with
+        # 16-byte loads, and a misaligned one would fault the context
+        q = q.clone()
+    table = table.to(torch.int32).contiguous()
+    o = torch.empty((S, t, H, D), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o
+    fn = _entry()
+    P, ps = table.shape[1], k_pool.shape[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 table.data_ptr(), pos.data_ptr(), o.data_ptr(), S, t, H, D,
+                 ps, P, 1.0 / math.sqrt(D), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: "
+                           f"cudaError {err}")
+    decode_attention_cuda.launches += 1
+    return o
+
+
+decode_attention_cuda.launches = 0
+
+
+def decode_attention(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+    """(S, t, H, Dh) q over paged (N, page_size, H, Dh) k/v pools ->
+    (S, t, H, Dh). CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if q.device.type == "cuda":
+        return decode_attention_cuda(q, k_pool, v_pool, table, pos)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_pool, v_pool, table, pos)
+    raise ValueError(f"decode attention runs on cuda or cpu, not "
+                     f"{q.device}")

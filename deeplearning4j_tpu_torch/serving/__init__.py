@@ -1,1 +1,2 @@
-"""Serving: registry, dynamic-batching scheduler, HTTP front end."""
+"""Serving: registry, dynamic-batching scheduler, continuous batcher,
+HTTP front end."""

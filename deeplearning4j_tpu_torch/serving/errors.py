@@ -1,12 +1,15 @@
 """Typed serving errors (counterpart of
-``deeplearning4j_tpu/serving/errors.py``; the subset the predict path
-raises). The HTTP layer maps them to status codes: QueueFullError ->
-429, DeadlineExceededError -> 504, ModelNotFoundError -> 404,
+``deeplearning4j_tpu/serving/errors.py``; the subset the predict and
+generate paths raise). The HTTP layer maps them to status codes:
+QueueFullError (and KVPagePoolExhaustedError) -> 429,
+DeadlineExceededError -> 504, ModelNotFoundError -> 404,
 ServerClosedError -> 503. ``retry_after_s`` becomes a Retry-After
 header on 429/503."""
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
-           "ModelNotFoundError", "ServerClosedError"]
+           "ModelNotFoundError", "ServerClosedError",
+           "KVPagePoolExhaustedError", "KVLeaseError",
+           "KVLeaseCorruptError", "KVLeaseVersionError"]
 
 
 class ServingError(RuntimeError):
@@ -26,6 +29,16 @@ class QueueFullError(ServingError):
     its limit. Back off and retry (429)."""
 
 
+class KVPagePoolExhaustedError(QueueFullError):
+    """The paged KV allocator has no free pages for this reservation
+    (models/paged_kv.py), with a ``retry_after_s`` hint scaled to the
+    shortfall: 429 + Retry-After for callers driving sessions directly.
+    ``ContinuousBatcher`` absorbs it at slotting time (the request stays
+    pending with its deadline enforced, since active decodes free pages
+    on their own); a request whose worst case exceeds the WHOLE pool is
+    a client error instead (ValueError at submit)."""
+
+
 class DeadlineExceededError(ServingError):
     """The request's deadline expired before its batch was served; the
     work was never started (504)."""
@@ -40,3 +53,20 @@ class ModelNotFoundError(ServingError, KeyError):
 
 class ServerClosedError(ServingError):
     """The scheduler/server is draining or shut down (503)."""
+
+
+class KVLeaseError(ServingError):
+    """A serialized KV lease (``PagedSlotSession.export_lease``) could
+    not be imported: the blob itself is bad, so sending it elsewhere
+    cannot help."""
+
+
+class KVLeaseCorruptError(KVLeaseError):
+    """The lease blob failed its integrity checks (bad magic, truncated
+    payload, CRC mismatch)."""
+
+
+class KVLeaseVersionError(KVLeaseError):
+    """The lease blob's schema does not match this session: wire version
+    skew, another ``page_size``, or per-layer pool shapes of another
+    model."""

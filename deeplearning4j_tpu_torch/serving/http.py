@@ -1,8 +1,12 @@
-"""Stdlib HTTP front end for the predict path (counterpart of
-``deeplearning4j_tpu/serving/http.py``).
+"""Stdlib HTTP front end for the predict and generate paths
+(counterpart of ``deeplearning4j_tpu/serving/http.py``).
 
 - ``POST /v1/predict``  {"model", "version"?, "inputs", "timeout_ms"?}
   -> {"outputs", "model_version"}
+- ``POST /v1/generate`` {"model", "version"?, "prompt", "n_tokens"?,
+  "temperature"?, "seed"?, "timeout_ms"?} -> {"ids", "model_version"}
+  (continuous batching over paged KV decode sessions, serving/
+  continuous.py)
 - ``GET  /v1/models``   -> {"models": registry listing}
 - ``GET  /healthz``     -> {"status": "ok" | "draining", "models"}
 
@@ -11,8 +15,8 @@ QueueFullError -> 429, DeadlineExceededError -> 504,
 ModelNotFoundError -> 404, ServerClosedError (draining) -> 503, a bad
 body -> 400, anything else -> 500. ``stop(drain=True)`` refuses new
 work, completes queued and in-flight requests, then stops the listener.
-``/v1/generate``, ``/metrics``, tracing, retrieval, the KV endpoints
-and the fleet are not ported yet.
+``/metrics``, tracing, retrieval, the KV endpoints and the fleet are
+not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from urllib.parse import urlparse
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.serving.continuous import ContinuousBatcher
 from deeplearning4j_tpu_torch.serving.errors import (DeadlineExceededError,
                                                      ModelNotFoundError,
                                                      QueueFullError,
@@ -51,44 +56,78 @@ def _retry_after_header(seconds: float) -> str:
 
 
 class ModelServer:
-    """Registry + per-(model, version) schedulers behind one HTTP
-    listener. Schedulers are created on first use."""
+    """Registry + per-(model, version) schedulers (predict) and
+    continuous batchers (generate) behind one HTTP listener, created on
+    first use. ``slots``, ``capacity``, ``kv_mode``, ``page_size`` and
+    ``kv_pages`` configure the batchers (``ContinuousBatcher``)."""
 
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  port: int = 0, host: str = "127.0.0.1",
                  max_batch_size: int = 32, queue_limit: int = 256,
-                 wait_ms: float = 2.0):
+                 wait_ms: float = 2.0, slots: int = 4,
+                 capacity: int = 256, kv_mode: str = "auto",
+                 page_size: int = 16, kv_pages: Optional[int] = None):
         self.registry = registry or ModelRegistry()
         self.host = host
         self.port = port
         self.max_batch_size = max_batch_size
         self.queue_limit = queue_limit
         self.wait_ms = wait_ms
+        self.slots = slots
+        self.capacity = capacity
+        self.kv_mode = kv_mode
+        self.page_size = page_size
+        self.kv_pages = kv_pages
         self.drain_retry_after_s = 2.0
         self._schedulers: Dict[Tuple[str, int], BatchScheduler] = {}
+        self._batchers: Dict[Tuple[str, int], ContinuousBatcher] = {}
         self._lock = threading.Lock()
         self._draining = threading.Event()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
     # ---- backends ----
-    def scheduler_for(self, name: str, version: Optional[int] = None
-                      ) -> Tuple[BatchScheduler, int]:
-        """(scheduler, served version): the single resolution point for
-        a predict request."""
-        model, version = self.registry.resolve(name, version)
+    def _get_or_create(self, table, key, make):
         with self._lock:
             if self._draining.is_set():
                 raise ServerClosedError(
                     "server is draining; not creating new backends",
                     retry_after_s=self.drain_retry_after_s)
-            s = self._schedulers.get((name, version))
-            if s is None:
-                s = self._schedulers[(name, version)] = BatchScheduler(
-                    model, max_batch_size=self.max_batch_size,
-                    queue_limit=self.queue_limit, wait_ms=self.wait_ms,
-                    name=f"predict/{name}/v{version}")
+            b = table.get(key)
+            if b is None:
+                b = table[key] = make()
+        return b
+
+    def scheduler_for(self, name: str, version: Optional[int] = None
+                      ) -> Tuple[BatchScheduler, int]:
+        """(scheduler, served version): the single resolution point for
+        a predict request."""
+        model, version = self.registry.resolve(name, version)
+        s = self._get_or_create(
+            self._schedulers, (name, version),
+            lambda: BatchScheduler(
+                model, max_batch_size=self.max_batch_size,
+                queue_limit=self.queue_limit, wait_ms=self.wait_ms,
+                name=f"predict/{name}/v{version}"))
         return s, version
+
+    def batcher_for(self, name: str, version: Optional[int] = None
+                    ) -> Tuple[ContinuousBatcher, int]:
+        """(batcher, served version): the resolution point for a
+        generate request."""
+        model, version = self.registry.resolve(name, version)
+        if not hasattr(model, "slot_streaming_session"):
+            raise ServingError(
+                f"model {name!r} does not support streaming generation "
+                "(no slot_streaming_session)")
+        b = self._get_or_create(
+            self._batchers, (name, version),
+            lambda: ContinuousBatcher(
+                model, slots=self.slots, capacity=self.capacity,
+                queue_limit=self.queue_limit,
+                name=f"generate/{name}/v{version}", kv_mode=self.kv_mode,
+                page_size=self.page_size, kv_pages=self.kv_pages))
+        return b, version
 
     # ---- endpoint handlers (also the in-process API) ----
     def health_payload(self) -> dict:
@@ -109,6 +148,21 @@ class ModelServer:
         out = sched.predict(x, timeout=None if t is None
                             else float(t) / 1e3)
         return {"outputs": out.tolist(), "model_version": version}
+
+    def handle_generate(self, body: dict) -> dict:
+        if not isinstance(body, dict) or "model" not in body \
+                or "prompt" not in body:
+            raise ValueError('generate body needs "model" and "prompt"')
+        batcher, version = self.batcher_for(body["model"],
+                                            body.get("version"))
+        t = body.get("timeout_ms")
+        ids = batcher.generate(
+            np.asarray(body["prompt"], np.int64),
+            int(body.get("n_tokens", 16)),
+            temperature=float(body.get("temperature", 0.0)),
+            seed=int(body.get("seed", 0)),
+            timeout=None if t is None else float(t) / 1e3)
+        return {"ids": np.asarray(ids).tolist(), "model_version": version}
 
     # ---- HTTP plumbing ----
     def start(self) -> "ModelServer":
@@ -141,7 +195,10 @@ class ModelServer:
                     self._send(404, {"error": "not found"})
 
             def do_POST(self):
-                if urlparse(self.path).path != "/v1/predict":
+                handler = {"/v1/predict": server.handle_predict,
+                           "/v1/generate": server.handle_generate}.get(
+                               urlparse(self.path).path)
+                if handler is None:
                     self._send(404, {"error": "not found"})
                     return
                 if server._draining.is_set():
@@ -162,7 +219,7 @@ class ModelServer:
                     self._send(400, {"error": f"bad request body: {e}"})
                     return
                 try:
-                    self._send(200, server.handle_predict(body))
+                    self._send(200, handler(body))
                 except Exception as e:
                     code = next((c for cls, c in _STATUS
                                  if isinstance(e, cls)), 500)
@@ -196,12 +253,15 @@ class ModelServer:
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
-        """Refuse new work, let every scheduler complete its queued and
-        in-flight requests (concurrently), then stop the listener."""
+        """Refuse new work, let every scheduler and batcher complete its
+        queued and in-flight requests (concurrently), then stop the
+        listener."""
         self._draining.set()
         with self._lock:
-            backends = list(self._schedulers.values())
+            backends = (list(self._schedulers.values())
+                        + list(self._batchers.values()))
             self._schedulers.clear()
+            self._batchers.clear()
         oks: Dict[int, bool] = {}
         threads = [threading.Thread(
             target=lambda i=i, b=b: oks.__setitem__(

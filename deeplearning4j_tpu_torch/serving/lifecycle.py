@@ -1,8 +1,8 @@
 """Backend lifecycle: bounded admission, waitable requests, deadlines,
-graceful drain (counterpart of the part of
-``deeplearning4j_tpu/serving/lifecycle.py`` that ``BatchScheduler``
-stands on). Priority tiers, circuit breakers, chaos sites and tracing
-are not ported yet.
+crash containment, graceful drain (counterpart of the part of
+``deeplearning4j_tpu/serving/lifecycle.py`` that ``BatchScheduler`` and
+``ContinuousBatcher`` stand on). Priority tiers, circuit breakers, chaos
+sites, metrics and tracing are not ported yet (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -37,8 +37,10 @@ class BaseRequest:
 
 class ServingBackend:
     """Queue + worker-thread lifecycle. Subclasses implement ``_loop``
-    and call ``_start_worker`` once constructed. When the worker exits,
-    cleanly or not, every request it never completed fails with
+    and call ``_start_worker`` once constructed. A crash of the loop
+    fails the work it held in flight with the crash error and restarts
+    the loop (after a bounded backoff) for the work still queued. When
+    the worker exits, every request it never completed fails with
     ServerClosedError, so no caller stays blocked."""
 
     def __init__(self, kind: str, name: str, queue_limit: int):
@@ -55,11 +57,28 @@ class ServingBackend:
         self._worker.start()
 
     def _run(self) -> None:
+        crashes = 0
         try:
-            self._loop()
-        except Exception:
-            logger.exception("%r worker died; failing its open requests",
-                             self.name)
+            while True:
+                try:
+                    self._loop()
+                    break                          # clean stop
+                except Exception as e:
+                    # the work the crashed loop held in flight fails with
+                    # the crash error; queued work survives the restart
+                    for r in self._crash_casualties():
+                        self._deliver_failure(r, e)
+                    if self._stop.is_set():
+                        break
+                    # bounded backoff: a persistent failure must not
+                    # become a hot crash/restart spin
+                    delay = min(2.0, 0.05 * (2.0 ** min(crashes, 6)))
+                    crashes += 1
+                    logger.warning("%r worker restarting after crash "
+                                   "(%.2fs backoff): %r", self.name, delay,
+                                   e, exc_info=e)
+                    if self._stop.wait(delay):
+                        break
         finally:
             self._stop.set()
             self._sweep_leftovers(self._abort_inflight())
@@ -71,6 +90,11 @@ class ServingBackend:
         """Every uncompleted request the subclass holds outside the
         queue; called once at worker exit."""
         return []
+
+    def _crash_casualties(self) -> List[BaseRequest]:
+        """The requests that die with a worker crash: only work actually
+        in flight. Defaults to everything the subclass holds."""
+        return self._abort_inflight()
 
     # ---- admission ----
     def _admit_guard(self) -> None:
@@ -104,11 +128,16 @@ class ServingBackend:
         r.error = err
         r.event.set()
 
-    def _fail_expired(self, r: BaseRequest) -> None:
+    def _fail_expired(self, r: BaseRequest,
+                      detail: Optional[str] = None) -> None:
+        """Deadline expiry for work that never started: one
+        implementation for the scheduler's queue sweep and the
+        batcher's pending sweep."""
         self._deliver_failure(r, DeadlineExceededError(
             f"request deadline expired after "
             f"{time.monotonic() - r.t_submit:.3f}s in the {self.name!r} "
-            "queue (work was never started)"))
+            "queue (work was never started)" if detail is None
+            else detail))
 
     def wait(self, r: BaseRequest):
         """Block until ``r`` completes; raise its error. A heartbeat

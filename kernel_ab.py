@@ -42,8 +42,10 @@ def main(argv):
     print(card, flush=True)
 
     other_dir = os.path.abspath(argv[1])
+    # the sources both checkouts have (an older one may lack a kernel)
     names = sorted(f[:-3] for f in os.listdir(native.CSRC_DIR)
-                   if f.endswith(".cu"))
+                   if f.endswith(".cu")
+                   and os.path.exists(os.path.join(other_dir, f)))
     native.build_all(names)
     out_dir = os.path.join(native.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
