@@ -17,7 +17,14 @@ back, trains the same LM with Adam for a few steps through ``fit``
 resumes it from a checkpoint, then generates with it through
 ``/v1/generate`` (continuous batching over paged KV, 8 slots, 16
 concurrent requests and two prefix-cache repeats; greedy ids held
-against the plain-attention reference) and times one decode step. It
+against the plain-attention reference) and times one decode step. On
+that same server it then drives the serving surface
+(``serving_surface_phase``): predicts and generate bursts in mixed
+priority tiers at trace sampling 1.0 and 0.0, ``/metrics`` counts and
+the TTFT / inter-token histograms against what was sent, ``/readyz``,
+``traceparent``, kernel launches against batches and steps, host syncs
+per served step, and a circuit-breaker drill through the
+``serving.worker.step`` chaos site on a second generate backend. It
 imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -25,6 +32,7 @@ Without a CUDA device it exits 2 and prints no result.
 """
 
 import json
+import logging
 import math
 import os
 import re
@@ -33,6 +41,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 V, D_MODEL, LAYERS, HEADS, T = 2048, 1024, 8, 16, 1024
@@ -338,13 +347,17 @@ def profile_forward(model, ids):
           f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%")
 
 
-def post(port, body):
+def http(port, path, body=None, headers=None):
+    """(status, parsed JSON body, headers) of one request; errors too."""
     req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/predict",
-        data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        return json.loads(resp.read())
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
 
 
 def slice_phase(attn, card):
@@ -393,9 +406,8 @@ def slice_phase(attn, card):
             try:
                 barrier.wait(timeout=60)
                 t = time.perf_counter()
-                replies[i] = post(server.port, {"model": "lm",
-                                                "inputs": ids[i:i + 1]
-                                                .tolist()})
+                replies[i] = http(server.port, "/v1/predict", {
+                    "model": "lm", "inputs": ids[i:i + 1].tolist()})[1]
                 lat[i] = time.perf_counter() - t
             except Exception as e:       # reported and failed below
                 errors.append(repr(e))
@@ -785,15 +797,6 @@ class plain_decode_attention:
         self.da.decode_attention = self.saved
 
 
-def post_generate(port, body):
-    req = urllib.request.Request(
-        f"http://127.0.0.1:{port}/v1/generate",
-        data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        return resp.status, json.loads(resp.read())
-
-
 def check_greedy(net, da, prompt, ids):
     """Hold served greedy ids against ``streaming_session(capacity,
     batch=1).generate`` on the plain decode attention. A mismatch passes
@@ -824,6 +827,31 @@ def check_greedy(net, da, prompt, ids):
         f"({ids[m]} vs {ref[m]}); reference top two probabilities {top2}, "
         f"relative gap {gap:.3e} <= {TIE_RTOL}; comparison stops there")
     return m
+
+
+SYNC_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
+
+
+def sync_calls(prof):
+    """How many times the window called each of SYNC_CALLS (CUDA runtime
+    calls, recorded by the profiler for every thread of the process)."""
+    counts = dict.fromkeys(SYNC_CALLS, 0)
+    for evt in prof.key_averages():
+        if evt.key in counts:
+            counts[evt.key] += evt.count
+    return counts
+
+
+def hist_since(h, before):
+    """What histogram ``h`` recorded since ``before`` (an earlier
+    ``h.bucket_counts()``), as a histogram of its own: one burst's
+    counts and interpolated quantiles."""
+    from deeplearning4j_tpu_torch.observability.registry import Histogram
+    edges, counts, count, total = h.bucket_counts()
+    d = Histogram(h.name, buckets=edges)
+    d.counts = [a - b for a, b in zip(counts, before[1])]
+    d.count, d.sum = count - before[2], total - before[3]
+    return d
 
 
 def profile_decode_step(sess, x, active):
@@ -863,6 +891,10 @@ def profile_decode_step(sess, x, active):
         "profiler): " + ", ".join(
             f"{k} {us / 1e3:.3f} ms x{c}" for us, k, c in
             sorted(host, reverse=True)[:10]))
+    syncs = sync_calls(prof)
+    log(f"decode step host {wall_ms:.3f} ms under the profiler; host-device "
+        f"copies and syncs: cudaMemcpyAsync x{syncs['cudaMemcpyAsync']}, "
+        f"cudaStreamSynchronize x{syncs['cudaStreamSynchronize']}")
 
 
 def time_decode_step(net, da, card):
@@ -908,6 +940,11 @@ def time_decode_step(net, da, card):
         f"{plain[0]:.3f} ms (host {plain[1]:.3f} ms)")
     sess.slot_pos[:] = 511
     profile_decode_step(sess, x, active)
+    # the same step again once the profiler has run: does a finished
+    # torch.profiler session leave the host slower?
+    after = step_ms()
+    log(f"the same decode step after the profiler ran ({card}): "
+        f"{after[0]:.3f} ms (host {after[1]:.3f} ms)")
 
 
 def generate_phase(da, card):
@@ -917,9 +954,10 @@ def generate_phase(da, card):
     finished prompt (prefix-cache hits). Holds greedy ids against the
     plain-attention reference, counts the decode kernel's launches
     against the batcher's steps, checks the pages return to what the
-    prefix cache holds, and times the path. Returns the launch count."""
+    prefix cache holds, and times the path. Returns the launch count,
+    the model, the running server (for serving_surface_phase, which
+    stops it) and the request bodies."""
     import numpy as np
-    import torch
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
@@ -949,8 +987,8 @@ def generate_phase(da, card):
         batcher, _ = server.batcher_for("lm")
         assert batcher._paged and batcher.session.pages_total() == \
             SLOTS * CAPACITY // PAGE          # the default pool
-        post_generate(server.port, {"model": "lm", "prompt": [1, 2, 3],
-                                    "n_tokens": 2})       # warm
+        http(server.port, "/v1/generate", {"model": "lm", "prompt": [1, 2, 3],
+                                           "n_tokens": 2})       # warm
         replies = [None] * GEN_REQUESTS
         lat = [0.0] * GEN_REQUESTS
         errors = []
@@ -960,15 +998,17 @@ def generate_phase(da, card):
             try:
                 barrier.wait(timeout=60)
                 t = time.perf_counter()
-                replies[i] = post_generate(server.port, bodies[i])
+                replies[i] = http(server.port, "/v1/generate",
+                                  bodies[i])[:2]
                 lat[i] = time.perf_counter() - t
             except Exception as e:       # reported and failed below
                 errors.append(repr(e))
 
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(GEN_REQUESTS)]
-        batcher.ttft_s.clear()
-        batcher.itl_s.clear()
+        stream = batcher._stream
+        before = [h.bucket_counts() for h in
+                  (stream.ttft, stream.ttft_hit, stream.itl)]
         steps0 = batcher.device_steps
         da.decode_attention_cuda.launches = 0          # main path only
         t_burst = time.perf_counter()
@@ -979,8 +1019,13 @@ def generate_phase(da, card):
         wall = time.perf_counter() - t_burst
         assert not errors, f"requests failed: {errors}"
         assert not any(th.is_alive() for th in threads), "client hung"
-        ttft, itl = sorted(batcher.ttft_s), sorted(batcher.itl_s)
-        again = [post_generate(server.port, repeat) for _ in range(2)]
+        cold, hit, itl = (hist_since(h, b) for h, b in zip(
+            (stream.ttft, stream.ttft_hit, stream.itl), before))
+        assert (cold.count, hit.count, itl.count) == (
+            GEN_REQUESTS, 0, GEN_REQUESTS * (GEN_TOKENS - 1)), \
+            (cold.count, hit.count, itl.count)
+        again = [http(server.port, "/v1/generate", repeat)[:2]
+                 for _ in range(2)]
         launches = da.decode_attention_cuda.launches
         steps = batcher.device_steps - steps0
         for _ in range(500):          # slots release just after replying
@@ -1000,8 +1045,9 @@ def generate_phase(da, card):
         assert launches > 0 and launches == LAYERS * steps, (launches, steps)
         assert batcher.prefix_hits >= 1
         assert sess.pages_in_use() == len(cached)
-    finally:
-        server.stop(drain=True)
+    except BaseException:
+        server.stop(drain=False)
+        raise
 
     compared = 0
     for body, (_, reply) in zip(bodies + [repeat] * 2, replies + again):
@@ -1017,13 +1063,313 @@ def generate_phase(da, card):
     log(f"generate latency ({card}): {GEN_REQUESTS * GEN_TOKENS / wall:.1f} "
         f"generated tokens/s end to end over the burst ({wall:.3f} s); "
         f"request latency median {sorted(lat)[GEN_REQUESTS // 2]:.3f} s, max "
-        f"{max(lat):.3f} s; time to first token median "
-        f"{ttft[len(ttft) // 2]:.3f} s, max {ttft[-1]:.3f} s; inter-token "
-        f"median {1e3 * itl[len(itl) // 2]:.3f} ms (host clock)")
+        f"{max(lat):.3f} s; time to first token p50 "
+        f"{cold.quantile(0.5):.3f} s, p99 {cold.quantile(0.99):.3f} s; "
+        f"inter-token p50 {1e3 * itl.quantile(0.5):.3f} ms (host clock; "
+        f"interpolated in the serving_ttft_seconds / serving_itl_seconds "
+        f"buckets)")
     time_decode_step(net, da, card)
-    del net
-    torch.cuda.empty_cache()
-    return launches
+    return launches, net, server, bodies
+
+
+TIERS = ("gold", "standard", "best_effort")
+SURFACE_PREDICT_T = 128   # ids a row: the reply's JSON stays a few MB
+PROFILE_TOKENS = 32       # tokens a request in the profiled bursts
+
+
+def burst(port, path, bodies):
+    """Send ``bodies`` concurrently; returns (replies, wall seconds)."""
+    replies, errors = [None] * len(bodies), []
+    barrier = threading.Barrier(len(bodies))
+
+    def client(i):
+        try:
+            barrier.wait(timeout=60)
+            replies[i] = http(port, path, bodies[i])
+        except Exception as e:       # reported and failed below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    assert not errors, f"requests failed: {errors}"
+    assert not any(th.is_alive() for th in threads), "client hung"
+    assert all(r[0] == 200 for r in replies), [r[:2] for r in replies
+                                               if r[0] != 200]
+    return replies, wall
+
+
+def surface_bodies(lengths, seed):
+    """The burst of serving_surface_phase: one greedy request per prompt
+    length (ids drawn from ``seed``, GEN_TOKENS tokens, tiers in turn)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{"model": "lm", "prompt": rng.integers(0, V, int(n)).tolist(),
+             "n_tokens": GEN_TOKENS, "tier": TIERS[i % 3]}
+            for i, n in enumerate(lengths)]
+
+
+def generate_burst(server, batcher, lengths, seed, rate):
+    """One generate burst at trace sampling ``rate``: the bodies at once,
+    then a repeat of the longest prompt (a prefix-cache hit). Checks the
+    endpoint's counters and the streaming histograms against what was
+    sent; returns its numbers."""
+    server.sampler.rate = rate
+    bodies = surface_bodies(lengths, seed)
+    stream, ep = batcher._stream, batcher._endpoint
+    hists = (stream.ttft, stream.ttft_hit, stream.itl)
+    before = [h.bucket_counts() for h in hists]
+    n0, e0 = ep.requests, ep.errors
+    steps0 = batcher.device_steps
+    _, wall = burst(server.port, "/v1/generate", bodies)
+    steps = batcher.device_steps - steps0
+    for _ in range(500):     # a slot registers its prompt just after replying
+        if batcher.active_slots() == 0:
+            break
+        time.sleep(0.01)
+    repeat = max(bodies, key=lambda b: len(b["prompt"]))
+    code, _, _ = http(server.port, "/v1/generate", repeat)
+    assert code == 200
+    cold, hit, itl = (hist_since(h, b) for h, b in zip(hists, before))
+    sent = len(bodies) + 1
+    assert (ep.requests - n0, ep.errors - e0) == (sent, 0), \
+        (ep.requests - n0, ep.errors - e0)
+    assert (cold.count, hit.count) == (len(bodies), 1), \
+        (cold.count, hit.count)
+    assert itl.count == sent * (GEN_TOKENS - 1), itl.count
+    return {"rate": rate, "tokens_s": len(bodies) * GEN_TOKENS / wall,
+            "wall": wall, "steps": steps,
+            "ttft_p50": cold.quantile(0.5), "itl_p50": itl.quantile(0.5)}
+
+
+def profile_served_steps(server, batcher, rate):
+    """cudaMemcpyAsync / cudaStreamSynchronize calls per step of the
+    batcher serving SLOTS short greedy requests at trace sampling
+    ``rate`` (torch.profiler over the whole burst: admission, every
+    step, replies)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    server.sampler.rate = rate
+    bodies = surface_bodies([PAGE] * SLOTS, seed=17 + int(rate))
+    for b in bodies:
+        b["n_tokens"] = PROFILE_TOKENS
+    steps0 = batcher.device_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        burst(server.port, "/v1/generate", bodies)
+        torch.cuda.synchronize()
+    steps = batcher.device_steps - steps0
+    counts = sync_calls(prof)
+    return {k: v / steps for k, v in counts.items()}, steps
+
+
+def instrumentation_cost(server):
+    """Host cost of the serving surface's instruments on this machine's
+    CPU, microseconds a call (best of 3 runs of 20000 calls), and of one
+    OpenMetrics scrape of the server's registry (ms, best of 5)."""
+    from deeplearning4j_tpu_torch import chaos
+    from deeplearning4j_tpu_torch.observability.registry import Histogram
+    from deeplearning4j_tpu_torch.observability.tracing import (
+        RequestContext, Sampler, Tracer)
+    h = Histogram("x")
+    tracer = Tracer()
+    sampled = RequestContext.new("/v1/generate", Sampler(1.0), tracer=tracer)
+    unsampled = RequestContext.new("/v1/generate", Sampler(0.0),
+                                   tracer=tracer)
+    ex = {"trace_id": sampled.trace_id}
+    cases = {"histogram record": lambda: h.record(0.0065),
+             "histogram record + exemplar": lambda: h.record(0.0065,
+                                                             exemplar=ex),
+             "phase mark, unsampled": lambda: unsampled.phase_done("decode"),
+             "phase mark + span, sampled": lambda: sampled.phase_done(
+                 "decode"),
+             "chaos site, no plan": lambda: chaos.hit("serving.worker.step")}
+
+    def best_us(fn, n=20000, runs=3):
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times.append((time.perf_counter() - t0) / n * 1e6)
+        return min(times)
+
+    us = {k: best_us(fn) for k, fn in cases.items()}
+    scrape_ms = best_us(lambda: server.metrics.prometheus_text(
+        openmetrics=True), n=1, runs=5) / 1e3
+    log("instrument host cost (this machine's CPU): " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in us.items())
+        + f"; one OpenMetrics scrape of the server's registry "
+          f"{scrape_ms:.3f} ms")
+    return us
+
+
+def serving_surface_phase(attn, da, card, net, server):
+    """The serving surface of the generate phase's full-width server, on
+    the card: 8 one-row /v1/predict requests and bursts of 8 greedy
+    /v1/generate requests (+ one prefix repeat) in mixed tiers at trace
+    sampling 1.0 and 0.0 (0.0, 1.0, 1.0, 0.0; the same prompt lengths,
+    fresh ids each); /metrics counts against what was sent, /readyz,
+    traceparent, kernel launches against batches and steps; the
+    batcher's host syncs per step at both rates; then a chaos drill on a
+    second generate backend (a serving.worker.step error plan opens its
+    breaker, the half-open probe closes it, greedy ids and pages come
+    back). Returns the launches of the forward and decode kernels in the
+    predicts and bursts."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import chaos
+
+    port = server.port
+    batcher, _ = server.batcher_for("lm")
+    sched, _ = server.scheduler_for("lm")
+    ids = np.random.default_rng(3).integers(0, V, (CLIENTS,
+                                                   SURFACE_PREDICT_T))
+    predicts = [{"model": "lm", "inputs": ids[i:i + 1].astype(
+        float).tolist(), "tier": TIERS[i % 3]} for i in range(CLIENTS)]
+    lengths = np.random.default_rng(0).integers(PROMPT_MIN, PROMPT_MAX + 1,
+                                                SLOTS)
+    # the main path: every count set to 0 just before, read just after
+    calls0, steps0 = sched.device_calls, batcher.device_steps
+    attn.flash_attention_fwd_cuda.launches = 0
+    da.decode_attention_cuda.launches = 0
+    server.sampler.rate = 1.0
+    pred_ep = sched._endpoint
+    p0 = pred_ep.requests
+    replies, _ = burst(port, "/v1/predict", predicts)
+    runs = [generate_burst(server, batcher, lengths, 100 + i, rate)
+            for i, rate in enumerate((0.0, 1.0, 1.0, 0.0))]
+    fwd_launches = attn.flash_attention_fwd_cuda.launches
+    dec_launches = da.decode_attention_cuda.launches
+    batches = sched.device_calls - calls0
+    steps = batcher.device_steps - steps0
+    log(f"serving surface: {CLIENTS} /v1/predict (1 x {SURFACE_PREDICT_T} "
+        f"ids) in {batches} batch(es), flash_attention_fwd launches "
+        f"{fwd_launches}; 4 generate bursts, {steps} decode steps, "
+        f"decode_attention launches {dec_launches}")
+    assert pred_ep.requests - p0 == CLIENTS
+    assert fwd_launches == LAYERS * batches, (fwd_launches, batches)
+    assert dec_launches == LAYERS * steps, (dec_launches, steps)
+    for _, reply, hdrs in replies:
+        out = np.asarray(reply["outputs"], np.float32)
+        assert out.shape == (1, SURFACE_PREDICT_T, V) and \
+            np.isfinite(out).all()
+        assert hdrs["traceparent"].endswith("-01")
+    for rate in (0.0, 1.0):
+        mine = [r for r in runs if r["rate"] == rate]
+        log(f"generate at trace sampling {rate} ({card}): "
+            + "; ".join(f"{r['tokens_s']:.1f} tokens/s ({r['steps']} "
+                        f"steps, {r['wall']:.3f} s), time to first token "
+                        f"p50 {r['ttft_p50']:.3f} s, inter-token p50 "
+                        f"{1e3 * r['itl_p50']:.3f} ms" for r in mine)
+            + f"; mean {sum(r['tokens_s'] for r in mine) / 2:.1f} "
+              "tokens/s (TTFT and ITL interpolated in the histograms' "
+              "buckets)")
+
+    # traces, readiness, the metrics exposition
+    inbound = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-00"
+    code, _, hdrs = http(port, "/v1/predict", predicts[0],
+                         {"traceparent": inbound})
+    assert code == 200 and hdrs["traceparent"].split("-")[1] == \
+        inbound.split("-")[1], hdrs.get("traceparent")
+    code, health, _ = http(port, "/readyz")
+    assert code == 200 and health["status"] == "ok", (code, health)
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/metrics?format=openmetrics")
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        text = resp.read().decode()
+    assert text.endswith("# EOF\n") and 'trace_id="' in text
+    for name in ("serving_ttft_seconds_count", "serving_itl_seconds_count",
+                 "kv_pages_in_use", "prefix_cache_hits_total",
+                 "circuit_state", "serving_phase_seconds_count"):
+        assert name in text, name
+
+    # the batcher's host syncs per step, at both rates
+    per_step = {}
+    for rate in (0.0, 1.0):
+        per_step[rate], n = profile_served_steps(server, batcher, rate)
+        log(f"served decode steps at trace sampling {rate}, torch.profiler "
+            f"over {n} steps: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in per_step[rate].items())
+            + " a step")
+    if sum(per_step[0.0].values()) == 0:
+        log("profiler recorded no CUDA runtime calls from the batcher "
+            "thread: host syncs per served step not measured")
+    # the same work at both rates; the step count may differ by a step
+    # or two with arrival times, moving the per-request admission calls'
+    # share, hence 2%
+    for k in SYNC_CALLS:
+        assert per_step[1.0][k] <= per_step[0.0][k] * 1.02, per_step
+    server.sampler.rate = 0.01
+    instrumentation_cost(server)
+
+    # chaos on a second generate backend
+    server.registry.register("lm2", net)
+    b2, _ = server.batcher_for("lm2")
+    b2.breaker.failure_threshold = 3
+    b2.breaker.cooldown_s = 2.0
+    probe = {"model": "lm2",
+             "prompt": surface_bodies([4 * PROMPT_MIN], 9)[0]["prompt"],
+             "n_tokens": GEN_TOKENS}
+    chaos.install({"faults": [{"site": "serving.worker.step",
+                               "kind": "error", "p": 1.0,
+                               "max_fires": 3}]}, seed=0)
+    # the drill's crashes are expected: keep their tracebacks out of the
+    # log (the line below reports what happened)
+    quiet = logging.getLogger("deeplearning4j_tpu_torch")
+    quiet.disabled = True
+    try:
+        codes = [http(port, "/v1/generate", probe)[0] for _ in range(3)]
+        t_end = time.monotonic() + 30
+        while b2.breaker.state != "open":
+            assert time.monotonic() < t_end, "breaker never opened"
+            time.sleep(0.01)
+        shed = http(port, "/v1/generate", probe)
+        ready = http(port, "/readyz")
+        health = http(port, "/healthz")[1]
+        while b2.breaker.state != "half_open":
+            assert time.monotonic() < t_end, "breaker never half-opened"
+            time.sleep(0.01)
+        code, reply, _ = http(port, "/v1/generate", probe)   # the probe
+    finally:
+        chaos.uninstall()
+        quiet.disabled = False
+    log(f"chaos drill (serving.worker.step error x3 on generate/lm2/v1): "
+        f"codes {codes}, then {shed[0]} with Retry-After "
+        f"{shed[2].get('Retry-After')} ({shed[1]['error'][:60]}...); "
+        f"/readyz {ready[0]} Retry-After {ready[2].get('Retry-After')}; "
+        f"/healthz {health['status']} {health.get('circuits')}; probe "
+        f"{code}, breaker {b2.breaker.state}")
+    assert codes == [500] * 3 and shed[0] == 503 and \
+        "Retry-After" in shed[2] and "circuit" in shed[1]["error"]
+    assert ready[0] == 503 and "Retry-After" in ready[2]
+    assert health["circuits"] == {"generate/lm2/v1": "open"}
+    assert code == 200 and b2.breaker.state == "closed"
+    assert http(port, "/readyz")[0] == 200
+    compared = check_greedy(net, da, probe["prompt"], reply["ids"])
+    for _ in range(500):          # the slot releases just after replying
+        if b2.active_slots() == 0:
+            break
+        time.sleep(0.01)
+    sess = b2.session
+    cached = {p for chain in sess.prefix_cache._entries.values()
+              for p in chain}
+    assert sess.pages_in_use() == len(cached), (sess.pages_in_use(),
+                                                len(cached))
+    crashes = server.metrics.registry.get(
+        "serving_worker_crashes_total",
+        labels={"endpoint": "generate/lm2/v1"}).value
+    assert crashes == 3, crashes
+    log(f"after the drill: probe's greedy ids vs the plain-decode "
+        f"reference, {compared} of {GEN_TOKENS} compared and equal; pages "
+        f"in use {sess.pages_in_use()} = {len(cached)} held by the prefix "
+        f"cache; serving_worker_crashes_total {crashes}")
+    return fwd_launches, dec_launches
+
 
 
 def tensor_core_ops(native):
@@ -1100,7 +1446,13 @@ def main():
     train_launches = train_phase(attn, card)
     dq["launches"] = train_launches["flash_attention_bwd_dq"]
     dkv["launches"] = train_launches["flash_attention_bwd_dkv"]
-    dec["launches"] = generate_phase(da, card)
+    dec["launches"], net, server, _ = generate_phase(da, card)
+    try:
+        serving_surface_phase(attn, da, card, net, server)
+    finally:
+        server.stop(drain=True)
+    del net
+    torch.cuda.empty_cache()
     records = [fwd, dq, dkv, dec]
     for record in records:
         assert record["launches"] > 0, record

@@ -5,10 +5,10 @@ of ``deeplearning4j_tpu/data/iterators.py``).
 (``state_dict`` / ``load_state_dict``: a one-shot resume at a batch
 cursor, guarded by a signature of the source), ``ListDataSetIterator``
 over pre-built batches and ``ArrayDataSetIterator`` over dense arrays
-with an optional per-epoch shuffle. The JAX package routes each batch
-through its ``data.fetch`` chaos site and retry policy; chaos is not
-ported, so a batch is produced directly. The async, multi-epoch,
-sampling and parallel iterators are not ported yet.
+with an optional per-epoch shuffle. Every batch goes through the
+``data.fetch`` chaos site and the shared retry policy
+(:func:`fetch_batch`), as in the JAX package. The async, multi-epoch,
+sampling and parallel iterators are not ported yet (ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -17,9 +17,20 @@ from typing import Iterator, Optional, Sequence
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.chaos.retry import retrying_io
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 
-__all__ = ["DataSetIterator", "ListDataSetIterator", "ArrayDataSetIterator"]
+__all__ = ["DataSetIterator", "ListDataSetIterator", "ArrayDataSetIterator",
+           "fetch_batch"]
+
+
+def fetch_batch(make):
+    """Produce one batch through the ``data.fetch`` chaos site and the
+    shared retry policy (:func:`chaos.retry.retrying_io`): a transient
+    IOError (injected or real) costs a backed-off retry of the SAME
+    batch, so a flaky source degrades throughput, never the batch
+    stream."""
+    return retrying_io("data.fetch", make)
 
 
 class DataSetIterator:
@@ -116,9 +127,11 @@ class ListDataSetIterator(DataSetIterator):
 
     def _iterate(self):
         start = self._consume_resume(len(self._batches))
+        # skipping is a slice, not a replay: the consumed prefix is
+        # never materialized (no data.fetch hits, no retry budget)
         for b in self._batches[start:]:
             self._cursor += 1
-            yield b
+            yield fetch_batch(lambda b=b: b)
 
     def batch_size(self):
         return self._batches[0].num_examples() if self._batches else None
@@ -182,13 +195,13 @@ class ArrayDataSetIterator(DataSetIterator):
             if self._drop_last and len(sel) < self._bs:
                 return
             self._cursor += 1
-            yield DataSet(
+            yield fetch_batch(lambda sel=sel: DataSet(
                 self.features[sel],
                 None if self.labels is None else self.labels[sel],
                 None if self.features_mask is None
                 else self.features_mask[sel],
                 None if self.labels_mask is None
-                else self.labels_mask[sel])
+                else self.labels_mask[sel]))
 
     def batch_size(self):
         return self._bs

@@ -16,8 +16,9 @@ cache position past pos, and later writes overwrite them), which is why
 only models whose streaming state is pure KV cache qualify.
 
 The acceptance counters are plain ints (``tokens_proposed`` /
-``tokens_accepted``). The shared metrics registry's counters wait for
-the port's serving metrics (ROADMAP A4).
+``tokens_accepted``) and, given ``registry=``, the
+``spec_tokens_proposed_total`` / ``spec_tokens_accepted_total``
+counters of a metrics registry (host adds, once per round).
 """
 
 from __future__ import annotations
@@ -49,29 +50,45 @@ class SpeculativeDecoder:
     def __init__(self, target_net, draft_net, k: int = 4,
                  capacity: int = 256, registry=None,
                  endpoint: str = "speculative"):
-        if registry is not None:
-            raise NotImplementedError(
-                "registry counters wait for the port's serving metrics "
-                "(ROADMAP A4); read tokens_proposed / tokens_accepted")
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         _reject_unrewindable(target_net, "target")
         _reject_unrewindable(draft_net, "draft")
         self.k = int(k)
         self.capacity = int(capacity)
-        self.endpoint = endpoint
         self.target = target_net.streaming_session(capacity=capacity,
                                                    batch=1)
         self.draft = draft_net.streaming_session(capacity=capacity,
                                                  batch=1)
+        # lifetime acceptance accounting: plain ints for in-process
+        # callers, registry counters (created once, here) for scrapers
         self.tokens_proposed = 0
         self.tokens_accepted = 0
+        self._proposed_ctr = self._accepted_ctr = None
+        if registry is not None:
+            lbl = {"endpoint": endpoint}
+            self._proposed_ctr = registry.counter(
+                "spec_tokens_proposed_total",
+                help="draft tokens proposed for verification",
+                labels=lbl)
+            self._accepted_ctr = registry.counter(
+                "spec_tokens_accepted_total",
+                help="draft tokens accepted by the target "
+                     "(acceptance rate = accepted / proposed)",
+                labels=lbl)
 
     @property
     def acceptance_rate(self) -> float:
         if not self.tokens_proposed:
             return 0.0
         return self.tokens_accepted / self.tokens_proposed
+
+    def _count(self, proposed: int, accepted: int) -> None:
+        self.tokens_proposed += proposed
+        self.tokens_accepted += accepted
+        if self._proposed_ctr is not None:
+            self._proposed_ctr.inc(proposed)
+            self._accepted_ctr.inc(accepted)
 
     def generate(self, prompt, n_tokens: int) -> np.ndarray:
         """Greedy-decode ``n_tokens`` ids after ``prompt`` (a 1-d or
@@ -113,8 +130,7 @@ class SpeculativeDecoder:
             n_acc = 0
             while n_acc < k and props[n_acc] == int(argmax[n_acc]):
                 n_acc += 1
-            self.tokens_proposed += k
-            self.tokens_accepted += n_acc
+            self._count(k, n_acc)
             if n_acc == k:
                 # every proposal matched: all of the chunk's KV entries
                 # are valid and the last proposal feeds the next round

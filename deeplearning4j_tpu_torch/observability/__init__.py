@@ -1,0 +1,44 @@
+"""Observability: request tracing, the unified metrics registry, SLO
+burn rates, threshold alerts and the flight recorder (counterpart of
+``deeplearning4j_tpu/observability``).
+
+- ``tracing``          nested spans -> JSONL / Chrome trace, and the
+                       request-scoped ``RequestContext`` (W3C
+                       ``traceparent``, deterministic head sampling,
+                       the per-request phase ledger)
+- ``registry``         process-wide counters / gauges / histograms
+                       with Prometheus text and OpenMetrics exposition
+- ``slo``              multi-window burn-rate SLOs over the registry
+- ``alerts``           declarative threshold rules feeding /healthz
+- ``flight_recorder``  bounded event ring -> post-mortem bundle on a
+                       serving worker crash or ``dump()``
+- ``fleetobs``         the ``/debug/bundle`` payload of one server
+
+All of it is host code: nothing here reads a device tensor. The
+recompile watchdog, the step profiler and the training health monitor
+wait for ROADMAP A7; the fleet collector for A4b.
+"""
+
+from deeplearning4j_tpu_torch.observability.alerts import (
+    AlertManager, AlertRule,
+)
+from deeplearning4j_tpu_torch.observability.flight_recorder import (
+    FlightRecorder,
+)
+from deeplearning4j_tpu_torch.observability.registry import (
+    REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
+)
+from deeplearning4j_tpu_torch.observability.slo import (
+    SLO, BurnWindow, SLOMonitor,
+)
+from deeplearning4j_tpu_torch.observability.tracing import (
+    RequestContext, Sampler, Tracer, current_context, get_tracer,
+    trace,
+)
+
+__all__ = [
+    "AlertManager", "AlertRule", "FlightRecorder", "REGISTRY",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "Tracer",
+    "get_tracer", "trace", "RequestContext", "Sampler",
+    "current_context", "SLO", "BurnWindow", "SLOMonitor",
+]

@@ -1,0 +1,765 @@
+"""Structured tracing: thread-safe nested spans with Chrome export,
+plus request-scoped distributed tracing for the serving stack.
+
+Counterpart of ``deeplearning4j_tpu/observability/tracing.py``
+(host code, stdlib only).
+
+The reference's per-iteration visibility is PerformanceListener +
+StatsListener timings (optimize/listeners/PerformanceListener.java:
+97-119); TensorFlow (arXiv:1605.08695 §5) treats tracing as a
+first-class subsystem with a timeline viewer. This module is that
+subsystem for the repo: ``with trace.span("data_wait"):`` records a
+nested interval, buffered in memory (optionally streamed to JSONL),
+exportable to the Chrome trace-event format that Perfetto /
+chrome://tracing render directly.
+
+Design constraints, in priority order:
+
+1. **Zero cost when disabled.** ``span()`` on a disabled tracer
+   returns a shared no-op singleton — no object allocation, no lock,
+   no clock read — so the executors' fit loops can emit spans
+   unconditionally. (tests assert the hot path allocates nothing.)
+2. Thread safety: spans nest per-thread (a serving worker and the
+   training loop interleave without corrupting each other's stacks);
+   the event buffer is lock-guarded.
+3. Bounded memory: the buffer is a ring capped at ``buffer_limit``
+   — once full it evicts the oldest event (and counts the
+   eviction) rather than growing without bound inside a
+   long-running server, so an export holds the newest traces.
+
+Request-scoped tracing adds
+:class:`RequestContext`: one trace id minted at HTTP admission (or
+adopted from a W3C ``traceparent`` header, so a router→replica hop
+keeps the request's identity), carried on the request object through
+BatchScheduler queues / ContinuousBatcher slots / worker
+crash-restarts, yielding one cross-thread span tree per request::
+
+    request                       (root; the whole HTTP request)
+      ├─ admission               (parse + model resolve + submit)
+      ├─ queue_wait              (submitted → picked up by the worker)
+      ├─ batch_form | prefill    (backend-specific middle phases)
+      ├─ device_step | decode
+      └─ respond                 (result ready → waiter woken)
+
+Sampling is HEAD-BASED and deterministic in the trace id (a router
+tier samples the same 1% everywhere); errored / deadline-exceeded
+requests are promoted to sampled so every failure leaves a trace.
+Phase durations are recorded on EVERY request (they feed the
+``serving_phase_seconds`` histograms and the latency-attribution
+report) — only span emission is sampled. Cross-thread handoff is
+explicit (``ctx.attach()`` saves and restores the previous
+thread-local state on exit, so a pooled worker thread can never leak
+one request's context into the next).
+"""
+
+from __future__ import annotations
+
+import collections
+import io
+import json
+import os
+import re
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+__all__ = ["Span", "Tracer", "trace", "get_tracer",
+           "RequestContext", "Sampler", "current_context"]
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager handed out while tracing is
+    disabled. A singleton: entering/exiting allocates nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+    def set(self, key, value):          # attr API parity with Span
+        return self
+
+
+_NOOP_SPAN = _NoopSpan()
+
+
+# id generation: trace/span ids are correlation keys, not secrets —
+# a per-thread PRNG seeded once from the OS beats an os.urandom
+# syscall per id by ~30x on the serving hot path (ids are minted per
+# request and per span)
+_ID_TLS = threading.local()
+
+
+def _id_rng():
+    rng = getattr(_ID_TLS, "rng", None)
+    if rng is None:
+        import random
+        rng = _ID_TLS.rng = random.Random(os.urandom(16))
+    return rng
+
+
+def _new_trace_id() -> str:
+    return f"{_id_rng().getrandbits(128):032x}"
+
+
+def _new_span_id() -> str:
+    return f"{_id_rng().getrandbits(64):016x}"
+
+
+class Span:
+    """One timed interval. Use via ``with tracer.span(name):``."""
+
+    __slots__ = ("_tracer", "name", "attrs", "tid", "depth",
+                 "t0_ns", "dur_ns", "trace_id", "span_id",
+                 "parent_id")
+
+    def __init__(self, tracer: "Tracer", name: str,
+                 attrs: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self.tid = 0
+        self.depth = 0
+        self.t0_ns = 0
+        self.dur_ns = 0
+        self.trace_id: Optional[str] = None
+        self.span_id: Optional[str] = None
+        self.parent_id: Optional[str] = None
+
+    def set(self, key: str, value) -> "Span":
+        """Attach an attribute after entry (e.g. a batch size known
+        only mid-span)."""
+        if self.attrs is None:
+            self.attrs = {}
+        self.attrs[key] = value
+        return self
+
+    def __enter__(self) -> "Span":
+        self.tid = threading.get_ident()
+        self.depth = self._tracer._push()
+        self.t0_ns = time.perf_counter_ns()
+        # sinks (the flight recorder) learn about the span at OPEN so
+        # a bundle dumped mid-span can list it as unclosed; span ids
+        # are minted only when someone is listening or the span rides
+        # a request trace — the no-sink hot path stays id-free
+        if self._tracer._sinks or self.trace_id is not None:
+            if self.span_id is None:
+                self.span_id = _new_span_id()
+            self._tracer._notify_open(self)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.dur_ns = time.perf_counter_ns() - self.t0_ns
+        if exc_type is not None:
+            self.set("error", exc_type.__name__)
+        self._tracer._pop()
+        self._tracer._record(self)
+        return False
+
+
+class Tracer:
+    """Buffering span recorder with Chrome trace-event export.
+
+    ``enable()``/``disable()`` flip recording at runtime; while
+    disabled every ``span()`` call returns the no-op singleton.
+    """
+
+    def __init__(self, enabled: bool = False,
+                 buffer_limit: int = 200_000):
+        self._enabled = enabled
+        self.buffer_limit = buffer_limit
+        self._lock = threading.Lock()
+        # ring, not list: request spans are recorded even while the
+        # tracer is disabled (sampling gates them, not ``--trace``),
+        # so a long-running server must evict OLDEST once full — an
+        # export should hold the most recent traces, and memory stays
+        # bounded at buffer_limit either way
+        self._events: collections.deque = collections.deque(
+            maxlen=buffer_limit)
+        self.dropped = 0
+        self._tls = threading.local()
+        self._jsonl: Optional[io.TextIOBase] = None
+        # subscribers fed every completed span (the flight recorder's
+        # ring); called outside the buffer lock
+        self._sinks: List = []
+        # one origin for the whole trace so ts values are comparable
+        self._origin_ns = time.perf_counter_ns()
+        # wall-clock anchor for the same origin: a cross-process
+        # collector needs absolute time to order spans from different
+        # tracers (perf_counter origins are per-process and arbitrary)
+        self._origin_unix = time.time()
+        # monotone per-event sequence number; the cursor a remote
+        # drain (``export_since``) resumes from, immune to ring
+        # eviction (unlike buffer indices)
+        self._seq = 0
+
+    # ---- recording state ----
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    def enable(self, jsonl_path: Optional[str] = None) -> "Tracer":
+        """Start recording; with ``jsonl_path`` every completed span
+        is also appended to that file as one JSON line (crash-safe
+        streaming — the in-memory buffer is still kept for
+        ``export_chrome_trace``)."""
+        with self._lock:
+            if jsonl_path is not None:
+                if self._jsonl is not None:
+                    self._jsonl.close()
+                self._jsonl = open(jsonl_path, "a")
+            self._enabled = True
+        return self
+
+    def disable(self) -> None:
+        with self._lock:
+            self._enabled = False
+            if self._jsonl is not None:
+                self._jsonl.close()
+                self._jsonl = None
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.dropped = 0
+            self._origin_ns = time.perf_counter_ns()
+            self._origin_unix = time.time()
+            self._seq = 0
+
+    # ---- span API ----
+    def span(self, name: str, attrs: Optional[Dict[str, Any]] = None):
+        """Context manager timing a nested interval. MUST stay
+        allocation-free when disabled — the fit loops call this every
+        iteration unconditionally."""
+        if not self._enabled:
+            return _NOOP_SPAN
+        return Span(self, name, attrs)
+
+    def instant(self, name: str,
+                attrs: Optional[Dict[str, Any]] = None) -> None:
+        """A zero-duration marker (e.g. 'xla_compile' from the
+        watchdog's monitoring hook)."""
+        if not self._enabled:
+            return
+        s = Span(self, name, attrs)
+        s.tid = threading.get_ident()
+        s.depth = getattr(self._tls, "depth", 0)
+        s.t0_ns = time.perf_counter_ns()
+        s.dur_ns = 0
+        self._record(s)
+
+    # ---- request-scoped recording ----
+    def record_span(self, name: str, t0_ns: int, dur_ns: int, *,
+                    trace_id: Optional[str] = None,
+                    span_id: Optional[str] = None,
+                    parent_id: Optional[str] = None,
+                    attrs: Optional[Dict[str, Any]] = None,
+                    tid: Optional[int] = None) -> str:
+        """Record one completed span from explicit timestamps — the
+        request-phase path, where a phase starts on one thread and
+        ends on another so a ``with`` block cannot time it. Records
+        regardless of the global enable switch: request spans are
+        gated by the head-sampling decision, not ``--trace``."""
+        s = Span(self, name, dict(attrs) if attrs else None)
+        s.tid = tid if tid is not None else threading.get_ident()
+        s.t0_ns = t0_ns
+        s.dur_ns = dur_ns
+        s.trace_id = trace_id
+        s.span_id = span_id or _new_span_id()
+        s.parent_id = parent_id
+        self._record(s)
+        return s.span_id
+
+    def notify_request_open(self, name: str, t0_ns: int, *,
+                            trace_id: str, span_id: str,
+                            parent_id: Optional[str] = None,
+                            attrs: Optional[Dict[str, Any]] = None
+                            ) -> None:
+        """Span-open notification for a request's root span: admission
+        tells the sinks a request is in flight, so a crash bundle can
+        list it unclosed even though its close span never happened."""
+        s = Span(self, name, dict(attrs) if attrs else None)
+        s.tid = threading.get_ident()
+        s.t0_ns = t0_ns
+        s.trace_id, s.span_id, s.parent_id = trace_id, span_id, \
+            parent_id
+        self._notify_open(s)
+
+    @property
+    def origin_ns(self) -> int:
+        return self._origin_ns
+
+    # ---- per-thread nesting ----
+    def _push(self) -> int:
+        d = getattr(self._tls, "depth", 0)
+        self._tls.depth = d + 1
+        return d
+
+    def _pop(self) -> None:
+        self._tls.depth = max(0, getattr(self._tls, "depth", 1) - 1)
+
+    # ---- storage ----
+    def _span_ids(self, span: Span, ev: dict) -> None:
+        if span.trace_id is not None:
+            ev["trace_id"] = span.trace_id
+        if span.span_id is not None:
+            ev["span_id"] = span.span_id
+        if span.parent_id is not None:
+            ev["parent_id"] = span.parent_id
+
+    def _notify_open(self, span: Span) -> None:
+        """Span-open event to the sinks ONLY (never the buffer): the
+        flight recorder tracks open spans so a crash-time bundle can
+        include work still in flight with an ``unclosed`` marker."""
+        with self._lock:
+            sinks = list(self._sinks) if self._sinks else None
+        if not sinks:
+            return
+        ev = {"ph": "open", "name": span.name,
+              "ts_us": (span.t0_ns - self._origin_ns) / 1e3,
+              "tid": span.tid}
+        self._span_ids(span, ev)
+        if span.attrs:
+            ev["args"] = dict(span.attrs)
+        for sink in sinks:
+            try:
+                sink(ev)
+            except Exception:
+                pass
+
+    def _record(self, span: Span) -> None:
+        ev = {"name": span.name,
+              "ts_us": (span.t0_ns - self._origin_ns) / 1e3,
+              "dur_us": span.dur_ns / 1e3,
+              "tid": span.tid,
+              "depth": span.depth}
+        self._span_ids(span, ev)
+        if span.attrs:
+            ev["args"] = dict(span.attrs)
+        with self._lock:
+            if len(self._events) == self.buffer_limit:
+                # ring is full: the append below evicts the oldest
+                self.dropped += 1
+            self._seq += 1
+            ev["seq"] = self._seq
+            self._events.append(ev)
+            if self._jsonl is not None:
+                self._jsonl.write(json.dumps(ev) + "\n")
+                self._jsonl.flush()
+            sinks = list(self._sinks) if self._sinks else None
+        if sinks:
+            for sink in sinks:
+                try:
+                    sink(ev)
+                except Exception:
+                    pass    # a broken sink must not kill the fit loop
+
+    def add_sink(self, fn) -> None:
+        """Subscribe ``fn(event_dict)`` to every completed span (only
+        while tracing is enabled — disabled tracing records nothing)."""
+        with self._lock:
+            if fn not in self._sinks:
+                self._sinks.append(fn)
+
+    def remove_sink(self, fn) -> None:
+        with self._lock:
+            if fn in self._sinks:
+                self._sinks.remove(fn)
+
+    def events(self) -> List[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def export_since(self, since: int = 0,
+                     limit: int = 10_000) -> Dict[str, Any]:
+        """Incremental drain for a remote collector: every buffered
+        span with ``seq > since``, oldest first, capped at ``limit``
+        per call. The returned ``next`` is the cursor to pass back on
+        the following poll; ``origin_unix`` lets the collector map a
+        span's process-relative ``ts_us`` onto wall-clock time
+        (``origin_unix * 1e6 + ts_us``) so spans from N processes
+        order on one axis. If the ring evicted events past the
+        caller's cursor (a slow scraper), the gap shows up as
+        ``dropped`` growth — the collector reports it, it does not
+        stall."""
+        since = int(since)
+        with self._lock:
+            spans = [ev for ev in self._events
+                     if ev.get("seq", 0) > since]
+            dropped = self.dropped
+            origin_unix = self._origin_unix
+            head = self._seq
+        spans = spans[:max(0, int(limit))]
+        nxt = spans[-1]["seq"] if spans else max(since, 0)
+        # ``head`` is the newest seq this process has assigned: a
+        # collector whose cursor exceeds it knows the process (and
+        # its seq space) restarted and resyncs from zero
+        return {"origin_unix": origin_unix, "next": nxt,
+                "head": head, "dropped": dropped, "spans": spans}
+
+    def events_for_trace(self, trace_id: str) -> List[dict]:
+        """Every buffered span carrying ``trace_id`` — the hop
+        verification a fleet soak asserts on: one trace id must span
+        the router's root request span AND the replica spans it
+        parented via the forwarded ``traceparent`` header (including
+        every failed-over attempt)."""
+        with self._lock:
+            return [ev for ev in self._events
+                    if ev.get("trace_id") == trace_id]
+
+    # ---- export ----
+    def export_chrome_trace(self, path: str) -> int:
+        """Write the buffered spans as Chrome trace-event JSON
+        ("X" complete events; open in Perfetto or chrome://tracing).
+        Returns the number of events written."""
+        pid = os.getpid()
+        out = []
+        for ev in self.events():
+            rec = {"name": ev["name"], "ph": "X", "pid": pid,
+                   "tid": ev["tid"], "ts": ev["ts_us"],
+                   "dur": ev["dur_us"]}
+            args = dict(ev.get("args") or {})
+            # trace ids ride the args so Perfetto (and
+            # tools/trace_report.py) can group spans per request
+            for k in ("trace_id", "span_id", "parent_id"):
+                if k in ev:
+                    args[k] = ev[k]
+            if args:
+                rec["args"] = args
+            out.append(rec)
+        with open(path, "w") as f:
+            json.dump({"traceEvents": out,
+                       "displayTimeUnit": "ms",
+                       "droppedEvents": self.dropped}, f)
+        return len(out)
+
+    def write_jsonl(self, path: str) -> int:
+        """Dump the buffer as JSON lines (one span per line)."""
+        evs = self.events()
+        with open(path, "w") as f:
+            for ev in evs:
+                f.write(json.dumps(ev) + "\n")
+        return len(evs)
+
+
+# The process-wide tracer the executors / serving / CLI share.
+trace = Tracer(enabled=False)
+
+
+def get_tracer() -> Tracer:
+    return trace
+
+
+# ---------------------------------------------------------------------------
+# request-scoped distributed tracing
+# ---------------------------------------------------------------------------
+
+# W3C trace context: version-traceid-spanid-flags
+_TRACEPARENT_RE = re.compile(
+    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
+
+_REQ_TLS = threading.local()
+
+
+def current_context() -> Optional["RequestContext"]:
+    """The RequestContext attached to this thread (via
+    ``ctx.attach()``), or None."""
+    return getattr(_REQ_TLS, "ctx", None)
+
+
+class _Attach:
+    """Context manager installing a RequestContext as the thread's
+    current context. Exit ALWAYS restores the previous value — a
+    pooled worker thread reused across requests can never leak one
+    request's context into the next."""
+
+    __slots__ = ("ctx", "_prev")
+
+    def __init__(self, ctx: "RequestContext"):
+        self.ctx = ctx
+        self._prev = None
+
+    def __enter__(self) -> "RequestContext":
+        self._prev = getattr(_REQ_TLS, "ctx", None)
+        _REQ_TLS.ctx = self.ctx
+        return self.ctx
+
+    def __exit__(self, exc_type, exc, tb):
+        _REQ_TLS.ctx = self._prev
+        return False
+
+
+class Sampler:
+    """Head-based sampling policy: one default rate plus per-route
+    overrides. The decision is a pure function of the trace id, so
+    every replica behind a router samples the SAME 1% — a sampled
+    trace is sampled end to end across the fleet."""
+
+    def __init__(self, rate: float = 0.01,
+                 routes: Optional[Dict[str, float]] = None):
+        self.rate = float(rate)
+        self.routes = dict(routes or {})
+
+    def rate_for(self, route: Optional[str]) -> float:
+        if route is not None and route in self.routes:
+            return float(self.routes[route])
+        return self.rate
+
+    def sample(self, trace_id: str,
+               route: Optional[str] = None) -> bool:
+        r = self.rate_for(route)
+        if r >= 1.0:
+            return True
+        if r <= 0.0:
+            return False
+        # the LOW 32 bits of the trace id as a uniform in [0, 1):
+        # W3C/OTel only guarantee randomness in the rightmost 7
+        # bytes (the high bits may carry a timestamp in X-Ray-style
+        # ids), so keying on them would make adopted-trace sampling
+        # all-or-nothing behind some routers
+        return int(trace_id[-8:], 16) / float(0x100000000) < r
+
+
+class RequestContext:
+    """One request's identity + timing as it crosses threads.
+
+    Carries the W3C-compatible trace id, the root span of the local
+    span tree, the head-sampling decision, the deadline, and the
+    per-phase duration ledger. Phases are CONTIGUOUS segments: each
+    ``phase_done(name)`` closes the segment begun by the previous
+    mark, so the phase durations always sum to exactly the wall time
+    from admission to the last mark — the attribution report
+    reconciles against the whole-request histogram by construction.
+    """
+
+    __slots__ = ("trace_id", "root_span_id", "parent_id", "sampled",
+                 "route", "deadline", "t0_ns", "t0_wall", "phases",
+                 "_phase", "_last_ns", "_lock", "error", "tracer",
+                 "_finished", "attrs")
+
+    def __init__(self, trace_id: Optional[str] = None,
+                 parent_id: Optional[str] = None,
+                 sampled: bool = False,
+                 route: Optional[str] = None,
+                 deadline: Optional[float] = None,
+                 tracer: Optional[Tracer] = None):
+        self.trace_id = trace_id or _new_trace_id()
+        self.root_span_id = _new_span_id()
+        self.parent_id = parent_id
+        self.sampled = bool(sampled)
+        self.route = route
+        self.deadline = deadline          # time.monotonic() terms
+        self.tracer = tracer if tracer is not None else trace
+        self.t0_ns = time.perf_counter_ns()
+        self.t0_wall = time.time()
+        self.phases: Dict[str, float] = {}
+        self._phase: Optional[str] = "admission"
+        self._last_ns = self.t0_ns
+        self._lock = threading.Lock()
+        self.error: Optional[str] = None
+        self._finished = False
+        self.attrs: Dict[str, Any] = {}
+
+    # ---- construction helpers ----
+    @classmethod
+    def new(cls, route: str, sampler: Optional[Sampler] = None,
+            deadline: Optional[float] = None,
+            tracer: Optional[Tracer] = None) -> "RequestContext":
+        """Mint a fresh context at admission; the sampling decision is
+        made HERE (head-based), derived from the new trace id."""
+        tid = _new_trace_id()
+        sampled = sampler.sample(tid, route) if sampler else False
+        return cls(trace_id=tid, sampled=sampled, route=route,
+                   deadline=deadline, tracer=tracer)
+
+    @classmethod
+    def from_traceparent(cls, header: Optional[str], route: str,
+                         sampler: Optional[Sampler] = None,
+                         deadline: Optional[float] = None,
+                         tracer: Optional[Tracer] = None
+                         ) -> Optional["RequestContext"]:
+        """Adopt an upstream trace (router→replica hop): keep its
+        trace id, parent the local root span to the caller's span,
+        and honour its sampled flag OR our own head decision (an
+        upstream that sampled the request keeps it sampled here).
+        Malformed headers return None — mint fresh instead."""
+        if not header:
+            return None
+        m = _TRACEPARENT_RE.match(header.strip().lower())
+        if not m or m.group(1) == "ff":
+            return None
+        trace_id, parent_span, flags = m.group(2), m.group(3), \
+            m.group(4)
+        if trace_id == "0" * 32 or parent_span == "0" * 16:
+            return None
+        sampled = bool(int(flags, 16) & 0x01)
+        if not sampled and sampler is not None:
+            sampled = sampler.sample(trace_id, route)
+        return cls(trace_id=trace_id, parent_id=parent_span,
+                   sampled=sampled, route=route, deadline=deadline,
+                   tracer=tracer)
+
+    def traceparent(self) -> str:
+        """The W3C header value naming THIS context's root span as
+        the parent for the next hop."""
+        flags = "01" if self.sampled else "00"
+        return f"00-{self.trace_id}-{self.root_span_id}-{flags}"
+
+    # ---- cross-thread handoff ----
+    def attach(self) -> _Attach:
+        """``with ctx.attach():`` — make this the thread's current
+        context for the block. Explicit, and always restored on exit
+        (no thread-local leakage across pool reuse)."""
+        return _Attach(self)
+
+    # ---- phase ledger ----
+    def phase_done(self, name: str,
+                   now_in: Optional[str] = None,
+                   attrs: Optional[Dict[str, Any]] = None) -> float:
+        """Close the contiguous segment begun by the previous mark as
+        phase ``name``; returns its duration in seconds. ``now_in``
+        labels the phase the request is in NEXT (what
+        ``/debug/requests`` shows for in-flight work). Emits a span
+        (parented to the request root) when sampled; updates the
+        ledger ALWAYS."""
+        now = time.perf_counter_ns()
+        with self._lock:
+            t0, self._last_ns = self._last_ns, now
+            dur_ns = now - t0
+            dur_s = dur_ns / 1e9
+            self.phases[name] = self.phases.get(name, 0.0) + dur_s
+            self._phase = now_in
+        if self.sampled:
+            try:
+                self.tracer.record_span(
+                    name, t0, dur_ns, trace_id=self.trace_id,
+                    parent_id=self.root_span_id, attrs=attrs)
+            except Exception:
+                pass      # tracing must never fail the request
+        return dur_s
+
+    def phase(self, name: str,
+              now_in: Optional[str] = None) -> "_PhaseBlock":
+        """``with ctx.phase("device_step"):`` for phases that start
+        and end on one thread."""
+        return _PhaseBlock(self, name, now_in)
+
+    def set_phase(self, name: Optional[str]) -> None:
+        with self._lock:
+            self._phase = name
+
+    def current_phase(self) -> Optional[str]:
+        with self._lock:
+            return self._phase
+
+    # ---- error promotion & completion ----
+    def set_error(self, exc: BaseException) -> None:
+        """Record the failure AND promote the request to sampled —
+        every error / deadline-exceeded request leaves a trace."""
+        with self._lock:
+            if self.error is None:
+                self.error = repr(exc)[:300]
+        self.sampled = True
+
+    def open_root(self, attrs: Optional[Dict[str, Any]] = None
+                  ) -> None:
+        """Announce the root span to the tracer sinks at admission so
+        a crash bundle lists this request as an unclosed span."""
+        if not self.sampled:
+            return
+        try:
+            self.tracer.notify_request_open(
+                "request", self.t0_ns, trace_id=self.trace_id,
+                span_id=self.root_span_id, parent_id=self.parent_id,
+                attrs=dict(attrs or {},
+                           route=self.route) if (attrs or self.route)
+                else None)
+        except Exception:
+            pass
+
+    def finish(self, attrs: Optional[Dict[str, Any]] = None) -> float:
+        """Close the request: emits the root ``request`` span (when
+        sampled) carrying route / phase ledger / error; returns total
+        wall seconds. Idempotent."""
+        now = time.perf_counter_ns()
+        with self._lock:
+            if self._finished:
+                return (self._last_ns - self.t0_ns) / 1e9
+            self._finished = True
+            if now > self._last_ns:
+                # whatever ran since the last mark (response
+                # serialization + socket write) becomes the terminal
+                # segment, so the ledger still sums to the total
+                tail = (now - self._last_ns) / 1e9
+                self.phases["finalize"] = \
+                    self.phases.get("finalize", 0.0) + tail
+                self._last_ns = now
+            total_ns = self._last_ns - self.t0_ns
+            phases = {k: round(v, 6) for k, v in self.phases.items()}
+            self._phase = None
+        if self.sampled:
+            a: Dict[str, Any] = {"route": self.route,
+                                 "phases": phases}
+            if self.error is not None:
+                a["error"] = self.error
+            if self.attrs:
+                a.update(self.attrs)
+            if attrs:
+                a.update(attrs)
+            try:
+                self.tracer.record_span(
+                    "request", self.t0_ns, total_ns,
+                    trace_id=self.trace_id,
+                    span_id=self.root_span_id,
+                    parent_id=self.parent_id, attrs=a)
+            except Exception:
+                pass
+        return total_ns / 1e9
+
+    # ---- introspection (/debug/requests) ----
+    def age_s(self) -> float:
+        return (time.perf_counter_ns() - self.t0_ns) / 1e9
+
+    def deadline_remaining_s(self) -> Optional[float]:
+        if self.deadline is None:
+            return None
+        return self.deadline - time.monotonic()
+
+    def to_debug(self) -> dict:
+        with self._lock:
+            phases = {k: round(v * 1e3, 3)
+                      for k, v in self.phases.items()}
+            phase = self._phase
+        out = {"trace_id": self.trace_id, "route": self.route,
+               "sampled": self.sampled, "phase": phase,
+               "age_ms": round(self.age_s() * 1e3, 3),
+               "phases_ms": phases}
+        rem = self.deadline_remaining_s()
+        if rem is not None:
+            out["deadline_remaining_ms"] = round(rem * 1e3, 3)
+        if self.error is not None:
+            out["error"] = self.error
+        return out
+
+
+class _PhaseBlock:
+    __slots__ = ("_ctx", "_name", "_now_in")
+
+    def __init__(self, ctx: RequestContext, name: str,
+                 now_in: Optional[str]):
+        self._ctx = ctx
+        self._name = name
+        self._now_in = now_in
+
+    def __enter__(self) -> RequestContext:
+        self._ctx.set_phase(self._name)
+        return self._ctx
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc is not None:
+            self._ctx.set_error(exc)
+        self._ctx.phase_done(self._name, now_in=self._now_in)
+        return False

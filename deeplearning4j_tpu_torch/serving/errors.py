@@ -3,11 +3,11 @@
 generate paths raise). The HTTP layer maps them to status codes:
 QueueFullError (and KVPagePoolExhaustedError) -> 429,
 DeadlineExceededError -> 504, ModelNotFoundError -> 404,
-ServerClosedError -> 503. ``retry_after_s`` becomes a Retry-After
-header on 429/503."""
+ServerClosedError and CircuitOpenError -> 503. ``retry_after_s``
+becomes a Retry-After header on 429/503."""
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
-           "ModelNotFoundError", "ServerClosedError",
+           "ModelNotFoundError", "ServerClosedError", "CircuitOpenError",
            "KVPagePoolExhaustedError", "KVLeaseError",
            "KVLeaseCorruptError", "KVLeaseVersionError"]
 
@@ -53,6 +53,13 @@ class ModelNotFoundError(ServingError, KeyError):
 
 class ServerClosedError(ServingError):
     """The scheduler/server is draining or shut down (503)."""
+
+
+class CircuitOpenError(ServingError):
+    """The backend's circuit breaker is open after repeated worker
+    crashes: the request is shed immediately instead of being queued
+    into a crash-looping worker. Retry after the breaker's cooldown
+    (HTTP maps this to 503)."""
 
 
 class KVLeaseError(ServingError):

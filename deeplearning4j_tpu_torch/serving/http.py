@@ -1,42 +1,70 @@
 """Stdlib HTTP front end for the predict and generate paths
 (counterpart of ``deeplearning4j_tpu/serving/http.py``).
 
-- ``POST /v1/predict``  {"model", "version"?, "inputs", "timeout_ms"?}
-  -> {"outputs", "model_version"}
+- ``POST /v1/predict``  {"model", "version"?, "inputs", "timeout_ms"?,
+  "tier"?} -> {"outputs", "model_version"}
 - ``POST /v1/generate`` {"model", "version"?, "prompt", "n_tokens"?,
-  "temperature"?, "seed"?, "timeout_ms"?} -> {"ids", "model_version"}
-  (continuous batching over paged KV decode sessions, serving/
-  continuous.py)
+  "temperature"?, "seed"?, "timeout_ms"?, "tier"?} -> {"ids",
+  "model_version"} (continuous batching over paged KV decode sessions,
+  serving/continuous.py)
 - ``GET  /v1/models``   -> {"models": registry listing}
-- ``GET  /healthz``     -> {"status": "ok" | "draining", "models"}
+- ``GET  /healthz``     -> {"status": "ok" | "degraded" | "draining",
+  ...}: always 200 for humans; the status field carries the judgement
+  (firing alerts, non-closed circuit breakers, SLO breaches)
+- ``GET  /readyz`` (or ``/healthz?ready``) -> the same payload, but 503
+  with ``Retry-After`` when draining or degraded: the form a load
+  balancer's check consumes
+- ``GET  /metrics``     -> the ServingMetrics snapshot (JSON), or
+  Prometheus text (``?format=prometheus`` or an ``Accept`` naming
+  ``text/plain``), or OpenMetrics with exemplars
+  (``?format=openmetrics`` or an ``Accept`` naming ``openmetrics``)
+- ``GET  /debug/requests`` (in flight, recent, queue depth by tier,
+  latency attribution), ``/debug/slots`` (generate slots and KV pool),
+  ``/debug/traces`` (slow and errored requests),
+  ``/debug/trace-export?since=&limit=`` (the tracer's span ring, paged)
+  and ``/debug/bundle`` (a flight-recorder bundle as JSON)
 
-Typed errors map to status codes as in the JAX package:
-QueueFullError -> 429, DeadlineExceededError -> 504,
-ModelNotFoundError -> 404, ServerClosedError (draining) -> 503, a bad
-body -> 400, anything else -> 500. ``stop(drain=True)`` refuses new
-work, completes queued and in-flight requests, then stops the listener.
-``/metrics``, tracing, retrieval, the KV endpoints and the fleet are
-not ported yet (ROADMAP A4).
+``tier`` is the priority-admission tier (``gold`` / ``standard`` /
+``best_effort``, default standard, see ``serving/tiers.py``). Every
+request gets a trace context at admission (adopted from a W3C
+``traceparent`` header or minted), and every response carries its
+``traceparent``. Typed errors map to status codes as in the JAX
+package: QueueFullError -> 429, DeadlineExceededError -> 504,
+ModelNotFoundError -> 404, ServerClosedError and CircuitOpenError ->
+503 (with a ``Retry-After`` the raiser priced: tier, breaker cooldown,
+drain), a bad body -> 400, anything else -> 500; error bodies carry the
+``trace_id``. ``stop(drain=True)`` refuses new work, completes queued
+and in-flight requests, then stops the listener. Retrieval, the KV
+endpoints, the serving mesh and AOT warmup are not ported yet (ROADMAP
+A4b, A4c, A6, A7).
 """
 
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import logging
 import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional, Tuple
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.observability.tracing import (RequestContext,
+                                                            Sampler,
+                                                            get_tracer)
 from deeplearning4j_tpu_torch.serving.continuous import ContinuousBatcher
-from deeplearning4j_tpu_torch.serving.errors import (DeadlineExceededError,
+from deeplearning4j_tpu_torch.serving.errors import (CircuitOpenError,
+                                                     DeadlineExceededError,
                                                      ModelNotFoundError,
                                                      QueueFullError,
                                                      ServerClosedError,
                                                      ServingError)
+from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
 from deeplearning4j_tpu_torch.serving.scheduler import BatchScheduler
 
@@ -44,10 +72,12 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["ModelServer"]
 
+# typed error -> status, first match wins (CircuitOpenError and
+# ServerClosedError both mean "this backend cannot take work now")
 _STATUS = ((QueueFullError, 429), (DeadlineExceededError, 504),
            (ModelNotFoundError, 404), (ServerClosedError, 503),
-           (ServingError, 400), (ValueError, 400), (KeyError, 400),
-           (TypeError, 400))
+           (CircuitOpenError, 503), (ServingError, 400),
+           (ValueError, 400), (KeyError, 400), (TypeError, 400))
 
 
 def _retry_after_header(seconds: float) -> str:
@@ -55,19 +85,66 @@ def _retry_after_header(seconds: float) -> str:
     return str(max(1, int(-(-float(seconds) // 1))))
 
 
+def _metrics_mode(path: str, accept: str) -> str:
+    """"json" | "text" (Prometheus 0.0.4) | "openmetrics". Exemplars
+    are only legal in OpenMetrics, so a scraper that wants them must
+    say so (``format=openmetrics`` or the Accept header Prometheus
+    sends)."""
+    fmt = (parse_qs(urlparse(path).query).get("format") or [None])[0]
+    if fmt in ("openmetrics", "json"):
+        return fmt
+    if fmt == "prometheus":
+        return "text"
+    if "openmetrics" in accept:
+        return "openmetrics"
+    if "text/plain" in accept:
+        return "text"
+    return "json"
+
+
+_CONTENT_TYPES = {
+    "openmetrics": "application/openmetrics-text; version=1.0.0; "
+                   "charset=utf-8",
+    "text": "text/plain; version=0.0.4; charset=utf-8"}
+
+
 class ModelServer:
     """Registry + per-(model, version) schedulers (predict) and
     continuous batchers (generate) behind one HTTP listener, created on
     first use. ``slots``, ``capacity``, ``kv_mode``, ``page_size`` and
-    ``kv_pages`` configure the batchers (``ContinuousBatcher``)."""
+    ``kv_pages`` configure the batchers. ``metrics`` is the shared
+    ServingMetrics (one per server by default); ``alerts`` (an
+    AlertManager) and ``slos`` (an SLOMonitor) are evaluated on every
+    ``/healthz``; ``sample_rate`` / ``sample_routes`` set the head
+    sampler, ``tracer`` the span sink (the process tracer by default);
+    requests at or above ``slow_ms`` land in ``/debug/traces``."""
 
     def __init__(self, registry: Optional[ModelRegistry] = None,
                  port: int = 0, host: str = "127.0.0.1",
                  max_batch_size: int = 32, queue_limit: int = 256,
                  wait_ms: float = 2.0, slots: int = 4,
-                 capacity: int = 256, kv_mode: str = "auto",
-                 page_size: int = 16, kv_pages: Optional[int] = None):
+                 capacity: int = 256,
+                 metrics: Optional[ServingMetrics] = None,
+                 alerts=None, sample_rate: float = 0.01,
+                 sample_routes: Optional[Dict[str, float]] = None,
+                 slow_ms: float = 250.0, slos=None, tracer=None,
+                 kv_mode: str = "auto", page_size: int = 16,
+                 kv_pages: Optional[int] = None):
         self.registry = registry or ModelRegistry()
+        self.metrics = metrics or ServingMetrics()
+        # last good /metrics payload per mode, served when a rebuild
+        # raises mid-drain so a collector's final scrape still lands
+        self._last_exposition: Dict[str, object] = {}
+        self.alerts = alerts
+        self.slos = slos
+        self.sampler = Sampler(rate=sample_rate, routes=sample_routes)
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.slow_ms = float(slow_ms)
+        self._inflight: Dict[int, dict] = {}
+        self._inflight_lock = threading.Lock()
+        self._req_seq = itertools.count()
+        # completed-request ring for /debug/traces and /debug/requests
+        self._recent: collections.deque = collections.deque(maxlen=256)
         self.host = host
         self.port = port
         self.max_batch_size = max_batch_size
@@ -98,6 +175,11 @@ class ModelServer:
                 b = table[key] = make()
         return b
 
+    def _backends(self):
+        with self._lock:
+            return (list(self._schedulers.values())
+                    + list(self._batchers.values()))
+
     def scheduler_for(self, name: str, version: Optional[int] = None
                       ) -> Tuple[BatchScheduler, int]:
         """(scheduler, served version): the single resolution point for
@@ -108,7 +190,7 @@ class ModelServer:
             lambda: BatchScheduler(
                 model, max_batch_size=self.max_batch_size,
                 queue_limit=self.queue_limit, wait_ms=self.wait_ms,
-                name=f"predict/{name}/v{version}"))
+                metrics=self.metrics, name=f"predict/{name}/v{version}"))
         return s, version
 
     def batcher_for(self, name: str, version: Optional[int] = None
@@ -124,18 +206,19 @@ class ModelServer:
             self._batchers, (name, version),
             lambda: ContinuousBatcher(
                 model, slots=self.slots, capacity=self.capacity,
-                queue_limit=self.queue_limit,
-                name=f"generate/{name}/v{version}", kv_mode=self.kv_mode,
+                queue_limit=self.queue_limit, metrics=self.metrics,
+                name=f"generate/{name}/v{version}",
+                version=str(version), kv_mode=self.kv_mode,
                 page_size=self.page_size, kv_pages=self.kv_pages))
         return b, version
 
     # ---- endpoint handlers (also the in-process API) ----
-    def health_payload(self) -> dict:
-        if self._draining.is_set():
-            return {"status": "draining"}
-        return {"status": "ok", "models": self.registry.models()}
+    @staticmethod
+    def _timeout_s(body) -> Optional[float]:
+        t = body.get("timeout_ms")
+        return None if t is None else float(t) / 1e3
 
-    def handle_predict(self, body: dict) -> dict:
+    def _handle_predict(self, body: dict, ctx=None) -> dict:
         if not isinstance(body, dict) or "model" not in body \
                 or "inputs" not in body:
             raise ValueError('predict body needs "model" and "inputs"')
@@ -144,25 +227,191 @@ class ModelServer:
         x = np.asarray(body["inputs"], np.float32)
         if x.ndim == 1:
             x = x[None, :]
-        t = body.get("timeout_ms")
-        out = sched.predict(x, timeout=None if t is None
-                            else float(t) / 1e3)
+        if ctx is not None:
+            ctx.attrs["model_version"] = version
+        out = sched.predict(x, timeout=self._timeout_s(body), ctx=ctx,
+                            tier=body.get("tier"))
         return {"outputs": out.tolist(), "model_version": version}
 
-    def handle_generate(self, body: dict) -> dict:
+    def _handle_generate(self, body: dict, ctx=None) -> dict:
         if not isinstance(body, dict) or "model" not in body \
                 or "prompt" not in body:
             raise ValueError('generate body needs "model" and "prompt"')
         batcher, version = self.batcher_for(body["model"],
                                             body.get("version"))
-        t = body.get("timeout_ms")
+        if ctx is not None:
+            ctx.attrs["model_version"] = version
         ids = batcher.generate(
             np.asarray(body["prompt"], np.int64),
             int(body.get("n_tokens", 16)),
             temperature=float(body.get("temperature", 0.0)),
             seed=int(body.get("seed", 0)),
-            timeout=None if t is None else float(t) / 1e3)
+            timeout=self._timeout_s(body), ctx=ctx,
+            tier=body.get("tier"))
         return {"ids": np.asarray(ids).tolist(), "model_version": version}
+
+    # ---- request-scoped tracing plumbing ----
+    def _mint_ctx(self, headers, route: str,
+                  body: dict) -> RequestContext:
+        t = self._timeout_s(body)
+        deadline = time.monotonic() + t if t is not None else None
+        ctx = RequestContext.from_traceparent(
+            headers.get("traceparent"), route, self.sampler,
+            deadline=deadline, tracer=self.tracer)
+        if ctx is None:
+            ctx = RequestContext.new(route, self.sampler,
+                                     deadline=deadline, tracer=self.tracer)
+        # announce the root span to the sinks: a crash bundle lists this
+        # request as an unclosed span until finish() closes it
+        ctx.open_root()
+        return ctx
+
+    def _track_request(self, ctx: RequestContext, body: dict) -> int:
+        key = next(self._req_seq)
+        with self._inflight_lock:
+            self._inflight[key] = {"ctx": ctx, "model": body.get("model")}
+        return key
+
+    def _finish_request(self, key: int, ctx: RequestContext, code: int,
+                        body: dict) -> None:
+        with self._inflight_lock:
+            self._inflight.pop(key, None)
+        total_s = ctx.finish(attrs={"http_status": code})
+        entry = {"trace_id": ctx.trace_id, "route": ctx.route,
+                 "model": body.get("model"), "status": code,
+                 "duration_ms": round(total_s * 1e3, 3),
+                 "phases_ms": {k: round(v * 1e3, 3)
+                               for k, v in ctx.phases.items()},
+                 # scalar attrs (slot, prefix_hit_tokens, model_version)
+                 # make the completion ring assertable
+                 "attrs": {k: v for k, v in ctx.attrs.items()
+                           if isinstance(v, (int, float, str, bool))},
+                 "sampled": ctx.sampled,
+                 "slow": total_s * 1e3 >= self.slow_ms or code >= 400,
+                 "t_end": time.time()}
+        if ctx.error is not None:
+            entry["error"] = ctx.error
+        with self._inflight_lock:
+            self._recent.append(entry)
+
+    # ---- /debug payloads ----
+    def debug_requests(self) -> dict:
+        """In-flight requests (current phase, age, deadline), the most
+        recent completions, per-backend queue depth by tier, and the
+        latency-attribution report."""
+        with self._inflight_lock:
+            inflight = [dict(v["ctx"].to_debug(), model=v["model"])
+                        for v in self._inflight.values()]
+            recent = list(self._recent)[-20:]
+        by_tier = {b.name: d for b in self._backends()
+                   for d in [b._queue.depth_by_tier()] if d}
+        return {"in_flight": inflight,
+                "in_flight_count": len(inflight),
+                "recent": recent,
+                "queue_by_tier": by_tier,
+                "latency_attribution":
+                    self.metrics.latency_attribution()}
+
+    def debug_slots(self) -> dict:
+        """Slot states per generate backend, with the KV pool and the
+        prefix cache."""
+        with self._lock:
+            batchers = list(self._batchers.values())
+        out = {}
+        for b in batchers:
+            entry = {"active_slots": b.active_slots(),
+                     "pending": len(b._pending),
+                     "slots": b.slots_debug()}
+            kv = b.kv_debug()
+            if kv is not None:
+                entry["kv"] = kv
+            out[b.name] = entry
+        return {"backends": out}
+
+    def debug_traces(self) -> dict:
+        """Recent slow and errored requests with their phase breakdown:
+        what an exemplar trace id from /metrics resolves to."""
+        with self._inflight_lock:
+            recent = list(self._recent)
+        slow = [e for e in recent if e.get("slow")]
+        return {"slow": slow[-50:], "sample_rate": self.sampler.rate,
+                "slow_ms": self.slow_ms}
+
+    def metrics_exposition(self, mode: str):
+        """The /metrics payload in ``mode`` (json | text |
+        openmetrics); the last good one when a rebuild raises (registry
+        churn mid-drain), so a collector's final scrape still lands."""
+        try:
+            if mode == "json":
+                out = self.metrics.snapshot()
+            else:
+                out = self.metrics.prometheus_text(
+                    openmetrics=mode == "openmetrics")
+            self._last_exposition[mode] = out
+        except Exception:
+            out = self._last_exposition.get(mode)
+            if out is None:
+                raise
+        return out
+
+    # ---- health ----
+    def health_payload(self) -> dict:
+        """The /healthz body: status ``ok`` | ``degraded`` |
+        ``draining`` plus the evidence (firing alerts, non-closed
+        circuits, SLO breaches) and the models served."""
+        if self._draining.is_set():
+            return {"status": "draining"}
+        firing = []
+        if self.alerts is not None:
+            try:
+                self.alerts.evaluate()
+                firing = self.alerts.firing()
+            except Exception:
+                logger.exception("alert evaluation failed")
+        slo_status = None
+        if self.slos is not None:
+            try:
+                self.slos.evaluate()
+                slo_status = self.slos.status()
+            except Exception:
+                logger.exception("SLO evaluation failed")
+        circuits = self._circuit_states()
+        breached = [s for s in (slo_status or []) if s.get("breached")]
+        if firing or circuits or breached:
+            payload = {"status": "degraded"}
+            if firing:
+                payload["alerts"] = firing
+            if circuits:
+                payload["circuits"] = circuits
+            if breached:
+                payload["slo_breaches"] = breached
+        else:
+            payload = {"status": "ok"}
+        if slo_status is not None:
+            payload["slos"] = slo_status
+        payload["models"] = self.registry.models()
+        return payload
+
+    def _unready_retry_after_s(self, payload: dict) -> float:
+        """Backoff hint for a not-ready 503: the longest breaker
+        cooldown still running when circuits degraded us, else the
+        drain default."""
+        if payload.get("circuits"):
+            longest = max((b.breaker.cooldown_remaining()
+                           for b in self._backends()), default=0.0)
+            if longest > 0:
+                return longest
+        return self.drain_retry_after_s
+
+    def _circuit_states(self) -> Dict[str, str]:
+        """Backend name -> breaker state, for every backend whose
+        circuit is NOT closed."""
+        out = {}
+        for b in self._backends():
+            state = b.breaker.state
+            if state != "closed":
+                out[b.name] = state
+        return out
 
     # ---- HTTP plumbing ----
     def start(self) -> "ModelServer":
@@ -175,10 +424,12 @@ class ModelServer:
             def log_message(self, fmt, *args):
                 pass
 
-            def _send(self, code, obj, headers=None):
-                data = json.dumps(obj).encode()
+            def _send(self, code, obj, headers=None, content_type=None):
+                data = obj.encode() if isinstance(obj, str) \
+                    else json.dumps(obj).encode()
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type",
+                                 content_type or "application/json")
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
@@ -186,18 +437,54 @@ class ModelServer:
                 self.wfile.write(data)
 
             def do_GET(self):
-                path = urlparse(self.path).path
-                if path == "/healthz":
-                    self._send(200, server.health_payload())
+                url = urlparse(self.path)
+                path = url.path
+                if path in ("/healthz", "/readyz"):
+                    payload = server.health_payload()
+                    ready = path == "/readyz" or "ready" in parse_qs(
+                        url.query, keep_blank_values=True)
+                    if ready and payload["status"] != "ok":
+                        # the load-balancer form: draining/degraded IS a
+                        # 503 (stop sending), with a backoff hint
+                        self._send(503, payload, {
+                            "Retry-After": _retry_after_header(
+                                server._unready_retry_after_s(payload))})
+                    else:
+                        self._send(200, payload)
+                elif path == "/metrics":
+                    mode = _metrics_mode(self.path,
+                                         self.headers.get("Accept", ""))
+                    self._send(200, server.metrics_exposition(mode),
+                               content_type=_CONTENT_TYPES.get(mode))
                 elif path == "/v1/models":
                     self._send(200, {"models": server.registry.models()})
+                elif path == "/debug/requests":
+                    self._send(200, server.debug_requests())
+                elif path == "/debug/slots":
+                    self._send(200, server.debug_slots())
+                elif path == "/debug/traces":
+                    self._send(200, server.debug_traces())
+                elif path == "/debug/trace-export":
+                    q = parse_qs(url.query)
+                    self._send(200, server.tracer.export_since(
+                        since=int((q.get("since") or ["0"])[0]),
+                        limit=int((q.get("limit") or ["10000"])[0])))
+                elif path == "/debug/bundle":
+                    from deeplearning4j_tpu_torch.observability.fleetobs \
+                        import local_bundle_payload
+                    reason = (parse_qs(url.query).get("reason")
+                              or ["manual"])[0]
+                    self._send(200, local_bundle_payload(
+                        registry=server.metrics.registry,
+                        tracer=server.tracer, reason=reason))
                 else:
                     self._send(404, {"error": "not found"})
 
             def do_POST(self):
-                handler = {"/v1/predict": server.handle_predict,
-                           "/v1/generate": server.handle_generate}.get(
-                               urlparse(self.path).path)
+                route = urlparse(self.path).path
+                handler = {"/v1/predict": server._handle_predict,
+                           "/v1/generate": server._handle_generate}.get(
+                               route)
                 if handler is None:
                     self._send(404, {"error": "not found"})
                     return
@@ -218,20 +505,45 @@ class ModelServer:
                 except (ValueError, socket.timeout) as e:
                     self._send(400, {"error": f"bad request body: {e}"})
                     return
+                # admission: adopt the upstream trace or mint a fresh
+                # one; the head sampling decision rides the context end
+                # to end. Bad client input (a non-numeric timeout_ms)
+                # still gets a 400, not a dropped connection
                 try:
-                    self._send(200, handler(body))
+                    ctx = server._mint_ctx(self.headers, route, body)
+                except (ValueError, KeyError, TypeError,
+                        AttributeError) as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                key = server._track_request(ctx, body)
+                code = 500
+                try:
+                    # attach() scopes the context to THIS handler thread
+                    # only, restored on exit: pooled HTTP threads cannot
+                    # leak a request's context
+                    with ctx.attach():
+                        reply = handler(body, ctx=ctx)
+                    code = 200
+                    self._send(200, reply,
+                               {"traceparent": ctx.traceparent()})
                 except Exception as e:
                     code = next((c for cls, c in _STATUS
                                  if isinstance(e, cls)), 500)
                     if code == 500:
                         logger.exception("serving error")
-                    headers = {}
+                    # always-sample on error: the promoted decision
+                    # reaches the response header too
+                    ctx.set_error(e)
+                    headers = {"traceparent": ctx.traceparent()}
                     if code in (429, 503):
                         ra = getattr(e, "retry_after_s", None)
                         headers["Retry-After"] = _retry_after_header(
                             server.drain_retry_after_s if ra is None
                             else ra)
-                    self._send(code, {"error": str(e)}, headers)
+                    self._send(code, {"error": str(e),
+                                      "trace_id": ctx.trace_id}, headers)
+                finally:
+                    server._finish_request(key, ctx, code, body)
 
         with self._lock:
             if self._draining.is_set():

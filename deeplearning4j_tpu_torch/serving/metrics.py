@@ -1,0 +1,418 @@
+"""Serving metrics: latency histograms, phase decomposition, batch
+occupancy, streaming TTFT / inter-token latency (counterpart of
+``deeplearning4j_tpu/serving/metrics.py``).
+
+The observable surface of the serving stack (per-endpoint p50/p95/p99
+latency, queue depth, batch occupancy actual/max, shed count), exported
+as one JSON snapshot on ``/metrics`` and, through the unified registry
+(``observability/registry.py``), as Prometheus text or OpenMetrics with
+exemplars. Every instrument is host-side: recording is a lock and a
+few float adds, and nothing here reads a device tensor. Each
+``ServingMetrics`` owns its registry by default (parallel test servers
+must not share counters); pass ``registry=observability.REGISTRY`` to
+join the process-wide pipe. The JAX package's ``publish_to`` bridge
+into the training UI's stats storage waits for the UI (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+from deeplearning4j_tpu_torch.observability.registry import (
+    Histogram, MetricsRegistry, default_latency_buckets,
+)
+
+__all__ = ["LatencyHistogram", "EndpointMetrics", "BatchOccupancy",
+           "ServingMetrics"]
+
+
+_EDGES = default_latency_buckets()    # seconds; +1 overflow at the end
+
+
+class LatencyHistogram(Histogram):
+    """Log-bucketed latency histogram (seconds in, ms out) — the
+    registry Histogram with the serving snapshot shape preserved."""
+
+    def __init__(self, name: str = "serving_latency_seconds",
+                 labels: Optional[Dict[str, str]] = None):
+        super().__init__(name, help="request latency (seconds)",
+                         labels=labels, buckets=_EDGES)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            count, total = self.count, self.sum
+        return {"count": count,
+                "mean_ms": round(total / count * 1e3, 3) if count else 0.0,
+                "p50_ms": round(self.quantile(0.50) * 1e3, 3),
+                "p95_ms": round(self.quantile(0.95) * 1e3, 3),
+                "p99_ms": round(self.quantile(0.99) * 1e3, 3)}
+
+
+class EndpointMetrics:
+    """Counters + latency histogram for one endpoint, registered as
+    ``serving_*`` Prometheus families labeled by endpoint."""
+
+    _RATE_WINDOW = 30.0           # seconds of completions behind the
+    _RATE_EVENTS = 4096           # current-rate estimate
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 name: str = "endpoint"):
+        reg = registry or MetricsRegistry()
+        lbl = {"endpoint": name}
+        self.name = name
+        self._registry = reg
+        # per-phase latency histograms (serving_phase_seconds), keyed
+        # by phase name; phases form a small fixed set per backend so
+        # this cache stays tiny — instruments are created once per
+        # (endpoint, phase), never per request
+        self._phases: Dict[str, Histogram] = {}
+        self._lock = threading.Lock()
+        self._requests = reg.counter(
+            "serving_requests_total", help="completed requests",
+            labels=lbl)
+        self._errors = reg.counter(
+            "serving_errors_total", help="errored responses",
+            labels=lbl)
+        self._shed = reg.counter(
+            "serving_shed_total", help="load-shed (QueueFullError)",
+            labels=lbl)
+        self._expired = reg.counter(
+            "serving_deadline_expired_total", help="deadline expiry",
+            labels=lbl)
+        # atomic get-or-adopt, matching the counters' get-or-create:
+        # two EndpointMetrics for one endpoint on a SHARED registry
+        # (the process-wide pipe) must merge, not raise
+        self.latency = reg.adopt(LatencyHistogram(labels=lbl))
+        self._recent = collections.deque(maxlen=self._RATE_EVENTS)
+        self._t0 = time.monotonic()
+
+    # int views preserving the pre-registry attribute API
+    @property
+    def requests(self) -> int:
+        return int(self._requests.value)
+
+    @property
+    def errors(self) -> int:
+        return int(self._errors.value)
+
+    @property
+    def shed(self) -> int:
+        return int(self._shed.value)
+
+    @property
+    def expired(self) -> int:
+        return int(self._expired.value)
+
+    def observe(self, seconds: float,
+                trace_id: Optional[str] = None) -> None:
+        self._requests.inc()
+        with self._lock:
+            self._recent.append(time.monotonic())
+        # a sampled request leaves its trace id as the bucket's
+        # exemplar: the /metrics p99 spike links to a concrete trace
+        self.latency.record(
+            seconds,
+            exemplar={"trace_id": trace_id} if trace_id else None)
+
+    def phase_histogram(self, phase: str) -> Histogram:
+        with self._lock:
+            h = self._phases.get(phase)
+            if h is None:
+                h = self._phases[phase] = self._registry.histogram(
+                    "serving_phase_seconds",
+                    help="per-phase request latency decomposition "
+                         "(seconds)",
+                    labels={"endpoint": self.name, "phase": phase},
+                    buckets=_EDGES)
+            return h
+
+    def record_phases(self, phases: Dict[str, float],
+                      trace_id: Optional[str] = None) -> None:
+        """Record one completed request's phase ledger. Phases are
+        contiguous segments of the request's wall time, so per-phase
+        histogram sums reconcile against the whole-request histogram
+        (the latency-attribution contract)."""
+        ex = {"trace_id": trace_id} if trace_id else None
+        for phase, dur in phases.items():
+            self.phase_histogram(phase).record(dur, exemplar=ex)
+
+    def count_error(self) -> None:
+        # an errored response is still a completed request: folding it
+        # into ``requests`` keeps requests_per_sec honest during an
+        # outage (error rate can never exceed 100%) — requests FIRST,
+        # so a concurrent scrape never reads errors > requests
+        self._requests.inc()
+        self._errors.inc()
+        with self._lock:
+            self._recent.append(time.monotonic())
+
+    def count_shed(self) -> None:
+        self._shed.inc()
+
+    def count_expired(self) -> None:
+        self._expired.inc()
+
+    def snapshot(self) -> dict:
+        now = time.monotonic()
+        # errors read BEFORE requests: count_error increments requests
+        # first, so any error this read observes already has its
+        # request counted — a scrape can never see errors > requests
+        errors = self.errors
+        out = {"requests": self.requests, "errors": errors,
+               "shed": self.shed, "deadline_expired": self.expired}
+        with self._lock:
+            recent = list(self._recent)
+        # CURRENT rate over a sliding window, not a lifetime average
+        # (a lifetime mean can never show a traffic drop). If the
+        # event ring overflowed inside the window, the true rate is
+        # higher — use the ring's own span as the denominator then.
+        n = sum(1 for t in recent if t >= now - self._RATE_WINDOW)
+        if n >= self._RATE_EVENTS:
+            span = max(now - recent[0], 1e-9)
+        else:
+            span = min(self._RATE_WINDOW, max(now - self._t0, 1e-9))
+        out["requests_per_sec"] = round(n / span, 2)
+        out["latency"] = self.latency.snapshot()
+        return out
+
+
+class BatchOccupancy:
+    """How full the coalesced device calls actually are — THE number
+    that says whether dynamic/continuous batching is working (avg 1.0
+    under load means the batcher degraded to sequential serving)."""
+
+    def __init__(self, max_batch_size: int,
+                 registry: Optional[MetricsRegistry] = None,
+                 name: str = "batch"):
+        reg = registry or MetricsRegistry()
+        lbl = {"endpoint": name}
+        self._lock = threading.Lock()
+        self.max_batch_size = max_batch_size
+        self._batches = reg.counter(
+            "serving_batches_total", help="coalesced device calls",
+            labels=lbl)
+        self._items = reg.counter(
+            "serving_batch_items_total",
+            help="items across coalesced calls", labels=lbl)
+        self.max_seen = 0
+
+    @property
+    def batches(self) -> int:
+        return int(self._batches.value)
+
+    @property
+    def items(self) -> int:
+        return int(self._items.value)
+
+    def record(self, n_items: int) -> None:
+        self._batches.inc()
+        self._items.inc(n_items)
+        with self._lock:
+            self.max_seen = max(self.max_seen, n_items)
+
+    def snapshot(self) -> dict:
+        b, i = self.batches, self.items
+        with self._lock:
+            m = self.max_seen
+        return {"batches": b, "items": i,
+                "avg_batch_size": round(i / b, 3) if b else 0.0,
+                "max_batch_size_seen": m,
+                "max_batch_size": self.max_batch_size}
+
+
+class StreamingMetrics:
+    """Token-streaming latency for one generate backend:
+    time-to-first-token and inter-token latency, labeled by model
+    version (``serving_ttft_seconds`` / ``serving_itl_seconds``) —
+    the two numbers a whole-request histogram can never show for a
+    stream (a fast total can still mean a terrible first-token
+    stall)."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 name: str = "generate", version: str = "0"):
+        reg = registry or MetricsRegistry()
+        lbl = {"endpoint": name, "model_version": str(version)}
+        # TTFT is split into COLD and PREFIX-HIT populations (the
+        # ``population`` label): the headline of prefix caching /
+        # KV-aware routing is the gap between the two, and one
+        # blended histogram can never show it — scrapers summing
+        # both labels recover the old single-series view exactly
+        self.ttft = reg.histogram(
+            "serving_ttft_seconds",
+            help="time from admission to first generated token "
+                 "(seconds), cold prefill",
+            labels=dict(lbl, population="cold"), buckets=_EDGES)
+        self.ttft_hit = reg.histogram(
+            "serving_ttft_seconds",
+            help="time from admission to first generated token "
+                 "(seconds), prefix-hit / imported-lease resume",
+            labels=dict(lbl, population="prefix_hit"),
+            buckets=_EDGES)
+        self.itl = reg.histogram(
+            "serving_itl_seconds",
+            help="inter-token latency within one stream (seconds)",
+            labels=lbl, buckets=_EDGES)
+
+    def record_ttft(self, seconds: float,
+                    trace_id: Optional[str] = None,
+                    prefix_hit: bool = False) -> None:
+        h = self.ttft_hit if prefix_hit else self.ttft
+        h.record(
+            seconds,
+            exemplar={"trace_id": trace_id} if trace_id else None)
+
+    def record_itl(self, seconds: float,
+                   trace_id: Optional[str] = None) -> None:
+        self.itl.record(
+            seconds,
+            exemplar={"trace_id": trace_id} if trace_id else None)
+
+
+class ServingMetrics:
+    """Aggregated registry of endpoint metrics, occupancy trackers and
+    queue-depth gauges; one ``snapshot()`` is the /metrics JSON
+    payload, ``prometheus_text()`` the scraper exposition."""
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        self._lock = threading.Lock()
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self._endpoints: Dict[str, EndpointMetrics] = {}
+        self._occupancy: Dict[str, BatchOccupancy] = {}
+        self._streaming: Dict[tuple, StreamingMetrics] = {}
+        self._gauges: Dict[str, Callable[[], float]] = {}
+
+    def streaming(self, name: str,
+                  version: str = "0") -> StreamingMetrics:
+        with self._lock:
+            key = (name, str(version))
+            if key not in self._streaming:
+                self._streaming[key] = StreamingMetrics(
+                    registry=self.registry, name=name,
+                    version=str(version))
+            return self._streaming[key]
+
+    def latency_attribution(self) -> dict:
+        """Tail-latency attribution: per endpoint, the whole-request
+        p50/p95/p99 decomposed by phase, the dominant phase at each
+        quantile, and the phase-sum/whole reconciliation ratio (means
+        are additive, so ``phase_sum_over_total`` ~= 1.0 says the
+        decomposition accounts for the request's wall time)."""
+        whole: Dict[str, Histogram] = {}
+        phases: Dict[str, Dict[str, Histogram]] = {}
+        for m in self.registry.collect():
+            if not isinstance(m, Histogram) or not m.labels:
+                continue
+            ep = m.labels.get("endpoint")
+            if ep is None:
+                continue
+            if m.name == "serving_latency_seconds":
+                whole[ep] = m
+            elif m.name == "serving_phase_seconds":
+                phases.setdefault(ep, {})[m.labels["phase"]] = m
+        out = {}
+        for ep, ph in phases.items():
+            w = whole.get(ep)
+            rep = {"phases_ms": {}, "count": 0}
+            if w is not None:
+                rep["count"] = w.count
+                rep["whole_ms"] = {
+                    q: round(w.quantile(p) * 1e3, 3)
+                    for q, p in (("p50", .5), ("p95", .95),
+                                 ("p99", .99))}
+            phase_sum = 0.0
+            for name, h in sorted(ph.items()):
+                c = h.count
+                rep["phases_ms"][name] = {
+                    "p50": round(h.quantile(0.50) * 1e3, 3),
+                    "p95": round(h.quantile(0.95) * 1e3, 3),
+                    "p99": round(h.quantile(0.99) * 1e3, 3),
+                    "mean": round(h.sum / c * 1e3, 3) if c else 0.0}
+                phase_sum += h.sum
+            if rep["phases_ms"]:
+                rep["dominant_phase"] = {
+                    q: max(rep["phases_ms"],
+                           key=lambda n: rep["phases_ms"][n][q])
+                    for q in ("p50", "p99")}
+            if w is not None and w.sum > 0:
+                rep["phase_sum_over_total"] = round(
+                    phase_sum / w.sum, 4)
+            out[ep] = rep
+        return out
+
+    def endpoint(self, name: str) -> EndpointMetrics:
+        with self._lock:
+            if name not in self._endpoints:
+                self._endpoints[name] = EndpointMetrics(
+                    registry=self.registry, name=name)
+            return self._endpoints[name]
+
+    def occupancy(self, name: str,
+                  max_batch_size: int = 0) -> BatchOccupancy:
+        with self._lock:
+            if name not in self._occupancy:
+                self._occupancy[name] = BatchOccupancy(
+                    max_batch_size, registry=self.registry, name=name)
+            return self._occupancy[name]
+
+    def register_gauge(self, name: str,
+                       fn: Callable[[], float]) -> None:
+        """A pull gauge (e.g. current queue depth) sampled at
+        snapshot/exposition time."""
+        with self._lock:
+            self._gauges[name] = fn
+        self.registry.gauge("serving_gauge",
+                            help="registered serving gauges",
+                            labels={"name": name}, fn=fn)
+
+    def unregister_gauge(self, name: str) -> None:
+        """Drop a gauge (a shut-down scheduler must unhook its
+        queue-depth callback, or the bound method pins the backend —
+        and its model — in memory forever)."""
+        with self._lock:
+            self._gauges.pop(name, None)
+        self.registry.unregister("serving_gauge",
+                                 labels={"name": name})
+
+    def evict_endpoint(self, name: str) -> int:
+        """Unregister every instrument labeled with this endpoint
+        (``serving_requests_total{endpoint=...}``, latency and phase
+        histograms, batch occupancy, streaming TTFT/ITL). A
+        long-running server that hot-swaps model versions would
+        otherwise accrete one dead label set per retired version —
+        the same leak class as the router's per-replica gauges.
+        Returns the number of series dropped."""
+        with self._lock:
+            self._endpoints.pop(name, None)
+            self._occupancy.pop(name, None)
+            for key in [k for k in self._streaming if k[0] == name]:
+                self._streaming.pop(key, None)
+        dropped = 0
+        for m in self.registry.collect():
+            if m.labels and m.labels.get("endpoint") == name:
+                self.registry.unregister(m.name, labels=m.labels)
+                dropped += 1
+        return dropped
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            endpoints = dict(self._endpoints)
+            occupancy = dict(self._occupancy)
+            gauges = dict(self._gauges)
+        out = {"endpoints": {n: e.snapshot()
+                             for n, e in endpoints.items()},
+               "batching": {n: o.snapshot()
+                            for n, o in occupancy.items()},
+               "gauges": {}}
+        for name, fn in gauges.items():
+            try:
+                out["gauges"][name] = fn()
+            except Exception:
+                out["gauges"][name] = None
+        return out
+
+    def prometheus_text(self, openmetrics: bool = False) -> str:
+        return self.registry.prometheus_text(openmetrics=openmetrics)

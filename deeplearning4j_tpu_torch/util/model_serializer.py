@@ -9,7 +9,10 @@ e.g. ``0/.count``, ``0/.mu/1/attn/Wq``), ``state.npz``,
 ``metadata.json`` and ``manifest.json`` (CRC32 of every other entry).
 A zip either package writes restores in the other, and training
 resumes from it in either. A zip whose updater state does not fit the
-config's updater keeps the fresh state, as the JAX restore does.
+config's updater keeps the fresh state, as the JAX restore does. The
+``checkpoint.write`` and ``checkpoint.read`` chaos sites sit where the
+JAX package has them: on the file just written, and before the zip is
+opened.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+
+from deeplearning4j_tpu_torch import chaos
 
 __all__ = ["write_model", "restore_model", "verify_checkpoint",
            "params_from_jax", "CheckpointIntegrityError"]
@@ -136,6 +141,9 @@ def write_model(model, path: str) -> None:
         for name, data in entries.items():
             z.writestr(name, data)
         z.writestr(_MANIFEST, json.dumps(manifest))
+    # chaos site: a preemption/ENOSPC/bit-rot drill against the file
+    # just written; restore-side verification must catch what it does
+    chaos.file_fault("checkpoint.write", path)
 
 
 def verify_checkpoint(path: str) -> dict:
@@ -190,6 +198,9 @@ def restore_model(path: str, *, device="cuda"):
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
         MultiLayerConfiguration)
 
+    # chaos site: at-rest rot / transient read failure found at restore
+    # time (truncate/corrupt mutate the file before it is read)
+    chaos.file_fault("checkpoint.read", path)
     with zipfile.ZipFile(path, "r") as z:
         meta = json.loads(z.read("metadata.json"))
         cfg = json.loads(z.read("configuration.json"))

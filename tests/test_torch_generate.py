@@ -385,10 +385,29 @@ def test_speculative_greedy_parity_perfect_and_poor_draft(tmp_path_factory,
     np.testing.assert_array_equal(jsd.generate(prompt, 20), ref)
 
 
-def test_speculative_registry_waits_for_metrics(lm):
-    _, net, _ = lm
-    with pytest.raises(NotImplementedError, match="A4"):
-        SpeculativeDecoder(net, net, registry=object())
+def test_speculative_registry_waits_for_metrics(tmp_path_factory, lm):
+    """The ``registry=`` acceptance counters (once refused, waiting for
+    the serving metrics) count what the JAX decoder's count on the same
+    target, draft and prompt, and equal the plain-int tallies."""
+    from deeplearning4j_tpu.observability.registry import (
+        MetricsRegistry as JaxMetricsRegistry)
+    from deeplearning4j_tpu_torch.observability.registry import (
+        MetricsRegistry)
+    jnet, net, _ = lm
+    jpoor, poor, _ = _pair(tmp_path_factory, seed=9, width=16, layers=1)
+    prompt = np.array([[1, 2, 3, 4, 5]])
+    reg, jreg = MetricsRegistry(), JaxMetricsRegistry()
+    sd = SpeculativeDecoder(net, poor, k=4, capacity=CAP, registry=reg)
+    jsd = JaxSpeculative(jnet, jpoor, k=4, capacity=CAP, registry=jreg)
+    np.testing.assert_array_equal(sd.generate(prompt, 20),
+                                  jsd.generate(prompt, 20))
+    lbl = {"endpoint": "speculative"}
+    counts = [(r.get("spec_tokens_proposed_total", lbl).value,
+               r.get("spec_tokens_accepted_total", lbl).value)
+              for r in (reg, jreg)]
+    assert counts[0] == counts[1] == (sd.tokens_proposed,
+                                      sd.tokens_accepted)
+    assert reg.prometheus_text() == jreg.prometheus_text()
     with pytest.raises(ValueError, match="headroom"):
         SpeculativeDecoder(net, net, k=4, capacity=CAP).generate(
             np.arange(1, 60), 4)
@@ -489,7 +508,10 @@ def test_batcher_prefix_hit_skips_prefill(lm):
         np.testing.assert_array_equal(first, second)
         # the second stream resumed after the 16 cached positions
         assert cb.device_steps - steps == len(prompt) - 16 + 6 - 1
-        assert len(cb.ttft_s) == 2 and len(cb.itl_s) == 10
+        # the streaming histograms: one cold and one prefix-hit first
+        # token, 5 inter-token gaps a stream
+        st = cb._stream
+        assert (st.ttft.count, st.ttft_hit.count, st.itl.count) == (1, 1, 10)
     finally:
         assert cb.shutdown(drain=True)
     # only the prefix cache holds pages once the streams are done

@@ -289,11 +289,16 @@ def test_port_imports_no_jax():
         "'deeplearning4j_tpu.')]\n"
         "assert not bad, bad\n"
         "for new in ('ops.decode_attention', 'models.streaming', "
-        "'models.paged_kv', 'models.speculative', 'serving.continuous'):\n"
+        "'models.paged_kv', 'models.speculative', 'serving.continuous', "
+        "'observability.registry', 'observability.tracing', "
+        "'observability.slo', 'observability.alerts', "
+        "'observability.flight_recorder', 'observability.fleetobs', "
+        "'serving.metrics', 'serving.tiers', 'chaos.injector', "
+        "'chaos.retry'):\n"
         "    assert p.__name__ + '.' + new in sys.modules, new\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=repo)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout) >= 44
+    assert int(r.stdout) >= 56
