@@ -24,7 +24,13 @@ priority tiers at trace sampling 1.0 and 0.0, ``/metrics`` counts and
 the TTFT / inter-token histograms against what was sent, ``/readyz``,
 ``traceparent``, kernel launches against batches and steps, host syncs
 per served step, and a circuit-breaker drill through the
-``serving.worker.step`` chaos site on a second generate backend. It
+``serving.worker.step`` chaos site on a second generate backend. Last
+(``fleet_phase``) it serves the same model from a fleet of three port
+servers behind the port's router: predicts with failover, the generate
+burst split prefill -> decode across replicas through KV leases (lease
+sizes, export, import and hop times, tokens/s against one server in the
+same run), ``fleet.replace()`` migrating live streams, ``fleet.kill()``
+under predicts, and a subprocess replica SIGKILLed. It
 imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -140,7 +146,11 @@ def kernel_phase(attn):
              ((8, T, HEADS, 64), False, pad, "kv_mask, non-causal"),
              ((4, 1000, HEADS, 64), True, None, "ragged T=1000"),
              ((2, T, HEADS, 128), True, None, "D=128"),
-             ((2, 333, 4, 32), False, None, "D=32, ragged T=333")]
+             ((2, 333, 4, 32), False, None, "D=32, ragged T=333"),
+             # the fleet phase's predicts (one-row batches of 128 ids)
+             ((8, 128, HEADS, 64), True, None, "predict T=128, causal"),
+             ((8, 128, HEADS, 64), False, None,
+              "predict T=128, non-causal")]
     max_err = 0.0
     for shape, causal, mask, what in cases:
         q, k, v = rand(*shape), rand(*shape), rand(*shape)
@@ -219,7 +229,11 @@ def backward_kernel_phase(attn):
              ((8, T, HEADS, 64), False, pad, "kv_mask, non-causal"),
              ((4, 1000, HEADS, 64), True, None, "ragged T=1000"),
              ((2, T, HEADS, 128), True, None, "D=128"),
-             ((2, 333, 4, 32), False, None, "D=32, ragged T=333")]
+             ((2, 333, 4, 32), False, None, "D=32, ragged T=333"),
+             # the fleet phase's predicts (one-row batches of 128 ids)
+             ((8, 128, HEADS, 64), True, None, "predict T=128, causal"),
+             ((8, 128, HEADS, 64), False, None,
+              "predict T=128, non-causal")]
     err = {"dq": 0.0, "dkv": 0.0}
     for shape, causal, mask, what in cases:
         q, k, v, do = (rand(*shape) for _ in range(4))
@@ -797,7 +811,7 @@ class plain_decode_attention:
         self.da.decode_attention = self.saved
 
 
-def check_greedy(net, da, prompt, ids):
+def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS):
     """Hold served greedy ids against ``streaming_session(capacity,
     batch=1).generate`` on the plain decode attention. A mismatch passes
     only at a step where the reference's top two probabilities are
@@ -806,7 +820,7 @@ def check_greedy(net, da, prompt, ids):
     import numpy as np
     with plain_decode_attention(da):
         ref = net.streaming_session(capacity=CAPACITY, batch=1).generate(
-            np.asarray(prompt)[None], GEN_TOKENS)[0].cpu().numpy()
+            np.asarray(prompt)[None], n_tokens)[0].cpu().numpy()
     ids = np.asarray(ids)
     bad = np.flatnonzero(ids != ref)
     if bad.size == 0:
@@ -947,6 +961,23 @@ def time_decode_step(net, da, card):
         f"{after[0]:.3f} ms (host {after[1]:.3f} ms)")
 
 
+def generate_bodies():
+    """The generate burst: GEN_REQUESTS prompts of PROMPT_MIN-PROMPT_MAX
+    ids from ``default_rng(0)``, GEN_TOKENS tokens each, every fourth at
+    temperature 0.8 with a seed of its own."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, GEN_REQUESTS)
+    bodies = []
+    for i, n in enumerate(lengths):
+        body = {"model": "lm", "prompt": rng.integers(0, V, n).tolist(),
+                "n_tokens": GEN_TOKENS}
+        if i % 4 == 3:                # 4 of 16 sample at temperature 0.8
+            body.update(temperature=0.8, seed=100 + i)
+        bodies.append(body)
+    return bodies
+
+
 def generate_phase(da, card):
     """Serve the full-width LM through ``/v1/generate``
     (ModelServer(slots=8, capacity=1024, page_size=16), the default 512
@@ -967,15 +998,8 @@ def generate_phase(da, card):
 
     net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(lm_config()),
                             device="cuda").init(seed=0)
-    rng = np.random.default_rng(0)
-    lengths = rng.integers(PROMPT_MIN, PROMPT_MAX + 1, GEN_REQUESTS)
-    bodies = []
-    for i, n in enumerate(lengths):
-        body = {"model": "lm", "prompt": rng.integers(0, V, n).tolist(),
-                "n_tokens": GEN_TOKENS}
-        if i % 4 == 3:                # 4 of 16 sample at temperature 0.8
-            body.update(temperature=0.8, seed=100 + i)
-        bodies.append(body)
+    bodies = generate_bodies()
+    lengths = [len(b["prompt"]) for b in bodies]
     repeat = next(b for b in bodies if "temperature" not in b
                   and len(b["prompt"]) >= 64)
     registry = ModelRegistry()
@@ -1036,7 +1060,7 @@ def generate_phase(da, card):
         cached = {p for chain in sess.prefix_cache._entries.values()
                   for p in chain}
         log(f"/v1/generate: {GEN_REQUESTS} concurrent requests (prompts "
-            f"{int(lengths.min())}-{int(lengths.max())} ids, {GEN_TOKENS} "
+            f"{min(lengths)}-{max(lengths)} ids, {GEN_TOKENS} "
             f"tokens each, 4 at temperature 0.8) + 2 repeats; {steps} "
             f"decode steps, decode_attention launches {launches}; prefix "
             f"hits {batcher.prefix_hits}; pages in use {sess.pages_in_use()}"
@@ -1077,8 +1101,9 @@ SURFACE_PREDICT_T = 128   # ids a row: the reply's JSON stays a few MB
 PROFILE_TOKENS = 32       # tokens a request in the profiled bursts
 
 
-def burst(port, path, bodies):
-    """Send ``bodies`` concurrently; returns (replies, wall seconds)."""
+def burst(port, path, bodies, check=True):
+    """Send ``bodies`` concurrently; returns (replies, wall seconds).
+    With ``check``, every reply must be a 200."""
     replies, errors = [None] * len(bodies), []
     barrier = threading.Barrier(len(bodies))
 
@@ -1099,8 +1124,8 @@ def burst(port, path, bodies):
     wall = time.perf_counter() - t0
     assert not errors, f"requests failed: {errors}"
     assert not any(th.is_alive() for th in threads), "client hung"
-    assert all(r[0] == 200 for r in replies), [r[:2] for r in replies
-                                               if r[0] != 200]
+    assert not check or all(r[0] == 200 for r in replies), \
+        [r[:2] for r in replies if r[0] != 200]
     return replies, wall
 
 
@@ -1371,6 +1396,535 @@ def serving_surface_phase(attn, da, card, net, server):
     return fwd_launches, dec_launches
 
 
+FLEET_ROLES = ["prefill", "decode", "decode"]
+FLEET_PAGES = 512                 # KV pool pages per replica
+# The drain drill's streams: 4 greedy 256-token streams on fresh prompts.
+# A stream migrates only if it is still live once the successor has
+# booted (a zip restore, ~4-5 s) and the survivor decodes the rest of it
+# within the router's offer import limit; ends staggered 128 steps apart
+# put a stream in that window whatever the boot takes
+DRAIN_PROMPTS, DRAIN_TOKENS = (192, 320, 448, 576), 256
+KILL_PREDICTS = 32
+# The router's per-attempt limit on the path this phase asserts. An
+# export returns once its prompt has been prefilled, one token a step,
+# behind up to 8 others on the prefill replica; on one card shared by
+# three replicas that outlasts the router's default of 10 s for long
+# prompts, and the split falls back to one replica
+# (router_kv_fallbacks_total). The phase shows those fallbacks in a
+# burst of their own through a router at the defaults.
+FLEET_ATTEMPT_TIMEOUT_S = 300.0
+# A drain offer's survivor import returns once the rest of the stream
+# has been decoded there. The default of 5 s and this both stay below
+# the incumbent's 10 s failsafe.
+FLEET_OFFER_IMPORT_TIMEOUT_S = 9.0
+DEFAULT_BURST_TOKENS = 16         # tokens a request at the defaults
+
+
+class HopClock:
+    """Host-clock instruments on a fleet's KV hops. In-process replicas
+    share one clock, so a lease's hop is: its ``export_lease`` on the
+    prefill worker (first page gather to serialised blob), the gap from
+    that blob to the decode replica's ``import_stream`` call (encode,
+    HTTP to the router, the router's re-send, decode, CRC check), and
+    ``import_lease`` on the decode worker. Keyed by prompt."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.exports, self.arrivals, self.imports = {}, {}, {}
+
+    def attach(self, batcher):
+        sess = batcher.session
+        export, import_lease = sess.export_lease, sess.import_lease
+        import_stream = batcher.import_stream
+
+        def timed_export(slot, extra=None):
+            t0 = time.perf_counter()
+            blob = export(slot, extra=extra)
+            t1 = time.perf_counter()
+            with self.lock:
+                self.exports[tuple(extra["prompt"])] = (
+                    (t1 - t0) * 1e3, len(blob), t1)
+            return blob
+
+        def timed_import(blob, total_tokens):
+            t0 = time.perf_counter()
+            lease, extra = import_lease(blob, total_tokens)
+            with self.lock:
+                self.imports[tuple(extra["prompt"])] = (
+                    time.perf_counter() - t0) * 1e3
+            return lease, extra
+
+        def arriving(blob, **kw):
+            t = time.perf_counter()
+            header = kw.get("header")
+            if header is not None:
+                with self.lock:
+                    self.arrivals[tuple(header["extra"]["prompt"])] = t
+            return import_stream(blob, **kw)
+
+        sess.export_lease = timed_export
+        sess.import_lease = timed_import
+        batcher.import_stream = arriving
+
+    def hops(self):
+        """[(lease MB, export ms, import ms, hop ms)] of every lease
+        that crossed."""
+        with self.lock:
+            out = []
+            for key, (ex_ms, nbytes, t_done) in self.exports.items():
+                if key in self.arrivals and key in self.imports:
+                    im_ms = self.imports[key]
+                    out.append((nbytes / 2 ** 20, ex_ms, im_ms, ex_ms
+                                + (self.arrivals[key] - t_done) * 1e3
+                                + im_ms))
+            return out
+
+
+def time_steps(sess, sink):
+    """Each decode step's host time (launch and the probabilities'
+    copy back, which the batcher makes anyway) into ``sink``."""
+    step = sess.step_slots
+
+    def timed(x, active):
+        t0 = time.perf_counter()
+        probs = step(x, active).cpu()
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return probs
+
+    sess.step_slots = timed
+
+
+def stats(xs):
+    xs = sorted(xs)
+    return f"min {xs[0]:.3f} median {xs[len(xs) // 2]:.3f} max {xs[-1]:.3f}"
+
+
+def replica_syncs(replica, path, bodies):
+    """cudaStreamSynchronize / cudaMemcpyAsync calls per device step of
+    one replica: torch.profiler over a burst sent to it alone (the other
+    replicas idle, so every call in the window is its)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    b = replica.server.batcher_for("lm")[0]
+    steps0 = b.device_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        burst(replica.port, path, bodies)
+        torch.cuda.synchronize()
+    steps = b.device_steps - steps0
+    return {k: v / steps for k, v in sync_calls(prof).items()}, steps
+
+
+def wait_idle(batchers, limit_s=300.0):
+    """Until no batcher holds a request (a router that gave up on an
+    export leaves its prefill running on the replica)."""
+    t_end = time.monotonic() + limit_s
+    while any(b.active_slots() or b.queue_depth() for b in batchers):
+        assert time.monotonic() < t_end, "replicas never went idle"
+        time.sleep(0.05)
+
+
+def free_ports(n):
+    """``n`` consecutive free loopback ports (their first)."""
+    import socket
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1]
+        try:
+            socks = []
+            for i in range(n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", base + i))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no {n} consecutive free ports")
+
+
+def fleet_phase(attn, da, card, net, bodies):
+    """Disaggregated prefill/decode and drain migration across a fleet
+    of port servers on the card. A ReplicaFleet of 3 in-process
+    replicas (roles prefill=1, decode=2; each slots=8, capacity=1024,
+    page_size=16, 512 pages, loading the generate phase's model from one
+    zip) behind the port's Router: 8 one-row predicts of 128 ids through
+    the router (forward launches = 8 x served batches, outputs vs the
+    same model on the plain attention); the generate phase's 16
+    requests, each with its own session, split prefill -> decode (16
+    handoffs, no fallback, 16 exports and imports, greedy ids vs the
+    plain-decode reference, temperature ids vs one server, decode
+    launches = 8 x the replicas' steps), with lease sizes, export,
+    import and hop times, tokens/s against the same burst on one server,
+    and each replica's step host time and syncs a step; the same lengths
+    through a second router at serve-fleet's default timeouts (its
+    fallbacks shown, not asserted); ``fleet.replace()`` of a decode
+    replica under 4 pinned greedy 256-token streams (migrated, ids
+    unchanged, the incumbent's pages back to its prefix cache before it
+    leaves the pool), ``fleet.kill()`` of a decode replica under
+    predicts (none fails, the router drops it); and one subprocess
+    replica of the port: a predict through a router, its imports, then
+    SIGKILL. Returns the launches of the forward and decode kernels in
+    the predicts and the burst."""
+    import shutil
+    from collections import Counter
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.fleet import ReplicaFleet
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.router import Router
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+
+    tmp = tempfile.mkdtemp(prefix="fleet-")
+    path = os.path.join(tmp, "lm.zip")
+    write_model(net, path)
+    kw = dict(slots=SLOTS, capacity=CAPACITY, page_size=PAGE,
+              kv_pages=FLEET_PAGES)
+
+    def factory():
+        return {"lm": restore_model(path, device="cuda")}
+
+    burst_bodies = [dict(b, session=f"burst-{i}")
+                    for i, b in enumerate(bodies)]
+    warm = {"model": "lm", "prompt": [1, 2, 3], "n_tokens": 2}
+    # the predicts, and the same model's outputs on the plain attention
+    ids = np.random.default_rng(3).integers(0, V, (CLIENTS,
+                                                   SURFACE_PREDICT_T))
+    predicts = [{"model": "lm", "inputs": ids[i:i + 1].astype(
+        float).tolist()} for i in range(CLIENTS)]
+    before = attn.flash_attention_fwd_cuda.launches
+    with plain_attention(attn):
+        ref = net.output(ids.astype(np.float32)).cpu().numpy()
+    assert attn.flash_attention_fwd_cuda.launches == before
+
+    def check_predict(reply, row):
+        out = np.asarray(reply["outputs"], np.float32)
+        assert out.shape == (1, SURFACE_PREDICT_T, V), out.shape
+        np.testing.assert_allclose(out[0], ref[row], atol=1e-6, rtol=1e-4)
+        return float(np.abs(out[0] - ref[row]).max())
+
+    # the same burst through one port server, in this run
+    registry = ModelRegistry()
+    registry.register("lm", factory()["lm"])
+    single = ModelServer(registry, **kw).start()
+    single_steps = []
+    try:
+        assert http(single.port, "/v1/generate", warm)[0] == 200
+        time_steps(single.batcher_for("lm")[0].session, single_steps)
+        single_replies, single_wall = burst(single.port, "/v1/generate",
+                                            burst_bodies)
+    finally:
+        single.stop(drain=True)
+    del registry, single
+    single_tps = GEN_REQUESTS * GEN_TOKENS / single_wall
+
+    t0 = time.perf_counter()
+    fleet = ReplicaFleet(factory, n=len(FLEET_ROLES), roles=FLEET_ROLES,
+                         server_kwargs=kw).start()
+    boot_s = time.perf_counter() - t0
+    router = Router(fleet, hedge_after_s=None,
+                    attempt_timeout_s=FLEET_ATTEMPT_TIMEOUT_S,
+                    request_timeout_s=600.0).start()
+    router.offer_import_timeout_s = FLEET_OFFER_IMPORT_TIMEOUT_S
+
+    def counter(name, r=router):
+        return r.registry.get(name).value
+
+    def kv_count(r, name):
+        return r.server.metrics.registry.get(
+            name, labels={"endpoint": "generate/lm/v1"}).value
+
+    try:
+        replicas = fleet.snapshot()
+        log(f"fleet: {len(replicas)} in-process replicas ("
+            + ", ".join(f"{r.id}={r.role}" for r in replicas)
+            + f") booted in {boot_s:.2f} s, router on port {router.port}")
+
+        # predicts through the router
+        def served_batches():
+            return sum(s.device_calls for r in fleet.snapshot()
+                       for s in r.server._schedulers.values())
+
+        calls0 = served_batches()
+        attn.flash_attention_fwd_cuda.launches = 0     # this path only
+        replies, _ = burst(router.port, "/v1/predict", predicts)
+        fwd_launches = attn.flash_attention_fwd_cuda.launches
+        batches = served_batches() - calls0
+        worst = max(check_predict(reply, i)
+                    for i, (_, reply, _) in enumerate(replies))
+        assert all("traceparent" in hdrs for _, _, hdrs in replies)
+        log(f"fleet: {CLIENTS} /v1/predict (1 x {SURFACE_PREDICT_T} ids) "
+            f"through the router in {batches} batch(es) on "
+            f"{sum(1 for r in fleet.snapshot() if r.server._schedulers)} "
+            f"replica(s), flash_attention_fwd launches {fwd_launches}; "
+            f"outputs vs the same model on the plain attention: max "
+            f"|diff| {worst:.3e} (atol 1e-6, rtol 1e-4)")
+        assert batches > 0 and fwd_launches == LAYERS * batches, \
+            (fwd_launches, batches)
+
+        # the disaggregated burst
+        clock, steps_ms = HopClock(), {}
+        batchers = {}
+        for r in replicas:
+            assert http(r.port, "/v1/generate", warm)[0] == 200
+            b = batchers[r.id] = r.server.batcher_for("lm")[0]
+            clock.attach(b)
+            time_steps(b.session, steps_ms.setdefault(r.id, []))
+        for sink in steps_ms.values():
+            sink.clear()
+        steps0 = {rid: b.device_steps for rid, b in batchers.items()}
+        da.decode_attention_cuda.launches = 0          # this path only
+        replies, wall = burst(router.port, "/v1/generate", burst_bodies)
+        dec_launches = da.decode_attention_cuda.launches
+        steps = {rid: b.device_steps - steps0[rid]
+                 for rid, b in batchers.items()}
+        handoffs = counter("router_kv_handoffs_total")
+        fallbacks = counter("router_kv_fallbacks_total")
+        exports = {r.role: 0 for r in replicas}
+        imports = dict(exports)
+        for r in replicas:
+            exports[r.role] += kv_count(r, "kv_stream_exports_total")
+            imports[r.role] += kv_count(r, "kv_stream_imports_total")
+        log(f"fleet burst: {GEN_REQUESTS} /v1/generate ({GEN_TOKENS} "
+            f"tokens each, 4 at temperature 0.8, a session each) through "
+            f"the router: router_kv_handoffs_total {handoffs:g}, "
+            f"router_kv_fallbacks_total {fallbacks:g}; "
+            f"kv_stream_exports_total {exports}, kv_stream_imports_total "
+            f"{imports}; device steps {steps}, decode_attention launches "
+            f"{dec_launches}")
+        assert (handoffs, fallbacks) == (GEN_REQUESTS, 0)
+        assert exports == {"prefill": GEN_REQUESTS, "decode": 0}, exports
+        assert imports == {"prefill": 0, "decode": GEN_REQUESTS}, imports
+        assert dec_launches == LAYERS * sum(steps.values()), \
+            (dec_launches, steps)
+        compared = 0
+        for body, (_, reply, _), (_, alone, _) in zip(
+                bodies, replies, single_replies):
+            assert len(reply["ids"]) == GEN_TOKENS
+            if "temperature" in body:
+                assert reply["ids"] == alone["ids"], (body["seed"],)
+            else:
+                compared += check_greedy(net, da, body["prompt"],
+                                         reply["ids"])
+        hops = clock.hops()
+        assert len(hops) == GEN_REQUESTS, len(hops)
+        mb, ex, im, hop = (list(x) for x in zip(*hops))
+        fleet_tps = GEN_REQUESTS * GEN_TOKENS / wall
+        log(f"fleet burst greedy ids vs the plain-decode reference: "
+            f"{compared} of {12 * GEN_TOKENS} compared and equal; the 4 "
+            f"temperature replies equal one server's")
+        log(f"fleet KV hops ({card}, host clock): lease MB {stats(mb)}; "
+            f"export ms (export_lease on the prefill worker) {stats(ex)}; "
+            f"import ms (import_lease on the decode worker) {stats(im)}; "
+            f"hop ms (export + transfer through the router + import) "
+            f"{stats(hop)}")
+        log(f"generate throughput ({card}): fleet of 3 "
+            f"{fleet_tps:.1f} generated tokens/s ({wall:.3f} s), one "
+            f"server {single_tps:.1f} tokens/s ({single_wall:.3f} s), "
+            f"the same 16 requests in this run")
+        log(f"one server's decode step host ms over the same burst: "
+            f"{stats(single_steps)} over {len(single_steps)} steps")
+        for r in replicas:
+            ms = steps_ms[r.id]
+            log(f"replica {r.id} ({r.role}) decode step host ms with 3 "
+                f"replicas live: {stats(ms)} over {len(ms)} steps")
+
+        # the same lengths (fresh ids: no prefix cache helps) through a
+        # router at the timeouts serve-fleet ships: shown, not asserted
+        rng = np.random.default_rng(1)
+        at_defaults = [dict(b, prompt=rng.integers(0, V, len(b["prompt"]))
+                            .tolist(), n_tokens=DEFAULT_BURST_TOKENS,
+                            session=f"defaults-{i}")
+                       for i, b in enumerate(bodies)]
+        drouter = Router(fleet).start()
+        try:
+            dreplies, dwall = burst(drouter.port, "/v1/generate",
+                                    at_defaults, check=False)
+            dcounts = [counter(n, drouter) for n in (
+                "router_kv_handoffs_total", "router_kv_fallbacks_total")]
+        finally:
+            drouter.stop()
+        failed = [reply.get("error") for code, reply, _ in dreplies
+                  if code != 200]
+        log(f"the same {GEN_REQUESTS} prompt lengths (fresh ids, "
+            f"{DEFAULT_BURST_TOKENS} tokens) through a router at "
+            f"serve-fleet's defaults (attempt_timeout_s "
+            f"{drouter.attempt_timeout_s:g} s, request_timeout_s "
+            f"{drouter.request_timeout_s:g} s; {card}): "
+            f"router_kv_handoffs_total {dcounts[0]:g}, "
+            f"router_kv_fallbacks_total {dcounts[1]:g}; statuses "
+            f"{dict(Counter(r[0] for r in dreplies))} in {dwall:.3f} s; "
+            f"errors {failed}")
+        wait_idle(batchers.values())
+
+        # each replica's host syncs a step, in a window of its own (fresh
+        # ids: a cached prefix would skip the steps)
+        short = [{"model": "lm", "prompt": rng.integers(0, V, 48).tolist(),
+                  "n_tokens": PROFILE_TOKENS} for _ in range(SLOTS)]
+        for r in replicas:
+            path_ = "/v1/kv/export" if r.role == "prefill" \
+                else "/v1/generate"
+            per, n = replica_syncs(r, path_, short)
+            log(f"replica {r.id} ({r.role}) {path_} x{len(short)} alone, "
+                f"torch.profiler over {n} steps: " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in per.items()) + " a step")
+
+        # drain migration under replace(); fresh ids, so that no prefix
+        # cache shortens the streams
+        drain = [{"model": "lm", "prompt": rng.integers(0, V, n).tolist(),
+                  "n_tokens": DRAIN_TOKENS, "session": f"drain-{i}"}
+                 for i, n in enumerate(DRAIN_PROMPTS)]
+        target = next(r for r in fleet.snapshot() if r.role == "decode")
+        tb = batchers[target.id]
+        for body in drain:
+            # pin every stream to the target: a pinned session decodes
+            # where its pin points (no split)
+            router._pin_to(body["session"], router._views[target.id])
+        at_stop = {}
+        stop = target.stop
+
+        def recording_stop(drain=True, timeout=30.0):
+            ok = stop(drain=drain, timeout=timeout)
+            cached = {p for chain in tb.session.prefix_cache._entries
+                      .values() for p in chain}
+            at_stop.update(ok=ok, pages=tb.session.pages_in_use(),
+                           cached=len(cached),
+                           in_pool=target in fleet.snapshot())
+            return ok
+
+        target.stop = recording_stop
+        mig0, res0, fb0, off0 = (
+            counter("router_kv_migrations_total"),
+            counter("router_kv_resumes_total"),
+            counter("router_kv_fallbacks_total"),
+            kv_count(target, "kv_stream_exports_total"))
+        results = [None] * len(drain)
+
+        def stream(i):
+            results[i] = http(router.port, "/v1/generate", drain[i])
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in range(len(drain))]
+        for th in threads:
+            th.start()
+        t_end = time.monotonic() + 120
+        while tb.active_slots() < len(drain):
+            assert time.monotonic() < t_end, "drain streams never slotted"
+            time.sleep(0.005)
+        pos = [r.id for r in fleet.snapshot()].index(target.id)
+        t0 = time.perf_counter()
+        successor = fleet.replace(pos, drain_timeout=120.0)
+        replace_s = time.perf_counter() - t0
+        for th in threads:
+            th.join(timeout=600)
+        migrations = counter("router_kv_migrations_total") - mig0
+        resumes = counter("router_kv_resumes_total") - res0
+        recomputes = counter("router_kv_fallbacks_total") - fb0
+        offers = kv_count(target, "kv_stream_exports_total") - off0
+        log(f"drain: fleet.replace() of replica {target.id} under "
+            f"{len(drain)} pinned greedy {DRAIN_TOKENS}-token streams "
+            f"(prompts {list(DRAIN_PROMPTS)} ids) took {replace_s:.2f} s "
+            f"(successor {successor.id} booted first); streams offered "
+            f"{offers:g}: router_kv_migrations_total +{migrations:g}, "
+            f"router_kv_resumes_total +{resumes:g}, "
+            f"router_kv_fallbacks_total +{recomputes:g} (recomputed on a "
+            f"survivor); the incumbent at the "
+            f"end of its drain: pages in use {at_stop.get('pages')} = "
+            f"{at_stop.get('cached')} held by its prefix cache, still in "
+            f"the pool {at_stop.get('in_pool')}")
+        assert all(r is not None and r[0] == 200 for r in results), \
+            [None if r is None else r[:2] for r in results]
+        assert migrations >= 1
+        assert at_stop["ok"] and at_stop["in_pool"]
+        assert at_stop["pages"] == at_stop["cached"], at_stop
+        compared = sum(check_greedy(net, da, body["prompt"], r[1]["ids"],
+                                    n_tokens=DRAIN_TOKENS)
+                       for body, r in zip(drain, results))
+        log(f"drain streams' greedy ids vs the plain-decode reference: "
+            f"{compared} of {len(drain) * DRAIN_TOKENS} compared and equal")
+
+        # kill a decode replica under predicts
+        victim = next(r for r in fleet.snapshot() if r.role == "decode")
+        codes, lock, todo = [], threading.Lock(), list(range(KILL_PREDICTS))
+
+        def work():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop()
+                c = http(router.port, "/v1/predict",
+                         predicts[i % CLIENTS])[0]
+                with lock:
+                    codes.append(c)
+
+        workers = [threading.Thread(target=work) for _ in range(CLIENTS)]
+        for th in workers:
+            th.start()
+        t_end = time.monotonic() + 120
+        while len(codes) < CLIENTS:
+            assert time.monotonic() < t_end, "predicts never completed"
+            time.sleep(0.005)
+        fleet.kill([r.id for r in fleet.snapshot()].index(victim.id))
+        for th in workers:
+            th.join(timeout=600)
+        states = router.replica_states()
+        log(f"kill drill: fleet.kill() of replica {victim.id} under "
+            f"{KILL_PREDICTS} predicts: statuses {sorted(set(codes))} x"
+            f"{len(codes)}; router replica states {states}, eligible "
+            f"{router.health_payload()['eligible']}; "
+            f"router_failovers_total {counter('router_failovers_total'):g}")
+        assert codes == [200] * KILL_PREDICTS, codes
+        assert victim.id not in states and len(states) == 2, states
+    finally:
+        router.stop()
+        fleet.stop(drain=False, timeout=30.0)
+
+    # one subprocess replica of the port on the card: a predict through a
+    # router, what the child imported, then SIGKILL
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p])
+    sub = ReplicaFleet(model_specs=[f"lm={path}"], n=1,
+                       base_port=free_ports(1), device="cuda")
+    t0 = time.perf_counter()
+    sub.start()
+    srouter = Router(sub, probe_interval_s=0.5, hedge_after_s=None,
+                     request_timeout_s=600.0).start()
+    try:
+        child = sub.snapshot()[0]
+        t_end = time.monotonic() + 300
+        while srouter.health_payload()["eligible"] < 1:
+            assert child.proc.poll() is None, "the subprocess replica died"
+            assert time.monotonic() < t_end, "subprocess replica never up"
+            time.sleep(0.2)
+        up_s = time.perf_counter() - t0
+        code, reply, _ = http(srouter.port, "/v1/predict", predicts[0])
+        assert code == 200, (code, reply)
+        err = check_predict(reply, 0)
+        mods = http(child.port, "/debug/modules")[1]
+        log(f"subprocess replica: `{' '.join(child.command()[1:])}` (pid "
+            f"{child.proc.pid}) up in {up_s:.1f} s; a predict through the "
+            f"router vs the plain attention: max |diff| {err:.3e}; its "
+            f"/debug/modules {mods}")
+        assert mods["jax"] is False and mods["deeplearning4j_tpu"] is False
+        assert mods["cuda"] is True
+        proc = child.proc
+        sub.kill(0)
+        log(f"subprocess replica {child.id} SIGKILLed: exit code "
+            f"{proc.returncode}")
+        assert proc.returncode == -9, proc.returncode
+    finally:
+        srouter.stop()
+        sub.stop(drain=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return fwd_launches, dec_launches
+
 
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
@@ -1400,6 +1954,14 @@ def tensor_core_ops(native):
     return counts
 
 
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1411,10 +1973,7 @@ def main():
     from deeplearning4j_tpu_torch.ops import decode_attention as da
     from deeplearning4j_tpu_torch.ops import native
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -1441,16 +2000,23 @@ def main():
     fwd["tensor_core_ops"] = hmma["flash_fwd_kernel<64>"]
     dq["tensor_core_ops"] = hmma["dq_kernel<64>"]
     dkv["tensor_core_ops"] = hmma["dkv_kernel<64>"]
-    # each path's launches: counts set to 0 just before it, read after
-    fwd["launches"] = slice_phase(attn, card)
+    # each path's launches: counts set to 0 just before it, read after;
+    # a kernel on several paths reports each and their sum
+    fwd_serve = slice_phase(attn, card)
     train_launches = train_phase(attn, card)
     dq["launches"] = train_launches["flash_attention_bwd_dq"]
     dkv["launches"] = train_launches["flash_attention_bwd_dkv"]
-    dec["launches"], net, server, _ = generate_phase(da, card)
+    dec_generate, net, server, bodies = generate_phase(da, card)
     try:
         serving_surface_phase(attn, da, card, net, server)
     finally:
         server.stop(drain=True)
+    fwd_fleet, dec_fleet = fleet_phase(attn, da, card, net, bodies)
+    fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet}
+    dec["launches_by_path"] = {"generate": dec_generate,
+                               "fleet": dec_fleet}
+    for record in (fwd, dec):
+        record["launches"] = sum(record["launches_by_path"].values())
     del net
     torch.cuda.empty_cache()
     records = [fwd, dq, dkv, dec]

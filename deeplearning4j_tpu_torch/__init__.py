@@ -8,7 +8,9 @@ raise without a card unless ``device="cpu"`` is passed.
 
 Ported so far: the transformer LM's serving (``/v1/predict``), training
 (``fit``) and generate (``/v1/generate``, streaming and paged-KV decode
-sessions) paths, through hand-written CUDA kernels: the flash-attention
+sessions) paths, and the fleet of servers behind a router with
+disaggregated prefill/decode and drain migration (``serving.fleet``,
+``serving.router``), through hand-written CUDA kernels: the flash-attention
 forward and backward (``csrc/flash_attention_{fwd,bwd}.cu``) and the
 paged decode attention (``csrc/decode_attention.cu``).
 """

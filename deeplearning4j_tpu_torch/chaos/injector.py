@@ -19,9 +19,12 @@ The site table and the kinds each site allows are the JAX package's,
 so a plan it accepts is accepted here. The port wires the sites whose
 code it has: ``checkpoint.write`` / ``checkpoint.read``
 (``util/model_serializer.py``), ``data.fetch`` (``data/iterators.py``)
-and ``serving.worker.step`` (``serving/scheduler.py``,
-``serving/continuous.py``). The others wait for their modules (ROADMAP
-A4b, A6-A8); a plan naming them installs and never fires.
+``serving.worker.step`` (``serving/scheduler.py``,
+``serving/continuous.py``), ``serving.kv.migrate``
+(``serving/continuous.py``), ``serving.replica`` (``serving/router.py``)
+and ``serving.replica.boot`` (``serving/fleet.py``). The others wait for
+their modules (ROADMAP A4b-2, A6-A8); a plan naming them installs and
+never fires.
 
 ==================== ====================================================
 ``checkpoint.write`` ``util/model_serializer.write_model`` — after the

@@ -1,10 +1,14 @@
 """Command line (counterpart of ``deeplearning4j_tpu/cli.py``). Ported
-so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/metrics``,
-``/healthz``, ``/readyz`` and ``/debug/*``) and the top-level
-``--trace PATH`` and ``--flight-record DIR``.
+so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
+``/metrics``, ``/healthz``, ``/readyz`` and ``/debug/*``),
+``serve-fleet`` (N in-process replicas behind the health-aware router,
+with disaggregated prefill/decode roles) and the top-level ``--trace
+PATH`` and ``--flight-record DIR``.
 
     python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
         --slots 8 --capacity 1024 --trace-sample 0.01 --slo slo.json
+    python -m deeplearning4j_tpu_torch serve-fleet --model lm=lm.zip \
+        --replicas 3 --roles prefill=1,decode=2 --slots 8 --capacity 1024
 """
 
 from __future__ import annotations
@@ -69,6 +73,101 @@ def _cmd_serve(args):
         server.stop(drain=True)
 
 
+# serve-fleet flags whose modules a later slice ports: given one, the verb
+# exits before any replica boots
+_LATER_FLEET_FLAGS = (
+    ("autoscale", "--autoscale", "A4b-2"),
+    ("autoscale_tick", "--autoscale-tick", "A4b-2"),
+    ("queue_high", "--queue-high", "A4b-2"),
+    ("queue_low", "--queue-low", "A4b-2"),
+    ("slo", "--slo", "A4b-2"),
+    ("collector", "--collector", "A4b-2"),
+    ("collector_interval", "--collector-interval", "A4b-2"),
+    ("incident_dir", "--incident-dir", "A4b-2"),
+    ("rollout", "--rollout", "A4b-2"),
+    ("rollout_version", "--rollout-version", "A4b-2"),
+    ("rollout_canary_weight", "--rollout-canary-weight", "A4b-2"),
+    ("rollout_shadow_sample", "--rollout-shadow-sample", "A4b-2"),
+    ("rollout_min_requests", "--rollout-min-requests", "A4b-2"),
+    ("mesh", "--mesh", "A6"))
+
+
+def _cmd_serve_fleet(args):
+    from deeplearning4j_tpu_torch.serving.fleet import (ReplicaFleet,
+                                                        parse_roles)
+    from deeplearning4j_tpu_torch.serving.router import Router
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, verify_checkpoint)
+    # every input is validated before any replica boots: a bad flag must
+    # exit here, not after N replicas started
+    for dest, flag, item in _LATER_FLEET_FLAGS:
+        if getattr(args, dest) is not None:
+            raise SystemExit(
+                f"serve-fleet {flag} is not ported yet (ROADMAP {item})")
+    roles = None
+    if args.roles:
+        try:
+            roles = parse_roles(args.roles, args.replicas)
+        except ValueError as e:
+            raise SystemExit(f"bad --roles: {e}")
+    if args.net_chaos:
+        from deeplearning4j_tpu_torch.chaos.netproxy import parse_net_plan
+        try:
+            parse_net_plan(args.net_chaos)
+        except (ValueError, TypeError, OSError) as e:
+            raise SystemExit(f"bad --net-chaos plan: {e}")
+    specs = [_parse_model_spec(s) for s in args.model]
+    for _, path in specs:
+        verify_checkpoint(path)
+    if args.chaos:
+        from deeplearning4j_tpu_torch import chaos
+        inj = chaos.install(args.chaos, seed=args.chaos_seed)
+        print(f"chaos: fault plan installed ({len(inj.plan.faults)} "
+              f"spec(s), seed {inj.seed}; replay with --chaos-seed "
+              f"{inj.seed})")
+
+    def factory(specs=specs):
+        # called once per replica boot: each replica owns its models
+        return {name: restore_model(path, device=args.device)
+                for name, path in specs}
+
+    fleet = ReplicaFleet(
+        factory, n=args.replicas, roles=roles,
+        net_chaos=args.net_chaos or None,
+        net_chaos_seed=args.net_chaos_seed, device=args.device,
+        server_kwargs=dict(max_batch_size=args.max_batch_size,
+                           queue_limit=args.queue_limit,
+                           wait_ms=args.wait_ms, slots=args.slots,
+                           capacity=args.capacity, kv_mode=args.kv_mode,
+                           page_size=args.page_size,
+                           kv_pages=args.kv_pages)).start()
+    if args.net_chaos:
+        print(f"net-chaos: every replica fronted by a seeded TCP fault "
+              f"proxy (seed {fleet._net_seed}; replay with "
+              f"--net-chaos-seed {fleet._net_seed})")
+    if roles:
+        print("fleet roles: " + ", ".join(
+            f"replica {r.id}={r.role}" for r in fleet.snapshot()))
+    router = Router(
+        fleet, port=args.port, host=args.host,
+        probe_interval_s=args.probe_interval,
+        hedge_after_s=None if args.hedge_after_ms <= 0
+        else args.hedge_after_ms / 1e3,
+        kv_routing=not args.no_kv_routing,
+        sample_rate=args.trace_sample).start()
+    print(f"fleet router on http://{args.host}:{router.port}/ over "
+          f"{fleet.size()} replica(s) on {args.device} (/v1/predict "
+          f"/v1/generate /v1/models /healthz /readyz /metrics /fleet; "
+          f"ctrl-c drains the fleet and stops)", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        print("draining fleet...")
+        router.stop()
+        fleet.stop(drain=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     p.add_argument("--trace", metavar="PATH", default=None,
@@ -130,6 +229,102 @@ def main(argv=None):
                         "(the JAX package's rule schema); multi-window "
                         "burn-rate breaches flip /healthz to degraded")
     v.set_defaults(fn=_cmd_serve)
+
+    f = sub.add_parser(
+        "serve-fleet",
+        help="N-replica serving fleet behind the health-aware router "
+             "(failover, hedging, session affinity, zero-downtime "
+             "drain, disaggregated prefill/decode)")
+    f.add_argument("--model", action="append", required=True,
+                   metavar="[NAME=]PATH",
+                   help="model zip hosted on EVERY replica; repeatable")
+    f.add_argument("--device", default="cuda",
+                   help="torch device every replica serves on (default "
+                        "cuda; cpu for a machine without a card)")
+    f.add_argument("--replicas", type=int, default=2,
+                   help="fleet size (in-process ModelServer replicas on "
+                        "loopback ports)")
+    f.add_argument("--host", default="127.0.0.1")
+    f.add_argument("--port", type=int, default=8080,
+                   help="the ROUTER's port (replicas pick free loopback "
+                        "ports)")
+    f.add_argument("--max-batch-size", type=int, default=32)
+    f.add_argument("--queue-limit", type=int, default=256)
+    f.add_argument("--wait-ms", type=float, default=2.0)
+    f.add_argument("--slots", type=int, default=4)
+    f.add_argument("--capacity", type=int, default=256)
+    f.add_argument("--roles", metavar="SPEC", default=None,
+                   help="disaggregated prefill/decode serving: "
+                        "per-replica roles as 'prefill=1,decode=3' "
+                        "(counts must sum to --replicas; roles are "
+                        "prefill / decode / mixed). A prefill replica "
+                        "runs prompts and exports KV leases "
+                        "(/v1/kv/export); the router rebuilds them on a "
+                        "decode replica (/v1/kv/import), which streams "
+                        "the completion")
+    f.add_argument("--kv-mode", choices=("auto", "paged", "dense"),
+                   default="auto",
+                   help="replica decode KV mode (see serve --kv-mode); "
+                        "disaggregation and prefix-aware routing need "
+                        "the paged path")
+    f.add_argument("--page-size", type=int, default=16,
+                   help="tokens per KV page on every replica")
+    f.add_argument("--kv-pages", type=int, default=None,
+                   help="KV pool pages per replica (default: memory "
+                        "parity with the dense session)")
+    f.add_argument("--no-kv-routing", action="store_true",
+                   help="disable prefix-aware generate routing (affinity "
+                        "+ least-loaded only)")
+    f.add_argument("--probe-interval", type=float, default=1.0,
+                   metavar="S", help="active health-probe period (s)")
+    f.add_argument("--hedge-after-ms", type=float, default=750.0,
+                   help="fire a hedged /v1/predict on a second replica "
+                        "after this quiet interval; <= 0 disables "
+                        "hedging")
+    f.add_argument("--trace-sample", type=float, default=0.01,
+                   metavar="RATE")
+    f.add_argument("--chaos", metavar="PLAN", default=None,
+                   help="deterministic fault plan (the serving.replica "
+                        "site kills/hangs whole replicas mid-load; "
+                        "serving.replica.boot fails/stalls boots; "
+                        "serving.kv.migrate corrupts/slows/fails lease "
+                        "hops)")
+    f.add_argument("--chaos-seed", type=int, default=None, metavar="N")
+    f.add_argument("--net-chaos", metavar="PLAN", default=None,
+                   help="deterministic NETWORK plan: every replica boots "
+                        "behind a seeded TCP fault proxy (site "
+                        "net.replica; kinds partition/reset/truncate/"
+                        "corrupt/delay/throttle/half_open)")
+    f.add_argument("--net-chaos-seed", type=int, default=None,
+                   metavar="N")
+    # parsed so the JAX package's command lines are understood; each
+    # exits before any replica boots (ROADMAP A4b-2, A6)
+    later = f.add_argument_group(
+        "not ported yet", "the autoscaler, SLO gate, collector and "
+        "rollout (ROADMAP A4b-2) and the serving mesh (A6)")
+    later.add_argument("--mesh", metavar="SPEC", default=None)
+    later.add_argument("--autoscale", metavar="MIN:MAX", default=None)
+    later.add_argument("--autoscale-tick", type=float, default=None,
+                       metavar="S")
+    later.add_argument("--queue-high", type=float, default=None)
+    later.add_argument("--queue-low", type=float, default=None)
+    later.add_argument("--slo", metavar="RULES", default=None)
+    later.add_argument("--collector", type=int, default=None,
+                       metavar="PORT")
+    later.add_argument("--collector-interval", type=float, default=None,
+                       metavar="S")
+    later.add_argument("--incident-dir", default=None, metavar="DIR")
+    later.add_argument("--rollout", action="append", default=None,
+                       metavar="[NAME=]PATH")
+    later.add_argument("--rollout-version", type=int, default=None,
+                       metavar="N")
+    later.add_argument("--rollout-canary-weight", type=float,
+                       default=None, metavar="FRAC")
+    later.add_argument("--rollout-shadow-sample", type=float,
+                       default=None, metavar="FRAC")
+    later.add_argument("--rollout-min-requests", type=int, default=None,
+                       metavar="N")
+    f.set_defaults(fn=_cmd_serve_fleet)
     args = p.parse_args(argv)
     recorder = None
     if args.flight_record:

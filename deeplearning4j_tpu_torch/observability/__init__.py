@@ -16,7 +16,7 @@ burn rates, threshold alerts and the flight recorder (counterpart of
 
 All of it is host code: nothing here reads a device tensor. The
 recompile watchdog, the step profiler and the training health monitor
-wait for ROADMAP A7; the fleet collector for A4b.
+wait for ROADMAP A7; the fleet collector for A4b-2.
 """
 
 from deeplearning4j_tpu_torch.observability.alerts import (

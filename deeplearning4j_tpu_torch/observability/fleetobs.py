@@ -1,7 +1,7 @@
 """The ``/debug/bundle`` payload of one server (counterpart of
 ``local_bundle_payload`` in ``deeplearning4j_tpu/observability/
 fleetobs.py``). The fleet collector, exposition parsing and histogram
-merging around it wait for the fleet (ROADMAP A4b).
+merging around it wait for ROADMAP A4b-2.
 """
 
 from __future__ import annotations

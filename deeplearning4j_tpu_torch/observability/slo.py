@@ -33,7 +33,7 @@ thread, or a scraper. On a fresh breach the monitor captures the
 **offending trace ids** (the exemplars sitting in the buckets above
 the threshold) into the flight recorder and dumps a bundle: the page
 arrives with the traces that burned the budget. The rollout gate
-(``compare_cohorts``) waits for the fleet (ROADMAP A4b).
+(``compare_cohorts``) waits for the rollout controller (ROADMAP A4b-2).
 """
 
 from __future__ import annotations

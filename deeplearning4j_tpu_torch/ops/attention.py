@@ -42,6 +42,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from deeplearning4j_tpu_torch.ops import native
+
 __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_cuda", "flash_attention_fwd_plain",
            "flash_attention_bwd", "flash_attention_bwd_cuda",
@@ -129,7 +131,6 @@ def _kernel_inputs(q, tensors):
 def _entry(source: str, symbol: str, n_ptr: int, n_strides: int):
     """The C entry ``symbol`` of ``csrc/<source>.cu``, with its argument
     types set: pointers, B/T/H/D, strides, scale, causal, stream."""
-    from deeplearning4j_tpu_torch.ops import native
     fn = getattr(native.load(source), symbol)
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
@@ -176,7 +177,7 @@ def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
     _launch(fn, "flash_attention_fwd", q,
             [_ptr(t) for t in (q, k, v, kv_mask, o, lse)], (q, k, v, o),
             causal)
-    flash_attention_fwd_cuda.launches += 1
+    native.count_launch(flash_attention_fwd_cuda)
     return o, lse
 
 
@@ -297,7 +298,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
     _launch(fn, "flash_attention_bwd_dq", q,
             [_ptr(t) for t in (q, k, v, o, do, lse, kv_mask, dq, delta)],
             (q, k, v, o, do, dq), causal)
-    flash_attention_bwd_dq_cuda.launches += 1
+    native.count_launch(flash_attention_bwd_dq_cuda)
     return dq, delta
 
 
@@ -329,7 +330,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask=None,
     _launch(fn, "flash_attention_bwd_dkv", q,
             [_ptr(t) for t in (q, k, v, do, lse, delta, kv_mask, dk, dv)],
             (q, k, v, do, dk, dv), causal)
-    flash_attention_bwd_dkv_cuda.launches += 1
+    native.count_launch(flash_attention_bwd_dkv_cuda)
     return dk, dv
 
 

@@ -36,6 +36,8 @@ import math
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.ops import native
+
 __all__ = ["decode_attention", "decode_attention_cuda",
            "decode_attention_plain", "host_positions"]
 
@@ -121,7 +123,6 @@ def decode_attention_plain(q, k_pool, v_pool, table, pos) -> torch.Tensor:
 
 
 def _entry():
-    from deeplearning4j_tpu_torch.ops import native
     fn = native.load("decode_attention").dl4j_decode_attention_f32
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
@@ -167,7 +168,7 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
-    decode_attention_cuda.launches += 1
+    native.count_launch(decode_attention_cuda)
     return o
 
 

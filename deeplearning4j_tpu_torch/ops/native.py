@@ -19,7 +19,8 @@ import subprocess
 import threading
 from typing import Dict, List, Optional
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
+           "count_launch"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -28,6 +29,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_launch_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: the serving
+    replicas' worker threads launch kernels concurrently, and a bare
+    ``+= 1`` can lose counts between threads. Readers read the attribute
+    and reset it by assignment, as before."""
+    with _launch_lock:
+        wrapper.launches += 1
+
+
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -1,15 +1,18 @@
 """Typed serving errors (counterpart of
-``deeplearning4j_tpu/serving/errors.py``; the subset the predict and
-generate paths raise). The HTTP layer maps them to status codes:
-QueueFullError (and KVPagePoolExhaustedError) -> 429,
+``deeplearning4j_tpu/serving/errors.py``; the subset the predict,
+generate and fleet paths raise). The HTTP layer maps them to status
+codes: QueueFullError (and KVPagePoolExhaustedError) -> 429,
 DeadlineExceededError -> 504, ModelNotFoundError -> 404,
-ServerClosedError and CircuitOpenError -> 503. ``retry_after_s``
-becomes a Retry-After header on 429/503."""
+ServerClosedError, CircuitOpenError and NoReplicaAvailableError -> 503,
+KVLeaseError -> 422, ReplicaGoneError -> 502 (at the router).
+``retry_after_s`` becomes a Retry-After header on 429/503."""
 
 __all__ = ["ServingError", "QueueFullError", "DeadlineExceededError",
            "ModelNotFoundError", "ServerClosedError", "CircuitOpenError",
-           "KVPagePoolExhaustedError", "KVLeaseError",
-           "KVLeaseCorruptError", "KVLeaseVersionError"]
+           "ReplicaGoneError", "NoReplicaAvailableError",
+           "KVPagePoolExhaustedError", "ReplicaBootError", "KVLeaseError",
+           "KVLeaseCorruptError", "KVLeaseVersionError",
+           "UpstreamBodyError"]
 
 
 class ServingError(RuntimeError):
@@ -62,6 +65,20 @@ class CircuitOpenError(ServingError):
     (HTTP maps this to 503)."""
 
 
+class ReplicaGoneError(ServingError):
+    """The replica pinned to this request (a session-affine
+    ``/v1/generate`` stream) died mid-flight. The router does not fail
+    the stream over silently (its decode state lived on the dead
+    replica): the client gets this typed error with the trace id and
+    restarts the stream (502)."""
+
+
+class NoReplicaAvailableError(ServingError):
+    """Every replica of the fleet is dead, ejected or draining: the
+    router has nowhere to send the request (503; ``retry_after_s`` is
+    the soonest a replica may be readmitted)."""
+
+
 class KVLeaseError(ServingError):
     """A serialized KV lease (``PagedSlotSession.export_lease``) could
     not be imported: the blob itself is bad, so sending it elsewhere
@@ -77,3 +94,19 @@ class KVLeaseVersionError(KVLeaseError):
     """The lease blob's schema does not match this session: wire version
     skew, another ``page_size``, or per-layer pool shapes of another
     model."""
+
+
+class ReplicaBootError(ServingError):
+    """A fleet replica failed to boot (scale-up or replace successor):
+    it raised before its listener opened, or the chaos
+    ``serving.replica.boot`` site fired ``boot_fail``.
+    ``ReplicaFleet.grow()`` retries boots with bounded exponential
+    backoff and raises this once the retry budget is spent."""
+
+
+class UpstreamBodyError(ServingError):
+    """A replica's response arrived but its body cannot be trusted: the
+    headers were cut before a framing header (no Content-Length on a
+    2xx), or a JSON-typed body failed to parse. The router treats it as
+    a mid-exchange network error (retryable for idempotent work, counts
+    toward ejection) instead of relaying it to the client."""

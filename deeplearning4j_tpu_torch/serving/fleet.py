@@ -1,0 +1,872 @@
+"""Replica fleet: N serving replicas behind one stable router
+(counterpart of ``deeplearning4j_tpu/serving/fleet.py``, copied with the
+imports renamed; subprocess replicas run the port's ``serve``, on the
+fleet's ``device``).
+
+One ``ModelServer`` is a throughput AND availability ceiling — a
+worker crash, a recompile storm, or a drain takes the whole serving
+surface down. The fleet makes servers expendable the way the TF
+runtime treats workers (PAPERS.md 1603.04467): N replicas, each a
+full ``ModelServer`` (own registry, schedulers, metrics, breaker
+stack), managed as cattle behind ``serving/router.py``.
+
+Two replica flavours:
+
+- :class:`InProcessReplica` — a ``ModelServer`` in this process on a
+  loopback port. Cheap to boot, fully introspectable (the chaos
+  ``hang`` kind reaches straight into ``server.chaos_delay_s``), the
+  test/bench workhorse.
+- :class:`SubprocessReplica` — ``python -m deeplearning4j_tpu_torch serve``
+  in a child process. ``kill()`` is a REAL ``SIGKILL``; drain rides
+  SIGINT (the CLI's ctrl-c drain path).
+
+Fleet operations:
+
+- ``kill(pos)`` — hard-stop, no drain: in-flight work fails, the
+  listener socket closes (connection-refused to the router, which
+  fails over). The SIGKILL drill.
+- ``hang(pos, delay_s, for_s=None)`` — stall EVERY handler on the
+  replica (health probes included) so it looks exactly like a
+  wedged process; auto-recovers after ``for_s`` when given.
+- ``replace(pos)`` — zero-downtime rotation: the successor boots
+  FIRST (capacity never dips), the old replica flips to
+  ``draining`` (the router stops new sends at the next pick, its
+  in-flight streams finish), then drains and leaves the pool.
+- ``grow()`` — boot-first scale-up (the autoscaler's up verb): a
+  fresh replica boots and joins the pool only once its listener is
+  up, with failed boots retried under bounded exponential backoff
+  (chaos site ``serving.replica.boot``, kinds ``boot_fail`` /
+  ``boot_slow``; retries counted as ``replica_boot_retries_total``
+  and recorded by the flight recorder).
+- ``retire(rid)`` — drain-based scale-down (the autoscaler's down
+  verb): the replica flips to ``draining`` (the router stops new
+  sends at the very next pick), its in-flight and pinned streams
+  finish, then it leaves the pool.
+- ``apply_fault(fault)`` — the ``serving.replica`` chaos-site
+  interpreter: ``kill`` / ``hang`` / ``slow`` faults from a seeded
+  plan, so a SIGKILL-mid-load soak is replayable bit-for-bit.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import signal
+import subprocess
+import sys
+import threading
+import time
+from typing import Callable, Deque, Dict, List, Optional
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+__all__ = ["ReplicaFleet", "InProcessReplica", "SubprocessReplica",
+           "parse_roles"]
+
+# fleet_state lifecycle: up -> draining -> dead (kill skips draining)
+UP, DRAINING, DEAD = "up", "draining", "dead"
+
+# disaggregated-serving roles: a PREFILL replica runs prompts and
+# exports KV leases, a DECODE replica imports them and streams the
+# completion, MIXED does both (the pre-disaggregation default). The
+# router reads the role off the fleet snapshot per pick.
+PREFILL, DECODE, MIXED = "prefill", "decode", "mixed"
+ROLES = (PREFILL, DECODE, MIXED)
+
+
+def parse_roles(spec, n: Optional[int] = None) -> List[str]:
+    """``"prefill=1,decode=3"`` (or a plain list) → per-replica role
+    list, boot order. With ``n`` given, the list must sum to it —
+    the CLI's ``--roles``/``--replicas`` consistency check."""
+    if spec is None:
+        return [MIXED] * (n or 0)
+    if isinstance(spec, (list, tuple)):
+        roles = [str(r) for r in spec]
+    else:
+        roles = []
+        for part in str(spec).split(","):
+            name, _, count = part.partition("=")
+            name = name.strip()
+            if name not in ROLES:
+                raise ValueError(
+                    f"unknown replica role {name!r}; known: "
+                    f"{ROLES}")
+            try:
+                k = int(count) if count else 1
+            except ValueError:
+                raise ValueError(
+                    f"bad role count in {part!r}") from None
+            roles.extend([name] * k)
+    bad = [r for r in roles if r not in ROLES]
+    if bad:
+        raise ValueError(f"unknown replica role(s) {bad}; known: "
+                         f"{ROLES}")
+    if n is not None and len(roles) != n:
+        raise ValueError(
+            f"roles name {len(roles)} replica(s) but the fleet has "
+            f"{n} — make them agree")
+    return roles
+
+
+class _BaseReplica:
+    """What the router needs from a replica: an id, a URL, a fleet
+    state, and the kill/drain verbs."""
+
+    def __init__(self, rid: int):
+        self.id = rid
+        self.host = "127.0.0.1"
+        self.port = 0
+        # fleet_state is the FLEET's intent (up/draining/dead); the
+        # router's health view (ok/degraded/dead) is probed, not told
+        self.fleet_state = UP
+        # disaggregation role (prefill/decode/mixed) — routing
+        # intent, also the fleet's to declare
+        self.role = MIXED
+        # which model version this replica serves — the fleet stamps
+        # it at boot (rollouts boot candidate-version successors; the
+        # router labels per-version metrics off it)
+        self.model_version = 1
+        # when the fleet boots this replica behind a NetChaosProxy,
+        # ``port`` is the PROXY's port (everything the router does
+        # crosses the chaotic hop) and ``upstream_port`` the real one
+        self.net_proxy = None
+        self.upstream_port = 0
+
+    def _stop_proxy(self) -> None:
+        """Tear down the chaos proxy fronting this replica (kill and
+        stop paths both): a dead replica must present as
+        connection-refused, not as a proxy accepting for a corpse."""
+        p = self.net_proxy
+        if p is None:
+            return
+        self.net_proxy = None
+        try:
+            p.stop()
+        except Exception:
+            pass
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> "_BaseReplica":
+        raise NotImplementedError
+
+    def kill(self) -> None:
+        raise NotImplementedError
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        raise NotImplementedError
+
+    def hang(self, delay_s: float) -> None:
+        raise NotImplementedError
+
+    def migrate(self) -> int:
+        """Arm drain migration on the replica's generate backends
+        (active streams export as offers the router re-homes).
+        Returns the number of live streams offered; 0 when the
+        replica has no paged decode state."""
+        return 0
+
+
+class InProcessReplica(_BaseReplica):
+    """A full ``ModelServer`` on a loopback port in this process.
+
+    Each replica owns its registry, metrics, schedulers and circuit
+    breakers — nothing is shared across replicas except the model
+    FACTORY, so one replica's crash loop cannot poison another's
+    backends.
+    """
+
+    def __init__(self, rid: int, model_factory: Callable[[], Dict],
+                 server_kwargs: Optional[dict] = None,
+                 model_version: int = 1):
+        super().__init__(rid)
+        self._model_factory = model_factory
+        self._server_kwargs = dict(server_kwargs or {})
+        self.model_version = int(model_version)
+        self.server = None
+
+    def start(self) -> "InProcessReplica":
+        from deeplearning4j_tpu_torch.serving.http import ModelServer
+        from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+        models = ModelRegistry()
+        for name, model in self._model_factory().items():
+            models.register(name, model,
+                            version=self.model_version)
+        kw = dict(self._server_kwargs)
+        kw.pop("registry", None)
+        kw.setdefault("port", 0)
+        self.server = ModelServer(models, **kw).start()
+        self.host, self.port = self.server.host, self.server.port
+        logger.info("replica %d up on %s", self.id, self.url)
+        return self
+
+    def kill(self) -> None:
+        """SIGKILL-equivalent: no drain — in-flight and queued work
+        fails, and ModelServer.stop closes the listener SOCKET so
+        new connections are refused (the router's failover signal),
+        not just unserved."""
+        self.fleet_state = DEAD
+        self._stop_proxy()
+        srv = self.server
+        if srv is None:
+            return
+        srv.stop(drain=False, timeout=0.0)
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        self.fleet_state = DEAD
+        srv = self.server
+        if srv is None:
+            self._stop_proxy()
+            return True
+        # drain first: in-flight streams pinned through the proxy
+        # must finish crossing it before it goes away
+        ok = srv.stop(drain=drain, timeout=timeout)
+        self._stop_proxy()
+        return ok
+
+    def hang(self, delay_s: float) -> None:
+        if self.server is not None:
+            self.server.chaos_delay_s = float(delay_s)
+
+    def migrate(self) -> int:
+        if self.server is None:
+            return 0
+        return self.server.migrate_streams()
+
+
+class SubprocessReplica(_BaseReplica):
+    """``python -m deeplearning4j_tpu_torch serve`` in a child process —
+    the replica the SIGKILL drill means literally."""
+
+    def __init__(self, rid: int, model_specs: List[str], port: int,
+                 extra_args: Optional[List[str]] = None,
+                 device: str = "cuda"):
+        super().__init__(rid)
+        self.port = port
+        self._model_specs = list(model_specs)
+        self._extra_args = list(extra_args or [])
+        self.device = device
+        self.proc: Optional[subprocess.Popen] = None
+
+    def command(self) -> List[str]:
+        """The child's argv: the port's ``serve`` on this replica's port
+        and device."""
+        cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve",
+               "--host", self.host, "--port", str(self.port),
+               "--device", self.device]
+        for spec in self._model_specs:
+            cmd += ["--model", spec]
+        return cmd + self._extra_args
+
+    def start(self) -> "SubprocessReplica":
+        self.proc = subprocess.Popen(self.command(),
+                                     stdout=subprocess.DEVNULL,
+                                     stderr=subprocess.DEVNULL)
+        return self
+
+    def kill(self) -> None:
+        self.fleet_state = DEAD
+        self._stop_proxy()
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()        # the real signal 9
+            try:
+                # reap: a SIGKILLed child exits immediately; without
+                # the wait it stays a zombie for the parent's life
+                self.proc.wait(5.0)
+            except subprocess.TimeoutExpired:
+                pass
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        self.fleet_state = DEAD
+        if self.proc is None or self.proc.poll() is not None:
+            self._stop_proxy()
+            return True
+        if drain:
+            # SIGINT rides the CLI's KeyboardInterrupt drain path
+            self.proc.send_signal(signal.SIGINT)
+            try:
+                self.proc.wait(timeout)
+                self._stop_proxy()
+                return True
+            except subprocess.TimeoutExpired:
+                pass
+        self.proc.kill()
+        try:
+            self.proc.wait(5.0)
+        except subprocess.TimeoutExpired:
+            # a D-state child that outlives SIGKILL must not escape
+            # here — replace() still has to drop it from the pool
+            pass
+        self._stop_proxy()
+        return not drain
+
+    def hang(self, delay_s: float) -> None:
+        raise NotImplementedError(
+            "hang needs in-process reach; use an InProcessReplica "
+            "or SIGSTOP the child yourself")
+
+    def migrate(self) -> int:
+        """The HTTP form of the migrate verb — a subprocess replica
+        is only reachable over its listener."""
+        import http.client
+        conn = http.client.HTTPConnection(self.host, self.port,
+                                          timeout=5.0)
+        try:
+            conn.request("POST", "/v1/kv/migrate", body=b"{}",
+                         headers={"Content-Type":
+                                  "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200:
+                return 0
+            import json as _json
+            return int(_json.loads(body.decode()
+                                   or "{}").get("parked", 0))
+        except OSError:
+            return 0
+        finally:
+            conn.close()
+
+
+class ReplicaFleet:
+    """N replicas managed as one unit; the router holds a reference
+    and reads ``snapshot()`` per routing decision (so a drain is
+    visible at the very next pick, not a probe interval later)."""
+
+    def __init__(self, model_factory: Optional[Callable[[], Dict]] = None,
+                 n: int = 2, server_kwargs: Optional[dict] = None,
+                 model_specs: Optional[List[str]] = None,
+                 base_port: int = 0, roles=None,
+                 extra_args: Optional[List[str]] = None,
+                 net_chaos=None,
+                 net_chaos_seed: Optional[int] = None,
+                 model_version: int = 1, device: str = "cuda"):
+        if model_factory is None and not model_specs \
+                and not extra_args:
+            raise ValueError("fleet needs a model_factory (in-process"
+                             " replicas) or model_specs / extra_args "
+                             "such as --index (subprocess)")
+        if model_factory is None and base_port <= 0:
+            # subprocess replicas advertise base_port + rid to the
+            # router; 0 would mean "probe http://127.0.0.1:0 forever"
+            # — a silently unreachable fleet
+            raise ValueError("subprocess replicas need an explicit "
+                             "base_port (each child listens on "
+                             "base_port + replica id)")
+        self._model_factory = model_factory
+        self._server_kwargs = dict(server_kwargs or {})
+        self._model_specs = list(model_specs or [])
+        # extra CLI flags each subprocess replica boots with (e.g.
+        # ``--index`` so every replica hosts its own index copy)
+        self._extra_args = list(extra_args or [])
+        self._base_port = base_port
+        # the torch device subprocess replicas serve on (in-process ones
+        # serve whatever the model factory built)
+        self._device = device
+        self.n = n
+        # disaggregation roles, boot order ("prefill=1,decode=3" /
+        # list); replicas past the list (grow) boot MIXED, replace
+        # successors inherit the incumbent's role
+        self._roles = parse_roles(roles, n) if roles is not None \
+            else [MIXED] * n
+        # a NetworkPlan boots every replica behind a NetChaosProxy
+        # (the router dials the proxy; the replica never knows).
+        # Parsed HERE so a typo'd plan fails before any replica boots,
+        # and the effective seed is pinned once so every proxy —
+        # including replace/grow successors — replays from it.
+        self._net_plan = None
+        self._net_seed: Optional[int] = None
+        if net_chaos is not None:
+            from deeplearning4j_tpu_torch.chaos.netproxy import parse_net_plan
+            self._net_plan = parse_net_plan(net_chaos)
+            seed = net_chaos_seed
+            if seed is None:
+                seed = self._net_plan.seed
+            if seed is None:
+                import os as _os
+                seed = int.from_bytes(_os.urandom(4), "big")
+            self._net_seed = int(seed)
+        self._lock = threading.Lock()
+        self._replicas: List[_BaseReplica] = []
+        self._next_id = 0
+        self._timers: List[threading.Timer] = []
+        self._subscribers: List[Callable[[], None]] = []
+        # versioned deployment state: the INCUMBENT factory/version
+        # serve by default; a staged CANDIDATE (set_candidate) is
+        # what rollout-driven boots with version=candidate use.
+        # Promotion flips the incumbent; clear_candidate unstages.
+        self._incumbent_version = int(model_version)
+        self._candidate_factory: Optional[Callable[[], Dict]] = None
+        self._candidate_version: Optional[int] = None
+        # planned departures: rids drained out on purpose (retire /
+        # replace). The collector consults this so a rollout's or
+        # scale-down's drain never reads as a replica DEATH and
+        # fabricates an incident bundle. Bounded: only the most
+        # recent departures matter (a scrape cycle or two).
+        self._departed: Deque[int] = collections.deque(maxlen=64)
+
+    def subscribe(self, fn: Callable[[], None]) -> None:
+        """Register a pool-mutation hook (the router uses it to
+        reconcile its views the moment the pool changes, instead of
+        a probe interval later)."""
+        with self._lock:
+            self._subscribers.append(fn)
+
+    def _notify(self) -> None:
+        with self._lock:
+            subs = list(self._subscribers)
+        for fn in subs:
+            try:
+                fn()
+            except Exception:
+                logger.exception("fleet change subscriber failed")
+
+    # ---- versioned deployment (the rollout controller's verbs) ----
+    @property
+    def incumbent_version(self) -> int:
+        with self._lock:
+            return self._incumbent_version
+
+    @property
+    def candidate_version(self) -> Optional[int]:
+        with self._lock:
+            return self._candidate_version
+
+    def set_candidate(self, factory: Callable[[], Dict],
+                      version: Optional[int] = None) -> int:
+        """Stage a candidate model factory for versioned boots.
+        Returns the candidate version (default: incumbent + 1).
+        Staging is inert — only boots that ASK for the candidate
+        version get it; everything else keeps booting the
+        incumbent."""
+        if self._model_factory is None:
+            raise ValueError(
+                "versioned rollouts need in-process replicas (a "
+                "model_factory fleet) — subprocess replicas boot "
+                "from fixed model_specs")
+        with self._lock:
+            if version is None:
+                version = self._incumbent_version + 1
+            version = int(version)
+            if version == self._incumbent_version:
+                raise ValueError(
+                    f"candidate version {version} IS the incumbent "
+                    f"— a rollout that deploys the same version "
+                    f"would be indistinguishable from a no-op")
+            self._candidate_factory = factory
+            self._candidate_version = version
+        return version
+
+    def clear_candidate(self) -> None:
+        with self._lock:
+            self._candidate_factory = None
+            self._candidate_version = None
+
+    def promote_candidate(self) -> int:
+        """Flip the staged candidate to incumbent (the rollout
+        controller calls this once every replica runs it): future
+        default boots — grow, replace, autoscaler churn — serve the
+        new version."""
+        with self._lock:
+            if self._candidate_factory is None \
+                    or self._candidate_version is None:
+                raise ValueError("no candidate staged to promote")
+            self._model_factory = self._candidate_factory
+            self._incumbent_version = self._candidate_version
+            self._candidate_factory = None
+            self._candidate_version = None
+            return self._incumbent_version
+
+    def versions(self) -> Dict[int, int]:
+        """{replica id: model version} for the live pool."""
+        with self._lock:
+            return {r.id: getattr(r, "model_version", 1)
+                    for r in self._replicas}
+
+    def departed_rids(self) -> List[int]:
+        """Recent PLANNED departures (retire / replace drains).
+        A rid in here left the pool on purpose — its disappearance
+        is churn, not a death."""
+        with self._lock:
+            return list(self._departed)
+
+    # ---- construction ----
+    def _new_replica(self, role: Optional[str] = None,
+                     version: Optional[int] = None
+                     ) -> _BaseReplica:
+        with self._lock:
+            rid = self._next_id
+            self._next_id += 1
+            # resolve which factory/version this boot serves: an
+            # explicit candidate-version ask gets the staged
+            # candidate; everything else (None or incumbent) boots
+            # the incumbent — an unstaged candidate version is a
+            # caller bug, not a silent incumbent boot
+            factory = self._model_factory
+            boot_version = self._incumbent_version
+            if version is not None \
+                    and int(version) != self._incumbent_version:
+                if int(version) != self._candidate_version \
+                        or self._candidate_factory is None:
+                    raise ValueError(
+                        f"no staged candidate for version "
+                        f"{version} (candidate is "
+                        f"{self._candidate_version})")
+                factory = self._candidate_factory
+                boot_version = int(version)
+        if factory is not None:
+            r = InProcessReplica(rid, factory,
+                                 self._server_kwargs,
+                                 model_version=boot_version)
+        else:
+            r = SubprocessReplica(rid, self._model_specs,
+                                  self._base_port + rid,
+                                  extra_args=self._extra_args,
+                                  device=self._device)
+        if role is not None:
+            r.role = role
+        elif rid < len(self._roles):
+            r.role = self._roles[rid]
+        return r
+
+    def _boot_replica(self, role: Optional[str] = None,
+                      version: Optional[int] = None
+                      ) -> _BaseReplica:
+        """Boot ONE new replica through the ``serving.replica.boot``
+        chaos site: ``boot_fail`` raises a typed
+        :class:`~.errors.ReplicaBootError` before the listener opens
+        (a crashed child, an OOM-killed import), ``boot_slow``
+        stalls the boot by ``args.delay_s`` first (torch importing
+        forever on a cold node). A real ``start()`` failure is
+        wrapped in the same typed error so every caller retries one
+        failure shape."""
+        from deeplearning4j_tpu_torch import chaos
+        from deeplearning4j_tpu_torch.serving.errors import ReplicaBootError
+        fault = chaos.hit("serving.replica.boot")
+        if fault is not None:
+            if fault.kind == "boot_fail":
+                raise ReplicaBootError(
+                    f"[chaos] replica boot failed at ordinal "
+                    f"#{fault.ordinal}")
+            if fault.kind == "boot_slow":
+                time.sleep(float(fault.args.get("delay_s", 0.25)))
+        r = self._new_replica(role, version=version)
+        try:
+            return self._wrap_net(r.start())
+        except Exception as e:
+            raise ReplicaBootError(
+                f"replica {r.id} failed to boot: {e!r}") from e
+
+    def _wrap_net(self, r: _BaseReplica) -> _BaseReplica:
+        """Front a freshly-booted replica with a NetChaosProxy when
+        the fleet carries a network plan: the replica's advertised
+        port becomes the proxy's, so every router probe, forward and
+        scrape crosses the chaotic hop."""
+        if self._net_plan is None:
+            return r
+        from deeplearning4j_tpu_torch.chaos.netproxy import NetChaosProxy
+        proxy = NetChaosProxy(
+            (r.host, r.port), plan=self._net_plan,
+            seed=self._net_seed, site="net.replica",
+            name=f"replica-{r.id}").start()
+        r.upstream_port = r.port
+        r.port = proxy.port
+        r.net_proxy = proxy
+        return r
+
+    def _boot_retrying(self, max_boot_retries: int = 3,
+                       role: Optional[str] = None,
+                       version: Optional[int] = None
+                       ) -> _BaseReplica:
+        """Boot with bounded exponential backoff between failed
+        attempts — a flaky boot path must not wedge the autoscaler's
+        control loop, and a persistently failing one must fail TYPED
+        after the budget, not spin forever."""
+        from deeplearning4j_tpu_torch.serving.errors import ReplicaBootError
+        attempt = 0
+        while True:
+            try:
+                return self._boot_replica(role, version=version)
+            except ReplicaBootError as e:
+                if attempt >= max_boot_retries:
+                    raise
+                delay = min(2.0, 0.05 * (2.0 ** attempt))
+                attempt += 1
+                try:
+                    from deeplearning4j_tpu_torch.observability.registry \
+                        import safe_inc
+                    safe_inc("replica_boot_retries_total",
+                             help="failed fleet replica boots "
+                                  "retried with backoff")
+                except Exception:
+                    pass
+                try:
+                    from deeplearning4j_tpu_torch.observability import (
+                        flight_recorder)
+                    rec = flight_recorder.get_recorder()
+                    if rec is not None:
+                        rec.record("replica_boot_retry",
+                                   attempt=attempt,
+                                   backoff_s=delay, error=repr(e))
+                except Exception:
+                    pass
+                logger.warning(
+                    "fleet: replica boot failed (attempt %d/%d, "
+                    "retrying in %.2fs): %r", attempt,
+                    max_boot_retries + 1, delay, e)
+                time.sleep(delay)
+
+    def start(self) -> "ReplicaFleet":
+        fresh = [self._wrap_net(self._new_replica().start())
+                 for _ in range(self.n)]
+        with self._lock:
+            self._replicas.extend(fresh)
+        return self
+
+    # ---- introspection ----
+    def snapshot(self) -> List[_BaseReplica]:
+        """The live pool (including draining members), as a copy —
+        the router's per-request view."""
+        with self._lock:
+            return list(self._replicas)
+
+    def replica(self, pos: int) -> _BaseReplica:
+        with self._lock:
+            return self._replicas[pos]
+
+    def size(self) -> int:
+        with self._lock:
+            return len(self._replicas)
+
+    # ---- fault verbs ----
+    def kill(self, pos: int) -> Optional[_BaseReplica]:
+        """Hard-stop the replica at pool position ``pos`` (no drain,
+        socket closed) and remove it from the pool. No-op (None) on
+        an empty pool — a seeded chaos plan can fire more kills
+        than there are replicas."""
+        with self._lock:
+            if not self._replicas:
+                logger.warning("fleet: kill requested on an empty "
+                               "pool; ignored")
+                return None
+            r = self._replicas.pop(pos % len(self._replicas))
+        logger.warning("fleet: killing replica %d (SIGKILL drill)",
+                       r.id)
+        r.kill()
+        self._notify()
+        return r
+
+    def hang(self, pos: int, delay_s: float = 5.0,
+             for_s: Optional[float] = None
+             ) -> Optional[_BaseReplica]:
+        """Stall every handler on the replica (probes included); with
+        ``for_s`` a timer lifts the stall — the
+        ejection-then-readmission drill in one call. No-op (None) on
+        an empty pool — a seeded chaos plan can outlive the pool."""
+        with self._lock:
+            if not self._replicas:
+                logger.warning("fleet: hang requested on an empty "
+                               "pool; ignored")
+                return None
+            r = self._replicas[pos % len(self._replicas)]
+        r.hang(delay_s)
+        if for_s is not None:
+            t = threading.Timer(for_s, r.hang, args=(0.0,))
+            t.daemon = True
+            t.start()
+            with self._lock:
+                # prune fired timers as we go: a long seeded soak
+                # fires many hang/slow faults and must not grow the
+                # list (and the shutdown cancel loop) without bound
+                self._timers = [x for x in self._timers
+                                if x.is_alive()]
+                self._timers.append(t)
+        return r
+
+    def apply_fault(self, fault) -> None:
+        """Interpret one fired ``serving.replica`` chaos fault (the
+        router hits the site once per routed request, so a seeded
+        ``at`` schedule names the exact request ordinal the replica
+        dies at)."""
+        pos = int(fault.args.get("replica", 0))
+        with self._lock:
+            if not self._replicas:
+                return
+        if fault.kind == "kill":
+            self.kill(pos)
+        elif fault.kind in ("hang", "slow"):
+            default = 5.0 if fault.kind == "hang" else 0.25
+            self.hang(pos, float(fault.args.get("delay_s", default)),
+                      for_s=fault.args.get("for_s"))
+
+    # ---- elasticity (the autoscaler's verbs) ----
+    def grow(self, max_boot_retries: int = 3,
+             role: Optional[str] = None,
+             version: Optional[int] = None) -> _BaseReplica:
+        """Boot-first scale-up: a fresh replica joins the pool only
+        once its listener is actually up — booting capacity is never
+        counted as serving capacity. Failed boots retry under
+        bounded exponential backoff (``replica_boot_retries_total``);
+        a spent retry budget raises :class:`~.errors.ReplicaBootError`
+        for the caller to log and re-attempt next tick."""
+        successor = self._boot_retrying(max_boot_retries, role=role,
+                                        version=version)
+        with self._lock:
+            self._replicas.append(successor)
+        logger.info("fleet: grew to %d replicas (replica %d up)",
+                    self.size(), successor.id)
+        self._notify()     # routable the moment it answers a probe
+        return successor
+
+    def retire(self, rid: int, drain_timeout: float = 30.0) -> bool:
+        """Drain-based scale-down of replica id ``rid``: flip it to
+        ``draining`` (the router stops new sends at the very next
+        pick — before the drain even starts), let its in-flight and
+        pinned streams finish, then drop it from the pool. Returns
+        True when the drain completed inside ``drain_timeout``
+        (stragglers past it fail typed, exactly like ``replace``'s
+        incumbent)."""
+        with self._lock:
+            target = next((r for r in self._replicas
+                           if r.id == rid), None)
+            if target is None:
+                logger.warning("fleet: retire(%d) — no such replica "
+                               "in the pool; ignored", rid)
+                return False
+            target.fleet_state = DRAINING
+            self._departed.append(target.id)
+        self._notify()
+        logger.info("fleet: retiring replica %d (drain-based "
+                    "scale-down)", rid)
+        self._migrate_streams(target)
+        ok = target.stop(drain=True, timeout=drain_timeout)
+        if not ok:
+            logger.warning("fleet: replica %d drain timed out after "
+                           "%.1fs during scale-down; stragglers "
+                           "failed typed", rid, drain_timeout)
+        with self._lock:
+            if target in self._replicas:
+                self._replicas.remove(target)
+        self._notify()
+        return ok
+
+    def _migrate_streams(self, target: _BaseReplica) -> None:
+        """Best-effort mid-stream migration at drain start: the
+        replica's live generate streams export as 202 offers the
+        router re-homes onto survivors, so the drain below finishes
+        in milliseconds instead of a stream's lifetime. The router
+        already stopped new sends (DRAINING flipped before this);
+        replicas without paged decode state no-op and keep the PR-8
+        finish-in-place drain."""
+        try:
+            n = target.migrate()
+            if n:
+                logger.info("fleet: replica %d exporting %d live "
+                            "stream(s) for migration", target.id, n)
+        except Exception:
+            logger.exception("fleet: stream migration on replica "
+                             "%d failed; falling back to "
+                             "finish-in-place drain", target.id)
+
+    def draining_count(self) -> int:
+        """Members already on their way out (scale-down / replace
+        drain in flight): the autoscaler subtracts them from serving
+        capacity. Counts every pooled member NOT ``up`` — a
+        replica's ``stop()`` flips it ``draining``→``dead`` at the
+        start of its drain while it stays in the pool until the
+        drain completes, and a dead-but-pooled member is exactly as
+        much non-capacity as a draining one."""
+        with self._lock:
+            return sum(1 for r in self._replicas
+                       if r.fleet_state != UP)
+
+    # ---- rotation ----
+    def replace(self, pos: int, drain_timeout: float = 30.0,
+                version: Optional[int] = None) -> _BaseReplica:
+        """Zero-downtime replace: boot the successor FIRST, then
+        drain the incumbent out of the pool. Returns the successor.
+
+        Order matters: capacity never dips below N — subscribers
+        (the router) are notified as soon as the successor joins, so
+        it is probed and routable the moment it answers, and the
+        router (which reads ``snapshot()`` per pick and skips
+        ``draining`` members) stops new sends the moment the flag
+        flips, while the old replica's in-flight streams run to
+        completion. The successor boots through the
+        ``serving.replica.boot`` chaos site like any scale-up (one
+        attempt — a failed replace boot raises before the incumbent
+        is touched, so the pool is left intact)."""
+        with self._lock:
+            incumbent_role = (
+                self._replicas[pos % len(self._replicas)].role
+                if self._replicas else None)
+        # the successor inherits the incumbent's disaggregation role
+        # — a replace must not silently turn the fleet's only
+        # prefill replica into a mixed one. ``version`` lets the
+        # rollout controller replace toward the candidate (or back
+        # toward the incumbent on rollback)
+        successor = self._boot_replica(role=incumbent_role,
+                                       version=version)
+        with self._lock:
+            if not self._replicas:
+                # the pool was emptied (seeded kills can outpace a
+                # soak): there is nobody to drain — the successor
+                # just becomes the pool's new capacity instead of
+                # leaking as an orphaned listener
+                self._replicas.append(successor)
+                old = None
+            else:
+                old = self._replicas[pos % len(self._replicas)]
+                self._replicas.append(successor)
+                old.fleet_state = DRAINING
+                self._departed.append(old.id)
+        self._notify()     # the router can admit the successor NOW
+        if old is None:
+            logger.warning("fleet: replace on an empty pool — "
+                           "replica %d booted as fresh capacity",
+                           successor.id)
+            return successor
+        logger.info("fleet: replacing replica %d with %d", old.id,
+                    successor.id)
+        self._migrate_streams(old)
+        ok = old.stop(drain=True, timeout=drain_timeout)
+        if not ok:
+            logger.warning("fleet: replica %d drain timed out after "
+                           "%.1fs; stragglers failed typed", old.id,
+                           drain_timeout)
+        with self._lock:
+            if old in self._replicas:
+                self._replicas.remove(old)
+        self._notify()
+        return successor
+
+    # ---- shutdown ----
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        with self._lock:
+            replicas = list(self._replicas)
+            self._replicas.clear()
+            timers = list(self._timers)
+            self._timers.clear()
+        for t in timers:
+            t.cancel()
+        if not replicas:
+            return True
+        # drain concurrently: each replica's drain may wait out its
+        # full timeout, and paying that serially would make fleet
+        # shutdown wall-clock N x timeout instead of one
+        results: Dict[int, bool] = {}
+
+        def _stop(r: _BaseReplica) -> None:
+            results[r.id] = r.stop(drain=drain, timeout=timeout)
+
+        threads = [threading.Thread(target=_stop, args=(r,),
+                                    daemon=True,
+                                    name=f"fleet-stop-{r.id}")
+                   for r in replicas]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return all(results.get(r.id, False) for r in replicas)

@@ -7,6 +7,22 @@
   "temperature"?, "seed"?, "timeout_ms"?, "tier"?} -> {"ids",
   "model_version"} (continuous batching over paged KV decode sessions,
   serving/continuous.py)
+- ``POST /v1/kv/export`` (the generate body) -> {"blob" (base64 DKVL
+  lease), "model_version"}: the prompt's prefill runs here and its KV
+  lease comes back instead of tokens (the prefill half of disaggregated
+  serving)
+- ``POST /v1/kv/import`` {"blob", "timeout_ms"?, "tier"?} -> {"ids",
+  "model_version"}: the lease is rebuilt into this server's page pool
+  and the stream decodes to the end (a bad blob is 422)
+- ``POST /v1/kv/migrate`` -> {"parked": n}, ``/v1/kv/ack`` {"handle"}
+  -> {"acked"}, ``/v1/kv/resume`` {"handle"} -> {"ids",
+  "model_version"}: the drain-migration control plane, served while the
+  server drains. After ``migrate``, a live stream's ``/v1/generate`` (or
+  ``/v1/kv/import``) answers 202 {"migration": {"handle", "blob", "pos",
+  "tokens_out", "model_version"}}; the holder imports the blob on a
+  survivor and acks, or resumes the handle here
+- ``GET  /v1/kv/prefixes`` -> {"page_size", "prefixes"}: the prefix-cache
+  fingerprints, for KV-aware routing
 - ``GET  /v1/models``   -> {"models": registry listing}
 - ``GET  /healthz``     -> {"status": "ok" | "degraded" | "draining",
   ...}: always 200 for humans; the status field carries the judgement
@@ -22,7 +38,9 @@
   latency attribution), ``/debug/slots`` (generate slots and KV pool),
   ``/debug/traces`` (slow and errored requests),
   ``/debug/trace-export?since=&limit=`` (the tracer's span ring, paged)
-  and ``/debug/bundle`` (a flight-recorder bundle as JSON)
+  and ``/debug/bundle`` (a flight-recorder bundle as JSON);
+  ``/debug/modules`` says whether the process imported jax or the JAX
+  package (it must not)
 
 ``tier`` is the priority-admission tier (``gold`` / ``standard`` /
 ``best_effort``, default standard, see ``serving/tiers.py``). Every
@@ -32,24 +50,30 @@ request gets a trace context at admission (adopted from a W3C
 package: QueueFullError -> 429, DeadlineExceededError -> 504,
 ModelNotFoundError -> 404, ServerClosedError and CircuitOpenError ->
 503 (with a ``Retry-After`` the raiser priced: tier, breaker cooldown,
-drain), a bad body -> 400, anything else -> 500; error bodies carry the
-``trace_id``. ``stop(drain=True)`` refuses new work, completes queued
-and in-flight requests, then stops the listener. Retrieval, the KV
-endpoints, the serving mesh and AOT warmup are not ported yet (ROADMAP
-A4b, A4c, A6, A7).
+drain), KVLeaseError -> 422, a bad body -> 400, anything else -> 500;
+error bodies carry the ``trace_id``. ``stop(drain=True)`` refuses new
+work, completes queued and in-flight requests, then stops the listener;
+the fleet calls ``migrate_streams()`` first, so a replica's live streams
+leave as migration offers instead of finishing in place.
+``chaos_delay_s`` (the ``serving.replica`` hang) stalls every handler.
+Retrieval, the serving mesh and AOT warmup are not ported yet (ROADMAP
+A4c, A6, A7).
 """
 
 from __future__ import annotations
 
+import base64
+import binascii
 import collections
 import itertools
 import json
 import logging
 import socket
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -57,9 +81,12 @@ import numpy as np
 from deeplearning4j_tpu_torch.observability.tracing import (RequestContext,
                                                             Sampler,
                                                             get_tracer)
-from deeplearning4j_tpu_torch.serving.continuous import ContinuousBatcher
+from deeplearning4j_tpu_torch.serving.continuous import (ContinuousBatcher,
+                                                         MigrationOffer)
 from deeplearning4j_tpu_torch.serving.errors import (CircuitOpenError,
                                                      DeadlineExceededError,
+                                                     KVLeaseCorruptError,
+                                                     KVLeaseError,
                                                      ModelNotFoundError,
                                                      QueueFullError,
                                                      ServerClosedError,
@@ -76,7 +103,8 @@ __all__ = ["ModelServer"]
 # ServerClosedError both mean "this backend cannot take work now")
 _STATUS = ((QueueFullError, 429), (DeadlineExceededError, 504),
            (ModelNotFoundError, 404), (ServerClosedError, 503),
-           (CircuitOpenError, 503), (ServingError, 400),
+           (CircuitOpenError, 503), (KVLeaseError, 422),
+           (ServingError, 400),
            (ValueError, 400), (KeyError, 400), (TypeError, 400))
 
 
@@ -106,6 +134,70 @@ _CONTENT_TYPES = {
     "openmetrics": "application/openmetrics-text; version=1.0.0; "
                    "charset=utf-8",
     "text": "text/plain; version=0.0.4; charset=utf-8"}
+
+
+class _JsonRequestHandler(BaseHTTPRequestHandler):
+    """The base of both listeners (ModelServer and the fleet Router):
+    quiet logging, TCP_NODELAY, bounded reads and the JSON/bytes
+    response helpers."""
+
+    # headers and body go out as two writes: with Nagle on, the second
+    # waits for the client's delayed ACK, ~40 ms a hop
+    disable_nagle_algorithm = True
+    # every read is bounded: a half-open peer costs one handler thread
+    # 30 s, never wedges it
+    timeout = 30.0
+
+    def log_message(self, fmt, *args):
+        pass
+
+    def _send(self, code, obj, headers=None, content_type=None):
+        data = obj if isinstance(obj, bytes) else \
+            obj.encode() if isinstance(obj, str) else json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", content_type or "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _send_text(self, code, text, content_type):
+        self._send(code, text, content_type=content_type)
+
+    def _metrics_mode(self) -> str:
+        return _metrics_mode(self.path, self.headers.get("Accept", ""))
+
+    def _content_length(self) -> int:
+        n = int(self.headers.get("Content-Length", 0))
+        if n < 0:
+            # rfile.read(-1) reads to EOF: on a keep-alive connection
+            # that blocks forever
+            raise ValueError(f"negative Content-Length: {n}")
+        return n
+
+    def _read_body(self, n: int) -> bytes:
+        """Exactly the advertised body under the socket deadline; a peer
+        that stops mid-body is a ValueError (the callers' 400 path)."""
+        try:
+            data = self.rfile.read(n)
+        except socket.timeout as e:
+            raise ValueError(f"body read timed out after {self.timeout}s "
+                             f"({n} byte(s) advertised)") from e
+        if len(data) < n:
+            raise ValueError(f"body truncated: Content-Length {n} but only "
+                             f"{len(data)} byte(s) arrived")
+        return data
+
+
+def _make_listener(host: str, port: int, handler_cls):
+    """ThreadingHTTPServer with a listen backlog of 128 (the stdlib's 5
+    drops SYNs under connection churn, and a dropped SYN retries after
+    ~1 s)."""
+    class _Httpd(ThreadingHTTPServer):
+        request_queue_size = 128
+
+    return _Httpd((host, port), handler_cls)
 
 
 class ModelServer:
@@ -156,8 +248,16 @@ class ModelServer:
         self.page_size = page_size
         self.kv_pages = kv_pages
         self.drain_retry_after_s = 2.0
+        # chaos hook (site serving.replica, kind hang/slow): every
+        # handler, health probes included, stalls this long, so a hung
+        # replica looks to the router like a wedged process
+        self.chaos_delay_s = 0.0
         self._schedulers: Dict[Tuple[str, int], BatchScheduler] = {}
         self._batchers: Dict[Tuple[str, int], ContinuousBatcher] = {}
+        # batchers mid-drain: stop() clears _batchers before the drains,
+        # but /v1/kv/resume and /v1/kv/ack must still find a draining
+        # backend's parked streams (that is exactly when they arrive)
+        self._stopping_batchers: List[ContinuousBatcher] = []
         self._lock = threading.Lock()
         self._draining = threading.Event()
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -209,7 +309,8 @@ class ModelServer:
                 queue_limit=self.queue_limit, metrics=self.metrics,
                 name=f"generate/{name}/v{version}",
                 version=str(version), kv_mode=self.kv_mode,
-                page_size=self.page_size, kv_pages=self.kv_pages))
+                page_size=self.page_size, kv_pages=self.kv_pages,
+                model_name=name))
         return b, version
 
     # ---- endpoint handlers (also the in-process API) ----
@@ -233,7 +334,26 @@ class ModelServer:
                             tier=body.get("tier"))
         return {"outputs": out.tolist(), "model_version": version}
 
-    def _handle_generate(self, body: dict, ctx=None) -> dict:
+    @staticmethod
+    def _offer_payload(offer: MigrationOffer, version) -> Tuple[int, dict]:
+        """The 202 body a :class:`MigrationOffer` becomes: the router
+        imports ``blob`` on a survivor and acks, or resumes ``handle``
+        here."""
+        return 202, {"migration": {
+            "handle": offer.handle,
+            "blob": base64.b64encode(offer.blob).decode(),
+            "pos": offer.pos,
+            "tokens_out": offer.tokens_out,
+            "model_version": version}}
+
+    def _stream_reply(self, ids, version):
+        if isinstance(ids, MigrationOffer):
+            # the backend started draining mid-stream and exported this
+            # stream's lease instead of finishing it
+            return self._offer_payload(ids, version)
+        return {"ids": np.asarray(ids).tolist(), "model_version": version}
+
+    def _handle_generate(self, body: dict, ctx=None):
         if not isinstance(body, dict) or "model" not in body \
                 or "prompt" not in body:
             raise ValueError('generate body needs "model" and "prompt"')
@@ -248,7 +368,106 @@ class ModelServer:
             seed=int(body.get("seed", 0)),
             timeout=self._timeout_s(body), ctx=ctx,
             tier=body.get("tier"))
-        return {"ids": np.asarray(ids).tolist(), "model_version": version}
+        return self._stream_reply(ids, version)
+
+    # ---- disaggregated prefill/decode and drain migration ----
+    def _handle_kv_export(self, body: dict, ctx=None):
+        """``POST /v1/kv/export``, the prefill half: run the prompt's
+        prefill here and return the serialized lease for a decode
+        replica's ``/v1/kv/import``. The body is the generate body."""
+        if not isinstance(body, dict) or "model" not in body \
+                or "prompt" not in body:
+            raise ValueError('kv export body needs "model" and "prompt"')
+        batcher, version = self.batcher_for(body["model"],
+                                            body.get("version"))
+        if ctx is not None:
+            ctx.attrs["model_version"] = version
+        blob = batcher.prefill_export(
+            np.asarray(body["prompt"], np.int64),
+            int(body.get("n_tokens", 16)),
+            temperature=float(body.get("temperature", 0.0)),
+            seed=int(body.get("seed", 0)),
+            timeout=self._timeout_s(body), ctx=ctx, tier=body.get("tier"),
+            export_extra={"model": body["model"], "version": version})
+        if isinstance(blob, MigrationOffer):
+            return self._offer_payload(blob, version)
+        return {"blob": base64.b64encode(blob).decode(),
+                "model_version": version}
+
+    def _handle_kv_import(self, body: dict, ctx=None):
+        """``POST /v1/kv/import``: rebuild an exported stream into this
+        replica's page pool and decode it to the end. The lease's
+        ``extra`` names the model; version, page and CRC skew fail typed
+        (422)."""
+        from deeplearning4j_tpu_torch.models.paged_kv import parse_lease
+        if not isinstance(body, dict) or "blob" not in body:
+            raise ValueError('kv import body needs "blob"')
+        try:
+            blob = base64.b64decode(body["blob"], validate=True)
+        except (binascii.Error, ValueError, TypeError) as e:
+            raise KVLeaseCorruptError(
+                f"lease blob is not valid base64: {e}") from e
+        header, _ = parse_lease(blob)
+        extra = dict(header.get("extra") or {})
+        model = extra.get("model")
+        if not model:
+            raise KVLeaseError("lease extra names no model: exported "
+                               "outside the serving stack?")
+        batcher, version = self.batcher_for(model, extra.get("version"))
+        if ctx is not None:
+            ctx.attrs["model_version"] = version
+        ids = batcher.wait(batcher.import_stream(
+            blob, timeout=self._timeout_s(body), ctx=ctx,
+            tier=body.get("tier"), header=header))
+        return self._stream_reply(ids, version)
+
+    def _all_batchers(self) -> List[ContinuousBatcher]:
+        """Live and mid-drain generate backends: the handle lookup set
+        of the migration control plane."""
+        with self._lock:
+            return (list(self._batchers.values())
+                    + list(self._stopping_batchers))
+
+    def migrate_streams(self) -> int:
+        """Arm drain migration on every paged generate backend: live
+        streams complete with 202 migration offers the fleet router
+        re-homes onto survivors. Returns how many live streams will be
+        offered. The fleet calls this right before a retire/replace
+        drain; ``POST /v1/kv/migrate`` is the same verb over HTTP."""
+        return sum(b.request_migration() for b in self._all_batchers())
+
+    def kv_ack(self, handle) -> bool:
+        """``POST /v1/kv/ack``: a survivor imported the offered stream;
+        the parked pages free."""
+        if not handle:
+            raise ValueError('kv ack body needs "handle"')
+        return any(b.ack_migration(str(handle))
+                   for b in self._all_batchers())
+
+    def kv_resume(self, handle) -> dict:
+        """``POST /v1/kv/resume``: the handoff failed; finish the parked
+        stream HERE and return its ids (the generate reply's shape)."""
+        if not handle:
+            raise ValueError('kv resume body needs "handle"')
+        for b in self._all_batchers():
+            if b.has_migration(str(handle)):
+                ids = b.resume_stream(str(handle))
+                return {"ids": np.asarray(ids).tolist(),
+                        "model_version": b.version}
+        raise ValueError(f"unknown migration handle {handle!r}")
+
+    def kv_prefixes(self, limit: int = 512) -> dict:
+        """``GET /v1/kv/prefixes``: page size and cached prefix
+        fingerprints, merged over the paged generate backends."""
+        page_size = None
+        prefixes: List[str] = []
+        for b in self._all_batchers():
+            d = b.prefix_digest(limit)
+            if d is None:
+                continue
+            page_size = d["page_size"]
+            prefixes.extend(d["prefixes"])
+        return {"page_size": page_size, "prefixes": prefixes[-int(limit):]}
 
     # ---- request-scoped tracing plumbing ----
     def _mint_ctx(self, headers, route: str,
@@ -327,6 +546,18 @@ class ModelServer:
                 entry["kv"] = kv
             out[b.name] = entry
         return {"backends": out}
+
+    @staticmethod
+    def modules_debug() -> dict:
+        """Which of the two packages (and jax) this process imported: a
+        port server, in-process or a fleet's child, shows no jax and no
+        ``deeplearning4j_tpu``."""
+        import torch
+        return {"jax": "jax" in sys.modules,
+                "deeplearning4j_tpu": "deeplearning4j_tpu" in sys.modules,
+                "deeplearning4j_tpu_torch": True,
+                "torch": torch.__version__,
+                "cuda": torch.cuda.is_available()}
 
     def debug_traces(self) -> dict:
         """Recent slow and errored requests with their phase breakdown:
@@ -417,28 +648,14 @@ class ModelServer:
     def start(self) -> "ModelServer":
         server = self
 
-        class Handler(BaseHTTPRequestHandler):
-            disable_nagle_algorithm = True
-            timeout = 30.0
-
-            def log_message(self, fmt, *args):
-                pass
-
-            def _send(self, code, obj, headers=None, content_type=None):
-                data = obj.encode() if isinstance(obj, str) \
-                    else json.dumps(obj).encode()
-                self.send_response(code)
-                self.send_header("Content-Type",
-                                 content_type or "application/json")
-                self.send_header("Content-Length", str(len(data)))
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
-                self.end_headers()
-                self.wfile.write(data)
-
+        class Handler(_JsonRequestHandler):
             def do_GET(self):
                 url = urlparse(self.path)
                 path = url.path
+                if server.chaos_delay_s:
+                    # chaos hang: the whole replica stalls, health
+                    # probes included; the router must see it
+                    time.sleep(server.chaos_delay_s)
                 if path in ("/healthz", "/readyz"):
                     payload = server.health_payload()
                     ready = path == "/readyz" or "ready" in parse_qs(
@@ -452,18 +669,21 @@ class ModelServer:
                     else:
                         self._send(200, payload)
                 elif path == "/metrics":
-                    mode = _metrics_mode(self.path,
-                                         self.headers.get("Accept", ""))
+                    mode = self._metrics_mode()
                     self._send(200, server.metrics_exposition(mode),
                                content_type=_CONTENT_TYPES.get(mode))
                 elif path == "/v1/models":
                     self._send(200, {"models": server.registry.models()})
+                elif path == "/v1/kv/prefixes":
+                    self._send(200, server.kv_prefixes())
                 elif path == "/debug/requests":
                     self._send(200, server.debug_requests())
                 elif path == "/debug/slots":
                     self._send(200, server.debug_slots())
                 elif path == "/debug/traces":
                     self._send(200, server.debug_traces())
+                elif path == "/debug/modules":
+                    self._send(200, server.modules_debug())
                 elif path == "/debug/trace-export":
                     q = parse_qs(url.query)
                     self._send(200, server.tracer.export_since(
@@ -482,27 +702,31 @@ class ModelServer:
 
             def do_POST(self):
                 route = urlparse(self.path).path
+                if route in ("/v1/kv/migrate", "/v1/kv/resume",
+                             "/v1/kv/ack"):
+                    # the migration control plane MUST work while the
+                    # server drains (that is when it fires), so it skips
+                    # the draining refusal below
+                    self._kv_control(route)
+                    return
                 handler = {"/v1/predict": server._handle_predict,
-                           "/v1/generate": server._handle_generate}.get(
+                           "/v1/generate": server._handle_generate,
+                           "/v1/kv/export": server._handle_kv_export,
+                           "/v1/kv/import": server._handle_kv_import}.get(
                                route)
                 if handler is None:
                     self._send(404, {"error": "not found"})
                     return
+                if server.chaos_delay_s:
+                    time.sleep(server.chaos_delay_s)
                 if server._draining.is_set():
                     self._send(503, {"error": "server is draining"},
                                {"Retry-After": _retry_after_header(
                                    server.drain_retry_after_s)})
                     return
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    if n < 0:
-                        raise ValueError(f"negative Content-Length: {n}")
-                    data = self.rfile.read(n)
-                    if len(data) < n:
-                        raise ValueError(f"body truncated: {len(data)} of "
-                                         f"{n} byte(s)")
-                    body = json.loads(data.decode() or "{}")
-                except (ValueError, socket.timeout) as e:
+                    body = self._body()
+                except ValueError as e:
                     self._send(400, {"error": f"bad request body: {e}"})
                     return
                 # admission: adopt the upstream trace or mint a fresh
@@ -523,8 +747,10 @@ class ModelServer:
                     # leak a request's context
                     with ctx.attach():
                         reply = handler(body, ctx=ctx)
-                    code = 200
-                    self._send(200, reply,
+                    # a handler may set the status (the 202 offer)
+                    code, reply = reply if isinstance(reply, tuple) \
+                        else (200, reply)
+                    self._send(code, reply,
                                {"traceparent": ctx.traceparent()})
                 except Exception as e:
                     code = next((c for cls, c in _STATUS
@@ -545,17 +771,42 @@ class ModelServer:
                 finally:
                     server._finish_request(key, ctx, code, body)
 
+            def _body(self):
+                data = self._read_body(self._content_length())
+                return json.loads(data.decode() or "{}")
+
+            def _kv_control(self, route):
+                if server.chaos_delay_s:
+                    time.sleep(server.chaos_delay_s)
+                try:
+                    body = self._body()
+                except ValueError as e:
+                    self._send(400, {"error": f"bad request body: {e}"})
+                    return
+                try:
+                    if route == "/v1/kv/migrate":
+                        self._send(200, {"parked": server.migrate_streams()})
+                    elif route == "/v1/kv/ack":
+                        self._send(200, {"acked": server.kv_ack(
+                            body.get("handle"))})
+                    else:
+                        self._send(200, server.kv_resume(body.get("handle")))
+                except (ValueError, KeyError, TypeError,
+                        AttributeError) as e:
+                    # an unknown or claimed handle is the caller's answer,
+                    # not a server fault: it falls back
+                    self._send(404, {"error": str(e)})
+                except Exception as e:
+                    logger.exception("kv control error")
+                    self._send(500, {"error": str(e)})
+
         with self._lock:
             if self._draining.is_set():
                 raise ServerClosedError(
                     "server was stopped; not starting listener")
             if self._httpd is not None:
                 return self
-
-            class _Httpd(ThreadingHTTPServer):
-                request_queue_size = 128
-
-            self._httpd = _Httpd((self.host, self.port), Handler)
+            self._httpd = _make_listener(self.host, self.port, Handler)
             self.port = self._httpd.server_address[1]
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever, daemon=True,
@@ -572,6 +823,9 @@ class ModelServer:
         with self._lock:
             backends = (list(self._schedulers.values())
                         + list(self._batchers.values()))
+            # parked-stream lookups (/v1/kv/resume, /v1/kv/ack) keep
+            # working through the drains below
+            self._stopping_batchers = list(self._batchers.values())
             self._schedulers.clear()
             self._batchers.clear()
         oks: Dict[int, bool] = {}
@@ -584,6 +838,7 @@ class ModelServer:
         for t in threads:
             t.join(timeout + 10.0)
         with self._lock:
+            self._stopping_batchers = []
             httpd, self._httpd = self._httpd, None
             thread, self._thread = self._thread, None
         if httpd is not None:

@@ -1,0 +1,2266 @@
+"""Health-aware HTTP router over a :class:`~.fleet.ReplicaFleet`
+(counterpart of ``deeplearning4j_tpu/serving/router.py``, copied with
+the imports renamed; host code only: it reads replicas over HTTP and
+never touches a device tensor).
+
+The stable frontend of the serving fleet (the TF-Serving shape from
+PAPERS.md 1605.08695: expendable workers behind one address). A
+stateless stdlib-HTTP ``Router`` — the same ``ThreadingHTTPServer``
+idiom as ``ModelServer`` — that makes the fleet provably survivable:
+
+**Health-aware balancing.** A prober thread polls each replica's
+``/healthz?ready`` + ``/metrics`` every ``probe_interval_s`` and
+classifies it ``ok`` / ``degraded`` / ``draining`` / ``dead``;
+routing picks the least-loaded eligible replica by probed queue
+depth + router-side in-flight count, penalized by degraded health
+and non-closed replica circuits. Draining is read from the FLEET
+snapshot per pick, so ``fleet.replace()`` stops new sends at the
+very next request, not a probe interval later.
+
+**Outlier ejection.** Passive signals (consecutive connect errors /
+timeouts / 5xx from live traffic) force the replica's router-side
+:class:`~.lifecycle.CircuitBreaker` open — the lifecycle.py state
+machine reused at fleet level. An ejected replica receives NO new
+traffic; after the cooldown the breaker half-opens and the PROBER
+(not live traffic) spends the probe budget against ``/healthz?ready``
+— success closes the breaker and readmits the replica
+(``router_readmissions_total``), failure re-opens it.
+
+**Failover + bounded hedging.** ``/v1/predict`` is idempotent: a
+connect-error, read-timeout or 503 (admission refusal — the replica
+never started the work) fails over to a different replica inside the
+request's deadline budget; a 5xx AFTER response bytes means the
+replica processed the request and is returned as-is, never retried.
+``Retry-After`` on a 503 marks the replica unavailable for that long.
+When the primary attempt is quiet past ``hedge_after_s`` and the
+remaining budget affords it, ONE hedged request races it on another
+replica; first definitive answer wins (``router_hedges_total`` /
+``router_hedge_wins_total``).
+
+**Session affinity.** A ``/v1/generate`` request carrying a
+``session`` key is pinned to one replica for the stream's life —
+decode state (KV-cache slots) lives there. Mid-request death
+returns a typed :class:`~.errors.ReplicaGoneError` (502) carrying
+the trace id; death or unavailability (ejected, draining, benched
+by Retry-After) between requests re-pins the session silently — an
+admission refusal advances no decode state, so the re-pin loses
+nothing, while keeping the pin would wedge the session forever.
+
+**Tracing.** The router mints (or adopts) the W3C ``traceparent`` and
+forwards it, so one trace id spans router -> replica -> backend — a
+failed-over request keeps its identity across every attempt.
+"""
+
+from __future__ import annotations
+
+import collections
+import http.client
+import itertools
+import json
+import logging
+import math
+import queue
+import socket
+import threading
+import time
+import zlib
+from http.server import ThreadingHTTPServer
+from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse, urlsplit
+
+from deeplearning4j_tpu_torch import chaos
+from deeplearning4j_tpu_torch.observability.registry import MetricsRegistry
+from deeplearning4j_tpu_torch.observability.tracing import (RequestContext,
+                                                      Sampler,
+                                                      get_tracer)
+from deeplearning4j_tpu_torch.serving import tiers
+from deeplearning4j_tpu_torch.serving.errors import (NoReplicaAvailableError,
+                                               ReplicaGoneError,
+                                               ServerClosedError,
+                                               UpstreamBodyError)
+from deeplearning4j_tpu_torch.serving.fleet import (DECODE, DRAINING, MIXED,
+                                              PREFILL, UP,
+                                              ReplicaFleet)
+from deeplearning4j_tpu_torch.serving.http import (_JsonRequestHandler,
+                                              _make_listener,
+                                              _retry_after_header)
+from deeplearning4j_tpu_torch.serving.lifecycle import CircuitBreaker
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+__all__ = ["Router"]
+
+# router_replica_state gauge codes
+_STATE_CODES = {"ok": 0, "degraded": 1, "draining": 2, "ejected": 3,
+                "dead": 4}
+
+
+class _NetError(Exception):
+    """A forwarding failure BEFORE a complete response: retry-safe
+    for idempotent routes. ``connect`` means the request never
+    reached the replica at all (retry-safe even for non-idempotent
+    work)."""
+
+    def __init__(self, phase: str, cause: BaseException):
+        super().__init__(f"{phase}: {cause!r}")
+        self.phase = phase            # "connect" | "exchange"
+        self.cause = cause
+
+
+class _ReplicaView:
+    """Router-side state for one replica id. Mutated under the
+    router's lock (health/queue_depth by the prober, counters by
+    request threads) — primitive reads for the gauge callbacks are
+    tear-free."""
+
+    __slots__ = ("rid", "url", "breaker", "health", "queue_depth",
+                 "circuits", "inflight", "consecutive_failures",
+                 "unavailable_until", "probe_ok_total", "ejections",
+                 "readmissions", "kv_pages_in_use", "kv_pages_total",
+                 "role", "prefix_fps", "prefix_page_size",
+                 "prefix_hits", "prefix_evictions", "index_info",
+                 "version")
+
+    def __init__(self, rid: int, url: str, breaker: CircuitBreaker):
+        self.rid = rid
+        self.url = url
+        self.breaker = breaker
+        # the model version the replica serves (stamped by the fleet
+        # at boot, refreshed with the snapshot): the per-version
+        # metric label rollouts compare cohorts by
+        self.version = 1
+        # paged-KV decode pressure (summed over the replica's
+        # generate backends), refreshed by the same /metrics probe
+        # as queue_depth — the /fleet debug surface for "which
+        # replica is out of KV memory"
+        self.kv_pages_in_use = 0.0
+        self.kv_pages_total = 0.0
+        # disaggregation role (refreshed from the fleet snapshot at
+        # eligibility time) and the replica's prefix-cache
+        # advertisement (refreshed by the prober) — the KV-aware
+        # routing inputs
+        self.role = MIXED
+        self.prefix_fps: frozenset = frozenset()
+        self.prefix_page_size = 0
+        # retrieval advertisement from /healthz ("index" key):
+        # generation + vector count, the convergence evidence for
+        # /v1/index fanout writes
+        self.index_info: Optional[dict] = None
+        self.prefix_hits = 0.0
+        self.prefix_evictions = 0.0
+        # probed: ok|degraded|draining|dead. Starts NOT-eligible:
+        # "eligible" must mean probe-confirmed, or a readiness gate
+        # polling /healthz right after start() would pass while the
+        # replicas are still booting (Router.start() runs one
+        # synchronous probe pass so live replicas are eligible from
+        # the first request on)
+        self.health = "unprobed"
+        self.queue_depth = 0.0
+        self.circuits = 0             # non-closed breakers on replica
+        self.inflight = 0             # router-side outstanding sends
+        self.consecutive_failures = 0
+        self.unavailable_until = 0.0  # Retry-After honor
+        self.probe_ok_total = 0
+        self.ejections = None         # counters bound at view
+        self.readmissions = None      # registration time
+
+
+class Router:
+    """Stateless HTTP router in front of a :class:`ReplicaFleet`.
+
+    Stateless = no request payload state beyond the in-flight
+    forwarding; everything it knows about replicas is re-derivable
+    from probing, so a router restart loses nothing but affinity
+    pins (which re-pin on the next request).
+    """
+
+    def __init__(self, fleet: ReplicaFleet, port: int = 0,
+                 host: str = "127.0.0.1",
+                 registry: Optional[MetricsRegistry] = None,
+                 probe_interval_s: float = 1.0,
+                 probe_timeout_s: float = 2.0,
+                 attempt_timeout_s: float = 10.0,
+                 request_timeout_s: float = 30.0,
+                 max_attempts: int = 3,
+                 eject_consecutive: int = 3,
+                 eject_cooldown_s: float = 5.0,
+                 hedge_after_s: Optional[float] = 0.75,
+                 hedge_min_budget_s: float = 1.0,
+                 affinity_max: int = 4096,
+                 sample_rate: float = 0.01, tracer=None,
+                 kv_routing: bool = True):
+        self.fleet = fleet
+        self.host = host
+        self.port = port
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self.probe_interval_s = probe_interval_s
+        self.probe_timeout_s = probe_timeout_s
+        self.attempt_timeout_s = attempt_timeout_s
+        self.request_timeout_s = request_timeout_s
+        self.max_attempts = max(1, max_attempts)
+        self.eject_consecutive = max(1, eject_consecutive)
+        self.eject_cooldown_s = eject_cooldown_s
+        self.hedge_after_s = hedge_after_s
+        self.hedge_min_budget_s = hedge_min_budget_s
+        self.affinity_max = affinity_max
+        # kv_routing=False disables the prefix-aware generate pick
+        # (affinity + least-loaded only) — the bench baseline knob
+        self.kv_routing = bool(kv_routing)
+        self.sampler = Sampler(rate=sample_rate)
+        self.tracer = tracer if tracer is not None else get_tracer()
+        # optional fleet-health callable (a FleetCollector's
+        # ``fleet_health``) merged into health_payload(); attach via
+        # attach_fleet_health(), detach with None
+        self.fleet_health_fn: Optional[Callable[[], dict]] = None
+        self._lock = threading.Lock()
+        # serializes whole view-reconciliation passes (prober loop
+        # vs request threads after a chaos fault): without it two
+        # threads can both miss a new rid in their `known` snapshot
+        # and build duplicate views, stranding the gauges on the
+        # orphan
+        self._sync_lock = threading.Lock()
+        self._views: Dict[int, _ReplicaView] = {}
+        # (monotonic ts, {rid: fleet_state}) memo for the gauge
+        # callbacks: a /metrics scrape collects N per-replica gauges
+        # and each would otherwise take its own fleet snapshot
+        self._fs_cache: Tuple[float, Dict[int, str]] = (0.0, {})
+        self._affinity: "Dict[str, int]" = {}
+        self._rr = itertools.count()
+        self._stop_evt = threading.Event()
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._http_thread: Optional[threading.Thread] = None
+        self._prober: Optional[threading.Thread] = None
+        # instruments created ONCE here (GL006): per-route counters
+        # are a small fixed set; per-replica ones are created at
+        # view-registration time and unregistered with the view
+        self._requests = {
+            route: self.registry.counter(
+                "router_requests_total",
+                help="requests routed, by route",
+                labels={"route": route})
+            for route in ("/v1/predict", "/v1/generate",
+                          "/v1/embed", "/v1/search", "/v1/index")}
+        self._latency = {
+            route: self.registry.histogram(
+                "router_latency_seconds",
+                help="router-side whole-request latency (seconds)",
+                labels={"route": route})
+            for route in ("/v1/predict", "/v1/generate",
+                          "/v1/embed", "/v1/search", "/v1/index")}
+        self._failovers = self.registry.counter(
+            "router_failovers_total",
+            help="attempts re-sent to a different replica after a "
+                 "retry-safe failure")
+        self._hedges = self.registry.counter(
+            "router_hedges_total",
+            help="hedged second requests fired for tail latency")
+        self._hedge_wins = self.registry.counter(
+            "router_hedge_wins_total",
+            help="hedged requests that answered first")
+        self._errors = self.registry.counter(
+            "router_errors_total",
+            help="requests the router could not complete on any "
+                 "replica")
+        self._affinity_breaks = self.registry.counter(
+            "router_affinity_breaks_total",
+            help="session pins broken by replica death")
+        # KV-aware routing + disaggregation accounting
+        self._kv_routed = self.registry.counter(
+            "router_kv_routed_total",
+            help="generate requests routed to the replica holding "
+                 "their longest cached prefix")
+        self._prefix_hit_tokens = self.registry.counter(
+            "router_prefix_hit_tokens_total",
+            help="prompt tokens expected to skip prefill thanks to "
+                 "KV-aware routing")
+        self._kv_handoffs = self.registry.counter(
+            "router_kv_handoffs_total",
+            help="prefill→decode lease handoffs completed across "
+                 "replicas")
+        self._kv_migrations = self.registry.counter(
+            "router_kv_migrations_total",
+            help="mid-stream drain migrations re-homed onto a "
+                 "survivor")
+        self._kv_resumes = self.registry.counter(
+            "router_kv_resumes_total",
+            help="failed handoffs finished on the draining "
+                 "incumbent (finish-on-incumbent fallback)")
+        self._kv_fallbacks = self.registry.counter(
+            "router_kv_fallbacks_total",
+            help="disaggregated splits abandoned for a plain "
+                 "single-replica generate")
+        # router-level shed accounting by priority tier: a request
+        # the router turns away with no replica to try (the fleet is
+        # dead/ejected/benched) is a shed too, and the soak's
+        # per-tier evidence must cover it
+        self._shed_by_tier = {
+            t: self.registry.counter(
+                "admission_shed_total",
+                help="requests shed at admission (queue overflow "
+                     "eviction or refusal), by priority tier",
+                labels={"endpoint": "router", "tier": t})
+            for t in tiers.TIERS}
+        # rollout surface: deterministic weighted traffic split
+        # ({rid: fraction}, trace-id-hashed so a request's retries
+        # and hedges stay on-version), optional shadow mirroring of
+        # a sampled predict slice to one replica, and per-version
+        # metric families (created at view-reconcile time below)
+        self._weights: Dict[int, float] = {}
+        self._shadow: Optional[Tuple[int, float]] = None
+        self._shadow_stats: dict = {
+            "compared": 0, "mismatches": 0, "errors": 0, "nan": 0,
+            "exemplars": []}
+        self._version_metrics: Dict[str, tuple] = {}
+        self._version_err_traces: Dict[str, "collections.deque"] = {}
+        self._shadow_requests = self.registry.counter(
+            "router_shadow_requests_total",
+            help="predict requests mirrored to the shadow replica "
+                 "(responses never returned to clients)")
+        self._shadow_mismatch = self.registry.counter(
+            "router_shadow_mismatch_total",
+            help="shadow responses that disagreed with the primary "
+                 "(value divergence, non-finite outputs, or status "
+                 "class)")
+        self._shadow_errors = self.registry.counter(
+            "router_shadow_errors_total",
+            help="shadow attempts that failed outright (net error "
+                 "or unparseable body)")
+        self._shadow_latency = self.registry.histogram(
+            "router_shadow_latency_seconds",
+            help="shadow-attempt latency (seconds)")
+        # an attached RolloutController (attach_rollout): the
+        # /v1/rollout/* verbs and /fleet's rollout block read it
+        self.rollout = None
+        self._sync_views()
+        # pool-mutation hook: a replace()'s successor becomes
+        # routable the moment it answers a probe, not a probe
+        # interval later (and a kill()'s view drops immediately)
+        if hasattr(fleet, "subscribe"):
+            fleet.subscribe(self._fleet_changed)
+
+    def _fleet_changed(self) -> None:
+        if self._stop_evt.is_set():
+            return
+        self._sync_views()
+        with self._lock:
+            fresh = [v for v in self._views.values()
+                     if v.health == "unprobed"]
+        for v in fresh:
+            self._probe_one(v)
+
+    # ------------------------------------------------------------------
+    # replica views & metrics
+    # ------------------------------------------------------------------
+    def _sync_views(self) -> None:
+        """Reconcile router-side views with the fleet pool: new
+        replicas get a view + gauges, removed ones are dropped and
+        their gauges unregistered."""
+        with self._sync_lock:
+            self._sync_views_locked()
+
+    def _sync_views_locked(self) -> None:
+        pool = {r.id: r for r in self.fleet.snapshot()}
+        with self._lock:
+            known = set(self._views)
+        for rid, replica in pool.items():
+            if rid in known:
+                continue
+            view = _ReplicaView(rid, replica.url, CircuitBreaker(
+                failure_threshold=self.eject_consecutive,
+                window_s=max(4 * self.eject_cooldown_s, 30.0),
+                cooldown_s=self.eject_cooldown_s, half_open_max=1))
+            view.version = int(getattr(replica, "model_version", 1)
+                               or 1)
+            lbl = {"replica": str(rid)}
+            _g1 = self.registry.gauge(
+                "router_replica_state",
+                help="router's view of each replica (0=ok 1=degraded "
+                     "2=draining 3=ejected 4=dead)",
+                labels=lbl, fn=lambda v=view: self._state_code(
+                    v, self._fleet_states_memo()))
+            _g2 = self.registry.gauge(
+                "router_replica_queue_depth",
+                help="replica queue depth from the last probe",
+                labels=lbl, fn=lambda v=view: v.queue_depth)
+            view.ejections = self.registry.counter(
+                "router_ejections_total",
+                help="outlier ejections per replica", labels=lbl)
+            view.readmissions = self.registry.counter(
+                "router_readmissions_total",
+                help="post-cooldown probe readmissions per replica",
+                labels=lbl)
+            with self._lock:
+                self._views[rid] = view
+        gone = known - set(pool)
+        for rid in gone:
+            with self._lock:
+                self._views.pop(rid, None)
+            lbl = {"replica": str(rid)}
+            for name in ("router_replica_state",
+                         "router_replica_queue_depth",
+                         "router_ejections_total",
+                         "router_readmissions_total"):
+                self.registry.unregister(name, labels=lbl)
+        # per-version request/error/latency families, created at
+        # reconcile time like the per-replica gauges (GL006). Unlike
+        # those, they are NOT unregistered when the version leaves
+        # the pool: version cardinality is bounded by deployments
+        # (rare, operator-driven — not per-replica churn), and the
+        # rollout bench / loadgen read the retired incumbent's
+        # series AFTER promotion — dropping them would erase the
+        # baseline half of every per-version report
+        for vstr in sorted({str(getattr(r, "model_version", 1) or 1)
+                            for r in pool.values()}):
+            with self._lock:
+                if vstr in self._version_metrics:
+                    continue
+            lbl = {"version": vstr}
+            req = self.registry.counter(
+                "router_version_requests_total",
+                help="predict-family attempts forwarded, by the "
+                     "serving replica's model version", labels=lbl)
+            err = self.registry.counter(
+                "router_version_errors_total",
+                help="failed predict-family attempts (net error or "
+                     "5xx), by model version", labels=lbl)
+            hist = self.registry.histogram(
+                "router_version_latency_seconds",
+                help="per-attempt latency by model version "
+                     "(seconds)", labels=lbl)
+            with self._lock:
+                self._version_metrics[vstr] = (req, err, hist)
+
+    def _fleet_states_memo(self, max_age_s: float = 0.05
+                           ) -> Dict[int, str]:
+        """One fleet snapshot shared across a gauge-collection pass
+        (the memo only covers fleet MEMBERSHIP/intent; breaker and
+        probed health are always read live)."""
+        now = time.monotonic()
+        ts, states = self._fs_cache
+        if now - ts > max_age_s:
+            states = {r.id: r.fleet_state
+                      for r in self.fleet.snapshot()}
+            self._fs_cache = (now, states)
+        return states
+
+    def _state_code(self, view: _ReplicaView,
+                    fleet_states: Optional[Dict[int, str]] = None
+                    ) -> int:
+        # callers scoring many views pass one shared fleet_states
+        # map — a snapshot per view would make every /healthz and
+        # /metrics scrape O(N^2) lock-and-copy on the fleet
+        if fleet_states is None:
+            fleet_states = {r.id: r.fleet_state
+                            for r in self.fleet.snapshot()}
+        fleet_state = fleet_states.get(view.rid)
+        if fleet_state is None:
+            return _STATE_CODES["dead"]
+        if fleet_state == DRAINING or view.health == "draining":
+            return _STATE_CODES["draining"]
+        if view.breaker.state != CircuitBreaker.CLOSED:
+            # ejected outranks probed-dead: the breaker records the
+            # ROUTER's decision (and its readmission schedule), which
+            # is what the ejection drill asserts on
+            return _STATE_CODES["ejected"]
+        if view.health == "degraded":
+            return _STATE_CODES["degraded"]
+        if view.health != "ok":
+            # dead, or not yet probed: never advertised as serving
+            return _STATE_CODES["dead"]
+        return _STATE_CODES["ok"]
+
+    def replica_states(self) -> Dict[int, str]:
+        """id -> state name (the /fleet debug payload and the tests'
+        assertion surface)."""
+        code_names = {v: k for k, v in _STATE_CODES.items()}
+        fleet_states = {r.id: r.fleet_state
+                        for r in self.fleet.snapshot()}
+        with self._lock:
+            views = list(self._views.values())
+        return {v.rid: code_names[self._state_code(v, fleet_states)]
+                for v in views}
+
+    # ------------------------------------------------------------------
+    # probing
+    # ------------------------------------------------------------------
+    def _probe_one(self, view: _ReplicaView) -> None:
+        """One active health check: classify, refresh load signals,
+        and spend the half-open probe budget on ejected replicas."""
+        ok, health, circuits, index_info = self._check_ready(
+            view.url)
+        load = self._read_load_signals(view.url) if ok or health \
+            else None
+        st = view.breaker.state
+        if st == CircuitBreaker.HALF_OPEN:
+            # cooldown has passed: the PROBER is the readmission
+            # gate, so an ejected replica sees zero live traffic
+            # until a probe vouches for it
+            kind = view.breaker.try_admit()
+            if kind == "probe":
+                # readmission bar == eligibility bar: _eligible
+                # routes to degraded replicas, so a degraded probe
+                # answer must also readmit — demanding a strict 200
+                # would wedge an ejected replica whose own internal
+                # breaker can only close via the live traffic that
+                # ejection denies it
+                if ok or health == "degraded":
+                    view.breaker.record_success()
+                    view.readmissions.inc()
+                    logger.info("router: replica %d readmitted "
+                                "after probe", view.rid)
+                else:
+                    view.breaker.record_failure()
+        elif st == CircuitBreaker.CLOSED and health is None:
+            # unreachable probe (timeout / refused) = the same
+            # outlier signal as a failed live request: consecutive
+            # ones eject, so a hung replica is ejected within the
+            # probe window even with zero traffic pointed at it.
+            # Only while the fleet still calls it up — a draining or
+            # already-removed replica going dark is not an outlier —
+            # and only if a probe has EVER succeeded: a subprocess
+            # replica still importing torch at cold start is booting,
+            # not an outlier (it is already ineligible while
+            # unprobed; ejecting it would pollute
+            # router_ejections_total and delay first eligibility by
+            # the cooldown)
+            if view.probe_ok_total > 0 and any(
+                    r.id == view.rid and r.fleet_state == UP
+                    for r in self.fleet.snapshot()):
+                self._note_failure(view)
+        prefixes = None
+        if (ok or health) and self.kv_routing and (
+                load is None or load["kv_pages_total"] > 0):
+            # only paged replicas can advertise prefixes; skip the
+            # extra call when the metrics snapshot proves there is
+            # no paged pool behind this replica
+            prefixes = self._read_prefixes(view.url)
+        with self._lock:
+            view.health = health if health is not None else "dead"
+            if load is not None:
+                view.queue_depth = load["queue_depth"]
+                view.kv_pages_in_use = load["kv_pages_in_use"]
+                view.kv_pages_total = load["kv_pages_total"]
+                view.prefix_hits = load["prefix_cache_hits_total"]
+                view.prefix_evictions = \
+                    load["prefix_cache_evictions_total"]
+            if prefixes is not None:
+                view.prefix_page_size = prefixes["page_size"] or 0
+                view.prefix_fps = frozenset(prefixes["prefixes"])
+            if index_info is not None:
+                view.index_info = index_info
+            view.circuits = circuits
+            if ok:
+                view.probe_ok_total += 1
+
+    def _check_ready(self, url: str
+                     ) -> Tuple[bool, Optional[str], int,
+                                Optional[dict]]:
+        """(ready, health-classification, non-closed circuit count,
+        index advertisement) from /healthz?ready. ``health`` None
+        means unreachable."""
+        try:
+            status, body, _ = _http_call(
+                url, "GET", "/healthz?ready",
+                timeout=self.probe_timeout_s)
+        except _NetError:
+            return False, None, 0, None
+        try:
+            payload = json.loads(body.decode() or "{}")
+        except ValueError:
+            payload = {}
+        circuits = len(payload.get("circuits") or {})
+        index_info = payload.get("index")
+        health = payload.get("status", "dead")
+        if health == "draining":
+            # the fleet snapshot is authoritative for draining; the
+            # probed form only matters for replicas the fleet still
+            # calls up (an external drain)
+            return False, "draining", circuits, index_info
+        return status == 200, health, circuits, index_info
+
+    def _read_load_signals(self, url: str) -> Optional[dict]:
+        """Queue depth + paged-KV pool pressure + prefix-cache
+        effectiveness from one /metrics snapshot (None when
+        unreachable): the ``*_queue_depth``, ``*_kv_pages_*`` and
+        ``*_prefix_cache_*`` gauges summed over the replica's
+        backends."""
+        try:
+            status, body, _ = _http_call(
+                url, "GET", "/metrics", timeout=self.probe_timeout_s)
+            if status != 200:
+                return None
+            snap = json.loads(body.decode() or "{}")
+        except (_NetError, ValueError):
+            return None
+        gauges = snap.get("gauges") or {}
+        out = {"queue_depth": 0.0, "kv_pages_in_use": 0.0,
+               "kv_pages_total": 0.0,
+               "prefix_cache_hits_total": 0.0,
+               "prefix_cache_evictions_total": 0.0}
+        for name, value in gauges.items():
+            if not isinstance(value, (int, float)):
+                continue
+            for suffix in out:
+                if name.endswith("_" + suffix):
+                    out[suffix] += value
+        return out
+
+    def _read_prefixes(self, url: str) -> Optional[dict]:
+        """One replica's ``/v1/kv/prefixes`` advertisement (None
+        when unreachable or not serving the endpoint)."""
+        try:
+            status, body, _ = _http_call(
+                url, "GET", "/v1/kv/prefixes",
+                timeout=self.probe_timeout_s)
+            if status != 200:
+                return None
+            payload = json.loads(body.decode() or "{}")
+        except (_NetError, ValueError):
+            return None
+        return {"page_size": payload.get("page_size"),
+                "prefixes": [str(p) for p in
+                             (payload.get("prefixes") or [])]}
+
+    def _probe_all(self) -> None:
+        """One whole probe pass, replicas probed CONCURRENTLY: a
+        wedged replica costs probe_timeout_s, and paying that
+        serially per replica would stretch the pass far past
+        probe_interval_s — delaying ejection of other outliers and
+        readmission of recovered ones."""
+        self._sync_views()
+        with self._lock:
+            views = list(self._views.values())
+        if len(views) <= 1:
+            for view in views:
+                self._probe_one(view)
+            return
+        threads = [threading.Thread(
+            target=self._probe_one, args=(v,), daemon=True,
+            name=f"router-probe-{v.rid}") for v in views]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+
+    def _probe_loop(self) -> None:
+        while not self._stop_evt.wait(self.probe_interval_s):
+            try:
+                self._probe_all()
+            except Exception:
+                logger.exception("router prober iteration failed")
+
+    # ------------------------------------------------------------------
+    # passive outlier signals
+    # ------------------------------------------------------------------
+    def _note_failure(self, view: _ReplicaView) -> None:
+        with self._lock:
+            view.consecutive_failures += 1
+            n = view.consecutive_failures
+            should_eject = (n >= self.eject_consecutive
+                            and view.breaker.state
+                            == CircuitBreaker.CLOSED)
+            if should_eject:
+                view.consecutive_failures = 0
+        if should_eject:
+            view.breaker.force_open()
+            view.ejections.inc()
+            logger.warning(
+                "router: ejecting replica %d after %d consecutive "
+                "failures (cooldown %.1fs)", view.rid,
+                self.eject_consecutive, self.eject_cooldown_s)
+
+    def _note_success(self, view: _ReplicaView) -> None:
+        with self._lock:
+            view.consecutive_failures = 0
+
+    # ------------------------------------------------------------------
+    # replica selection
+    # ------------------------------------------------------------------
+    def _eligible(self, exclude=(),
+                  role: Optional[str] = None) -> List[_ReplicaView]:
+        """Eligible views, optionally filtered to a disaggregation
+        role (``mixed`` replicas serve every role; an empty filtered
+        set falls back to the unfiltered one — availability beats
+        role purity)."""
+        now = time.monotonic()
+        pool = [r for r in self.fleet.snapshot()
+                if r.fleet_state == UP]
+        with self._lock:
+            views = dict(self._views)
+        out = []
+        for r in pool:
+            v = views.get(r.id)
+            if v is None or v.rid in exclude:
+                continue
+            if v.health not in ("ok", "degraded"):
+                continue              # dead or externally draining
+            if v.breaker.state != CircuitBreaker.CLOSED:
+                continue              # ejected: no new traffic
+            if now < v.unavailable_until:
+                continue              # honoring its Retry-After
+            v.url = r.url
+            v.role = getattr(r, "role", MIXED)
+            v.version = int(getattr(r, "model_version", 1) or 1)
+            out.append(v)
+        if role is not None:
+            filtered = [v for v in out if v.role in (role, MIXED)]
+            if filtered:
+                return filtered
+        return out
+
+    def _prompt_hit_tokens(self, view: _ReplicaView, prompt,
+                           fp_cache: Dict[int, list]) -> int:
+        """How many of the prompt's leading tokens this replica's
+        advertised prefix cache covers (longest page-aligned
+        match)."""
+        ps = view.prefix_page_size
+        if not ps or not view.prefix_fps:
+            return 0
+        fps = fp_cache.get(ps)
+        if fps is None:
+            from deeplearning4j_tpu_torch.models.paged_kv import (
+                prefix_fingerprints)
+            fps = fp_cache[ps] = prefix_fingerprints(prompt, ps)
+        for n_tokens, fp in fps:          # longest first
+            if fp in view.prefix_fps:
+                return n_tokens
+        return 0
+
+    def _weighted_subset(self, candidates: List[_ReplicaView],
+                         trace_id: Optional[str]
+                         ) -> List[_ReplicaView]:
+        """Deterministic canary split: hash the trace id into [0,1)
+        and route the request to a weighted replica when it lands
+        under that replica's fraction, otherwise keep it OFF every
+        weighted replica. Trace-id hashing (not coin flips) means a
+        request's retries and hedges stay on the same version — a
+        failover must not silently hop a gold request between model
+        versions mid-request. When excluding the weighted replicas
+        would leave nobody, the full candidate set is returned:
+        availability beats version purity."""
+        with self._lock:
+            weights = dict(self._weights)
+        if not weights:
+            return candidates
+        by_rid = {v.rid: v for v in candidates}
+        if trace_id is not None:
+            u = zlib.crc32(trace_id.encode("utf-8", "replace")) \
+                / 2.0 ** 32
+            cum = 0.0
+            for rid in sorted(weights):
+                if rid not in by_rid:
+                    continue
+                cum += weights[rid]
+                if u < cum:
+                    return [by_rid[rid]]
+        # off-split traffic (and internal picks with no trace id)
+        # avoids the weighted replicas, so the canary's measured
+        # share stays at its configured fraction
+        rest = [v for v in candidates if v.rid not in weights]
+        return rest if rest else candidates
+
+    def _pick(self, exclude=(), role: Optional[str] = None,
+              prompt=None,
+              trace_id: Optional[str] = None) -> _ReplicaView:
+        """Least-loaded eligible replica: probed queue depth +
+        router-side in-flight, degraded and open-circuit penalties;
+        round-robin tie-break. With a ``prompt`` (KV-aware generate
+        routing), replicas advertising a cached prefix of it outrank
+        the rest — the longest hit wins, load breaks ties. With
+        rollout weights set, the trace id deterministically decides
+        which side of the canary split the request lands on."""
+        candidates = self._eligible(exclude, role=role)
+        if not candidates:
+            raise NoReplicaAvailableError(
+                "no replica is eligible (all dead, ejected, "
+                "draining, or backing off)",
+                retry_after_s=self._soonest_retry_s())
+        candidates = self._weighted_subset(candidates, trace_id)
+        hit_tokens = 0
+        if prompt is not None and self.kv_routing:
+            fp_cache: Dict[int, list] = {}
+            hits = {v.rid: self._prompt_hit_tokens(v, prompt,
+                                                   fp_cache)
+                    for v in candidates}
+            hit_tokens = max(hits.values())
+            if hit_tokens > 0:
+                candidates = [v for v in candidates
+                              if hits[v.rid] == hit_tokens]
+        with self._lock:
+            def weight(v: _ReplicaView) -> float:
+                w = v.queue_depth + 2.0 * v.inflight \
+                    + 10.0 * v.circuits
+                if v.health == "degraded":
+                    w += 1000.0       # only when everyone is degraded
+                return w
+            # rotate before min so equal weights round-robin (min is
+            # stable: without rotation the first candidate would win
+            # every tie and starve the rest)
+            start = next(self._rr) % len(candidates)
+            rotated = candidates[start:] + candidates[:start]
+            best = min(rotated, key=weight)
+            best.inflight += 1
+        if hit_tokens > 0:
+            self._kv_routed.inc()
+            self._prefix_hit_tokens.inc(hit_tokens)
+        return best
+
+    def _release(self, view: _ReplicaView) -> None:
+        with self._lock:
+            view.inflight = max(0, view.inflight - 1)
+
+    def _soonest_retry_s(self) -> float:
+        with self._lock:
+            views = list(self._views.values())
+        now = time.monotonic()
+        waits = [max(0.0, v.unavailable_until - now) for v in views]
+        waits += [v.breaker.cooldown_remaining() for v in views]
+        positive = [w for w in waits if w > 0]
+        return min(positive) if positive else 1.0
+
+    # ------------------------------------------------------------------
+    # rollout surface: weighted split, shadow mirroring,
+    # per-version accounting
+    # ------------------------------------------------------------------
+    def set_weight(self, rid: int, frac: float) -> None:
+        """Send ``frac`` of hashable traffic (deterministically, by
+        trace id) to replica ``rid``; the rest avoids it."""
+        frac = float(frac)
+        if not 0.0 <= frac <= 1.0:
+            raise ValueError(f"weight must be in [0, 1], got {frac}")
+        with self._lock:
+            self._weights[int(rid)] = frac
+
+    def clear_weight(self, rid: Optional[int] = None) -> None:
+        with self._lock:
+            if rid is None:
+                self._weights.clear()
+            else:
+                self._weights.pop(int(rid), None)
+
+    def set_shadow(self, rid: int, sample: float = 1.0) -> None:
+        """Mirror a trace-id-sampled slice of /v1/predict traffic to
+        replica ``rid`` and score its answers against the primary's.
+        Shadow responses are NEVER returned to clients; stats reset
+        on every (re)arm so one rollout's scoring can't inherit the
+        last one's mismatches."""
+        sample = float(sample)
+        if not 0.0 <= sample <= 1.0:
+            raise ValueError(
+                f"shadow sample must be in [0, 1], got {sample}")
+        with self._lock:
+            self._shadow = (int(rid), sample)
+            self._shadow_stats = {
+                "compared": 0, "mismatches": 0, "errors": 0,
+                "nan": 0, "exemplars": []}
+
+    def clear_shadow(self) -> None:
+        with self._lock:
+            self._shadow = None
+
+    def shadow_stats(self) -> dict:
+        with self._lock:
+            st = dict(self._shadow_stats)
+            st["exemplars"] = list(st["exemplars"])
+        return st
+
+    def attach_rollout(self, controller) -> None:
+        """Attach (or with ``None`` detach) a RolloutController: the
+        /v1/rollout/* verbs and /fleet's rollout block read it."""
+        self.rollout = controller
+
+    def version_stats(self) -> Dict[str, dict]:
+        """Per-model-version request/error/p99 as this router
+        forwarded them, plus up to 8 offending (failed) trace ids
+        per version — the incident bundle's exemplars."""
+        with self._lock:
+            fams = dict(self._version_metrics)
+            err_traces = {v: list(dq) for v, dq
+                          in self._version_err_traces.items()}
+        out = {}
+        for vstr, (req, err, hist) in sorted(fams.items()):
+            out[vstr] = {
+                "requests": int(req.value),
+                "errors": int(err.value),
+                "p99_ms": round(hist.quantile(0.99) * 1e3, 3),
+                "error_trace_ids": err_traces.get(vstr, [])}
+        return out
+
+    def _record_version(self, view: _ReplicaView,
+                        status: Optional[int], dur_s: float,
+                        trace_id: Optional[str] = None) -> None:
+        """Account one forwarding attempt against the serving
+        replica's model version (net errors and 5xx count as that
+        version failing the request)."""
+        vstr = str(getattr(view, "version", 1) or 1)
+        with self._lock:
+            fam = self._version_metrics.get(vstr)
+        if fam is None:
+            return
+        req, err, hist = fam
+        req.inc()
+        if status is None or status >= 500:
+            err.inc()
+            if trace_id:
+                with self._lock:
+                    dq = self._version_err_traces.get(vstr)
+                    if dq is None:
+                        dq = collections.deque(maxlen=8)
+                        self._version_err_traces[vstr] = dq
+                    dq.append(trace_id)
+        hist.record(dur_s,
+                    exemplar={"trace_id": trace_id}
+                    if trace_id else None)
+
+    def _maybe_shadow(self, route: str, body_bytes: bytes,
+                      fwd_headers: Dict[str, str],
+                      trace_id: Optional[str],
+                      primary_rid: Optional[int]
+                      ) -> "Optional[queue.Queue]":
+        """Fire a shadow mirror of this predict when armed and the
+        trace id samples in. Returns the queue the caller must feed
+        the PRIMARY's definitive (status, body) into — the shadow
+        thread scores against it — or None when no mirror fired."""
+        if route != "/v1/predict" or trace_id is None:
+            return None
+        with self._lock:
+            shadow = self._shadow
+        if shadow is None:
+            return None
+        rid, sample = shadow
+        if rid == primary_rid:
+            # the split already routed the request to the shadow
+            # replica itself: mirroring it there compares the canary
+            # with the canary
+            return None
+        # a different hash stream than the split's (salted), so the
+        # mirrored slice samples BOTH sides of the weighted split
+        u = zlib.crc32(f"{trace_id}#shadow".encode()) / 2.0 ** 32
+        if u >= sample:
+            return None
+        with self._lock:
+            view = self._views.get(rid)
+            if view is None:
+                return None
+            view.inflight += 1
+        primary_q: "queue.Queue" = queue.Queue(maxsize=1)
+        threading.Thread(
+            target=self._shadow_attempt,
+            args=(view, route, body_bytes, dict(fwd_headers),
+                  primary_q, trace_id),
+            daemon=True, name=f"router-shadow-{rid}").start()
+        return primary_q
+
+    def _shadow_attempt(self, view: _ReplicaView, route: str,
+                        body_bytes: bytes, headers: Dict[str, str],
+                        primary_q: "queue.Queue",
+                        trace_id: str) -> None:
+        self._shadow_requests.inc()
+        t0 = time.monotonic()
+        status: Optional[int] = None
+        data = b""
+        neterr: Optional[_NetError] = None
+        try:
+            status, data, _ = self._forward(
+                view, "POST", route, body_bytes, headers,
+                self.attempt_timeout_s)
+        except _NetError as e:
+            # a shadow failure is SCORED, never acted on: it must
+            # not eject the canary or touch primary routing health
+            neterr = e
+        finally:
+            self._release(view)
+        self._shadow_latency.record(
+            time.monotonic() - t0,
+            exemplar={"trace_id": trace_id})
+        try:
+            p_status, p_data = primary_q.get(
+                timeout=max(2.0, self.attempt_timeout_s))
+        except queue.Empty:
+            return    # primary never answered; nothing to compare
+        self._score_shadow(p_status, p_data, status, data, neterr,
+                           trace_id)
+
+    @staticmethod
+    def _flatten_outputs(x, out: List[float]) -> None:
+        if isinstance(x, (list, tuple)):
+            for e in x:
+                Router._flatten_outputs(e, out)
+        elif isinstance(x, (int, float)):
+            out.append(float(x))
+
+    def _score_shadow(self, p_status: Optional[int], p_data: bytes,
+                      s_status: Optional[int], s_data: bytes,
+                      s_err: Optional[_NetError],
+                      trace_id: str) -> None:
+        verdict = "ok"
+        if s_err is not None or s_status is None:
+            verdict = "error"
+        elif p_status is None:
+            return        # the primary failed; the shadow is moot
+        elif (200 <= p_status < 300) != (200 <= s_status < 300):
+            verdict = "mismatch"
+        elif 200 <= p_status < 300:
+            p_out: List[float] = []
+            s_out: List[float] = []
+            try:
+                self._flatten_outputs(
+                    json.loads(p_data.decode() or "{}")
+                    .get("outputs"), p_out)
+                self._flatten_outputs(
+                    json.loads(s_data.decode() or "{}")
+                    .get("outputs"), s_out)
+            except ValueError:
+                verdict = "error"
+            else:
+                if any(not math.isfinite(v) for v in s_out) \
+                        or any(not math.isfinite(v) for v in p_out):
+                    # NaN/inf anywhere is a poisoned version, and a
+                    # NaN would sail through the numeric compare
+                    # below (every NaN comparison is False)
+                    verdict = "nan"
+                elif len(p_out) != len(s_out):
+                    verdict = "mismatch"
+                elif any(abs(a - b) > 1e-3 * max(1.0, abs(a))
+                         for a, b in zip(p_out, s_out)):
+                    verdict = "mismatch"
+        if verdict == "ok":
+            with self._lock:
+                self._shadow_stats["compared"] += 1
+            return
+        with self._lock:
+            st = self._shadow_stats
+            st["compared"] += 1
+            if verdict == "error":
+                st["errors"] += 1
+            else:
+                st["mismatches"] += 1
+                if verdict == "nan":
+                    st["nan"] += 1
+                if len(st["exemplars"]) < 8:
+                    st["exemplars"].append(trace_id)
+        if verdict == "error":
+            self._shadow_errors.inc()
+        else:
+            self._shadow_mismatch.inc()
+
+    # ------------------------------------------------------------------
+    # forwarding
+    # ------------------------------------------------------------------
+    def _forward(self, view: _ReplicaView, method: str, path: str,
+                 body: Optional[bytes], headers: Dict[str, str],
+                 timeout: float) -> Tuple[int, bytes, Dict[str, str]]:
+        return _http_call(view.url, method, path, body=body,
+                          headers=headers, timeout=timeout)
+
+    def _attempt(self, view: _ReplicaView, path: str, body: bytes,
+                 headers: Dict[str, str], timeout: float,
+                 results: "queue.Queue", tag: str,
+                 trace_id: Optional[str] = None) -> None:
+        """One forwarding attempt; the outcome (response or net
+        error) lands on ``results`` for the coordinating handler.
+        Each attempt is also accounted against the serving
+        replica's model version (the rollout cohorts)."""
+        t0 = time.monotonic()
+        try:
+            status, data, resp_headers = self._forward(
+                view, "POST", path, body, headers, timeout)
+            self._record_version(view, status,
+                                 time.monotonic() - t0, trace_id)
+            results.put((tag, view, status, data, resp_headers, None))
+        except _NetError as e:
+            self._record_version(view, None,
+                                 time.monotonic() - t0, trace_id)
+            results.put((tag, view, None, b"", {}, e))
+        finally:
+            self._release(view)
+
+    @staticmethod
+    def _retryable(status: Optional[int],
+                   neterr: Optional[_NetError]) -> bool:
+        """Retry-safe failures for an idempotent route: the work
+        never produced a response (connect error, send/read failure,
+        timeout) or was refused at admission (503 circuit/drain, 429
+        queue full — both mean the replica never started the work).
+        A 5xx AFTER response bytes (500/504 from the replica) means
+        the replica RAN the request — return it, never re-run it."""
+        if neterr is not None:
+            return True
+        return status in (503, 429)
+
+    def _account_response(self, view: _ReplicaView, status: int,
+                          resp_headers: Dict[str, str]) -> None:
+        """Post-attempt outcome accounting for a COMPLETE response
+        on the affinity route (generate's first and retry attempts
+        share it so their failure accounting can never drift)."""
+        if status >= 500:
+            self._note_failure(view)
+            if status == 503:
+                self._honor_retry_after(view, resp_headers)
+        else:
+            self._note_success(view)
+
+    def _honor_retry_after(self, view: _ReplicaView,
+                           headers: Dict[str, str]) -> None:
+        ra = headers.get("Retry-After")
+        if not ra:
+            return
+        try:
+            delay = float(ra)
+        except ValueError:
+            return
+        with self._lock:
+            view.unavailable_until = max(
+                view.unavailable_until, time.monotonic() + delay)
+
+    # ---- /v1/predict (+ the other idempotent routes):
+    # failover + hedging ----
+    def _route_predict(self, body_bytes: bytes, body: dict,
+                       ctx: RequestContext,
+                       route: str = "/v1/predict"
+                       ) -> Tuple[int, bytes, Dict[str, str]]:
+        """The idempotent-route contract. /v1/embed and /v1/search
+        ride the same implementation (``route`` is the replica path):
+        a search re-sent to a second replica returns the same answer
+        modulo index generation, exactly like a re-sent predict."""
+        deadline = ctx.deadline if ctx.deadline is not None \
+            else time.monotonic() + self.request_timeout_s
+        fwd_headers = {"Content-Type": "application/json",
+                       "traceparent": ctx.traceparent()}
+        results: "queue.Queue" = queue.Queue()
+        tried: List[int] = []
+        outstanding = 0
+
+        def launch(tag: str) -> bool:
+            nonlocal outstanding
+            view = self._pick(exclude=tried, trace_id=ctx.trace_id)
+            tried.append(view.rid)
+            remaining = deadline - time.monotonic()
+            t = max(0.05, min(self.attempt_timeout_s, remaining))
+            if self.hedge_after_s is None:
+                # hedging off: no second attempt can ever need to
+                # race this one, so run it inline on the handler
+                # thread instead of paying a thread per request
+                self._attempt(view, route, body_bytes,
+                              fwd_headers, t, results, tag,
+                              ctx.trace_id)
+            else:
+                threading.Thread(
+                    target=self._attempt,
+                    args=(view, route, body_bytes,
+                          fwd_headers, t, results, tag,
+                          ctx.trace_id),
+                    daemon=True, name=f"router-attempt-{view.rid}"
+                ).start()
+            outstanding += 1
+            return True
+
+        launch("primary")
+        # shadow mirroring fires AFTER the primary pick so a request
+        # the split routed to the canary itself is never mirrored;
+        # the queue carries the primary's definitive answer to the
+        # comparator thread
+        shadow_q = self._maybe_shadow(
+            route, body_bytes, fwd_headers, ctx.trace_id,
+            tried[0] if tried else None)
+        hedged = self.hedge_after_s is None  # None = hedging off
+        last_failure: Tuple[int, bytes, Dict[str, str]] = (
+            503, b"", {})
+        while True:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                self._errors.inc()
+                raise TimeoutError(
+                    f"deadline exhausted after {len(tried)} "
+                    f"attempt(s) across replicas {tried}")
+            wait_t = remaining if hedged \
+                else min(remaining, self.hedge_after_s)
+            try:
+                (tag, view, status, data, resp_headers,
+                 neterr) = results.get(timeout=wait_t)
+            except queue.Empty:
+                if not hedged:
+                    hedged = True
+                    if remaining > self.hedge_min_budget_s:
+                        try:
+                            launch("hedge")
+                            self._hedges.inc()
+                        except NoReplicaAvailableError:
+                            pass      # nobody to hedge on; keep waiting
+                continue
+            outstanding -= 1
+            if not self._retryable(status, neterr):
+                # definitive: success OR a processed-5xx — hand it
+                # through untouched either way
+                self._note_success(view) if (
+                    status is not None and status < 500) \
+                    else self._note_failure(view)
+                if tag == "hedge" and status is not None \
+                        and status < 500:
+                    # only a SUCCESSFUL hedge is a win — a hedge
+                    # whose replica answered with a processed 5xx
+                    # would otherwise inflate hedging effectiveness
+                    # exactly when replicas are failing
+                    self._hedge_wins.inc()
+                if shadow_q is not None:
+                    try:
+                        shadow_q.put_nowait((status, data))
+                    except queue.Full:
+                        pass
+                return status, data, resp_headers
+            # retry-safe failure
+            if status == 429:
+                # queue-full is an OVERLOAD signal, not a liveness
+                # failure: bench the replica for the hinted interval
+                # but never count it toward ejection — a fleet-wide
+                # burst must not eject every healthy replica
+                self._honor_retry_after(view, resp_headers)
+            else:
+                self._note_failure(view)
+                if status == 503:
+                    self._honor_retry_after(view, resp_headers)
+            if status in (503, 429):
+                last_failure = (status, data, resp_headers)
+            if len(tried) < self.max_attempts:
+                try:
+                    launch("failover")
+                    self._failovers.inc()
+                    continue
+                except NoReplicaAvailableError:
+                    pass
+            if outstanding == 0:
+                # every launched attempt has failed retry-safe: pass
+                # a replica's own 503 body through when we have one
+                # (it carries the typed error + Retry-After), else
+                # this is the router's no-replica answer
+                self._errors.inc()
+                status, data, resp_headers = last_failure
+                if not data:
+                    raise NoReplicaAvailableError(
+                        f"all {len(tried)} attempt(s) failed "
+                        f"retry-safe; replicas tried: {tried}",
+                        retry_after_s=self._soonest_retry_s())
+                if shadow_q is not None:
+                    try:
+                        shadow_q.put_nowait((status, data))
+                    except queue.Full:
+                        pass
+                return status, data, resp_headers
+
+    # ---- /v1/index: fan-out to every eligible replica ----
+    def _route_index(self, body_bytes: bytes, body: dict,
+                     ctx: RequestContext, path: str
+                     ) -> Tuple[int, bytes, Dict[str, str]]:
+        """Broadcast an index admin verb (upsert/delete/compact/
+        stats) to every eligible replica and aggregate per-replica
+        outcomes. 200 only when EVERY replica accepted — a partial
+        write answers 502 with the per-replica evidence, and the
+        caller re-sends (upserts are idempotent: same ids, same
+        vectors)."""
+        deadline = ctx.deadline if ctx.deadline is not None \
+            else time.monotonic() + self.request_timeout_s
+        views = self._eligible()
+        if not views:
+            raise NoReplicaAvailableError(
+                "no replica is eligible for the index fanout",
+                retry_after_s=self._soonest_retry_s())
+        fwd_headers = {"Content-Type": "application/json",
+                       "traceparent": ctx.traceparent()}
+        results: "queue.Queue" = queue.Queue()
+        with self._lock:
+            for view in views:
+                view.inflight += 1
+
+        def call(view: _ReplicaView) -> None:
+            t = max(0.05, min(self.attempt_timeout_s,
+                              deadline - time.monotonic()))
+            try:
+                status, data, _ = self._forward(
+                    view, "POST", path, body_bytes, fwd_headers, t)
+                try:
+                    payload = json.loads(data.decode() or "{}")
+                except ValueError:
+                    payload = {"raw": data.decode(errors="replace")}
+                if status is not None and status < 500:
+                    self._note_success(view)
+                else:
+                    self._note_failure(view)
+                results.put((view.rid, {"status": status,
+                                        "body": payload}))
+            except _NetError as e:
+                self._note_failure(view)
+                results.put((view.rid, {"status": None,
+                                        "error": str(e)}))
+            finally:
+                self._release(view)
+
+        threads = [threading.Thread(target=call, args=(v,),
+                                    daemon=True,
+                                    name=f"router-index-{v.rid}")
+                   for v in views]
+        for t in threads:
+            t.start()
+        for t in threads:
+            # bounded join (GL008): a wedged replica cannot hold the
+            # handler past the request deadline + one attempt slack
+            t.join(max(0.05, deadline - time.monotonic())
+                   + self.attempt_timeout_s)
+        per_replica: Dict[str, dict] = {}
+        while not results.empty():
+            rid, entry = results.get_nowait()
+            per_replica[str(rid)] = entry
+        missing = [v.rid for v in views
+                   if str(v.rid) not in per_replica]
+        for rid in missing:
+            per_replica[str(rid)] = {"status": None,
+                                     "error": "no response before "
+                                              "deadline"}
+        ok = all(e.get("status") == 200
+                 for e in per_replica.values())
+        code = 200 if ok else 502
+        out = {"ok": ok, "verb": path.rsplit("/", 1)[1],
+               "replicas": per_replica}
+        return code, json.dumps(out).encode(), {}
+
+    # ---- /v1/generate: session affinity + disaggregated split ----
+    def _roles_present(self) -> bool:
+        """Is the fleet split into prefill/decode roles (≥2 serving
+        replicas, at least one with a dedicated role)? Only then is
+        the prefill→decode handoff worth a second hop."""
+        roles = [getattr(r, "role", MIXED)
+                 for r in self.fleet.snapshot()
+                 if r.fleet_state == UP]
+        return len(roles) >= 2 and any(x != MIXED for x in roles)
+
+    def _pinned(self, session) -> bool:
+        if session is None:
+            return False
+        with self._lock:
+            return str(session) in self._affinity
+
+    def _pin_to(self, session, view: _ReplicaView,
+                only_from: Optional[int] = None) -> None:
+        """Point a session's pin at the replica now holding its KV
+        state. Conditional like ``_pin``'s locked get-or-set: a
+        fresh handoff (``only_from=None``) only installs a pin where
+        none exists — two concurrent first requests must not
+        clobber each other's established state — while a drain
+        migration (``only_from=<incumbent rid>``) moves the pin only
+        if it still points at the incumbent."""
+        if session is None:
+            return
+        with self._lock:
+            cur = self._affinity.get(str(session))
+            if cur is not None and cur != only_from:
+                return
+            self._affinity.pop(str(session), None)
+            self._affinity[str(session)] = view.rid
+
+    def _route_generate(self, body_bytes: bytes, body: dict,
+                        ctx: RequestContext
+                        ) -> Tuple[int, bytes, Dict[str, str]]:
+        session = body.get("session")
+        fwd_headers = {"Content-Type": "application/json",
+                       "traceparent": ctx.traceparent()}
+        # ONE overall deadline covering both attempts (like
+        # predict): without it a connect-timeout first attempt plus
+        # the retry would each get a full request_timeout_s, 2x the
+        # per-request budget
+        deadline = ctx.deadline if ctx.deadline is not None \
+            else time.monotonic() + self.request_timeout_s
+        prompt = body.get("prompt")
+        prompt = prompt if isinstance(prompt, (list, tuple)) \
+            and prompt else None
+        # disaggregated prefill/decode: fresh streams only — a
+        # pinned session's KV state already lives on its replica
+        if prompt is not None and not self._pinned(session) \
+                and self._roles_present():
+            split = self._route_disagg(body_bytes, body, ctx,
+                                       deadline, fwd_headers,
+                                       session, prompt)
+            if split is not None:
+                return split
+            self._kv_fallbacks.inc()
+        timeout = max(0.05, min(deadline - time.monotonic(),
+                                self.request_timeout_s))
+        view = self._pin(session, prompt=prompt,
+                         trace_id=ctx.trace_id)
+        try:
+            status, data, resp_headers = self._forward(
+                view, "POST", "/v1/generate", body_bytes,
+                fwd_headers, timeout)
+        except _NetError as e:
+            self._note_failure(view)
+            self._break_pin(session)
+            if e.phase != "connect":
+                # the stream DIED mid-flight (partition, reset,
+                # truncated body): its decode state lived on that
+                # replica. Before failing typed, try the last rung
+                # of the zero-drop ladder — decode is deterministic
+                # in (prompt, seed), so recomputing the ORIGINAL
+                # request on a survivor is token-identical to the
+                # stream that was mid-flight.
+                recovered = self._recompute_fallback(
+                    body_bytes, view, deadline, fwd_headers,
+                    session)
+                if recovered is not None:
+                    return recovered
+                self._errors.inc()
+                raise ReplicaGoneError(
+                    f"replica {view.rid} died mid-stream ({e}); the "
+                    f"generation state is lost — restart the "
+                    f"stream; trace {ctx.trace_id}") from e
+        else:
+            self._account_response(view, status, resp_headers)
+            return self._maybe_migrate(
+                status, data, resp_headers, view, deadline,
+                fwd_headers, session, ctx, body_bytes=body_bytes)
+        finally:
+            self._release(view)
+        # connect-refused: the stream never STARTED on the dead
+        # replica, so re-pinning and retrying once loses nothing —
+        # but never back onto the replica that just refused (the
+        # fleet may still call it up for a probe interval after an
+        # unannounced death), and only inside the remaining deadline
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            self._errors.inc()
+            raise TimeoutError(
+                f"deadline exhausted after a connect-refused "
+                f"generate attempt on replica {view.rid}")
+        timeout = max(0.05, min(remaining, self.request_timeout_s))
+        retry = self._pin(session, exclude=(view.rid,),
+                          prompt=prompt, trace_id=ctx.trace_id)
+        self._failovers.inc()
+        try:
+            status, data, resp_headers = self._forward(
+                retry, "POST", "/v1/generate", body_bytes,
+                fwd_headers, timeout)
+        except _NetError as e2:
+            self._note_failure(retry)
+            self._break_pin(session)
+            recovered = self._recompute_fallback(
+                body_bytes, retry, deadline, fwd_headers, session)
+            if recovered is not None:
+                return recovered
+            self._errors.inc()
+            raise ReplicaGoneError(
+                f"replica {retry.rid} died before the stream "
+                f"started ({e2}); trace {ctx.trace_id}") from e2
+        else:
+            self._account_response(retry, status, resp_headers)
+            return self._maybe_migrate(
+                status, data, resp_headers, retry, deadline,
+                fwd_headers, session, ctx, body_bytes=body_bytes)
+        finally:
+            self._release(retry)
+
+    def _route_disagg(self, body_bytes: bytes, body: dict,
+                      ctx: RequestContext, deadline: float,
+                      fwd_headers: Dict[str, str], session,
+                      prompt) -> Optional[Tuple[int, bytes,
+                                                Dict[str, str]]]:
+        """The prefill→decode split: run the prompt on a prefill
+        replica (``/v1/kv/export``), rebuild the lease on the
+        decode replica holding the longest cached prefix
+        (``/v1/kv/import``), pin the session there, hand the stream
+        back — one trace id across the hop. Returns None whenever
+        the split cannot complete; the caller falls back to the
+        plain single-replica path (counted as
+        ``router_kv_fallbacks_total``), so disaggregation can only
+        ever ADD capacity, never drop a request."""
+        remaining = deadline - time.monotonic()
+        if remaining <= 0.05:
+            return None
+        try:
+            pv = self._pick(role=PREFILL)
+        except NoReplicaAvailableError:
+            return None
+        t = max(0.05, min(self.attempt_timeout_s, remaining))
+        try:
+            status, data, hdrs = self._forward(
+                pv, "POST", "/v1/kv/export", body_bytes,
+                fwd_headers, t)
+        except _NetError:
+            self._note_failure(pv)
+            return None
+        finally:
+            self._release(pv)
+        self._account_response(pv, status, hdrs)
+        if status != 200:
+            return None
+        try:
+            blob_b64 = json.loads(data.decode() or "{}").get("blob")
+        except ValueError:
+            blob_b64 = None
+        if not blob_b64:
+            return None
+        remaining = deadline - time.monotonic()
+        if remaining <= 0.05:
+            return None
+        try:
+            dv = self._pick(exclude=(pv.rid,), role=DECODE,
+                            prompt=prompt)
+        except NoReplicaAvailableError:
+            return None
+        import_body = {"blob": blob_b64}
+        if body.get("timeout_ms") is not None:
+            import_body["timeout_ms"] = max(
+                50.0, remaining * 1e3)
+        if body.get("tier") is not None:
+            import_body["tier"] = body["tier"]
+        t = max(0.05, min(remaining, self.request_timeout_s))
+        try:
+            st2, d2, h2 = self._forward(
+                dv, "POST", "/v1/kv/import",
+                json.dumps(import_body).encode(), fwd_headers, t)
+        except _NetError:
+            self._note_failure(dv)
+            return None
+        finally:
+            self._release(dv)
+        self._account_response(dv, st2, h2)
+        if st2 == 202:
+            st2, d2, h2 = self._maybe_migrate(
+                st2, d2, h2, dv, deadline, fwd_headers, session,
+                ctx, body_bytes=body_bytes)
+        if st2 != 200:
+            # 422 (bad blob), 429/503 (pressure), 5xx: recompute
+            # from the original request instead
+            return None
+        self._pin_to(session, dv)
+        self._kv_handoffs.inc()
+        return st2, d2, h2
+
+    # ---- drain-migration offers (202 from a draining replica) ----
+    # a survivor import of a migration offer is capped well below
+    # the incumbent's failsafe auto-resume window (10s): a stalled
+    # import must lose the race to the RESUME fallback, not to the
+    # failsafe (which would leave nobody holding the stream)
+    offer_import_timeout_s = 5.0
+
+    def _maybe_migrate(self, status: int, data: bytes,
+                       resp_headers: Dict[str, str],
+                       incumbent: _ReplicaView, deadline: float,
+                       fwd_headers: Dict[str, str], session,
+                       ctx: RequestContext, depth: int = 0,
+                       body_bytes: Optional[bytes] = None,
+                       pin_from: Optional[int] = None
+                       ) -> Tuple[int, bytes, Dict[str, str]]:
+        """Pass non-offer responses through; complete a migration
+        offer by importing the lease on a survivor (ack → pin
+        moves), else resuming the stream on the draining incumbent,
+        else recomputing the ORIGINAL request from scratch on a
+        survivor (deterministic decode: same prompt, same seed ⇒
+        same tokens) — zero client-visible drops on every rung."""
+        if status != 202:
+            return status, data, resp_headers
+        try:
+            payload = json.loads(data.decode() or "{}")
+        except ValueError:
+            return status, data, resp_headers
+        mig = payload.get("migration")
+        if not isinstance(mig, dict):
+            return status, data, resp_headers
+        if pin_from is None:
+            # the replica the session's pin points at — carried
+            # through chained offers (a 202-chase recurses with the
+            # INTERMEDIATE hop as incumbent, but the pin still
+            # names the first one)
+            pin_from = incumbent.rid
+        handle = mig.get("handle")
+        blob_b64 = mig.get("blob")
+        remaining = deadline - time.monotonic()
+        survivor = None
+        if blob_b64 and remaining > 0.05 and depth < 2:
+            try:
+                survivor = self._pick(exclude=(incumbent.rid,),
+                                      role=DECODE)
+            except NoReplicaAvailableError:
+                survivor = None
+        if survivor is not None:
+            t = max(0.05, min(remaining,
+                              self.offer_import_timeout_s))
+            st2 = None
+            d2, h2 = b"", {}
+            try:
+                st2, d2, h2 = self._forward(
+                    survivor, "POST", "/v1/kv/import",
+                    json.dumps({"blob": blob_b64}).encode(),
+                    fwd_headers, t)
+            except _NetError:
+                self._note_failure(survivor)
+            finally:
+                self._release(survivor)
+            if st2 is not None:
+                self._account_response(survivor, st2, h2)
+            if st2 == 202 and depth < 2:
+                # the survivor is draining too: it now owns the
+                # stream (import succeeded before its own offer),
+                # so ack the first incumbent and chase the new offer
+                self._ack_migration(incumbent, handle)
+                return self._maybe_migrate(
+                    st2, d2, h2, survivor, deadline, fwd_headers,
+                    session, ctx, depth + 1,
+                    body_bytes=body_bytes, pin_from=pin_from)
+            if st2 == 200:
+                self._ack_migration(incumbent, handle)
+                self._pin_to(session, survivor,
+                             only_from=pin_from)
+                self._kv_migrations.inc()
+                return st2, d2, h2
+        # no survivor / import failed: finish on the incumbent
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            self._errors.inc()
+            raise TimeoutError(
+                f"deadline exhausted completing a migration offer "
+                f"from replica {incumbent.rid}")
+        t = max(0.05, min(remaining, self.request_timeout_s))
+        resume_err: Optional[str] = None
+        try:
+            st3, d3, h3 = self._forward(
+                incumbent, "POST", "/v1/kv/resume",
+                json.dumps({"handle": handle}).encode(),
+                fwd_headers, t)
+        except _NetError as e:
+            resume_err = repr(e)
+        else:
+            if st3 == 200:
+                self._kv_resumes.inc()
+                return st3, d3, h3
+            # 404 = the failsafe already reclaimed the handle (a
+            # slow import lost the race); anything else is the
+            # incumbent mid-collapse — either way, recompute below
+            resume_err = f"resume returned {st3}"
+        redo = self._recompute_fallback(body_bytes, incumbent,
+                                        deadline, fwd_headers,
+                                        session, pin_from)
+        if redo is not None:
+            return redo
+        self._errors.inc()
+        self._break_pin(session)
+        raise ReplicaGoneError(
+            f"migration offer from replica {incumbent.rid} could "
+            f"not be completed ({resume_err}) and no survivor "
+            f"could recompute the stream; trace {ctx.trace_id}")
+
+    def _recompute_fallback(self, body_bytes: Optional[bytes],
+                            incumbent: _ReplicaView,
+                            deadline: float,
+                            fwd_headers: Dict[str, str], session,
+                            pin_from: Optional[int] = None
+                            ) -> Optional[Tuple[int, bytes,
+                                                Dict[str, str]]]:
+        """Last rung of the zero-drop ladder: re-run the ORIGINAL
+        generate request from scratch on an eligible replica.
+        Decode is deterministic in (prompt, seed), so the recomputed
+        stream is token-identical to the one that was mid-flight."""
+        if body_bytes is None:
+            return None
+        remaining = deadline - time.monotonic()
+        if remaining <= 0.05:
+            return None
+        try:
+            view = self._pick(exclude=(incumbent.rid,))
+        except NoReplicaAvailableError:
+            return None
+        t = max(0.05, min(remaining, self.request_timeout_s))
+        try:
+            st, d, h = self._forward(view, "POST", "/v1/generate",
+                                     body_bytes, fwd_headers, t)
+        except _NetError:
+            self._note_failure(view)
+            return None
+        finally:
+            self._release(view)
+        self._account_response(view, st, h)
+        if st != 200:
+            return None
+        self._pin_to(session, view,
+                     only_from=incumbent.rid if pin_from is None
+                     else pin_from)
+        self._kv_fallbacks.inc()
+        return st, d, h
+
+    def _ack_migration(self, view: _ReplicaView,
+                       handle) -> None:
+        """Best-effort: tell the draining incumbent its offered
+        stream found a new home (frees the parked pages now; the
+        failsafe auto-resume would free them anyway)."""
+        try:
+            self._forward(view, "POST", "/v1/kv/ack",
+                          json.dumps({"handle": handle}).encode(),
+                          {"Content-Type": "application/json"}, 2.0)
+        except _NetError:
+            pass
+
+    def _pin(self, session: Optional[str],
+             exclude=(), prompt=None,
+             trace_id: Optional[str] = None) -> _ReplicaView:
+        """Resolve the replica for a session (pinning it on first
+        use); sessionless requests route least-loaded as usual. The
+        returned view's in-flight count is already incremented."""
+        if session is None:
+            return self._pick(exclude, prompt=prompt,
+                              trace_id=trace_id)
+        with self._lock:
+            rid = self._affinity.get(str(session))
+            if rid is not None:
+                # touch-on-use: overflow eviction below is LRU, so
+                # the pin sacrificed at affinity_max is an idle
+                # session's, never an active stream's
+                self._affinity.pop(str(session))
+                self._affinity[str(session)] = rid
+        if rid is not None:
+            live = {r.id for r in self.fleet.snapshot()
+                    if r.fleet_state == UP}
+            with self._lock:
+                view = self._views.get(rid)
+            # the pinned replica must pass the SAME eligibility bar
+            # as _eligible(): a session pinned to an ejected,
+            # externally-draining, or Retry-After-benched replica
+            # would otherwise be forwarded into a guaranteed
+            # admission refusal on every request, forever — and an
+            # admission refusal advances no decode state, so
+            # breaking the pin between requests loses nothing
+            usable = (view is not None and rid in live
+                      and rid not in exclude
+                      and view.health in ("ok", "degraded")
+                      and view.breaker.state == CircuitBreaker.CLOSED
+                      and time.monotonic() >= view.unavailable_until)
+            if usable:
+                with self._lock:
+                    view.inflight += 1
+                return view
+            # pinned replica left the pool or stopped accepting
+            # work: the pin breaks here, a fresh one forms below
+            self._break_pin(session)
+        view = self._pick(exclude, prompt=prompt,
+                          trace_id=trace_id)
+        # pin with a locked get-or-set: two concurrent FIRST
+        # requests for the same session must agree on one replica,
+        # or the stream's decode state silently splits across two
+        winner = None
+        evicted = 0
+        with self._lock:
+            rid = self._affinity.setdefault(str(session), view.rid)
+            if rid != view.rid:
+                winner = self._views.get(rid)
+                if winner is None or rid in exclude:
+                    winner = None       # stale pin: take it over
+                    self._affinity[str(session)] = view.rid
+                else:
+                    winner.inflight += 1
+            while len(self._affinity) > self.affinity_max:
+                # LRU eviction (insertion order + touch-on-use);
+                # still a broken pin for whoever owned it, so it is
+                # COUNTED, not silent
+                self._affinity.pop(next(iter(self._affinity)))
+                evicted += 1
+        if evicted:
+            self._affinity_breaks.inc(evicted)
+        if winner is not None:
+            self._release(view)
+            return winner
+        return view
+
+    def _break_pin(self, session: Optional[str]) -> None:
+        if session is None:
+            return
+        with self._lock:
+            gone = self._affinity.pop(str(session), None)
+        if gone is not None:
+            self._affinity_breaks.inc()
+
+    def pinned_sessions(self) -> Dict[int, int]:
+        """Replica id -> number of generate sessions currently
+        pinned to it. The autoscaler's scale-down victim selection
+        reads this: draining the replica with the FEWEST pins breaks
+        the fewest streams (zero, usually — pins on the drained
+        replica still finish, but new requests of those sessions
+        must re-pin)."""
+        with self._lock:
+            counts: Dict[int, int] = {}
+            for rid in self._affinity.values():
+                counts[rid] = counts.get(rid, 0) + 1
+        return counts
+
+    # ------------------------------------------------------------------
+    # autoscaler read surface
+    # ------------------------------------------------------------------
+    def load_signals(self) -> List[dict]:
+        """Per-replica load as the prober last saw it (the
+        autoscaler's sensor bundle): probed queue depth, router-side
+        in-flight, paged-KV pool pressure, health, and whether the
+        replica is currently eligible for traffic. Fleet-draining
+        members are excluded — a replica on its way out is not
+        capacity."""
+        eligible = {v.rid for v in self._eligible()}
+        snapshot = self.fleet.snapshot()
+        fleet_states = {r.id: r.fleet_state for r in snapshot}
+        fleet_roles = {r.id: getattr(r, "role", MIXED)
+                       for r in snapshot}
+        with self._lock:
+            views = list(self._views.values())
+        out = []
+        for v in views:
+            if fleet_states.get(v.rid) != UP:
+                continue
+            out.append({"rid": v.rid, "health": v.health,
+                        "role": fleet_roles.get(v.rid, MIXED),
+                        "queue_depth": float(v.queue_depth),
+                        "inflight": int(v.inflight),
+                        "kv_pages_in_use": float(v.kv_pages_in_use),
+                        "kv_pages_total": float(v.kv_pages_total),
+                        "prefix_cache_hits_total":
+                            float(v.prefix_hits),
+                        "prefix_cache_evictions_total":
+                            float(v.prefix_evictions),
+                        "eligible": v.rid in eligible})
+        return out
+
+    # ------------------------------------------------------------------
+    # HTTP front end
+    # ------------------------------------------------------------------
+    def start(self) -> "Router":
+        router = self
+
+        class Handler(_JsonRequestHandler):
+            def do_GET(self):
+                path = urlparse(self.path).path
+                if path in ("/healthz", "/readyz"):
+                    payload = router.health_payload()
+                    q = parse_qs(urlparse(self.path).query,
+                                 keep_blank_values=True)
+                    ready = path == "/readyz" or "ready" in q
+                    # the ROUTER's readiness is "can I serve
+                    # anything", not "is every replica ok": one
+                    # draining/wedged replica out of N is routed
+                    # around (status says degraded for humans), and
+                    # a 503 here would pull the whole router from an
+                    # upstream LB during a zero-downtime replace
+                    unready = (payload["status"] == "draining"
+                               or payload["eligible"] == 0)
+                    if ready and unready:
+                        self._send(503, payload, headers={
+                            "Retry-After": _retry_after_header(
+                                router._soonest_retry_s())})
+                    else:
+                        self._send(200, payload)
+                elif path == "/metrics":
+                    # ModelServer's negotiation, shared: without the
+                    # OpenMetrics form the exemplars recorded on
+                    # router_latency_seconds would be unreachable
+                    # (classic 0.0.4 text must stay exemplar-free)
+                    mode = self._metrics_mode()
+                    if mode == "openmetrics":
+                        self._send_text(
+                            200, router.registry.prometheus_text(
+                                openmetrics=True),
+                            "application/openmetrics-text; "
+                            "version=1.0.0; charset=utf-8")
+                    elif mode == "text":
+                        self._send_text(
+                            200, router.registry.prometheus_text(),
+                            "text/plain; version=0.0.4; "
+                            "charset=utf-8")
+                    else:
+                        self._send(200,
+                                   router.registry.snapshot())
+                elif path == "/debug/trace-export":
+                    q = parse_qs(urlparse(self.path).query)
+                    since = int((q.get("since") or ["0"])[0])
+                    limit = int((q.get("limit") or ["10000"])[0])
+                    self._send(200, router.tracer.export_since(
+                        since=since, limit=limit))
+                elif path == "/debug/bundle":
+                    from deeplearning4j_tpu_torch.observability.fleetobs \
+                        import local_bundle_payload
+                    q = parse_qs(urlparse(self.path).query)
+                    reason = (q.get("reason") or ["manual"])[0]
+                    self._send(200, local_bundle_payload(
+                        registry=router.registry,
+                        tracer=router.tracer, reason=reason))
+                elif path == "/fleet":
+                    self._send(200, router.fleet_debug())
+                elif path == "/v1/rollout/status":
+                    rc = router.rollout
+                    if rc is None:
+                        self._send(404, {
+                            "error": "no rollout controller "
+                                     "attached"})
+                    else:
+                        self._send(200, rc.status())
+                elif path == "/v1/models":
+                    # proxy the listing from any eligible replica
+                    try:
+                        view = router._pick()
+                    except NoReplicaAvailableError as e:
+                        self._send(503, {"error": str(e)}, headers={
+                            "Retry-After": _retry_after_header(
+                                e.retry_after_s or 1.0)})
+                        return
+                    try:
+                        status, data, _ = _http_call(
+                            view.url, "GET", "/v1/models",
+                            timeout=router.probe_timeout_s)
+                        self._send(status, data)
+                    except _NetError as e:
+                        router._note_failure(view)
+                        self._send(502, {"error": str(e)})
+                    finally:
+                        router._release(view)
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def do_POST(self):
+                path = urlparse(self.path).path
+                if path == "/v1/predict":
+                    self._route(router._route_predict, path)
+                elif path == "/v1/generate":
+                    self._route(router._route_generate, path)
+                elif path in ("/v1/embed", "/v1/search"):
+                    # idempotent like predict: same failover +
+                    # hedging machinery, forwarded to the same path
+                    self._route(
+                        lambda raw, body, ctx, _p=path:
+                        router._route_predict(raw, body, ctx,
+                                              route=_p), path)
+                elif path in ("/v1/rollout/start",
+                              "/v1/rollout/abort"):
+                    rc = router.rollout
+                    if rc is None:
+                        self._send(503, {
+                            "error": "no rollout controller "
+                                     "attached (serve-fleet "
+                                     "--rollout)"})
+                        return
+                    try:
+                        n = self._content_length()
+                        raw = self._read_body(n)
+                        body = json.loads(raw.decode() or "{}")
+                    except (ValueError, TypeError) as e:
+                        self._send(400,
+                                   {"error": f"bad request: {e}"})
+                        return
+                    try:
+                        if path.endswith("/start"):
+                            rc.start()
+                        else:
+                            rc.abort(str(body.get(
+                                "reason", "operator abort")))
+                    except ValueError as e:
+                        # start on an already-active rollout (or
+                        # abort on an idle one) is a state conflict,
+                        # not a server error
+                        self._send(409, {"error": str(e)})
+                        return
+                    self._send(200, rc.status())
+                elif path in ("/v1/index/upsert", "/v1/index/delete",
+                              "/v1/index/compact", "/v1/index/stats"):
+                    # admin writes fan out to EVERY eligible replica
+                    # (each hosts its own index copy); metrics are
+                    # keyed by the route family
+                    self._route(
+                        lambda raw, body, ctx, _p=path:
+                        router._route_index(raw, body, ctx, _p),
+                        "/v1/index")
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def _route(self, route_fn, route):
+                # bad client input (malformed Content-Length, JSON,
+                # or timeout_ms) must produce a 400, not a dropped
+                # connection — the ModelServer._mint_ctx lesson
+                try:
+                    n = self._content_length()
+                    raw = self._read_body(n)
+                except (ValueError, TypeError) as e:
+                    self._send(400, {"error": f"bad request: {e}"})
+                    return
+                try:
+                    body = json.loads(raw.decode() or "{}")
+                except (ValueError, json.JSONDecodeError) as e:
+                    self._send(400, {"error": f"bad JSON: {e}"})
+                    return
+                router._requests[route].inc()
+                # the whole-replica chaos site: one hit per ROUTED
+                # request, so a seeded `at` ordinal kills/hangs a
+                # replica at an exact, replayable point mid-load
+                fault = chaos.hit("serving.replica")
+                if fault is not None:
+                    try:
+                        router.fleet.apply_fault(fault)
+                    except Exception:
+                        logger.exception("serving.replica fault "
+                                         "application failed")
+                    router._sync_views()
+                t = body.get("timeout_ms")
+                try:
+                    deadline = (time.monotonic() + float(t) / 1e3
+                                if t is not None else None)
+                except (ValueError, TypeError) as e:
+                    self._send(400, {"error":
+                                     f"bad timeout_ms: {e}"})
+                    return
+                try:
+                    tier = tiers.parse_tier(body.get("tier"))
+                except ValueError as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                ctx = RequestContext.from_traceparent(
+                    self.headers.get("traceparent"), route,
+                    router.sampler, deadline=deadline,
+                    tracer=router.tracer)
+                if ctx is None:
+                    ctx = RequestContext.new(
+                        route, router.sampler, deadline=deadline,
+                        tracer=router.tracer)
+                ctx.attrs["tier"] = tier
+                ctx.open_root()
+                code = 500
+                try:
+                    with ctx.attach():
+                        ctx.phase_done("admission", now_in="forward")
+                        status, data, resp_headers = route_fn(
+                            raw, body, ctx)
+                        ctx.phase_done("forward", now_in="respond")
+                    code = status
+                    out_headers = {"traceparent": ctx.traceparent()}
+                    for k in ("Retry-After",):
+                        if k in resp_headers:
+                            out_headers[k] = resp_headers[k]
+                    self._send(status, data, headers=out_headers)
+                except NoReplicaAvailableError as e:
+                    ctx.set_error(e)
+                    code = 503
+                    # the router's own shed: counted by tier, and the
+                    # backoff hint priced by tier — cheap traffic is
+                    # told to stay away longest after a fleet-wide
+                    # outage, so the retry storm is tier-ordered too
+                    router._shed_by_tier[tier].inc()
+                    self._send(503, {
+                        "error": str(e),
+                        "error_type": "NoReplicaAvailableError",
+                        "tier": tier,
+                        "trace_id": ctx.trace_id},
+                        headers={
+                            "traceparent": ctx.traceparent(),
+                            "Retry-After": _retry_after_header(
+                                tiers.priced_retry_after_s(
+                                    e.retry_after_s or 1.0, tier))})
+                except ReplicaGoneError as e:
+                    ctx.set_error(e)
+                    code = 502
+                    self._send(502, {
+                        "error": str(e),
+                        "error_type": "ReplicaGoneError",
+                        "trace_id": ctx.trace_id},
+                        headers={"traceparent": ctx.traceparent()})
+                except TimeoutError as e:
+                    ctx.set_error(e)
+                    code = 504
+                    self._send(504, {
+                        "error": str(e),
+                        "error_type": "DeadlineExceededError",
+                        "trace_id": ctx.trace_id},
+                        headers={"traceparent": ctx.traceparent()})
+                except Exception as e:   # keep the listener alive
+                    logger.exception("router error")
+                    ctx.set_error(e)
+                    code = 500
+                    self._send(500, {"error": str(e),
+                                     "trace_id": ctx.trace_id})
+                finally:
+                    total_s = ctx.finish(attrs={"http_status": code})
+                    router._latency[route].record(
+                        total_s,
+                        exemplar={"trace_id": ctx.trace_id}
+                        if ctx.sampled else None)
+
+        with self._lock:
+            if self._stop_evt.is_set():
+                raise ServerClosedError(
+                    "router was stopped; not starting listener")
+            if self._httpd is not None:
+                return self
+        # one synchronous probe pass before the listener opens:
+        # views start "unprobed" (not eligible), so without this an
+        # already-live replica would 503 every request until the
+        # first prober tick, and a frozen/slow prober would never
+        # admit anyone
+        self._probe_all()
+        httpd = _make_listener(self.host, self.port, Handler)
+        with self._lock:
+            if self._httpd is not None:
+                httpd.server_close()
+                return self
+            self._httpd = httpd
+            self.port = httpd.server_address[1]
+            self._http_thread = threading.Thread(
+                target=httpd.serve_forever, daemon=True,
+                name="fleet-router")
+            self._http_thread.start()
+            self._prober = threading.Thread(
+                target=self._probe_loop, daemon=True,
+                name="router-prober")
+            self._prober.start()
+        logger.info("router on http://%s:%d/ over %d replica(s)",
+                    self.host, self.port, self.fleet.size())
+        return self
+
+    # ---- router health & debug ----
+    def attach_fleet_health(self,
+                            fn: Optional[Callable[[], dict]]) -> None:
+        """Attach (or with ``None`` detach) a fleet-health callable —
+        ``fn()`` returns a dict with an ``ok`` bool; a falsy ``ok``
+        marks /healthz degraded with the dict as evidence."""
+        self.fleet_health_fn = fn
+
+    def health_payload(self) -> dict:
+        states = self.replica_states()
+        eligible = len(self._eligible())
+        if self._stop_evt.is_set():
+            status = "draining"
+        elif eligible == 0:
+            status = "degraded"
+        elif any(s != "ok" for s in states.values()):
+            status = "degraded"
+        else:
+            status = "ok"
+        payload = {"status": status, "eligible": eligible,
+                   "replicas": {str(k): v for k, v in states.items()}}
+        # fleet-level verdict from an attached collector: an
+        # AFFIRMATIVE fleet-SLO breach degrades the router for
+        # humans/dashboards (never readiness — see do_GET), while a
+        # dead or absent collector contributes nothing: collector
+        # degradation must never affect serving
+        fn = self.fleet_health_fn
+        if fn is not None:
+            try:
+                fh = fn()
+            except Exception:
+                fh = None
+            if fh is not None and not fh.get("ok", True):
+                if status == "ok":
+                    payload["status"] = "degraded"
+                payload["fleet"] = fh
+        with self._lock:
+            index = {str(v.rid): v.index_info
+                     for v in self._views.values()
+                     if v.index_info is not None}
+        if index:
+            payload["index"] = index
+        return payload
+
+    def fleet_debug(self) -> dict:
+        with self._lock:
+            views = list(self._views.values())
+            weights = dict(self._weights)
+        states = self.replica_states()
+        snapshot = self.fleet.snapshot()
+        roles = {r.id: getattr(r, "role", MIXED) for r in snapshot}
+        versions = {r.id: getattr(r, "model_version", 1)
+                    for r in snapshot}
+        out = {"replicas": [
+            {"id": v.rid, "url": v.url,
+             "state": states.get(v.rid, "dead"),
+             "health": v.health,
+             "role": roles.get(v.rid, MIXED),
+             "model_version": versions.get(v.rid, v.version),
+             "weight": weights.get(v.rid),
+             "breaker": v.breaker.state,
+             "queue_depth": v.queue_depth,
+             "kv_pages_in_use": v.kv_pages_in_use,
+             "kv_pages_total": v.kv_pages_total,
+             "prefix_cache_hits_total": v.prefix_hits,
+             "prefix_cache_evictions_total": v.prefix_evictions,
+             "prefix_fingerprints": len(v.prefix_fps),
+             "inflight": v.inflight,
+             "index": v.index_info,
+             "consecutive_failures": v.consecutive_failures}
+            for v in sorted(views, key=lambda v: v.rid)]}
+        rc = self.rollout
+        if rc is not None:
+            try:
+                out["rollout"] = rc.status()
+            except Exception:
+                logger.exception("rollout status read failed")
+        return out
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        with self._lock:
+            httpd, self._httpd = self._httpd, None
+            prober, self._prober = self._prober, None
+            http_thread, self._http_thread = self._http_thread, None
+        if prober is not None:
+            prober.join(timeout=5.0)
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if http_thread is not None:
+            # join the listener thread too (GL007): stop() must not
+            # return while serve_forever is still winding down
+            http_thread.join(timeout=5.0)
+
+
+# ---------------------------------------------------------------------------
+# low-level HTTP client
+# ---------------------------------------------------------------------------
+
+def _http_call(url: str, method: str, path: str,
+               body: Optional[bytes] = None,
+               headers: Optional[Dict[str, str]] = None,
+               timeout: float = 10.0
+               ) -> Tuple[int, bytes, Dict[str, str]]:
+    """One HTTP exchange with the failure taxonomy failover needs:
+    raises :class:`_NetError` with phase ``connect`` (the request
+    never reached the peer — retry-safe always) or ``exchange``
+    (sent, but no complete response: timeout / reset — retry-safe
+    only for idempotent work). A complete response, whatever its
+    status, is returned, never raised."""
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port,
+                                      timeout=timeout)
+    try:
+        try:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP,
+                                 socket.TCP_NODELAY, 1)
+        except (OSError, socket.timeout) as e:
+            raise _NetError("connect", e) from e
+        try:
+            conn.request(method, path, body=body,
+                         headers=headers or {})
+            resp = conn.getresponse()
+            data = resp.read()
+        except (OSError, socket.timeout,
+                http.client.HTTPException) as e:
+            raise _NetError("exchange", e) from e
+        # a response whose body cannot be trusted is an EXCHANGE
+        # failure, not a replica verdict: a 2xx with no framing
+        # header means the header block was cut mid-stream (read()
+        # "succeeded" only because EOF delimited nothing), and a
+        # JSON-typed body that does not parse crossed a corrupting
+        # hop. Both retry/fail over exactly like a reset.
+        if 200 <= resp.status < 300 \
+                and resp.getheader("Content-Length") is None \
+                and resp.getheader("Transfer-Encoding") is None:
+            raise _NetError("exchange", UpstreamBodyError(
+                f"{method} {path}: 2xx response with no framing "
+                f"header — headers truncated mid-stream"))
+        ctype = (resp.getheader("Content-Type") or "").lower()
+        if "json" in ctype and data:
+            try:
+                json.loads(data.decode())
+            except ValueError as e:
+                raise _NetError("exchange", UpstreamBodyError(
+                    f"{method} {path}: JSON-typed body failed to "
+                    f"parse ({len(data)} bytes) — truncated or "
+                    f"corrupted on the wire")) from e
+        return resp.status, data, dict(resp.getheaders())
+    finally:
+        conn.close()

@@ -316,3 +316,34 @@ def test_kernel_takes_a_misaligned_q_view_on_card(cuda_device):
     torch.testing.assert_close(
         o, tda.decode_attention_plain(q, kp, vp, table, [20, 33]),
         atol=2e-5, rtol=2e-4)
+
+
+def test_launch_counters_lose_nothing_across_threads():
+    """Eight threads count launches at once, as three replicas' worker
+    threads do in one process: every increment lands."""
+    import threading
+    from deeplearning4j_tpu_torch.ops import attention as tattn
+    wrappers = (tda.decode_attention_cuda, tattn.flash_attention_fwd_cuda,
+                tattn.flash_attention_bwd_dq_cuda,
+                tattn.flash_attention_bwd_dkv_cuda)
+    saved = [w.launches for w in wrappers]
+    barrier = threading.Barrier(8)
+
+    def count():
+        barrier.wait()
+        for _ in range(20000):
+            for w in wrappers:
+                native.count_launch(w)
+
+    try:
+        for w in wrappers:
+            w.launches = 0
+        threads = [threading.Thread(target=count) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert [w.launches for w in wrappers] == [8 * 20000] * 4
+    finally:
+        for w, n in zip(wrappers, saved):
+            w.launches = n

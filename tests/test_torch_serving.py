@@ -345,7 +345,8 @@ def test_port_sources_name_no_jax():
     pattern = re.compile(r"^\s*(import jax|from jax|import "
                          r"deeplearning4j_tpu\b(?!_torch)|from "
                          r"deeplearning4j_tpu\b(?!_torch))", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                             "fleet_probe.py")]
     for root, _, names in os.walk(os.path.join(REPO,
                                                "deeplearning4j_tpu_torch")):
         files += [os.path.join(root, n) for n in names

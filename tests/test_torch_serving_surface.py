@@ -52,14 +52,9 @@ from deeplearning4j_tpu_torch.util.model_serializer import restore_model
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, CAP, PS = 64, 32, 4
 
-# Metrics only one server exports. Each waits for a later slice of the
-# port; nothing else may differ.
-ONLY_JAX = {
-    # the KV-stream export/import counters of disaggregated prefill and
-    # drain migration: ROADMAP A4b
-    'kv_stream_exports_total{endpoint="generate/lm/v1"}',
-    'kv_stream_imports_total{endpoint="generate/lm/v1"}',
-}
+# Metrics only one server exports: none, since the port has the
+# KV-stream counters too. Nothing may differ.
+ONLY_JAX = set()
 ONLY_PORT = set()
 
 INBOUND = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
