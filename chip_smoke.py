@@ -17,8 +17,11 @@ back, trains the same LM with Adam for a few steps through ``fit``
 resumes it from a checkpoint, then generates with it through
 ``/v1/generate`` (continuous batching over paged KV, 8 slots, 16
 concurrent requests and two prefix-cache repeats; greedy ids held
-against the plain-attention reference) and times one decode step. On
-that same server it then drives the serving surface
+against the plain-attention reference; every decode step a replay of
+the session's CUDA graph), times one decode step replayed against the
+eager body it captured, and crashes the replaying worker once through
+the ``serving.worker.step`` site (the next request's ids held against
+the reference). On that same server it then drives the serving surface
 (``serving_surface_phase``): predicts and generate bursts in mixed
 priority tiers at trace sampling 1.0 and 0.0, ``/metrics`` counts and
 the TTFT / inter-token histograms against what was sent, ``/readyz``,
@@ -30,7 +33,9 @@ servers behind the port's router: predicts with failover, the generate
 burst split prefill -> decode across replicas through KV leases (lease
 sizes, export, import and hop times, tokens/s against one server in the
 same run), ``fleet.replace()`` migrating live streams, ``fleet.kill()``
-under predicts, and a subprocess replica SIGKILLed. It
+under predicts, and a subprocess replica SIGKILLed. Between the two
+(``warmup_phase``) a server booted through ``warmup()`` serves a burst
+inside ``zero_compile_scope``, which must see no graph capture. It
 imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -708,14 +713,18 @@ def paged_inputs(g, S, t, D, pos, ps=PAGE, P=CAPACITY // PAGE):
 
 def decode_kernel_phase(da):
     """Hold the paged decode-attention kernel against its plain version
-    on the card at D = 32, 64, 128; time it at the decode shape (S=8
-    slots, H=16, D=64, t=1, every slot at position 511 of a 1024-token
-    page table of 16-token pages). Returns its record (without
-    launches)."""
+    on the card at D = 32, 64, 128 (page edges, chunk edges of the split
+    kernel with positions read from device memory, t = 1, 4, 16 and 128,
+    a shared prefix, a dense cache, an inactive slot), check that two
+    launches on the same inputs give the same bits, and time it at the
+    decode shape (S=8 slots, H=16, D=64, t=1, every slot at position 511
+    of a 1024-token page table of 16-token pages). Returns its record
+    (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
+    c = da.KEY_CHUNK
     for D in (32, 64, 128):
         cases = []
         q, kp, vp, table, pos = paged_inputs(
@@ -723,6 +732,14 @@ def decode_kernel_phase(da):
         table[7] = 0                  # inactive slot: scratch page, pos 0
         cases.append(("t=1 paged, pages edges, one inactive slot",
                       q, kp, vp, table, pos))
+        for t in (1, 16):
+            # the split kernel's chunk edges, positions on the device
+            q, kp, vp, table, pos = paged_inputs(
+                g, 8, t, D, [0, 15, 16, c - 1, c, 511, 1024 - t, 0])
+            table[7] = 0
+            cases.append((f"t={t} chunk edges ({c} keys a CTA), device "
+                          "positions, one inactive slot", q, kp, vp, table,
+                          pos.cuda()))
         q, kp, vp, table, pos = paged_inputs(g, 2, 1, D, [40, 300])
         table[1, :2] = table[0, :2]   # a prefix shared by two slots
         cases.append(("shared prefix pages", q, kp, vp, table, pos))
@@ -735,26 +752,32 @@ def decode_kernel_phase(da):
                       torch.arange(3, dtype=torch.int32,
                                    device="cuda")[:, None], pos))
         for what, q, kp, vp, table, pos in cases:
-            o = da.decode_attention_cuda(q, kp, vp, table, pos)
+            host = pos.cpu()
+            o = da.decode_attention_cuda(q, kp, vp, table, pos,
+                                         host_pos=host)
+            again = da.decode_attention_cuda(q, kp, vp, table, pos,
+                                             host_pos=host)
             torch.cuda.synchronize()
-            ref = da.decode_attention_plain(q, kp, vp, table, pos)
+            assert torch.equal(o, again), f"two launches differ: {what}"
+            ref = da.decode_attention_plain(q, kp, vp, table, host)
             torch.cuda.synchronize()
             torch.testing.assert_close(o, ref, atol=ATOL, rtol=RTOL)
             err = (o - ref).abs().max().item()
             max_err = max(max_err, err)
             log(f"decode kernel D={D} {what} {tuple(q.shape)} pos "
-                f"{pos.tolist()}: max |kernel - plain| = {err:.3e} (atol "
-                f"{ATOL}, rtol {RTOL})")
-        del cases, q, kp, vp, table, o, ref
+                f"{host.tolist()}: max |kernel - plain| = {err:.3e} (atol "
+                f"{ATOL}, rtol {RTOL}); a second launch bit-identical")
+        del cases, q, kp, vp, table, o, again, ref
 
     S, D, P = SLOTS, 64, CAPACITY // PAGE
     pos_list = [511] * S
-    q, kp, vp, table, pos = paged_inputs(g, S, 1, D, pos_list)
+    q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list)
+    pos = host.cuda()                 # as the replayed step passes them
     # the library yardstick, never called by the port: gather each slot's
     # virtual cache and run scaled_dot_product_attention under the
     # positional mask (built once, outside the timed callable)
     k_pos = torch.arange(P * PAGE, device="cuda")
-    mask = (k_pos[None, :] <= pos.to(q.device)[:, None])[:, None, None, :]
+    mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
     tl = table.long()
 
     def library():
@@ -765,23 +788,25 @@ def decode_kernel_phase(da):
 
     torch.testing.assert_close(
         library().transpose(1, 2),
-        da.decode_attention_cuda(q, kp, vp, table, pos), atol=ATOL,
-        rtol=RTOL)
-    calls = {"kernel": lambda: da.decode_attention_cuda(q, kp, vp, table,
-                                                          pos),
-             "plain": lambda: da.decode_attention_plain(q, kp, vp, table,
-                                                         pos),
+        da.decode_attention_cuda(q, kp, vp, table, pos, host_pos=host),
+        atol=ATOL, rtol=RTOL)
+    calls = {"kernel": lambda: da.decode_attention_cuda(
+                 q, kp, vp, table, pos, host_pos=host),
+             "plain": lambda: da.decode_attention_plain(
+                 q, kp, vp, table, pos, host_pos=host),
              "library": library}
     # a call's host work (checks, ctypes) outlasts this kernel, so CUDA
     # events over back-to-back calls time the host; the device time per
-    # call comes from torch.profiler
+    # call (the split and merge kernels together) comes from
+    # torch.profiler
     per_call = {k: time_ms(fn, iters=100, warmup=10)
                 for k, fn in calls.items()}
     ms, plain_ms, library_ms = (device_ms(calls[k])
                                 for k in ("kernel", "plain", "library"))
     b = decode_bound(S, 1, HEADS, D, pos_list, P)
     log(f"decode_attention at (S={S}, t=1, H={HEADS}, D={D}, pos 511, "
-        f"page_size {PAGE}), device time per call (torch.profiler): kernel "
+        f"page_size {PAGE}, {da.n_key_splits(P * PAGE)} key chunks a "
+        f"(slot, head)), device time per call (torch.profiler): kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, gather + "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); kernel at "
@@ -844,12 +869,17 @@ def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS):
 
 
 SYNC_CALLS = ("cudaMemcpyAsync", "cudaStreamSynchronize")
+# the CUDA runtime / driver calls that launch work: a kernel each, or a
+# whole captured graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+HOST_CALLS = LAUNCH_CALLS + SYNC_CALLS + ("cudaEventSynchronize",)
 
 
-def sync_calls(prof):
-    """How many times the window called each of SYNC_CALLS (CUDA runtime
+def sync_calls(prof, names=SYNC_CALLS):
+    """How many times the window called each of ``names`` (CUDA runtime
     calls, recorded by the profiler for every thread of the process)."""
-    counts = dict.fromkeys(SYNC_CALLS, 0)
+    counts = dict.fromkeys(names, 0)
     for evt in prof.key_averages():
         if evt.key in counts:
             counts[evt.key] += evt.count
@@ -868,53 +898,63 @@ def hist_since(h, before):
     return d
 
 
-def profile_decode_step(sess, x, active):
-    """Device time of one warm decode step by kernel family, from
-    torch.profiler, and the share of the window the card sat idle."""
+def profile_decode_step(step, x, active, what, n=5):
+    """Device time of a warm decode step by kernel family, the share of
+    the window the card sat idle, and the host's CUDA calls a step, from
+    torch.profiler over ``n`` steps of ``step``, each with the
+    probabilities' copy back (as the batcher serves a step)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sess.step_slots(x, active)
+        for _ in range(n):
+            step(x, active).cpu()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    families, n, host = {}, 0, []
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    families, kernels, host = {}, 0, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host.append((evt.self_cpu_time_total, evt.key, evt.count))
             continue
         name = evt.key.lower()
-        fam = ("decode_attention" if "decode_attention_kernel" in name
-               else "gemm" if any(s in name for s in (
+        fam = ("decode_attention" if "decode_split_kernel" in name
+               or "decode_merge_kernel" in name
+               else "gemm" if any(k in name for k in (
                    "gemm", "gemv", "cutlass", "xmma", "splitk"))
                else "other")
-        families[fam] = families.get(fam, 0.0) + evt.self_device_time_total
-        n += evt.count
+        families[fam] = families.get(fam, 0.0) + \
+            evt.self_device_time_total / n
+        kernels += evt.count
+    calls = {k: v / n for k, v in sync_calls(prof, HOST_CALLS).items() if v}
     busy_ms = sum(families.values()) / 1e3
     if busy_ms == 0:
-        log("profiler: no device time recorded; breakdown not measured")
-        return
-    log("decode step device time by kernel family (torch.profiler, one warm "
-        f"step at {SLOTS} active slots, {n} kernels): " + ", ".join(
-            f"{k} {v / 1e3:.3f} ms ({100 * v / 1e3 / busy_ms:.1f}%)"
+        log(f"profiler: no device time recorded for the {what} step; "
+            "breakdown not measured")
+        return None
+    idle = max(0.0, 1 - busy_ms / wall_ms)
+    log(f"{what} decode step, torch.profiler over {n} warm steps at "
+        f"{SLOTS} active slots ({kernels / n:.0f} device activities a "
+        f"step), a step: " + ", ".join(
+            f"{k} {v / 1e3:.4f} ms ({100 * v / 1e3 / busy_ms:.1f}%)"
             for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
-        + f"; busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall, idle "
-          f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%")
-    log("decode step host time, heaviest ops by self CPU time (under the "
-        "profiler): " + ", ".join(
-            f"{k} {us / 1e3:.3f} ms x{c}" for us, k, c in
-            sorted(host, reverse=True)[:10]))
-    syncs = sync_calls(prof)
-    log(f"decode step host {wall_ms:.3f} ms under the profiler; host-device "
-        f"copies and syncs: cudaMemcpyAsync x{syncs['cudaMemcpyAsync']}, "
-        f"cudaStreamSynchronize x{syncs['cudaStreamSynchronize']}")
+        + f"; busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall, idle "
+          f"{100 * idle:.1f}%; host CUDA calls a step: " + ", ".join(
+              f"{k} x{v:g}" for k, v in calls.items()))
+    log(f"{what} decode step host time, heaviest ops by self CPU time "
+        "(under the profiler, a step): " + ", ".join(
+            f"{k} {us / 1e3 / n:.3f} ms x{c / n:g}" for us, k, c in
+            sorted(host, reverse=True)[:8]))
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle": idle,
+            "calls": calls}
 
 
 def time_decode_step(net, da, card):
-    """One decode step at SLOTS active slots near position 512, on the
-    kernel and on the plain decode attention (CUDA events over the step,
-    host clock beside), and its profiler breakdown."""
+    """One decode step at SLOTS active slots near position 512: the
+    session's replayed CUDA graph against the eager body it captured,
+    and the eager body on the plain decode attention (CUDA events over
+    the step, host clock beside), their outputs held together, and each
+    one's profiler breakdown and host calls."""
     import numpy as np
     import torch
     sess = net.paged_slot_streaming_session(capacity=CAPACITY, slots=SLOTS,
@@ -927,10 +967,10 @@ def time_decode_step(net, da, card):
     active = np.ones(SLOTS, bool)
     x = np.ones((SLOTS, 1, 1), np.float32)
 
-    def step_ms(n=20):
+    def step_ms(step, n=20):
         sess.slot_pos[:] = 500
         for _ in range(3):
-            sess.step_slots(x, active)
+            step(x, active)
         torch.cuda.synchronize()
         ev, host = [], []
         for _ in range(n):
@@ -938,27 +978,54 @@ def time_decode_step(net, da, card):
             t1 = torch.cuda.Event(enable_timing=True)
             h0 = time.perf_counter()
             t0.record()
-            sess.step_slots(x, active)
+            step(x, active)
             t1.record()
             torch.cuda.synchronize()
             host.append((time.perf_counter() - h0) * 1e3)
             ev.append(t0.elapsed_time(t1))
         return sorted(ev)[n // 2], sorted(host)[n // 2]
 
-    kernel = step_ms()
-    with plain_decode_attention(da):
-        plain = step_ms()
-    log(f"one decode step at {SLOTS} active slots, positions 503-523, "
-        f"CUDA events (median of 20, {card}): decode kernel {kernel[0]:.3f} "
-        f"ms (host {kernel[1]:.3f} ms), plain decode attention "
-        f"{plain[0]:.3f} ms (host {plain[1]:.3f} ms)")
     sess.slot_pos[:] = 511
-    profile_decode_step(sess, x, active)
+    h0 = time.perf_counter()
+    sess.step_slots(x, active)        # the first step: run and capture
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - h0) * 1e3
+    sess.slot_pos[:] = 511
+    replayed = sess.step_slots(x, active).clone()
+    sess.slot_pos[:] = 511
+    eager = sess._step_eager(x, active)
+    torch.testing.assert_close(replayed, eager, atol=1e-6, rtol=0)
+    diff = (replayed - eager).abs().max().item()
+    graph = step_ms(sess.step_slots)
+    body = step_ms(sess._step_eager)
+    with plain_decode_attention(da):
+        plain = step_ms(sess._step_eager)
+    log(f"one decode step at {SLOTS} active slots, positions 503-523, "
+        f"CUDA events (median of 20, {card}): replayed CUDA graph "
+        f"{graph[0]:.4f} ms (host {graph[1]:.4f} ms), the eager body "
+        f"{body[0]:.4f} ms (host {body[1]:.4f} ms), the eager body on the "
+        f"plain decode attention {plain[0]:.4f} ms (host {plain[1]:.4f} "
+        f"ms); the first step (eager run + capture) {capture_ms:.1f} ms; "
+        f"replayed vs eager outputs at position 511: max |diff| "
+        f"{diff:.3e} (atol 1e-6)")
+    sess.slot_pos[:] = 511
+    prof = {"replayed": profile_decode_step(sess.step_slots, x, active,
+                                            "replayed")}
+    sess.slot_pos[:] = 511
+    prof["eager"] = profile_decode_step(sess._step_eager, x, active,
+                                        "eager")
+    for name, (_, host_ms) in (("replayed", graph), ("eager", body)):
+        if prof[name] is not None:
+            busy = prof[name]["busy_ms"]
+            log(f"{name} decode step: device busy {busy:.4f} ms of the "
+                f"unprofiled step's {host_ms:.4f} ms on the host clock: "
+                f"idle {100 * (1 - busy / host_ms):.1f}%")
     # the same step again once the profiler has run: does a finished
     # torch.profiler session leave the host slower?
-    after = step_ms()
-    log(f"the same decode step after the profiler ran ({card}): "
-        f"{after[0]:.3f} ms (host {after[1]:.3f} ms)")
+    after = step_ms(sess.step_slots)
+    log(f"the same replayed decode step after the profiler ran ({card}): "
+        f"{after[0]:.4f} ms (host {after[1]:.4f} ms)")
+    return {"graph": graph, "eager": body, "plain": plain, "prof": prof}
 
 
 def generate_bodies():
@@ -1099,6 +1166,108 @@ def generate_phase(da, card):
 TIERS = ("gold", "standard", "best_effort")
 SURFACE_PREDICT_T = 128   # ids a row: the reply's JSON stays a few MB
 PROFILE_TOKENS = 32       # tokens a request in the profiled bursts
+WARM_REQUESTS = 8         # greedy requests in the post-warmup burst
+
+
+def warmup_phase(card):
+    """A ModelServer booted through ``warmup()`` (the path of ``serve
+    --aot-warmup``) on the LM with random weights from seed 0 and an
+    InputType of one id a timestep (so the predict buckets are the
+    shapes /v1/predict takes): its report, one capture during warmup,
+    then a generate burst inside ``zero_compile_scope``, which must see
+    no capture (every step replays the graph warmup captured), greedy
+    ids held against the plain-decode reference."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    from deeplearning4j_tpu_torch.ops import decode_attention as da
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+
+    conf = lm_config()
+    conf["input_type"] = {"kind": "rnn", "size": 1, "timesteps": T}
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                            device="cuda").init(seed=0)
+    stats = install_global_watch()
+    registry = ModelRegistry()
+    registry.register("lm", net)
+    server = ModelServer(registry, slots=SLOTS, capacity=CAPACITY,
+                         page_size=PAGE)
+    mark = stats.mark()
+    rep = server.warmup()["lm"]
+    during = stats.summary(mark)
+    log(f"aot warmup: lm v{rep['version']} — predict buckets "
+        f"{rep['predict_buckets']}, generate={rep['generate']} "
+        f"({rep['seconds']:.1f}s" + (f"; skipped: "
+                                     f"{'; '.join(rep['skipped'])}"
+                                     if rep["skipped"] else "")
+        + f"); during warmup: {during}")
+    assert rep["generate"] and not rep["skipped"], rep
+    assert rep["predict_buckets"] == [1, 2, 4, 8, 16, 32], rep
+    assert during["graph_captures"] == 1, during
+    server.start()
+    try:
+        bodies = surface_bodies([PROMPT_MIN * (i + 1)
+                                 for i in range(WARM_REQUESTS)], 31)
+        with stats.zero_compile_scope("post-warmup generate burst"):
+            m = stats.mark()
+            replies, wall = burst(server.port, "/v1/generate", bodies)
+            after = stats.summary(m)
+        assert after["graph_captures"] == 0 and \
+            after["graph_replays"] > 0, after
+        compared = sum(check_greedy(net, da, b["prompt"], r[1]["ids"])
+                       for b, r in zip(bodies, replies))
+    finally:
+        server.stop(drain=True)
+    log(f"post-warmup burst of {WARM_REQUESTS} greedy /v1/generate inside "
+        f"zero_compile_scope ({card}): {after}; "
+        f"{WARM_REQUESTS * GEN_TOKENS / wall:.1f} tokens/s ({wall:.3f} s); "
+        f"greedy ids vs the plain-decode reference: {compared} of "
+        f"{WARM_REQUESTS * GEN_TOKENS} compared and equal")
+
+
+def crash_drill(server, net, da):
+    """The ``serving.worker.step`` crash site on the generate backend
+    whose steps replay a captured graph: the request in flight fails,
+    the worker restarts, the session keeps its graph, and the next
+    greedy request's ids equal the plain-decode reference."""
+    from deeplearning4j_tpu_torch import chaos
+    batcher, _ = server.batcher_for("lm")
+    graph = batcher.session._graph
+    assert graph is not None, "the generate backend never captured a step"
+    crashes = server.metrics.registry.get(
+        "serving_worker_crashes_total", labels={"endpoint": "generate/lm/v1"})
+    crashes0 = crashes.value if crashes is not None else 0
+    body = {"model": "lm",
+            "prompt": surface_bodies([3 * PROMPT_MIN], 41)[0]["prompt"],
+            "n_tokens": GEN_TOKENS}
+    chaos.install({"faults": [{"site": "serving.worker.step",
+                               "kind": "crash", "p": 1.0,
+                               "max_fires": 1}]}, seed=0)
+    quiet = logging.getLogger("deeplearning4j_tpu_torch")
+    quiet.disabled = True             # the crash's traceback is expected
+    try:
+        doomed = http(server.port, "/v1/generate", body)
+    finally:
+        chaos.uninstall()
+        quiet.disabled = False
+    code, reply, _ = http(server.port, "/v1/generate", body)
+    crashed = server.metrics.registry.get(
+        "serving_worker_crashes_total",
+        labels={"endpoint": "generate/lm/v1"}).value - crashes0
+    assert doomed[0] != 200 and code == 200, (doomed[:2], code)
+    assert crashed == 1, crashed
+    assert batcher.session._graph is graph
+    compared = check_greedy(net, da, body["prompt"], reply["ids"])
+    log(f"crash drill (serving.worker.step crash x1 on generate/lm/v1, "
+        f"whose steps replay a CUDA graph): the request in flight got "
+        f"{doomed[0]} ({str(doomed[1].get('error'))[:60]}...), "
+        f"serving_worker_crashes_total +{crashed:g}; the next request "
+        f"{code}, the same graph replaying, greedy ids vs the plain-decode "
+        f"reference: {compared} of {GEN_TOKENS} compared and equal")
 
 
 def burst(port, path, bodies, check=True):
@@ -1400,9 +1569,9 @@ FLEET_ROLES = ["prefill", "decode", "decode"]
 FLEET_PAGES = 512                 # KV pool pages per replica
 # The drain drill's streams: 4 greedy 256-token streams on fresh prompts.
 # A stream migrates only if it is still live once the successor has
-# booted (a zip restore, ~4-5 s) and the survivor decodes the rest of it
-# within the router's offer import limit; ends staggered 128 steps apart
-# put a stream in that window whatever the boot takes
+# booted (its model restored beforehand) and the survivor decodes the
+# rest of it within the router's offer import limit; ends staggered 128
+# steps apart put a stream in that window whatever the boot takes
 DRAIN_PROMPTS, DRAIN_TOKENS = (192, 320, 448, 576), 256
 KILL_PREDICTS = 32
 # The router's per-attempt limit on the path this phase asserts. An
@@ -1585,7 +1754,13 @@ def fleet_phase(attn, da, card, net, bodies):
     kw = dict(slots=SLOTS, capacity=CAPACITY, page_size=PAGE,
               kv_pages=FLEET_PAGES)
 
+    spares = []
+
     def factory():
+        # a model restored ahead of time (the drain drill's successor)
+        # boots a replica without the ~5 s zip restore
+        if spares:
+            return {"lm": spares.pop()}
         return {"lm": restore_model(path, device="cuda")}
 
     burst_bodies = [dict(b, session=f"burst-{i}")
@@ -1741,6 +1916,8 @@ def fleet_phase(attn, da, card, net, bodies):
                             session=f"defaults-{i}")
                        for i, b in enumerate(bodies)]
         drouter = Router(fleet).start()
+        for sink in steps_ms.values():
+            sink.clear()
         try:
             dreplies, dwall = burst(drouter.port, "/v1/generate",
                                     at_defaults, check=False)
@@ -1759,6 +1936,12 @@ def fleet_phase(attn, da, card, net, bodies):
             f"router_kv_fallbacks_total {dcounts[1]:g}; statuses "
             f"{dict(Counter(r[0] for r in dreplies))} in {dwall:.3f} s; "
             f"errors {failed}")
+        for r in replicas:
+            ms = steps_ms[r.id]
+            if ms:
+                log(f"replica {r.id} ({r.role}) decode step host ms in "
+                    f"the burst at the defaults: {stats(ms)} over "
+                    f"{len(ms)} steps")
         wait_idle(batchers.values())
 
         # each replica's host syncs a step, in a window of its own (fresh
@@ -1774,7 +1957,11 @@ def fleet_phase(attn, da, card, net, bodies):
                     f"{k} {v:.2f}" for k, v in per.items()) + " a step")
 
         # drain migration under replace(); fresh ids, so that no prefix
-        # cache shortens the streams
+        # cache shortens the streams. The successor's model is restored
+        # first: on replayed steps (~1-3 ms) a 448-832-step stream ends
+        # within the ~5 s a zip restore takes, before a drain could
+        # offer it
+        spares.append(restore_model(path, device="cuda"))
         drain = [{"model": "lm", "prompt": rng.integers(0, V, n).tolist(),
                   "n_tokens": DRAIN_TOKENS, "session": f"drain-{i}"}
                  for i, n in enumerate(DRAIN_PROMPTS)]
@@ -2008,9 +2195,11 @@ def main():
     dkv["launches"] = train_launches["flash_attention_bwd_dkv"]
     dec_generate, net, server, bodies = generate_phase(da, card)
     try:
+        crash_drill(server, net, da)
         serving_surface_phase(attn, da, card, net, server)
     finally:
         server.stop(drain=True)
+    warmup_phase(card)
     fwd_fleet, dec_fleet = fleet_phase(attn, da, card, net, bodies)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet}
     dec["launches_by_path"] = {"generate": dec_generate,

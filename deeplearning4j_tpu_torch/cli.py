@@ -1,6 +1,7 @@
 """Command line (counterpart of ``deeplearning4j_tpu/cli.py``). Ported
 so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
-``/metrics``, ``/healthz``, ``/readyz`` and ``/debug/*``),
+``/metrics``, ``/healthz``, ``/readyz`` and ``/debug/*``;
+``--aot-warmup``),
 ``serve-fleet`` (N in-process replicas behind the health-aware router,
 with disaggregated prefill/decode roles) and the top-level ``--trace
 PATH`` and ``--flight-record DIR``.
@@ -59,6 +60,18 @@ def _cmd_serve(args):
                          slow_ms=args.slow_ms, slos=slos,
                          kv_mode=args.kv_mode, page_size=args.page_size,
                          kv_pages=args.kv_pages)
+    if args.aot_warmup:
+        # run every hosted model's predict buckets and one generate
+        # (which captures the decode step's CUDA graph) BEFORE the
+        # listener takes traffic: the first real request never pays a
+        # capture
+        rep = server.warmup()
+        for name, r in rep.items():
+            print(f"aot warmup: {name} v{r['version']} — predict "
+                  f"buckets {r['predict_buckets']}, generate="
+                  f"{r['generate']} ({r['seconds']:.1f}s"
+                  + (f"; skipped: {'; '.join(r['skipped'])}"
+                     if r["skipped"] else "") + ")")
     server.start()
     print(f"serving on http://{args.host}:{server.port}/ (/v1/predict "
           f"/v1/generate /v1/models /healthz /readyz /metrics "
@@ -228,6 +241,12 @@ def main(argv=None):
                    help="declarative SLOs: inline JSON or a JSON file "
                         "(the JAX package's rule schema); multi-window "
                         "burn-rate breaches flip /healthz to degraded")
+    v.add_argument("--aot-warmup", action="store_true",
+                   help="warm every hosted model at boot, before the "
+                        "listener opens (predict pow2 batch buckets up "
+                        "to --max-batch-size + one generate, which "
+                        "captures the decode step's CUDA graph): the "
+                        "first real request never pays a capture")
     v.set_defaults(fn=_cmd_serve)
 
     f = sub.add_parser(

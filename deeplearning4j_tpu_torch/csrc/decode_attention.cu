@@ -22,58 +22,68 @@
 // arithmetic (67 TFLOP/s) would be the limit, so it is bound by bytes:
 // at S=8 slots, H=16, Dh=64, all slots at position 511, the live k/v
 // are 33.6 MB, >= 0.0100 ms at 3.35 TB/s. There is no tensor-core work
-// to gain, so the products are f32 FMAs on the CUDA cores. The design
-// reads each live k/v row once, through the table, and keeps the rest on
-// chip:
+// to gain, so the products are f32 FMAs on the CUDA cores. Reaching the
+// byte rate takes many bytes in flight on every SM, so the design is
+// flash-decoding: the keys of each (slot, head) are split over CTAs.
 //
-//   - one CTA of 4 warps per (slot, head, tile of up to QT queries); QT
-//     is 1 for t = 1 (the decode step) and 16 otherwise (prefill chunks,
-//     the speculative verify chunk). The tile's q sits in shared memory,
-//     pre-scaled by Dh^-0.5 * log2(e) so the softmax runs on exp2;
-//   - the warps take interleaved tiles of 32 keys. Scores: a lane owns
-//     one key, reads its k row through the table with 16-byte loads (the
-//     whole row in flight at once) and takes its dot with every query of
-//     the tile (q read from shared memory as a broadcast);
-//   - an online softmax per query in registers: the tile's max over the
-//     warp by shuffles, the running max warp-uniform, the denominator a
-//     per-lane partial reduced once at the end. Masked keys give p = 0
-//     exactly, and a query that has seen no key yet keeps m = -inf with
-//     nothing to rescale, so no NaN arises;
-//   - p.v: a lane owns Dh/32 output dims; for each key of the tile the
-//     warp reads the v row whole (coalesced, its row offset shuffled from
-//     the lane that owned the key) and each lane adds p_j * v_j[dims];
+//   - split kernel: one CTA of 4 warps per (key chunk of kChunk = 128
+//     keys, slot, head, tile of up to QT queries); QT is 1 for t = 1 (the
+//     decode step) and 16 otherwise (prefill chunks, the speculative
+//     verify chunk). The number of chunks is ceil(P * page_size /
+//     kChunk): it depends on the table's span only, never on the
+//     positions, so a launch captured in a CUDA graph stays valid for
+//     any positions. A chunk that starts past the tile's last key
+//     writes an empty partial (m = -inf, l = 0) and exits. At S=8, H=16,
+//     span 1024 that is 1024 CTAs, 512 of them live at position 511:
+//     about four a SM, all resident in one wave;
+//   - inside a CTA each warp takes one tile of 32 keys. Scores: a lane
+//     owns one key, reads its k row through the table with 16-byte
+//     loads (the whole row in flight at once for Dh <= 64) and takes its
+//     dot with every query of the tile (q, pre-scaled by Dh^-0.5 *
+//     log2(e), from shared memory as a broadcast); an online softmax per
+//     query in registers (masked keys give p = 0 exactly, and a query
+//     that has seen no key keeps m = -inf with nothing to rescale);
+//   - p.v: a lane owns Dh/32 output dims; the warp reads the tile's v
+//     rows whole (coalesced, the row offset shuffled from the lane that
+//     owned the key), a batch of rows loaded unconditionally (a dead
+//     key's offset points at row 0 of page 0, which exists) before their
+//     FMAs, so the loads of a batch are in flight together; a dead row's
+//     value is replaced by 0 after the load;
 //   - the four warps' (max, sum, o) are merged through shared memory and
-//     written once.
+//     written as the chunk's partial: m and l (log2 domain), and the
+//     unnormalised o;
+//   - merge kernel: one thread per output element walks the chunks in
+//     order: M = max m_k, o = sum_k o_k 2^(m_k - M) / sum_k l_k 2^(m_k -
+//     M), skipping empty chunks. A fixed order and no atomics: every
+//     launch on the same inputs gives the same bits.
 //
-// The positions ride in the launch by value (up to kMaxSlots slots a
-// launch), so the caller checks them on the host and no copy precedes
-// the launch. The kernel trusts every table entry a live key reaches to
-// name a page of the pool. No atomics: every launch gives the same bits.
+// The positions are read from device memory (pos, S int32), so a graph
+// replay reads the step's positions from the buffer it was captured
+// with; the caller checks them on its host copy before the launch or
+// the replay. The kernel trusts every table entry a live key reaches to
+// name a page of the pool.
 //
 // C interface (loaded with ctypes): dl4j_decode_attention_f32 returns
-// cudaGetLastError() after the launch (0 on success), or
+// cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for arguments it does not take. It allocates
 // nothing; q, o are contiguous (S, t, H, Dh), the pools contiguous
-// (N, page_size, H, Dh), table contiguous (S, P) int32, and pos a HOST
-// pointer to S int32 positions.
+// (N, page_size, H, Dh), table contiguous (S, P) int32, pos (S,) int32,
+// all in device memory, and partials a device scratch buffer of
+// S * t * H * n_split * (Dh + 2) floats, n_split = ceil(P * page_size /
+// 128) (checked).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kKeyTile = 32;      // keys a warp scores at once, one a lane
-constexpr int kMaxSlots = 512;    // positions carried by value a launch
+constexpr int kKeyTile = 32;               // keys a warp scores at once
+constexpr int kChunk = kKeyTile * kWarps;  // keys a CTA takes
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
-
-struct Positions {
-  int v[kMaxSlots];
-};
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -116,24 +126,40 @@ struct Smem {
 
 template <int D, int QT>
 __global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k_pool,
-                            const float* __restrict__ v_pool,
-                            const int* __restrict__ table,
-                            float* __restrict__ o, const Positions pos,
-                            int t, int H, int page_size, int P,
-                            float scale_log2) {
-  constexpr int VL = D / 32;              // output dims a lane owns
-  constexpr int C4 = D / 4;               // float4 chunks of a row
-  constexpr int CH = QT == 1 ? 8 : 4;     // chunks of a k row in flight
+    decode_split_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k_pool,
+                        const float* __restrict__ v_pool,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos,
+                        float* __restrict__ part_o,
+                        float2* __restrict__ part_ml, int t, int H,
+                        int page_size, int P, int n_split,
+                        float scale_log2) {
+  constexpr int VL = D / 32;                    // output dims a lane owns
+  constexpr int C4 = D / 4;                     // float4 chunks of a row
+  constexpr int CH = QT == 1 ? (C4 < 16 ? C4 : 16) : 4;  // k chunks in flight
+  constexpr int VB = QT == 1 ? 8 : 4;           // v rows loaded together
   static_assert(C4 % CH == 0, "head dim must be 32, 64 or 128");
+  static_assert(kKeyTile % VB == 0, "v batch must divide the key tile");
   __shared__ Smem<D, QT> sm;
 
+  const int split = blockIdx.x % n_split;
+  const int q0 = (blockIdx.x / n_split) * QT;
   const int s = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * QT;
-  const int nq = min(QT, t - q0);         // queries of this tile
-  const int p0 = pos.v[s];
-  const int n_keys = p0 + q0 + nq;        // keys the tile's last query sees
+  const int nq = min(QT, t - q0);               // queries of this tile
+  const int p0 = pos[s];
+  const int n_keys = p0 + q0 + nq;              // keys the last query sees
+  const int c0 = split * kChunk;
+  const int c1 = min(c0 + kChunk, n_keys);      // this CTA's keys: [c0, c1)
+  // partial row of query i: ((s * t + q0 + i) * H + h) * n_split + split
+  const long long prow =
+      ((static_cast<long long>(s) * t + q0) * H + h) * n_split + split;
+  const long long pstep = static_cast<long long>(H) * n_split;
+  if (c0 >= c1) {                               // block-uniform
+    if (threadIdx.x < nq)
+      part_ml[prow + threadIdx.x * pstep] = make_float2(-INFINITY, 0.f);
+    return;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row = static_cast<long long>(H) * D;  // floats a position
 
@@ -161,11 +187,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < VL; ++e) acc[i][e] = 0.f;
   }
 
-  const int* trow = table + static_cast<long long>(s) * P;
-  const int n_tiles = (n_keys + kKeyTile - 1) / kKeyTile;
-  for (int tile = warp; tile < n_tiles; tile += kWarps) {
-    const int j = tile * kKeyTile + lane;  // this lane's key
-    const bool live = j < n_keys;
+  const int base = c0 + warp * kKeyTile;        // this warp's tile
+  if (base < c1) {                              // warp-uniform
+    const int* trow = table + static_cast<long long>(s) * P;
+    const int j = base + lane;                  // this lane's key
+    const bool live = j < c1;
     // the key's row offset in either pool (head h); a dead lane points at
     // row 0 of page 0, which exists, and its p is 0
     long long krow = static_cast<long long>(h) * D;
@@ -179,15 +205,15 @@ __global__ void __launch_bounds__(kThreads)
     if (live) {
       const float4* kp = reinterpret_cast<const float4*>(k_pool + krow);
 #pragma unroll
-      for (int c0 = 0; c0 < C4; c0 += CH) {
+      for (int c0k = 0; c0k < C4; c0k += CH) {
         float4 kr[CH];
 #pragma unroll
-        for (int u = 0; u < CH; ++u) kr[u] = kp[c0 + u];
+        for (int u = 0; u < CH; ++u) kr[u] = kp[c0k + u];
 #pragma unroll
         for (int i = 0; i < QT; ++i) {
 #pragma unroll
           for (int u = 0; u < CH; ++u) {
-            const float4 qq = sm.q[i][c0 + u];
+            const float4 qq = sm.q[i][c0k + u];
             sc[i] = fmaf(qq.x, kr[u].x, sc[i]);
             sc[i] = fmaf(qq.y, kr[u].y, sc[i]);
             sc[i] = fmaf(qq.z, kr[u].z, sc[i]);
@@ -196,39 +222,42 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    // online softmax: key j is visible to query i when j <= p0 + q0 + i
+    // softmax over the tile: key j is visible to query i when
+    // j <= p0 + q0 + i
 #pragma unroll
     for (int i = 0; i < QT; ++i) {
       const bool vis = live && j <= p0 + q0 + i;
       const float si = vis ? sc[i] : -INFINITY;
-      const float mn = fmaxf(m[i], warp_max(si));
-      const float corr = m[i] == -INFINITY ? 0.f : exp2f(m[i] - mn);
-      sc[i] = vis ? exp2f(si - mn) : 0.f;  // p
-      l[i] = l[i] * corr + sc[i];
-#pragma unroll
-      for (int e = 0; e < VL; ++e) acc[i][e] *= corr;
+      const float mn = warp_max(si);
+      sc[i] = vis ? exp2f(si - mn) : 0.f;       // p
+      l[i] = sc[i];
       m[i] = mn;
     }
-    // p.v, a v row at a time across the warp
-    const int base = tile * kKeyTile;
+    // p.v, VB v rows in flight at a time across the warp
 #pragma unroll
-    for (int jj = 0; jj < kKeyTile; ++jj) {
-      const long long vrow = __shfl_sync(kFull, krow, jj);
-      float pj[QT];
+    for (int jb = 0; jb < kKeyTile; jb += VB) {
+      float vv[VB][VL];
 #pragma unroll
-      for (int i = 0; i < QT; ++i) pj[i] = __shfl_sync(kFull, sc[i], jj);
-      if (base + jj < n_keys) {
-        float vv[VL];
-        load_row<VL>(v_pool + vrow + lane * VL, vv);
+      for (int u = 0; u < VB; ++u) {
+        const long long vrow = __shfl_sync(kFull, krow, jb + u);
+        load_row<VL>(v_pool + vrow + lane * VL, vv[u]);
+      }
 #pragma unroll
-        for (int i = 0; i < QT; ++i)
+      for (int u = 0; u < VB; ++u) {
+        const bool lv = base + jb + u < c1;
 #pragma unroll
-          for (int e = 0; e < VL; ++e) acc[i][e] = fmaf(pj[i], vv[e], acc[i][e]);
+        for (int i = 0; i < QT; ++i) {
+          const float pj = __shfl_sync(kFull, sc[i], jb + u);
+#pragma unroll
+          for (int e = 0; e < VL; ++e)
+            acc[i][e] = fmaf(pj, lv ? vv[u][e] : 0.f, acc[i][e]);
+        }
       }
     }
   }
 
-  // merge the warps: o = sum_w acc_w 2^(m_w - M) / sum_w l_w 2^(m_w - M)
+  // merge the warps into the chunk's partial: m = max_w m_w,
+  // l = sum_w l_w 2^(m_w - m), o = sum_w acc_w 2^(m_w - m)
 #pragma unroll
   for (int i = 0; i < QT; ++i) {
     const float li = warp_sum(l[i]);
@@ -253,64 +282,104 @@ __global__ void __launch_bounds__(kThreads)
       den = fmaf(sm.l[w][i], f, den);
       num = fmaf(sm.acc[w][i][d], f, num);
     }
-    o[((static_cast<long long>(s) * t + q0 + i) * H + h) * D + d] = num / den;
+    const long long r = prow + i * pstep;
+    part_o[r * D + d] = num;
+    if (d == 0) part_ml[r] = make_float2(mx, den);
   }
+}
+
+// o[r, d] from the n_split partials of row r, in chunk order.
+__global__ void __launch_bounds__(kThreads)
+    decode_merge_kernel(const float* __restrict__ part_o,
+                        const float2* __restrict__ part_ml,
+                        float* __restrict__ o, long long n_out, int D,
+                        int n_split) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= n_out) return;
+  const long long r = idx / D;
+  const int d = static_cast<int>(idx % D);
+  const float2* ml = part_ml + r * n_split;
+  float mx = -INFINITY;
+  for (int k = 0; k < n_split; ++k) mx = fmaxf(mx, ml[k].x);
+  float den = 0.f, num = 0.f;
+  for (int k = 0; k < n_split; ++k) {
+    const float2 x = ml[k];
+    if (x.x == -INFINITY) continue;             // an empty chunk
+    const float f = exp2f(x.x - mx);
+    den = fmaf(x.y, f, den);
+    num = fmaf(part_o[(r * n_split + k) * D + d], f, num);
+  }
+  o[idx] = num / den;
 }
 
 template <int D, int QT>
 int launch(const float* q, const float* k_pool, const float* v_pool,
-           const int* table, float* o, const Positions& pos, int S, int t,
-           int H, int page_size, int P, float scale_log2,
-           cudaStream_t stream) {
-  const dim3 grid((t + QT - 1) / QT, H, S);
-  decode_attention_kernel<D, QT><<<grid, kThreads, 0, stream>>>(
-      q, k_pool, v_pool, table, o, pos, t, H, page_size, P, scale_log2);
+           const int* table, const int* pos, float* o, float* part_o,
+           float2* part_ml, int S, int t, int H, int page_size, int P,
+           int n_split, float scale_log2, cudaStream_t stream) {
+  const int n_qt = (t + QT - 1) / QT;
+  const dim3 grid(n_split * n_qt, H, S);
+  decode_split_kernel<D, QT><<<grid, kThreads, 0, stream>>>(
+      q, k_pool, v_pool, table, pos, part_o, part_ml, t, H, page_size, P,
+      n_split, scale_log2);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_out = static_cast<long long>(S) * t * H * D;
+  const unsigned blocks =
+      static_cast<unsigned>((n_out + kThreads - 1) / kThreads);
+  decode_merge_kernel<<<blocks, kThreads, 0, stream>>>(part_o, part_ml, o,
+                                                       n_out, D, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_d(const float* q, const float* k_pool, const float* v_pool,
-             const int* table, float* o, const Positions& pos, int S, int t,
-             int H, int page_size, int P, float scale_log2,
-             cudaStream_t stream) {
+             const int* table, const int* pos, float* o, float* part_o,
+             float2* part_ml, int S, int t, int H, int page_size, int P,
+             int n_split, float scale_log2, cudaStream_t stream) {
   if (t == 1)
-    return launch<D, 1>(q, k_pool, v_pool, table, o, pos, S, t, H,
-                        page_size, P, scale_log2, stream);
-  return launch<D, 16>(q, k_pool, v_pool, table, o, pos, S, t, H, page_size,
-                       P, scale_log2, stream);
+    return launch<D, 1>(q, k_pool, v_pool, table, pos, o, part_o, part_ml,
+                        S, t, H, page_size, P, n_split, scale_log2, stream);
+  return launch<D, 16>(q, k_pool, v_pool, table, pos, o, part_o, part_ml, S,
+                       t, H, page_size, P, n_split, scale_log2, stream);
 }
 
 }  // namespace
 
-extern "C" int dl4j_decode_attention_f32(const void* q, const void* k_pool,
-                                         const void* v_pool,
-                                         const void* table, const void* pos,
-                                         void* o, int S, int t, int H, int D,
-                                         int page_size, int P, float scale,
-                                         void* stream) {
-  if (S < 1 || S > kMaxSlots || t < 1 || H < 1 || H > 65535 ||
-      page_size < 1 || P < 1)
+extern "C" int dl4j_decode_attention_f32(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* pos, void* o, void* partials, int S, int t, int H, int D,
+    int page_size, int P, int n_split, float scale, void* stream) {
+  if (S < 1 || S > 65535 || t < 1 || H < 1 || H > 65535 || page_size < 1 ||
+      P < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  Positions p;
-  memset(&p, 0, sizeof(p));
-  memcpy(p.v, pos, static_cast<size_t>(S) * sizeof(int));
+  const long long span = static_cast<long long>(P) * page_size;
+  const long long rows = static_cast<long long>(S) * t * H;
+  if (n_split != (span + kChunk - 1) / kChunk ||
+      static_cast<long long>(n_split) * ((t + 15) / 16) > 0x7fffffffLL ||
+      rows * D / kThreads >= 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k_pool);
   const float* vf = static_cast<const float*>(v_pool);
   const int* tf = static_cast<const int*>(table);
+  const int* pf = static_cast<const int*>(pos);
   float* of = static_cast<float*>(o);
+  float* po = static_cast<float*>(partials);
+  float2* pml = reinterpret_cast<float2*>(po + rows * n_split * D);
   const float sl = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<32>(qf, kf, vf, tf, of, p, S, t, H, page_size, P, sl,
-                          st);
+      return launch_d<32>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, page_size,
+                          P, n_split, sl, st);
     case 64:
-      return launch_d<64>(qf, kf, vf, tf, of, p, S, t, H, page_size, P, sl,
-                          st);
+      return launch_d<64>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, page_size,
+                          P, n_split, sl, st);
     case 128:
-      return launch_d<128>(qf, kf, vf, tf, of, p, S, t, H, page_size, P, sl,
-                           st);
+      return launch_d<128>(qf, kf, vf, tf, pf, of, po, pml, S, t, H,
+                           page_size, P, n_split, sl, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

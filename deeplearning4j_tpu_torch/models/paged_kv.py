@@ -18,7 +18,10 @@
 - **PagedSlotSession** — the continuous-batching substrate over page
   tables: one (slots, 1) decode step in which each attention layer
   writes its new k/v into the slot's current page, in place, and
-  attends through the paged decode kernel (``apply_stream_paged``).
+  attends through the paged decode kernel (``apply_stream_paged``). On
+  a card the step is one CUDA graph, captured at the first step and
+  replayed once a step: the port's counterpart of the JAX session's
+  ``jax.jit(step, donate_argnums=...)``.
 
 Page id 0 is a reserved scratch page: inactive slots' page-table rows
 are all zero, so their dummy writes land in scratch and never touch a
@@ -36,6 +39,7 @@ from __future__ import annotations
 import json
 import struct
 import threading
+import time
 import zlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -43,6 +47,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observability import compile_watch
+from deeplearning4j_tpu_torch.ops import native
 from deeplearning4j_tpu_torch.serving.errors import (
     KVLeaseCorruptError, KVLeaseVersionError, KVPagePoolExhaustedError)
 
@@ -332,7 +338,21 @@ class PagedSlotSession:
     whose per-slot state is a page table into one shared pool.
     ``capacity`` bounds one request's prompt + generation length (the
     page-table width in tokens); memory is bounded by ``n_pages *
-    page_size`` in all."""
+    page_size`` in all.
+
+    The step (:meth:`step_slots`) runs an eager body over static
+    buffers: the host writes the page table, the positions and x into
+    one pinned staging block, one copy moves it to the device block,
+    and the body computes the write indices once (``paged_index``) and
+    runs every layer. On a card the first step runs the body and
+    captures it into a CUDA graph; every later step is the staging copy
+    and one replay. The graph holds the addresses of the pools, the
+    static blocks and the net's parameter tensors: pools are only ever
+    written in place (steps, ``import_lease``, copy-on-write,
+    ``reinit_states``), on the worker thread's current stream, so those
+    writes are ordered before the next replay. One graph per session: a
+    session is tied to its model's parameters, and a new model version
+    gets a new batcher and session, which captures its own graph."""
 
     @staticmethod
     def supports(net) -> bool:
@@ -371,6 +391,17 @@ class PagedSlotSession:
         self._table = np.zeros((self.slots, self.pages_per_slot), np.int32)
         self._leases: Dict[int, _Lease] = {}
         self._pools = self._fresh_pools()
+        # the step's static inputs (built at the first step): a staging
+        # block on the host and, on a card, the device block the graph
+        # reads; the captured graph, its static output and the launches
+        # it holds; the event of the last staging copy; the capture stream
+        self._stage: Optional[torch.Tensor] = None
+        self._dev: Optional[torch.Tensor] = None
+        self._graph = None
+        self._graph_out: Optional[torch.Tensor] = None
+        self._graph_launches: Dict = {}
+        self._copied = None
+        self._stream = None
 
     # ---- pools ----
     def _fresh_pools(self):
@@ -617,17 +648,30 @@ class PagedSlotSession:
 
     def step_slots(self, x, active) -> torch.Tensor:
         """One decode step for every slot at once: ``x`` is (slots, 1,
-        C), free slots carry a dummy row (their write lands in the
-        scratch page and their ``pos`` stays put). Returns the (slots,
-        1, V) output for the new step."""
-        from deeplearning4j_tpu_torch.models.streaming import _host_input
-        from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
-            _to_device)
-        x = _host_input(x, self.device)
+        C) host data, free slots carry a dummy row (their write lands in
+        the scratch page and their ``pos`` stays put). Returns the
+        (slots, 1, V) output for the new step. On a card the step
+        replays the session's CUDA graph (captured at the first step)
+        and the returned tensor is the graph's static output: read it
+        before the next step overwrites it. A failed capture or replay
+        raises; nothing falls back to the eager body."""
+        return self._step(x, active, graphed=self.device.type == "cuda")
+
+    def _step_eager(self, x, active) -> torch.Tensor:
+        """:meth:`step_slots` through the eager body, never the graph:
+        the reference the card tests and ``chip_smoke.py`` hold the
+        replayed step against."""
+        return self._step(x, active, graphed=False)
+
+    def _step(self, x, active, graphed: bool) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        x = np.asarray(x, np.float32)
         active = np.asarray(active, bool)
-        if x.shape[0] != self.slots:
-            raise ValueError(f"x has {x.shape[0]} rows; session has "
-                             f"{self.slots} slots")
+        if x.ndim != 3 or x.shape[0] != self.slots or x.shape[1] != 1:
+            raise ValueError(f"x has {x.shape[0] if x.ndim else 0} rows "
+                             f"of shape {x.shape[1:]}; session has "
+                             f"{self.slots} slots of (1, C)")
         if active.any() and int(self.slot_pos[active].max()) >= \
                 self.capacity:
             raise ValueError(
@@ -637,29 +681,125 @@ class PagedSlotSession:
                 "session with a larger capacity")
         # inactive slots step at pos 0 over their all-zero table row: the
         # write targets scratch, never a live page
-        pos = np.where(active, self.slot_pos, 0).astype(np.int32)
-        table = _to_device(torch.from_numpy(self._table.copy()), self.device)
+        self._stage_inputs(x, np.where(active, self.slot_pos, 0))
+        if not graphed:
+            out = self._body(self._dev)
+        elif self._graph is None:
+            out = self._capture()
+        else:
+            self._graph.replay()
+            native.count_replay(self._graph_launches)
+            compile_watch.record_replay()
+            out = self._graph_out
+        self.slot_pos = self.slot_pos + active.astype(self.slot_pos.dtype)
+        return out
+
+    def _views(self, buf):
+        """(table (slots, P) int32, pos (slots,) int32, x (slots, 1, C)
+        float32) over one staged block of int32s."""
+        S, P = self.slots, self.pages_per_slot
+        return (buf[:S * P].view(S, P), buf[S * P:S * (P + 1)],
+                buf[S * (P + 1):].view(torch.float32).view(S, 1, -1))
+
+    def _stage_inputs(self, x, pos) -> None:
+        """Write the step's host inputs (the page table, the positions,
+        x) into the staging block, then, on a card, into the static
+        device block the graph reads: one copy from pinned memory, on
+        the current stream, before the replay on that stream."""
+        S, P = self.slots, self.pages_per_slot
+        n = S * (P + 1) + x[:, 0].size
+        cuda = self.device.type == "cuda"
+        if self._stage is None:
+            self._stage = torch.zeros(n, dtype=torch.int32, pin_memory=cuda)
+            self._dev = (torch.zeros(n, dtype=torch.int32,
+                                     device=self.device)
+                         if cuda else self._stage)
+        elif self._stage.numel() != n:
+            raise ValueError(f"x rows have {x[:, 0].size} features; this "
+                             "session's steps were built for "
+                             f"{self._stage.numel() - S * (P + 1)}")
+        if self._copied is not None:
+            # the last step's copy must have read the staging block
+            self._copied.synchronize()
+        st = self._stage.numpy()
+        st[:S * P] = self._table.reshape(-1)
+        st[S * P:S * (P + 1)] = pos
+        st[S * (P + 1):].view(np.float32)[:] = x.reshape(-1)
+        if cuda:
+            self._dev.copy_(self._stage, non_blocking=True)
+            if self._copied is None:
+                self._copied = torch.cuda.Event()
+            self._copied.record()
+
+    def _body(self, dev) -> torch.Tensor:
+        """The step's eager body over the static block ``dev``: the
+        indices once (:func:`paged_index`), then every layer. What the
+        graph captures; on the CPU it is the step."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
+            paged_index)
+        table, pos, x = self._views(dev)
+        host_pos = self._views(self._stage)[1]
         params, states = self.net.params, self.net.state
         with torch.inference_mode():
+            idx = paged_index(table, pos, 1, self.page_size,
+                              host_pos=host_pos)
             h = x
             for i, layer in enumerate(self.net.layers):
                 if self._pools[i] is not None:
-                    h, self._pools[i] = layer.apply_stream_paged(
-                        params[i], self._pools[i], table, pos, h)
+                    h, _ = layer.apply_stream_paged(
+                        params[i], self._pools[i], table, idx, h)
                 else:
                     h, _ = layer.apply(params[i], states[i], h,
                                        training=False)
-        self.slot_pos = self.slot_pos + active.astype(self.slot_pos.dtype)
         return h
+
+    def _capture(self) -> torch.Tensor:
+        """The first step on the card: run the eager body once on the
+        session's own stream (its output is this step's: the run also
+        warms what a capture must not do lazily, such as cuBLAS's
+        workspace for that stream), then capture the body into a CUDA
+        graph on that stream. Capture is thread-local, so other threads
+        (HTTP handlers, other replicas' workers) keep launching on the
+        card meanwhile. The launches the capture recorded are counted on
+        every replay. Raises if the capture fails."""
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._stream):
+            out = self._body(self._dev)
+            with native.capture_launches() as tally:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static = self._body(self._dev)
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass          # the capture was invalidated
+                    raise
+                graph.capture_end()
+        current.wait_stream(self._stream)
+        self._graph, self._graph_out = graph, static
+        self._graph_launches = tally
+        compile_watch.record_capture(time.perf_counter() - t0)
+        return out
 
     def reinit_states(self) -> None:
         """Recovery after a failed step, which may have written some
-        layers' pages and not others: rebuild the pools AND forget every
-        page reference. The prefix cache's entries point at contents that
-        no longer exist, so it flushes (its counters survive)."""
+        layers' pages and not others: zero the pools IN PLACE (a captured
+        graph keeps their addresses) AND forget every page reference.
+        The prefix cache's entries point at contents that no longer
+        exist, so it flushes (its counters survive)."""
         self._leases.clear()
         self.prefix_cache.clear()
         self.allocator.reset()
-        self.slot_pos = np.zeros((self.slots,), np.int32)
-        self._table = np.zeros((self.slots, self.pages_per_slot), np.int32)
-        self._pools = self._fresh_pools()
+        self.slot_pos[:] = 0
+        self._table[:] = 0
+        with torch.inference_mode():
+            for pool in self._pools:
+                if pool is not None:
+                    for name in _LEAVES:
+                        pool[name].zero_()

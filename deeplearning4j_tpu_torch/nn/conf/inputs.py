@@ -39,6 +39,22 @@ class InputType:
             return self.depth * self.height * self.width * self.channels
         raise ValueError(self.kind)
 
+    def array_shape(self, batch: int = -1) -> Tuple[int, ...]:
+        """Concrete array shape (batch leading; NHWC for conv; NTC for
+        rnn)."""
+        if self.kind == "ff":
+            return (batch, self.size)
+        if self.kind == "rnn":
+            return (batch, self.timesteps or -1, self.size)
+        if self.kind == "cnn":
+            return (batch, self.height, self.width, self.channels)
+        if self.kind == "cnnflat":
+            return (batch, self.height * self.width * self.channels)
+        if self.kind == "cnn3d":
+            return (batch, self.depth, self.height, self.width,
+                    self.channels)
+        raise ValueError(self.kind)
+
     def to_dict(self) -> dict:
         d = {"kind": self.kind}
         for f in ("size", "timesteps", "height", "width", "channels",

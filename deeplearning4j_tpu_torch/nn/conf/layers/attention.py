@@ -14,13 +14,15 @@ kernels), and the streaming / decode methods: the eager
 cache in place and attends through ``ops/decode_attention.py`` (the
 paged decode kernel on the card): a dense cache is the paged call with
 one page per row. Positions are host data, as in the sessions that own
-them. The sequence-parallel branches are not ported yet.
+them; the paged session uploads them once a step, inside its captured
+graph, as a :class:`PagedIndex` that every layer reads. The
+sequence-parallel branches are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,7 +32,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
 from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
     layer_norm)
 
-__all__ = ["SelfAttentionLayer", "TransformerEncoderLayer"]
+__all__ = ["SelfAttentionLayer", "TransformerEncoderLayer", "PagedIndex",
+           "paged_index"]
 
 
 def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -46,24 +49,53 @@ def _row_table(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int32, device=device)[:, None]
 
 
-def _write_kv(cache, table, pos, k, v) -> None:
+class PagedIndex(NamedTuple):
+    """The indices of one paged decode step of t new tokens, computed
+    once and shared by every attention layer of the step (the paged
+    session builds it inside its captured graph, from its static
+    buffers)."""
+
+    pos: torch.Tensor       # (S,) int32 on the step's device
+    host_pos: torch.Tensor  # (S,) int32 on the host: what checks read
+    page: torch.Tensor      # (S, t) int64: the page each new token writes
+    offset: torch.Tensor    # (S, t) int64: its row in that page
+
+
+def paged_index(table: torch.Tensor, pos, t: int, page_size: int,
+                host_pos=None) -> PagedIndex:
+    """A :class:`PagedIndex` over ``table`` (S, P) on the step's device.
+    ``pos``: host positions (uploaded here, once), or an int32 (S,)
+    tensor on the table's device with ``host_pos``, its host copy. Token
+    i of slot s goes to position ``pos[s] + i``: page ``table[s, p //
+    page_size]``, row ``p % page_size``. No host sync."""
+    from deeplearning4j_tpu_torch.ops.decode_attention import (
+        host_positions)
+    S = table.shape[0]
+    if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
+        if host_pos is None:
+            raise ValueError("device positions need their host copy "
+                             "(host_pos)")
+        host = host_positions(host_pos, S)
+    else:
+        host = host_positions(pos, S)
+        pos = _to_device(host, table.device)
+    wpos = (pos.long()[:, None]
+            + torch.arange(t, device=table.device)[None, :])      # (S, t)
+    page = table.long().gather(
+        1, torch.div(wpos, page_size, rounding_mode="floor"))
+    return PagedIndex(pos, host, page, torch.remainder(wpos, page_size))
+
+
+def _write_kv(cache, idx: PagedIndex, k, v) -> None:
     """Write the t new keys/values of every row s at positions
-    ``pos[s] .. pos[s] + t - 1`` of its virtual cache (page
-    ``table[s, p // page_size]``, offset ``p % page_size``), IN PLACE:
-    the counterpart of the JAX session's donated buffers
-    (``dynamic_update_slice`` / ``.at[page_ids, offs].set``), so a step
-    moves O(t) cache bytes and never copies the cache. Rows written by
-    several slots at once (inactive slots all on the scratch page) keep
-    one of the writes, as in JAX."""
-    S, t = k.shape[:2]
-    ps = cache["k"].shape[1]
-    wpos = (_to_device(pos.long(), k.device)[:, None]
-            + torch.arange(t, device=k.device)[None, :])          # (S, t)
-    pages = table.long().gather(1, torch.div(wpos, ps,
-                                             rounding_mode="floor"))
-    offs = torch.remainder(wpos, ps)
-    cache["k"][pages, offs] = k
-    cache["v"][pages, offs] = v
+    ``pos[s] .. pos[s] + t - 1`` of its virtual cache (``idx.page``,
+    ``idx.offset``), IN PLACE: the counterpart of the JAX session's
+    donated buffers (``dynamic_update_slice`` / ``.at[page_ids,
+    offs].set``), so a step moves O(t) cache bytes and never copies the
+    cache. Rows written by several slots at once (inactive slots all on
+    the scratch page) keep one of the writes, as in JAX."""
+    cache["k"][idx.page, idx.offset] = k
+    cache["v"][idx.page, idx.offset] = v
 
 
 @register_layer
@@ -212,19 +244,22 @@ class SelfAttentionLayer(BaseLayer):
         ``x`` is the new (S, t, C) chunk (one row per slot), ``pool``
         the physical {'k', 'v'} pages of (n_pages, page_size, H, Dh),
         ``table`` the (S, P) per-slot page table (a tensor on x's
-        device), ``pos`` the (S,) per-slot positions (host data). Writes
-        each slot's new k/v at its (page, offset) in place (written
-        pages are slot-exclusive; shared prefix pages are read-only and
-        diverge by copy-on-write at admission, host-side), then attends
-        each slot's queries over its virtual cache of P * page_size
-        positions. Returns (out, pool)."""
+        device), ``pos`` the (S,) per-slot positions: host data, or the
+        step's :class:`PagedIndex`, computed once for every layer (the
+        paged session's step). Writes each slot's new k/v at its (page,
+        offset) in place (written pages are slot-exclusive; shared
+        prefix pages are read-only and diverge by copy-on-write at
+        admission, host-side), then attends each slot's queries over its
+        virtual cache of P * page_size positions. Returns (out, pool)."""
         self._require_causal("apply_stream_paged")
         from deeplearning4j_tpu_torch.ops.decode_attention import (
-            decode_attention, host_positions)
+            decode_attention)
         q, k, v = self._project_qkv(params, x)
-        pos = host_positions(pos, x.shape[0])
-        _write_kv(pool, table, pos, k, v)
-        out = decode_attention(q, pool["k"], pool["v"], table, pos)
+        idx = pos if isinstance(pos, PagedIndex) else paged_index(
+            table, pos, x.shape[1], pool["k"].shape[1])
+        _write_kv(pool, idx, k, v)
+        out = decode_attention(q, pool["k"], pool["v"], table, idx.pos,
+                               host_pos=idx.host_pos)
         return self._out_proj(params, out), pool
 
 

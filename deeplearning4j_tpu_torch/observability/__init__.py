@@ -13,10 +13,12 @@ burn rates, threshold alerts and the flight recorder (counterpart of
 - ``flight_recorder``  bounded event ring -> post-mortem bundle on a
                        serving worker crash or ``dump()``
 - ``fleetobs``         the ``/debug/bundle`` payload of one server
+- ``compile_watch``    CUDA graph captures and replays, and the
+                       post-warmup ``zero_compile_scope`` contract
 
-All of it is host code: nothing here reads a device tensor. The
-recompile watchdog, the step profiler and the training health monitor
-wait for ROADMAP A7; the fleet collector for A4b-2.
+All of it is host code: nothing here reads a device tensor. The step
+profiler and the training health monitor wait for ROADMAP A7; the fleet
+collector for A4b-2.
 """
 
 from deeplearning4j_tpu_torch.observability.alerts import (

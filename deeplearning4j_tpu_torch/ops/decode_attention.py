@@ -9,10 +9,12 @@ arange(B)[:, None]``.
 
 Inputs: ``q`` (S, t, H, Dh) float32; ``k_pool``, ``v_pool`` (N,
 page_size, H, Dh) float32; ``table`` (S, P) integer page ids; ``pos``
-(S,) the global position of each slot's first new query, on the HOST
-(the sessions keep positions on the host; the kernel takes them by
-value, so checking them costs no device sync). For slot s, query i,
-head h::
+(S,) the global position of each slot's first new query: host data (an
+int, a sequence, a numpy array or a CPU tensor), or an int32 tensor on
+q's device together with ``host_pos``, its host copy. The checks read
+the host copy only, so checking costs no device sync and a launch inside
+a CUDA graph capture reads its positions from the device buffer the
+graph was captured with. For slot s, query i, head h::
 
     o[s, i, h] = softmax_j(q . k_j * Dh^-0.5) . v_j,  j <= pos[s] + i
 
@@ -24,8 +26,12 @@ max) == 0 in f32, so reading only the live keys changes nothing.
 
 It replaces no Pallas kernel but the XLA einsums of those methods; the
 kernel is ``csrc/decode_attention.cu``, which states its design and
-bound. Dispatch: a CPU tensor goes to the plain version, a CUDA tensor
-to the kernel or an error. There is no fallback from one to the other.
+bound: the keys of each (slot, head) split over CTAs in chunks of
+``KEY_CHUNK``, merged in a fixed order (``tests/test_torch_decode.py``
+holds that split and merge, written in plain PyTorch, to the plain
+version). Dispatch: a CPU tensor goes to the plain version, a CUDA
+tensor to the kernel or an error. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -39,19 +45,29 @@ import torch
 from deeplearning4j_tpu_torch.ops import native
 
 __all__ = ["decode_attention", "decode_attention_cuda",
-           "decode_attention_plain", "host_positions"]
+           "decode_attention_plain", "host_positions", "n_key_splits",
+           "KEY_CHUNK"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128)
-_MAX_SLOTS = 512        # positions a launch carries (kMaxSlots)
+KEY_CHUNK = 128         # keys a CTA of the split kernel takes (kChunk)
+
+
+def n_key_splits(span: int) -> int:
+    """The kernel's chunks of a (slot, head): ceil(span / KEY_CHUNK) for a
+    table spanning ``span`` = P * page_size positions. It depends on the
+    span only, never on the positions, so a captured launch holds for
+    every step."""
+    return -(-int(span) // KEY_CHUNK)
 
 
 def host_positions(pos, n: int) -> torch.Tensor:
     """``pos`` (an int for every row, or n of them: a sequence, numpy
     array or CPU tensor) as a contiguous (n,) int32 CPU tensor."""
     if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
-        raise ValueError("decode positions are host data; got a tensor on "
-                         f"{pos.device} (pass the session's host copy)")
+        raise ValueError("decode positions for the checks are host data; "
+                         f"got a tensor on {pos.device} (pass the "
+                         "session's host copy as host_pos)")
     p = np.asarray(pos.numpy() if isinstance(pos, torch.Tensor) else pos)
     if p.ndim == 0:
         p = np.full((n,), int(p))
@@ -62,15 +78,31 @@ def host_positions(pos, n: int) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(p, dtype=np.int32))
 
 
+def _positions(pos, host_pos, S: int, device):
+    """(host copy, positions on ``device``) of ``pos``. A device tensor
+    must come with its host copy: the checks never read the device."""
+    if isinstance(pos, torch.Tensor) and pos.device.type != "cpu":
+        if host_pos is None:
+            raise ValueError("device positions need their host copy "
+                             "(host_pos) for the checks")
+        if pos.device != device:
+            raise ValueError(f"pos is on {pos.device}, q on {device}")
+        if pos.dtype != torch.int32 or pos.shape != (S,) \
+                or not pos.is_contiguous():
+            raise ValueError(f"device positions must be a contiguous "
+                             f"({S},) int32 tensor, got {pos.dtype} "
+                             f"{tuple(pos.shape)}")
+        return host_positions(host_pos, S), pos
+    host = host_positions(pos if host_pos is None else host_pos, S)
+    return host, None
+
+
 def _check(q, k_pool, v_pool, table, pos):
-    """Shapes, dtypes, devices and positions; returns pos as host
-    int32."""
+    """Shapes, dtypes, devices and the host positions ``pos`` (int32,
+    from ``host_positions``)."""
     if q.dim() != 4:
         raise ValueError(f"q must be (S, t, H, Dh), got {tuple(q.shape)}")
     S, t, H, D = q.shape
-    if S > _MAX_SLOTS:
-        raise ValueError(f"{S} slots exceed the {_MAX_SLOTS} one call "
-                         "carries")
     for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
         if p.dim() != 4 or p.shape[2:] != (H, D):
             raise ValueError(f"{name} must be (N, page_size, {H}, {D}), "
@@ -91,21 +123,25 @@ def _check(q, k_pool, v_pool, table, pos):
                         f"{table.dtype}")
     if table.device != q.device:
         raise ValueError(f"table is on {table.device}, q on {q.device}")
-    pos = host_positions(pos, S)
     span = table.shape[1] * k_pool.shape[1]
     if S and t and (int(pos.min()) < 0 or int(pos.max()) + t > span):
         raise ValueError(
             f"positions [{int(pos.min())}, {int(pos.max())}] + t={t} leave "
             f"the page table's {table.shape[1]} x {k_pool.shape[1]} = "
             f"{span} positions")
-    return pos
 
 
-def decode_attention_plain(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+def decode_attention_plain(q, k_pool, v_pool, table, pos,
+                           host_pos=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, the JAX step written out:
     gather each slot's virtual cache (S, P * page_size, H, Dh), einsum,
-    ``where(k_pos <= q_pos, ., -1e30)``, softmax, einsum."""
-    pos = _check(q, k_pool, v_pool, table, pos)
+    ``where(k_pos <= q_pos, ., -1e30)``, softmax, einsum. With device
+    positions it reads them on the device (no sync, graph-safe)."""
+    S = q.shape[0] if q.dim() == 4 else 0
+    host, dev = _positions(pos, host_pos, S, q.device)
+    _check(q, k_pool, v_pool, table, host)
+    if dev is None:
+        dev = host.to(q.device)
     S, t, H, D = q.shape
     ps = k_pool.shape[1]
     table = table.long()
@@ -114,7 +150,7 @@ def decode_attention_plain(q, k_pool, v_pool, table, pos) -> torch.Tensor:
     v = v_pool[table].reshape(S, P * ps, H, D)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (D ** -0.5)
     k_pos = torch.arange(P * ps, device=q.device)[None, None, :]
-    q_pos = (pos.to(q.device).long()[:, None]
+    q_pos = (dev.long()[:, None]
              + torch.arange(t, device=q.device)[None, :])[:, :, None]
     logits = torch.where((k_pos <= q_pos)[:, None], logits,
                          torch.full((), _NEG_INF, device=q.device))
@@ -126,17 +162,22 @@ def _entry():
     fn = native.load("decode_attention").dl4j_decode_attention_f32
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = ([ptr] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ptr] * 7 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ptr])
         fn.restype = ctypes.c_int
     return fn
 
 
-def decode_attention_cuda(q, k_pool, v_pool, table, pos) -> torch.Tensor:
-    """Launch ``csrc/decode_attention.cu`` once on q's current stream.
-    Returns o (S, t, H, Dh).
-    ``decode_attention_cuda.launches`` counts the launches."""
-    pos = _check(q, k_pool, v_pool, table, pos)
+def decode_attention_cuda(q, k_pool, v_pool, table, pos,
+                          host_pos=None) -> torch.Tensor:
+    """Launch ``csrc/decode_attention.cu`` (its split and merge kernels)
+    on q's current stream. Returns o (S, t, H, Dh). Host positions are
+    uploaded here; a device ``pos`` (with ``host_pos``) is read in
+    place, so the call can be captured in a CUDA graph.
+    ``decode_attention_cuda.launches`` counts the calls."""
+    S = q.shape[0] if q.dim() == 4 else 0
+    host, dev = _positions(pos, host_pos, S, q.device)
+    _check(q, k_pool, v_pool, table, host)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -155,16 +196,22 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos) -> torch.Tensor:
         # 16-byte loads, and a misaligned one would fault the context
         q = q.clone()
     table = table.to(torch.int32).contiguous()
+    if dev is None:
+        dev = host.pin_memory().to(q.device, non_blocking=True)
     o = torch.empty((S, t, H, D), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o
-    fn = _entry()
     P, ps = table.shape[1], k_pool.shape[1]
+    n_split = n_key_splits(P * ps)
+    partials = torch.empty(S * t * H * n_split * (D + 2),
+                           dtype=torch.float32, device=q.device)
+    fn = _entry()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 table.data_ptr(), pos.data_ptr(), o.data_ptr(), S, t, H, D,
-                 ps, P, 1.0 / math.sqrt(D), stream)
+                 table.data_ptr(), dev.data_ptr(), o.data_ptr(),
+                 partials.data_ptr(), S, t, H, D, ps, P, n_split,
+                 1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -175,13 +222,16 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos) -> torch.Tensor:
 decode_attention_cuda.launches = 0
 
 
-def decode_attention(q, k_pool, v_pool, table, pos) -> torch.Tensor:
+def decode_attention(q, k_pool, v_pool, table, pos,
+                     host_pos=None) -> torch.Tensor:
     """(S, t, H, Dh) q over paged (N, page_size, H, Dh) k/v pools ->
     (S, t, H, Dh). CPU tensors take the plain version, CUDA tensors the
     kernel."""
     if q.device.type == "cuda":
-        return decode_attention_cuda(q, k_pool, v_pool, table, pos)
+        return decode_attention_cuda(q, k_pool, v_pool, table, pos,
+                                     host_pos)
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_pool, v_pool, table, pos)
+        return decode_attention_plain(q, k_pool, v_pool, table, pos,
+                                      host_pos)
     raise ValueError(f"decode attention runs on cuda or cpu, not "
                      f"{q.device}")

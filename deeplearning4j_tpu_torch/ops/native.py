@@ -11,6 +11,7 @@ test suite imports every module on machines with no ``nvcc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +21,7 @@ import threading
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "count_launch"]
+           "count_launch", "capture_launches", "count_replay"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -30,15 +31,45 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
+# per thread: the launches a CUDA graph capture on this thread recorded
+_capturing = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches`` under a lock: the serving
     replicas' worker threads launch kernels concurrently, and a bare
     ``+= 1`` can lose counts between threads. Readers read the attribute
-    and reset it by assignment, as before."""
+    and reset it by assignment, as before. Inside :func:`capture_launches`
+    on this thread the launch is recorded, not counted: a captured launch
+    runs only when the graph is replayed."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _launch_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Within the block, this thread's ``count_launch`` calls fill the
+    yielded dict (wrapper -> launches) instead of the counters: the
+    launches a CUDA graph captures. Other threads count as usual. Pass
+    the dict to :func:`count_replay` on every replay of the graph."""
+    if getattr(_capturing, "tally", None) is not None:
+        raise RuntimeError("capture_launches does not nest")
+    _capturing.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None
+
+
+def count_replay(tally) -> None:
+    """Add one replay's captured launches to the counters."""
+    with _launch_lock:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 _libs: Dict[str, ctypes.CDLL] = {}

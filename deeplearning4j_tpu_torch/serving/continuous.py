@@ -5,7 +5,8 @@ Iteration-level scheduling (the Orca/vLLM idea): a fixed set of KV-cache
 slots steps together, one (slots, 1, 1) decode step at a time, and
 between steps finished slots are recycled to pending requests. Prompt
 prefill rides the decode steps token by token (teacher-forced), so
-admission never changes the step's shape.
+admission never changes the step's shape, and on a card every paged
+step replays the session's one captured CUDA graph.
 
 By default (``kv_mode="auto"``) the KV state behind the slots is PAGED
 (:class:`~deeplearning4j_tpu_torch.models.paged_kv.PagedSlotSession`):
@@ -868,6 +869,8 @@ class ContinuousBatcher(ServingBackend):
                 if fault is not None and fault.kind == "poison":
                     probs = torch.full_like(probs, float("nan"))
                 # the step's one host sync: the probabilities come back
+                # (on a card, the static output of the session's CUDA
+                # graph: copied before the next replay overwrites it)
                 h = probs.cpu().numpy()
             except Exception as e:
                 # a failed step poisons every active stream and may have

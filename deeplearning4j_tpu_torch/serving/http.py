@@ -56,8 +56,10 @@ work, completes queued and in-flight requests, then stops the listener;
 the fleet calls ``migrate_streams()`` first, so a replica's live streams
 leave as migration offers instead of finishing in place.
 ``chaos_delay_s`` (the ``serving.replica`` hang) stalls every handler.
-Retrieval, the serving mesh and AOT warmup are not ported yet (ROADMAP
-A4c, A6, A7).
+``warmup()`` (``serve --aot-warmup``) runs every hosted model's predict
+buckets and one dummy generate before traffic, which captures each
+generate backend's decode-step CUDA graph (``serving/warmup.py``).
+Retrieval and the serving mesh are not ported yet (ROADMAP A4c, A6).
 """
 
 from __future__ import annotations
@@ -312,6 +314,16 @@ class ModelServer:
                 page_size=self.page_size, kv_pages=self.kv_pages,
                 model_name=name))
         return b, version
+
+    def warmup(self, **kwargs) -> Dict[str, dict]:
+        """AOT warmup for every hosted model: run the predict pow2 batch
+        buckets and (optionally) one short generate, whose first step
+        captures the batcher's decode-step CUDA graph, so the first real
+        request never pays a capture (see serving/warmup.py). Call
+        before serving traffic. (The JAX server also warms its retrieval
+        index: not ported, ROADMAP A4c.)"""
+        from deeplearning4j_tpu_torch.serving.warmup import warmup_server
+        return warmup_server(self, **kwargs)
 
     # ---- endpoint handlers (also the in-process API) ----
     @staticmethod

@@ -11,6 +11,7 @@ CUDA kernel itself runs only on a card: those tests carry the ``cuda``
 marker and skip here.
 """
 
+import math
 import os
 
 import jax
@@ -23,6 +24,7 @@ from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInputType
 from deeplearning4j_tpu.nn.conf.layers import (SelfAttentionLayer,
                                                TransformerEncoderLayer)
 from deeplearning4j_tpu_torch.nn.conf import layers as tlayers
+from deeplearning4j_tpu_torch.nn.conf.layers import attention as tattention
 from deeplearning4j_tpu_torch.ops import decode_attention as tda
 from deeplearning4j_tpu_torch.ops import native
 
@@ -112,6 +114,87 @@ def test_paged_step_matches_jax(kind, t):
 
 
 @pytest.mark.parametrize("kind", ["attn", "block"])
+def test_paged_step_with_index_once_matches_jax(kind):
+    """The step's indices computed once (``paged_index``, what the paged
+    session builds for all its layers) give the JAX layer's output and
+    pool writes, over positions that cross page edges."""
+    jl, tl, params, tparams = _layers(kind, 5)
+    rng = np.random.default_rng(21)
+    ps, P = 8, 4
+    pool = _pools(rng, 12, ps)
+    table = np.zeros((3, P), np.int32)
+    table[0] = [3, 5, 7, 9]
+    table[1] = [2, 4, 6, 8]
+    pos = np.array([7, 8, 0], np.int32)      # last row of a page, first
+    x = rng.normal(0, 1, (3, 1, D_MODEL)).astype(np.float32)
+    ref, jpool = jl.apply_stream_paged(
+        params, {k: jnp.asarray(v) for k, v in pool.items()}, table, pos, x)
+    tpool = _tensors(pool)
+    ttable = torch.from_numpy(table)
+    idx = tattention.paged_index(ttable, torch.from_numpy(pos), 1, ps)
+    assert idx.page.tolist() == [[3], [4], [0]]
+    assert idx.offset.tolist() == [[7], [0], [0]]
+    out, _ = tl.apply_stream_paged(tparams, tpool, ttable, idx,
+                                   torch.from_numpy(x))
+    _close(out[:2], np.asarray(ref)[:2])     # slot 2 is inactive
+    for k in ("k", "v"):
+        _close(tpool[k][1:], np.asarray(jpool[k])[1:])
+
+
+def _lm_pair(tmp_path, seed=0):
+    """A 2-layer causal LM (V=32, D=32, H=4) built and saved by the JAX
+    package, and the port's restore of the zip."""
+    from deeplearning4j_tpu import MultiLayerNetwork as JaxNet
+    from deeplearning4j_tpu import NeuralNetConfiguration
+    from deeplearning4j_tpu.nn.conf.layers import (EmbeddingSequenceLayer,
+                                                   RnnOutputLayer)
+    from deeplearning4j_tpu.util import model_serializer as jser
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+    b = (NeuralNetConfiguration.builder().set_seed(seed).list()
+         .layer(EmbeddingSequenceLayer(n_in=32, n_out=D_MODEL)))
+    for _ in range(2):
+        b = b.layer(TransformerEncoderLayer(n_heads=HEADS, causal=True))
+    conf = (b.layer(RnnOutputLayer(n_out=32, loss="mcxent"))
+            .set_input_type(JaxInputType.recurrent(32, 48)).build())
+    jnet = JaxNet(conf).init()
+    path = str(tmp_path / "lm.zip")
+    jser.write_model(jnet, path)
+    return jnet, restore_model(path, device="cpu")
+
+
+def test_paged_session_step_matches_jax_across_pages(tmp_path):
+    """The port's paged step (one staged block, the indices computed once
+    for both layers) equals the JAX ``PagedSlotSession.step_slots`` step
+    by step while three slots' positions cross 8-token pages, one slot
+    idle between its streams."""
+    jnet, net = _lm_pair(tmp_path)
+    js, ts = (n.paged_slot_streaming_session(capacity=48, slots=3,
+                                             page_size=8)
+              for n in (jnet, net))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 32, n) for n in (19, 9, 13)]
+    for s in (js, ts):
+        for slot in (0, 1):
+            s.bind(slot, s.reserve(prompts[slot], 4))
+    active = np.array([True, True, False])
+    for step in range(19):
+        if step == 6:                 # slot 2 joins mid-way
+            for s in (js, ts):
+                s.bind(2, s.reserve(prompts[2], 4))
+            active[2] = True
+        x = np.zeros((3, 1, 1), np.float32)
+        for slot in range(3):
+            if active[slot]:
+                x[slot, 0, 0] = prompts[slot][min(
+                    int(ts.slot_pos[slot]), len(prompts[slot]) - 1)]
+        ref = np.asarray(js.step_slots(x.copy(), active))
+        out = ts.step_slots(x.copy(), active).numpy()
+        _close(out[active], ref[active])
+        np.testing.assert_array_equal(ts.slot_pos, js.slot_pos)
+    assert int(ts.slot_pos.max()) > 16        # crossed two page edges
+
+
+@pytest.mark.parametrize("kind", ["attn", "block"])
 def test_eager_stream_matches_jax(kind):
     jl, tl, params, tparams = _layers(kind, 7)
     rng = np.random.default_rng(7)
@@ -164,6 +247,81 @@ def test_plain_is_the_masked_softmax_over_live_keys():
             torch.testing.assert_close(o[s, i], ref, atol=ATOL, rtol=RTOL)
 
 
+def test_plain_takes_positions_as_a_cpu_tensor():
+    """Positions as a CPU tensor (alone, or as the host copy beside
+    them) give the host-position call's output."""
+    q, kp, vp, table = _op_inputs(5, 3, 2, 4, 5)
+    pos = [0, 7, 17]
+    ref = tda.decode_attention_plain(q, kp, vp, table, pos)
+    t = torch.tensor(pos, dtype=torch.int32)
+    torch.testing.assert_close(
+        tda.decode_attention_plain(q, kp, vp, table, t), ref, atol=0,
+        rtol=0)
+    torch.testing.assert_close(
+        tda.decode_attention(q, kp, vp, table, t, host_pos=np.array(pos)),
+        ref, atol=0, rtol=0)
+
+
+def _split_merge(q, kp, vp, table, pos, chunk):
+    """The kernel's split and merge in plain PyTorch: each slot's keys
+    cut into fixed chunks of ``chunk``, each chunk's partial (m, l, o)
+    with m = -inf and l = 0 where it holds no visible key, merged in
+    chunk order by M = max m_k, o = sum_k o_k e^(m_k - M) / sum_k l_k
+    e^(m_k - M), empty chunks skipped."""
+    S, t, H, D = q.shape
+    ps, P = kp.shape[1], table.shape[1]
+    tl = table.long()
+    k = kp[tl].reshape(S, P * ps, H, D)
+    v = vp[tl].reshape(S, P * ps, H, D)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * D ** -0.5
+    q_pos = torch.as_tensor(pos)[:, None] + torch.arange(t)[None, :]
+    visible = (torch.arange(P * ps)[None, None, :]
+               <= q_pos[:, :, None])[:, None]              # (S, 1, t, K)
+    parts = []
+    for c0 in range(0, P * ps, chunk):
+        lg = logits[..., c0:c0 + chunk]
+        vis = visible[..., c0:c0 + chunk].expand_as(lg)
+        m = torch.where(vis, lg, -math.inf).amax(-1)
+        p = torch.where(vis, torch.exp(
+            lg - torch.where(torch.isinf(m), 0.0, m)[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum(
+            "bhqk,bkhd->bhqd", p, v[:, c0:c0 + chunk])))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for m, l, o in parts:                      # chunk order, skip empty
+        f = torch.where(torch.isinf(m), 0.0, torch.exp(m - M))
+        den = den + l * f
+        num = num + o * f[..., None]
+    return (num / den[..., None]).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("chunk", [tda.KEY_CHUNK, 24])
+def test_split_merge_reference_equals_plain(D, t, chunk):
+    """The kernel's split over fixed key chunks, each chunk's (m, l, o)
+    merged in chunk order with empty chunks skipped, equals the plain
+    softmax: positions at and across chunk edges (0, chunk - 1, chunk,
+    chunk + 1), one past the first chunk's end by t, and an inactive
+    slot (all-zero table row at position 0)."""
+    rng = np.random.default_rng(D + t + chunk)
+    S, H, ps, P = 5, 2, 64, 4                  # span 256: two chunks of 128
+    N = S * P + 1
+    kp, vp = (torch.from_numpy(rng.normal(0, 1, (N, ps, H, D)).astype(
+        np.float32)) for _ in range(2))
+    q = torch.from_numpy(rng.normal(0, 1, (S, t, H, D)).astype(np.float32))
+    table = torch.from_numpy((rng.permutation(N - 1)[:S * P] + 1)
+                             .reshape(S, P).astype(np.int32))
+    table[4] = 0                               # the inactive slot
+    pos = [chunk - 1, chunk, chunk + 1 - t if chunk + 1 >= t else 0,
+           ps * P - t, 0]
+    o = _split_merge(q, kp, vp, table, pos, chunk)
+    torch.testing.assert_close(
+        o, tda.decode_attention_plain(q, kp, vp, table, pos), atol=ATOL,
+        rtol=RTOL)
+    assert tda.n_key_splits(ps * P) == 2
+
+
 def test_dense_cache_is_one_page_per_row():
     """A dense cache through the op: page_size = capacity, table =
     arange(B)[:, None]; equal to gathering the same rows into pages."""
@@ -212,9 +370,11 @@ def test_inputs_are_checked(bad):
         table, err = table.float(), TypeError
     elif bad == "pos_shape":
         pos = [0, 1, 2]
-    elif bad == "slots":              # more slots than one launch carries
+    elif bad == "slots":
+        # no slot limit any more (positions are read from device memory,
+        # not carried in the launch): the checks hold at any slot count
         q, table, pos = (q.repeat(257, 1, 1, 1), table.repeat(257, 1),
-                         [0] * 514)
+                         [0] * 513 + [11])
     else:
         pos, err = np.array([0.0, 1.0]), TypeError
     with pytest.raises(err):
@@ -227,6 +387,11 @@ def test_positions_are_host_data():
     meta = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="host"):
         tda.host_positions(meta, 2)
+    # device positions need their host copy: the checks never read the
+    # device
+    q, kp, vp, table = _op_inputs(3, 2, 1, 4, 3)
+    with pytest.raises(ValueError, match="host copy"):
+        tda.decode_attention(q, kp, vp, table, meta)
 
 
 def test_kernel_source_and_entry():
@@ -291,6 +456,8 @@ def test_kernel_shared_prefix_page_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_device_positions_and_odd_head_dim(cuda_device):
+    """Device positions without their host copy are refused (the checks
+    read the host copy only), as is a head dim the kernel lacks."""
     q, kp, vp, table = (x.to(cuda_device) for x in _op_inputs(
         4, 2, 1, 4, 3, D=48, H=2))
     with pytest.raises(ValueError, match="head dim"):
@@ -299,6 +466,30 @@ def test_kernel_refuses_device_positions_and_odd_head_dim(cuda_device):
         tda.decode_attention(q, kp, vp, table,
                              torch.zeros(2, dtype=torch.int32,
                                          device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("t", [1, 16])
+def test_kernel_device_positions_at_chunk_edges_on_card(cuda_device, D, t):
+    """Positions read from device memory, at and across the split
+    kernel's chunk edges (KEY_CHUNK keys a CTA) and page edges, with an
+    inactive slot; equal to the plain version within the card tolerance,
+    and two launches on the same inputs give the same bits."""
+    c = tda.KEY_CHUNK
+    pos = [0, 15, 16, c - 1, c, 511, 1024 - t, 0]
+    q, kp, vp, table = (x.to(cuda_device) for x in _op_inputs(
+        20 + D + t, 8, t, 16, 64, D=D, H=4))
+    table[7] = 0                      # the inactive slot reads scratch
+    host = np.array(pos, np.int32)
+    dev = torch.from_numpy(host).to(cuda_device)
+    o = tda.decode_attention(q, kp, vp, table, dev, host_pos=host)
+    again = tda.decode_attention(q, kp, vp, table, dev, host_pos=host)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again)
+    torch.testing.assert_close(
+        o, tda.decode_attention_plain(q, kp, vp, table, pos), atol=2e-5,
+        rtol=2e-4)
 
 
 @pytest.mark.cuda

@@ -674,3 +674,133 @@ def test_cli_serves_generate(lm):
         if proc.poll() is None:
             proc.kill()
             proc.wait(10)
+
+
+# ------------------------------------------------------------- card only
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the step's CUDA graph and the "
+                    "decode kernel run only there)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def card_lm(tmp_path_factory):
+    """The zip of an LM whose head dim the decode kernel takes (width
+    128 over 4 heads: Dh = 32)."""
+    return _pair(tmp_path_factory, seed=1, width=128)[2]
+
+
+def _card_session(path, slots=3):
+    """A paged session of the zip's LM on the card, its slots bound to
+    seeded prompts of 13, 7 and 20 ids (8 tokens of room each)."""
+    net = restore_model(path, device="cuda")
+    sess = net.paged_slot_streaming_session(capacity=CAP, slots=slots,
+                                            page_size=PS)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, V, n) for n in (13, 7, 20)][:slots]
+    for i, p in enumerate(prompts):
+        sess.bind(i, sess.reserve(p, 8))
+    return sess, prompts
+
+
+def _run_steps(sess, prompts, n_steps, eager=False):
+    """Teacher-force each slot's prompt, then feed back its greedy id;
+    returns the steps' probabilities (n_steps, slots, V) and ids."""
+    step = sess._step_eager if eager else sess.step_slots
+    active = np.ones(sess.slots, bool)
+    x = np.zeros((sess.slots, 1, 1), np.float32)
+    nxt = np.zeros(sess.slots, np.int64)
+    outs, ids = [], []
+    for k in range(n_steps):
+        for i, p in enumerate(prompts):
+            x[i, 0, 0] = p[k] if k < len(p) else nxt[i]
+        probs = step(x, active)[:, 0].cpu().numpy()
+        nxt = probs.argmax(-1)
+        outs.append(probs)
+        ids.append(nxt)
+    return np.stack(outs), np.stack(ids)
+
+
+@pytest.mark.cuda
+def test_replayed_step_equals_eager_body_on_card(cuda_device, card_lm):
+    """The replayed CUDA graph against the eager body it captured, on two
+    sessions of one zip: greedy ids equal, probabilities within 1e-6."""
+    path = card_lm
+    graphed, prompts = _card_session(path)
+    eager, _ = _card_session(path)
+    out, ids = _run_steps(graphed, prompts, 26)
+    ref, ref_ids = _run_steps(eager, prompts, 26, eager=True)
+    assert graphed._graph is not None and eager._graph is None
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_replay_counts_the_captured_launches_on_card(cuda_device, card_lm):
+    """Each replay adds the launches its capture recorded: decode
+    launches = layers x steps, the capture itself adding none."""
+    from deeplearning4j_tpu_torch.ops import decode_attention as tda
+    path = card_lm
+    sess, prompts = _card_session(path)
+    before = tda.decode_attention_cuda.launches
+    _run_steps(sess, prompts, 10)
+    assert tda.decode_attention_cuda.launches - before == L * 10
+    assert sess._graph_launches == {tda.decode_attention_cuda: L}
+
+
+@pytest.mark.cuda
+def test_capture_beside_another_thread_on_card(cuda_device, card_lm):
+    """The capture is thread-local: another thread's eager forwards on
+    the card run through it, and the replayed steps still equal the
+    eager body."""
+    import threading
+    path = card_lm
+    other = restore_model(path, device="cuda")
+    stop, errors = threading.Event(), []
+
+    def busy():
+        x = np.tile(np.arange(1, 17, dtype=np.int64), (2, 1))
+        try:
+            while not stop.is_set():
+                other.output(x).cpu()
+        except Exception as e:        # reported below
+            errors.append(repr(e))
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        time.sleep(0.2)
+        graphed, prompts = _card_session(path)
+        out, ids = _run_steps(graphed, prompts, 20)
+    finally:
+        stop.set()
+        worker.join(60)
+    assert not worker.is_alive() and not errors, errors
+    eager, _ = _card_session(path)
+    ref, ref_ids = _run_steps(eager, prompts, 20, eager=True)
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_replay_after_reinit_states_on_card(cuda_device, card_lm):
+    """reinit_states zeroes the pools in place, so the graph captured
+    before it replays correctly after it."""
+    path = card_lm
+    sess, prompts = _card_session(path)
+    _run_steps(sess, prompts, 12)
+    graph = sess._graph
+    sess.reinit_states()
+    assert sess.pages_in_use() == 0
+    for i, p in enumerate(prompts):
+        sess.bind(i, sess.reserve(p, 8))
+    out, ids = _run_steps(sess, prompts, 26)
+    assert sess._graph is graph
+    eager, _ = _card_session(path)
+    ref, ref_ids = _run_steps(eager, prompts, 26, eager=True)
+    np.testing.assert_array_equal(ids, ref_ids)
+    np.testing.assert_allclose(out, ref, atol=1e-6, rtol=0)

@@ -294,7 +294,8 @@ def test_port_imports_no_jax():
         "'observability.slo', 'observability.alerts', "
         "'observability.flight_recorder', 'observability.fleetobs', "
         "'serving.metrics', 'serving.tiers', 'chaos.injector', "
-        "'chaos.retry'):\n"
+        "'chaos.retry', 'observability.compile_watch', "
+        "'serving.warmup'):\n"
         "    assert p.__name__ + '.' + new in sys.modules, new\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
