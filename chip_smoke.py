@@ -35,7 +35,16 @@ sizes, export, import and hop times, tokens/s against one server in the
 same run), ``fleet.replace()`` migrating live streams, ``fleet.kill()``
 under predicts, and a subprocess replica SIGKILLed. Between the two
 (``warmup_phase``) a server booted through ``warmup()`` serves a burst
-inside ``zero_compile_scope``, which must see no graph capture. It
+inside ``zero_compile_scope``, which must see no graph capture. Last
+(``cnn_phase``) it holds one ResNet50 training step on the card against
+the same step on the CPU (B=8, 64x64, f32 and bf16, with the bf16
+dtype of every vertex), trains ResNet50 at the headline bench leg's
+shape (B=128, 224x224, nesterovs) in f32 and then under the bf16
+policy (step times, images/s, the bound from the config's FLOPs, a
+profiled step by kernel family, batch norm, updater and weight
+re-layout timed alone, peak memory), serves the trained ResNet50 from
+a written and restored zip through ``/v1/predict``, and trains LeNet
+on MultiLayerNetwork (step time, accuracy). It
 imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2113,6 +2122,467 @@ def fleet_phase(attn, da, card, net, bodies):
     return fwd_launches, dec_launches
 
 
+# --------------------------------------------------------------------
+# cnn_phase: ResNet50 on ComputationGraph and LeNet on MultiLayerNetwork
+# (no kernel of the port's own: conv, pooling and GEMMs are cuDNN's and
+# cuBLAS's, batch norm and the rest plain torch ops)
+# --------------------------------------------------------------------
+
+RESNET_B, RESNET_HW, RESNET_CLASSES = 128, 224, 1000   # bench.py:162-170
+RESNET_WARM_STEPS = 4      # timed warm steps a leg, after one untimed
+CHECK_B, CHECK_HW = 8, 64  # the card-vs-CPU step
+LENET_B, LENET_STEPS = 128, 200                          # bench.py:281-307
+SERVE_ROWS = 8
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# the card-vs-CPU step, leaf by leaf (loss, gradients, BN state,
+# params), in L2 norm, plus a floor of FLOOR_RTOL of the leaf's norm: in
+# f32, within F32_FACTOR times the CPU's own largest difference over three
+# reruns with its convs on another algorithm (oneDNN off: im2col + GEMM)
+# and/or the batch rows in another order (batch norm over few values a
+# channel amplifies f32 rounding, and a ReLU that flips moves a whole
+# term of a gradient's sum, so one rerun's difference of one leaf is a
+# poor estimate); in bf16, within BF16_FACTOR times the distance bf16
+# puts the CPU step from its own f32 step (two bf16 paths round apart by
+# about what either is from f32)
+F32_FACTOR, BF16_FACTOR, FLOOR_RTOL = 8.0, 4.0, 1e-5
+
+
+def conv_dense_flops(conf):
+    """Forward FLOPs a image from the config: 2·H_out·W_out·C_in·C_out·
+    k_h·k_w summed over the conv vertices, plus 2·n_in·n_out of the
+    dense and output layers."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
+                                                         DenseLayer,
+                                                         OutputLayer)
+    total = 0
+    for name in conf.topological_order():
+        obj = conf.vertices[name][0]
+        if isinstance(obj, ConvolutionLayer):
+            out = obj.output_type(conf.vertex_input_type(name))
+            total += (2 * out.height * out.width * obj.n_in * obj.n_out
+                      * obj.kernel[0] * obj.kernel[1])
+        elif isinstance(obj, (DenseLayer, OutputLayer)):
+            total += 2 * obj.n_in * obj.n_out
+    return total
+
+
+def cnn_family(name):
+    """A CUDA kernel of the CNN step by family, from its name."""
+    n = name.lower()
+    if any(k in n for k in ("dgrad", "wgrad", "backward_data",
+                            "backward_filter", "bwd_filter", "bwd_data")):
+        return "conv bwd (cuDNN)"
+    if any(k in n for k in ("fprop", "convolve", "conv2d", "xmma_fwd",
+                            "implicit_gemm", "winograd", "fft")):
+        return "conv fwd (cuDNN)"
+    if "nchwtonhwc" in n or "nhwctonchw" in n or "transpose" in n:
+        return "layout transforms"
+    if "pool" in n:
+        return "pooling"
+    if any(k in n for k in ("gemm", "cutlass", "sm90_xmma", "cublas")):
+        return "gemm (dense)"
+    if "reduce" in n:
+        return "reductions (BN statistics, loss)"
+    if "copy" in n:
+        return "copies (casts, weight re-layout)"
+    if "elementwise" in n:
+        return "elementwise (BN, ReLU, adds, updater)"
+    return "other"
+
+
+def profile_cnn_step(net, ds, label):
+    """Device ms by kernel family of one warm step (torch.profiler) and
+    the window's idle share; returns (families, busy_ms, wall_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, names = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = cnn_family(evt.key)
+        fams[fam] = fams.get(fam, 0.0) + evt.self_device_time_total / 1e3
+        if fam == "other":
+            names[evt.key[:60]] = evt.self_device_time_total / 1e3
+    busy = sum(fams.values())
+    assert busy > 0, "profiler recorded no device time"
+    log(f"{label} step device time by kernel family (torch.profiler, one "
+        "warm step): " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+            for k, v in sorted(fams.items(), key=lambda kv: -kv[1]))
+        + f"; busy {busy:.3f} ms of {wall_ms:.3f} ms wall, idle "
+          f"{100 * max(0.0, 1 - busy / wall_ms):.1f}%")
+    if names:
+        log(f"{label} 'other' kernels: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(
+                names.items(), key=lambda kv: -kv[1])[:6]))
+    return fams, busy, wall_ms
+
+
+def component_ms(net, ds, dtype, label):
+    """CUDA-event ms of three parts of a ResNet50 step, each timed alone
+    at the leg's shapes: the per-call weight re-layout of every conv
+    kernel (HWIO -> OIHW channels_last, conv_weight_oihw), every batch
+    norm's forward and backward, and the updater (nesterovs update +
+    apply) on the step's gradients."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.layers import (BatchNormalization,
+                                                         ConvolutionLayer)
+    from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
+        conv_weight_oihw)
+    conf, params = net.conf, net.params
+    convs = [params[n]["W"] for n in net._param_names
+             if isinstance(conf.vertices[n][0], ConvolutionLayer)]
+    relayout = time_ms(lambda: [conv_weight_oihw(w, dtype) for w in convs],
+                       iters=10, warmup=2)
+    bns = [(n, conf.vertices[n][0]) for n in net._param_names
+           if isinstance(conf.vertices[n][0], BatchNormalization)]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    inputs = {}                       # one input tensor a distinct shape
+    for n, _ in bns:
+        t = conf.vertex_input_type(n)
+        shape = (RESNET_B, t.height, t.width, t.channels)
+        if shape not in inputs:
+            inputs[shape] = torch.randn(shape, generator=g, device="cuda"
+                                        ).to(dtype).requires_grad_()
+
+    def bn_all():
+        for n, layer in bns:
+            t = conf.vertex_input_type(n)
+            x = inputs[(RESNET_B, t.height, t.width, t.channels)]
+            y, _ = layer.apply(params[n], net.state[n], x, training=True)
+            torch.autograd.grad(y, [x] + list(params[n].values()),
+                                torch.ones_like(y))
+    bn = time_ms(bn_all, iters=3, warmup=1)
+    del inputs
+    _, grads, _ = net._gradients(net._batch_tuple(net._as_multi(ds)))
+    scratch = updaters.tree_map(lambda p: p.detach().clone(), params)
+
+    def upd():
+        with torch.no_grad():
+            u, _ = net._optimizer.update(grads, net.opt_state, scratch)
+            updaters.apply_updates(scratch, u)
+    opt = time_ms(upd, iters=5, warmup=1)
+    del grads, scratch
+    log(f"{label} parts timed alone (CUDA events): weight re-layout of "
+        f"{len(convs)} conv kernels {relayout:.3f} ms; {len(bns)} batch "
+        f"norms forward + backward {bn:.3f} ms; updater {opt:.3f} ms")
+    return {"relayout_ms": relayout, "bn_ms": bn, "updater_ms": opt}
+
+
+def resnet_leg(net, ds, label, peak, card):
+    """RESNET_WARM_STEPS timed steps through ``fit`` after one untimed,
+    one profiled step and the parts timed alone. Returns its numbers."""
+    import torch
+    from deeplearning4j_tpu_torch import dtypes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # PyTorch's default; the conv layer itself must turn TF32 off for f32
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    assert torch.backends.cudnn.allow_tf32 is False
+    losses, step_ms = [float(net.score_value)], []
+    for _ in range(RESNET_WARM_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit(ds)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(net.score_value))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert all(math.isfinite(x) for x in losses), losses
+    med = sorted(step_ms)[len(step_ms) // 2]
+    flops = 3 * conv_dense_flops(net.conf) * RESNET_B
+    bound = flops / peak * 1e3
+    log(f"ResNet50 {label} training (B={RESNET_B}, {RESNET_HW}x{RESNET_HW}"
+        f", nesterovs(0.1, 0.9), {card}): first step {first_s:.3f} s; warm "
+        f"steps " + ", ".join(f"{x:.3f}" for x in step_ms) + f" ms, median "
+        f"{med:.3f} ms = {RESNET_B / med * 1e3:.1f} images/s; losses "
+        + ", ".join(f"{x:.6f}" for x in losses) + f"; peak device memory "
+        f"{peak_gib:.2f} GiB; bound {bound:.3f} ms ({flops / 1e12:.4f} "
+        f"TFLOP at {peak / 1e12:.0f} TFLOP/s): {100 * bound / med:.1f}% "
+        "of it")
+    fams, busy, wall = profile_cnn_step(net, ds, f"ResNet50 {label}")
+    parts = component_ms(net, ds, dtypes.policy().compute_dtype,
+                         f"ResNet50 {label}")
+    return {"median_ms": med, "images_s": RESNET_B / med * 1e3,
+            "losses": losses, "peak_gib": peak_gib, "bound_ms": bound,
+            "busy_ms": busy, "wall_ms": wall, "families": fams, **parts}
+
+
+def _leaf_errors(card, cpu, others, factor):
+    """‖card − cpu‖ / (factor · max over ``others`` of ‖cpu − other‖ +
+    FLOOR_RTOL · ‖cpu‖) of each leaf of flat dicts of arrays, L2 norms
+    (<= 1 passes), worst first: [(ratio, leaf, ‖card − cpu‖, limit)]."""
+    import numpy as np
+    rows = []
+    for k, a in cpu.items():
+        a = a.astype("float64")
+        noise = max(float(np.linalg.norm(a - o[k])) for o in others)
+        lim = factor * noise + FLOOR_RTOL * float(np.linalg.norm(a)) + 1e-12
+        e = float(np.linalg.norm(card[k].astype("float64") - a))
+        rows.append((e / lim, k, e, lim))
+    return sorted(rows, reverse=True)
+
+
+def resnet_card_vs_cpu():
+    """One ResNet50 fit step (B=8, 64x64, 1000 classes, nesterovs) on the
+    card held against the same step on the CPU, in f32 and under
+    tpu_bf16(): loss, gradients, the new BN state and the updated params,
+    leaf by leaf (F32_FACTOR, BF16_FACTOR). Under bf16 each vertex's
+    output dtype on the card is also held to the JAX package's table
+    (conv outputs bf16, everything after a batch norm float32)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import dtypes, zoo
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (CHECK_B, CHECK_HW, CHECK_HW, 3)).astype("float32")
+    y = np.eye(RESNET_CLASSES, dtype="float32")[
+        rng.integers(0, RESNET_CLASSES, CHECK_B)]
+    zm = zoo.ResNet50(n_classes=RESNET_CLASSES,
+                      input_shape=(CHECK_HW, CHECK_HW, 3),
+                      updater=updaters.nesterovs(0.1, 0.9))
+    init = zm.init(device="cpu")
+    params0, state0 = init.params, init.state
+
+    def step(device, policy, roll=0, onednn=True):
+        xx, yy = np.roll(x, roll, axis=0), np.roll(y, roll, axis=0)
+        net = ComputationGraph(zm.conf(), device=device)
+        net.set_params(params0)
+        net.state = {n: {k: v.to(device) for k, v in s.items()}
+                     for n, s in state0.items()}
+        net._build_optimizer()
+        seen = {}
+        grads_of = net._gradients
+
+        def spy(batch):
+            seen["out"] = grads_of(batch)
+            return seen["out"]
+        net._gradients = spy
+        scope = (dtypes.policy_scope(dtypes.tpu_bf16()) if policy == "bf16"
+                 else contextlib.nullcontext())
+        with scope, torch.backends.mkldnn.flags(enabled=onednn):
+            net.fit(DataSet(xx, yy))
+            acts = net.feed_forward(xx[:2])
+        loss, grads, new_state = seen["out"]
+        return {"loss": np.array([loss.item()]),
+                **{"grad/" + k: v for k, v in _flatten(grads).items()},
+                **{"state/" + k: v for k, v in _flatten(new_state).items()},
+                **{"param/" + k: v for k, v in
+                   _flatten(net.params).items()}}, acts
+
+    t0 = time.perf_counter()
+    cpu32, _ = step("cpu", "f32")
+    reruns = [step("cpu", "f32", roll, onednn)[0]
+              for roll, onednn in ((3, False), (5, True), (0, False))]
+    cpu16, _ = step("cpu", "bf16")
+    cpu_s = time.perf_counter() - t0
+    for policy, cpu, others, factor in (("f32", cpu32, reruns, F32_FACTOR),
+                                        ("bf16", cpu16, [cpu32],
+                                         BF16_FACTOR)):
+        card, acts = step("cuda", policy)
+        torch.cuda.synchronize()
+        rows = _leaf_errors(card, cpu, others, factor)
+        ref = ("largest rerun" if policy == "f32" else "bf16-vs-f32")
+        log(f"ResNet50 {policy} step on the card vs the CPU (B={CHECK_B}, "
+            f"{CHECK_HW}x{CHECK_HW}; five CPU steps {cpu_s:.1f} s): loss "
+            f"{card['loss'][0]:.6f} vs {cpu['loss'][0]:.6f}; {len(cpu)} "
+            f"leaves (loss, grads, BN state, params); L2 |card - cpu| / "
+            f"({factor:g} x the CPU's {ref} difference + {FLOOR_RTOL:g} x "
+            "|cpu|), worst three: " + "; ".join(
+                f"{k} {r:.3f} ({e:.3e} of {lim:.3e})"
+                for r, k, e, lim in rows[:3]) + " (limit 1)")
+        assert rows[0][0] <= 1.0, (policy, rows[:3])
+        assert all(a.device.type == "cuda" for a in acts.values())
+        if policy == "bf16":
+            bad = {n: str(a.dtype) for n, a in acts.items()
+                   if n != "in" and (a.dtype == torch.bfloat16)
+                   != n.endswith("_conv")}
+            assert not bad, bad
+            n_conv = sum(n.endswith("_conv") for n in acts)
+            log(f"bf16 dtype table on the card: {n_conv} conv outputs "
+                "bfloat16; every BN, pool, add, ReLU, avgpool and out "
+                "float32 (as the JAX package)")
+
+
+def lenet_phase(card):
+    """LeNet through the builder (bench.py:281-307: convolutional_flat
+    28x28x1, Adam 1e-3) on the card at B=128: LENET_STEPS steps on a
+    seeded learnable set (each row one of 10 fixed random images plus
+    unit noise, labelled by the image), warm step ms and images/s, and
+    ``evaluate().accuracy()`` on a held-out seeded set."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
+                                                         DenseLayer,
+                                                         OutputLayer,
+                                                         SubsamplingLayer)
+    conf = (NeuralNetConfiguration.builder().set_seed(0)
+            .updater(updaters.adam(1e-3)).list()
+            .layer(ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1))
+            .build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    rng = np.random.default_rng(0)
+    protos = rng.normal(0, 1, (10, 784)).astype("float32")
+
+    def data(n):
+        labels = rng.integers(0, 10, n)
+        x = protos[labels] + rng.normal(0, 1, (n, 784)).astype("float32")
+        return x, np.eye(10, dtype="float32")[labels]
+    train = [DataSet(*(torch.from_numpy(a).cuda() for a in data(LENET_B)))
+             for _ in range(LENET_STEPS)]
+    test_x, test_y = data(2048)
+    before = net.evaluate(DataSet(test_x, test_y)).accuracy()
+    net.fit(train[0])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for ds in train[1:]:
+        net.fit(ds)
+    e1.record()
+    torch.cuda.synchronize()
+    step = e0.elapsed_time(e1) / (LENET_STEPS - 1)
+    acc = net.evaluate(DataSet(test_x, test_y)).accuracy()
+    loss = float(net.score_value)
+    assert math.isfinite(loss)
+    assert acc > 0.9, (before, acc)
+    flops = 3 * 2 * (24 * 24 * 1 * 20 * 25 + 8 * 8 * 20 * 50 * 25
+                     + 800 * 500 + 500 * 10) * LENET_B
+    log(f"LeNet on MultiLayerNetwork (B={LENET_B}, Adam 1e-3, f32, {card}):"
+        f" {LENET_STEPS - 1} warm steps through fit, {step:.3f} ms a step "
+        f"(CUDA events over the run) = {LENET_B / step * 1e3:.0f} images/s"
+        f" (bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms); last loss "
+        f"{loss:.4f}; evaluate().accuracy() on 2048 held-out rows "
+        f"{before:.4f} before, {acc:.4f} after")
+    return {"step_ms": step, "accuracy": acc}
+
+
+def resnet_serve(net, card):
+    """Write the trained ResNet50, restore it, serve SERVE_ROWS rows
+    through ModelServer /v1/predict: probabilities sum to 1 and equal
+    ``output`` of the restored net on the same rows."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "resnet.zip")
+        t0 = time.perf_counter()
+        write_model(net, path)
+        restored = restore_model(path, device="cuda")
+        io_s = time.perf_counter() - t0
+    assert isinstance(restored, ComputationGraph)
+    x = np.random.default_rng(2).normal(
+        0, 1, (SERVE_ROWS, RESNET_HW, RESNET_HW, 3)).astype("float32")
+    reg = ModelRegistry()
+    reg.register("resnet", restored)
+    server = ModelServer(reg, wait_ms=5.0).start()
+    try:
+        t0 = time.perf_counter()
+        code, body, _ = http(server.port, "/v1/predict",
+                             {"model": "resnet", "inputs": x.tolist()})
+        req_s = time.perf_counter() - t0
+    finally:
+        server.stop(drain=True)
+    assert code == 200, body
+    out = np.asarray(body["outputs"], np.float32)
+    assert out.shape == (SERVE_ROWS, RESNET_CLASSES)
+    assert np.isfinite(out).all()
+    sums = np.abs(out.sum(-1) - 1).max()
+    assert sums <= 1e-5, sums
+    ref = restored.output(x).cpu().numpy()
+    diff = float(np.abs(out - ref).max())
+    assert diff <= 1e-6, diff
+    torch.cuda.synchronize()
+    log(f"ResNet50 served ({card}): write + restore {io_s:.2f} s; one "
+        f"/v1/predict of {SERVE_ROWS} rows {req_s:.2f} s; probabilities "
+        f"sum to 1 within {sums:.2e}; max |served - output| {diff:.2e}")
+
+
+def cnn_phase(card):
+    """ResNet50 training at the headline leg's shape in f32 then under
+    tpu_bf16(), the card step held against the CPU in both, LeNet's
+    steps and accuracy, and one served ResNet50 predict."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import dtypes, zoo
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+
+    t0 = time.perf_counter()
+    resnet_card_vs_cpu()
+    log(f"card-vs-CPU checks {time.perf_counter() - t0:.1f} s")
+
+    net = zoo.ResNet50(n_classes=RESNET_CLASSES,
+                       updater=updaters.nesterovs(0.1, 0.9)).init(
+                           device="cuda")
+    assert net.num_params() == 25_557_032
+    params0 = updaters.tree_map(lambda p: p.detach().clone(), net.params)
+    rng = np.random.default_rng(0)                    # bench.py:168-170
+    x = rng.normal(0, 1, (RESNET_B, RESNET_HW, RESNET_HW, 3)).astype(
+        "float32")
+    y = np.eye(RESNET_CLASSES, dtype="float32")[
+        rng.integers(0, RESNET_CLASSES, RESNET_B)]
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    f32 = resnet_leg(net, ds, "f32", PEAK_F32_FLOPS, card)
+    net.init()                       # the bf16 leg starts where f32 did
+    net.set_params(params0)
+    del params0
+    with dtypes.policy_scope(dtypes.tpu_bf16()):
+        bf16 = resnet_leg(net, ds, "bf16", PEAK_BF16_FLOPS, card)
+    del ds
+    resnet_serve(net, card)
+    del net
+    torch.cuda.empty_cache()
+    lenet = lenet_phase(card)
+    log("cnn_phase summary: " + json.dumps({
+        "resnet50_f32": {k: v for k, v in f32.items() if k != "families"},
+        "resnet50_bf16": {k: v for k, v in bf16.items()
+                          if k != "families"},
+        "lenet": lenet}))
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -2208,6 +2678,7 @@ def main():
         record["launches"] = sum(record["launches_by_path"].values())
     del net
     torch.cuda.empty_cache()
+    cnn_phase(card)
     records = [fwd, dq, dkv, dec]
     for record in records:
         assert record["launches"] > 0, record

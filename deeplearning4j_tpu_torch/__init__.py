@@ -12,5 +12,9 @@ sessions) paths, and the fleet of servers behind a router with
 disaggregated prefill/decode and drain migration (``serving.fleet``,
 ``serving.router``), through hand-written CUDA kernels: the flash-attention
 forward and backward (``csrc/flash_attention_{fwd,bwd}.cu``) and the
-paged decode attention (``csrc/decode_attention.cu``).
+paged decode attention (``csrc/decode_attention.cu``); and the
+convolutional networks: LeNet on ``MultiLayerNetwork`` and ResNet50 on
+``ComputationGraph`` (``zoo``), trained, evaluated and served, in
+float32 and under the bf16 policy (``dtypes.tpu_bf16()``), with conv,
+pooling and GEMMs on cuDNN and cuBLAS.
 """

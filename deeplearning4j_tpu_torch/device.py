@@ -7,9 +7,10 @@ default raises instead of quietly running somewhere slower.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "as_device_tensor"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -21,3 +22,17 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     return dev
+
+
+def as_device_tensor(a, device: torch.device):
+    """A batch array (numpy or tensor; None passes) as a tensor on
+    ``device``; numpy floats other than float32 become float32, as JAX
+    canonicalizes float64."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "f" and a.dtype != np.float32:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(device)

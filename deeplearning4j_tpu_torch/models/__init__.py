@@ -1,2 +1,3 @@
-"""Executors (ported so far: MultiLayerNetwork inference and training)
-and the streaming, paged-KV and speculative decode sessions."""
+"""Executors (MultiLayerNetwork and ComputationGraph: inference and
+training) and the streaming, paged-KV and speculative decode
+sessions."""

@@ -13,14 +13,16 @@ Training is the JAX package's ``_train_core`` written eagerly: the loss
 ``torch.autograd.grad``, per-layer gradient normalization, the updater
 (``nn/conf/updaters.py``, optax's rules and state layout, per-layer
 overrides and ``gradient_clip``), then the layer constraints. The
-parameters are updated in place. ``output`` runs under
-``torch.inference_mode``. ``rnn_time_step`` and the streaming
-sessions (``streaming_session``, ``slot_streaming_session``,
-``paged_slot_streaming_session``) decode token by token over KV caches
-(``models/streaming.py``, ``models/paged_kv.py``). Not ported yet
-(ROADMAP queue A7): tBPTT,
-k-step fusion, AOT warmup, listeners, health and meshes; asking for
-them raises ``NotImplementedError``.
+parameters are updated in place. Preprocessors
+(``nn/conf/preprocessors.py``) reshape a layer's input where the config
+placed them. ``output`` runs under ``torch.inference_mode``;
+``evaluate`` scores classification (``evaluation/classification.py``).
+``rnn_time_step`` and the streaming sessions (``streaming_session``,
+``slot_streaming_session``, ``paged_slot_streaming_session``) decode
+token by token over KV caches (``models/streaming.py``,
+``models/paged_kv.py``). Not ported yet, and raising
+``NotImplementedError`` when asked for: tBPTT (ROADMAP A5b), meshes
+(A6), k-step fusion, listeners and health (A7).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import (ArrayDataSetIterator,
                                                      DataSetIterator,
                                                      ListDataSetIterator)
-from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
@@ -43,10 +45,13 @@ from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
     apply_gradient_normalization)
+from deeplearning4j_tpu_torch.util.tree import (tree_flat_vector,
+                                                tree_from_flat_vector,
+                                                tree_to_device)
 
 __all__ = ["MultiLayerNetwork"]
 
-_NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP A7)"
+_NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
 
 
 def _as_iterator(data, labels=None, batch_size=None) -> DataSetIterator:
@@ -106,8 +111,9 @@ class MultiLayerNetwork(nn.Module):
         seeded with ``seed`` (default: the config's), then place them on
         the network's device."""
         seed = self.conf.conf.seed if seed is None else seed
-        params, self.state = self._sample_params(seed)
+        params, states = self._sample_params(seed)
         self.set_params(params)
+        self.state = tree_to_device(states, self.device)
         self._generator = self._new_generator(seed)
         self._build_optimizer()
         return self
@@ -122,7 +128,9 @@ class MultiLayerNetwork(nn.Module):
         g = torch.Generator().manual_seed(int(seed))
         params, states = [], []
         t = self.conf.input_type
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
+            if t is not None and i in self.conf.preprocessors:
+                t = self.conf.preprocessors[i].output_type(t)
             if t is not None:
                 layer.set_n_in(t)
             p, s = layer.initialize(g, t)
@@ -169,17 +177,9 @@ class MultiLayerNetwork(nn.Module):
             opt = updaters_mod.multi_transform(transforms, labels)
         else:
             opt = updaters_mod.to_transform(global_cfg)
-        clip = self.conf.conf.gradient_clip
-        if clip is not None:
-            if clip["type"] == "norm":
-                pre = updaters_mod.clip_by_global_norm(clip["v"])
-            elif clip["type"] == "value":
-                pre = updaters_mod.clip(clip["v"])
-            else:
-                raise ValueError(clip)
-            opt = updaters_mod.chain(pre, opt)
-        self._optimizer = opt
-        self.opt_state = opt.init(self.params)
+        self._optimizer = updaters_mod.with_gradient_clip(
+            opt, self.conf.conf.gradient_clip)
+        self.opt_state = self._optimizer.init(self.params)
 
     # ---- forward ----
     def _forward(self, x, *, training, generator=None, fmask=None,
@@ -190,6 +190,8 @@ class MultiLayerNetwork(nn.Module):
         n = len(self.layers) if upto is None else upto
         new_states = list(self.state)
         for i in range(n):
+            if i in self.conf.preprocessors:
+                x = self.conf.preprocessors[i](x)
             x, new_states[i] = self.layers[i].apply(
                 params[i], self.state[i], x, training=training,
                 generator=generator, mask=fmask)
@@ -204,19 +206,14 @@ class MultiLayerNetwork(nn.Module):
         if self.params is None:
             self.init()
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            x = self._to_device(x)      # float64 -> float32, as JAX does
         x = torch.as_tensor(x, device=self.device)
         with torch.inference_mode():
             return self(x)
 
     # ---- training ----
     def _to_device(self, a):
-        if a is None:
-            return None
-        a = np.ascontiguousarray(a)
-        if a.dtype.kind == "f" and a.dtype != np.float32:
-            a = a.astype(np.float32)       # as JAX canonicalizes f64
-        return torch.from_numpy(a).to(self.device)
+        return as_device_tensor(a, self.device)
 
     def _batch_tuple(self, ds: DataSet):
         return tuple(self._to_device(a) for a in
@@ -234,6 +231,8 @@ class MultiLayerNetwork(nn.Module):
         h, new_states = self._forward(x, training=training,
                                       generator=generator, fmask=fmask,
                                       upto=out_idx)
+        if out_idx in self.conf.preprocessors:
+            h = self.conf.preprocessors[out_idx](h)
         params = self.params
         loss = out_layer.loss_from_input(params[out_idx], h, labels,
                                          training=training,
@@ -281,9 +280,11 @@ class MultiLayerNetwork(nn.Module):
         """Train over a DataSet, an iterator, or (features, labels)
         arrays, one updater step per batch."""
         if int(steps_per_device_call) != 1:
-            raise NotImplementedError(f"k-step fusion {_NOT_PORTED}")
+            raise NotImplementedError(
+                f"k-step fusion {_NOT_PORTED.format('A7')}")
         if mesh_spec is not None:
-            raise NotImplementedError(f"mesh training {_NOT_PORTED}")
+            raise NotImplementedError(
+                f"mesh training {_NOT_PORTED.format('A6')}")
         if self.params is None:
             self.init()
         if self._optimizer is None:
@@ -293,7 +294,8 @@ class MultiLayerNetwork(nn.Module):
         for _ in range(epochs):
             for ds in it:
                 if tbptt is not None and ds.features.ndim == 3:
-                    raise NotImplementedError(f"tBPTT {_NOT_PORTED}")
+                    raise NotImplementedError(
+                        f"tBPTT {_NOT_PORTED.format('A5b')}")
                 self.score_value = self._train_step(self._batch_tuple(ds))
                 self.iteration_count += 1
             self.epoch_count += 1
@@ -307,12 +309,33 @@ class MultiLayerNetwork(nn.Module):
             loss, _ = self._loss(self._batch_tuple(ds), training=False)
         return float(loss)
 
+    def evaluate(self, data, labels=None):
+        """Classification metrics of ``output`` over a DataSet, an
+        iterator or (features, labels) arrays."""
+        from deeplearning4j_tpu_torch.evaluation.classification import (
+            Evaluation)
+        ev = Evaluation()
+        for ds in _as_iterator(data, labels):
+            preds = self.output(ds.features).float().cpu().numpy()
+            ev.eval(ds.labels, preds, mask=ds.labels_mask)
+        return ev
+
+    # ---- flat params (the reference's params() view) ----
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def params_flat(self) -> np.ndarray:
+        return tree_flat_vector(self.params)
+
+    def set_params_flat(self, flat: np.ndarray) -> None:
+        self.set_params(tree_from_flat_vector(self.params, flat))
+
     # ---- stateful streaming inference (reference rnnTimeStep) ----
     def rnn_time_step(self, x) -> torch.Tensor:
         """Feed the next (B, C) step or (B, t, C) chunk and return the
         output for it, carrying each attention layer's KV cache (grown by
         concatenation) to the next call. Recurrent layers are not ported
-        yet (ROADMAP A5)."""
+        yet (ROADMAP A5b)."""
         if self.params is None:
             self.init()
         if isinstance(x, np.ndarray):
@@ -327,6 +350,8 @@ class MultiLayerNetwork(nn.Module):
         h = x
         with torch.inference_mode():
             for i, layer in enumerate(self.layers):
+                if i in self.conf.preprocessors:
+                    h = self.conf.preprocessors[i](h)
                 if hasattr(layer, "apply_stream"):
                     h, self._rnn_state[i] = layer.apply_stream(
                         params[i], self._rnn_state[i], h)
@@ -376,6 +401,7 @@ class MultiLayerNetwork(nn.Module):
                                 page_size=page_size, n_pages=n_pages)
 
     def set_listeners(self, *listeners):
-        raise NotImplementedError(f"training listeners {_NOT_PORTED}")
+        raise NotImplementedError(
+            f"training listeners {_NOT_PORTED.format('A7')}")
 
     add_listeners = set_listeners

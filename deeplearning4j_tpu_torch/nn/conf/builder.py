@@ -1,14 +1,30 @@
-"""Global network configuration (counterpart of the part of
-``deeplearning4j_tpu/nn/conf/builder.py`` that config JSON needs).
+"""NeuralNetConfiguration: the fluent config builder (counterpart of
+``deeplearning4j_tpu/nn/conf/builder.py``, same methods and JSON).
 
-The fluent builder stays in the JAX package: a config is built there
-(or written by hand) and its JSON drives both packages. Here the
-``global`` block is read and written back unchanged.
+Global defaults (seed, updater, weight init, activation,
+regularization, dropout) are stamped onto each layer that left the
+field at its default; ``.list()...build()`` gives a
+:class:`MultiLayerConfiguration` and ``.graph_builder()...build()`` a
+:class:`ComputationGraphConfiguration`::
+
+    conf = (NeuralNetConfiguration.builder()
+            .seed_(12345)
+            .updater(updaters.adam(1e-3))
+            .list()
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1))
+            .build())
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers.base import BaseLayer, Layer
 
 __all__ = ["NeuralNetConfiguration"]
 
@@ -22,8 +38,111 @@ class NeuralNetConfiguration:
         self.defaults: Dict[str, Any] = {}
         self.dropout: float = 0.0
         self.optimization_algo: str = "stochastic_gradient_descent"
-        self.gradient_clip: Optional[dict] = None
-        self.tbptt: Optional[dict] = None
+        self.gradient_clip: Optional[dict] = None   # {"type": "norm"|"value"|
+                                                    #  "norm_per_param", "v":x}
+        self.tbptt: Optional[dict] = None   # {"fwd_length": n, "bwd_length": n}
+
+    # ---- fluent builder (mirrors Builder method names, snake_cased) ----
+    @staticmethod
+    def builder() -> "NeuralNetConfiguration":
+        return NeuralNetConfiguration()
+
+    def seed_(self, s: int):
+        self.seed = int(s)
+        return self
+
+    # keep java-style name too
+    def set_seed(self, s: int):
+        return self.seed_(s)
+
+    def updater(self, cfg: dict):
+        self.updater_cfg = cfg
+        return self
+
+    def learning_rate(self, lr: float):
+        if self.updater_cfg is None:
+            self.updater_cfg = updaters_mod.sgd(lr)
+        else:
+            self.updater_cfg = {**self.updater_cfg, "lr": lr}
+        return self
+
+    def weight_init(self, scheme: str, distribution: Optional[dict] = None):
+        self.defaults["weight_init"] = scheme
+        if distribution is not None:
+            self.defaults["weight_distribution"] = distribution
+        return self
+
+    def activation(self, a: str):
+        self.defaults["activation"] = a
+        return self
+
+    def l1(self, v: float):
+        self.defaults["l1"] = v
+        return self
+
+    def l2(self, v: float):
+        self.defaults["l2"] = v
+        return self
+
+    def drop_out(self, drop_prob: float):
+        self.dropout = drop_prob
+        return self
+
+    def gradient_normalization(self, kind: str, threshold: float = 1.0):
+        """kind ∈ {'clip_l2_per_layer','clip_element_wise',
+        'renormalize_l2_per_layer','clip_l2_per_param_type'} — mirrors
+        GradientNormalization enum."""
+        self.defaults["gradient_normalization"] = kind
+        self.defaults["gradient_normalization_threshold"] = threshold
+        return self
+
+    def clip_gradient_norm(self, v: float):
+        self.gradient_clip = {"type": "norm", "v": v}
+        return self
+
+    def clip_gradient_value(self, v: float):
+        self.gradient_clip = {"type": "value", "v": v}
+        return self
+
+    def optimization_algorithm(self, algo: str):
+        self.optimization_algo = algo
+        return self
+
+    def backprop_type(self, kind: str, fwd_length: int = 20,
+                      bwd_length: int = 20):
+        if kind.lower() in ("truncatedbptt", "tbptt", "truncated_bptt"):
+            self.tbptt = {"fwd_length": fwd_length, "bwd_length": bwd_length}
+        return self
+
+    # ---- terminals ----
+    def list(self) -> "ListBuilder":
+        return ListBuilder(self)
+
+    def graph_builder(self):
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
+        return GraphBuilder(self)
+
+    def stamp_defaults(self, layer: Layer) -> Layer:
+        """Apply global defaults to fields the layer left at their
+        dataclass defaults (reference: Builder.layer(...) copies global
+        conf into each NeuralNetConfiguration clone)."""
+        if isinstance(layer, BaseLayer):
+            field_defaults = {f.name: f.default
+                              for f in dataclasses.fields(type(layer))}
+            base_defaults = {f.name: f.default
+                             for f in dataclasses.fields(BaseLayer)}
+            for k, v in self.defaults.items():
+                # stamp only fields the user left at the default AND whose
+                # subclass didn't deliberately customize the default (e.g.
+                # OutputLayer.activation = softmax stays softmax)
+                if (k in field_defaults
+                        and getattr(layer, k) == field_defaults[k]
+                        and field_defaults[k] == base_defaults.get(
+                            k, field_defaults[k])):
+                    setattr(layer, k, v)
+        if self.dropout and layer.dropout == 0.0:
+            layer.dropout = self.dropout
+        return layer
 
     def global_to_dict(self) -> dict:
         return {
@@ -48,3 +167,35 @@ class NeuralNetConfiguration:
         c.gradient_clip = d.get("gradient_clip")
         c.tbptt = d.get("tbptt")
         return c
+
+
+class ListBuilder:
+    """NeuralNetConfiguration.ListBuilder (:225): ordered layer stack →
+    MultiLayerConfiguration."""
+
+    def __init__(self, conf: NeuralNetConfiguration):
+        self._conf = conf
+        self._layers: List[Layer] = []
+        self._input_type: Optional[InputType] = None
+
+    def layer(self, layer: Layer, index: Optional[int] = None):
+        layer = self._conf.stamp_defaults(layer)
+        if index is None:
+            self._layers.append(layer)
+        else:
+            while len(self._layers) <= index:
+                self._layers.append(None)
+            self._layers[index] = layer
+        return self
+
+    def set_input_type(self, t: InputType):
+        self._input_type = t
+        return self
+
+    def build(self):
+        from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+            MultiLayerConfiguration)
+        if any(l is None for l in self._layers):
+            raise ValueError("Gap in layer indices")
+        return MultiLayerConfiguration(self._conf, list(self._layers),
+                                       self._input_type)

@@ -30,6 +30,23 @@ class InputType:
         return InputType("rnn", size=int(size),
                          timesteps=None if timesteps is None else int(timesteps))
 
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType("cnn", height=int(height), width=int(width),
+                         channels=int(channels))
+
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "InputType":
+        return InputType("cnnflat", height=int(height), width=int(width),
+                         channels=int(channels))
+
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        return InputType("cnn3d", depth=int(depth), height=int(height),
+                         width=int(width), channels=int(channels))
+
     def flat_size(self) -> int:
         if self.kind in ("ff", "rnn"):
             return self.size

@@ -6,12 +6,20 @@ from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (
     LAYER_REGISTRY, BaseLayer, FeedForwardLayer, Layer, layer_from_dict,
     register_layer)
+from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
+    ConvolutionLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.core import (
-    EmbeddingSequenceLayer)
+    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
+    BatchNormalization)
 from deeplearning4j_tpu_torch.nn.conf.layers.output import (OutputLayer,
                                                             RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
+    GlobalPoolingLayer, PoolingType, SubsamplingLayer)
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
            "layer_from_dict", "LAYER_REGISTRY", "EmbeddingSequenceLayer",
            "SelfAttentionLayer", "TransformerEncoderLayer", "OutputLayer",
-           "RnnOutputLayer"]
+           "RnnOutputLayer", "DenseLayer", "ActivationLayer",
+           "DropoutLayer", "ConvolutionLayer", "SubsamplingLayer",
+           "GlobalPoolingLayer", "PoolingType", "BatchNormalization"]

@@ -1,6 +1,11 @@
 """Core layers (counterpart of
-``deeplearning4j_tpu/nn/conf/layers/core.py``). Ported so far: the
-transformer LM's ``EmbeddingSequenceLayer``."""
+``deeplearning4j_tpu/nn/conf/layers/core.py``): ``DenseLayer``,
+``ActivationLayer``, ``DropoutLayer`` and the transformer LM's
+``EmbeddingSequenceLayer``. The dense product casts its operands to the
+policy's compute dtype and its result to the output dtype, as the JAX
+layer does; the float32 bias then promotes a bf16 result back to
+float32. ``EmbeddingLayer``, ``AutoEncoder`` and ``RBM`` are not ported
+yet."""
 
 from __future__ import annotations
 
@@ -8,11 +13,66 @@ import dataclasses
 
 import torch
 
+from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
+from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
+                                                          FeedForwardLayer,
+                                                          Layer,
                                                           register_layer)
 
-__all__ = ["EmbeddingSequenceLayer", "embedding_lookup"]
+__all__ = ["DenseLayer", "ActivationLayer", "DropoutLayer",
+           "EmbeddingSequenceLayer", "embedding_lookup"]
+
+
+@register_layer
+@dataclasses.dataclass
+class DenseLayer(FeedForwardLayer):
+    """Fully connected layer; on (B, T, C) input the product is per
+    timestep, on a 4-d input it flattens first."""
+
+    def initialize(self, generator, input_type: InputType):
+        self.set_n_in(input_type)
+        p = {"W": self._sample_w(generator, (self.n_in, self.n_out),
+                                 self.n_in, self.n_out)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), float(self.bias_init),
+                                dtype=dtypes.policy().param_dtype)
+        return p, {}
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        x = self.apply_input_dropout(x, training=training,
+                                     generator=generator)
+        if x.dim() > 2 and x.shape[-1] != params["W"].shape[0]:
+            x = x.reshape(x.shape[0], -1)
+        pol = dtypes.policy()
+        y = pol.cast_to_output(pol.cast_to_compute(x)
+                               @ pol.cast_to_compute(params["W"]))
+        if self.has_bias:
+            y = y + params["b"]
+        return self.activation_fn()(y), state
+
+
+@register_layer
+@dataclasses.dataclass
+class ActivationLayer(BaseLayer):
+    """The activation alone."""
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        return self.activation_fn()(x), state
+
+
+@register_layer
+@dataclasses.dataclass
+class DropoutLayer(Layer):
+    """Inverted dropout of its input at training time, identity
+    otherwise."""
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        return self.apply_input_dropout(x, training=training,
+                                        generator=generator), state
 
 
 def embedding_lookup(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -64,7 +64,13 @@ class OutputLayer(FeedForwardLayer):
                                      generator=generator)
         if x.dim() > 2 and not isinstance(self, RnnOutputLayer):
             x = x.reshape(x.shape[0], -1)
-        z = x @ params["W"]
+        W = params["W"]
+        if x.dtype != W.dtype:
+            # jnp's promotion: a bf16 input meets float32 weights in
+            # float32 (torch's matmul takes one dtype)
+            dt = torch.promote_types(x.dtype, W.dtype)
+            x, W = x.to(dt), W.to(dt)
+        z = x @ W
         if self.has_bias:
             z = z + params["b"]
         return z

@@ -29,7 +29,7 @@ import torch
 
 __all__ = ["to_transform", "make_schedule", "apply_updates", "tree_map",
            "tree_leaves", "multi_transform", "chain", "clip_by_global_norm",
-           "clip",
+           "clip", "with_gradient_clip",
            "sgd", "adam", "adamax", "nesterovs", "adagrad", "adadelta",
            "rmsprop", "noop", "amsgrad", "nadam"]
 
@@ -307,11 +307,30 @@ def clip(max_delta: float) -> Transform:
                                                     max_delta), g), s))
 
 
-def multi_transform(transforms: dict, labels: list) -> Transform:
-    """optax.multi_transform with one label per layer: each transform
-    sees only its layers' params (the others are empty dicts, where
-    optax has masked leaves, so the flattened keys agree)."""
+def with_gradient_clip(opt: Transform, cfg: Optional[dict]) -> Transform:
+    """``opt`` behind the config's ``gradient_clip`` (``{"type": "norm" |
+    "value", "v": x}``), as the JAX executors chain optax's clip in
+    front; ``opt`` itself without one."""
+    if cfg is None:
+        return opt
+    if cfg["type"] == "norm":
+        return chain(clip_by_global_norm(cfg["v"]), opt)
+    if cfg["type"] == "value":
+        return chain(clip(cfg["v"]), opt)
+    raise ValueError(cfg)
+
+
+def multi_transform(transforms: dict, labels) -> Transform:
+    """optax.multi_transform with one label per layer: ``labels`` is a
+    list (a network's per-layer list of params) or a dict (a graph's
+    params by vertex name). Each transform sees only its layers' params
+    (the others are empty dicts, where optax has masked leaves, so the
+    flattened keys agree)."""
+    keys = list(labels) if isinstance(labels, dict) else range(len(labels))
+
     def masked(tree, name):
+        if isinstance(labels, dict):
+            return {k: (tree[k] if labels[k] == name else {}) for k in keys}
         return [t if lab == name else {} for t, lab in zip(tree, labels)]
 
     def init(params):
@@ -320,7 +339,8 @@ def multi_transform(transforms: dict, labels: list) -> Transform:
             for name, t in transforms.items()}}
 
     def update(g, state, params=None):
-        out = [{} for _ in g]
+        out = {k: {} for k in keys} if isinstance(labels, dict) \
+            else [{} for _ in g]
         inner = {}
         for name, t in transforms.items():
             u, s = t.update(masked(g, name),
@@ -328,9 +348,9 @@ def multi_transform(transforms: dict, labels: list) -> Transform:
                             None if params is None
                             else masked(params, name))
             inner[name] = {".inner_state": s}
-            for i, lab in enumerate(labels):
-                if lab == name:
-                    out[i] = u[i]
+            for k in keys:
+                if labels[k] == name:
+                    out[k] = u[k]
         return out, {".inner_states": inner}
     return Transform(init, update)
 

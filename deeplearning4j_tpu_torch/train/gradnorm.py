@@ -61,14 +61,17 @@ def normalize_layer_gradients(grads, kind: str, threshold: float):
 
 def apply_gradient_normalization(layers, grads):
     """Each layer's configured normalization on its grad dict.
-    ``layers``: layer configs; ``grads``: the matching list of per-layer
+    ``layers``: layer configs, a list (a network's) or a dict by vertex
+    name (a graph's); ``grads``: the matching list or dict of per-layer
     dicts."""
-    out = []
-    for cfg, g in zip(layers, grads):
+    def one(cfg, g):
         kind = getattr(cfg, "gradient_normalization", None)
         if kind:
             g = normalize_layer_gradients(
                 g, kind,
                 getattr(cfg, "gradient_normalization_threshold", 1.0))
-        out.append(g)
-    return out
+        return g
+
+    if isinstance(grads, dict):
+        return {name: one(layers[name], g) for name, g in grads.items()}
+    return [one(cfg, g) for cfg, g in zip(layers, grads)]

@@ -3,9 +3,12 @@ written by the port (counterpart of
 ``deeplearning4j_tpu/util/model_serializer.py``).
 
 The zip holds ``configuration.json``, ``coefficients.npz`` (arrays keyed
-by their path in the params structure, e.g. ``1/attn/Wq``, ``3/b``),
-``updater_state.npz`` (the updater's state under optax's own paths,
-e.g. ``0/.count``, ``0/.mu/1/attn/Wq``), ``state.npz``,
+by their path in the params structure: ``1/attn/Wq``, ``3/b`` for a
+MultiLayerNetwork's list, ``stem_conv/W``, ``stem_bn/gamma`` for a
+ComputationGraph's dict by vertex name), ``updater_state.npz`` (the
+updater's state under optax's own paths, e.g. ``0/.count``,
+``0/.mu/1/attn/Wq``), ``state.npz`` (batch-norm statistics, e.g.
+``stem_bn/mean``),
 ``metadata.json`` and ``manifest.json`` (CRC32 of every other entry).
 A zip either package writes restores in the other, and training
 resumes from it in either. A zip whose updater state does not fit the
@@ -21,7 +24,7 @@ import io
 import json
 import zipfile
 import zlib
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Union
 
 import numpy as np
 import torch
@@ -61,22 +64,26 @@ def _save_npz(tree) -> bytes:
     return buf.getvalue()
 
 
-def params_from_jax(params: List[Dict[str, Any]], *, device="cuda"
-                    ) -> List[Dict[str, Any]]:
-    """The JAX package's params (a list of nested ``{name: array}``
-    dicts, numpy or jax arrays) as the port's: float32 tensors on
-    ``device``. This is the one place the weight layout could change;
-    it does not: both packages keep ``W`` as ``(n_in, n_out)`` for
-    ``x @ W``."""
+def params_from_jax(params: Union[List[Dict[str, Any]], Dict[str, Any]],
+                    *, device="cuda"):
+    """The JAX package's params or state (a MultiLayerNetwork's list of
+    nested ``{name: array}`` dicts, or a ComputationGraph's dict of them
+    by vertex name; numpy or jax arrays) as the port's: float32 tensors
+    on ``device``, in the same structure. This is the one place the
+    weight layout could change; it does not: both packages keep dense
+    ``W`` as ``(n_in, n_out)`` for ``x @ W`` and conv ``W`` as HWIO
+    (the port re-lays a conv kernel per call, not here)."""
     from deeplearning4j_tpu_torch.device import resolve_device
     dev = resolve_device(device)
 
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
         return torch.as_tensor(np.array(tree, np.float32), device=dev)
 
-    return [conv(p) for p in params]
+    return conv(params)
 
 
 def _unflatten_like(flat: Dict[str, np.ndarray], template, prefix=""):
@@ -116,12 +123,13 @@ def _tensors_like(tree, template):
 
 
 def write_model(model, path: str) -> None:
-    """Write ``model`` (a port MultiLayerNetwork) as a checkpoint zip,
-    with its updater state when it has one."""
+    """Write ``model`` (a port MultiLayerNetwork or ComputationGraph) as
+    a checkpoint zip, with its updater state when it has one."""
     entries: Dict[str, bytes] = {
         "configuration.json": model.conf.to_json().encode(),
         "coefficients.npz": _save_npz(model.params),
-        "state.npz": _save_npz(model.state or []),
+        "state.npz": _save_npz(model.state if model.state is not None
+                               else []),
     }
     if model.opt_state is not None:
         entries["updater_state.npz"] = _save_npz(model.opt_state)
@@ -190,11 +198,16 @@ def verify_checkpoint(path: str) -> dict:
 
 
 def restore_model(path: str, *, device="cuda"):
-    """Rebuild a MultiLayerNetwork from a checkpoint zip (written by
-    either package) on ``device``, with its updater state when the zip
-    has one that fits the config's updater."""
+    """Rebuild a MultiLayerNetwork or ComputationGraph from a
+    checkpoint zip (written by either package) on ``device``, with its
+    updater state when the zip has one that fits the config's
+    updater."""
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
         MultiLayerConfiguration)
 
@@ -204,13 +217,12 @@ def restore_model(path: str, *, device="cuda"):
     with zipfile.ZipFile(path, "r") as z:
         meta = json.loads(z.read("metadata.json"))
         cfg = json.loads(z.read("configuration.json"))
-        if cfg.get("network_type", "MultiLayerNetwork") \
-                != "MultiLayerNetwork":
-            raise NotImplementedError(
-                f"{cfg['network_type']} is not ported to "
-                "deeplearning4j_tpu_torch yet")
-        model = MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
-                                  device=device)
+        if cfg.get("network_type") == "ComputationGraph":
+            model = ComputationGraph(
+                ComputationGraphConfiguration.from_dict(cfg), device=device)
+        else:
+            model = MultiLayerNetwork(
+                MultiLayerConfiguration.from_dict(cfg), device=device)
         # the config's own params give the structure and shapes to check
         template, state_template = model._sample_params(0)
         arrays = {}

@@ -1,0 +1,77 @@
+"""Parameter-tree helpers (counterpart of
+``deeplearning4j_tpu/util/tree.py``).
+
+A tree is nested lists and dicts of tensors. Leaves are visited as
+``jax.tree_util`` visits them (list items in order, dict keys sorted),
+so a flat vector holds the same values, index for index, as the JAX
+package's for the same params.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["tree_copy", "tree_to_device", "tree_flat_vector",
+           "tree_from_flat_vector"]
+
+
+def _sorted_leaves(tree):
+    """The leaves of ``tree`` in ``jax.tree_util.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sorted_leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _sorted_leaves(v)
+    else:
+        yield tree
+
+
+def tree_copy(tree):
+    """Copies of every tensor leaf (detached, same device)."""
+    if isinstance(tree, dict):
+        return {k: tree_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_copy(v) for v in tree]
+    return tree.detach().clone()
+
+
+def tree_to_device(tree, device):
+    """The tree with every tensor leaf moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def tree_flat_vector(tree) -> np.ndarray:
+    """All leaves concatenated into one flat host vector (the
+    reference's flat params view)."""
+    leaves = [np.asarray(l.detach().cpu()).ravel()
+              for l in _sorted_leaves(tree)]
+    if not leaves:
+        return np.zeros((0,))
+    return np.concatenate(leaves)
+
+
+def tree_from_flat_vector(tree, flat):
+    """Inverse of :func:`tree_flat_vector`: a tree with the template's
+    structure, shapes, dtypes and devices, filled from ``flat``."""
+    flat = np.asarray(flat)
+    off = 0
+
+    def fill(t):
+        nonlocal off
+        if isinstance(t, dict):
+            return {k: fill(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [fill(v) for v in t]
+        n = t.numel()
+        out = torch.as_tensor(flat[off:off + n], dtype=t.dtype,
+                              device=t.device).reshape(t.shape)
+        off += n
+        return out
+
+    return fill(tree)

@@ -179,10 +179,17 @@ def test_unported_layer_type_is_named(jax_lm):
 
 
 def test_preprocessor_is_not_ported_yet(jax_lm):
+    # preprocessors are ported now (ROADMAP A5a): a config's
+    # preprocessor loads and writes back as the JAX package wrote it,
+    # and an unknown one is named
     d = json.loads(jax_lm.conf.to_json())
     d["preprocessors"] = {"1": {"@type": "RnnToFeedForwardPreProcessor"}}
-    with pytest.raises(NotImplementedError,
-                       match="RnnToFeedForwardPreProcessor"):
+    conf = MultiLayerConfiguration.from_dict(d)
+    assert type(conf.preprocessors[1]).__name__ == \
+        "RnnToFeedForwardPreProcessor"
+    assert conf.to_dict()["preprocessors"] == d["preprocessors"]
+    d["preprocessors"] = {"1": {"@type": "NotAPreProcessor"}}
+    with pytest.raises(ValueError, match="NotAPreProcessor"):
         MultiLayerConfiguration.from_dict(d)
 
 
@@ -295,7 +302,10 @@ def test_port_imports_no_jax():
         "'observability.flight_recorder', 'observability.fleetobs', "
         "'serving.metrics', 'serving.tiers', 'chaos.injector', "
         "'chaos.retry', 'observability.compile_watch', "
-        "'serving.warmup'):\n"
+        "'serving.warmup', 'models.computation_graph', 'nn.conf.graph', "
+        "'nn.conf.graph_conf', 'nn.conf.preprocessors', "
+        "'nn.conf.layers.convolutional', 'nn.conf.layers.pooling', "
+        "'evaluation.classification', 'zoo.models', 'util.tree'):\n"
         "    assert p.__name__ + '.' + new in sys.modules, new\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
