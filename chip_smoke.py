@@ -44,7 +44,19 @@ policy (step times, images/s, the bound from the config's FLOPs, a
 profiled step by kernel family, batch norm, updater and weight
 re-layout timed alone, peak memory), serves the trained ResNet50 from
 a written and restored zip through ``/v1/predict``, and trains LeNet
-on MultiLayerNetwork (step time, accuracy). It
+on MultiLayerNetwork (step time, accuracy). Then (``rnn_phase``) it
+trains ``bench.py``'s GravesLSTM char-RNN uncut (B=32, T=64, vocab 80,
+2 x GravesLSTM(256), RMSProp): step time, chars/s, the share of the
+bound, kernels a step, device time by family, idle share and peak
+memory from a profiled step, the cuDNN LSTM beside one port GravesLSTM
+layer, 200 steps on a learnable text to accuracy > 0.9; trains it under
+tBPTT (4 chunks a batch) and holds a small tBPTT batch on the card
+against the CPU; decodes it greedily three ways (``rnn_time_step``, a
+streaming session, ``output``) to equal ids and through a zip; serves
+it (``/v1/predict``) and an embedding char-RNN LM (``/v1/generate``, 16
+concurrent requests on the dense slot session, greedy ids against lone
+decodes); and streams a GravesLSTM + transformer stack through the
+decode kernel against ``output`` on the flash forward kernel. It
 imports nothing of JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -164,7 +176,10 @@ def kernel_phase(attn):
              # the fleet phase's predicts (one-row batches of 128 ids)
              ((8, 128, HEADS, 64), True, None, "predict T=128, causal"),
              ((8, 128, HEADS, 64), False, None,
-              "predict T=128, non-causal")]
+              "predict T=128, non-causal"),
+             # rnn_phase's hybrid check (4 heads of 64)
+             ((HYBRID_B, HYBRID_T, 4, 64), True, None,
+              "hybrid T=256, 4 heads, causal")]
     max_err = 0.0
     for shape, causal, mask, what in cases:
         q, k, v = rand(*shape), rand(*shape), rand(*shape)
@@ -224,7 +239,7 @@ def backward_bound(B, T_, H, D, causal, which):
 
 def backward_kernel_phase(attn):
     """Hold the dq and dk/dv kernels against their plain versions on the
-    card in the forward's seven cases; time them at the LM shape.
+    card in the forward's cases; time them at the LM shape.
     Returns their records (without launches)."""
     import torch
     import torch.nn.functional as F
@@ -247,7 +262,10 @@ def backward_kernel_phase(attn):
              # the fleet phase's predicts (one-row batches of 128 ids)
              ((8, 128, HEADS, 64), True, None, "predict T=128, causal"),
              ((8, 128, HEADS, 64), False, None,
-              "predict T=128, non-causal")]
+              "predict T=128, non-causal"),
+             # rnn_phase's hybrid check (4 heads of 64)
+             ((HYBRID_B, HYBRID_T, 4, 64), True, None,
+              "hybrid T=256, 4 heads, causal")]
     err = {"dq": 0.0, "dkv": 0.0}
     for shape, causal, mask, what in cases:
         q, k, v, do = (rand(*shape) for _ in range(4))
@@ -707,11 +725,11 @@ def decode_bound(S, t, H, D, pos, P):
     return bound(4.0 * D * pairs, nbytes)
 
 
-def paged_inputs(g, S, t, D, pos, ps=PAGE, P=CAPACITY // PAGE):
+def paged_inputs(g, S, t, D, pos, ps=PAGE, P=CAPACITY // PAGE, H=HEADS):
     """q, pools and a shuffled page table (pages 1..S*P; 0 is scratch) for
-    slots at ``pos``, with HEADS heads."""
+    slots at ``pos``, with H heads."""
     import torch
-    N, H = S * P + 1, HEADS
+    N = S * P + 1
     kp = torch.randn(N, ps, H, D, device="cuda", generator=g)
     vp = torch.randn(N, ps, H, D, device="cuda", generator=g)
     q = torch.randn(S, t, H, D, device="cuda", generator=g)
@@ -724,7 +742,8 @@ def decode_kernel_phase(da):
     """Hold the paged decode-attention kernel against its plain version
     on the card at D = 32, 64, 128 (page edges, chunk edges of the split
     kernel with positions read from device memory, t = 1, 4, 16 and 128,
-    a shared prefix, a dense cache, an inactive slot), check that two
+    a shared prefix, a dense cache, an inactive slot, and at D = 64 the
+    hybrid check's dense cache of 4 rows x 256, 4 heads), check that two
     launches on the same inputs give the same bits, and time it at the
     decode shape (S=8 slots, H=16, D=64, t=1, every slot at position 511
     of a 1024-token page table of 16-token pages). Returns its record
@@ -760,6 +779,14 @@ def decode_kernel_phase(da):
         cases.append(("dense cache, page_size = capacity", q, kp, vp,
                       torch.arange(3, dtype=torch.int32,
                                    device="cuda")[:, None], pos))
+        if D == 64:
+            # rnn_phase's hybrid: its dense session's 4 rows, 4 heads
+            for at in ([0] * 4, [HYBRID_T - 1] * 4, [0, 127, 128, 255]):
+                q, kp, vp, _, pos = paged_inputs(
+                    g, HYBRID_B, 1, D, at, ps=HYBRID_T, P=1, H=4)
+                cases.append(("hybrid dense cache of 256, 4 heads", q, kp,
+                              vp, torch.arange(HYBRID_B, dtype=torch.int32,
+                                               device="cuda")[:, None], pos))
         for what, q, kp, vp, table, pos in cases:
             host = pos.cpu()
             o = da.decode_attention_cuda(q, kp, vp, table, pos,
@@ -2376,8 +2403,8 @@ def resnet_card_vs_cpu():
         seen = {}
         grads_of = net._gradients
 
-        def spy(batch):
-            seen["out"] = grads_of(batch)
+        def spy(batch, carries=None):
+            seen["out"] = grads_of(batch, carries)
             return seen["out"]
         net._gradients = spy
         scope = (dtypes.policy_scope(dtypes.tpu_bf16()) if policy == "bf16"
@@ -2385,7 +2412,7 @@ def resnet_card_vs_cpu():
         with scope, torch.backends.mkldnn.flags(enabled=onednn):
             net.fit(DataSet(xx, yy))
             acts = net.feed_forward(xx[:2])
-        loss, grads, new_state = seen["out"]
+        loss, grads, (new_state, _) = seen["out"]
         return {"loss": np.array([loss.item()]),
                 **{"grad/" + k: v for k, v in _flatten(grads).items()},
                 **{"state/" + k: v for k, v in _flatten(new_state).items()},
@@ -2583,6 +2610,618 @@ def cnn_phase(card):
         "lenet": lenet}))
 
 
+CHAR_B, CHAR_T, CHAR_V, CHAR_H = 32, 64, 80, 256   # bench.py:381-386
+CHAR_WARM_STEPS = 20       # timed warm steps, after one untimed
+CHAR_LEARN_STEPS = 200     # steps on the learnable text
+# the learnable text: a fixed random permutation of this many of the
+# CHAR_V symbols, repeated. A permutation of all CHAR_V is run too and
+# its accuracy printed: at the leg's RMSProp 1e-3 neither the port nor
+# the JAX package (rnn_learn_reference.py) learns it in 200 steps
+LEARN_SYMBOLS = 20
+# forward FLOPs a character (bench.py:588-593): two GravesLSTM layers'
+# gate products and the output layer; a training step is 3x that
+CHAR_FLOPS_PER_CHAR = (2 * 4 * CHAR_H * (CHAR_V + CHAR_H)
+                       + 2 * 4 * CHAR_H * (CHAR_H + CHAR_H)
+                       + 2 * CHAR_H * CHAR_V)
+TBPTT_FWD = 16             # 4 chunks of the leg's T=64
+# the tBPTT step on the card vs the CPU: B, T, width (vocab CHAR_V)
+RNN_CHECK_B, RNN_CHECK_T, RNN_CHECK_H = 8, 32, 64
+STREAM_B, STREAM_CHARS, STREAM_CAPACITY = 4, 64, 128
+RNN_SLOTS, RNN_CAPACITY = 8, 128           # the served char-RNN LM
+RNN_PROMPT_MIN, RNN_PROMPT_MAX = 8, 48
+HYBRID_B, HYBRID_T = 4, 256
+
+
+def char_rnn_conf(hidden=None, tbptt=None, embed=False):
+    """bench.py:395-401's char-RNN: two GravesLSTM(hidden, tanh) and an
+    RnnOutputLayer (mcxent) over CHAR_V one-hot symbols, RMSProp 1e-3,
+    seed 0; with ``embed``, ids in through an EmbeddingSequenceLayer
+    (tests/test_decode_paged.py's ``_rnn_lm`` at the leg's widths)."""
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        EmbeddingSequenceLayer, GravesLSTM, RnnOutputLayer)
+    hidden = hidden or CHAR_H
+    b = (NeuralNetConfiguration.builder().set_seed(0)
+         .updater(updaters.rmsprop(1e-3)))
+    if tbptt is not None:
+        b = b.backprop_type("tbptt", fwd_length=tbptt)
+    b = b.list()
+    if embed:
+        b = b.layer(EmbeddingSequenceLayer(n_in=CHAR_V, n_out=hidden))
+    return (b.layer(GravesLSTM(n_out=hidden, activation="tanh"))
+            .layer(GravesLSTM(n_out=hidden, activation="tanh"))
+            .layer(RnnOutputLayer(n_out=CHAR_V, loss="mcxent"))
+            .set_input_type(InputType.recurrent(CHAR_V, CHAR_T)).build())
+
+
+def char_batch(ids, device):
+    """(one-hot inputs, one-hot next-symbol labels) of (B, T + 1) ids."""
+    import torch
+    ids = torch.as_tensor(ids, device=device)
+    oh = torch.nn.functional.one_hot(ids, CHAR_V).float()
+    return oh[:, :-1], oh[:, 1:]
+
+
+def rnn_family(name):
+    """A CUDA kernel of the char-RNN step by family, from its name."""
+    n = name.lower()
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "splitk")):
+        return "gemm (cuBLAS)"
+    if "reduce" in n:
+        return "reductions (loss, bias grads)"
+    if "copy" in n or "cat" in n:
+        return "copies (stack, cat, slices)"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise (gates, updater)"
+    return "other"
+
+
+def profile_rnn_step(net, ds):
+    """One warm char-RNN step under torch.profiler: device ms by kernel
+    family, kernels and host launch calls a step, busy and wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, kernels = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        fam = rnn_family(evt.key)
+        fams[fam] = fams.get(fam, 0.0) + evt.self_device_time_total / 1e3
+        kernels += evt.count
+    launch_calls = sum(sync_calls(prof, LAUNCH_CALLS).values())
+    busy = sum(fams.values())
+    assert busy > 0, "profiler recorded no device time"
+    return {"families": fams, "kernels": kernels,
+            "launch_calls": launch_calls, "busy_ms": busy,
+            "wall_ms": wall_ms, "idle": max(0.0, 1 - busy / wall_ms)}
+
+
+def char_rnn_train(card):
+    """bench.py:381-418's char-RNN uncut through ``fit``: 1 untimed,
+    CHAR_WARM_STEPS timed (CUDA events) and 1 profiled step on
+    ``default_rng(0)`` ids, and the cuDNN LSTM yardstick. Returns its
+    numbers."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    net = MultiLayerNetwork(char_rnn_conf(), device="cuda").init()
+    n_params = net.num_params()
+    rng = np.random.default_rng(0)                      # bench.py:398-401
+    ids = rng.integers(0, CHAR_V, (CHAR_B, CHAR_T))
+    x = np.eye(CHAR_V, dtype="float32")[ids]
+    y = np.eye(CHAR_V, dtype="float32")[np.roll(ids, -1, axis=1)]
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()    # what earlier phases still hold
+    t0 = time.perf_counter()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    steps = []
+    for _ in range(CHAR_WARM_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit(ds)
+        e1.record()
+        torch.cuda.synchronize()
+        steps.append(e0.elapsed_time(e1))
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    loss = float(net.score_value)
+    assert math.isfinite(loss)
+    med = sorted(steps)[len(steps) // 2]
+    flops = 3 * CHAR_FLOPS_PER_CHAR * CHAR_B * CHAR_T
+    bound_ms = flops / PEAK_F32_FLOPS * 1e3
+    prof = profile_rnn_step(net, ds)
+    log(f"char-RNN training (bench.py:381-418 uncut: B={CHAR_B}, "
+        f"T={CHAR_T}, vocab {CHAR_V}, 2 x GravesLSTM({CHAR_H}), RMSProp "
+        f"1e-3, {n_params} params, {card}): first step {first_s:.3f} s; "
+        f"{CHAR_WARM_STEPS} warm steps (CUDA events) median {med:.3f} ms, "
+        f"min {min(steps):.3f}, max {max(steps):.3f} = "
+        f"{CHAR_B * CHAR_T / med * 1e3:.0f} chars/s; bound {bound_ms:.4f} ms"
+        f" ({flops / 1e9:.3f} GFLOP at the f32 CUDA-core "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s): {100 * bound_ms / med:.2f}%"
+        f" of it; peak device memory {peak_gib:.3f} GiB above what was "
+        f"allocated before; loss {loss:.4f}")
+    log(f"char-RNN step under torch.profiler (one warm step): "
+        f"{prof['kernels']} kernels, {prof['launch_calls']} host launch "
+        f"calls; device " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / prof['busy_ms']:.1f}%)"
+            for k, v in sorted(prof["families"].items(),
+                               key=lambda kv: -kv[1]))
+        + f"; busy {prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+          f"wall under the profiler, idle {100 * prof['idle']:.1f}%; of the "
+          f"unprofiled median step, idle "
+          f"{100 * max(0.0, 1 - prof['busy_ms'] / med):.1f}%")
+    return {"step_ms": med, "idle_unprofiled": max(0.0, 1 - prof["busy_ms"]
+                                                   / med), "steps_ms": steps,
+            "chars_s": CHAR_B * CHAR_T / med * 1e3, "bound_ms": bound_ms,
+            "bound_share": bound_ms / med, "first_s": first_s,
+            "peak_gib": peak_gib, "kernels": prof["kernels"],
+            "launch_calls": prof["launch_calls"], "busy_ms": prof["busy_ms"],
+            "wall_ms": prof["wall_ms"], "idle": prof["idle"],
+            **lstm_yardstick(card)}
+
+
+def learn_data(symbols, seed=0):
+    """The learning run's data, numpy only (``rnn_learn_reference.py``
+    draws the same): a text that repeats a fixed random permutation of
+    ``symbols`` of the CHAR_V symbols (the current symbol decides the
+    next), the offsets of 64 held-out windows, and the generator of each
+    step's CHAR_B window offsets."""
+    import numpy as np
+    syms = np.random.default_rng(1 + seed).permutation(CHAR_V)
+    text = np.tile(syms[:symbols], 64 * CHAR_V // symbols)
+    held = np.random.default_rng(3 + seed).integers(
+        0, len(text) - CHAR_T - 1, 64)
+    return text, held, np.random.default_rng(2 + seed)
+
+
+def windows(text, offsets):
+    """(len(offsets), CHAR_T + 1) ids: the text's windows at ``offsets``."""
+    import numpy as np
+    return np.stack([text[o:o + CHAR_T + 1] for o in offsets])
+
+
+def char_rnn_learn(card, symbols):
+    """A fresh char-RNN (the leg's config) for CHAR_LEARN_STEPS steps on
+    windows of ``learn_data(symbols)``'s text. Returns (the trained net,
+    the text, the first and last step's loss and next-symbol accuracy on
+    the 64 held-out windows)."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    net = MultiLayerNetwork(char_rnn_conf(), device="cuda").init()
+    text, held, rng = learn_data(symbols)
+    span = len(text) - CHAR_T - 1
+    hx, hy = char_batch(windows(text, held), "cuda")
+
+    def accuracy():
+        return float((net.output(hx).argmax(-1) == hy.argmax(-1))
+                     .float().mean())
+    before = accuracy()
+    losses, accs = [], []
+    t0 = time.perf_counter()
+    for k in range(CHAR_LEARN_STEPS):
+        net.fit(DataSet(*char_batch(
+            windows(text, rng.integers(0, span, CHAR_B)), "cuda")))
+        if k in (0, CHAR_LEARN_STEPS - 1):
+            losses.append(float(net.score_value))
+        if k % 25 == 24:
+            accs.append(round(accuracy(), 4))
+    learn_s = time.perf_counter() - t0
+    acc = accuracy()
+    log(f"char-RNN learning ({card}): {CHAR_LEARN_STEPS} steps in "
+        f"{learn_s:.2f} s on a permutation of {symbols} of the {CHAR_V} "
+        f"symbols repeated; loss {losses[0]:.4f} at step 1, "
+        f"{losses[1]:.4f} at step {CHAR_LEARN_STEPS}; next-symbol accuracy "
+        f"on 64 held-out windows {before:.4f} before, every 25 steps "
+        f"{accs}, {acc:.4f} after")
+    assert losses[1] < losses[0], losses
+    return net, text, {"learn_loss": losses, "accuracy": acc,
+                       "learn_s": learn_s}
+
+
+def lstm_yardstick(card):
+    """torch.nn.LSTM (cuDNN, float32, no peepholes) forward + backward at
+    B=CHAR_B, T=CHAR_T, CHAR_H -> CHAR_H, beside one port GravesLSTM
+    layer at the same shapes (CUDA events; a measurement only, used on
+    no path)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTM
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xin = torch.randn(CHAR_B, CHAR_T, CHAR_H, generator=g, device="cuda",
+                      requires_grad=True)
+    lstm = torch.nn.LSTM(CHAR_H, CHAR_H, batch_first=True).cuda()
+    weights = [xin] + list(lstm.parameters())
+
+    def cudnn():
+        y, _ = lstm(xin)
+        torch.autograd.grad(y.sum(), weights)
+    layer = GravesLSTM(n_in=CHAR_H, n_out=CHAR_H, activation="tanh")
+    p, _ = layer.initialize(torch.Generator().manual_seed(0),
+                            InputType.recurrent(CHAR_H))
+    p = {k: v.cuda().requires_grad_() for k, v in p.items()}
+
+    def ours():
+        y, _ = layer.apply(p, {}, xin)
+        torch.autograd.grad(y.sum(), [xin] + list(p.values()))
+    cudnn_ms = time_ms(cudnn, iters=20, warmup=3)
+    ours_ms = time_ms(ours, iters=10, warmup=2)
+    flops = 3 * 2 * 4 * CHAR_H * (CHAR_H + CHAR_H) * CHAR_B * CHAR_T
+    bound_ms = flops / PEAK_F32_FLOPS * 1e3
+    log(f"one recurrent layer forward + backward, B={CHAR_B}, T={CHAR_T}, "
+        f"{CHAR_H}->{CHAR_H}, f32 ({card}): torch.nn.LSTM (cuDNN, no "
+        f"peepholes) {cudnn_ms:.3f} ms; the port's GravesLSTM (plain ops) "
+        f"{ours_ms:.3f} ms; bound {bound_ms:.4f} ms ({flops / 1e9:.3f} "
+        "GFLOP at the f32 CUDA-core peak)")
+    return {"cudnn_lstm_ms": cudnn_ms, "graves_layer_ms": ours_ms,
+            "layer_bound_ms": bound_ms}
+
+
+def tbptt_card_vs_cpu(card):
+    """One tBPTT batch (B=RNN_CHECK_B, T=RNN_CHECK_T in chunks of
+    TBPTT_FWD, width RNN_CHECK_H, vocab CHAR_V) on the card held against
+    the same batch on the CPU, leaf by leaf (each chunk's loss, the
+    params and the RMSProp state after the batch), in L2, within
+    F32_FACTOR times the CPU's own largest difference over three reruns
+    with the rows reordered and/or oneDNN off, plus FLOOR_RTOL of the
+    leaf's norm (``_leaf_errors``, as ``resnet_card_vs_cpu``)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    conf = char_rnn_conf(RNN_CHECK_H, tbptt=TBPTT_FWD)
+    params0 = MultiLayerNetwork(conf, device="cpu").init().params
+    ids = np.random.default_rng(4).integers(
+        0, CHAR_V, (RNN_CHECK_B, RNN_CHECK_T + 1))
+    chunks = RNN_CHECK_T // TBPTT_FWD
+
+    def run(device, roll=0, onednn=True):
+        net = MultiLayerNetwork(conf, device=device)
+        net.set_params(params0)
+        net._build_optimizer()
+        losses = []
+        step = net._train_step
+
+        def spy(batch, carries=None):
+            out = step(batch, carries)
+            losses.append(out[0])
+            return out
+        net._train_step = spy
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            net.fit(DataSet(*char_batch(np.roll(ids, roll, axis=0),
+                                        device)))
+        assert net.iteration_count == chunks
+        return {**{f"loss/{i}": np.array([float(v)])
+                   for i, v in enumerate(losses)},
+                **{"param/" + k: v for k, v in _flatten(net.params).items()},
+                **{"opt/" + k: v for k, v in _flatten(net.opt_state).items()}}
+    cpu = run("cpu")
+    reruns = [run("cpu", roll, onednn)
+              for roll, onednn in ((3, False), (5, True), (0, False))]
+    card_out = run("cuda")
+    rows = _leaf_errors(card_out, cpu, reruns, F32_FACTOR)
+    log(f"tBPTT batch on the card vs the CPU (B={RNN_CHECK_B}, "
+        f"T={RNN_CHECK_T} in {chunks} chunks of {TBPTT_FWD}, width "
+        f"{RNN_CHECK_H}, {card}): chunk losses "
+        + ", ".join(f"{card_out[f'loss/{i}'][0]:.6f} vs "
+                    f"{cpu[f'loss/{i}'][0]:.6f}" for i in range(chunks))
+        + f"; {len(cpu)} leaves; L2 |card - cpu| / ({F32_FACTOR:g} x the "
+          f"CPU's largest rerun difference + {FLOOR_RTOL:g} x |cpu|), worst "
+          "three: " + "; ".join(f"{k} {r:.3f} ({e:.3e} of {lim:.3e})"
+                                for r, k, e, lim in rows[:3]) + " (limit 1)")
+    assert rows[0][0] <= 1.0, rows[:3]
+    return rows[0][0]
+
+
+def char_rnn_tbptt(card):
+    """The leg's config under backprop_type("tbptt", fwd_length=16) at
+    T=64: one batch is 4 chunks, 4 updater steps and 4 iterations."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    net = MultiLayerNetwork(char_rnn_conf(tbptt=TBPTT_FWD),
+                            device="cuda").init()
+    ds = DataSet(*char_batch(np.random.default_rng(5).integers(
+        0, CHAR_V, (CHAR_B, CHAR_T + 1)), "cuda"))
+    chunks = CHAR_T // TBPTT_FWD
+    net.fit(ds)
+    assert net.iteration_count == chunks, net.iteration_count
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    net.fit(ds)
+    e1.record()
+    torch.cuda.synchronize()
+    assert net.iteration_count == 2 * chunks, net.iteration_count
+    assert math.isfinite(float(net.score_value))
+    ms = e0.elapsed_time(e1)
+    log(f"char-RNN under tBPTT (fwd_length {TBPTT_FWD}, T={CHAR_T}, "
+        f"B={CHAR_B}, {card}): {chunks} iterations a batch; a warm batch "
+        f"{ms:.3f} ms ({ms / chunks:.3f} ms a chunk)")
+    worst = tbptt_card_vs_cpu(card)
+    return {"tbptt_batch_ms": ms, "tbptt_worst_leaf": worst}
+
+
+def char_rnn_stream(net, text, card):
+    """On the trained net: STREAM_CHARS greedy symbols at B=STREAM_B three
+    ways (``rnn_time_step`` a symbol a call, a streaming session's
+    ``step``, ``output`` of the whole growing sequence), equal ids; then
+    a written and restored zip whose ``output`` is bit-equal."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+
+    def onehot(ids):
+        return F.one_hot(ids, CHAR_V).float()
+    start = torch.as_tensor(text[[0, 7, 13, 18]]).cuda()
+    t0 = time.perf_counter()
+    net.rnn_clear_previous_state()
+    cur, a = start, []
+    for _ in range(STREAM_CHARS):
+        cur = net.rnn_time_step(onehot(cur)).argmax(-1)
+        a.append(cur)
+    sess = net.streaming_session(capacity=STREAM_CAPACITY, batch=STREAM_B)
+    cur, b = start, []
+    for _ in range(STREAM_CHARS):
+        cur = sess.step(onehot(cur)).argmax(-1)
+        b.append(cur)
+    seq, c = start[:, None], []
+    for _ in range(STREAM_CHARS):
+        nxt = net.output(onehot(seq))[:, -1].argmax(-1)
+        c.append(nxt)
+        seq = torch.cat([seq, nxt[:, None]], 1)
+    a, b, c = (torch.stack(v, 1).cpu().numpy() for v in (a, b, c))
+    stream_s = time.perf_counter() - t0
+    # the text's transitions: each symbol of it has one successor
+    succ = dict(zip(text[:-1].tolist(), text[1:].tolist()))
+    prev = np.concatenate([start.cpu().numpy()[:, None], a[:, :-1]], 1)
+    follows = np.mean([[succ.get(p) == n for p, n in zip(pr, nx)]
+                       for pr, nx in zip(prev.tolist(), a.tolist())])
+    assert (a == b).all() and (a == c).all(), (a, b, c)
+    hx, _ = char_batch(windows(text, (3, 11, 29)), "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "char_rnn.zip")
+        write_model(net, path)
+        restored = restore_model(path, device="cuda")
+    assert torch.equal(restored.output(hx), net.output(hx))
+    log(f"char-RNN greedy decode ({card}): {STREAM_CHARS} symbols x "
+        f"{STREAM_B} rows equal three ways (rnn_time_step, "
+        f"streaming_session(capacity={STREAM_CAPACITY}).step, output of "
+        f"the growing sequence) in {stream_s:.2f} s; {100 * follows:.1f}% "
+        "of the generated transitions are the learned text's; zip write "
+        "+ restore: output bit-equal")
+
+
+def rnn_lone_decode(net, prompt, n_tokens):
+    """Greedy ids of one prompt through ``rnn_time_step`` alone (B=1),
+    and the probabilities of every step."""
+    import numpy as np
+    import torch
+    net.rnn_clear_previous_state()
+    probs = net.rnn_time_step(np.asarray(prompt, np.float32)[None, :, None])
+    probs = probs[:, -1]
+    ids, steps = [], []
+    for _ in range(n_tokens):
+        steps.append(probs[0])
+        nxt = probs.argmax(-1)
+        ids.append(nxt)
+        probs = net.rnn_time_step(nxt[:, None].float())
+    return torch.cat(ids).cpu().numpy(), steps
+
+
+def char_rnn_serve(net, card):
+    """ModelServer: /v1/predict of 8 rows of the trained char-RNN, and
+    /v1/generate of 16 concurrent requests to the char-RNN LM (ids in
+    through an embedding), which ``kv_mode="auto"`` decodes on the dense
+    slot session; greedy ids held against lone ``rnn_time_step``
+    decodes (a mismatch passes only at a near tie, TIE_RTOL)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.models.streaming import (
+        SlotStreamingSession)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    lm = MultiLayerNetwork(char_rnn_conf(embed=True), device="cuda").init()
+    rng = np.random.default_rng(6)
+    x = np.eye(CHAR_V, dtype="float32")[rng.integers(0, CHAR_V,
+                                                     (8, CHAR_T))]
+    lengths = rng.integers(RNN_PROMPT_MIN, RNN_PROMPT_MAX + 1, GEN_REQUESTS)
+    bodies = []
+    for i, n in enumerate(lengths):
+        body = {"model": "rnnlm", "prompt": rng.integers(0, CHAR_V,
+                                                         n).tolist(),
+                "n_tokens": GEN_TOKENS}
+        if i % 4 == 3:
+            body.update(temperature=0.8, seed=200 + i)
+        bodies.append(body)
+    reg = ModelRegistry()
+    reg.register("char", net)
+    reg.register("rnnlm", lm)
+    server = ModelServer(reg, slots=RNN_SLOTS, capacity=RNN_CAPACITY,
+                         wait_ms=5.0).start()
+    try:
+        code, body, _ = http(server.port, "/v1/predict",
+                             {"model": "char", "inputs": x.tolist()})
+        assert code == 200, body
+        batcher, _ = server.batcher_for("rnnlm")
+        assert not batcher._paged
+        assert isinstance(batcher.session, SlotStreamingSession)
+        http(server.port, "/v1/generate", {"model": "rnnlm",
+                                           "prompt": [1, 2, 3],
+                                           "n_tokens": 2})     # warm
+        stream = batcher._stream
+        before = [h.bucket_counts() for h in (stream.ttft, stream.itl)]
+        replies = [None] * GEN_REQUESTS
+        errors = []
+        barrier = threading.Barrier(GEN_REQUESTS)
+
+        def client(i):
+            try:
+                barrier.wait(timeout=60)
+                replies[i] = http(server.port, "/v1/generate", bodies[i])
+            except Exception as e:       # reported and failed below
+                errors.append(repr(e))
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(GEN_REQUESTS)]
+        steps0 = batcher.device_steps
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        assert not errors, errors
+        assert not any(th.is_alive() for th in threads), "client hung"
+        ttft, itl = (hist_since(h, b) for h, b in zip(
+            (stream.ttft, stream.itl), before))
+        steps = batcher.device_steps - steps0
+    finally:
+        server.stop(drain=True)
+    out = np.asarray(body["outputs"], np.float32)
+    assert out.shape == (8, CHAR_T, CHAR_V) and np.isfinite(out).all()
+    diff = float(np.abs(out - net.output(x).cpu().numpy()).max())
+    assert diff <= 1e-6, diff
+    compared = ties = 0
+    for b, (code, reply, _) in zip(bodies, replies):
+        assert code == 200, reply
+        ids = np.asarray(reply["ids"])
+        assert ids.shape == (GEN_TOKENS,) and ((ids >= 0) & (ids < CHAR_V)
+                                               ).all()
+        if "temperature" in b:
+            continue
+        ref, probs = rnn_lone_decode(lm, b["prompt"], GEN_TOKENS)
+        bad = np.flatnonzero(ids != ref)
+        if bad.size:
+            m = int(bad[0])
+            top2 = probs[m].double().topk(2).values.cpu().numpy()
+            gap = (top2[0] - top2[1]) / top2[0]
+            assert gap <= TIE_RTOL, (m, ids[m], ref[m], top2)
+            ties += 1
+            compared += m
+        else:
+            compared += ids.size
+    log(f"char-RNN served ({card}): /v1/predict of 8 rows (max |served - "
+        f"output| {diff:.2e}); /v1/generate of {GEN_REQUESTS} concurrent "
+        f"requests (prompts {min(lengths)}-{max(lengths)} ids, "
+        f"{GEN_TOKENS} tokens, 4 at temperature 0.8) on {RNN_SLOTS} dense "
+        f"slots: {steps} device steps in {wall:.3f} s = "
+        f"{GEN_REQUESTS * GEN_TOKENS / wall:.1f} generated tokens/s; TTFT "
+        f"p50 {ttft.quantile(0.5):.3f} s, ITL p50 "
+        f"{1e3 * itl.quantile(0.5):.3f} ms; greedy ids vs lone rnn_time_step"
+        f" decodes: {compared} compared and equal, {ties} near ties")
+    return {"tokens_s": GEN_REQUESTS * GEN_TOKENS / wall,
+            "ttft_p50_s": ttft.quantile(0.5),
+            "itl_p50_ms": 1e3 * itl.quantile(0.5), "gen_steps": steps}
+
+
+def hybrid_check(attn, da, card):
+    """GravesLSTM(CHAR_H) -> TransformerEncoderLayer(4 heads, causal;
+    head dim 64) -> RnnOutputLayer(CHAR_V) at T=HYBRID_T, B=HYBRID_B:
+    ``output`` of the whole sequence (the flash forward kernel) and the
+    sequence stepped one symbol at a time through the dense
+    StreamingSession (every attention the decode kernel), each held
+    against the same net on the plain attention (``plain_attention``,
+    ``plain_decode_attention``) and against each other at ATOL / RTOL.
+    Returns (forward launches, decode launches) of this path."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesLSTM, RnnOutputLayer, TransformerEncoderLayer)
+    conf = (NeuralNetConfiguration.builder().set_seed(0).list()
+            .layer(GravesLSTM(n_out=CHAR_H, activation="tanh"))
+            .layer(TransformerEncoderLayer(n_heads=4, causal=True))
+            .layer(RnnOutputLayer(n_out=CHAR_V, loss="mcxent"))
+            .set_input_type(InputType.recurrent(CHAR_V, HYBRID_T)).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    x, _ = char_batch(np.random.default_rng(7).integers(
+        0, CHAR_V, (HYBRID_B, HYBRID_T + 1)), "cuda")
+
+    def stream():
+        sess = net.streaming_session(capacity=HYBRID_T, batch=HYBRID_B)
+        return torch.stack([sess.step(x[:, t]) for t in range(HYBRID_T)],
+                           1)
+    attn.flash_attention_fwd_cuda.launches = 0     # this path only
+    da.decode_attention_cuda.launches = 0
+    full = net.output(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stepped = stream()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / HYBRID_T
+    fwd, dec = (attn.flash_attention_fwd_cuda.launches,
+                da.decode_attention_cuda.launches)
+    assert fwd >= 1 and dec == HYBRID_T, (fwd, dec)
+    with plain_attention(attn), plain_decode_attention(da):
+        full_plain, stepped_plain = net.output(x), stream()
+    assert (attn.flash_attention_fwd_cuda.launches,
+            da.decode_attention_cuda.launches) == (fwd, dec)
+    errs = {}
+    for what, got, ref in (("output vs plain", full, full_plain),
+                           ("stepped vs plain", stepped, stepped_plain),
+                           ("stepped vs output", stepped, full)):
+        torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+        errs[what] = float((got - ref).abs().max())
+    log(f"hybrid GravesLSTM({CHAR_H}) -> TransformerEncoderLayer(4 heads, "
+        f"causal) -> RnnOutputLayer({CHAR_V}), T={HYBRID_T}, B={HYBRID_B} "
+        f"({card}): stepped through the dense session, {step_ms:.3f} ms a "
+        f"step (host clock); max |diff| (atol {ATOL:g}, rtol {RTOL:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; flash_attention_fwd launches {fwd}, decode_attention "
+          f"launches {dec}")
+    return fwd, dec, {"hybrid_step_ms": step_ms,
+                      "hybrid_max_abs_err": max(errs.values())}
+
+
+def rnn_phase(attn, da, card):
+    """The recurrent slice on the card: the char-RNN trained (timing,
+    profile, learning), under tBPTT (and against the CPU), streamed,
+    served; the GravesLSTM + transformer hybrid through the kernels.
+    Returns the hybrid's (forward, decode) launches."""
+    import torch
+    train = char_rnn_train(card)
+    _, _, all80 = char_rnn_learn(card, CHAR_V)
+    net, text, learned = char_rnn_learn(card, LEARN_SYMBOLS)
+    assert learned["accuracy"] > 0.9, learned
+    tbptt = char_rnn_tbptt(card)
+    char_rnn_stream(net, text, card)
+    served = char_rnn_serve(net, card)
+    del net
+    torch.cuda.empty_cache()
+    fwd, dec, hybrid = hybrid_check(attn, da, card)
+    log("rnn_phase summary: " + json.dumps({
+        **train, **learned, "accuracy_all_symbols": all80["accuracy"],
+        **tbptt, **served, **hybrid}))
+    return fwd, dec
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -2671,14 +3310,16 @@ def main():
         server.stop(drain=True)
     warmup_phase(card)
     fwd_fleet, dec_fleet = fleet_phase(attn, da, card, net, bodies)
-    fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet}
-    dec["launches_by_path"] = {"generate": dec_generate,
-                               "fleet": dec_fleet}
-    for record in (fwd, dec):
-        record["launches"] = sum(record["launches_by_path"].values())
     del net
     torch.cuda.empty_cache()
     cnn_phase(card)
+    fwd_rnn, dec_rnn = rnn_phase(attn, da, card)
+    fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
+                               "rnn": fwd_rnn}
+    dec["launches_by_path"] = {"generate": dec_generate,
+                               "fleet": dec_fleet, "rnn": dec_rnn}
+    for record in (fwd, dec):
+        record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]
     for record in records:
         assert record["launches"] > 0, record

@@ -73,12 +73,15 @@ def _cmd_serve(args):
                   + (f"; skipped: {'; '.join(r['skipped'])}"
                      if r["skipped"] else "") + ")")
     server.start()
-    print(f"serving on http://{args.host}:{server.port}/ (/v1/predict "
-          f"/v1/generate /v1/models /healthz /readyz /metrics "
-          f"/debug/requests /debug/slots /debug/traces "
-          f"/debug/trace-export /debug/bundle; trace sampling "
-          f"{args.trace_sample:g}; ctrl-c drains and stops)", flush=True)
+    # announce inside the try: a SIGINT sent as soon as the line is read
+    # must drain, not kill the process
     try:
+        print(f"serving on http://{args.host}:{server.port}/ (/v1/predict "
+              f"/v1/generate /v1/models /healthz /readyz /metrics "
+              f"/debug/requests /debug/slots /debug/traces "
+              f"/debug/trace-export /debug/bundle; trace sampling "
+              f"{args.trace_sample:g}; ctrl-c drains and stops)",
+              flush=True)
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
@@ -168,11 +171,11 @@ def _cmd_serve_fleet(args):
         else args.hedge_after_ms / 1e3,
         kv_routing=not args.no_kv_routing,
         sample_rate=args.trace_sample).start()
-    print(f"fleet router on http://{args.host}:{router.port}/ over "
-          f"{fleet.size()} replica(s) on {args.device} (/v1/predict "
-          f"/v1/generate /v1/models /healthz /readyz /metrics /fleet; "
-          f"ctrl-c drains the fleet and stops)", flush=True)
-    try:
+    try:                       # as in serve: announce inside the try
+        print(f"fleet router on http://{args.host}:{router.port}/ over "
+              f"{fleet.size()} replica(s) on {args.device} (/v1/predict "
+              f"/v1/generate /v1/models /healthz /readyz /metrics /fleet; "
+              f"ctrl-c drains the fleet and stops)", flush=True)
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:

@@ -3,6 +3,10 @@
 Every entry point takes ``device`` and defaults to ``"cuda"``: the port
 runs on the card unless the caller asks for the CPU. Without a card the
 default raises instead of quietly running somewhere slower.
+
+Float32 stays float32 on the card, as the JAX package computes it:
+``keep_float32`` turns TF32 off for cuBLAS and cuDNN before the conv
+and recurrent layers' calls. That is process-wide (see there).
 """
 
 from __future__ import annotations
@@ -10,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_device_tensor"]
+__all__ = ["resolve_device", "as_device_tensor", "keep_float32"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -36,3 +40,16 @@ def as_device_tensor(a, device: torch.device):
     if a.dtype.kind == "f" and a.dtype != np.float32:
         a = a.astype(np.float32)
     return torch.from_numpy(a).to(device)
+
+
+def keep_float32(x: torch.Tensor) -> None:
+    """Before a cuBLAS or cuDNN call on ``x``: on a card, TF32 off for
+    both, so float32 products run in float32. The two flags are
+    process-wide and cannot be scoped to the call, because PyTorch reads
+    them again when autograd runs the backward after the layer has
+    returned: once a conv or recurrent layer has run on a card, every
+    other float32 matmul and convolution in the process is float32 too,
+    whoever calls it. Nothing here turns TF32 back on."""
+    if x.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False

@@ -19,10 +19,15 @@ come from the network's ``torch.Generator`` (the JAX package folds the
 vertex's topological index into its key), so the two agree with
 dropout off.
 
+tBPTT splits every time-series array of a MultiDataSet into
+``fwd_length`` chunks and threads the recurrent vertices' carries across
+them detached; ``rnn_time_step`` and ``streaming_session``
+(``models/streaming.py``'s ``GraphStreamingSession``) step the graph
+over recurrent carries and KV caches, as on MultiLayerNetwork.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-tBPTT, ``rnn_time_step``, ``streaming_session`` and ``pretrain``
-(ROADMAP A5b), meshes (A6), k-step fusion, ``warmup`` and listeners
-(A7).
+``pretrain`` (ROADMAP A5b-2: it needs AutoEncoder and RBM), meshes
+(A6), k-step fusion, ``warmup`` and listeners (A7).
 """
 
 from __future__ import annotations
@@ -35,13 +40,16 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
-from deeplearning4j_tpu_torch.models.multi_layer_network import _ParamTree
+from deeplearning4j_tpu_torch.models.multi_layer_network import (_detach,
+                                                                 _ParamTree)
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (LastTimeStepVertex,
                                                     combine_masks_or)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+    BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -74,6 +82,7 @@ class ComputationGraph(nn.Module):
         self.score_value: object = float("nan")
         self._optimizer: Optional[updaters_mod.Transform] = None
         self._generator: Optional[torch.Generator] = None
+        self._rnn_state: Optional[dict] = None
 
     # ---- parameters ----
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
@@ -150,11 +159,14 @@ class ComputationGraph(nn.Module):
 
     # ---- forward ----
     def _forward(self, inputs, *, training, generator=None, fmasks=None,
-                 exclude_outputs: bool = False):
+                 exclude_outputs: bool = False, carries=None):
         """The topological-order interpreter. Returns (activations by
-        vertex name, the layer vertices' new states). With
-        ``exclude_outputs`` an output layer with a loss passes its input
-        through, for the loss to take."""
+        vertex name, the layer vertices' new states, the new carries).
+        With ``exclude_outputs`` an output layer with a loss passes its
+        input through, for the loss to take. ``carries``: recurrent
+        (h, c) initial states by vertex name (missing: zeros), which
+        tBPTT threads across chunks; without it the new carries are
+        None."""
         params = self.params
         acts: Dict[str, torch.Tensor] = dict(
             zip(self.conf.network_inputs, inputs))
@@ -163,6 +175,7 @@ class ComputationGraph(nn.Module):
         if fmasks is not None:
             masks.update(zip(self.conf.network_inputs, fmasks))
         new_state = {}
+        new_carries = None if carries is None else {}
         for name in self.conf.topological_order():
             obj, ins = self.conf.vertices[name]
             xs = [acts[i] for i in ins]
@@ -175,9 +188,23 @@ class ComputationGraph(nn.Module):
                     new_state[name] = self.state[name]
                     masks[name] = in_mask
                     continue
-                y, new_state[name] = obj.apply(
-                    params[name], self.state[name], xs[0],
-                    training=training, generator=generator, mask=in_mask)
+                if carries is not None and isinstance(obj,
+                                                      BaseRecurrentLayer):
+                    c0 = carries.get(name)
+                    if c0 is None:
+                        c0 = obj.zero_state(xs[0].shape[0],
+                                            device=xs[0].device)
+                    xd = obj.apply_input_dropout(xs[0], training=training,
+                                                 generator=generator)
+                    y, new_carries[name] = obj.apply_rnn(
+                        params[name], xd, c0, training=training,
+                        generator=generator, mask=in_mask)
+                    new_state[name] = self.state[name]
+                else:
+                    y, new_state[name] = obj.apply(
+                        params[name], self.state[name], xs[0],
+                        training=training, generator=generator,
+                        mask=in_mask)
                 acts[name] = y
                 # a layer that collapses time nulls the (B, T) mask
                 if in_mask is not None and (y.dim() < 3
@@ -194,10 +221,10 @@ class ComputationGraph(nn.Module):
                 acts[name] = obj.apply(xs, mask=use_mask)
                 masks[name] = obj.propagate_mask(in_masks, xs,
                                                  mask_env=masks)
-        return acts, new_state
+        return acts, new_state, new_carries
 
     def forward(self, *inputs):
-        acts, _ = self._forward(inputs, training=False)
+        acts, _, _ = self._forward(inputs, training=False)
         outs = tuple(acts[o] for o in self.conf.network_outputs)
         return outs if len(outs) > 1 else outs[0]
 
@@ -213,7 +240,7 @@ class ComputationGraph(nn.Module):
         if self.params is None:
             self.init()
         with torch.inference_mode():
-            acts, _ = self._forward(
+            acts, _, _ = self._forward(
                 self._tensors(inputs), training=training,
                 generator=self._generator if training else None,
                 fmasks=self._tensors(input_masks))
@@ -224,7 +251,7 @@ class ComputationGraph(nn.Module):
                      input_masks=None) -> Dict[str, torch.Tensor]:
         """Every vertex's activation, by name."""
         with torch.inference_mode():
-            acts, _ = self._forward(
+            acts, _, _ = self._forward(
                 self._tensors(inputs), training=training,
                 generator=self._generator if training else None,
                 fmasks=self._tensors(input_masks))
@@ -247,12 +274,13 @@ class ComputationGraph(nn.Module):
                 self._tensors(mds.features_masks),
                 self._tensors(mds.labels_masks))
 
-    def _loss(self, batch, *, training=True, generator=None):
-        """(the outputs' summed losses + L1/L2 terms, new states)."""
+    def _loss(self, batch, *, training=True, generator=None, carries=None):
+        """(the outputs' summed losses + L1/L2 terms, (new states, the new
+        carries: None without ``carries``))."""
         inputs, labels, fmasks, lmasks = batch
-        acts, new_state = self._forward(inputs, training=training,
-                                        generator=generator, fmasks=fmasks,
-                                        exclude_outputs=True)
+        acts, new_state, new_carries = self._forward(
+            inputs, training=training, generator=generator, fmasks=fmasks,
+            exclude_outputs=True, carries=carries)
         params = self.params
         total = torch.zeros((), device=self.device)
         for i, out_name in enumerate(self.conf.network_outputs):
@@ -265,29 +293,30 @@ class ComputationGraph(nn.Module):
                 mask=lmasks[i] if lmasks is not None else None)
         for name, obj in self._layer_configs().items():
             total = total + obj.regularization_loss(params[name])
-        return total, new_state
+        return total, (new_state, new_carries)
 
-    def _gradients(self, batch):
-        """(loss, grads by vertex name, new states) of one training
-        forward."""
+    def _gradients(self, batch, carries=None):
+        """(loss, grads by vertex name, (new states, new carries)) of one
+        training forward, as ``_loss`` returns them."""
         params = self.params
         leaves = list(updaters_mod.tree_leaves(params))
         if self._generator is None:
             self._generator = self._new_generator(self.conf.conf.seed)
-        loss, new_state = self._loss(batch, training=True,
-                                     generator=self._generator)
+        loss, aux = self._loss(batch, training=True,
+                               generator=self._generator, carries=carries)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = iter([torch.zeros_like(p) if g is None else g
                       for p, g in zip(leaves, grads)])
         return (loss.detach(),
-                updaters_mod.tree_map(lambda _: next(grads), params),
-                new_state)
+                updaters_mod.tree_map(lambda _: next(grads), params), aux)
 
-    def _train_step(self, batch) -> torch.Tensor:
+    def _train_step(self, batch, carries=None):
         """loss -> grads -> gradient normalization -> updater ->
         constraints. Returns the loss as a device scalar, without a
-        host sync."""
-        loss, grads, new_state = self._gradients(batch)
+        host sync, and the new carries detached (None without
+        ``carries``; tBPTT passes them)."""
+        loss, grads, (new_state, new_carries) = self._gradients(batch,
+                                                                carries)
         grads = apply_gradient_normalization(self._layer_configs(), grads)
         params = self.params
         with torch.no_grad():
@@ -300,7 +329,7 @@ class ComputationGraph(nn.Module):
                     if v is not p[k]:
                         p[k].copy_(v)
         self.state = new_state
-        return loss
+        return loss, _detach(new_carries)
 
     def fit(self, data, *, epochs: int = 1,
             steps_per_device_call: int = 1, mesh_spec=None):
@@ -327,12 +356,42 @@ class ComputationGraph(nn.Module):
                 mds = self._as_multi(ds)
                 if tbptt is not None and any(np.ndim(f) == 3
                                              for f in mds.features):
-                    raise NotImplementedError(
-                        f"tBPTT {_NOT_PORTED.format('A5b')}")
-                self.score_value = self._train_step(self._batch_tuple(mds))
+                    self._fit_tbptt(mds, tbptt)
+                    continue
+                self.score_value, _ = self._train_step(
+                    self._batch_tuple(mds))
                 self.iteration_count += 1
             self.epoch_count += 1
         return self
+
+    def _fit_tbptt(self, mds: MultiDataSet, tbptt: dict) -> None:
+        """Truncated BPTT over a MultiDataSet (the JAX package's
+        ``_fit_tbptt``): every time-series array (3-d features and
+        labels, and masks of the series' length) is split into
+        ``fwd_length`` chunks, one updater step and one iteration each;
+        the recurrent vertices' carries start at zero and cross each
+        chunk boundary detached."""
+        fwd = tbptt["fwd_length"]
+        series = [f for f in mds.features if f.ndim == 3]
+        B, T = series[0].shape[0], series[0].shape[1]
+        carries = {name: obj.zero_state(B, device=self.device)
+                   for name, obj in self._layer_configs().items()
+                   if isinstance(obj, BaseRecurrentLayer)}
+
+        def chunks(arrays, start, ndim):
+            if arrays is None:
+                return None
+            return [a if a is None or a.ndim != ndim
+                    or (ndim == 2 and a.shape[1] != T)
+                    else a[:, start:start + fwd] for a in arrays]
+        for start in range(0, T, fwd):
+            sub = MultiDataSet(chunks(mds.features, start, 3),
+                               chunks(mds.labels, start, 3),
+                               chunks(mds.features_masks, start, 2),
+                               chunks(mds.labels_masks, start, 2))
+            self.score_value, carries = self._train_step(
+                self._batch_tuple(sub), carries)
+            self.iteration_count += 1
 
     def score(self, ds) -> float:
         """The summed loss (with L1/L2 terms) on ``ds``, dropout off."""
@@ -390,18 +449,65 @@ class ComputationGraph(nn.Module):
             lines.append(f"total params: {self.num_params()}")
         return "\n".join(lines)
 
-    # ---- not ported yet ----
+    # ---- stateful streaming inference (reference rnnTimeStep) ----
     def rnn_time_step(self, *inputs):
-        raise NotImplementedError(
-            f"ComputationGraph.rnn_time_step {_NOT_PORTED.format('A5b')}")
+        """Feed the next (B, C) step or (B, t, C) chunk of each network
+        input and return the outputs for it, carrying each recurrent
+        vertex's (h, c) and each attention vertex's KV cache (grown by
+        concatenation) to the next call."""
+        if self.params is None:
+            self.init()
+        xs = [as_device_tensor(x, self.device) for x in inputs]
+        squeeze = xs[0].dim() == 2
+        if squeeze:
+            xs = [x[:, None, :] for x in xs]
+        if self._rnn_state is None:
+            self._rnn_state = {}
+        params = self.params
+        acts = dict(zip(self.conf.network_inputs, xs))
+        with torch.inference_mode():
+            for name in self.conf.topological_order():
+                obj, ins = self.conf.vertices[name]
+                xin = [acts[i] for i in ins]
+                if isinstance(obj, BaseRecurrentLayer):
+                    carry = self._rnn_state.get(name)
+                    if carry is None:
+                        carry = obj.zero_state(xin[0].shape[0],
+                                               device=self.device)
+                    acts[name], self._rnn_state[name] = obj.apply_rnn(
+                        params[name], xin[0], carry)
+                elif hasattr(obj, "apply_stream"):
+                    acts[name], self._rnn_state[name] = obj.apply_stream(
+                        params[name], self._rnn_state.get(name), xin[0])
+                elif isinstance(obj, Layer):
+                    acts[name], _ = obj.apply(params[name], self.state[name],
+                                              xin[0], training=False)
+                else:
+                    acts[name] = obj.apply(xin)
+        outs = tuple(acts[o] for o in self.conf.network_outputs)
+        if squeeze:
+            outs = tuple(o[:, -1, :] if o.dim() == 3 else o for o in outs)
+        return outs if len(outs) > 1 else outs[0]
+
+    def rnn_clear_previous_state(self):
+        self._rnn_state = None
 
     def streaming_session(self, capacity: int, batch: int):
-        raise NotImplementedError(
-            f"GraphStreamingSession {_NOT_PORTED.format('A5b')}")
+        """Bounded-cache streaming inference over the graph (see
+        ``models/streaming.py``'s ``GraphStreamingSession``):
+        fixed-capacity KV caches for attention vertices, carries for
+        recurrent ones. ``capacity`` is the longest sequence the session
+        can stream before ``reset()``."""
+        from deeplearning4j_tpu_torch.models.streaming import (
+            GraphStreamingSession)
+        if self.params is None:
+            self.init()
+        return GraphStreamingSession(self, capacity, batch)
 
+    # ---- not ported yet ----
     def pretrain(self, data, *, epochs: int = 1):
         raise NotImplementedError(
-            f"layerwise pretraining {_NOT_PORTED.format('A5b')}")
+            f"layerwise pretraining {_NOT_PORTED.format('A5b-2')}")
 
     def warmup(self, example, *, steps_per_device_call: int = 1,
                mesh_spec=None):

@@ -17,12 +17,15 @@ parameters are updated in place. Preprocessors
 (``nn/conf/preprocessors.py``) reshape a layer's input where the config
 placed them. ``output`` runs under ``torch.inference_mode``;
 ``evaluate`` scores classification (``evaluation/classification.py``).
+With ``backprop_type("tbptt", fwd_length=n)`` a batch of sequences is
+split into chunks of n steps, one updater step each, with the recurrent
+layers' carries crossing the chunk boundaries detached (``_fit_tbptt``).
 ``rnn_time_step`` and the streaming sessions (``streaming_session``,
 ``slot_streaming_session``, ``paged_slot_streaming_session``) decode
-token by token over KV caches (``models/streaming.py``,
-``models/paged_kv.py``). Not ported yet, and raising
-``NotImplementedError`` when asked for: tBPTT (ROADMAP A5b), meshes
-(A6), k-step fusion, listeners and health (A7).
+step by step over recurrent carries and KV caches
+(``models/streaming.py``, ``models/paged_kv.py``). Not ported yet, and
+raising ``NotImplementedError`` when asked for: meshes (ROADMAP A6),
+k-step fusion, listeners and health (A7).
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from deeplearning4j_tpu_torch.data.iterators import (ArrayDataSetIterator,
                                                      ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+    BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.train.constraints import (
@@ -52,6 +57,21 @@ from deeplearning4j_tpu_torch.util.tree import (tree_flat_vector,
 __all__ = ["MultiLayerNetwork"]
 
 _NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
+
+
+def _detach(carries):
+    """Recurrent carries (a list or dict of (h, c) or None, or None) cut
+    from the autograd graph: the gradient stops at a tBPTT chunk
+    boundary."""
+    if carries is None:
+        return None
+    items = carries.items() if isinstance(carries, dict) else \
+        enumerate(carries)
+    out = dict(carries) if isinstance(carries, dict) else list(carries)
+    for k, c in items:
+        if c is not None:
+            out[k] = tuple(t.detach() for t in c)
+    return out
 
 
 def _as_iterator(data, labels=None, batch_size=None) -> DataSetIterator:
@@ -183,19 +203,34 @@ class MultiLayerNetwork(nn.Module):
 
     # ---- forward ----
     def _forward(self, x, *, training, generator=None, fmask=None,
-                 upto: Optional[int] = None):
+                 upto: Optional[int] = None, carries=None):
         """Layers ``[0, upto)`` on ``x``; returns (activations, the
-        layers' new states)."""
+        layers' new states, the new carries). ``carries``: a per-layer
+        list of recurrent (h, c) initial states (None: zeros), which
+        tBPTT threads across chunks; without it the new carries are
+        None."""
         params = self.params
         n = len(self.layers) if upto is None else upto
         new_states = list(self.state)
+        new_carries = None if carries is None else [None] * len(self.layers)
         for i in range(n):
+            layer = self.layers[i]
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
-            x, new_states[i] = self.layers[i].apply(
-                params[i], self.state[i], x, training=training,
-                generator=generator, mask=fmask)
-        return x, new_states
+            if carries is not None and isinstance(layer, BaseRecurrentLayer):
+                c0 = carries[i]
+                if c0 is None:
+                    c0 = layer.zero_state(x.shape[0], device=x.device)
+                x = layer.apply_input_dropout(x, training=training,
+                                              generator=generator)
+                x, new_carries[i] = layer.apply_rnn(
+                    params[i], x, c0, training=training,
+                    generator=generator, mask=fmask)
+            else:
+                x, new_states[i] = layer.apply(
+                    params[i], self.state[i], x, training=training,
+                    generator=generator, mask=fmask)
+        return x, new_states, new_carries
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._forward(x, training=False)[0]
@@ -220,17 +255,18 @@ class MultiLayerNetwork(nn.Module):
                      (ds.features, ds.labels, ds.features_mask,
                       ds.labels_mask))
 
-    def _loss(self, batch, *, training=True, generator=None):
-        """(loss + L1/L2 terms, the layers' new states)."""
+    def _loss(self, batch, *, training=True, generator=None, carries=None):
+        """(loss + L1/L2 terms, (the layers' new states, the new carries:
+        None without ``carries``))."""
         x, labels, fmask, lmask = batch
         out_idx = len(self.layers) - 1
         out_layer = self.layers[out_idx]
         if not out_layer.has_loss():
             raise ValueError("Last layer has no loss; use an OutputLayer/"
                              "LossLayer for fit()")
-        h, new_states = self._forward(x, training=training,
-                                      generator=generator, fmask=fmask,
-                                      upto=out_idx)
+        h, new_states, new_carries = self._forward(
+            x, training=training, generator=generator, fmask=fmask,
+            upto=out_idx, carries=carries)
         if out_idx in self.conf.preprocessors:
             h = self.conf.preprocessors[out_idx](h)
         params = self.params
@@ -239,28 +275,30 @@ class MultiLayerNetwork(nn.Module):
                                          generator=generator, mask=lmask)
         for layer, p in zip(self.layers, params):
             loss = loss + layer.regularization_loss(p)
-        return loss, new_states
+        return loss, (new_states, new_carries)
 
-    def _gradients(self, batch):
-        """(loss, grads in the params structure, new states) of one
-        training forward."""
+    def _gradients(self, batch, carries=None):
+        """(loss, grads in the params structure, (new states, new
+        carries)) of one training forward, as ``_loss`` returns them."""
         params = self.params
         leaves = list(updaters_mod.tree_leaves(params))
         if self._generator is None:
             self._generator = self._new_generator(self.conf.conf.seed)
-        loss, new_states = self._loss(batch, training=True,
-                                      generator=self._generator)
+        loss, aux = self._loss(batch, training=True,
+                               generator=self._generator, carries=carries)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = iter([torch.zeros_like(p) if g is None else g
                       for p, g in zip(leaves, grads)])
         return (loss.detach(), updaters_mod.tree_map(lambda _: next(grads),
-                                                     params), new_states)
+                                                     params), aux)
 
-    def _train_step(self, batch) -> torch.Tensor:
+    def _train_step(self, batch, carries=None):
         """loss -> grads -> gradient normalization -> updater ->
         constraints (``_train_core`` of the JAX package). Returns the
-        loss as a device scalar, without a host sync."""
-        loss, grads, new_states = self._gradients(batch)
+        loss as a device scalar, without a host sync, and the new
+        carries detached (None without ``carries``; tBPTT passes them)."""
+        loss, grads, (new_states, new_carries) = self._gradients(batch,
+                                                                 carries)
         grads = apply_gradient_normalization(self.layers, grads)
         params = self.params
         with torch.no_grad():
@@ -272,7 +310,7 @@ class MultiLayerNetwork(nn.Module):
                     if v is not p[k]:
                         p[k].copy_(v)
         self.state = new_states
-        return loss
+        return loss, _detach(new_carries)
 
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: Optional[int] = None,
@@ -294,12 +332,36 @@ class MultiLayerNetwork(nn.Module):
         for _ in range(epochs):
             for ds in it:
                 if tbptt is not None and ds.features.ndim == 3:
-                    raise NotImplementedError(
-                        f"tBPTT {_NOT_PORTED.format('A5b')}")
-                self.score_value = self._train_step(self._batch_tuple(ds))
+                    self._fit_tbptt(ds, tbptt)
+                    continue
+                self.score_value, _ = self._train_step(
+                    self._batch_tuple(ds))
                 self.iteration_count += 1
             self.epoch_count += 1
         return self
+
+    def _fit_tbptt(self, ds: DataSet, tbptt: dict) -> None:
+        """Truncated BPTT (the JAX package's ``_fit_tbptt``): features,
+        labels and masks split into ``fwd_length`` chunks along time,
+        one updater step and one iteration each; the recurrent carries
+        start at zero, cross each chunk boundary detached (the gradient
+        is truncated there) and are dropped after the batch.
+        ``bwd_length`` is not read, as in the JAX package."""
+        fwd = tbptt["fwd_length"]
+        B, T = ds.features.shape[0], ds.features.shape[1]
+        carries = [layer.zero_state(B, device=self.device)
+                   if isinstance(layer, BaseRecurrentLayer) else None
+                   for layer in self.layers]
+
+        def chunk(a, start):
+            return None if a is None else a[:, start:start + fwd]
+        for start in range(0, T, fwd):
+            sub = DataSet(chunk(ds.features, start), chunk(ds.labels, start),
+                          chunk(ds.features_mask, start),
+                          chunk(ds.labels_mask, start))
+            self.score_value, carries = self._train_step(
+                self._batch_tuple(sub), carries)
+            self.iteration_count += 1
 
     def score(self, ds: DataSet) -> float:
         """The loss (with L1/L2 terms) on ``ds``, dropout off."""
@@ -333,14 +395,13 @@ class MultiLayerNetwork(nn.Module):
     # ---- stateful streaming inference (reference rnnTimeStep) ----
     def rnn_time_step(self, x) -> torch.Tensor:
         """Feed the next (B, C) step or (B, t, C) chunk and return the
-        output for it, carrying each attention layer's KV cache (grown by
-        concatenation) to the next call. Recurrent layers are not ported
-        yet (ROADMAP A5b)."""
+        output for it, carrying each recurrent layer's (h, c) and each
+        attention layer's KV cache (grown by concatenation) to the next
+        call. Wrappers (Bidirectional, LastTimeStep) see each call's
+        input alone, as in the JAX package."""
         if self.params is None:
             self.init()
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        x = torch.as_tensor(x, device=self.device)
+        x = self._to_device(x)
         squeeze = x.dim() == 2
         if squeeze:                      # (B, C) -> one timestep
             x = x[:, None, :]
@@ -352,7 +413,13 @@ class MultiLayerNetwork(nn.Module):
             for i, layer in enumerate(self.layers):
                 if i in self.conf.preprocessors:
                     h = self.conf.preprocessors[i](h)
-                if hasattr(layer, "apply_stream"):
+                if isinstance(layer, BaseRecurrentLayer):
+                    carry = self._rnn_state[i]
+                    if carry is None:
+                        carry = layer.zero_state(h.shape[0], device=h.device)
+                    h, self._rnn_state[i] = layer.apply_rnn(params[i], h,
+                                                            carry)
+                elif hasattr(layer, "apply_stream"):
                     h, self._rnn_state[i] = layer.apply_stream(
                         params[i], self._rnn_state[i], h)
                 else:

@@ -3,11 +3,12 @@
 
 ``rnn_time_step`` grows attention KV caches by concatenation. The
 sessions here carry fixed-capacity caches instead, written in place
-(O(t) bytes a step), with positions kept on the host: a
-``StreamingSession`` steps (B, t) chunks at one shared position, a
-``SlotStreamingSession`` steps every slot of a continuous batch at its
-own position. The JAX sessions compile one XLA program per chunk length
-and donate the caches; here each step is a plain function under
+(O(t) bytes a step), with positions kept on the host, and the recurrent
+layers' (h, c) carries: a ``StreamingSession`` steps (B, t) chunks at
+one shared position, a ``SlotStreamingSession`` steps every slot of a
+continuous batch at its own position, and a ``GraphStreamingSession``
+steps a ComputationGraph. The JAX sessions compile one XLA program per
+chunk length and donate the caches; here each step is a plain function under
 ``torch.inference_mode`` that updates the caches in place, and the
 attention of every step is the paged decode kernel
 (``ops/decode_attention.py``; a dense cache is one page per row).
@@ -21,9 +22,13 @@ Temperature sampling draws from an explicit ``torch.Generator`` (Gumbel
 max, as ``jax.random.categorical`` samples), so sampled ids differ from
 the JAX package's; greedy ids do not.
 
-Ported layers carry no recurrent state and no running statistic, so the
-sessions host attention caches and stateless layers only. The
-ComputationGraph session waits for the graph executor (ROADMAP A5).
+A recurrent carry advances with every step, so ``reset`` zeroes it
+(attention caches need no zeroing: positions past ``pos`` are masked
+and overwritten), and ``SlotStreamingSession.reset_slot`` zeroes the
+slot's row. A free slot steps on its dummy input, which advances its
+carry as in the JAX package; admission zeroes it. Running-statistic
+carries (``GlobalPoolingLayer.apply_stream``) are not ported yet
+(ROADMAP A5b-2).
 """
 
 from __future__ import annotations
@@ -33,7 +38,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["StreamingSession", "SlotStreamingSession"]
+__all__ = ["StreamingSession", "SlotStreamingSession",
+           "GraphStreamingSession"]
+
+
+def _fresh_carry(layer, batch: int, capacity: int, device):
+    """A layer's stream carry: a zeroed KV cache, a zero recurrent (h, c),
+    or None for a stateless layer."""
+    if hasattr(layer, "apply_stream_bounded"):
+        return layer.zero_stream_cache(batch, capacity, device)
+    if hasattr(layer, "zero_state"):
+        return layer.zero_state(batch, device=device)
+    return None
 
 
 def _host_input(x, device) -> torch.Tensor:
@@ -158,18 +174,22 @@ class StreamingSession(_BoundedSession):
         self._states = self._fresh_states()
 
     def _fresh_states(self):
-        return [layer.zero_stream_cache(self.batch, self.capacity,
-                                        self.device)
-                if hasattr(layer, "apply_stream_bounded") else None
+        return [_fresh_carry(layer, self.batch, self.capacity, self.device)
                 for layer in self.net.layers]
 
     def _feed(self, x, pos):
         params, states = self.net.params, self.net.state
+        preprocessors = self.net.conf.preprocessors
         h = x
         for i, layer in enumerate(self.net.layers):
+            if i in preprocessors:
+                h = preprocessors[i](h)
             if hasattr(layer, "apply_stream_bounded"):
                 h, self._states[i] = layer.apply_stream_bounded(
                     params[i], self._states[i], h, pos)
+            elif hasattr(layer, "zero_state"):
+                h, self._states[i] = layer.apply_rnn(params[i], h,
+                                                     self._states[i])
             else:
                 h, _ = layer.apply(params[i], states[i], h, training=False)
         return h
@@ -192,10 +212,14 @@ class StreamingSession(_BoundedSession):
         return h
 
     def reset(self):
-        """Start a new sequence: rewind the position. Attention caches
-        need no zeroing (positions past ``pos`` are masked and
-        overwritten)."""
+        """Start a new sequence: rewind the position and zero the
+        recurrent carries. Attention caches need no zeroing (positions
+        past ``pos`` are masked and overwritten)."""
         self.pos = 0
+        for i, layer in enumerate(self.net.layers):
+            if hasattr(layer, "zero_state"):
+                self._states[i] = layer.zero_state(self.batch,
+                                                   device=self.device)
 
 
 class SlotStreamingSession(StreamingSession):
@@ -243,16 +267,99 @@ class SlotStreamingSession(StreamingSession):
         return h
 
     def reset_slot(self, slot: int):
-        """Recycle one slot for a new request: rewind its position.
-        Attention caches need no zeroing."""
+        """Recycle one slot for a new request: rewind its position and
+        zero its row of every recurrent carry. Attention caches need no
+        zeroing."""
         self.slot_pos[slot] = 0
+        with torch.inference_mode():
+            for i, layer in enumerate(self.net.layers):
+                if hasattr(layer, "zero_state"):
+                    for carry in self._states[i]:
+                        carry[slot] = 0
 
     def reset(self):
         super().reset()
         self.slot_pos = np.zeros((self.slots,), np.int32)
 
     def reinit_states(self):
-        """Rebuild every cache from scratch (the recovery after a failed
-        step, which may have written some layers and not others)."""
+        """Rebuild every cache and carry from scratch (the recovery after
+        a failed step, which may have written some layers and not
+        others)."""
         self.slot_pos = np.zeros((self.slots,), np.int32)
         self._states = self._fresh_states()
+
+
+class GraphStreamingSession(_BoundedSession):
+    """The ComputationGraph counterpart of :class:`StreamingSession`:
+    one step over the vertex topology, fixed-capacity KV caches for
+    attention vertices, carries for recurrent ones. Built via
+    ``graph.streaming_session(capacity=..., batch=...)``; ``step`` takes
+    one array per network input and returns the network output(s) for
+    the new steps. ``generate`` works for single-input graphs."""
+
+    def __init__(self, graph, capacity: int, batch: int):
+        super().__init__(capacity, batch, graph.device)
+        self.graph = graph
+        self._states = self._fresh_states()
+
+    def _fresh_states(self):
+        return {name: _fresh_carry(obj, self.batch, self.capacity,
+                                   self.device)
+                for name, (obj, _ins) in self.graph.conf.vertices.items()}
+
+    def _feed_all(self, xs, pos):
+        """Every output of the graph's step on device (B, t, C) inputs
+        at host position ``pos``; advances nothing."""
+        from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
+        conf = self.graph.conf
+        params, lstates = self.graph.params, self.graph.state
+        acts = dict(zip(conf.network_inputs, xs))
+        for name in conf.topological_order():
+            obj, ins = conf.vertices[name]
+            xin = [acts[i] for i in ins]
+            if hasattr(obj, "apply_stream_bounded"):
+                acts[name], self._states[name] = obj.apply_stream_bounded(
+                    params[name], self._states[name], xin[0], pos)
+            elif hasattr(obj, "zero_state"):
+                acts[name], self._states[name] = obj.apply_rnn(
+                    params[name], xin[0], self._states[name])
+            elif isinstance(obj, Layer):
+                acts[name], _ = obj.apply(params[name], lstates[name],
+                                          xin[0], training=False)
+            else:
+                acts[name] = obj.apply(xin)
+        return tuple(acts[o] for o in conf.network_outputs)
+
+    def _feed(self, x, pos):
+        return self._feed_all((x,), pos)[0]
+
+    def step(self, *inputs):
+        """Feed the next chunk of every input; returns the outputs for
+        the new steps ((B, C) inputs give squeezed (B, C) outputs)."""
+        xs = [_host_input(x, self.device) for x in inputs]
+        squeeze = xs[0].dim() == 2
+        if squeeze:
+            xs = [x[:, None, :] for x in xs]
+        B, t = xs[0].shape[0], xs[0].shape[1]
+        for i, x in enumerate(xs[1:], start=1):
+            if x.shape[0] != B or x.shape[1] != t:
+                raise ValueError(
+                    f"input {i} has (batch, t)={tuple(x.shape[:2])}; every "
+                    f"input must match input 0's ({B}, {t}) — pos "
+                    "advances once per step")
+        self._check(B, t)
+        with torch.inference_mode():
+            outs = self._feed_all(tuple(xs), self.pos)
+        self.pos += t
+        if squeeze:
+            outs = tuple(o[:, -1, :] if o.dim() == 3 else o for o in outs)
+        return outs if len(outs) > 1 else outs[0]
+
+    def reset(self):
+        """Start a new sequence: rewind the position and zero the
+        recurrent carries (attention caches are kept, pos-masked)."""
+        self.pos = 0
+        for name, (obj, _ins) in self.graph.conf.vertices.items():
+            if hasattr(obj, "zero_state"):
+                self._states[name] = obj.zero_state(self.batch,
+                                                    device=self.device)

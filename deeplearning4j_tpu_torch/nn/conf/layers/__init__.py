@@ -12,14 +12,21 @@ from deeplearning4j_tpu_torch.nn.conf.layers.core import (
     ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
     BatchNormalization)
-from deeplearning4j_tpu_torch.nn.conf.layers.output import (OutputLayer,
+from deeplearning4j_tpu_torch.nn.conf.layers.output import (LossLayer,
+                                                            OutputLayer,
                                                             RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
     GlobalPoolingLayer, PoolingType, SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+    LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
+    GravesLSTM, LastTimeStep, RnnLossLayer, SimpleRnn)
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
            "layer_from_dict", "LAYER_REGISTRY", "EmbeddingSequenceLayer",
            "SelfAttentionLayer", "TransformerEncoderLayer", "OutputLayer",
            "RnnOutputLayer", "DenseLayer", "ActivationLayer",
            "DropoutLayer", "ConvolutionLayer", "SubsamplingLayer",
-           "GlobalPoolingLayer", "PoolingType", "BatchNormalization"]
+           "GlobalPoolingLayer", "PoolingType", "BatchNormalization",
+           "LossLayer", "BaseRecurrentLayer", "LSTM", "GravesLSTM",
+           "GravesBidirectionalLSTM", "Bidirectional", "SimpleRnn",
+           "LastTimeStep", "RnnLossLayer"]

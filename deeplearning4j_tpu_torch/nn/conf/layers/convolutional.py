@@ -15,12 +15,12 @@ the input is zero-padded explicitly; torch's symmetric padding would
 shift every window by one pixel.
 
 Float32 convolutions on the card run with cuDNN's TF32 off, as the JAX
-package computes them: the layer turns ``torch.backends.cudnn.
-allow_tf32`` off before each CUDA call, so a conv reached through
-``fit``, ``output`` or a server is float32 whoever called it (the flag
-is process-wide, and is read again when autograd runs the backward).
+package computes them: the layer calls ``device.keep_float32`` before
+each CUDA call, so a conv reached through ``fit``, ``output`` or a
+server is float32 whoever called it (the flag is process-wide, and is
+read again when autograd runs the backward).
 
-Not ported yet (ROADMAP A5b): ``Convolution1DLayer``,
+Not ported yet (ROADMAP A5b-2): ``Convolution1DLayer``,
 ``Deconvolution2DLayer``, the separable and depthwise convolutions,
 zero padding, upsampling, cropping, space-to-depth and space-to-batch.
 """
@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import dtypes
+from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
                                                           register_layer)
@@ -128,8 +129,7 @@ class ConvolutionLayer(BaseLayer):
         """NHWC ``x`` (*) HWIO ``w`` -> NHWC, in the compute dtype, cast
         to the output dtype after the conv (as the JAX layer does)."""
         pol = dtypes.policy()
-        if x.is_cuda:
-            torch.backends.cudnn.allow_tf32 = False
+        keep_float32(x)
         x = pol.cast_to_compute(x)
         (h_lo, h_hi), (w_lo, w_hi) = _conv_padding(
             self.convolution_mode, self.padding, self.kernel,

@@ -13,7 +13,7 @@ statistics, so the layer's output is float32 under the bf16 policy as
 in the JAX package. The state is a plain ``{"mean", "var"}`` dict
 returned by ``apply``, computed under ``no_grad``.
 ``LocalResponseNormalization`` and the ``LayerNormalization`` layer are
-not ported yet (ROADMAP A5b).
+not ported yet (ROADMAP A5b-2).
 """
 
 from __future__ import annotations

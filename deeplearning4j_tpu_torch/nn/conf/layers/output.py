@@ -5,9 +5,9 @@
 float32) for inference, and ``loss_from_input`` for training, with the
 fused softmax/sigmoid cross entropy where the activation and loss pair
 allows it and ``nn/losses.py`` otherwise. ``RnnOutputLayer`` averages a
-masked loss over the present timesteps. ``LossLayer``,
-``CenterLossOutputLayer`` and the sequence-parallel loss are not ported
-yet.
+masked loss over the present timesteps. ``LossLayer`` is the loss
+alone, without weights. ``CenterLossOutputLayer`` (ROADMAP A8) and the
+sequence-parallel loss (A6) are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
                                                           register_layer)
 
-__all__ = ["OutputLayer", "RnnOutputLayer"]
+__all__ = ["OutputLayer", "RnnOutputLayer", "LossLayer"]
 
 
 def _stable_ce(logits, labels, mask, kind):
@@ -128,3 +128,29 @@ class RnnOutputLayer(OutputLayer):
             # DL4J averages over *present* timesteps across the batch
             return per.sum() / torch.clamp(mask.sum(), min=1.0)
         return per.mean() / z.shape[1]
+
+
+@register_layer
+@dataclasses.dataclass
+class LossLayer(OutputLayer):
+    """Loss without weights: the input passes through the activation
+    straight to the loss."""
+
+    def set_n_in(self, input_type: InputType) -> None:
+        # weightless: n_out is the input width, never user-required
+        if self.n_in is None:
+            self.n_in = input_type.flat_size()
+        if self.n_out is None:
+            self.n_out = self.n_in
+
+    def initialize(self, generator, input_type: InputType):
+        self.set_n_in(input_type)
+        self.n_out = self.n_in
+        return {}, {}
+
+    def output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+    def _pre_output(self, params, x, *, training=False, generator=None):
+        return self.apply_input_dropout(x, training=training,
+                                        generator=generator)

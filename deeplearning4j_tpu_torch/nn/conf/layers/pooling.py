@@ -11,7 +11,7 @@ pads (0, 1)); such an input is padded explicitly, with −inf for max
 and zeros for the sums, and ``same``-mode averages divide by the count
 of real elements in each window, as the JAX layer does.
 ``Subsampling1DLayer``, the streaming carry (``apply_stream``) and the
-sequence-parallel combine are not ported yet (ROADMAP A5b, A6).
+sequence-parallel combine are not ported yet (ROADMAP A5b-2, A6).
 """
 
 from __future__ import annotations

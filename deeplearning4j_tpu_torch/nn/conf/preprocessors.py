@@ -144,8 +144,7 @@ class RnnToCnnPreProcessor(InputPreProcessor):
 def auto_preprocessor(have: InputType, layer) -> Optional[InputPreProcessor]:
     """The preprocessor between activation type ``have`` and ``layer``,
     by the JAX package's rule, over the layer kinds ported so far (the
-    conv-family and recurrent layers not ported yet cannot occur in a
-    port config)."""
+    conv-family layers not ported yet cannot occur in a port config)."""
     from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
         ConvolutionLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
@@ -154,9 +153,12 @@ def auto_preprocessor(have: InputType, layer) -> Optional[InputPreProcessor]:
         RnnOutputLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
         GlobalPoolingLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
+        BaseRecurrentLayer, Bidirectional, LastTimeStep)
 
     wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer))
-    wants_rnn = isinstance(layer, RnnOutputLayer)
+    wants_rnn = isinstance(layer, (BaseRecurrentLayer, Bidirectional,
+                                   LastTimeStep, RnnOutputLayer))
 
     if have.kind == "cnnflat" and wants_cnn:
         return FeedForwardToCnnPreProcessor(have.height, have.width,

@@ -2,12 +2,12 @@
 same configs, built with the port's builder, so a zoo model's JSON
 equals the JAX package's. All image models are NHWC.
 
-Ported: ``LeNet``, ``SimpleCNN``, ``VGG16``, ``VGG19`` (on
-MultiLayerNetwork) and ``ResNet50`` (on ComputationGraph). The models
-that need layers not ported yet (AlexNet's LRN, GoogLeNet,
-InceptionResNetV1, FaceNetNN4Small2, TextGenerationLSTM, TinyYOLO,
+Ported: ``LeNet``, ``SimpleCNN``, ``VGG16``, ``VGG19``,
+``TextGenerationLSTM`` (on MultiLayerNetwork) and ``ResNet50`` (on
+ComputationGraph). The models that need layers not ported yet (AlexNet's
+LRN, GoogLeNet, InceptionResNetV1, FaceNetNN4Small2, TinyYOLO,
 Darknet19, UNet) and the pretrained-weights manifest
-(``init_pretrained``, which downloads) are not (ROADMAP A5b).
+(``init_pretrained``, which downloads) are not (ROADMAP A5b-2).
 """
 
 from __future__ import annotations
@@ -24,12 +24,13 @@ from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    DropoutLayer, GlobalPoolingLayer, OutputLayer, PoolingType,
-    SubsamplingLayer)
+    DropoutLayer, GlobalPoolingLayer, GravesLSTM, OutputLayer, PoolingType,
+    RnnOutputLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
 
-__all__ = ["ZooModel", "LeNet", "SimpleCNN", "VGG16", "VGG19", "ResNet50"]
+__all__ = ["ZooModel", "LeNet", "SimpleCNN", "VGG16", "VGG19",
+           "TextGenerationLSTM", "ResNet50"]
 
 
 class ZooModel:
@@ -156,6 +157,34 @@ def _conv_bn(g, name, inp, n_out, kernel=(3, 3), stride=(1, 1),
     g.add_layer(f"{name}_bn", BatchNormalization(activation=activation),
                 f"{name}_conv")
     return f"{name}_bn"
+
+
+class TextGenerationLSTM(ZooModel):
+    """Char-level LSTM (zoo/model/TextGenerationLSTM.java): two stacked
+    GravesLSTM(256) and an RnnOutputLayer, one-hot vocabulary in and
+    out."""
+
+    name = "textgenlstm"
+
+    def __init__(self, vocab_size: int = 77, seed: int = 123,
+                 updater: Optional[dict] = None, max_length: int = 40):
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+        super().__init__(n_classes=vocab_size, seed=seed,
+                         input_shape=(max_length, vocab_size),
+                         updater=updater or updaters.rmsprop(1e-2))
+
+    def default_input_shape(self):
+        return (40, 77)
+
+    def conf(self):
+        return (self._builder().list()
+                .layer(GravesLSTM(n_out=256, activation="tanh"))
+                .layer(GravesLSTM(n_out=256, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.vocab_size, loss="mcxent"))
+                .set_input_type(InputType.recurrent(self.vocab_size,
+                                                    self.max_length))
+                .build())
 
 
 class ResNet50(ZooModel):

@@ -491,9 +491,9 @@ def test_graph_evaluate_clone_and_flat_params(every_vertex_pair):
 def test_unported_graph_features_raise(every_vertex_pair):
     _, tn = every_vertex_pair
     xs, ys, _, _ = _every_vertex_data()
-    for call, item in ((lambda: tn.rnn_time_step(*xs), "A5b"),
-                       (lambda: tn.streaming_session(8, 1), "A5b"),
-                       (lambda: tn.pretrain([]), "A5b"),
+    # rnn_time_step and streaming_session are ported (A5b-1,
+    # tests/test_torch_rnn_stream.py)
+    for call, item in ((lambda: tn.pretrain([]), "A5b-2"),
                        (lambda: tn.warmup(None), "A7"),
                        (lambda: tn.set_listeners(object()), "A7"),
                        (lambda: tn.fit(MultiDataSet(xs, ys),

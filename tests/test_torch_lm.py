@@ -173,8 +173,8 @@ def test_config_json_round_trips_unchanged(jax_lm):
 
 def test_unported_layer_type_is_named(jax_lm):
     d = json.loads(jax_lm.conf.to_json())
-    d["layers"][1]["@type"] = "LSTM"
-    with pytest.raises(ValueError, match="'LSTM'"):
+    d["layers"][1]["@type"] = "Convolution1DLayer"
+    with pytest.raises(ValueError, match="'Convolution1DLayer'"):
         MultiLayerConfiguration.from_dict(d)
 
 
