@@ -56,8 +56,26 @@ streaming session, ``output``) to equal ids and through a zip; serves
 it (``/v1/predict``) and an embedding char-RNN LM (``/v1/generate``, 16
 concurrent requests on the dense slot session, greedy ids against lone
 decodes); and streams a GravesLSTM + transformer stack through the
-decode kernel against ``output`` on the flash forward kernel. It
-imports nothing of JAX or of the JAX package. Any
+decode kernel against ``output`` on the flash forward kernel. Then
+(``layers_phase``) every layer the Keras importer maps to and the port
+had not (1-d, transposed, depthwise and separable convolutions, padding,
+upsampling, cropping, space-to-depth/batch, 1-d pooling, layer and
+local response normalization) runs forward and backward on the card
+against the CPU, and (``keras_phase``) bench.py's ``vgg16_import`` leg
+runs uncut: its Keras VGG16 config with Keras's default init drawn from
+a seed, held in an in-memory stand-in of a Keras h5 file (the card's
+machine has neither keras nor h5py; with h5py it also goes through a
+real h5 file), imported onto the card by the Sequential builder (B=32,
+224x224, f32: card vs CPU, warm ms, images/s, the share of the bound,
+peak memory, a zip restored through the model guesser, the ``summary``
+CLI), then a Keras transformer encoder block at the LM's width imported
+onto ComputationGraph, its attention on the flash forward kernel (vs
+the plain attention and the CPU). First of all (``tf32_phase``) both
+TF32 flags are turned on, as a caller might, and the LM (2 layers) and
+a dense net must still compute in float32 on the card: the flags are
+off after their first layer, and the outputs within f32 tolerance of
+the CPU's; every later phase runs with them off. It imports nothing of
+JAX or of the JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 2 and prints no result.
@@ -3222,6 +3240,475 @@ def rnn_phase(attn, da, card):
     return fwd, dec
 
 
+# ------------------------------------------------------------ Keras import
+# bench.py's vgg16_import leg (_KERAS_VGG16_SCRIPT, :470-488): B=32,
+# 224x224x3, f32, 13 convs (3x3 same, relu) in 5 blocks + 3 dense
+VGG_B, VGG_HW, VGG_CLASSES, VGG_DENSE = 32, 224, 1000, 4096
+VGG_WIDTHS = (64, 128, 256, 512, 512)
+VGG_REPS = (2, 2, 3, 3, 3)
+VGG_TIMED = 20             # warm batches timed one by one (median)
+# bench.py:586's VGG16_FWD_FLOPS: 15.47e9 an image, which counts one
+# multiply-add as one operation (2x that in FLOPs, conv_dense_flops)
+VGG16_FWD_FLOPS_BENCH = 15.47e9
+# the imported transformer encoder block at the LM's width
+BLOCK_B, BLOCK_T, BLOCK_D, BLOCK_H, BLOCK_CLASSES = 8, 1024, 1024, 16, 10
+CPU_ROWS = 2               # rows held against the CPU
+
+
+def _keras_layer(class_name, name, inbound=None, **config):
+    """One layer of a Keras ``model_config`` (``config`` in Keras's own
+    key names); ``inbound``: a Functional layer's Keras 2 node list."""
+    layer = {"class_name": class_name, "name": name,
+             "config": {"name": name, **config}}
+    if inbound is not None:
+        layer["inbound_nodes"] = [[[n, 0, 0, {}] for n in inbound]] \
+            if inbound else []
+    return layer
+
+
+def _conv2d(name, filters):
+    return _keras_layer("Conv2D", name, filters=filters, kernel_size=[3, 3],
+                        strides=[1, 1], padding="same", dilation_rate=[1, 1],
+                        activation="relu", use_bias=True)
+
+
+def _dense(name, units, activation, inbound=None):
+    return _keras_layer("Dense", name, inbound, units=units,
+                        activation=activation, use_bias=True)
+
+
+def keras_vgg16(hw, widths, dense, classes):
+    """bench.py's Keras VGG16 as the Sequential ``model_config`` Keras
+    writes (layers b{block}c{r}, b{block}p, flat, fc1, fc2, pred), and
+    {layer: [(shape, init)]} of its weights in Keras's order."""
+    layers = [_keras_layer("InputLayer", "input_layer",
+                           batch_shape=[None, hw, hw, 3])]
+    shapes, cin, side = {}, 3, hw
+    for block, (n, reps) in enumerate(zip(widths, VGG_REPS)):
+        for r in range(reps):
+            layers.append(_conv2d(f"b{block}c{r}", n))
+            shapes[f"b{block}c{r}"] = [((3, 3, cin, n), "glorot"),
+                                       ((n,), "zeros")]
+            cin = n
+        layers.append(_keras_layer("MaxPooling2D", f"b{block}p",
+                                   pool_size=[2, 2], strides=[2, 2],
+                                   padding="valid"))
+        side //= 2
+    layers.append(_keras_layer("Flatten", "flat"))
+    n_in = side * side * cin
+    for name, units, act in (("fc1", dense, "relu"), ("fc2", dense, "relu"),
+                             ("pred", classes, "softmax")):
+        layers.append(_dense(name, units, act))
+        shapes[name] = [((n_in, units), "glorot"), ((units,), "zeros")]
+        n_in = units
+    return ({"class_name": "Sequential",
+             "config": {"name": "vgg16", "layers": layers}}, shapes)
+
+
+def keras_transformer_block(T, d, H, classes):
+    """A Keras transformer encoder block (tests/test_keras_import.py's
+    model: LayerNormalization, self-attention MultiHeadAttention, Add,
+    LayerNormalization, Dense(4d, gelu), Dense(d), Add,
+    GlobalAveragePooling1D, Dense softmax) as the Functional
+    ``model_config`` in Keras 2's inbound-node format, and its weights'
+    (shape, init) in Keras's order."""
+    kd = d // H
+    ln = dict(axis=-1, epsilon=1e-3, center=True, scale=True)
+    layers = [
+        _keras_layer("InputLayer", "inp", [], batch_shape=[None, T, d]),
+        _keras_layer("LayerNormalization", "ln1", ["inp"], **ln),
+        _keras_layer("MultiHeadAttention", "mha", ["ln1", "ln1"],
+                     num_heads=H, key_dim=kd, value_dim=kd, dropout=0.0,
+                     use_bias=True, output_shape=None,
+                     attention_axes=None),
+        _keras_layer("Add", "add1", ["inp", "mha"]),
+        _keras_layer("LayerNormalization", "ln2", ["add1"], **ln),
+        _dense("ff1", 4 * d, "gelu", ["ln2"]),
+        _dense("ff2", d, "linear", ["ff1"]),
+        _keras_layer("Add", "add2", ["add1", "ff2"]),
+        _keras_layer("GlobalAveragePooling1D", "gap", ["add2"]),
+        _dense("pred", classes, "softmax", ["gap"]),
+    ]
+    ln_w = [((d,), "ones"), ((d,), "zeros")]
+    shapes = {"ln1": ln_w, "ln2": ln_w,
+              "mha": [((d, H, kd), "glorot"), ((H, kd), "zeros")] * 3
+              + [((H, kd, d), "glorot"), ((d,), "zeros")],
+              "ff1": [((d, 4 * d), "glorot"), ((4 * d,), "zeros")],
+              "ff2": [((4 * d, d), "glorot"), ((d,), "zeros")],
+              "pred": [((d, classes), "glorot"), ((classes,), "zeros")]}
+    return ({"class_name": "Functional", "config": {
+        "name": "block", "layers": layers,
+        "input_layers": [["inp", 0, 0]],
+        "output_layers": [["pred", 0, 0]]}}, shapes)
+
+
+def keras_weights(shapes, seed=0):
+    """Keras's default initialization from a seeded numpy generator:
+    glorot-uniform kernels (Keras's fans: the receptive field times the
+    last two axes), zero biases, LayerNormalization's gamma ones."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, entries in shapes.items():
+        arrays = []
+        for shape, init in entries:
+            if init != "glorot":
+                arrays.append((np.ones if init == "ones" else np.zeros)(
+                    shape, np.float32))
+                continue
+            field = int(np.prod(shape[:-2]))
+            limit = math.sqrt(6.0 / (field * (shape[-2] + shape[-1])))
+            u = rng.random(shape, dtype=np.float32)
+            u *= np.float32(2 * limit)
+            u -= np.float32(limit)
+            arrays.append(u)
+        out[name] = arrays
+    return out
+
+
+class _KerasGroup(dict):
+    """One layer's group of a Keras h5 file: its datasets by name and
+    ``attrs["weight_names"]`` in Keras's order."""
+
+    def __init__(self, layer, arrays):
+        names = [f"{layer}/w{i}" for i in range(len(arrays))]
+        super().__init__(zip(names, arrays))
+        self.attrs = {"weight_names": names}
+
+
+class H5Like:
+    """What the importer reads of a Keras legacy h5 file, in memory:
+    ``attrs["model_config"]`` and ``["model_weights"][layer]``. Layers
+    without weights have no group."""
+
+    def __init__(self, model_config, weights):
+        self.attrs = {"model_config": json.dumps(model_config)}
+        self.model_weights = {name: _KerasGroup(name, arrays)
+                              for name, arrays in weights.items() if arrays}
+
+    def __getitem__(self, key):
+        if key != "model_weights":
+            raise KeyError(key)
+        return self.model_weights
+
+
+def write_keras_h5(path, model_config, weights, keras_version="2.15.0"):
+    """The same archive as a real legacy Keras h5 file (needs h5py)."""
+    import h5py
+    with h5py.File(path, "w") as f:
+        f.attrs["model_config"] = json.dumps(model_config)
+        f.attrs["keras_version"] = keras_version
+        f.attrs["backend"] = "tensorflow"
+        mw = f.create_group("model_weights")
+        for layer in model_config["config"]["layers"]:
+            name = layer["config"]["name"]
+            grp = mw.create_group(name)
+            arrays = weights.get(name, [])
+            names = [f"{name}/w{i}" for i in range(len(arrays))]
+            for n, a in zip(names, arrays):
+                grp.create_dataset(n, data=a)
+            grp.attrs["weight_names"] = [n.encode() for n in names]
+
+
+def median_ms(fn, n):
+    """Median of ``n`` CUDA-event times of ``fn`` (ms), after a warm call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return sorted(times)[n // 2]
+
+
+def sequential_flops(net):
+    """Forward FLOPs an example of a MultiLayerNetwork's convs and dense
+    layers, from its config (2·MACs, as ``conv_dense_flops``)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
+                                                         DenseLayer,
+                                                         OutputLayer)
+    total, t = 0, net.conf.input_type
+    for i, layer in enumerate(net.layers):
+        if i in net.conf.preprocessors:
+            t = net.conf.preprocessors[i].output_type(t)
+        out = layer.output_type(t)
+        if isinstance(layer, ConvolutionLayer):
+            total += (2 * out.height * out.width * layer.n_in * layer.n_out
+                      * layer.kernel[0] * layer.kernel[1])
+        elif isinstance(layer, (DenseLayer, OutputLayer)):
+            total += 2 * layer.n_in * layer.n_out
+        t = out
+    return total
+
+
+def vgg16_import(card):
+    """The vgg16_import leg on the card: bench.py's VGG16 config and
+    Keras's default init (seed 0) through the importer's Sequential
+    builder from memory, held against the same import on the CPU,
+    timed, written and restored through the model guesser, summarized
+    by the CLI; through a real h5 file when h5py is there."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.keras import (
+        import_keras_model_and_weights)
+    from deeplearning4j_tpu_torch.keras.importer import _import_sequential
+    from deeplearning4j_tpu_torch.util.model_guesser import load_model_guess
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in ("keras", "h5py")}
+    log(f"on this machine: keras {'present' if present['keras'] else 'absent'}"
+        f", h5py {'present' if present['h5py'] else 'absent'}")
+    cfg, shapes = keras_vgg16(VGG_HW, VGG_WIDTHS, VGG_DENSE, VGG_CLASSES)
+    t0 = time.perf_counter()
+    weights = keras_weights(shapes, seed=0)
+    archive = H5Like(cfg, weights)
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = _import_sequential(cfg, archive, device="cuda")
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_params = net.num_params()
+    assert n_params == sum(math.prod(shape) for entries in shapes.values()
+                           for shape, _ in entries), n_params
+    x = np.random.default_rng(0).normal(
+        0, 1, (VGG_B, VGG_HW, VGG_HW, 3)).astype("float32")
+    xd = torch.from_numpy(x).cuda()
+    out = net.output(xd)
+    assert out.shape == (VGG_B, VGG_CLASSES) and bool(
+        torch.isfinite(out).all())
+    cpu = _import_sequential(cfg, archive, device="cpu")
+    ref = cpu.output(x[:CPU_ROWS])
+    del cpu
+    got = out[:CPU_ROWS].cpu()
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+    err = float((got - ref).abs().max())
+    top1 = int((got.argmax(1) == ref.argmax(1)).sum())
+    ms = median_ms(lambda: net.output(xd), VGG_TIMED)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    flops = sequential_flops(net) * VGG_B
+    bound_bench_ms = VGG16_FWD_FLOPS_BENCH * VGG_B / PEAK_F32_FLOPS * 1e3
+    bound_ms = flops / PEAK_F32_FLOPS * 1e3
+    log(f"vgg16_import ({card}): B={VGG_B} {VGG_HW}x{VGG_HW}x3 f32, "
+        f"{n_params} params; weights drawn in {draw_s:.2f} s, imported "
+        f"onto the card in {import_s:.2f} s; card vs CPU on {CPU_ROWS} "
+        f"images: max |diff| {err:.3e} (atol {ATOL:g}, rtol {RTOL:g}), "
+        f"top-1 agree {top1}/{CPU_ROWS}; output warm median {ms:.3f} ms a "
+        f"batch (CUDA events, {VGG_TIMED} batches) = "
+        f"{VGG_B / ms * 1e3:.1f} images/s; bound at f32 "
+        f"{PEAK_F32_FLOPS / 1e12:g} TFLOP/s: {bound_bench_ms:.3f} ms by "
+        f"bench.py's {VGG16_FWD_FLOPS_BENCH:.4g} an image ("
+        f"{100 * bound_bench_ms / ms:.1f}%), {bound_ms:.3f} ms by the "
+        f"config's {flops / VGG_B:.4g} FLOPs an image "
+        f"({100 * bound_ms / ms:.1f}%); peak device memory "
+        f"{peak_gib:.2f} GiB")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vgg16.zip")
+        write_model(net, path)
+        # one batch size a comparison: cuDNN may take another algorithm
+        # for another shape
+        rows = net.output(xd[:CPU_ROWS])
+        again = load_model_guess(path, device="cuda")
+        assert torch.equal(again.output(xd[:CPU_ROWS]), rows)
+        del again
+        r = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "summary",
+             "--model", path, "--device", "cuda"], capture_output=True,
+            text=True, timeout=300, check=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = r.stdout.splitlines()
+        assert lines[0] == "format: checkpoint", r.stdout
+        assert lines[-1] == f"total params: {n_params}", r.stdout
+        log(f"summary CLI of the zip: {lines[0]}; {len(lines) - 3} layers; "
+            f"{lines[-1]}")
+        if present["h5py"]:
+            h5 = os.path.join(tmp, "vgg16.h5")
+            write_keras_h5(h5, cfg, weights)
+            from_file = import_keras_model_and_weights(h5, device="cuda")
+            assert torch.equal(from_file.output(xd[:CPU_ROWS]), rows)
+            log("the same archive as a legacy Keras h5 file, imported "
+                "through import_keras_model_and_weights: outputs equal to "
+                "the in-memory import")
+            del from_file
+        else:
+            log("h5py is absent on this machine: the h5 file route was not "
+                "run")
+    return {"vgg16_ms": ms, "vgg16_images_per_s": VGG_B / ms * 1e3,
+            "vgg16_bound_share_bench": bound_bench_ms / ms,
+            "vgg16_bound_share_config": bound_ms / ms,
+            "vgg16_peak_gib": peak_gib, "vgg16_max_abs_err": err,
+            "vgg16_top1_agree": top1, "keras_present": present["keras"],
+            "h5py_present": present["h5py"]}
+
+
+def keras_block(attn, card):
+    """An imported Keras transformer encoder block at the LM's width on
+    ComputationGraph: its attention on the flash forward kernel, held
+    against the same graph on the plain attention and against the CPU.
+    Returns (forward launches of this path, numbers)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.keras.importer import _import_functional
+    cfg, shapes = keras_transformer_block(BLOCK_T, BLOCK_D, BLOCK_H,
+                                          BLOCK_CLASSES)
+    archive = H5Like(cfg, keras_weights(shapes, seed=1))
+    net = _import_functional(cfg, archive, device="cuda")
+    x = np.random.default_rng(2).normal(
+        0, 1, (BLOCK_B, BLOCK_T, BLOCK_D)).astype("float32")
+    xd = torch.from_numpy(x).cuda()
+    attn.flash_attention_fwd_cuda.launches = 0        # this path only
+    out = net.output(xd)
+    torch.cuda.synchronize()
+    fwd = attn.flash_attention_fwd_cuda.launches
+    assert fwd == 1, fwd
+    assert out.shape == (BLOCK_B, BLOCK_CLASSES) and bool(
+        torch.isfinite(out).all())
+    with plain_attention(attn):
+        plain = net.output(xd)
+    assert attn.flash_attention_fwd_cuda.launches == fwd
+    cpu = _import_functional(cfg, archive, device="cpu")
+    ref = cpu.output(x[:CPU_ROWS])
+    errs = {}
+    for what, got, want in (("vs plain attention", out, plain),
+                            ("vs the CPU", out[:CPU_ROWS].cpu(), ref)):
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        errs[what] = float((got - want).abs().max())
+    ms = median_ms(lambda: net.output(xd), VGG_TIMED)
+    log(f"imported Keras transformer block on ComputationGraph ({card}): "
+        f"B={BLOCK_B} T={BLOCK_T} d={BLOCK_D} H={BLOCK_H}; output warm "
+        f"median {ms:.3f} ms (CUDA events); max |diff| (atol {ATOL:g}, "
+        f"rtol {RTOL:g}): " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in errs.items())
+        + f"; flash_attention_fwd launches {fwd}")
+    return fwd, {"block_ms": ms, "block_max_abs_err": max(errs.values())}
+
+
+def keras_phase(attn, card):
+    """Keras import on the card: the vgg16_import leg and the imported
+    transformer block. Returns the block's forward launches."""
+    import torch
+    leg = vgg16_import(card)
+    torch.cuda.empty_cache()
+    fwd, block = keras_block(attn, card)
+    torch.cuda.empty_cache()
+    log("keras_phase summary: " + json.dumps({**leg, **block}))
+    return fwd
+
+
+def tf32_phase(card):
+    """With both TF32 flags turned on, as a caller might, the LM (at
+    depth 2) and a dense net compute in float32 on the card: the flags
+    are off afterwards and each output is within f32 tolerance of the
+    same network on the CPU (a TF32 product at these widths is ~1e-3
+    off)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = lm_config()
+    cfg["layers"] = cfg["layers"][:3] + cfg["layers"][-1:]
+    mlp = {"format_version": 1, "network_type": "MultiLayerNetwork",
+           "global": {"seed": 0},
+           "input_type": {"kind": "ff", "size": D_MODEL},
+           "layers": [{"@type": "DenseLayer", "n_out": D_MODEL,
+                       "activation": "tanh"}] * 2
+           + [{"@type": "DenseLayer", "n_out": D_MODEL}],
+           "preprocessors": {}}
+    rng = np.random.default_rng(3)
+    inputs = (rng.integers(0, V, (2, 256)),
+              rng.normal(0, 1, (16, D_MODEL)).astype("float32"))
+    errs = {}
+    for what, conf, x in (("LM (2 layers)", cfg, inputs[0]),
+                          ("dense MLP", mlp, inputs[1])):
+        cpu = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                                device="cpu").init()
+        card_net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                                     device="cuda").init()
+        card_net.set_params(cpu.params)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        got = card_net.output(x).cpu()
+        assert torch.backends.cuda.matmul.allow_tf32 is False, what
+        assert torch.backends.cudnn.allow_tf32 is False, what
+        ref = cpu.output(x)
+        torch.testing.assert_close(got, ref, atol=1e-9 if what.startswith(
+            "LM") else ATOL, rtol=RTOL)
+        errs[what] = float((got - ref).abs().max())
+    log(f"tf32_phase ({card}): both TF32 flags set True by the caller, "
+        "off after the first layer; card vs CPU max |diff| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def layers_phase(card):
+    """Every layer of the Keras slice forward and backward on the card
+    against the CPU at a small shape (f32, ATOL / RTOL): cuDNN's grouped
+    and transposed convolutions over channels_last views."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    cnn, seq = InputType.convolutional(9, 10, 6), InputType.recurrent(6, 11)
+    cases = [
+        (L.Convolution1DLayer(n_out=8, kernel=3, stride=2, dilation=1,
+                              convolution_mode="same"), seq),
+        (L.Convolution1DLayer(n_out=8, kernel=2, dilation=2), seq),
+        (L.Deconvolution2DLayer(n_out=5, kernel=3, stride=2, padding=1),
+         cnn),
+        (L.Deconvolution2DLayer(n_out=5, kernel=4, stride=2,
+                                convolution_mode="same"), cnn),
+        (L.DepthwiseConvolution2DLayer(kernel=3, depth_multiplier=2,
+                                       convolution_mode="same"), cnn),
+        (L.DepthwiseConvolution2DLayer(kernel=2, stride=2, dilation=1),
+         cnn),
+        (L.SeparableConvolution2DLayer(n_out=7, kernel=3, dilation=2,
+                                       depth_multiplier=2), cnn),
+        (L.ZeroPaddingLayer(pad=((1, 2), (0, 3))), cnn),
+        (L.ZeroPadding1DLayer(pad=(2, 1)), seq),
+        (L.UpsamplingLayer(size=(2, 3)), cnn),
+        (L.CroppingLayer(crop=((1, 0), (2, 1))), cnn),
+        (L.SpaceToDepthLayer(block_size=2), InputType.convolutional(8, 10, 6)),
+        (L.SpaceToBatchLayer(block_size=2), InputType.convolutional(8, 10, 6)),
+        (L.Subsampling1DLayer(pooling="max", kernel=3, stride=2,
+                              convolution_mode="same"), seq),
+        (L.Subsampling1DLayer(pooling="avg", kernel=2), seq),
+        (L.LayerNormalization(), seq),
+        (L.LocalResponseNormalization(), cnn),
+    ]
+    g = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(4)
+    errs = {}
+    for i, (layer, it) in enumerate(cases):
+        params, state = layer.initialize(g, it)
+        x = rng.normal(0, 1, (3,) + it.array_shape()[1:]).astype("float32")
+        results = []
+        for device in ("cuda", "cpu"):
+            p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+            xt = torch.tensor(x, device=device, requires_grad=True)
+            y, _ = layer.apply(p, state, xt)
+            ct = torch.from_numpy(np.random.default_rng(5).normal(
+                0, 1, tuple(y.shape)).astype("float32")).to(device)
+            grads = torch.autograd.grad(y, [xt] + list(p.values()), ct)
+            results.append([t.detach().cpu() for t in (y,) + grads])
+        worst = 0.0
+        for got, want in zip(*results):
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            worst = max(worst, float((got - want).abs().max()))
+        errs[f"{i}:{type(layer).__name__}"] = worst
+    log(f"layers_phase ({card}): forward + input and param gradients on "
+        f"the card vs the CPU, max |diff| (atol {ATOL:g}, rtol {RTOL:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -3273,8 +3760,6 @@ def main():
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
     for name, report in native.build_all().items():
@@ -3288,6 +3773,10 @@ def main():
                 f"{name}.cu spills registers: {line.strip()}"
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
     hmma = tensor_core_ops(native)
+    # first: the port keeps float32 float32 whatever the caller set;
+    # every later phase runs with both TF32 flags off (the layers'
+    # doing)
+    tf32_phase(card)
 
     fwd = kernel_phase(attn)
     dq, dkv = backward_kernel_phase(attn)
@@ -3314,8 +3803,10 @@ def main():
     torch.cuda.empty_cache()
     cnn_phase(card)
     fwd_rnn, dec_rnn = rnn_phase(attn, da, card)
+    layers_phase(card)
+    fwd_keras = keras_phase(attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
-                               "rnn": fwd_rnn}
+                               "rnn": fwd_rnn, "keras": fwd_keras}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn}
     for record in (fwd, dec):

@@ -3,13 +3,15 @@ so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
 ``/metrics``, ``/healthz``, ``/readyz`` and ``/debug/*``;
 ``--aot-warmup``),
 ``serve-fleet`` (N in-process replicas behind the health-aware router,
-with disaggregated prefill/decode roles) and the top-level ``--trace
+with disaggregated prefill/decode roles), ``summary`` (a checkpoint zip
+or Keras ``.h5`` through the model guesser) and the top-level ``--trace
 PATH`` and ``--flight-record DIR``.
 
     python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
         --slots 8 --capacity 1024 --trace-sample 0.01 --slo slo.json
     python -m deeplearning4j_tpu_torch serve-fleet --model lm=lm.zip \
         --replicas 3 --roles prefill=1,decode=2 --slots 8 --capacity 1024
+    python -m deeplearning4j_tpu_torch summary --model model.h5
 """
 
 from __future__ import annotations
@@ -184,6 +186,16 @@ def _cmd_serve_fleet(args):
         fleet.stop(drain=True)
 
 
+def _cmd_summary(args):
+    from deeplearning4j_tpu_torch.util.model_guesser import (
+        guess_format, load_model_guess)
+    kind = guess_format(args.model)
+    print(f"format: {kind}")
+    model = load_model_guess(args.model, device=args.device)
+    if hasattr(model, "summary"):
+        print(model.summary())
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     p.add_argument("--trace", metavar="PATH", default=None,
@@ -347,6 +359,13 @@ def main(argv=None):
     later.add_argument("--rollout-min-requests", type=int, default=None,
                        metavar="N")
     f.set_defaults(fn=_cmd_serve_fleet)
+
+    s = sub.add_parser("summary", help="inspect a model file")
+    s.add_argument("--model", required=True)
+    s.add_argument("--device", default="cuda",
+                   help="torch device to load the model on (default cuda; "
+                        "cpu for a machine without a card)")
+    s.set_defaults(fn=_cmd_summary)
     args = p.parse_args(argv)
     recorder = None
     if args.flight_record:

@@ -5,8 +5,11 @@ runs on the card unless the caller asks for the CPU. Without a card the
 default raises instead of quietly running somewhere slower.
 
 Float32 stays float32 on the card, as the JAX package computes it:
-``keep_float32`` turns TF32 off for cuBLAS and cuDNN before the conv
-and recurrent layers' calls. That is process-wide (see there).
+every layer that multiplies or convolves (dense, output, attention and
+the transformer block's MLP, conv family, recurrent) calls
+``keep_float32`` on its input before its cuBLAS or cuDNN call, so a
+caller's ``allow_tf32 = True`` does not reach them. That is
+process-wide (see there).
 """
 
 from __future__ import annotations
@@ -47,9 +50,9 @@ def keep_float32(x: torch.Tensor) -> None:
     both, so float32 products run in float32. The two flags are
     process-wide and cannot be scoped to the call, because PyTorch reads
     them again when autograd runs the backward after the layer has
-    returned: once a conv or recurrent layer has run on a card, every
-    other float32 matmul and convolution in the process is float32 too,
-    whoever calls it. Nothing here turns TF32 back on."""
+    returned: once a layer has run on a card, every other float32
+    matmul and convolution in the process is float32 too, whoever calls
+    it. Nothing here turns TF32 back on."""
     if x.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

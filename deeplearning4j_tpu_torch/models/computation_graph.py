@@ -445,7 +445,7 @@ class ComputationGraph(nn.Module):
         for name in self.conf.topological_order():
             obj, ins = self.conf.vertices[name]
             lines.append(f"{name:<20} {type(obj).__name__:<25} {ins}")
-        if self.params is not None:
+        if self.params:
             lines.append(f"total params: {self.num_params()}")
         return "\n".join(lines)
 

@@ -16,7 +16,8 @@ overrides and ``gradient_clip``), then the layer constraints. The
 parameters are updated in place. Preprocessors
 (``nn/conf/preprocessors.py``) reshape a layer's input where the config
 placed them. ``output`` runs under ``torch.inference_mode``;
-``evaluate`` scores classification (``evaluation/classification.py``).
+``evaluate`` scores classification (``evaluation/classification.py``);
+``summary`` prints the JAX package's table of layers.
 With ``backprop_type("tbptt", fwd_length=n)`` a batch of sequences is
 split into chunks of n steps, one updater step each, with the recurrent
 layers' carries crossing the chunk boundaries detached (``_fit_tbptt``).
@@ -466,6 +467,22 @@ class MultiLayerNetwork(nn.Module):
             self.init()
         return PagedSlotSession(self, slots=slots, capacity=capacity,
                                 page_size=page_size, n_pages=n_pages)
+
+    def summary(self) -> str:
+        """One line a layer (index, type, parameter count, output type)
+        and the total: the JAX package's text for the same network."""
+        params = self.params
+        lines = ["idx  type                      params    out_type"]
+        t = self.conf.input_type
+        for i, layer in enumerate(self.layers):
+            if t is not None and i in self.conf.preprocessors:
+                t = self.conf.preprocessors[i].output_type(t)
+            n = (sum(p.numel() for p in updaters_mod.tree_leaves(params[i]))
+                 if params else 0)
+            t = layer.output_type(t) if t is not None else None
+            lines.append(f"{i:<4} {type(layer).__name__:<25} {n:<9} {t}")
+        lines.append(f"total params: {self.num_params() if params else 0}")
+        return "\n".join(lines)
 
     def set_listeners(self, *listeners):
         raise NotImplementedError(

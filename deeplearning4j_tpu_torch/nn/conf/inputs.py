@@ -84,3 +84,15 @@ class InputType:
     @staticmethod
     def from_dict(d: dict) -> "InputType":
         return InputType(**d)
+
+    def __repr__(self):
+        if self.kind == "ff":
+            return f"InputType.ff({self.size})"
+        if self.kind == "rnn":
+            return f"InputType.rnn({self.size}, t={self.timesteps})"
+        if self.kind == "cnn":
+            return f"InputType.cnn({self.height}x{self.width}x{self.channels})"
+        if self.kind == "cnnflat":
+            return (f"InputType.cnnflat({self.height}x{self.width}"
+                    f"x{self.channels})")
+        return f"InputType({self.to_dict()})"

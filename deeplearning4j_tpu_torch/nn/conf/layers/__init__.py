@@ -7,16 +7,19 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import (
     LAYER_REGISTRY, BaseLayer, FeedForwardLayer, Layer, layer_from_dict,
     register_layer)
 from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
-    ConvolutionLayer)
+    Convolution1DLayer, ConvolutionLayer, CroppingLayer, Deconvolution2DLayer,
+    DepthwiseConvolution2DLayer, SeparableConvolution2DLayer,
+    SpaceToBatchLayer, SpaceToDepthLayer, UpsamplingLayer, ZeroPadding1DLayer,
+    ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.core import (
     ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
-    BatchNormalization)
+    BatchNormalization, LayerNormalization, LocalResponseNormalization)
 from deeplearning4j_tpu_torch.nn.conf.layers.output import (LossLayer,
                                                             OutputLayer,
                                                             RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
-    GlobalPoolingLayer, PoolingType, SubsamplingLayer)
+    GlobalPoolingLayer, PoolingType, Subsampling1DLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
     GravesLSTM, LastTimeStep, RnnLossLayer, SimpleRnn)
@@ -29,4 +32,9 @@ __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
            "GlobalPoolingLayer", "PoolingType", "BatchNormalization",
            "LossLayer", "BaseRecurrentLayer", "LSTM", "GravesLSTM",
            "GravesBidirectionalLSTM", "Bidirectional", "SimpleRnn",
-           "LastTimeStep", "RnnLossLayer"]
+           "LastTimeStep", "RnnLossLayer", "Convolution1DLayer",
+           "Deconvolution2DLayer", "SeparableConvolution2DLayer",
+           "DepthwiseConvolution2DLayer", "ZeroPaddingLayer",
+           "ZeroPadding1DLayer", "UpsamplingLayer", "CroppingLayer",
+           "SpaceToDepthLayer", "SpaceToBatchLayer", "Subsampling1DLayer",
+           "LayerNormalization", "LocalResponseNormalization"]

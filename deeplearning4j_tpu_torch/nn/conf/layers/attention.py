@@ -15,8 +15,10 @@ cache in place and attends through ``ops/decode_attention.py`` (the
 paged decode kernel on the card): a dense cache is the paged call with
 one page per row. Positions are host data, as in the sessions that own
 them; the paged session uploads them once a step, inside its captured
-graph, as a :class:`PagedIndex` that every layer reads. The
-sequence-parallel branches are not ported yet.
+graph, as a :class:`PagedIndex` that every layer reads. The projections
+and the block's MLP run with TF32 off on the card
+(``device.keep_float32``). The sequence-parallel branches are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
                                                           register_layer)
@@ -162,6 +165,7 @@ class SelfAttentionLayer(BaseLayer):
         B, T, _ = x.shape
         H = self.n_heads
         Dh = self.n_out // H
+        keep_float32(x)
         q = x @ params["Wq"]
         k = x @ params["Wk"]
         v = x @ params["Wv"]
@@ -326,6 +330,7 @@ class TransformerEncoderLayer(BaseLayer):
         """Pre-LN MLP residual branch, shared by apply and every
         streaming method (per token, so streaming needs no carry)."""
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
+        keep_float32(h)
         act = self.activation_fn()
         return act(h @ params["W1"] + params["b1"]) @ params["W2"] \
             + params["b2"]

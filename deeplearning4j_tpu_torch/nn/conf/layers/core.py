@@ -4,8 +4,9 @@
 ``EmbeddingSequenceLayer``. The dense product casts its operands to the
 policy's compute dtype and its result to the output dtype, as the JAX
 layer does; the float32 bias then promotes a bf16 result back to
-float32. ``EmbeddingLayer``, ``AutoEncoder`` and ``RBM`` are not ported
-yet."""
+float32. The product runs with TF32 off on the card
+(``device.keep_float32``). ``EmbeddingLayer``, ``AutoEncoder`` and
+``RBM`` are not ported yet."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import dataclasses
 import torch
 
 from deeplearning4j_tpu_torch import dtypes
+from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
                                                           FeedForwardLayer,
@@ -45,6 +47,7 @@ class DenseLayer(FeedForwardLayer):
                                      generator=generator)
         if x.dim() > 2 and x.shape[-1] != params["W"].shape[0]:
             x = x.reshape(x.shape[0], -1)
+        keep_float32(x)
         pol = dtypes.policy()
         y = pol.cast_to_output(pol.cast_to_compute(x)
                                @ pol.cast_to_compute(params["W"]))

@@ -1,7 +1,8 @@
 """Normalization (counterpart of
 ``deeplearning4j_tpu/nn/conf/layers/normalization.py``):
-``BatchNormalization`` and the last-axis ``layer_norm`` that the
-transformer blocks inline.
+``BatchNormalization``, ``LocalResponseNormalization``,
+``LayerNormalization`` and the last-axis ``layer_norm`` that it and the
+transformer blocks share.
 
 Batch normalization follows the JAX layer exactly, not
 ``F.batch_norm``: the batch statistics are float32 whatever the input
@@ -12,8 +13,13 @@ one), and ``(x − mean)`` promotes a bf16 input against the float32
 statistics, so the layer's output is float32 under the bf16 policy as
 in the JAX package. The state is a plain ``{"mean", "var"}`` dict
 returned by ``apply``, computed under ``no_grad``.
-``LocalResponseNormalization`` and the ``LayerNormalization`` layer are
-not ported yet (ROADMAP A5b-2).
+
+Local response normalization sums the squares over a window of ``n``
+channels zero-padded by ``n // 2`` on each side, as the JAX layer's
+``lax.reduce_window`` does, and divides by ``(k + alpha·sum)^beta``:
+``alpha`` is not divided by ``n`` (``F.local_response_norm`` divides
+it), so the sum is a window sum (``avg_pool2d`` with a divisor of 1)
+over the channel axis instead.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
+from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer, Layer,
                                                           register_layer)
 
-__all__ = ["BatchNormalization", "layer_norm"]
+__all__ = ["BatchNormalization", "LayerNormalization",
+           "LocalResponseNormalization", "layer_norm"]
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -96,3 +103,50 @@ class BatchNormalization(BaseLayer):
         else:
             y = y * self.gamma + self.beta
         return self.activation_fn()(y), new_state
+
+
+@register_layer
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN (nn/conf/layers/LocalResponseNormalization.java):
+    y = x / (k + alpha * sum_{j in window} x_j^2)^beta."""
+
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+    n: int = 5
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        half = self.n // 2
+        # channels last: the squares as (rows, 1, C, 1), zero-padded on C
+        sq = F.pad((x * x).reshape(-1, 1, x.shape[-1], 1),
+                   (0, 0, half, half))
+        ssum = F.avg_pool2d(sq, (self.n, 1), 1,
+                            divisor_override=1).reshape(x.shape)
+        return x / (self.k + self.alpha * ssum) ** self.beta, state
+
+
+@register_layer
+@dataclasses.dataclass
+class LayerNormalization(Layer):
+    """Per-example normalization over the last axis with learned
+    ``gamma``/``beta`` (Ba et al. 2016); stateless."""
+
+    n_in: Optional[int] = None
+    eps: float = 1e-5
+
+    def set_n_in(self, input_type: InputType) -> None:
+        if self.n_in is None:
+            self.n_in = input_type.size
+
+    def initialize(self, generator, input_type: InputType):
+        self.set_n_in(input_type)
+        pd = dtypes.policy().param_dtype
+        return {"gamma": torch.ones((self.n_in,), dtype=pd),
+                "beta": torch.zeros((self.n_in,), dtype=pd)}, {}
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        return layer_norm(x, params["gamma"], params["beta"],
+                          self.eps), state

@@ -4,7 +4,8 @@
 ``OutputLayer`` and ``RnnOutputLayer``: dense + activation (softmax in
 float32) for inference, and ``loss_from_input`` for training, with the
 fused softmax/sigmoid cross entropy where the activation and loss pair
-allows it and ``nn/losses.py`` otherwise. ``RnnOutputLayer`` averages a
+allows it and ``nn/losses.py`` otherwise; the product runs with TF32 off
+on the card (``device.keep_float32``). ``RnnOutputLayer`` averages a
 masked loss over the present timesteps. ``LossLayer`` is the loss
 alone, without weights. ``CenterLossOutputLayer`` (ROADMAP A8) and the
 sequence-parallel loss (A6) are not ported yet.
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch import dtypes
+from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
@@ -70,6 +72,7 @@ class OutputLayer(FeedForwardLayer):
             # float32 (torch's matmul takes one dtype)
             dt = torch.promote_types(x.dtype, W.dtype)
             x, W = x.to(dt), W.to(dt)
+        keep_float32(x)
         z = x @ W
         if self.has_bias:
             z = z + params["b"]

@@ -1,8 +1,10 @@
 """Pooling layers (counterpart of
 ``deeplearning4j_tpu/nn/conf/layers/pooling.py``): ``SubsamplingLayer``
 (max, avg, sum and pnorm windows in ``truncate`` and ``same`` mode) and
-``GlobalPoolingLayer`` (over H, W of NHWC input, or over the time axis
-of (B, T, C) input with the JAX package's masked reductions).
+``Subsampling1DLayer`` (the same windows over the time axis of (B, T, C)
+input, viewed as width-1 NHWC) and ``GlobalPoolingLayer`` (over H, W of
+NHWC input, or over the time axis of (B, T, C) input with the JAX
+package's masked reductions).
 
 The windows run on torch's pooling ops over the NHWC input viewed as
 channels_last NCHW. ``same`` mode pads as XLA's ``"SAME"`` does, which
@@ -10,7 +12,7 @@ may be asymmetric (the ResNet50 stem's 3×3 stride-2 max pool on 112
 pads (0, 1)); such an input is padded explicitly, with −inf for max
 and zeros for the sums, and ``same``-mode averages divide by the count
 of real elements in each window, as the JAX layer does.
-``Subsampling1DLayer``, the streaming carry (``apply_stream``) and the
+``GlobalPoolingLayer``'s streaming carry (``apply_stream``) and the
 sequence-parallel combine are not ported yet (ROADMAP A5b-2, A6).
 """
 
@@ -25,9 +27,10 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
-    _conv_padding, _out_dim, _pair)
+    _conv_padding, _first, _out_dim, _pair)
 
-__all__ = ["PoolingType", "SubsamplingLayer", "GlobalPoolingLayer"]
+__all__ = ["PoolingType", "SubsamplingLayer", "Subsampling1DLayer",
+           "GlobalPoolingLayer"]
 
 
 class PoolingType:
@@ -102,6 +105,28 @@ class SubsamplingLayer(Layer):
     def apply(self, params, state, x, *, training=False, generator=None,
               mask=None):
         return self._window_pool(x), state
+
+
+@register_layer
+@dataclasses.dataclass
+class Subsampling1DLayer(SubsamplingLayer):
+    """1-d pooling over (B,T,C) (nn/conf/layers/Subsampling1DLayer.java)."""
+
+    def __post_init__(self):
+        self.kernel = (int(_first(self.kernel)), 1)
+        self.stride = (int(_first(self.stride)), 1)
+        self.padding = (int(_first(self.padding)), 0)
+
+    def output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        if t is not None:
+            t = _out_dim(t, self.kernel[0], self.stride[0], self.padding[0],
+                         self.convolution_mode)
+        return InputType.recurrent(input_type.size, t)
+
+    def apply(self, params, state, x, *, training=False, generator=None,
+              mask=None):
+        return self._window_pool(x[:, :, None, :])[:, :, 0, :], state
 
 
 @register_layer

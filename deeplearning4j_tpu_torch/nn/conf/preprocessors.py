@@ -143,22 +143,30 @@ class RnnToCnnPreProcessor(InputPreProcessor):
 
 def auto_preprocessor(have: InputType, layer) -> Optional[InputPreProcessor]:
     """The preprocessor between activation type ``have`` and ``layer``,
-    by the JAX package's rule, over the layer kinds ported so far (the
-    conv-family layers not ported yet cannot occur in a port config)."""
+    by the JAX package's rule (MultiLayerConfiguration.Builder's
+    auto-insertion)."""
     from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
-        ConvolutionLayer)
+        Convolution1DLayer, ConvolutionLayer, CroppingLayer,
+        SpaceToBatchLayer, SpaceToDepthLayer, UpsamplingLayer,
+        ZeroPaddingLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
-        BatchNormalization)
+        BatchNormalization, LocalResponseNormalization)
     from deeplearning4j_tpu_torch.nn.conf.layers.output import (
         RnnOutputLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
-        GlobalPoolingLayer, SubsamplingLayer)
+        GlobalPoolingLayer, Subsampling1DLayer, SubsamplingLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
         BaseRecurrentLayer, Bidirectional, LastTimeStep)
 
-    wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer))
+    wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
+                                   LocalResponseNormalization,
+                                   ZeroPaddingLayer, UpsamplingLayer,
+                                   CroppingLayer, SpaceToDepthLayer,
+                                   SpaceToBatchLayer)) and not \
+        isinstance(layer, (Convolution1DLayer, Subsampling1DLayer))
     wants_rnn = isinstance(layer, (BaseRecurrentLayer, Bidirectional,
-                                   LastTimeStep, RnnOutputLayer))
+                                   LastTimeStep, RnnOutputLayer,
+                                   Convolution1DLayer, Subsampling1DLayer))
 
     if have.kind == "cnnflat" and wants_cnn:
         return FeedForwardToCnnPreProcessor(have.height, have.width,

@@ -616,3 +616,102 @@ def test_last_layer_without_loss_refuses_fit(tmp_path):
                             device="cpu").init()
     with pytest.raises(ValueError, match="no loss"):
         net.fit(DataSet(*_data()[:2]))
+
+
+# ------------------------------------------------- card: f32 whoever calls
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _allow_tf32():
+    """Both TF32 flags on, as a caller may set them."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def _assert_f32_flags():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _card_and_cpu(conf_dict):
+    """The same network (the CPU's init) on the CPU and on the card."""
+    conf = MultiLayerConfiguration.from_dict(conf_dict)
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    card = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf_dict),
+                             device="cuda").init()
+    card.set_params(cpu.params)
+    return cpu, card
+
+
+@pytest.mark.cuda
+def test_lm_computes_in_f32_when_the_caller_allows_tf32(cuda_device):
+    """An LM (head dim 32, the kernels' smallest) with TF32 turned on by
+    the caller before ``output`` and before a ``fit`` step: its layers
+    turn it off, and the output and every gradient equal the CPU's
+    within float32 tolerance (a TF32 product at width 128 is ~1e-3 off,
+    an order past these bounds)."""
+    Vc, Dc, Tc = 64, 128, 32
+    conf = {"format_version": 1, "network_type": "MultiLayerNetwork",
+            "global": {"seed": 0, "updater": tupd.adam(LR)},
+            "input_type": {"kind": "rnn", "size": Vc, "timesteps": Tc},
+            "layers": [{"@type": "EmbeddingSequenceLayer", "n_in": Vc,
+                        "n_out": Dc}]
+            + [{"@type": "TransformerEncoderLayer", "n_heads": 4,
+                "causal": True}] * 2
+            + [{"@type": "RnnOutputLayer", "n_out": Vc, "loss": "mcxent"}],
+            "preprocessors": {}}
+    cpu, card = _card_and_cpu(conf)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, Vc, (2, Tc)).astype(np.float32)
+    y = np.eye(Vc, dtype=np.float32)[rng.integers(0, Vc, (2, Tc))]
+    _allow_tf32()
+    got = card.output(ids).cpu().numpy()
+    _assert_f32_flags()
+    np.testing.assert_allclose(got, cpu.output(ids).numpy(), atol=ATOL,
+                               rtol=RTOL)
+    _allow_tf32()
+    loss, grads, _ = card._gradients(card._batch_tuple(DataSet(ids, y)))
+    _assert_f32_flags()
+    ref_loss, ref_grads, _ = cpu._gradients(cpu._batch_tuple(DataSet(ids,
+                                                                     y)))
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-5)
+    ref = _port_flat(ref_grads)
+    for k, g in _port_flat(grads).items():
+        assert np.linalg.norm(g - ref[k]) <= 1e-4 * np.linalg.norm(ref[k]) \
+            + 1e-9, k
+    _allow_tf32()
+    card.fit(DataSet(ids, y))
+    cpu.fit(DataSet(ids, y))
+    _assert_f32_flags()
+    np.testing.assert_allclose(float(card.score_value),
+                               float(cpu.score_value), rtol=1e-5)
+    # Adam moves an element by up to lr whatever its gradient's size, so
+    # one whose gradient is at rounding level may step either way: the
+    # params are held to 2 lr (the gradients above are the f32 check)
+    _assert_trees(_port_flat(card.params), _port_flat(cpu.params), 2 * LR,
+                  0)
+
+
+@pytest.mark.cuda
+def test_dense_net_computes_in_f32_when_the_caller_allows_tf32(cuda_device):
+    """Dense layers and an output layer alone (no conv, recurrent or
+    attention layer ahead of them) with TF32 turned on by the caller."""
+    conf = {"format_version": 1, "network_type": "MultiLayerNetwork",
+            "global": {"seed": 0}, "input_type": {"kind": "ff", "size": 512},
+            "layers": [{"@type": "DenseLayer", "n_out": 512,
+                        "activation": "tanh"}] * 2
+            + [{"@type": "OutputLayer", "n_out": 10, "activation": "identity",
+                "loss": "mse"}],
+            "preprocessors": {}}
+    cpu, card = _card_and_cpu(conf)
+    x = np.random.default_rng(1).normal(0, 1, (16, 512)).astype(np.float32)
+    _allow_tf32()
+    got = card.output(x).cpu().numpy()
+    _assert_f32_flags()
+    np.testing.assert_allclose(got, cpu.output(x).numpy(), atol=1e-5,
+                               rtol=1e-5)
