@@ -2193,23 +2193,45 @@ PEAK_BF16_FLOPS = 989e12
 F32_FACTOR, BF16_FACTOR, FLOOR_RTOL = 8.0, 4.0, 1e-5
 
 
+def layer_flops(layer, t_in):
+    """Forward FLOPs an example of one conv or dense layer (2·MACs) on
+    input type ``t_in``; 0 for other layers. A convolution is
+    2·H_out·W_out·(C_in / groups)·C_out·k_h·k_w; a transposed one the same
+    at its INPUT size (each input pixel scatters a k_h·k_w·C_out patch);
+    a depthwise one has groups = C_in; a separable one is its depthwise
+    part plus the 1x1 pointwise product; a 1-d one runs over T_out. A
+    frozen layer counts as the layer it wraps."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        Convolution1DLayer, ConvolutionLayer, Deconvolution2DLayer,
+        DenseLayer, DepthwiseConvolution2DLayer, FrozenLayer, OutputLayer,
+        SeparableConvolution2DLayer)
+    if isinstance(layer, FrozenLayer):
+        layer = layer.wrapped
+    if isinstance(layer, (DenseLayer, OutputLayer)):
+        return 2 * layer.n_in * layer.n_out
+    if not isinstance(layer, ConvolutionLayer):
+        return 0
+    kk = layer.kernel[0] * layer.kernel[1]
+    out = layer.output_type(t_in)
+    if isinstance(layer, Convolution1DLayer):
+        return 2 * out.timesteps * layer.n_in * layer.n_out * layer.kernel[0]
+    if isinstance(layer, Deconvolution2DLayer):
+        return 2 * t_in.height * t_in.width * layer.n_in * layer.n_out * kk
+    pixels = out.height * out.width
+    if isinstance(layer, DepthwiseConvolution2DLayer):
+        return 2 * pixels * layer.n_out * kk
+    if isinstance(layer, SeparableConvolution2DLayer):
+        mid = layer.n_in * layer.depth_multiplier
+        return 2 * pixels * mid * (kk + layer.n_out)
+    return 2 * pixels * layer.n_in * layer.n_out * kk
+
+
 def conv_dense_flops(conf):
-    """Forward FLOPs a image from the config: 2·H_out·W_out·C_in·C_out·
-    k_h·k_w summed over the conv vertices, plus 2·n_in·n_out of the
-    dense and output layers."""
-    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
-                                                         DenseLayer,
-                                                         OutputLayer)
-    total = 0
-    for name in conf.topological_order():
-        obj = conf.vertices[name][0]
-        if isinstance(obj, ConvolutionLayer):
-            out = obj.output_type(conf.vertex_input_type(name))
-            total += (2 * out.height * out.width * obj.n_in * obj.n_out
-                      * obj.kernel[0] * obj.kernel[1])
-        elif isinstance(obj, (DenseLayer, OutputLayer)):
-            total += 2 * obj.n_in * obj.n_out
-    return total
+    """Forward FLOPs an example of a ComputationGraph's convs and dense
+    layers, from its config (``layer_flops`` summed over the vertices)."""
+    return sum(layer_flops(conf.vertices[n][0], conf.vertex_input_type(n))
+               for n in conf.topological_order()
+               if conf.vertex_input_type(n) is not None)
 
 
 def cnn_family(name):
@@ -2368,16 +2390,18 @@ def resnet_leg(net, ds, label, peak, card):
             "busy_ms": busy, "wall_ms": wall, "families": fams, **parts}
 
 
-def _leaf_errors(card, cpu, others, factor):
+def _leaf_errors(card, cpu, others, factor, floor_rtol=None):
     """‖card − cpu‖ / (factor · max over ``others`` of ‖cpu − other‖ +
-    FLOOR_RTOL · ‖cpu‖) of each leaf of flat dicts of arrays, L2 norms
-    (<= 1 passes), worst first: [(ratio, leaf, ‖card − cpu‖, limit)]."""
+    floor_rtol (default FLOOR_RTOL) · ‖cpu‖) of each leaf of flat dicts of
+    arrays, L2 norms (<= 1 passes), worst first: [(ratio, leaf,
+    ‖card − cpu‖, limit)]."""
     import numpy as np
+    floor_rtol = FLOOR_RTOL if floor_rtol is None else floor_rtol
     rows = []
     for k, a in cpu.items():
         a = a.astype("float64")
         noise = max(float(np.linalg.norm(a - o[k])) for o in others)
-        lim = factor * noise + FLOOR_RTOL * float(np.linalg.norm(a)) + 1e-12
+        lim = factor * noise + floor_rtol * float(np.linalg.norm(a)) + 1e-12
         e = float(np.linalg.norm(card[k].astype("float64") - a))
         rows.append((e / lim, k, e, lim))
     return sorted(rows, reverse=True)
@@ -3428,21 +3452,13 @@ def median_ms(fn, n):
 
 def sequential_flops(net):
     """Forward FLOPs an example of a MultiLayerNetwork's convs and dense
-    layers, from its config (2·MACs, as ``conv_dense_flops``)."""
-    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
-                                                         DenseLayer,
-                                                         OutputLayer)
+    layers, from its config (``layer_flops`` summed over the layers)."""
     total, t = 0, net.conf.input_type
     for i, layer in enumerate(net.layers):
         if i in net.conf.preprocessors:
             t = net.conf.preprocessors[i].output_type(t)
-        out = layer.output_type(t)
-        if isinstance(layer, ConvolutionLayer):
-            total += (2 * out.height * out.width * layer.n_in * layer.n_out
-                      * layer.kernel[0] * layer.kernel[1])
-        elif isinstance(layer, (DenseLayer, OutputLayer)):
-            total += 2 * layer.n_in * layer.n_out
-        t = out
+        total += layer_flops(layer, t)
+        t = layer.output_type(t)
     return total
 
 
@@ -3707,6 +3723,730 @@ def layers_phase(card):
     log(f"layers_phase ({card}): forward + input and param gradients on "
         f"the card vs the CPU, max |diff| (atol {ATOL:g}, rtol {RTOL:g}): "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    new_layers_check(card)
+
+
+def new_layers_check(card):
+    """The layers of the zoo and pretraining slice on the card against
+    the CPU at a small shape: each one's forward (and the heads' losses,
+    the pretraining losses with their draws fed alike) with the gradients
+    of its input and of every param (a frozen layer's params have none)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    rng = np.random.default_rng(6)
+    ff, seq = InputType.feed_forward(7), InputType.recurrent(7, 6)
+    onehot = np.eye(4, dtype=np.float32)[[0, 2, 2, 1, 3]]
+    yolo_t = np.zeros((5, 3, 3, 2 * 8), np.float32)
+    yolo_t[:, 1, 2, 0:5] = (0.3, 0.6, 1.2, 0.8, 1.0)
+    yolo_t[:, 1, 2, 6] = 1.0
+    u = rng.random((5, 7)).astype(np.float32)
+    eps = rng.standard_normal((2, 5, 3)).astype(np.float32)
+
+    def fwd(lay, p, s, x):
+        return lay.apply(p, s, x)[0]
+    cases = [
+        ("EmbeddingLayer", L.EmbeddingLayer(n_in=9, n_out=5,
+                                            activation="tanh"),
+         InputType.feed_forward(9),
+         rng.integers(0, 9, (5, 1)).astype(np.float32), fwd),
+        ("RBM", L.RBM(n_out=4), ff, None, fwd),
+        ("RBM.free_energy", L.RBM(n_out=4), ff, None,
+         lambda lay, p, s, x: lay._free_energy(p, x)),
+        ("RBM.cd_loss", L.RBM(n_out=4), ff, None,
+         lambda lay, p, s, x: lay._cd_loss(p, x, lay._gibbs(
+             p, x, h=torch.as_tensor(u[:, :4] < 0.5, dtype=x.dtype,
+                                     device=x.device)))),
+        ("AutoEncoder", L.AutoEncoder(n_out=4, activation="tanh"), ff,
+         None, fwd),
+        ("AutoEncoder.recon_loss", L.AutoEncoder(n_out=4), ff, None,
+         lambda lay, p, s, x: lay._recon_loss(
+             p, x, torch.as_tensor(u < 0.7, device=x.device))),
+        ("RecursiveAutoEncoder", L.RecursiveAutoEncoder(
+            n_out=5, activation="tanh"), seq, None, fwd),
+        ("RecursiveAutoEncoder.loss", L.RecursiveAutoEncoder(n_out=5),
+         seq, None, lambda lay, p, s, x: lay.pretrain_loss(p, x)),
+        ("CenterLossOutputLayer", L.CenterLossOutputLayer(n_out=4), ff,
+         None, fwd),
+        ("CenterLossOutputLayer.loss", L.CenterLossOutputLayer(n_out=4),
+         ff, None, lambda lay, p, s, x: lay.loss_from_input(
+             p, x, torch.as_tensor(onehot, device=x.device))
+         + lay.center_loss({"centers": torch.ones(
+             4, 7, device=x.device)}, x,
+             torch.as_tensor(onehot, device=x.device))),
+        ("FrozenLayer", L.FrozenLayer(inner=L.DenseLayer(
+            n_out=3, activation="tanh")), ff, None, fwd),
+        ("VariationalAutoencoder", L.VariationalAutoencoder(
+            n_out=3, encoder_layer_sizes=(6,), decoder_layer_sizes=(5,)),
+         ff, None, fwd),
+        ("VariationalAutoencoder.elbo", L.VariationalAutoencoder(
+            n_out=3, encoder_layer_sizes=(6,), decoder_layer_sizes=(5,),
+            reconstruction_distribution="gaussian", num_samples=2), ff,
+         None, lambda lay, p, s, x: lay._elbo(
+             p, x, torch.as_tensor(eps, device=x.device))),
+        ("Yolo2OutputLayer", L.Yolo2OutputLayer(
+            anchors=((1.0, 1.5), (2.0, 1.0))),
+         InputType.convolutional(3, 3, 16), None, fwd),
+        ("Yolo2OutputLayer.loss", L.Yolo2OutputLayer(
+            anchors=((1.0, 1.5), (2.0, 1.0))),
+         InputType.convolutional(3, 3, 16), None,
+         lambda lay, p, s, x: lay.loss_from_input(
+             p, x, torch.as_tensor(yolo_t, device=x.device))),
+    ]
+    g = torch.Generator().manual_seed(1)
+    errs = {}
+    for label, layer, it, x, fn in cases:
+        layer.set_n_in(it)
+        params, state = layer.initialize(g, it)
+        if x is None:
+            x = rng.normal(0, 1, (5,) + it.array_shape()[1:]).astype(
+                "float32")
+        results = []
+        for device in (CARD, "cpu"):
+            p = updaters.tree_map(
+                lambda t: t.to(device, copy=True).requires_grad_(), params)
+            st = {k: v.to(device) for k, v in state.items()}
+            xt = torch.tensor(x, device=device,
+                              requires_grad=label != "EmbeddingLayer")
+            y = fn(layer, p, st, xt)
+            ct = torch.from_numpy(np.random.default_rng(5).normal(
+                0, 1, tuple(y.shape)).astype("float32")).to(device)
+            leaves = list(updaters.tree_leaves(p)) + (
+                [xt] if xt.requires_grad else [])
+            grads = torch.autograd.grad(y, leaves, ct, allow_unused=True)
+            results.append([y.detach().cpu()] + [
+                torch.zeros(()) if gr is None else gr.cpu() for gr in grads])
+        worst = 0.0
+        for got, want in zip(*results):
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            worst = max(worst, float((got - want).abs().max()))
+        errs[label] = worst
+    log(f"new layers ({card}): forward / loss + input and param gradients "
+        f"on the card vs the CPU, max |diff| (atol {ATOL:g}, rtol "
+        f"{RTOL:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+# --------------------------------------------------------------------
+# zoo_phase: the rest of the model zoo at its published input shapes,
+# a served GoogLeNet and a fine-tuned Darknet19; pretrain_phase: layerwise
+# pretraining of the models the pretraining layers were built for (cuDNN,
+# cuBLAS and plain ops: no kernel of the port's own on either path)
+# --------------------------------------------------------------------
+
+CARD = "cuda"              # the device of the two phases
+ZOO_STEPS = 5              # fit steps a model: one untimed, four timed
+ZOO_CHECK_B = 2            # rows of the card-vs-CPU check
+# the card-vs-CPU floor, relative to a leaf's L2 norm: at B=2 a batch
+# norm's beta and gamma gradients sum dL/dy over few values with
+# cancellation, and cuDNN's f32 algorithms (FFT and Winograd among them:
+# the profile shows pointwise_mult_and_sum_complex and flip_filter) round
+# apart from oneDNN's direct convolutions. On an H100 (700 W) these leaves
+# differ by up to 2.2e-4 (Darknet19's last batch norm), 1.2e-3
+# (FaceNetNN4Small2's stem) and 6.0e-4 (TinyYOLO) where the CPU's own
+# reruns differ far less; a wrong computation differs by O(1)
+ZOO_FLOOR_RTOL = 1e-2
+# UNet's loss is summed over its 128x128 mask pixels an image: at the
+# zoo's nesterovs(1e-2, 0.9) both packages reach NaN at the second step,
+# on the CPU as on the card; at 1e-4 the loss still climbs; at 1e-5 it
+# falls
+UNET_LR = 1e-5
+ZOO_SERVE_REQUESTS, ZOO_SERVE_ROWS = 4, 2
+TL_STEPS = 3
+# (class, constructor kwargs, B, head) at each model's published input
+ZOO_MODELS = [
+    ("AlexNet", {"n_classes": 1000}, 64, "mcxent, LRN"),
+    ("GoogLeNet", {"n_classes": 1000}, 32, "mcxent"),
+    ("Darknet19", {"n_classes": 1000}, 32, "mcxent"),
+    ("InceptionResNetV1", {"n_classes": 1000}, 32, "center loss, mcxent"),
+    ("FaceNetNN4Small2", {"n_classes": 1000}, 64,
+     "center loss, squared loss"),
+    ("TinyYOLO", {"n_classes": 20}, 16, "5 VOC anchors, Yolo2 loss"),
+    ("UNet", {"n_classes": 1}, 16, "binary mask, sigmoid + xent"),
+]
+
+
+def zoo_labels(zm, out_shape, B, rng):
+    """Seeded labels for zoo model ``zm`` whose output rows have
+    ``out_shape``: one-hot classes, YOLO grid targets (one object an
+    image, VOC anchors) or a binary mask."""
+    import numpy as np
+    if zm.name == "tinyyolo":
+        depth = 5 + zm.n_classes
+        t = np.zeros((B,) + tuple(out_shape), np.float32)
+        for i in range(B):
+            gx, gy = rng.integers(0, out_shape[0], 2)
+            base = rng.integers(0, len(zm.anchors)) * depth
+            t[i, gy, gx, base:base + 2] = rng.random(2)
+            t[i, gy, gx, base + 2:base + 4] = 0.5 + 4 * rng.random(2)
+            t[i, gy, gx, base + 4] = 1.0
+            t[i, gy, gx, base + 5 + rng.integers(0, zm.n_classes)] = 1.0
+        return t
+    if zm.name == "unet":
+        return (rng.random((B,) + tuple(out_shape)) > 0.5).astype(np.float32)
+    return np.eye(zm.n_classes, dtype=np.float32)[
+        rng.integers(0, zm.n_classes, B)]
+
+
+def out_shape_of(conf):
+    """A zoo config's output row shape, from its types."""
+    if hasattr(conf, "output_type"):
+        t = conf.output_type()
+    else:
+        t = conf.activation_types[conf.network_outputs[0]]
+    return t.array_shape()[1:]
+
+
+class fixed_dropout:
+    """Within the scope every dropout mask is drawn from numpy, seeded by
+    the call's order, on the CPU and moved to the caller's device: a run
+    on the card and a run on the CPU drop the same units (a run on rows
+    rolled by ``roll`` gets the masks rolled alike)."""
+
+    def __init__(self, roll=0):
+        self.roll = roll
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from deeplearning4j_tpu_torch.nn.conf.layers import base
+        self._base, self._orig, self.calls = base, base.dropout_keep_mask, 0
+
+        def mask(shape, keep, generator, device):
+            self.calls += 1
+            u = np.random.default_rng(self.calls).random(tuple(shape))
+            return torch.from_numpy(np.roll(u < keep, self.roll,
+                                            axis=0)).to(device)
+        base.dropout_keep_mask = mask
+        return self
+
+    def __exit__(self, *exc):
+        self._base.dropout_keep_mask = self._orig
+
+
+def zoo_step_leaves(zm, cpu_net, device, x, y, roll=0, onednn=True):
+    """Forward, gradients and one fit step of ``zm`` from ``cpu_net``'s
+    params and state on ``device``: flat leaves (out, loss, grad/...,
+    state/..., param/...) as numpy. The dropout masks are fixed."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    from deeplearning4j_tpu_torch.util.tree import tree_to_device
+    xx, yy = np.roll(x, roll, axis=0), np.roll(y, roll, axis=0)
+    net = type(cpu_net)(zm.conf(), device=device)
+    net.set_params(cpu_net.params)
+    net.state = tree_to_device(cpu_net.state, net.device)
+    net._build_optimizer()
+    graph = isinstance(net, ComputationGraph)
+    with fixed_dropout(roll), torch.backends.mkldnn.flags(enabled=onednn):
+        out = net.output(xx)
+        ds = DataSet(xx, yy)
+        batch = net._batch_tuple(net._as_multi(ds) if graph else ds)
+        loss, grads, _ = net._gradients(batch)
+        net.fit(ds)
+    out = np.roll(out.float().cpu().numpy(), -roll, axis=0)
+    return {"out": out, "loss": np.array([loss.item()]),
+            **{"grad/" + k: v for k, v in _flatten(grads).items()},
+            **{"state/" + k: v for k, v in _flatten(net.state).items()},
+            **{"param/" + k: v for k, v in _flatten(net.params).items()}}
+
+
+def zoo_card_vs_cpu(zm, label):
+    """The model's forward, gradients and one step at ZOO_CHECK_B rows
+    on the card against the CPU, leaf by leaf (``_leaf_errors``,
+    F32_FACTOR of the CPU's own reruns: rows in another order, oneDNN
+    off). Returns the worst ratio (<= 1 passes)."""
+    import numpy as np
+    import torch
+    cpu_net = zm.init(device="cpu")
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 1, (ZOO_CHECK_B,) + tuple(zm.input_shape)).astype(
+        "float32")
+    y = zoo_labels(zm, out_shape_of(cpu_net.conf), ZOO_CHECK_B, rng)
+    t0 = time.perf_counter()
+    cpu = zoo_step_leaves(zm, cpu_net, "cpu", x, y)
+    reruns = [zoo_step_leaves(zm, cpu_net, "cpu", x, y, roll, onednn)
+              for roll, onednn in ((1, False), (0, False))]
+    cpu_s = time.perf_counter() - t0
+    card = zoo_step_leaves(zm, cpu_net, CARD, x, y)
+    torch.cuda.synchronize()
+    rows = _leaf_errors(card, cpu, reruns, F32_FACTOR, ZOO_FLOOR_RTOL)
+    rel = sorted(((float(np.linalg.norm(card[k] - a)
+                         / (np.linalg.norm(a) + 1e-30)), k)
+                  for k, a in cpu.items()), reverse=True)
+    log(f"{label} card vs CPU (B={ZOO_CHECK_B}, forward, gradients and one "
+        f"step, dropout masks fixed; three CPU runs {cpu_s:.1f} s): loss "
+        f"{card['loss'][0]:.6f} vs {cpu['loss'][0]:.6f}; {len(cpu)} leaves; "
+        f"L2 |card - cpu| / ({F32_FACTOR:g} x the CPU's largest rerun "
+        f"difference + {ZOO_FLOOR_RTOL:g} x |cpu|), worst three: "
+        + "; ".join(f"{k} {r:.3f} ({e:.3e} of {lim:.3e})"
+                    for r, k, e, lim in rows[:3]) + " (limit 1); largest "
+        "relative L2 differences: " + "; ".join(
+            f"{k} {r:.3e}" for r, k in rel[:3]))
+    assert rows[0][0] <= 1.0, (label, rows[:3])
+    if "state/out/centers" in cpu:
+        assert np.abs(card["state/out/centers"]).max() > 0
+    return rows[0][0]
+
+
+def zoo_leg(zm, B, head, card):
+    """ZOO_STEPS fit steps of ``zm`` on the card at B rows of its input
+    shape (one untimed), a profiled step, a warm ``output`` at the same
+    B, peak memory. Returns (its numbers, the trained net)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = zm.init(device=CARD)
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (B,) + tuple(zm.input_shape)).astype("float32")
+    y = zoo_labels(zm, out_shape_of(net.conf), B, rng)
+    ds = DataSet(torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD))
+    t0 = time.perf_counter()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    losses, step_ms = [float(net.score_value)], []
+    for _ in range(ZOO_STEPS - 1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit(ds)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(net.score_value))
+    assert all(math.isfinite(v) for v in losses), (zm.name, losses)
+    med = sorted(step_ms)[len(step_ms) // 2]
+    flops = (conv_dense_flops(net.conf) if hasattr(net.conf, "vertices")
+             else sequential_flops(net))
+    bound = 3 * flops * B / PEAK_F32_FLOPS * 1e3
+    out_ms = median_ms(lambda: net.output(ds.features), 5)
+    out = net.output(ds.features)
+    assert torch.isfinite(out).all() and tuple(out.shape[1:]) == \
+        tuple(out_shape_of(net.conf))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    label = type(zm).__name__
+    log(f"{label} training (B={B}, {'x'.join(map(str, zm.input_shape))}, "
+        f"{zm.n_classes} classes, {head}, nesterovs({zm.updater['lr']:g}, "
+        f"{zm.updater['momentum']:g}), "
+        f"{net.num_params()} params, {card}): init {init_s:.2f} s, first "
+        f"step {first_s:.3f} s; warm steps " + ", ".join(
+            f"{v:.3f}" for v in step_ms) + f" ms, median {med:.3f} ms = "
+        f"{B / med * 1e3:.1f} images/s; losses " + ", ".join(
+            f"{v:.6f}" for v in losses) + f"; bound {bound:.3f} ms "
+        f"({3 * flops * B / 1e12:.4f} TFLOP at "
+        f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s): {100 * bound / med:.1f}% of "
+        f"it; warm output at B={B} {out_ms:.3f} ms; peak device memory "
+        f"{peak_gib:.2f} GiB")
+    fams, busy, wall = profile_cnn_step(net, ds, label)
+    return {"B": B, "median_ms": med, "images_s": B / med * 1e3,
+            "bound_ms": bound, "bound_share": bound / med,
+            "output_ms": out_ms, "peak_gib": peak_gib, "busy_ms": busy,
+            "wall_ms": wall, "idle": max(0.0, 1 - busy / wall),
+            "losses": losses, "families": fams}, net
+
+
+def zoo_serve(net, zm, card):
+    """Write the trained GoogLeNet, restore it on the card and serve
+    ZOO_SERVE_REQUESTS /v1/predict requests of ZOO_SERVE_ROWS rows: each
+    reply equals ``output`` of the restored net on the same rows."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "googlenet.zip")
+        write_model(net, path)
+        restored = restore_model(path, device=CARD)
+    reg = ModelRegistry()
+    reg.register("googlenet", restored)
+    server = ModelServer(reg, wait_ms=5.0).start()
+    rng = np.random.default_rng(3)
+    diffs, req_s = [], []
+    try:
+        for _ in range(ZOO_SERVE_REQUESTS):
+            x = rng.normal(0, 1, (ZOO_SERVE_ROWS,) + tuple(
+                zm.input_shape)).astype("float32")
+            t0 = time.perf_counter()
+            code, body, _ = http(server.port, "/v1/predict",
+                                 {"model": "googlenet", "inputs": x.tolist()})
+            req_s.append(time.perf_counter() - t0)
+            assert code == 200, body
+            out = np.asarray(body["outputs"], np.float32)
+            assert out.shape == (ZOO_SERVE_ROWS, zm.n_classes)
+            ref = restored.output(x).cpu().numpy()
+            diffs.append(float(np.abs(out - ref).max()))
+    finally:
+        server.stop(drain=True)
+    assert max(diffs) <= 1e-6, diffs
+    log(f"GoogLeNet served from a zip ({card}): {ZOO_SERVE_REQUESTS} "
+        f"/v1/predict requests of {ZOO_SERVE_ROWS} rows, "
+        + ", ".join(f"{s:.2f}" for s in req_s) + " s; max |served - output| "
+        f"{max(diffs):.2e}")
+
+
+def zoo_fine_tune(net, zm, card):
+    """Darknet19 frozen up to its last conv block (the last batch norm),
+    its 1000-class head replaced by a 10-class one (1x1 conv, global
+    pool, output), TL_STEPS Adam steps: the frozen leaves bit-equal
+    before and after, every head leaf moved. (The trunk's batch-norm
+    statistics have seen five batches, so its frozen features are far
+    from normalized and the new head's first loss is large: Adam bounds
+    each step.)"""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.transfer_learning import (
+        FineTuneConfiguration, TransferLearning)
+    n = len(net.layers)
+    assert type(net.layers[n - 4]).__name__ == "BatchNormalization"
+    tl = (TransferLearning.builder(net)
+          .fine_tune_configuration(FineTuneConfiguration(
+              updater=updaters.adam(1e-3)))
+          .set_feature_extractor(n - 4)
+          .remove_layers_from_output(3)
+          .add_layer(L.ConvolutionLayer(n_out=10, kernel=(1, 1),
+                                        convolution_mode="same"))
+          .add_layer(L.GlobalPoolingLayer(pooling="avg"))
+          .add_layer(L.OutputLayer(n_out=10, loss="mcxent")).build())
+    frozen = [i for i, lay in enumerate(tl.layers)
+              if type(lay).__name__ == "FrozenLayer"]
+    assert frozen == list(range(n - 3)), frozen
+    before = [{k: v.detach().clone() for k, v in p.items()}
+              for p in tl.params]
+    state0 = [{k: v.clone() for k, v in s.items()} for s in tl.state]
+    rng = np.random.default_rng(5)
+    B = 16
+    x = rng.normal(0, 1, (B,) + tuple(zm.input_shape)).astype("float32")
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, B)]
+    ds = DataSet(torch.from_numpy(x).to(CARD), torch.from_numpy(y).to(CARD))
+    losses, step_ms = [], []
+    for _ in range(TL_STEPS):
+        t0 = time.perf_counter()
+        tl.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(tl.score_value))
+    assert all(math.isfinite(v) for v in losses), losses
+    after = tl.params
+    n_frozen = 0
+    for i in frozen:
+        for k, v in before[i].items():
+            assert torch.equal(after[i][k], v), (i, k)
+            n_frozen += 1
+        for k, v in state0[i].items():
+            assert torch.equal(tl.state[i][k], v), (i, k)
+    head = [(i, k) for i in range(n - 3, len(tl.layers))
+            for k in before[i]]
+    assert head and all(not torch.equal(after[i][k], before[i][k])
+                        for i, k in head), head
+    log(f"Darknet19 fine-tuned ({card}): layers 0-{n - 4} frozen "
+        f"({n_frozen} leaves and their batch-norm state bit-equal after "
+        f"{TL_STEPS} steps), 10-class head ({len(head)} leaves, every one "
+        f"moved); B={B}, steps " + ", ".join(f"{v:.1f}" for v in step_ms)
+        + " ms (host clock); losses " + ", ".join(f"{v:.6f}" for v in losses))
+
+
+def zoo_phase(card):
+    """The seven zoo models this slice brings at their published input
+    shapes on the card (ZOO_MODELS): ZOO_STEPS nesterovs steps, step ms,
+    images/s, share of the bound, device ms by family, idle share, peak
+    memory, a warm ``output``, and the card held against the CPU; then
+    GoogLeNet served from a zip and Darknet19 fine-tuned with its trunk
+    frozen."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    results = {}
+    t_all = time.perf_counter()
+    for cls_name, kw, B, head in ZOO_MODELS:
+        t0 = time.perf_counter()
+        if cls_name == "UNet":
+            kw = {**kw, "updater": updaters.nesterovs(UNET_LR, 0.9)}
+        zm = getattr(zoo, cls_name)(**kw)
+        zoo_card_vs_cpu(zm, cls_name)
+        results[cls_name], net = zoo_leg(zm, B, head, card)
+        if cls_name == "GoogLeNet":
+            zoo_serve(net, zm, card)
+        elif cls_name == "Darknet19":
+            zoo_fine_tune(net, zm, card)
+        del net
+        torch.cuda.empty_cache()
+        log(f"{cls_name}: {time.perf_counter() - t0:.1f} s in all")
+    log(f"zoo_phase {time.perf_counter() - t_all:.1f} s; summary: "
+        + json.dumps({k: {m: v for m, v in r.items() if m != "families"}
+                      for k, r in results.items()}))
+    return results
+
+
+# the published widths: Hinton & Salakhutdinov (Science 2006), MNIST's
+# deep autoencoder 784-1000-500-250-30; Kingma & Welling (2014), the
+# MNIST VAE 784 -> 500 -> 20
+PRE_WIDTHS = (1000, 500, 250, 30)
+PRE_B, PRE_BATCHES = 128, 50
+PRE_PROTOS, PRE_FLIP = 10, 0.05
+
+
+def binary_surrogate(n, seed=0):
+    """A seeded binary 784-d set in MNIST's shape: each row one of
+    PRE_PROTOS random binary prototypes with PRE_FLIP of its bits
+    flipped (no dataset is fetched)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    protos = (rng.random((PRE_PROTOS, 784)) > 0.5).astype(np.float32)
+    flips = rng.random((n, 784)) < PRE_FLIP
+    return np.abs(protos[rng.integers(0, PRE_PROTOS, n)] - flips).astype(
+        np.float32)
+
+
+def pretrain_metric(layer, params, x):
+    """A layer's pretraining loss (the RBM's reconstruction error) on
+    ``x`` with draws from a generator seeded alike every call."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf.layers import RBM
+    with torch.no_grad():
+        g = torch.Generator(device=x.device).manual_seed(7)
+        if isinstance(layer, RBM):
+            return float(layer.reconstruction_error(params, x, g))
+        return float(layer.pretrain_loss(params, x, g))
+
+
+def pretrain_leg(label, net, ds, check_rows):
+    """``net.pretrain`` over ``ds`` (batches of PRE_B, one epoch) on the
+    card, timed; each pretrained layer's metric on its input (through
+    the pretrained layers below it) with its initial and its pretrained
+    params, which must fall. Returns its numbers."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    graph = isinstance(net, ComputationGraph)
+    p0 = updaters.tree_map(lambda p: p.detach().clone(), net.params)
+    n_batches = -(-ds.features.shape[0] // PRE_B)
+    idx = ([n for n in net.conf.topological_order()
+            if hasattr(net.conf.vertices[n][0], "pretrain_loss")] if graph
+           else [i for i, lay in enumerate(net.layers)
+                 if hasattr(lay, "pretrain_loss")])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    if graph:
+        net.pretrain(ds.batch_by(PRE_B))
+    else:
+        net.pretrain(ds, batch_size=PRE_B)
+    e1.record()
+    torch.cuda.synchronize()
+    total_ms = e0.elapsed_time(e1)
+    steps = n_batches * len(idx)
+    sub = type(ds)(ds.features[:check_rows])
+    rows = []
+    for k in idx:
+        obj = net.conf.vertices[k][0] if graph else net.layers[k]
+        x_in = net._pretrain_input(sub, k)
+        before = pretrain_metric(obj, p0[k], x_in)
+        after = pretrain_metric(obj, net.params[k], x_in)
+        rows.append((k, type(obj).__name__, before, after))
+        assert math.isfinite(after) and after < before, (label, rows[-1])
+    log(f"{label} pretrained ({steps} steps, B={PRE_B}): "
+        f"{total_ms:.1f} ms = {total_ms / steps:.3f} ms a step (CUDA events "
+        f"over pretrain); per layer, loss before -> after on its input: "
+        + "; ".join(f"{k} {n} {b:.5f} -> {a:.5f}" for k, n, b, a in rows))
+    return {"steps": steps, "ms_per_step": total_ms / steps,
+            "layers": [list(r) for r in rows]}
+
+
+def pretrain_card_vs_cpu(card):
+    """One pretrain step of each pretraining layer at its published width
+    (16 rows) on the card against the CPU, with the same uniforms and
+    normals fed to both (core.uniform_draws, special.normal_draws)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        pretrain_step)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import core, special
+    rows = 16
+    cases = [
+        (L.RBM(n_out=1000), InputType.feed_forward(784),
+         binary_surrogate(rows, seed=3)),
+        (L.AutoEncoder(n_out=1000, activation="sigmoid",
+                       corruption_level=0.3), InputType.feed_forward(784),
+         binary_surrogate(rows, seed=3)),
+        (L.VariationalAutoencoder(n_out=20, encoder_layer_sizes=(500,),
+                                  decoder_layer_sizes=(500,)),
+         InputType.feed_forward(784), binary_surrogate(rows, seed=3)),
+        (L.RecursiveAutoEncoder(n_out=256, activation="tanh"),
+         InputType.recurrent(77, 40),
+         np.eye(77, dtype=np.float32)[np.random.default_rng(3).integers(
+             0, 77, (rows, 40))]),
+    ]
+    orig = core.uniform_draws, special.normal_draws
+
+    def uniform(shape, generator, device):
+        u = np.random.default_rng(len(shape) + shape[-1]).random(
+            tuple(shape)).astype(np.float32)
+        return torch.from_numpy(u).to(device)
+
+    def normal(shape, generator, device):
+        e = np.random.default_rng(shape[-1]).standard_normal(
+            tuple(shape)).astype(np.float32)
+        return torch.from_numpy(e).to(device)
+    core.uniform_draws, special.normal_draws = uniform, normal
+    errs = {}
+    try:
+        g = torch.Generator().manual_seed(0)
+        for layer, it, x in cases:
+            params, _ = layer.initialize(g, it)
+            out = []
+            for device in (CARD, "cpu"):
+                p = updaters.tree_map(
+                    lambda t: t.to(device, copy=True).requires_grad_(),
+                    params)
+                opt = updaters.to_transform(updaters.sgd(0.1))
+                loss, _ = pretrain_step(layer, p, opt, opt.init(p),
+                                        torch.from_numpy(x).to(device),
+                                        None)
+                out.append([loss.cpu()] + [t.detach().cpu() for t in
+                                           updaters.tree_leaves(p)])
+            worst = 0.0
+            for got, want in zip(*out):
+                torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+                worst = max(worst, float((got - want).abs().max()))
+            errs[type(layer).__name__] = worst
+    finally:
+        core.uniform_draws, special.normal_draws = orig
+    log(f"pretrain step on the card vs the CPU ({rows} rows, published "
+        f"widths, the same draws fed to both; loss and params, atol "
+        f"{ATOL:g}, rtol {RTOL:g}), max |diff|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def pool_stream_check(card):
+    """GravesLSTM(256) then GlobalPoolingLayer (avg, max, pnorm) at the
+    char-RNN's width (vocab 80) on the card: ``rnn_time_step`` step by
+    step equals ``output`` over each prefix."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (GlobalPoolingLayer,
+                                                         GravesLSTM,
+                                                         OutputLayer)
+    B, T_ = 4, 32
+    x = np.eye(CHAR_V, dtype=np.float32)[
+        np.random.default_rng(8).integers(0, CHAR_V, (B, T_))]
+    errs = {}
+    for pooling in ("avg", "max", "pnorm"):
+        conf = (NeuralNetConfiguration.builder().set_seed(0).list()
+                .layer(GravesLSTM(n_out=CHAR_H, activation="tanh"))
+                .layer(GlobalPoolingLayer(pooling=pooling))
+                .layer(OutputLayer(n_out=CHAR_V))
+                .set_input_type(InputType.recurrent(CHAR_V, T_)).build())
+        net = MultiLayerNetwork(conf, device=CARD).init()
+        worst = 0.0
+        for t in range(T_):
+            got = net.rnn_time_step(x[:, t])
+            want = net.output(x[:, :t + 1])
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            worst = max(worst, float((got - want).abs().max()))
+        errs[pooling] = worst
+    log(f"pooled stream on the card ({card}): GravesLSTM({CHAR_H}) + "
+        f"GlobalPoolingLayer, B={B}, {T_} steps of rnn_time_step vs output "
+        "over each prefix, max |diff|: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+
+
+def pretrain_phase(card):
+    """Layerwise pretraining on the card at the published widths, on
+    seeded binary 784-d surrogates: an RBM deep autoencoder stack, the
+    same widths as denoising AutoEncoders (corruption 0.3), a VAE, a
+    RecursiveAutoEncoder at TextGenerationLSTM's input (T=40, 77 symbols),
+    and one AutoEncoder vertex inside a ComputationGraph; each layer's
+    loss must fall. Then one step of each layer card vs CPU with the
+    draws injected, and the pooled stream check."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    t_all = time.perf_counter()
+    x = binary_surrogate(PRE_B * PRE_BATCHES)
+    ds = DataSet(x)
+
+    def stack(first_layers, updater, it=InputType.feed_forward(784)):
+        b = NeuralNetConfiguration.builder().set_seed(0).updater(
+            updater).list()
+        for lay in first_layers:
+            b = b.layer(lay)
+        conf = b.layer(L.OutputLayer(n_out=10)).set_input_type(it).build()
+        return MultiLayerNetwork(conf, device=CARD).init()
+    results = {
+        "rbm_stack": pretrain_leg(
+            "RBM deep autoencoder 784-1000-500-250-30 (CD-1, sgd 0.1)",
+            stack([L.RBM(n_out=w) for w in PRE_WIDTHS], updaters.sgd(0.1)),
+            ds, 512),
+        "ae_stack": pretrain_leg(
+            "denoising AutoEncoder stack 784-1000-500-250-30 (corruption "
+            "0.3, adam 1e-3)",
+            stack([L.AutoEncoder(n_out=w, activation="sigmoid",
+                                 corruption_level=0.3)
+                   for w in PRE_WIDTHS], updaters.adam(1e-3)), ds, 512),
+        "vae": pretrain_leg(
+            "VAE 784 -> 500 -> 20, Bernoulli (adam 1e-3)",
+            stack([L.VariationalAutoencoder(
+                n_out=20, encoder_layer_sizes=(500,),
+                decoder_layer_sizes=(500,),
+                reconstruction_distribution="bernoulli")],
+                updaters.adam(1e-3)), ds, 512),
+    }
+    seq = np.eye(77, dtype=np.float32)[np.random.default_rng(2).integers(
+        0, 77, (PRE_B * 10, 40))]
+    results["rae"] = pretrain_leg(
+        "RecursiveAutoEncoder(256) on T=40 x 77 symbols (adam 1e-3)",
+        stack([L.RecursiveAutoEncoder(n_out=256, activation="tanh")],
+              updaters.adam(1e-3), InputType.recurrent(77, 40)),
+        DataSet(seq), 256)
+    conf = (NeuralNetConfiguration.builder().set_seed(0)
+            .updater(updaters.adam(1e-3)).graph_builder()
+            .add_inputs("in").set_input_types(InputType.feed_forward(784))
+            .add_layer("dense", L.DenseLayer(n_out=500, activation="sigmoid"),
+                       "in")
+            .add_layer("ae", L.AutoEncoder(n_out=250, activation="sigmoid",
+                                           corruption_level=0.3), "dense")
+            .add_layer("out", L.OutputLayer(n_out=10), "ae")
+            .set_outputs("out").build())
+    results["graph_ae"] = pretrain_leg(
+        "ComputationGraph AutoEncoder vertex 500 -> 250 (adam 1e-3)",
+        ComputationGraph(conf, device=CARD).init(), ds, 512)
+    pretrain_card_vs_cpu(card)
+    pool_stream_check(card)
+    log(f"pretrain_phase {time.perf_counter() - t_all:.1f} s; summary: "
+        + json.dumps(results))
+    return results
 
 
 def tensor_core_ops(native):
@@ -3805,6 +4545,8 @@ def main():
     fwd_rnn, dec_rnn = rnn_phase(attn, da, card)
     layers_phase(card)
     fwd_keras = keras_phase(attn, card)
+    zoo_phase(card)
+    pretrain_phase(card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras}
     dec["launches_by_path"] = {"generate": dec_generate,

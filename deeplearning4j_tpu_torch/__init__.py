@@ -16,5 +16,8 @@ paged decode attention (``csrc/decode_attention.cu``); and the
 convolutional networks: LeNet on ``MultiLayerNetwork`` and ResNet50 on
 ``ComputationGraph`` (``zoo``), trained, evaluated and served, in
 float32 and under the bf16 policy (``dtypes.tpu_bf16()``), with conv,
-pooling and GEMMs on cuDNN and cuBLAS.
+pooling and GEMMs on cuDNN and cuBLAS; the recurrent family, Keras
+import, and every layer type of the JAX package, with the whole model
+zoo, layerwise ``pretrain`` and the transfer-learning builders
+(``nn.transfer_learning``).
 """

@@ -25,9 +25,13 @@ them detached; ``rnn_time_step`` and ``streaming_session``
 (``models/streaming.py``'s ``GraphStreamingSession``) step the graph
 over recurrent carries and KV caches, as on MultiLayerNetwork.
 
+A ``CenterLossOutputLayer`` output adds ``lambda_ * center_loss`` and
+moves its centers, as on MultiLayerNetwork. ``pretrain`` trains each
+layer vertex that has a ``pretrain_loss``, in topological order, on its
+input computed by the ancestor subgraph of that input alone.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-``pretrain`` (ROADMAP A5b-2: it needs AutoEncoder and RBM), meshes
-(A6), k-step fusion, ``warmup`` and listeners (A7).
+meshes (ROADMAP A6), k-step fusion, ``warmup`` and listeners (A7).
 """
 
 from __future__ import annotations
@@ -40,14 +44,16 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
-from deeplearning4j_tpu_torch.models.multi_layer_network import (_detach,
-                                                                 _ParamTree)
+from deeplearning4j_tpu_torch.models.multi_layer_network import (
+    _detach, _ParamTree, grads_of, pretrain_step)
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (LastTimeStepVertex,
                                                     combine_masks_or)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.conf.layers.output import (
+    CenterLossOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.train.constraints import (
@@ -159,14 +165,14 @@ class ComputationGraph(nn.Module):
 
     # ---- forward ----
     def _forward(self, inputs, *, training, generator=None, fmasks=None,
-                 exclude_outputs: bool = False, carries=None):
+                 exclude_outputs: bool = False, carries=None, only=None):
         """The topological-order interpreter. Returns (activations by
         vertex name, the layer vertices' new states, the new carries).
         With ``exclude_outputs`` an output layer with a loss passes its
         input through, for the loss to take. ``carries``: recurrent
         (h, c) initial states by vertex name (missing: zeros), which
         tBPTT threads across chunks; without it the new carries are
-        None."""
+        None. ``only``: the set of vertices to run (None: all)."""
         params = self.params
         acts: Dict[str, torch.Tensor] = dict(
             zip(self.conf.network_inputs, inputs))
@@ -177,6 +183,8 @@ class ComputationGraph(nn.Module):
         new_state = {}
         new_carries = None if carries is None else {}
         for name in self.conf.topological_order():
+            if only is not None and name not in only:
+                continue
             obj, ins = self.conf.vertices[name]
             xs = [acts[i] for i in ins]
             in_masks = [masks.get(i) for i in ins]
@@ -291,6 +299,12 @@ class ComputationGraph(nn.Module):
                 params[out_name], acts[out_name], labels[i],
                 training=training, generator=generator,
                 mask=lmasks[i] if lmasks is not None else None)
+            if isinstance(obj, CenterLossOutputLayer):
+                h = acts[out_name]
+                total = total + obj.lambda_ * obj.center_loss(
+                    self.state[out_name], h, labels[i])
+                new_state[out_name] = obj.update_centers(
+                    self.state[out_name], h.detach(), labels[i])
         for name, obj in self._layer_configs().items():
             total = total + obj.regularization_loss(params[name])
         return total, (new_state, new_carries)
@@ -298,17 +312,11 @@ class ComputationGraph(nn.Module):
     def _gradients(self, batch, carries=None):
         """(loss, grads by vertex name, (new states, new carries)) of one
         training forward, as ``_loss`` returns them."""
-        params = self.params
-        leaves = list(updaters_mod.tree_leaves(params))
         if self._generator is None:
             self._generator = self._new_generator(self.conf.conf.seed)
         loss, aux = self._loss(batch, training=True,
                                generator=self._generator, carries=carries)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = iter([torch.zeros_like(p) if g is None else g
-                      for p, g in zip(leaves, grads)])
-        return (loss.detach(),
-                updaters_mod.tree_map(lambda _: next(grads), params), aux)
+        return loss.detach(), grads_of(loss, self.params), aux
 
     def _train_step(self, batch, carries=None):
         """loss -> grads -> gradient normalization -> updater ->
@@ -504,11 +512,65 @@ class ComputationGraph(nn.Module):
             self.init()
         return GraphStreamingSession(self, capacity, batch)
 
-    # ---- not ported yet ----
+    # ---- layerwise pretraining ----
     def pretrain(self, data, *, epochs: int = 1):
-        raise NotImplementedError(
-            f"layerwise pretraining {_NOT_PORTED.format('A5b-2')}")
+        """Pretrain every layer vertex that has a ``pretrain_loss``, in
+        topological order, over a DataSet, a MultiDataSet or an
+        iterable of either."""
+        if self.params is None:
+            self.init()
+        if isinstance(data, (DataSet, MultiDataSet)):
+            data = [data]
+        elif not isinstance(data, (list, tuple)):
+            data = list(data)
+        for name in self.conf.topological_order():
+            obj = self.conf.vertices[name][0]
+            if isinstance(obj, Layer) and hasattr(obj, "pretrain_loss"):
+                self._pretrain_vertex(name, data, epochs)
+        return self
 
+    def _ancestors(self, name: str) -> set:
+        """``name`` and every vertex upstream of it."""
+        needed, stack = set(), [name]
+        while stack:
+            cur = stack.pop()
+            if cur in needed or cur not in self.conf.vertices:
+                continue
+            needed.add(cur)
+            stack.extend(self.conf.vertices[cur][1])
+        return needed
+
+    def _pretrain_vertex(self, name: str, data, epochs: int):
+        """Steps of the vertex's own loss on its parameters alone; its
+        input is computed by the ancestor subgraph of that input only.
+        The vertex's updater, else the network's, else sgd()."""
+        obj = self.conf.vertices[name][0]
+        opt = updaters_mod.to_transform(
+            getattr(obj, "updater", None) or self.conf.conf.updater_cfg
+            or updaters_mod.sgd())
+        params = self.params[name]
+        opt_state = opt.init(params)
+        if self._generator is None:
+            self._generator = self._new_generator(self.conf.conf.seed)
+        for _ in range(epochs):
+            for ds in data:
+                _, opt_state = pretrain_step(
+                    obj, params, opt, opt_state,
+                    self._pretrain_input(ds, name), self._generator)
+
+    def _pretrain_input(self, ds, name: str) -> torch.Tensor:
+        """Vertex ``name``'s input for the batch's features: the
+        ancestor subgraph of that input alone, at inference."""
+        mds = self._as_multi(ds)
+        source = self.conf.vertices[name][1][0]
+        with torch.no_grad():
+            acts, _, _ = self._forward(
+                self._tensors(mds.features), training=False,
+                fmasks=self._tensors(mds.features_masks),
+                only=self._ancestors(source))
+        return acts[source]
+
+    # ---- not ported yet ----
     def warmup(self, example, *, steps_per_device_call: int = 1,
                mesh_spec=None):
         raise NotImplementedError(

@@ -17,7 +17,13 @@ parameters are updated in place. Preprocessors
 (``nn/conf/preprocessors.py``) reshape a layer's input where the config
 placed them. ``output`` runs under ``torch.inference_mode``;
 ``evaluate`` scores classification (``evaluation/classification.py``);
-``summary`` prints the JAX package's table of layers.
+``summary`` prints the JAX package's table of layers. A
+``CenterLossOutputLayer`` head adds ``lambda_ * center_loss`` to the
+loss, and its centers (layer state) move with each step. ``pretrain``
+trains each layer that has a ``pretrain_loss`` (RBM, AutoEncoder,
+RecursiveAutoEncoder, VariationalAutoencoder) in order, on its input fed
+through the layers below, with the layer's own updater or else the
+network's.
 With ``backprop_type("tbptt", fwd_length=n)`` a batch of sequences is
 split into chunks of n steps, one updater step each, with the recurrent
 layers' carries crossing the chunk boundaries detached (``_fit_tbptt``).
@@ -43,6 +49,8 @@ from deeplearning4j_tpu_torch.data.iterators import (ArrayDataSetIterator,
                                                      ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
+from deeplearning4j_tpu_torch.nn.conf.layers.output import (
+    CenterLossOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
@@ -75,6 +83,28 @@ def _detach(carries):
     return out
 
 
+def grads_of(loss, params):
+    """d loss / d params in the params structure; a param the loss does
+    not reach (a frozen layer's) gets zeros, as ``jax.grad`` gives."""
+    leaves = list(updaters_mod.tree_leaves(params))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = iter([torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, grads)])
+    return updaters_mod.tree_map(lambda _: next(grads), params)
+
+
+def pretrain_step(layer, params, opt, opt_state, x, generator):
+    """One update of a layer's ``params`` (a live tree of tensors) by
+    ``opt`` on its ``pretrain_loss`` at ``x``; returns (the loss as a
+    device scalar, the new optimizer state)."""
+    loss = layer.pretrain_loss(params, x, generator)
+    grads = grads_of(loss, params)
+    with torch.no_grad():
+        updates, opt_state = opt.update(grads, opt_state, params)
+        updaters_mod.apply_updates(params, updates)
+    return loss.detach(), opt_state
+
+
 def _as_iterator(data, labels=None, batch_size=None) -> DataSetIterator:
     if isinstance(data, DataSetIterator):
         return data
@@ -89,24 +119,29 @@ def _as_iterator(data, labels=None, batch_size=None) -> DataSetIterator:
 
 
 class _ParamTree(nn.Module):
-    """One layer's nested ``{name: tensor}`` dict as registered
-    parameters, so ``.to()``, ``state_dict()`` and device placement
-    work as for any module."""
+    """One layer's nested ``{name: tensor}`` dict (lists inside it too,
+    as the VAE's MLPs) as registered parameters, so ``.to()``,
+    ``state_dict()`` and device placement work as for any module."""
 
-    def __init__(self, tree: Dict[str, object], device: torch.device):
+    def __init__(self, tree, device: torch.device):
         super().__init__()
-        for name, value in tree.items():
-            if isinstance(value, dict):
+        self._is_list = isinstance(tree, (list, tuple))
+        items = (((str(i), v) for i, v in enumerate(tree)) if self._is_list
+                 else tree.items())
+        for name, value in items:
+            if isinstance(value, (dict, list, tuple)):
                 self.add_module(name, _ParamTree(value, device))
             else:
                 t = torch.as_tensor(value, dtype=torch.float32)
                 self.register_parameter(name, nn.Parameter(
                     t.detach().to(device).clone()))
 
-    def tree(self) -> Dict[str, object]:
+    def tree(self):
         out: Dict[str, object] = dict(self.named_parameters(recurse=False))
         for name, child in self.named_children():
             out[name] = child.tree()
+        if self._is_list:
+            return [out[str(i)] for i in range(len(out))]
         return out
 
 
@@ -274,6 +309,11 @@ class MultiLayerNetwork(nn.Module):
         loss = out_layer.loss_from_input(params[out_idx], h, labels,
                                          training=training,
                                          generator=generator, mask=lmask)
+        if isinstance(out_layer, CenterLossOutputLayer):
+            loss = loss + out_layer.lambda_ * out_layer.center_loss(
+                self.state[out_idx], h, labels)
+            new_states[out_idx] = out_layer.update_centers(
+                self.state[out_idx], h.detach(), labels)
         for layer, p in zip(self.layers, params):
             loss = loss + layer.regularization_loss(p)
         return loss, (new_states, new_carries)
@@ -281,17 +321,11 @@ class MultiLayerNetwork(nn.Module):
     def _gradients(self, batch, carries=None):
         """(loss, grads in the params structure, (new states, new
         carries)) of one training forward, as ``_loss`` returns them."""
-        params = self.params
-        leaves = list(updaters_mod.tree_leaves(params))
         if self._generator is None:
             self._generator = self._new_generator(self.conf.conf.seed)
         loss, aux = self._loss(batch, training=True,
                                generator=self._generator, carries=carries)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = iter([torch.zeros_like(p) if g is None else g
-                      for p, g in zip(leaves, grads)])
-        return (loss.detach(), updaters_mod.tree_map(lambda _: next(grads),
-                                                     params), aux)
+        return loss.detach(), grads_of(loss, self.params), aux
 
     def _train_step(self, batch, carries=None):
         """loss -> grads -> gradient normalization -> updater ->
@@ -382,6 +416,45 @@ class MultiLayerNetwork(nn.Module):
             preds = self.output(ds.features).float().cpu().numpy()
             ev.eval(ds.labels, preds, mask=ds.labels_mask)
         return ev
+
+    # ---- layerwise pretraining ----
+    def pretrain(self, data, *, epochs: int = 1,
+                 batch_size: Optional[int] = None):
+        """Pretrain every layer that has a ``pretrain_loss``, first to
+        last, over a DataSet or an iterator (labels are not read)."""
+        if self.params is None:
+            self.init()
+        it = _as_iterator(data, None, batch_size)
+        for idx, layer in enumerate(self.layers):
+            if hasattr(layer, "pretrain_loss"):
+                self._pretrain_layer(idx, it, epochs)
+        return self
+
+    def _pretrain_layer(self, idx: int, it: DataSetIterator, epochs: int):
+        """Steps of the layer's own loss on its parameters alone, the
+        input fed forward through the layers below it; the layer's
+        updater, else the network's."""
+        layer = self.layers[idx]
+        opt = updaters_mod.to_transform(
+            getattr(layer, "updater", None) or self.conf.conf.updater_cfg)
+        params = self.params[idx]
+        opt_state = opt.init(params)
+        if self._generator is None:
+            self._generator = self._new_generator(self.conf.conf.seed)
+        for _ in range(epochs):
+            for ds in it:
+                _, opt_state = pretrain_step(
+                    layer, params, opt, opt_state,
+                    self._pretrain_input(ds, idx), self._generator)
+
+    def _pretrain_input(self, ds: DataSet, idx: int) -> torch.Tensor:
+        """Layer ``idx``'s input for the batch's features: the layers
+        below it at inference."""
+        x = self._to_device(ds.features)
+        if idx > 0:
+            with torch.no_grad():
+                x = self._forward(x, training=False, upto=idx)[0]
+        return x
 
     # ---- flat params (the reference's params() view) ----
     def num_params(self) -> int:

@@ -26,9 +26,10 @@ A recurrent carry advances with every step, so ``reset`` zeroes it
 (attention caches need no zeroing: positions past ``pos`` are masked
 and overwritten), and ``SlotStreamingSession.reset_slot`` zeroes the
 slot's row. A free slot steps on its dummy input, which advances its
-carry as in the JAX package; admission zeroes it. Running-statistic
-carries (``GlobalPoolingLayer.apply_stream``) are not ported yet
-(ROADMAP A5b-2).
+carry as in the JAX package; admission zeroes it. A running-statistic
+carry (``GlobalPoolingLayer.apply_stream``) starts at None and ``reset``
+drops it; it has no per-row reset, so a ``SlotStreamingSession`` refuses
+a model that has one, as the JAX session does.
 """
 
 from __future__ import annotations
@@ -190,6 +191,10 @@ class StreamingSession(_BoundedSession):
             elif hasattr(layer, "zero_state"):
                 h, self._states[i] = layer.apply_rnn(params[i], h,
                                                      self._states[i])
+            elif hasattr(layer, "apply_stream"):
+                # a per-chunk apply would pool only the newest chunk
+                h, self._states[i] = layer.apply_stream(
+                    params[i], self._states[i], h)
             else:
                 h, _ = layer.apply(params[i], states[i], h, training=False)
         return h
@@ -217,9 +222,13 @@ class StreamingSession(_BoundedSession):
         past ``pos`` are masked and overwritten)."""
         self.pos = 0
         for i, layer in enumerate(self.net.layers):
+            if hasattr(layer, "apply_stream_bounded"):
+                continue
             if hasattr(layer, "zero_state"):
                 self._states[i] = layer.zero_state(self.batch,
                                                    device=self.device)
+            elif hasattr(layer, "apply_stream"):
+                self._states[i] = None          # the running pool restarts
 
 
 class SlotStreamingSession(StreamingSession):
@@ -237,6 +246,14 @@ class SlotStreamingSession(StreamingSession):
     starts at pos 0 and never sees the previous occupant's keys."""
 
     def __init__(self, net, capacity: int, slots: int):
+        for i, layer in enumerate(net.layers):
+            if (not hasattr(layer, "apply_stream_bounded")
+                    and not hasattr(layer, "zero_state")
+                    and hasattr(layer, "apply_stream")):
+                raise ValueError(
+                    f"layer {i} ({type(layer).__name__}) carries a "
+                    "running statistic (apply_stream) with no per-"
+                    "slot reset; SlotStreamingSession cannot host it")
         super().__init__(net, capacity, slots)
         self.slots = slots
         self.slot_pos = np.zeros((slots,), np.int32)
@@ -323,6 +340,9 @@ class GraphStreamingSession(_BoundedSession):
             elif hasattr(obj, "zero_state"):
                 acts[name], self._states[name] = obj.apply_rnn(
                     params[name], xin[0], self._states[name])
+            elif hasattr(obj, "apply_stream"):
+                acts[name], self._states[name] = obj.apply_stream(
+                    params[name], self._states[name], xin[0])
             elif isinstance(obj, Layer):
                 acts[name], _ = obj.apply(params[name], lstates[name],
                                           xin[0], training=False)
@@ -360,6 +380,10 @@ class GraphStreamingSession(_BoundedSession):
         recurrent carries (attention caches are kept, pos-masked)."""
         self.pos = 0
         for name, (obj, _ins) in self.graph.conf.vertices.items():
+            if hasattr(obj, "apply_stream_bounded"):
+                continue
             if hasattr(obj, "zero_state"):
                 self._states[name] = obj.zero_state(self.batch,
                                                     device=self.device)
+            elif hasattr(obj, "apply_stream"):
+                self._states[name] = None       # the running pool restarts

@@ -1,5 +1,5 @@
-"""Layer configs ported so far; importing this package registers their
-``@type`` names."""
+"""Layer configs: every ``@type`` the JAX package's layers export;
+importing this package registers their names."""
 
 from deeplearning4j_tpu_torch.nn.conf.layers.attention import (
     SelfAttentionLayer, TransformerEncoderLayer)
@@ -12,17 +12,19 @@ from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
     SpaceToBatchLayer, SpaceToDepthLayer, UpsamplingLayer, ZeroPadding1DLayer,
     ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.core import (
-    ActivationLayer, DenseLayer, DropoutLayer, EmbeddingSequenceLayer)
+    RBM, ActivationLayer, AutoEncoder, DenseLayer, DropoutLayer,
+    EmbeddingLayer, EmbeddingSequenceLayer, RecursiveAutoEncoder)
 from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
     BatchNormalization, LayerNormalization, LocalResponseNormalization)
-from deeplearning4j_tpu_torch.nn.conf.layers.output import (LossLayer,
-                                                            OutputLayer,
-                                                            RnnOutputLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers.output import (
+    CenterLossOutputLayer, LossLayer, OutputLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.pooling import (
     GlobalPoolingLayer, PoolingType, Subsampling1DLayer, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     LSTM, BaseRecurrentLayer, Bidirectional, GravesBidirectionalLSTM,
     GravesLSTM, LastTimeStep, RnnLossLayer, SimpleRnn)
+from deeplearning4j_tpu_torch.nn.conf.layers.special import (
+    FrozenLayer, VariationalAutoencoder, Yolo2OutputLayer)
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
            "layer_from_dict", "LAYER_REGISTRY", "EmbeddingSequenceLayer",
@@ -37,4 +39,7 @@ __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "register_layer",
            "DepthwiseConvolution2DLayer", "ZeroPaddingLayer",
            "ZeroPadding1DLayer", "UpsamplingLayer", "CroppingLayer",
            "SpaceToDepthLayer", "SpaceToBatchLayer", "Subsampling1DLayer",
-           "LayerNormalization", "LocalResponseNormalization"]
+           "LayerNormalization", "LocalResponseNormalization",
+           "EmbeddingLayer", "RBM", "AutoEncoder", "RecursiveAutoEncoder",
+           "CenterLossOutputLayer", "FrozenLayer", "VariationalAutoencoder",
+           "Yolo2OutputLayer"]

@@ -7,8 +7,10 @@ fused softmax/sigmoid cross entropy where the activation and loss pair
 allows it and ``nn/losses.py`` otherwise; the product runs with TF32 off
 on the card (``device.keep_float32``). ``RnnOutputLayer`` averages a
 masked loss over the present timesteps. ``LossLayer`` is the loss
-alone, without weights. ``CenterLossOutputLayer`` (ROADMAP A8) and the
-sequence-parallel loss (A6) are not ported yet.
+alone, without weights. ``CenterLossOutputLayer`` adds the center loss:
+its per-class feature centers are layer *state*, and both executors add
+``lambda_ * center_loss`` to the loss and take ``update_centers`` as the
+new state. The sequence-parallel loss (ROADMAP A6) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
                                                           register_layer)
 
-__all__ = ["OutputLayer", "RnnOutputLayer", "LossLayer"]
+__all__ = ["OutputLayer", "RnnOutputLayer", "LossLayer",
+           "CenterLossOutputLayer"]
 
 
 def _stable_ce(logits, labels, mask, kind):
@@ -157,3 +160,42 @@ class LossLayer(OutputLayer):
     def _pre_output(self, params, x, *, training=False, generator=None):
         return self.apply_input_dropout(x, training=training,
                                         generator=generator)
+
+
+@register_layer
+@dataclasses.dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax + center loss. The per-class feature centers live in the
+    layer's state and move toward each batch's class means (rate
+    ``alpha``); the executor weights the center term by ``lambda_``."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def initialize(self, generator, input_type: InputType):
+        params, _ = super().initialize(generator, input_type)
+        centers = torch.zeros((self.n_out, self.n_in),
+                              dtype=dtypes.policy().param_dtype)
+        return params, {"centers": centers}
+
+    def center_loss(self, state, x, labels):
+        """0.5 * mean over rows of |x - its class center|^2 (x the
+        layer's input features, labels one-hot), in float32 at least."""
+        x = dtypes.promote_half(x)
+        labels = dtypes.promote_half(labels)
+        keep_float32(x)
+        assigned = labels @ state["centers"]
+        return 0.5 * torch.mean(torch.sum((x - assigned) ** 2, dim=-1))
+
+    def update_centers(self, state, x, labels):
+        """The state with each class's center moved by ``alpha`` toward
+        the batch's mean of that class (classes absent keep theirs)."""
+        dt = torch.promote_types(x.dtype, labels.dtype)
+        x, labels = x.to(dt), labels.to(dt)
+        keep_float32(x)
+        counts = torch.sum(labels, dim=0)[:, None]
+        mean_per_class = (labels.T @ x) / torch.clamp(counts, min=1.0)
+        centers = state["centers"]
+        new = torch.where(counts > 0, (1 - self.alpha) * centers
+                          + self.alpha * mean_per_class, centers)
+        return {**state, "centers": new}

@@ -12,8 +12,10 @@ may be asymmetric (the ResNet50 stem's 3×3 stride-2 max pool on 112
 pads (0, 1)); such an input is padded explicitly, with −inf for max
 and zeros for the sums, and ``same``-mode averages divide by the count
 of real elements in each window, as the JAX layer does.
-``GlobalPoolingLayer``'s streaming carry (``apply_stream``) and the
-sequence-parallel combine are not ported yet (ROADMAP A5b-2, A6).
+``GlobalPoolingLayer.apply_stream`` pools a stream chunk by chunk over
+a running statistic (max, sum and count, sum, or sum of |x|^p), so each
+step returns the pool of the stream so far. The sequence-parallel
+combine is not ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -145,6 +147,38 @@ class GlobalPoolingLayer(Layer):
         if input_type.kind == "cnn":
             return InputType.feed_forward(input_type.channels)
         return input_type
+
+    def apply_stream(self, params, cache, x):
+        """The pool over time of the stream so far, given the next
+        (B, t, C) chunk and the running statistic ``cache`` (None at
+        the stream's start): the max (max), a sum and a step count
+        (avg, sum), or the sum of |x|^p (pnorm). Returns (pool, the new
+        statistic); the last step equals ``apply`` over the whole
+        sequence."""
+        if x.dim() != 3:
+            raise ValueError("apply_stream pools over TIME: input "
+                             f"must be (B, t, C), got {tuple(x.shape)}")
+        if self.pooling == PoolingType.MAX:
+            cur = torch.amax(x, dim=1)
+            m = cur if cache is None else torch.maximum(cache, cur)
+            return m, m
+        if self.pooling in (PoolingType.AVG, PoolingType.SUM):
+            s_new = torch.sum(x, dim=1)
+            n_new = x.shape[1]
+            if cache is not None:
+                s_new = s_new + cache["sum"]
+                n_new = n_new + cache["count"]
+            cache = {"sum": s_new, "count": n_new}
+            if self.pooling == PoolingType.SUM:
+                return s_new, cache
+            return s_new / n_new, cache
+        if self.pooling == PoolingType.PNORM:
+            p = float(self.pnorm)
+            s_new = torch.sum(torch.abs(x) ** p, dim=1)
+            if cache is not None:
+                s_new = s_new + cache
+            return s_new ** (1.0 / p), s_new
+        raise ValueError(self.pooling)
 
     def apply(self, params, state, x, *, training=False, generator=None,
               mask=None):

@@ -157,12 +157,15 @@ def auto_preprocessor(have: InputType, layer) -> Optional[InputPreProcessor]:
         GlobalPoolingLayer, Subsampling1DLayer, SubsamplingLayer)
     from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
         BaseRecurrentLayer, Bidirectional, LastTimeStep)
+    from deeplearning4j_tpu_torch.nn.conf.layers.special import (
+        Yolo2OutputLayer)
 
     wants_cnn = isinstance(layer, (ConvolutionLayer, SubsamplingLayer,
                                    LocalResponseNormalization,
                                    ZeroPaddingLayer, UpsamplingLayer,
                                    CroppingLayer, SpaceToDepthLayer,
-                                   SpaceToBatchLayer)) and not \
+                                   SpaceToBatchLayer,
+                                   Yolo2OutputLayer)) and not \
         isinstance(layer, (Convolution1DLayer, Subsampling1DLayer))
     wants_rnn = isinstance(layer, (BaseRecurrentLayer, Bidirectional,
                                    LastTimeStep, RnnOutputLayer,

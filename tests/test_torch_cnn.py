@@ -390,13 +390,22 @@ def test_builder_config_equals_jax():
         == tc.to_json()
 
 
-@pytest.mark.parametrize("name", ["LeNet", "SimpleCNN", "VGG16", "VGG19"])
+@pytest.mark.parametrize("name", [
+    "LeNet", "SimpleCNN", "VGG16", "VGG19", "AlexNet", "ResNet50",
+    "GoogLeNet", "InceptionResNetV1", "FaceNetNN4Small2",
+    "TextGenerationLSTM", "TinyYOLO", "Darknet19", "UNet"])
 def test_zoo_config_equals_jax(name):
-    jc = getattr(jzoo.models, name)(n_classes=10).conf()
-    tc = getattr(tzoo, name)(n_classes=10).conf()
+    # all thirteen zoo models (A5b-2), on either executor
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
+    kw = {} if name == "TextGenerationLSTM" else {"n_classes": 10}
+    jc = getattr(jzoo.models, name)(**kw).conf()
+    tc = getattr(tzoo, name)(**kw).conf()
     assert tc.to_json() == jc.to_json()
-    assert MultiLayerConfiguration.from_json(jc.to_json()).to_json() \
-        == jc.to_json()
+    cls = (MultiLayerConfiguration if isinstance(tc, MultiLayerConfiguration)
+           else ComputationGraphConfiguration)
+    assert cls.from_json(jc.to_json()).to_json() == jc.to_json()
+    assert set(tzoo.available_models()) == set(jzoo.available_models())
 
 
 def test_simple_cnn_output_matches_jax():

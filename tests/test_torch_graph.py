@@ -492,9 +492,11 @@ def test_unported_graph_features_raise(every_vertex_pair):
     _, tn = every_vertex_pair
     xs, ys, _, _ = _every_vertex_data()
     # rnn_time_step and streaming_session are ported (A5b-1,
-    # tests/test_torch_rnn_stream.py)
-    for call, item in ((lambda: tn.pretrain([]), "A5b-2"),
-                       (lambda: tn.warmup(None), "A7"),
+    # tests/test_torch_rnn_stream.py), and pretrain (A5b-2,
+    # tests/test_torch_pretrain.py): with no pretrainable vertex it
+    # returns the graph
+    assert tn.pretrain([]) is tn
+    for call, item in ((lambda: tn.warmup(None), "A7"),
                        (lambda: tn.set_listeners(object()), "A7"),
                        (lambda: tn.fit(MultiDataSet(xs, ys),
                                        steps_per_device_call=2), "A7"),

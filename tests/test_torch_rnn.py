@@ -508,10 +508,14 @@ def test_text_generation_lstm_config_equals_jax():
 
 
 def test_graph_pretrain_names_the_slice_that_ports_it(tmp_path):
-    _, tn = _char_pair(tmp_path, True)
-    with pytest.raises(NotImplementedError, match="A5b-2"):
-        tn.pretrain(MultiDataSet([np.zeros((1, T, V), np.float32)],
-                                 [np.zeros((1, T, V), np.float32)]))
+    # layerwise pretraining is ported (A5b-2, tests/test_torch_pretrain.py):
+    # a graph without a pretrainable vertex pretrains nothing, as in JAX
+    jn, tn = _char_pair(tmp_path, True)
+    before = tn.params_flat()
+    assert tn.pretrain(MultiDataSet([np.zeros((1, T, V), np.float32)],
+                                    [np.zeros((1, T, V), np.float32)])) is tn
+    np.testing.assert_array_equal(tn.params_flat(), before)
+    np.testing.assert_array_equal(before, jn.params_flat())
 
 
 # ------------------------------------------------------------ card only
