@@ -74,8 +74,23 @@ the plain attention and the CPU). First of all (``tf32_phase``) both
 TF32 flags are turned on, as a caller might, and the LM (2 layers) and
 a dense net must still compute in float32 on the card: the flags are
 off after their first layer, and the outputs within f32 tolerance of
-the CPU's; every later phase runs with them off. It imports nothing of
-JAX or of the JAX package. Any
+the CPU's; every later phase runs with them off. After the Keras
+phase, ``zoo_phase`` and ``pretrain_phase`` train the rest of the zoo and
+the pretraining layers. Last (``etl_phase``) bench.py's
+``resnet_native_etl`` leg: ResNet50 trained from a directory-per-label
+tree of 520 noise PNGs (224x224, written by the port's standard-library
+writer) through the port's native loader (its own PNG decoder over zlib,
+built with g++): decode scaling by threads, the wait exposed under a
+simulated step, the upload pageable and pinned, the warm step, e2e
+images/s and the exposed ETL with the card's timeline a batch, then
+``fit`` over ``AsyncDataSetIterator`` with a ``PerformanceListener``;
+and (``eval_phase``) the evaluators and early stopping on the card
+against the CPU: LeNet on the MNIST surrogate standardized by the
+normalizer its zip carries (``evaluate``, ``evaluate_roc``), an MLP
+regressor's ``evaluate_regression``, a two-output graph's
+``evaluate_outputs``, and an ``EarlyStoppingTrainer`` on each device.
+Every phase's wall time is logged. It imports nothing of JAX or of the
+JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 2 and prints no result.
@@ -2656,10 +2671,14 @@ CHAR_B, CHAR_T, CHAR_V, CHAR_H = 32, 64, 80, 256   # bench.py:381-386
 CHAR_WARM_STEPS = 20       # timed warm steps, after one untimed
 CHAR_LEARN_STEPS = 200     # steps on the learnable text
 # the learnable text: a fixed random permutation of this many of the
-# CHAR_V symbols, repeated. A permutation of all CHAR_V is run too and
-# its accuracy printed: at the leg's RMSProp 1e-3 neither the port nor
-# the JAX package (rnn_learn_reference.py) learns it in 200 steps
+# CHAR_V symbols, repeated. A permutation of all CHAR_V is run too, for
+# CHAR_ALL_STEPS, and its accuracy printed: at the leg's RMSProp 1e-3
+# neither the port nor the JAX package (rnn_learn_reference.py) learns it
+# in 200 steps; the run is seeded, so its 200-step accuracy on the card
+# is on record (PERF.md), and the smoke stops it at 100 steps to keep
+# its wall time
 LEARN_SYMBOLS = 20
+CHAR_ALL_STEPS = 100
 # forward FLOPs a character (bench.py:588-593): two GravesLSTM layers'
 # gate products and the output layer; a training step is 3x that
 CHAR_FLOPS_PER_CHAR = (2 * 4 * CHAR_H * (CHAR_V + CHAR_H)
@@ -2838,8 +2857,8 @@ def windows(text, offsets):
     return np.stack([text[o:o + CHAR_T + 1] for o in offsets])
 
 
-def char_rnn_learn(card, symbols):
-    """A fresh char-RNN (the leg's config) for CHAR_LEARN_STEPS steps on
+def char_rnn_learn(card, symbols, steps=CHAR_LEARN_STEPS):
+    """A fresh char-RNN (the leg's config) for ``steps`` steps on
     windows of ``learn_data(symbols)``'s text. Returns (the trained net,
     the text, the first and last step's loss and next-symbol accuracy on
     the 64 held-out windows)."""
@@ -2857,19 +2876,19 @@ def char_rnn_learn(card, symbols):
     before = accuracy()
     losses, accs = [], []
     t0 = time.perf_counter()
-    for k in range(CHAR_LEARN_STEPS):
+    for k in range(steps):
         net.fit(DataSet(*char_batch(
             windows(text, rng.integers(0, span, CHAR_B)), "cuda")))
-        if k in (0, CHAR_LEARN_STEPS - 1):
+        if k in (0, steps - 1):
             losses.append(float(net.score_value))
         if k % 25 == 24:
             accs.append(round(accuracy(), 4))
     learn_s = time.perf_counter() - t0
     acc = accuracy()
-    log(f"char-RNN learning ({card}): {CHAR_LEARN_STEPS} steps in "
+    log(f"char-RNN learning ({card}): {steps} steps in "
         f"{learn_s:.2f} s on a permutation of {symbols} of the {CHAR_V} "
         f"symbols repeated; loss {losses[0]:.4f} at step 1, "
-        f"{losses[1]:.4f} at step {CHAR_LEARN_STEPS}; next-symbol accuracy "
+        f"{losses[1]:.4f} at step {steps}; next-symbol accuracy "
         f"on 64 held-out windows {before:.4f} before, every 25 steps "
         f"{accs}, {acc:.4f} after")
     assert losses[1] < losses[0], losses
@@ -3249,7 +3268,7 @@ def rnn_phase(attn, da, card):
     Returns the hybrid's (forward, decode) launches."""
     import torch
     train = char_rnn_train(card)
-    _, _, all80 = char_rnn_learn(card, CHAR_V)
+    _, _, all80 = char_rnn_learn(card, CHAR_V, CHAR_ALL_STEPS)
     net, text, learned = char_rnn_learn(card, LEARN_SYMBOLS)
     assert learned["accuracy"] > 0.9, learned
     tbptt = char_rnn_tbptt(card)
@@ -4449,6 +4468,468 @@ def pretrain_phase(card):
     return results
 
 
+ETL_CLASSES, ETL_PER_CLASS, ETL_HW = 10, 52, 224    # bench.py:790-817
+ETL_B, ETL_THREADS, ETL_QUEUE = 128, 4, 4           # bench.py:843-851
+ETL_EPOCHS = 2                                      # bench.py:930-940
+ETL_STEPS = 5              # timed warm steps on a device-resident batch
+
+
+def etl_probe():
+    """What the host offers the native loader: libpng's and zlib's
+    headers and libraries, PIL, and the cores."""
+    import importlib.util
+    libs = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                          text=True).stdout
+    probe = {
+        "png.h": os.path.exists("/usr/include/png.h"),
+        "zlib.h": os.path.exists("/usr/include/zlib.h"),
+        "libpng": sorted({m for m in re.findall(r"libpng\S*\.so\S*", libs)}),
+        "libz": sorted({m for m in re.findall(r"libz\.so\S*", libs)}),
+        "PIL": importlib.util.find_spec("PIL") is not None,
+        "cores": os.cpu_count()}
+    log("native loader probe: " + json.dumps(probe))
+    return probe
+
+
+def etl_phase(card):
+    """``bench.py``'s ``resnet_native_etl`` leg (``bench.py:820-977``) on
+    the port: ResNet50 (10 classes, f32, nesterovs(0.1, 0.9), B=128)
+    trained from a directory-per-label PNG tree (10 classes x 52 noise
+    images, 224x224, from ``default_rng(0)``, ~78 MB, written by the
+    port's standard-library PNG writer under the gitignored ``build/``)
+    through ``NativeImageDataSetIterator`` (the port's own PNG decoder
+    over zlib, 4 threads, a queue of 4). Prints the probe and the decode
+    route, decode ms a batch at 1, 2 and 4 threads, the exposed wait
+    under a simulated step of 1x and 2x the decode, the upload of one
+    batch pageable (as ``fit`` does it) and from a pinned buffer, the
+    warm step (CUDA-event median), e2e ms a batch over 2 epochs and
+    images/s, the exposed ETL (e2e - step), then a ``fit`` over
+    ``AsyncDataSetIterator`` with a ``PerformanceListener`` (images/s,
+    the data-wait share from ``_step_timing``), host cores and peak
+    memory. Asserts the first batch on the card equals the host array
+    bit for bit and the first step's loss is finite."""
+    import resource
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.data import native_loader as nl
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import AsyncDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.train.listeners import (
+        PerformanceListener, TrainingListener)
+
+    t_all = time.perf_counter()
+    probe = etl_probe()
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = nl.ensure_png_tree(
+        os.path.join(repo, "build", f"png_tree_{ETL_HW}"),
+        ETL_CLASSES, ETL_PER_CLASS, ETL_HW)
+    tree_mb = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(root) for f in fs
+                  if f.endswith(".png")) / 1e6
+    log(f"PNG tree {root}: {ETL_CLASSES} x {ETL_PER_CLASS} images "
+        f"{ETL_HW}x{ETL_HW}, {tree_mb:.1f} MB, written in "
+        f"{time.perf_counter() - t0:.1f} s by the standard-library writer")
+    t0 = time.perf_counter()
+    nl.native_image_available()
+    log(f"decode route: the port's own PNG decoder over zlib ("
+        f"{os.path.relpath(nl.SOURCE, repo)}, g++ -lz, "
+        f"built in "
+        f"{time.perf_counter() - t0:.1f} s into build/native/); libpng "
+        f"headers {'present' if probe['png.h'] else 'absent'}, not used")
+
+    def make_it(nt=ETL_THREADS):
+        return nl.NativeImageDataSetIterator(
+            root, ETL_B, ETL_HW, ETL_HW, 3, n_threads=nt,
+            queue_capacity=ETL_QUEUE)
+
+    def decode_pass(nt, consume_sleep_s=0.0):
+        """Steady-state ms a full batch (the first dropped: pool spin-up
+        and the directory scan), the best of 2 passes; with
+        ``consume_sleep_s`` the consumer sleeps that long a batch (a
+        step that holds no GIL), so the time is the wait it sees."""
+        best = float("inf")
+        for _ in range(2):
+            gaps, last = [], time.perf_counter()
+            for ds in make_it(nt):
+                if ds.num_examples() == ETL_B:
+                    now = time.perf_counter()
+                    gaps.append(now - last)
+                    if consume_sleep_s:
+                        time.sleep(consume_sleep_s)
+                    last = time.perf_counter()
+            gaps = gaps[1:] if len(gaps) > 1 else gaps
+            best = min(best, sum(gaps) / max(1, len(gaps)) * 1e3)
+        return best
+
+    scaling = {nt: decode_pass(nt) for nt in (1, 2, ETL_THREADS)}
+    decode_ms = scaling[ETL_THREADS]
+    exposed_sim = decode_pass(ETL_THREADS, decode_ms / 1e3)
+    exposed_slack = decode_pass(ETL_THREADS, 2 * decode_ms / 1e3)
+    log(f"decode ms a batch of {ETL_B} by threads: " + ", ".join(
+        f"{nt}: {ms:.3f}" for nt, ms in scaling.items())
+        + f"; exposed wait under a simulated step of 1x the decode "
+        f"{exposed_sim:.3f} ms, of 2x {exposed_slack:.3f} ms")
+
+    torch.cuda.reset_peak_memory_stats()
+    net = zoo.ResNet50(n_classes=ETL_CLASSES,
+                       updater=updaters.nesterovs(0.1, 0.9)).init(
+                           device=CARD)
+    first = next(iter(make_it()))
+    assert first.features.shape == (ETL_B, ETL_HW, ETL_HW, 3)
+    # the batch as fit moves it (ComputationGraph._batch_tuple)
+    on_card = net._batch_tuple(net._as_multi(first))[0][0]
+    assert on_card.device.type == torch.device(CARD).type
+    assert on_card.dtype == torch.float32
+    assert torch.equal(on_card.cpu(), torch.from_numpy(first.features))
+    net.fit(first)
+    losses = [float(net.score_value)]
+    assert math.isfinite(losses[0]), losses
+
+    feats = first.features
+    up, pinned_up = float("inf"), float("inf")
+    pinned = torch.empty(feats.shape, dtype=torch.float32, pin_memory=True)
+    for i in range(3):
+        fresh = feats + np.float32(i + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net._tensors([fresh])                    # as _batch_tuple does
+        torch.cuda.synchronize()
+        up = min(up, time.perf_counter() - t0)
+        pinned.copy_(torch.from_numpy(fresh))
+        t0 = time.perf_counter()
+        pinned.to(CARD, non_blocking=True)
+        torch.cuda.synchronize()
+        pinned_up = min(pinned_up, time.perf_counter() - t0)
+    upload_ms, pinned_ms = up * 1e3, pinned_up * 1e3
+    del pinned
+    batch_mb = feats.nbytes / 2 ** 20
+    log(f"upload of one batch ({feats.nbytes} B = {batch_mb:.1f} MiB): "
+        f"pageable {upload_ms:.3f} ms ({feats.nbytes / up / 1e9:.2f} GB/s)"
+        f", pinned {pinned_ms:.3f} ms ({feats.nbytes / pinned_up / 1e9:.2f}"
+        " GB/s)")
+
+    resident = DataSet(torch.from_numpy(feats).to(CARD),
+                       torch.from_numpy(first.labels).to(CARD))
+    step_ms = []
+    for _ in range(ETL_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit(resident)
+        e1.record()
+        torch.cuda.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        losses.append(float(net.score_value))
+    del resident
+    step = sorted(step_ms)[len(step_ms) // 2]
+
+    # events on the stream around fit's upload and after each step (no
+    # sync): the card's timeline of one batch is the idle gap before
+    # the upload (the host had not issued it yet), the upload, the step
+    marks, ends, host_next, host_fit = [], [], [], []
+    real = net._batch_tuple
+
+    def marked(mds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(mds)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+    net._batch_tuple = marked
+    n_img, it = 0, make_it()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ETL_EPOCHS):
+        batches = iter(it)
+        while True:
+            t1 = time.perf_counter()
+            ds = next(batches, None)
+            if ds is None:
+                break
+            if ds.num_examples() != ETL_B:
+                continue
+            t2 = time.perf_counter()
+            host_next.append(t2 - t1)
+            net.fit(ds)
+            host_fit.append(time.perf_counter() - t2)
+            ends.append(torch.cuda.Event(enable_timing=True))
+            ends[-1].record()
+            n_img += ETL_B
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    del net._batch_tuple
+    losses.append(float(net.score_value))
+    e2e_ms = e2e_s / (n_img / ETL_B) * 1e3
+    gap = [ends[i - 1].elapsed_time(marks[i][0]) for i in range(1, len(ends))]
+    up_card = [e0.elapsed_time(e1) for e0, e1 in marks]
+    step_card = [e1.elapsed_time(end) for (_, e1), end in zip(marks, ends)]
+    mean = lambda xs: sum(xs) / len(xs)
+    log(f"the card's timeline a batch (CUDA events, means over "
+        f"{len(ends)} batches; gaps over the {len(gap)} after the first): "
+        f"idle before the upload {mean(gap):.3f} ms (max {max(gap):.3f}), "
+        f"upload {mean(up_card):.3f} ms, step {mean(step_card):.3f} ms; "
+        f"host in next() (the hand-off, and any wait for decode) "
+        f"{1e3 * mean(host_next):.3f} ms (max {1e3 * max(host_next):.3f}), "
+        f"in fit (the upload, and the step's launches; it returns before "
+        f"the card is done) {1e3 * mean(host_fit):.3f} ms")
+    log(f"ResNet50 from PNGs (B={ETL_B}, f32, nesterovs(0.1, 0.9), {card})"
+        f": warm step " + ", ".join(f"{x:.3f}" for x in step_ms)
+        + f" ms, median {step:.3f} ms; e2e {e2e_ms:.3f} ms a batch over "
+        f"{ETL_EPOCHS} epochs ({n_img} images, full batches) = "
+        f"{n_img / e2e_s:.1f} images/s; exposed ETL (e2e - step) "
+        f"{e2e_ms - step:.3f} ms ({100 * (e2e_ms - step) / step:.1f}% of "
+        "the step); losses " + ", ".join(f"{x:.4f}" for x in losses))
+
+    class Timing(TrainingListener):
+        def __init__(self):
+            self.wait = self.dispatch = 0.0
+            self.images = 0
+
+        def iteration_done(self, model, iteration, score, batch_size):
+            wait, dispatch = model._step_timing
+            self.wait += wait
+            self.dispatch += dispatch
+            self.images += batch_size
+
+    perf, timing = PerformanceListener(frequency=1, report=False), Timing()
+    net.set_listeners(perf, timing)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(AsyncDataSetIterator(make_it(), prefetch=2), epochs=ETL_EPOCHS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    net.set_listeners()
+    assert timing.images == ETL_EPOCHS * ETL_CLASSES * ETL_PER_CLASS
+    assert math.isfinite(float(net.score_value))
+    host_peak_gib = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    dev_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"fit(AsyncDataSetIterator(NativeImageDataSetIterator)) over "
+        f"{ETL_EPOCHS} epochs ({timing.images} images, a partial batch of "
+        f"{ETL_CLASSES * ETL_PER_CLASS % ETL_B} an epoch): {fit_s:.3f} s = "
+        f"{timing.images / fit_s:.1f} images/s; PerformanceListener's last "
+        f"{perf.last_samples_per_sec:.1f} samples/s; summed data_wait "
+        f"{timing.wait * 1e3:.3f} ms = {100 * timing.wait / fit_s:.2f}% of "
+        f"the fit, dispatch {timing.dispatch * 1e3:.3f} ms; host cores "
+        f"{os.cpu_count()}; peak device memory over the phase "
+        f"{dev_peak_gib:.2f} GiB; the process's peak host RSS so far (every "
+        f"phase before this one included) {host_peak_gib:.2f} GiB")
+    del net
+    torch.cuda.empty_cache()
+    out = {"decode_ms_by_threads": scaling,
+           "overlap_exposed_ms": exposed_sim,
+           "overlap_exposed_ms_at_2x": exposed_slack,
+           "upload_ms_pageable": upload_ms, "upload_ms_pinned": pinned_ms,
+           "step_ms": step, "e2e_ms": e2e_ms,
+           "card_idle_before_upload_ms": mean(gap),
+           "card_upload_ms": mean(up_card), "card_step_ms": mean(step_card),
+           "host_next_ms": 1e3 * mean(host_next),
+           "host_fit_ms": 1e3 * mean(host_fit),
+           "images_s": n_img / e2e_s, "exposed_etl_ms": e2e_ms - step,
+           "async_fit_images_s": timing.images / fit_s,
+           "data_wait_share": timing.wait / fit_s,
+           "host_cores": os.cpu_count(), "losses": losses,
+           "host_peak_gib": host_peak_gib, "device_peak_gib": dev_peak_gib}
+    log(f"etl_phase {time.perf_counter() - t_all:.1f} s; summary: "
+        + json.dumps(out))
+    return out
+
+
+EVAL_TRAIN, EVAL_TEST, EVAL_B = 2048, 512, 128
+EVAL_TOL = 1e-5            # AUC, MSE and early-stopping scores, card vs CPU
+ES_MAX_EPOCHS, ES_PATIENCE = 5, 2
+
+
+def eval_phase(card):
+    """The evaluators and early stopping on the card against the CPU.
+    LeNet (nesterovs(1e-3, 0.9): the held-out loss falls slowly, so
+    accuracy and AUC stay off their ceilings and the early-stopping
+    scores off zero) on the MNIST surrogate (the fetchers' synthetic
+    digits: no files under a data directory of the run's own), its
+    inputs standardized by a ``NormalizerStandardize`` that the model's
+    zip carries; trained 2 epochs on the card, written, restored on the
+    card and on the CPU: ``evaluate`` (accuracy equal), ``evaluate_roc``
+    exact and at 100 steps (AUC within 1e-5); an MLP regressor's
+    ``evaluate_regression`` (MSE within 1e-5 relative); a two-output
+    graph's ``evaluate_outputs``. Then an ``EarlyStoppingTrainer`` from
+    one zip on each device (at most 5 epochs, score-improvement patience
+    2, ``InMemoryModelSaver``, ``DataSetLossCalculator`` on the held-out
+    set): the best epoch and the termination reason equal, the scores
+    within 1e-5 relative."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.data import fetchers
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.data.iterators import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.data.normalizers import (
+        NormalizerStandardize)
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.train import early_stopping as es
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, restore_normalizer, write_model)
+
+    t_all = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="eval_phase_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    saved_dir = os.environ.get("DL4J_TPU_DATA_DIR")
+    os.environ["DL4J_TPU_DATA_DIR"] = os.path.join(work, "no_data")
+    try:
+        x, y = fetchers.mnist_data(train=True, flatten=False, n=EVAL_TRAIN)
+        xt, yt = fetchers.mnist_data(train=False, flatten=False,
+                                     n=EVAL_TEST)
+    finally:
+        if saved_dir is None:
+            del os.environ["DL4J_TPU_DATA_DIR"]
+        else:
+            os.environ["DL4J_TPU_DATA_DIR"] = saved_dir
+    norm = NormalizerStandardize().fit(DataSet(x, y))
+    lenet = zoo.LeNet(n_classes=10, updater=updaters.nesterovs(1e-3, 0.9))
+    net = lenet.init(device=CARD)
+    zip0 = os.path.join(work, "lenet0.zip")
+    write_model(net, zip0, normalizer=norm.to_dict())
+    norm = restore_normalizer(zip0)
+    assert isinstance(norm, NormalizerStandardize)
+    train = norm.transform(DataSet(x, y))
+    test = norm.transform(DataSet(xt, yt))
+    before = net.evaluate(test.features, test.labels).accuracy()
+    net.fit(ArrayDataSetIterator(train.features, train.labels, EVAL_B),
+            epochs=2)
+    path = os.path.join(work, "lenet.zip")
+    write_model(net, path, normalizer=norm.to_dict())
+    nets = {"card": restore_model(path, device=CARD),
+            "cpu": restore_model(path, device="cpu")}
+    ev = {k: n.evaluate(test.features, test.labels) for k, n in nets.items()}
+    acc = {k: e.accuracy() for k, e in ev.items()}
+    assert acc["card"] == acc["cpu"], acc
+    assert acc["card"] > before + 0.1, (before, acc)
+    auc = {}
+    for steps in (0, 100):
+        # exact: the rank statistic; at 100 steps: the area under the
+        # curve at 101 evenly spaced thresholds
+        rocs = {k: n.evaluate_roc(test.features, test.labels, steps)
+                for k, n in nets.items()}
+        auc[steps] = {k: r.get_roc_curve().area() if steps
+                      else r.calculate_auc() for k, r in rocs.items()}
+        assert abs(auc[steps]["card"] - auc[steps]["cpu"]) <= EVAL_TOL, auc
+    log(f"LeNet on the MNIST surrogate (standardized by the zip's "
+        f"normalizer, {card}): accuracy {before:.4f} before 2 epochs, "
+        f"card {acc['card']:.4f} = CPU {acc['cpu']:.4f}; ROC AUC exact "
+        f"card {auc[0]['card']:.8f} CPU {auc[0]['cpu']:.8f}, 100 steps "
+        f"card {auc[100]['card']:.8f} CPU {auc[100]['cpu']:.8f}")
+
+    rng = np.random.default_rng(0)
+    xr = rng.normal(size=(1024, 16)).astype("float32")
+    wr = rng.normal(size=(16, 3)).astype("float32")
+    yr = (np.tanh(xr @ wr) + rng.normal(0, 0.1, (1024, 3))).astype(
+        "float32")
+    conf = (NeuralNetConfiguration.builder().set_seed(1)
+            .updater(updaters.nesterovs(0.05, 0.9)).list()
+            .layer(L.DenseLayer(n_out=64, activation="tanh"))
+            .layer(L.OutputLayer(n_out=3, activation="identity",
+                                 loss="mse"))
+            .set_input_type(InputType.feed_forward(16)).build())
+    reg = MultiLayerNetwork(conf, device=CARD).init()
+    reg.fit(ArrayDataSetIterator(xr[:768], yr[:768], 64), epochs=3)
+    path = os.path.join(work, "reg.zip")
+    write_model(reg, path)
+    regs = {"card": reg, "cpu": restore_model(path, device="cpu")}
+    mse = {k: [n.evaluate_regression(xr[768:], yr[768:])
+               .mean_squared_error(c) for c in range(3)]
+           for k, n in regs.items()}
+    for a, b in zip(mse["card"], mse["cpu"]):
+        assert abs(a - b) <= EVAL_TOL * abs(b), mse
+
+    g = (NeuralNetConfiguration.builder().set_seed(2)
+         .updater(updaters.nesterovs(0.05, 0.9)).graph_builder()
+         .add_inputs("in").set_input_types(InputType.feed_forward(16)))
+    g.add_layer("d", L.DenseLayer(n_out=32, activation="tanh"), "in")
+    g.add_layer("cls", L.OutputLayer(n_out=2), "d")
+    g.add_layer("reg", L.OutputLayer(n_out=3, activation="identity",
+                                     loss="mse"), "d")
+    graph = ComputationGraph(g.set_outputs("cls", "reg").build(),
+                             device=CARD).init()
+    ycls = np.eye(2, dtype="float32")[(yr[:, 0] > 0).astype(int)]
+    graph.fit([MultiDataSet([xr[i:i + 64]], [ycls[i:i + 64],
+                                             yr[i:i + 64]])
+               for i in range(0, 768, 64)], epochs=3)
+    path = os.path.join(work, "graph.zip")
+    write_model(graph, path)
+    graphs = {"card": graph, "cpu": restore_model(path, device="cpu")}
+    held = MultiDataSet([xr[768:]], [ycls[768:], yr[768:]])
+    outs = {k: n.evaluate_outputs(held) for k, n in graphs.items()}
+    assert outs["card"]["cls"].accuracy() == outs["cpu"]["cls"].accuracy()
+    graph_mse = {k: n.evaluate_regression(held, 1).mean_squared_error(0)
+                 for k, n in graphs.items()}
+    assert abs(graph_mse["card"] - graph_mse["cpu"]) <= \
+        EVAL_TOL * graph_mse["cpu"], graph_mse
+    log(f"MLP regressor evaluate_regression MSE by column: card "
+        + ", ".join(f"{v:.8f}" for v in mse["card"]) + "; CPU "
+        + ", ".join(f"{v:.8f}" for v in mse["cpu"])
+        + f"; two-output graph evaluate_outputs: accuracy of 'cls' card "
+        f"{outs['card']['cls'].accuracy():.4f} = CPU "
+        f"{outs['cpu']['cls'].accuracy():.4f}, MSE of 'reg' card "
+        f"{graph_mse['card']:.8f} CPU {graph_mse['cpu']:.8f}")
+
+    results = {}
+    for device in (CARD, "cpu"):
+        model = restore_model(zip0, device=device)
+        cfg = es.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                es.ScoreImprovementEpochTerminationCondition(ES_PATIENCE)],
+            score_calculator=es.DataSetLossCalculator(ArrayDataSetIterator(
+                test.features, test.labels, 256)),
+            model_saver=es.InMemoryModelSaver())
+        t0 = time.perf_counter()
+        results[device] = es.EarlyStoppingTrainer(
+            cfg, model, ArrayDataSetIterator(
+                train.features[:1024], train.labels[:1024], EVAL_B)).fit()
+        results[device].seconds = time.perf_counter() - t0
+    a, b = results[CARD], results["cpu"]
+    assert (a.termination_reason, a.termination_details,
+            a.best_model_epoch, a.total_epochs) == \
+        (b.termination_reason, b.termination_details, b.best_model_epoch,
+         b.total_epochs), (a, b)
+    assert sorted(a.score_vs_epoch) == sorted(b.score_vs_epoch)
+    worst = max(abs(a.score_vs_epoch[k] - b.score_vs_epoch[k])
+                / abs(b.score_vs_epoch[k]) for k in b.score_vs_epoch)
+    assert worst <= EVAL_TOL, (a.score_vs_epoch, b.score_vs_epoch)
+    assert a.best_model.device.type == torch.device(CARD).type
+    log(f"EarlyStoppingTrainer (LeNet, max {ES_MAX_EPOCHS} epochs, "
+        f"patience {ES_PATIENCE}, in-memory saver, held-out loss): card "
+        f"{a.termination_reason}/{a.termination_details}, best epoch "
+        f"{a.best_model_epoch} of {a.total_epochs} ({a.seconds:.1f} s), CPU "
+        f"{b.termination_reason}/{b.termination_details}, best epoch "
+        f"{b.best_model_epoch} ({b.seconds:.1f} s); scores card "
+        + ", ".join(f"{a.score_vs_epoch[k]:.8f}" for k in sorted(
+            a.score_vs_epoch)) + " CPU " + ", ".join(
+            f"{b.score_vs_epoch[k]:.8f}" for k in sorted(b.score_vs_epoch))
+        + f"; worst relative difference {worst:.3e}")
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"accuracy": acc["card"], "auc": auc[0]["card"],
+           "auc_100": auc[100]["card"], "mse": mse["card"],
+           "es_best_epoch": a.best_model_epoch,
+           "es_reason": a.termination_details, "es_worst_rel": worst}
+    log(f"eval_phase {time.perf_counter() - t_all:.1f} s; summary: "
+        + json.dumps(out))
+    return out
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -4475,6 +4956,18 @@ def tensor_core_ops(native):
     for k, n in counts.items():
         assert n > 0, f"{k} has no tensor-core instruction"
     return counts
+
+
+PHASE_S = {}               # wall seconds of each phase of main()
+
+
+def timed(name, phase, *args):
+    """``phase(*args)``, its wall time logged and kept in PHASE_S."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    log(f"{name}: {PHASE_S[name]:.1f} s")
+    return out
 
 
 def card_name():
@@ -4516,37 +5009,42 @@ def main():
     # first: the port keeps float32 float32 whatever the caller set;
     # every later phase runs with both TF32 flags off (the layers'
     # doing)
-    tf32_phase(card)
+    timed("tf32_phase", tf32_phase, card)
 
-    fwd = kernel_phase(attn)
-    dq, dkv = backward_kernel_phase(attn)
-    dec = decode_kernel_phase(da)
+    fwd = timed("kernel_phase", kernel_phase, attn)
+    dq, dkv = timed("backward_kernel_phase", backward_kernel_phase, attn)
+    dec = timed("decode_kernel_phase", decode_kernel_phase, da)
     # the instantiations the main path launches (D = 64)
     fwd["tensor_core_ops"] = hmma["flash_fwd_kernel<64>"]
     dq["tensor_core_ops"] = hmma["dq_kernel<64>"]
     dkv["tensor_core_ops"] = hmma["dkv_kernel<64>"]
     # each path's launches: counts set to 0 just before it, read after;
     # a kernel on several paths reports each and their sum
-    fwd_serve = slice_phase(attn, card)
-    train_launches = train_phase(attn, card)
+    fwd_serve = timed("slice_phase", slice_phase, attn, card)
+    train_launches = timed("train_phase", train_phase, attn, card)
     dq["launches"] = train_launches["flash_attention_bwd_dq"]
     dkv["launches"] = train_launches["flash_attention_bwd_dkv"]
-    dec_generate, net, server, bodies = generate_phase(da, card)
+    dec_generate, net, server, bodies = timed("generate_phase",
+                                              generate_phase, da, card)
     try:
         crash_drill(server, net, da)
-        serving_surface_phase(attn, da, card, net, server)
+        timed("serving_surface_phase", serving_surface_phase, attn, da,
+              card, net, server)
     finally:
         server.stop(drain=True)
-    warmup_phase(card)
-    fwd_fleet, dec_fleet = fleet_phase(attn, da, card, net, bodies)
+    timed("warmup_phase", warmup_phase, card)
+    fwd_fleet, dec_fleet = timed("fleet_phase", fleet_phase, attn, da,
+                                 card, net, bodies)
     del net
     torch.cuda.empty_cache()
-    cnn_phase(card)
-    fwd_rnn, dec_rnn = rnn_phase(attn, da, card)
-    layers_phase(card)
-    fwd_keras = keras_phase(attn, card)
-    zoo_phase(card)
-    pretrain_phase(card)
+    timed("cnn_phase", cnn_phase, card)
+    fwd_rnn, dec_rnn = timed("rnn_phase", rnn_phase, attn, da, card)
+    timed("layers_phase", layers_phase, card)
+    fwd_keras = timed("keras_phase", keras_phase, attn, card)
+    timed("zoo_phase", zoo_phase, card)
+    timed("pretrain_phase", pretrain_phase, card)
+    timed("etl_phase", etl_phase, card)
+    timed("eval_phase", eval_phase, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras}
     dec["launches_by_path"] = {"generate": dec_generate,
@@ -4559,6 +5057,8 @@ def main():
         for key in ("ms", "plain_ms", "bound_ms", "bound_cuda_core_ms",
                     "library_ms", "max_abs_err"):
             assert math.isfinite(record[key]), (key, record[key])
+    log("seconds by phase: " + json.dumps(
+        {k: round(v, 1) for k, v in PHASE_S.items()}))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,12 +30,18 @@ moves its centers, as on MultiLayerNetwork. ``pretrain`` trains each
 layer vertex that has a ``pretrain_loss``, in topological order, on its
 input computed by the ancestor subgraph of that input alone.
 
+``fit`` runs MultiLayerNetwork's loop (``fit_epochs``: the data wait
+timed apart from the step, the tracer's spans, the listeners, the flight
+recorder); ``evaluate``, ``evaluate_regression`` and ``evaluate_roc``
+score one output, ``evaluate_outputs`` every output in one pass.
+
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-meshes (ROADMAP A6), k-step fusion, ``warmup`` and listeners (A7).
+meshes (ROADMAP A6), k-step fusion and ``warmup`` (A7).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -45,7 +51,8 @@ from torch import nn
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
-    _detach, _ParamTree, grads_of, pretrain_step)
+    _detach, _ParamTree, eval_one, fit_epochs, fit_one, grads_of,
+    pretrain_step)
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (LastTimeStepVertex,
                                                     combine_masks_or)
@@ -56,6 +63,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.output import (
     CenterLossOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
+from deeplearning4j_tpu_torch.observability.tracing import trace
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -89,6 +97,9 @@ class ComputationGraph(nn.Module):
         self._optimizer: Optional[updaters_mod.Transform] = None
         self._generator: Optional[torch.Generator] = None
         self._rnn_state: Optional[dict] = None
+        self.listeners: list = []
+        # (data_wait_s, dispatch_s) of the latest fit iteration
+        self._step_timing = None
 
     # ---- parameters ----
     def init(self, seed: Optional[int] = None) -> "ComputationGraph":
@@ -358,27 +369,28 @@ class ComputationGraph(nn.Module):
         elif not isinstance(data, (list, tuple)) and \
                 not hasattr(data, "reset"):
             data = list(data)     # a generator would be spent after epoch 1
-        tbptt = self.conf.conf.tbptt
-        for _ in range(epochs):
-            for ds in data:
-                mds = self._as_multi(ds)
-                if tbptt is not None and any(np.ndim(f) == 3
-                                             for f in mds.features):
-                    self._fit_tbptt(mds, tbptt)
-                    continue
-                self.score_value, _ = self._train_step(
-                    self._batch_tuple(mds))
-                self.iteration_count += 1
-            self.epoch_count += 1
+        fit_epochs(self, data, epochs)
         return self
 
-    def _fit_tbptt(self, mds: MultiDataSet, tbptt: dict) -> None:
+    def _fit_batch(self, ds, data_wait_s: float) -> None:
+        mds = self._as_multi(ds)
+        tbptt = self.conf.conf.tbptt
+        if tbptt is not None and any(np.ndim(f) == 3 for f in mds.features):
+            with trace.span("train_step_tbptt"):
+                self._fit_tbptt(mds, tbptt, data_wait_s)
+            return
+        fit_one(self, mds, data_wait_s)
+
+    def _fit_tbptt(self, mds: MultiDataSet, tbptt: dict,
+                   data_wait_s: float = 0.0) -> None:
         """Truncated BPTT over a MultiDataSet (the JAX package's
         ``_fit_tbptt``): every time-series array (3-d features and
         labels, and masks of the series' length) is split into
         ``fwd_length`` chunks, one updater step and one iteration each;
         the recurrent vertices' carries start at zero and cross each
-        chunk boundary detached."""
+        chunk boundary detached. Each chunk is one listener iteration;
+        the batch's data wait is billed to the first chunk's
+        ``_step_timing``."""
         fwd = tbptt["fwd_length"]
         series = [f for f in mds.features if f.ndim == 3]
         B, T = series[0].shape[0], series[0].shape[1]
@@ -397,8 +409,14 @@ class ComputationGraph(nn.Module):
                                chunks(mds.labels, start, 3),
                                chunks(mds.features_masks, start, 2),
                                chunks(mds.labels_masks, start, 2))
+            t_chunk = time.perf_counter()
             self.score_value, carries = self._train_step(
                 self._batch_tuple(sub), carries)
+            self._step_timing = (data_wait_s if start == 0 else 0.0,
+                                 time.perf_counter() - t_chunk)
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration_count,
+                                   self.score_value, sub.num_examples())
             self.iteration_count += 1
 
     def score(self, ds) -> float:
@@ -410,25 +428,58 @@ class ComputationGraph(nn.Module):
                                  training=False)
         return float(loss)
 
-    def evaluate(self, data, output_index: int = 0):
-        """Classification metrics of output ``output_index`` over a
-        DataSet, a MultiDataSet or an iterable of either."""
-        from deeplearning4j_tpu_torch.evaluation.classification import (
-            Evaluation)
+    def _iter_pred_batches(self, data):
+        """One forward a batch, every output as host numpy."""
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
-        ev = Evaluation()
         for ds in data:
             mds = self._as_multi(ds)
             preds = self.output(*mds.features,
                                 input_masks=mds.features_masks)
             if not isinstance(preds, tuple):
                 preds = (preds,)
+            yield mds, [p.float().cpu().numpy() for p in preds]
+
+    def _eval_with(self, data, ev, output_index: int = 0):
+        for mds, preds in self._iter_pred_batches(data):
             lmask = (mds.labels_masks[output_index]
                      if mds.labels_masks is not None else None)
-            ev.eval(mds.labels[output_index],
-                    preds[output_index].float().cpu().numpy(), mask=lmask)
+            eval_one(ev, mds.labels[output_index], preds[output_index],
+                     lmask)
         return ev
+
+    def evaluate(self, data, output_index: int = 0):
+        """Classification metrics of output ``output_index`` over a
+        DataSet, a MultiDataSet or an iterable of either."""
+        from deeplearning4j_tpu_torch.evaluation.classification import (
+            Evaluation)
+        return self._eval_with(data, Evaluation(), output_index)
+
+    def evaluate_outputs(self, data, eval_factory=None):
+        """Every output scored in one pass over the data:
+        ``{output_name: evaluator}``, one ``eval_factory()`` (default
+        ``Evaluation``) an output."""
+        if eval_factory is None:
+            from deeplearning4j_tpu_torch.evaluation.classification import (
+                Evaluation)
+            eval_factory = Evaluation
+        evs = [eval_factory() for _ in self.conf.network_outputs]
+        for mds, preds in self._iter_pred_batches(data):
+            for i, ev in enumerate(evs):
+                lmask = (mds.labels_masks[i]
+                         if mds.labels_masks is not None else None)
+                eval_one(ev, mds.labels[i], preds[i], lmask)
+        return dict(zip(self.conf.network_outputs, evs))
+
+    def evaluate_regression(self, data, output_index: int = 0):
+        from deeplearning4j_tpu_torch.evaluation.regression import (
+            RegressionEvaluation)
+        return self._eval_with(data, RegressionEvaluation(), output_index)
+
+    def evaluate_roc(self, data, threshold_steps: int = 0,
+                     output_index: int = 0):
+        from deeplearning4j_tpu_torch.evaluation.roc import ROC
+        return self._eval_with(data, ROC(threshold_steps), output_index)
 
     # ---- flat params, copies, summary ----
     def num_params(self) -> int:
@@ -570,14 +621,16 @@ class ComputationGraph(nn.Module):
                 only=self._ancestors(source))
         return acts[source]
 
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
     # ---- not ported yet ----
     def warmup(self, example, *, steps_per_device_call: int = 1,
                mesh_spec=None):
         raise NotImplementedError(
             f"training warmup {_NOT_PORTED.format('A7')}")
-
-    def set_listeners(self, *listeners):
-        raise NotImplementedError(
-            f"training listeners {_NOT_PORTED.format('A7')}")
-
-    add_listeners = set_listeners

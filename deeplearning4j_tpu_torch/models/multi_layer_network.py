@@ -16,7 +16,8 @@ overrides and ``gradient_clip``), then the layer constraints. The
 parameters are updated in place. Preprocessors
 (``nn/conf/preprocessors.py``) reshape a layer's input where the config
 placed them. ``output`` runs under ``torch.inference_mode``;
-``evaluate`` scores classification (``evaluation/classification.py``);
+``evaluate``, ``evaluate_regression`` and ``evaluate_roc`` score the
+outputs on the host (``evaluation/``);
 ``summary`` prints the JAX package's table of layers. A
 ``CenterLossOutputLayer`` head adds ``lambda_ * center_loss`` to the
 loss, and its centers (layer state) move with each step. ``pretrain``
@@ -30,13 +31,21 @@ layers' carries crossing the chunk boundaries detached (``_fit_tbptt``).
 ``rnn_time_step`` and the streaming sessions (``streaming_session``,
 ``slot_streaming_session``, ``paged_slot_streaming_session``) decode
 step by step over recurrent carries and KV caches
-(``models/streaming.py``, ``models/paged_kv.py``). Not ported yet, and
+(``models/streaming.py``, ``models/paged_kv.py``).
+``fit``'s loop is the JAX package's at one step a device call
+(:func:`fit_epochs`): the data wait is timed apart from the step
+(``_step_timing = (data_wait_s, dispatch_s)``), the tracer's ``epoch``,
+``data_wait``, ``train_step`` and ``listeners`` spans open as in JAX,
+the listeners' epoch hooks and ``iteration_done`` fire (with the loss as
+a device tensor: a listener that never reads it costs no host sync), and
+an escaping exception reaches the flight recorder. Not ported yet, and
 raising ``NotImplementedError`` when asked for: meshes (ROADMAP A6),
-k-step fusion, listeners and health (A7).
+k-step fusion and health (A7).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -55,6 +64,9 @@ from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.observability.flight_recorder import (
+    on_fit_exception)
+from deeplearning4j_tpu_torch.observability.tracing import trace
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -63,7 +75,7 @@ from deeplearning4j_tpu_torch.util.tree import (tree_flat_vector,
                                                 tree_from_flat_vector,
                                                 tree_to_device)
 
-__all__ = ["MultiLayerNetwork"]
+__all__ = ["MultiLayerNetwork", "fit_epochs", "fit_one", "eval_one"]
 
 _NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
 
@@ -103,6 +115,59 @@ def pretrain_step(layer, params, opt, opt_state, x, generator):
         updates, opt_state = opt.update(grads, opt_state, params)
         updaters_mod.apply_updates(params, updates)
     return loss.detach(), opt_state
+
+
+def fit_epochs(model, data, epochs: int) -> None:
+    """The fit loop of both executors (the JAX package's ``fit`` and
+    ``_fit_epoch`` at one step a device call): per epoch, the listeners'
+    ``on_epoch_start``, each batch's wait for data timed apart from its
+    step, ``model._fit_batch(batch, data_wait_s)``, ``on_epoch_end``. An
+    exception escaping the loop goes to the flight recorder, then on."""
+    try:
+        for _ in range(epochs):
+            with trace.span("epoch"):
+                for lst in model.listeners:
+                    lst.on_epoch_start(model)
+                batches = iter(data)
+                while True:
+                    # timed apart from the step, so an input-starved card
+                    # can be told from a host-bound one
+                    t0 = time.perf_counter()
+                    with trace.span("data_wait"):
+                        ds = next(batches, None)
+                    if ds is None:
+                        break
+                    model._fit_batch(ds, time.perf_counter() - t0)
+                for lst in model.listeners:
+                    lst.on_epoch_end(model)
+            model.epoch_count += 1
+    except Exception as e:
+        on_fit_exception(model, e)
+        raise
+
+
+def fit_one(model, ds, data_wait_s: float) -> None:
+    """One updater step on a DataSet or MultiDataSet (moved to the
+    device inside the step's span and time, as the JAX package's
+    ``_fit_one`` in ``models/kstep.py`` does), then the listeners."""
+    t1 = time.perf_counter()
+    with trace.span("train_step"):
+        model.score_value, _ = model._train_step(model._batch_tuple(ds))
+    model._step_timing = (data_wait_s, time.perf_counter() - t1)
+    with trace.span("listeners"):
+        for lst in model.listeners:
+            lst.iteration_done(model, model.iteration_count,
+                               model.score_value, ds.num_examples())
+    model.iteration_count += 1
+
+
+def eval_one(ev, labels, preds, mask) -> None:
+    """One batch into an evaluator, with the labels' mask where the
+    evaluator takes one (ROC does not)."""
+    try:
+        ev.eval(labels, preds, mask=mask)
+    except TypeError:
+        ev.eval(labels, preds)
 
 
 def _as_iterator(data, labels=None, batch_size=None) -> DataSetIterator:
@@ -160,6 +225,9 @@ class MultiLayerNetwork(nn.Module):
         self._optimizer: Optional[updaters_mod.Transform] = None
         self._generator: Optional[torch.Generator] = None
         self._rnn_state: Optional[list] = None
+        self.listeners: list = []
+        # (data_wait_s, dispatch_s) of the latest fit iteration
+        self._step_timing = None
 
     # ---- parameters ----
     def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
@@ -362,26 +430,27 @@ class MultiLayerNetwork(nn.Module):
             self.init()
         if self._optimizer is None:
             self._build_optimizer()
-        it = _as_iterator(data, labels, batch_size)
-        tbptt = self.conf.conf.tbptt
-        for _ in range(epochs):
-            for ds in it:
-                if tbptt is not None and ds.features.ndim == 3:
-                    self._fit_tbptt(ds, tbptt)
-                    continue
-                self.score_value, _ = self._train_step(
-                    self._batch_tuple(ds))
-                self.iteration_count += 1
-            self.epoch_count += 1
+        fit_epochs(self, _as_iterator(data, labels, batch_size), epochs)
         return self
 
-    def _fit_tbptt(self, ds: DataSet, tbptt: dict) -> None:
+    def _fit_batch(self, ds: DataSet, data_wait_s: float) -> None:
+        tbptt = self.conf.conf.tbptt
+        if tbptt is not None and ds.features.ndim == 3:
+            with trace.span("train_step_tbptt"):
+                self._fit_tbptt(ds, tbptt, data_wait_s)
+            return
+        fit_one(self, ds, data_wait_s)
+
+    def _fit_tbptt(self, ds: DataSet, tbptt: dict,
+                   data_wait_s: float = 0.0) -> None:
         """Truncated BPTT (the JAX package's ``_fit_tbptt``): features,
         labels and masks split into ``fwd_length`` chunks along time,
         one updater step and one iteration each; the recurrent carries
         start at zero, cross each chunk boundary detached (the gradient
         is truncated there) and are dropped after the batch.
-        ``bwd_length`` is not read, as in the JAX package."""
+        ``bwd_length`` is not read, as in the JAX package. Each chunk is
+        one listener iteration; the batch's data wait is billed to the
+        first chunk's ``_step_timing``."""
         fwd = tbptt["fwd_length"]
         B, T = ds.features.shape[0], ds.features.shape[1]
         carries = [layer.zero_state(B, device=self.device)
@@ -394,8 +463,14 @@ class MultiLayerNetwork(nn.Module):
             sub = DataSet(chunk(ds.features, start), chunk(ds.labels, start),
                           chunk(ds.features_mask, start),
                           chunk(ds.labels_mask, start))
+            t_chunk = time.perf_counter()
             self.score_value, carries = self._train_step(
                 self._batch_tuple(sub), carries)
+            self._step_timing = (data_wait_s if start == 0 else 0.0,
+                                 time.perf_counter() - t_chunk)
+            for lst in self.listeners:
+                lst.iteration_done(self, self.iteration_count,
+                                   self.score_value, sub.num_examples())
             self.iteration_count += 1
 
     def score(self, ds: DataSet) -> float:
@@ -406,16 +481,29 @@ class MultiLayerNetwork(nn.Module):
             loss, _ = self._loss(self._batch_tuple(ds), training=False)
         return float(loss)
 
+    def _eval_with(self, ev, data, labels=None):
+        for ds in _as_iterator(data, labels):
+            preds = self.output(ds.features).float().cpu().numpy()
+            eval_one(ev, ds.labels, preds, ds.labels_mask)
+        return ev
+
     def evaluate(self, data, labels=None):
         """Classification metrics of ``output`` over a DataSet, an
         iterator or (features, labels) arrays."""
         from deeplearning4j_tpu_torch.evaluation.classification import (
             Evaluation)
-        ev = Evaluation()
-        for ds in _as_iterator(data, labels):
-            preds = self.output(ds.features).float().cpu().numpy()
-            ev.eval(ds.labels, preds, mask=ds.labels_mask)
-        return ev
+        return self._eval_with(Evaluation(), data, labels)
+
+    def evaluate_regression(self, data, labels=None):
+        """Per-column regression metrics of ``output``."""
+        from deeplearning4j_tpu_torch.evaluation.regression import (
+            RegressionEvaluation)
+        return self._eval_with(RegressionEvaluation(), data, labels)
+
+    def evaluate_roc(self, data, labels=None, threshold_steps: int = 0):
+        """Binary ROC of ``output`` (exact at ``threshold_steps=0``)."""
+        from deeplearning4j_tpu_torch.evaluation.roc import ROC
+        return self._eval_with(ROC(threshold_steps), data, labels)
 
     # ---- layerwise pretraining ----
     def pretrain(self, data, *, epochs: int = 1,
@@ -558,7 +646,9 @@ class MultiLayerNetwork(nn.Module):
         return "\n".join(lines)
 
     def set_listeners(self, *listeners):
-        raise NotImplementedError(
-            f"training listeners {_NOT_PORTED.format('A7')}")
+        self.listeners = list(listeners)
+        return self
 
-    add_listeners = set_listeners
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self

@@ -18,14 +18,16 @@ live process needed. Wiring:
 
 - ``FlightRecorder(...)`` subscribes itself to the process tracer
   (``Tracer.add_sink``) so spans stream in while tracing is enabled;
-- ``install()`` makes it the process recorder: serving backends call
-  :func:`on_backend_crash` from their worker's crash handler, so a
-  crash-looping backend leaves a bundle without per-callsite wiring.
+- ``install()`` makes it the process recorder: the executors' fit
+  loops call :func:`on_fit_exception` on any escaping exception, and
+  serving backends call :func:`on_backend_crash` from their worker's
+  crash handler, so an aborted run or a crash-looping backend leaves a
+  bundle without per-callsite wiring.
 
-Crash-triggered dumps are debounced (``min_dump_interval_s``): a crash
-loop must not fill the disk with bundles; an explicit ``dump()``
-always writes. The fit-loop and health-monitor hooks of the JAX
-recorder wait for the port's training listeners (ROADMAP A7).
+Backend-crash dumps are debounced (``min_dump_interval_s``): a crash
+loop must not fill the disk with bundles; a fit-loop exception and an
+explicit ``dump()`` always write. The health-monitor hook of the JAX
+recorder waits for the port's health monitor (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -39,12 +41,13 @@ import platform
 import sys
 import threading
 import time
+import traceback
 from typing import List, Optional
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["FlightRecorder", "install", "uninstall", "get_recorder",
-           "on_backend_crash"]
+           "on_fit_exception", "on_backend_crash"]
 
 
 def _jsonable(obj):
@@ -149,6 +152,20 @@ class FlightRecorder:
             self._open_spans.pop(self._span_key(span_event), None)
             self._events.append(ev)
             self.total_events += 1
+
+    def record_registry_snapshot(self) -> None:
+        try:
+            self.record("metrics", snapshot=self.registry.snapshot())
+        except Exception:
+            logger.exception("registry snapshot failed")
+
+    def on_exception(self, where: str, exc: BaseException,
+                     force: bool = True, **context) -> None:
+        self.record("exception", where=where, error=repr(exc),
+                    traceback="".join(traceback.format_exception(
+                        type(exc), exc, exc.__traceback__))[-8000:],
+                    **context)
+        self.dump(reason=f"exception_{where}", force=force)
 
     # ------------------------------------------------------------------
     # snapshotting
@@ -263,7 +280,8 @@ class FlightRecorder:
 
 
 # ---------------------------------------------------------------------------
-# process-wide recorder (the serving backends' crash hook target)
+# process-wide recorder (the executors' and serving backends' crash
+# hook target)
 # ---------------------------------------------------------------------------
 
 _GLOBAL: Optional[FlightRecorder] = None
@@ -271,8 +289,8 @@ _GLOBAL_LOCK = threading.Lock()
 
 
 def install(recorder: FlightRecorder) -> FlightRecorder:
-    """Make ``recorder`` the process recorder: serving worker crashes
-    land in it automatically."""
+    """Make ``recorder`` the process recorder: fit-loop exceptions and
+    serving worker crashes land in it automatically."""
     global _GLOBAL
     with _GLOBAL_LOCK:
         if _GLOBAL is not None and _GLOBAL is not recorder:
@@ -291,6 +309,26 @@ def uninstall() -> None:
 
 def get_recorder() -> Optional[FlightRecorder]:
     return _GLOBAL
+
+
+def on_fit_exception(model, exc: BaseException) -> None:
+    """Called by the executors when any exception escapes the fit loop;
+    no-op without an installed recorder, never raises."""
+    rec = _GLOBAL
+    if rec is None:
+        return
+    try:
+        rec.record_registry_snapshot()
+        # a rollback-flagged divergence is about to be handled by a
+        # trainer: debounce those dumps; anything else is a crash
+        handled = bool(getattr(exc, "rollback", False))
+        rec.on_exception(
+            "fit_loop", exc, force=not handled,
+            model=type(model).__name__,
+            iteration=getattr(model, "iteration_count", None),
+            epoch=getattr(model, "epoch_count", None))
+    except Exception:
+        logger.exception("flight recorder failed during fit crash")
 
 
 def on_backend_crash(name: str, exc: BaseException) -> None:

@@ -1,2 +1,2 @@
-"""Training utilities ported so far: per-layer gradient normalization and
-parameter constraints."""
+"""Training utilities: per-layer gradient normalization, parameter
+constraints, training listeners and early stopping."""

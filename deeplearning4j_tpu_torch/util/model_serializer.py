@@ -9,7 +9,10 @@ ComputationGraph's dict by vertex name), ``updater_state.npz`` (the
 updater's state under optax's own paths, e.g. ``0/.count``,
 ``0/.mu/1/attn/Wq``), ``state.npz`` (batch-norm statistics, e.g.
 ``stem_bn/mean``),
-``metadata.json`` and ``manifest.json`` (CRC32 of every other entry).
+``metadata.json`` (counts, and the data normalizer's dict that
+``write_model(..., normalizer=)`` was given, which
+:func:`restore_normalizer` rebuilds) and ``manifest.json`` (CRC32 of
+every other entry).
 A zip either package writes restores in the other, and training
 resumes from it in either. A zip whose updater state does not fit the
 config's updater keeps the fresh state, as the JAX restore does. The
@@ -24,15 +27,16 @@ import io
 import json
 import zipfile
 import zlib
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import chaos
 
-__all__ = ["write_model", "restore_model", "verify_checkpoint",
-           "params_from_jax", "CheckpointIntegrityError"]
+__all__ = ["write_model", "restore_model", "restore_normalizer",
+           "verify_checkpoint", "params_from_jax",
+           "CheckpointIntegrityError"]
 
 _FORMAT = 1
 _MANIFEST = "manifest.json"
@@ -122,9 +126,12 @@ def _tensors_like(tree, template):
                            device=template.device)
 
 
-def write_model(model, path: str) -> None:
+def write_model(model, path: str, *,
+                normalizer: Optional[dict] = None) -> None:
     """Write ``model`` (a port MultiLayerNetwork or ComputationGraph) as
-    a checkpoint zip, with its updater state when it has one."""
+    a checkpoint zip, with its updater state when it has one.
+    ``normalizer``: a data normalizer's ``to_dict()`` (or None), kept in
+    ``metadata.json`` as the JAX package keeps it."""
     entries: Dict[str, bytes] = {
         "configuration.json": model.conf.to_json().encode(),
         "coefficients.npz": _save_npz(model.params),
@@ -139,7 +146,7 @@ def write_model(model, path: str) -> None:
             "network_type": type(model).__name__,
             "iteration_count": int(model.iteration_count),
             "epoch_count": int(model.epoch_count),
-            "normalizer": None,
+            "normalizer": normalizer,
         }).encode(),
     })
     manifest = {"format_version": _FORMAT,
@@ -249,3 +256,13 @@ def restore_model(path: str, *, device="cuda"):
     model.iteration_count = meta.get("iteration_count", 0)
     model.epoch_count = meta.get("epoch_count", 0)
     return model
+
+
+def restore_normalizer(path: str):
+    """The data normalizer that ``write_model(..., normalizer=)`` (of
+    either package) kept in the zip, rebuilt; None if it has none."""
+    from deeplearning4j_tpu_torch.data.normalizers import (
+        normalizer_from_dict)
+    with zipfile.ZipFile(path, "r") as z:
+        meta = json.loads(z.read("metadata.json"))
+    return normalizer_from_dict(meta.get("normalizer"))

@@ -496,8 +496,12 @@ def test_unported_graph_features_raise(every_vertex_pair):
     # tests/test_torch_pretrain.py): with no pretrainable vertex it
     # returns the graph
     assert tn.pretrain([]) is tn
+    # listeners are ported (A5b-3, tests/test_torch_listeners.py)
+    marker = object()
+    assert tn.set_listeners(marker) is tn and tn.listeners == [marker]
+    assert tn.add_listeners(marker).listeners == [marker, marker]
+    tn.set_listeners()
     for call, item in ((lambda: tn.warmup(None), "A7"),
-                       (lambda: tn.set_listeners(object()), "A7"),
                        (lambda: tn.fit(MultiDataSet(xs, ys),
                                        steps_per_device_call=2), "A7"),
                        (lambda: tn.fit(MultiDataSet(xs, ys),

@@ -593,8 +593,11 @@ def test_unported_training_features_raise(lm_pair):
         tn.fit(DataSet(ids, y), steps_per_device_call=2)
     with pytest.raises(NotImplementedError, match="mesh"):
         tn.fit(DataSet(ids, y), mesh_spec="dp=2")
-    with pytest.raises(NotImplementedError, match="listeners"):
-        tn.set_listeners(object())
+    # listeners are ported (A5b-3, tests/test_torch_listeners.py)
+    marker = object()
+    assert tn.set_listeners(marker) is tn and tn.listeners == [marker]
+    assert tn.add_listeners(marker).listeners == [marker, marker]
+    tn.set_listeners()
 
 
 def test_output_stays_inference_only(lm_pair):
