@@ -89,13 +89,25 @@ against the CPU: LeNet on the MNIST surrogate standardized by the
 normalizer its zip carries (``evaluate``, ``evaluate_roc``), an MLP
 regressor's ``evaluate_regression``, a two-output graph's
 ``evaluate_outputs``, and an ``EarlyStoppingTrainer`` on each device.
-Every phase's wall time is logged. It imports nothing of JAX or of the
+Every ``fit`` on the card runs through the captured training step (a
+CUDA graph a batch signature). Then (``capture_phase``) the captured
+step is held against the eager step on LeNet, ResNet50 at the headline
+shape, the char-RNN under tBPTT and the full-width LM (its attention
+kernels counted on every replay), with dropout's masks drawn anew on
+each replay; ``kstep_phase`` runs bench.py's ``lenet_kstep`` leg
+(steps/s and jitter at k = 1, 8, 64, every program warmed),
+``aot_warmup_phase`` its ``aot_warmup`` leg (first calls cold and
+warm, ``zero_compile_scope`` around the train and serve steady states)
+and ``checkpoint_phase`` its ``checkpoint_async`` leg (sync and async
+saves, a restore, and a JAX-written checkpoint resumed by the port's
+``ElasticTrainer``). Every phase's wall time is logged. It imports nothing of JAX or of the
 JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device it exits 2 and prints no result.
 """
 
+import gc
 import json
 import logging
 import math
@@ -2461,8 +2473,11 @@ def resnet_card_vs_cpu():
         grads_of = net._gradients
 
         def spy(batch, carries=None):
-            seen["out"] = grads_of(batch, carries)
-            return seen["out"]
+            out = grads_of(batch, carries)
+            # the eager step's (on the card a capture of the same body
+            # follows it, whose tensors hold nothing until a replay)
+            seen.setdefault("out", out)
+            return out
         net._gradients = spy
         scope = (dtypes.policy_scope(dtypes.tpu_bf16()) if policy == "bf16"
                  else contextlib.nullcontext())
@@ -2947,6 +2962,7 @@ def tbptt_card_vs_cpu(card):
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
     from deeplearning4j_tpu_torch.util.model_serializer import _flatten
     conf = char_rnn_conf(RNN_CHECK_H, tbptt=TBPTT_FWD)
     params0 = MultiLayerNetwork(conf, device="cpu").init().params
@@ -2959,13 +2975,11 @@ def tbptt_card_vs_cpu(card):
         net.set_params(params0)
         net._build_optimizer()
         losses = []
-        step = net._train_step
 
-        def spy(batch, carries=None):
-            out = step(batch, carries)
-            losses.append(out[0])
-            return out
-        net._train_step = spy
+        class Losses(TrainingListener):  # every chunk's loss (replayed)
+            def iteration_done(self, model, iteration, score, batch_size):
+                losses.append(score)
+        net.set_listeners(Losses())
         with torch.backends.mkldnn.flags(enabled=onednn):
             net.fit(DataSet(*char_batch(np.roll(ids, roll, axis=0),
                                         device)))
@@ -3935,8 +3949,12 @@ class fixed_dropout:
         def mask(shape, keep, generator, device):
             self.calls += 1
             u = np.random.default_rng(self.calls).random(tuple(shape))
-            return torch.from_numpy(np.roll(u < keep, self.roll,
-                                            axis=0)).to(device)
+            m = torch.from_numpy(np.roll(u < keep, self.roll, axis=0))
+            if torch.device(device).type == "cuda":
+                # from pinned memory: a copy a graph capture can record
+                # (fit captures its step after the eager run)
+                return m.pin_memory().to(device, non_blocking=True)
+            return m.to(device)
         base.dropout_keep_mask = mask
         return self
 
@@ -4626,21 +4644,23 @@ def etl_phase(card):
     del resident
     step = sorted(step_ms)[len(step_ms) // 2]
 
-    # events on the stream around fit's upload and after each step (no
-    # sync): the card's timeline of one batch is the idle gap before
-    # the upload (the host had not issued it yet), the upload, the step
+    # events on the training stream around the captured step's input
+    # copy (host batch -> pinned staging -> the graph's static inputs)
+    # and after each step (no sync): the card's timeline of one batch is
+    # the idle gap before the upload (the host had not issued it yet),
+    # the upload, the step (a replay)
+    from deeplearning4j_tpu_torch.models import kstep
     marks, ends, host_next, host_fit = [], [], [], []
-    real = net._batch_tuple
+    real = kstep.TrainProgram._fill
 
-    def marked(mds):
+    def marked(prog, window):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        out = real(mds)
+        real(prog, window)
         e1.record()
         marks.append((e0, e1))
-        return out
-    net._batch_tuple = marked
+    kstep.TrainProgram._fill = marked
     n_img, it = 0, make_it()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4662,7 +4682,8 @@ def etl_phase(card):
             n_img += ETL_B
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    del net._batch_tuple
+    kstep.TrainProgram._fill = real
+    assert len(marks) == len(ends), (len(marks), len(ends))
     losses.append(float(net.score_value))
     e2e_ms = e2e_s / (n_img / ETL_B) * 1e3
     gap = [ends[i - 1].elapsed_time(marks[i][0]) for i in range(1, len(ends))]
@@ -4930,6 +4951,525 @@ def eval_phase(card):
     return out
 
 
+CAPTURE_STEPS = 5          # captured vs eager steps a model
+CAPTURE_LENET_B = 128      # LeNet's batch in the capture check
+# bench.py:2841-2935: the lenet_kstep leg's net (c4/c8/d64, Adam 1e-3),
+# batch, logical steps a k and the ks
+KSTEP_B, KSTEP_TOTAL, KSTEP_KS = 8, 384, (1, 8, 64)
+CKPT_HIDDEN, CKPT_LAYERS, CKPT_SAVES = 1024, 4, 6   # bench.py:2552-2554
+JAX_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "jax_elastic_ckpt_4.zip")
+
+
+def host_leaves(net):
+    """Params, layer state and updater state as flat host arrays."""
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    return {f"{name}/{k}": v for name in ("params", "state", "opt_state")
+            for k, v in _flatten(getattr(net, name) or []).items()}
+
+
+def idle_profile(fn):
+    """(busy ms, wall ms) of ``fn()`` under torch.profiler, or None when
+    the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return (busy, wall) if busy > 0 else None
+
+
+def eager_steps(net, ds):
+    """One eager training step on ``ds`` (each tBPTT chunk for a
+    tBPTT net): the losses."""
+    tbptt = net.conf.conf.tbptt
+    m = net._coerce_fit_batch(ds)
+    if net._batch_is_tbptt(m, tbptt):
+        carries = net._zero_carries(m.features.shape[0])
+        out = []
+        for sub in net._tbptt_chunks(m, tbptt["fwd_length"]):
+            loss, carries = net._train_step(net._batch_tuple(sub), carries)
+            out.append(loss)
+        return out
+    return [net._train_step(net._batch_tuple(m))[0]]
+
+
+def captured_vs_eager(label, make, data, card, stats, on_captured=None):
+    """``data`` through ``fit`` on ``make()`` (the first step eager plus
+    the capture, the rest replays; 0 captures after the first step), then
+    twice through the eager step on fresh ``make()`` copies, all with
+    cuDNN's deterministic algorithms: the losses, params, layer state and
+    updater state of the captured run held to the first eager run leaf
+    by leaf, in L2, within F32_FACTOR times the two eager runs' own
+    difference plus FLOOR_RTOL of the leaf (``_leaf_errors``). Host wall ms a step (synchronized) both ways,
+    and one profiled step each way. ``on_captured(net)`` runs right
+    after the captured batches. Returns the numbers."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    class Losses(TrainingListener):
+        def __init__(self):
+            self.losses = []
+
+        def iteration_done(self, model, iteration, score, batch_size):
+            self.losses.append(score)
+
+    def run(captured):
+        net = make()
+        rec = Losses()
+        net.set_listeners(rec)
+        losses, ms, mark = [], [], None
+        for i, ds in enumerate(data):
+            t0 = time.perf_counter()
+            if captured:
+                net.fit(ds)
+            else:
+                losses += eager_steps(net, ds)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                mark = stats.mark()
+        after = stats.summary(mark)
+        if captured:
+            if on_captured is not None:
+                on_captured(net)
+            assert after["graph_captures"] == 0, (label, after)
+            assert after["graph_replays"] >= len(data) - 1, (label, after)
+            losses = rec.losses
+        out = {f"loss/{i}": np.array([float(v)])
+               for i, v in enumerate(losses)}
+        out.update(host_leaves(net))
+        prof = idle_profile(
+            (lambda: net.fit(data[-1])) if captured
+            else (lambda: eager_steps(net, data[-1])))
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, ms, prof
+
+    # cuDNN's deterministic algorithms, in all three runs: the default
+    # ones sum with atomics, and a nesterovs step through 53 batch norms
+    # amplifies that noise past what one rerun samples
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    allow_tf32=False):
+        cap, cap_ms, cap_prof = run(True)
+        ref, eager_ms, eager_prof = run(False)
+        ref2, _, _ = run(False)
+    rows = _leaf_errors(cap, ref, [ref2], F32_FACTOR)
+    med = {k: sorted(v[1:])[len(v[1:]) // 2]
+           for k, v in (("captured", cap_ms), ("eager", eager_ms))}
+
+    def idle(p):
+        return ("not measured" if p is None else
+                f"busy {p[0]:.3f} of {p[1]:.3f} ms, idle "
+                f"{100 * max(0.0, 1 - p[0] / p[1]):.1f}%")
+    n_loss = sum(k.startswith("loss/") for k in cap)
+    log(f"captured vs eager, {label} ({card}; cuDNN deterministic): "
+        f"{len(data)} batches, "
+        f"{n_loss} steps; losses captured "
+        + ", ".join(f"{cap[f'loss/{i}'][0]:.6f}" for i in range(n_loss))
+        + " vs eager " + ", ".join(f"{ref[f'loss/{i}'][0]:.6f}"
+                                   for i in range(n_loss))
+        + f"; {len(ref)} leaves, worst L2 |captured - eager| / "
+          f"({F32_FACTOR:g} x |eager - eager rerun| + {FLOOR_RTOL:g} x "
+          "|eager|): " + "; ".join(f"{k} {r:.3f} ({e:.3e} of {lim:.3e})"
+                                    for r, k, e, lim in rows[:2])
+        + f" (limit 1); host wall a batch (synchronized; first, then the "
+          f"median of the rest) captured {cap_ms[0]:.3f}, "
+          f"{med['captured']:.3f} ms, eager {eager_ms[0]:.3f}, "
+          f"{med['eager']:.3f} ms; one profiled batch captured "
+          f"{idle(cap_prof)}, eager {idle(eager_prof)}")
+    assert rows[0][0] <= 1.0, (label, rows[:3])
+    return {"captured_ms": med["captured"], "eager_ms": med["eager"],
+            "captured_first_ms": cap_ms[0], "worst": rows[0][0],
+            "captured_busy_wall": cap_prof, "eager_busy_wall": eager_prof}
+
+
+def lenet_conf(c1=20, c2=50, dense=500, updater=None, dropout=None):
+    """bench.py:281-307's LeNet (convolutional_flat 28x28x1) with the
+    given widths and updater (default Adam 1e-3), seed 0."""
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (ConvolutionLayer,
+                                                         DenseLayer,
+                                                         OutputLayer,
+                                                         SubsamplingLayer)
+    kw = {} if dropout is None else {"dropout": dropout}
+    return (NeuralNetConfiguration.builder().set_seed(0)
+            .updater(updater or updaters.adam(1e-3)).list()
+            .layer(ConvolutionLayer(n_out=c1, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=c2, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=dense, activation="relu", **kw))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1))
+            .build())
+
+
+def digits(n, B, seed=0):
+    """``n`` seeded batches of B noise images with one-hot labels."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    return [DataSet(rng.normal(0, 1, (B, 784)).astype("float32"),
+                    np.eye(10, dtype="float32")[rng.integers(0, 10, B)])
+            for _ in range(n)]
+
+
+def capture_phase(attn, card):
+    """The captured training step against the eager ``_train_step`` on
+    the card, CAPTURE_STEPS batches each (``captured_vs_eager``), dropout
+    off: LeNet on MultiLayerNetwork (Adam with a ``step`` schedule),
+    ResNet50 on ComputationGraph at the headline leg's shape, the
+    char-RNN under tBPTT at its leg's width, the transformer LM at full
+    width (its three attention kernels launched from the replays: the
+    capture records 8 of each, every replay adds them). With dropout on
+    (LeNet, sgd at rate 0, so only the masks move the loss), replays of
+    one batch give different losses. Returns the LM run's launches."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    stats = install_global_watch()
+    out = {}
+
+    sched = updaters.adam(1e-3, schedule={"type": "step",
+                                          "decay_rate": 0.5, "step": 2})
+    out["lenet"] = captured_vs_eager(
+        f"LeNet on MultiLayerNetwork (B={CAPTURE_LENET_B}, Adam 1e-3 with "
+        "a step schedule)",
+        lambda: MultiLayerNetwork(lenet_conf(updater=sched),
+                                  device="cuda").init(),
+        digits(CAPTURE_STEPS, CAPTURE_LENET_B), card, stats)
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (RESNET_B, RESNET_HW, RESNET_HW, 3)).astype(
+        "float32")
+    y = np.eye(RESNET_CLASSES, dtype="float32")[
+        rng.integers(0, RESNET_CLASSES, RESNET_B)]
+    ds = DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    out["resnet50"] = captured_vs_eager(
+        f"ResNet50 on ComputationGraph (B={RESNET_B}, {RESNET_HW}x"
+        f"{RESNET_HW}, f32, nesterovs(0.1, 0.9))",
+        lambda: zoo.ResNet50(n_classes=RESNET_CLASSES,
+                             updater=updaters.nesterovs(0.1, 0.9)).init(
+                                 device="cuda"),
+        [ds] * CAPTURE_STEPS, card, stats)
+    del ds
+
+    ids = np.random.default_rng(1).integers(0, CHAR_V,
+                                            (CHAR_B, CHAR_T + 1))
+    chars = [DataSet(*char_batch(np.roll(ids, i, axis=0), "cuda"))
+             for i in range(CAPTURE_STEPS)]
+    out["char_rnn_tbptt"] = captured_vs_eager(
+        f"char-RNN under tBPTT (B={CHAR_B}, T={CHAR_T} in chunks of "
+        f"{TBPTT_FWD}, 2 x GravesLSTM({CHAR_H}))",
+        lambda: MultiLayerNetwork(char_rnn_conf(tbptt=TBPTT_FWD),
+                                  device="cuda").init(),
+        chars, card, stats)
+
+    conf = lm_config(updaters.adam(TRAIN_LR))
+    lm_rng = np.random.default_rng(0)
+    lm_ids = lm_rng.integers(0, V, (TRAIN_B, T)).astype("float32")
+    lm_y = np.eye(V, dtype="float32")[lm_rng.integers(0, V, (TRAIN_B, T))]
+    wrappers = {"flash_attention_fwd": attn.flash_attention_fwd_cuda,
+                "flash_attention_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+                "flash_attention_bwd_dkv": attn.flash_attention_bwd_dkv_cuda}
+    launches, tally = {}, {}
+
+    def counted(net):
+        """Read just after the captured run (the eager runs after it,
+        and its profiled step, are not counted)."""
+        torch.cuda.synchronize()
+        launches.update({k: w.launches for k, w in wrappers.items()})
+        prog, = net._programs.values()
+        tally.update({k: prog.tally.get(w, 0) for k, w in wrappers.items()})
+    for w in wrappers.values():
+        w.launches = 0
+    out["lm"] = captured_vs_eager(
+        f"transformer LM (V={V}, D={D_MODEL}, L={LAYERS}, H={HEADS}, "
+        f"T={T}, B={TRAIN_B}, Adam {TRAIN_LR:g})",
+        lambda: MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                                  device="cuda").init(seed=0),
+        [DataSet(lm_ids, lm_y)] * CAPTURE_STEPS, card, stats, counted)
+    log(f"attention kernels in the captured LM run ({CAPTURE_STEPS} "
+        f"steps: one eager, then the capture, then replays): launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items())
+        + f" (expected {LAYERS * CAPTURE_STEPS} each: {LAYERS} a step, "
+          f"counted on every replay); recorded by the capture {tally}")
+    for k, n in launches.items():
+        assert n == LAYERS * CAPTURE_STEPS, (k, n)
+        assert tally[k] == LAYERS, (k, tally)
+
+    net = MultiLayerNetwork(lenet_conf(updater=updaters.sgd(0.0),
+                                       dropout=0.5), device="cuda").init()
+    batch = digits(1, CAPTURE_LENET_B, seed=3)[0]
+    drawn = []
+    for _ in range(4):
+        net.fit(batch)
+        drawn.append(float(net.score_value))
+    log(f"dropout 0.5 under the captured step (LeNet, sgd at rate 0, one "
+        f"batch 4 times: the eager step, then 3 replays): losses "
+        + ", ".join(f"{v:.6f}" for v in drawn))
+    assert len(set(drawn[1:])) == 3, drawn
+    del net
+    log("capture_phase summary: " + json.dumps(out))
+    return launches
+
+
+def kstep_net(seed=0):
+    """bench.py:2841's ``_kstep_lenet``: LeNet at c4/c8/d64, Adam 1e-3."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    conf = lenet_conf(4, 8, 64)
+    conf.conf.seed = seed
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+        conf.to_dict()), device="cuda").init()
+
+
+def kstep_phase(card):
+    """bench.py:2882's ``lenet_kstep`` leg: ``_kstep_lenet`` (c4/c8/d64,
+    batch KSTEP_B, Adam 1e-3) at k in KSTEP_KS, every program warmed,
+    then KSTEP_TOTAL logical steps through ``fit_batches(k batches,
+    steps_per_device_call=k)``, inside ``zero_compile_scope``: steps/s,
+    the p50 step and the jitter (p95 - p50) / p50 of wall / k a call."""
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    stats = install_global_watch()
+    ds = digits(1, KSTEP_B)[0]
+    res = {}
+    for k in KSTEP_KS:
+        net = kstep_net()
+        rep = net.warmup(ds, steps_per_device_call=k)
+        batches = [ds] * k
+        with stats.zero_compile_scope(f"lenet_kstep k={k}"):
+            for _ in range(max(2, 16 // k)):
+                net.fit_batches(batches, steps_per_device_call=k)
+            per_step = []
+            t0 = time.perf_counter()
+            for _ in range(KSTEP_TOTAL // k):
+                t1 = time.perf_counter()
+                net.fit_batches(batches, steps_per_device_call=k)
+                per_step.append((time.perf_counter() - t1) / k)
+            dt = time.perf_counter() - t0
+        srt = sorted(per_step)
+        p50 = srt[len(srt) // 2]
+        p95 = srt[min(len(srt) - 1, int(len(srt) * 0.95))]
+        res[k] = {"steps_per_sec": KSTEP_TOTAL / dt,
+                  "step_ms_p50": p50 * 1e3, "step_ms_p95": p95 * 1e3,
+                  "jitter_pct": (p95 - p50) / p50 * 100.0,
+                  "warmup_s": rep}
+        log(f"lenet_kstep k={k} ({card}): {res[k]['steps_per_sec']:.1f} "
+            f"steps/s, p50 {res[k]['step_ms_p50']:.4f} ms, p95 "
+            f"{res[k]['step_ms_p95']:.4f} ms, jitter (p95-p50)/p50 "
+            f"{res[k]['jitter_pct']:.1f}%; warmup {rep}")
+        del net
+    log(f"lenet_kstep: k=8 / k=1 steps/s "
+        f"{res[8]['steps_per_sec'] / res[1]['steps_per_sec']:.3f}, k=64 / "
+        f"k=1 {res[64]['steps_per_sec'] / res[1]['steps_per_sec']:.3f}")
+    return res
+
+
+def aot_warmup_phase(card):
+    """bench.py:2939's ``aot_warmup`` leg: the first training call cold
+    (the eager step and the capture) and after ``warmup(k=8)`` (a
+    replay); ``zero_compile_scope`` around 5 windows of 8 and a 3-batch
+    tail each; the first serve request cold and after
+    ``ModelServer.warmup(generate=False)``, then a mixed-size predict
+    burst inside ``zero_compile_scope``."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    stats = install_global_watch()
+    ds = digits(1, KSTEP_B)[0]
+    cold = kstep_net(seed=1)
+    t0 = time.perf_counter()
+    cold.fit_batches([ds])
+    cold_s = time.perf_counter() - t0
+    warm = kstep_net(seed=1)
+    mark = stats.mark()
+    rep = warm.warmup(ds, steps_per_device_call=8)
+    during = stats.summary(mark)
+    t0 = time.perf_counter()
+    warm.fit_batches([ds])
+    warm_s = time.perf_counter() - t0
+    mark = stats.mark()
+    with stats.zero_compile_scope("aot_warmup train steady state"):
+        for _ in range(5):
+            warm.fit_batches([ds] * 8, steps_per_device_call=8)
+            warm.fit_batches([ds] * 3, steps_per_device_call=8)
+    steady = stats.summary(mark)
+    assert during["graph_captures"] == 2, during
+    assert steady["graph_replays"] == 5 * 4, steady
+
+    x1 = np.zeros((1, 784), np.float32)
+    reg = ModelRegistry()
+    reg.register("default", kstep_net(seed=2))
+    srv = ModelServer(reg, max_batch_size=8)
+    sched, _ = srv.scheduler_for("default")
+    t0 = time.perf_counter()
+    sched.predict(x1, timeout=120)
+    serve_cold_s = time.perf_counter() - t0
+    srv.stop(drain=False)
+    reg2 = ModelRegistry()
+    reg2.register("default", kstep_net(seed=2))
+    srv2 = ModelServer(reg2, max_batch_size=8)
+    srv_rep = srv2.warmup(generate=False)
+    sched2, _ = srv2.scheduler_for("default")
+    t0 = time.perf_counter()
+    sched2.predict(x1, timeout=120)
+    serve_warm_s = time.perf_counter() - t0
+    try:
+        with stats.zero_compile_scope("aot_warmup serve burst"):
+            for n in (1, 2, 3, 5, 8, 7, 4, 1):
+                sched2.predict(np.zeros((n, 784), np.float32), timeout=120)
+    finally:
+        srv2.stop(drain=False)
+    log(f"aot_warmup ({card}): train first call cold {cold_s * 1e3:.3f} ms"
+        f" (eager step + capture) vs warm {warm_s * 1e3:.3f} ms (warmup "
+        f"{ {k: round(v, 4) for k, v in rep.items()} } s, captures "
+        f"{during['graph_captures']}); steady state (5 windows of 8 + "
+        f"3-batch tails) {steady}; serve first request cold "
+        f"{serve_cold_s * 1e3:.3f} ms vs warm {serve_warm_s * 1e3:.3f} ms "
+        f"(buckets {srv_rep['default']['predict_buckets']}); 0 captures in "
+        "both steady states (asserted)")
+    return {"train_cold_ms": cold_s * 1e3, "train_warm_ms": warm_s * 1e3,
+            "serve_cold_ms": serve_cold_s * 1e3,
+            "serve_warm_ms": serve_warm_s * 1e3}
+
+
+def elastic_data(n, seed):
+    """tests/test_torch_fault_tolerance.py's ``_data``: n seeded batches
+    of 8 rows of 4 features, 3 classes."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        y = rng.integers(0, 3, 8)
+        x = (rng.normal(size=(8, 4)) + y[:, None]).astype(np.float32)
+        out.append(DataSet(x, np.eye(3, dtype=np.float32)[y]))
+    return out
+
+
+def checkpoint_phase(card):
+    """bench.py:2558's ``checkpoint_async`` leg: 4 x Dense(1024, relu) +
+    Output(16), Adam 1e-3, on the card; CKPT_SAVES sync saves (the train
+    thread's blocked ms), then CKPT_SAVES async ones with a barrier each
+    (blocked p99 from the ``checkpoint_write_seconds{phase="blocked"}``
+    histogram, reset first; the total a save); the newest generation
+    restored, its output equal to the model's; and the JAX trainer's
+    checkpoint committed under tests/fixtures (written by the JAX
+    ElasticTrainer, killed at step 5) resumed by the port's trainer on
+    the card to the run's end."""
+    import shutil
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.observability.registry import REGISTRY
+    from deeplearning4j_tpu_torch.train.fault_tolerance import (
+        ElasticTrainer)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model)
+    b = (NeuralNetConfiguration.builder().set_seed(0)
+         .updater(updaters.adam(1e-3)).list())
+    for _ in range(CKPT_LAYERS):
+        b = b.layer(DenseLayer(n_out=CKPT_HIDDEN, activation="relu"))
+    conf = (b.layer(OutputLayer(n_out=16))
+            .set_input_type(InputType.feed_forward(CKPT_HIDDEN)).build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    zip_mb = net.num_params() * 4 / 1e6
+    root = tempfile.mkdtemp(prefix="ckpt_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        sync = ElasticTrainer(net, os.path.join(root, "sync"), keep=2,
+                              handle_sigterm=False)
+        sync_s = []
+        for _ in range(CKPT_SAVES):
+            net.iteration_count += 1
+            t0 = time.perf_counter()
+            sync.save_checkpoint()
+            sync_s.append(time.perf_counter() - t0)
+        for phase in ("blocked", "total"):
+            REGISTRY.unregister("checkpoint_write_seconds",
+                                {"phase": phase})
+        asy = ElasticTrainer(net, os.path.join(root, "async"), keep=2,
+                             handle_sigterm=False, async_checkpoint=True)
+        total = []
+        for _ in range(CKPT_SAVES):
+            net.iteration_count += 1
+            t0 = time.perf_counter()
+            asy.save_checkpoint()
+            asy.checkpoint_barrier()
+            total.append(time.perf_counter() - t0)
+        asy.close()
+        p99_ms = REGISTRY.histogram("checkpoint_write_seconds", labels={
+            "phase": "blocked"}).snapshot()["p99"] * 1e3
+        x = np.random.default_rng(0).normal(
+            0, 1, (64, CKPT_HIDDEN)).astype("float32")
+        restored = restore_model(asy.latest_checkpoint(), device="cuda")
+        diff = float((restored.output(x) - net.output(x)).abs().max())
+        assert restored.iteration_count == net.iteration_count
+        assert diff == 0.0, diff
+
+        d = os.path.join(root, "jax_run")
+        os.makedirs(d)
+        shutil.copy(JAX_CKPT, os.path.join(d, "ckpt_4.zip"))
+        small = restore_model(JAX_CKPT, device="cuda")
+        tr = ElasticTrainer(small, d, save_every=2, handle_sigterm=False)
+        at = (small.iteration_count, tr._batch)
+        tr.fit(elastic_data(8, seed=7), until_epoch=2)
+        final = float(small.score_value)
+        assert at == (4, 4) and small.iteration_count == 16, (
+            at, small.iteration_count)
+        assert math.isfinite(final)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sync_ms = sorted(sync_s)[len(sync_s) // 2] * 1e3
+    total_ms = sorted(total)[len(total) // 2] * 1e3
+    log(f"checkpoint_async ({card}; {net.num_params()} params, ~{zip_mb:.0f}"
+        f" MB of f32): sync {sync_ms:.3f} ms a save blocked (median of "
+        f"{CKPT_SAVES}); async blocked p99 {p99_ms:.3f} ms (the "
+        f"histogram), total {total_ms:.3f} ms a save; blocked / sync "
+        f"{p99_ms / sync_ms:.4f}; the newest async generation restored: "
+        f"max |output diff| {diff} over 64 rows; the JAX trainer's "
+        f"checkpoint (tests/fixtures/{os.path.basename(JAX_CKPT)}) resumed by the port's trainer on the card "
+        f"at iteration {at[0]}, batch {at[1]}, trained to iteration "
+        f"{small.iteration_count}, last loss {final:.6f}")
+    return {"sync_ms": sync_ms, "async_blocked_p99_ms": p99_ms,
+            "async_total_ms": total_ms}
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -4963,10 +5503,14 @@ PHASE_S = {}               # wall seconds of each phase of main()
 
 def timed(name, phase, *args):
     """``phase(*args)``, its wall time logged and kept in PHASE_S."""
+    import torch
     t0 = time.perf_counter()
     out = phase(*args)
     PHASE_S[name] = time.perf_counter() - t0
     log(f"{name}: {PHASE_S[name]:.1f} s")
+    # a phase's models, and their captured graphs' pools, go with it
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5045,11 +5589,20 @@ def main():
     timed("pretrain_phase", pretrain_phase, card)
     timed("etl_phase", etl_phase, card)
     timed("eval_phase", eval_phase, card)
+    captured = timed("capture_phase", capture_phase, attn, card)
+    timed("kstep_phase", kstep_phase, card)
+    timed("aot_warmup_phase", aot_warmup_phase, card)
+    timed("checkpoint_phase", checkpoint_phase, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
-                               "rnn": fwd_rnn, "keras": fwd_keras}
+                               "rnn": fwd_rnn, "keras": fwd_keras,
+                               "capture": captured["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn}
-    for record in (fwd, dec):
+    for record, name in ((dq, "flash_attention_bwd_dq"),
+                         (dkv, "flash_attention_bwd_dkv")):
+        record["launches_by_path"] = {"train": record["launches"],
+                                      "capture": captured[name]}
+    for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]
     for record in records:

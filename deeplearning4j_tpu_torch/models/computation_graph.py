@@ -32,16 +32,19 @@ input computed by the ancestor subgraph of that input alone.
 
 ``fit`` runs MultiLayerNetwork's loop (``fit_epochs``: the data wait
 timed apart from the step, the tracer's spans, the listeners, the flight
-recorder); ``evaluate``, ``evaluate_regression`` and ``evaluate_roc``
-score one output, ``evaluate_outputs`` every output in one pass.
+recorder) over the same training programs (``models/kstep.py``: a CUDA
+graph a batch signature on a card, k steps a program with
+``steps_per_device_call=k``; ``fit_batches`` and ``warmup`` as on
+MultiLayerNetwork); ``evaluate``, ``evaluate_regression`` and
+``evaluate_roc`` score one output, ``evaluate_outputs`` every output in
+one pass.
 
 Not ported yet, and raising ``NotImplementedError`` when asked for:
-meshes (ROADMAP A6), k-step fusion and ``warmup`` (A7).
+meshes (ROADMAP A6).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -50,8 +53,10 @@ from torch import nn
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
+from deeplearning4j_tpu_torch.models.kstep import (KStepExecutorMixin,
+                                                   assign_tree, host_batch)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
-    _detach, _ParamTree, eval_one, fit_epochs, fit_one, grads_of,
+    _detach, _ParamTree, check_fit_args, eval_one, fit_epochs, grads_of,
     pretrain_step)
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.graph import (LastTimeStepVertex,
@@ -63,7 +68,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.output import (
     CenterLossOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
-from deeplearning4j_tpu_torch.observability.tracing import trace
+from deeplearning4j_tpu_torch.observability.health import fused_health
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -75,15 +80,14 @@ from deeplearning4j_tpu_torch.util.tree import (tree_copy,
 
 __all__ = ["ComputationGraph"]
 
-_NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
 
-
-class ComputationGraph(nn.Module):
+class ComputationGraph(KStepExecutorMixin, nn.Module):
     def __init__(self, conf: ComputationGraphConfiguration, *,
                  device="cuda"):
         super().__init__()
         self.conf = conf
         self.device = resolve_device(device)
+        self._init_programs()
         # one _ParamTree a layer vertex, in topological order
         self.vertex_params = nn.ModuleList()
         self._param_names: List[str] = [
@@ -144,6 +148,7 @@ class ComputationGraph(nn.Module):
             raise ValueError(f"no params for vertices {sorted(missing)}")
         self.vertex_params = nn.ModuleList(
             _ParamTree(params[n], self.device) for n in self._param_names)
+        self._flush_compiled_programs()
         if self.state is None:
             self.state = {n: {} for n in self._param_names}
 
@@ -197,6 +202,7 @@ class ComputationGraph(nn.Module):
             if only is not None and name not in only:
                 continue
             obj, ins = self.conf.vertices[name]
+            self._where = f"vertex {name!r} ({type(obj).__name__})"
             xs = [acts[i] for i in ins]
             in_masks = [masks.get(i) for i in ins]
             if isinstance(obj, Layer):
@@ -327,19 +333,22 @@ class ComputationGraph(nn.Module):
             self._generator = self._new_generator(self.conf.conf.seed)
         loss, aux = self._loss(batch, training=True,
                                generator=self._generator, carries=carries)
+        self._where = "the backward pass"
         return loss.detach(), grads_of(loss, self.params), aux
 
-    def _train_step(self, batch, carries=None):
+    def _step_body(self, batch, carries=None, *, health: bool = False):
         """loss -> grads -> gradient normalization -> updater ->
-        constraints. Returns the loss as a device scalar, without a
-        host sync, and the new carries detached (None without
-        ``carries``; tBPTT passes them)."""
+        constraints, with no host read: what a training program
+        captures (MultiLayerNetwork's ``_step_body``, by vertex name).
+        Returns (the loss, the fused health vector or None, the new
+        carries detached)."""
         loss, grads, (new_state, new_carries) = self._gradients(batch,
                                                                 carries)
+        self._where = "the updater"
         grads = apply_gradient_normalization(self._layer_configs(), grads)
         params = self.params
         with torch.no_grad():
-            updates, self.opt_state = self._optimizer.update(
+            updates, new_opt = self._optimizer.update(
                 grads, self.opt_state, params)
             updaters_mod.apply_updates(params, updates)
             for name, obj in self._layer_configs().items():
@@ -347,56 +356,58 @@ class ComputationGraph(nn.Module):
                 for k, v in apply_layer_constraints(obj, p).items():
                     if v is not p[k]:
                         p[k].copy_(v)
-        self.state = new_state
-        return loss, _detach(new_carries)
+            vec = (fused_health(loss, grads, updates, params)
+                   if health else None)
+            assign_tree(self.opt_state, new_opt)
+            assign_tree(self.state, new_state)
+        return loss, vec, _detach(new_carries)
+
+    def _train_step(self, batch, carries=None):
+        """One eager training step: the loss as a device scalar, without
+        a host sync, and the new carries."""
+        loss, _, new_carries = self._step_body(batch, carries)
+        return loss, new_carries
 
     def fit(self, data, *, epochs: int = 1,
             steps_per_device_call: int = 1, mesh_spec=None):
         """Train over a DataSet, a MultiDataSet, or an iterable of
-        either, one updater step per batch."""
-        if int(steps_per_device_call) != 1:
-            raise NotImplementedError(
-                f"k-step fusion {_NOT_PORTED.format('A7')}")
-        if mesh_spec is not None:
-            raise NotImplementedError(
-                f"mesh training {_NOT_PORTED.format('A6')}")
-        if self.params is None:
-            self.init()
-        if self._optimizer is None:
-            self._build_optimizer()
+        either, one updater step per batch; ``steps_per_device_call=k``
+        as on MultiLayerNetwork."""
+        k = check_fit_args(steps_per_device_call, mesh_spec)
+        self._prepare_fit()
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
         elif not isinstance(data, (list, tuple)) and \
                 not hasattr(data, "reset"):
             data = list(data)     # a generator would be spent after epoch 1
-        fit_epochs(self, data, epochs)
+        fit_epochs(self, data, epochs, k)
         return self
 
-    def _fit_batch(self, ds, data_wait_s: float) -> None:
-        mds = self._as_multi(ds)
-        tbptt = self.conf.conf.tbptt
-        if tbptt is not None and any(np.ndim(f) == 3 for f in mds.features):
-            with trace.span("train_step_tbptt"):
-                self._fit_tbptt(mds, tbptt, data_wait_s)
-            return
-        fit_one(self, mds, data_wait_s)
+    # KStepExecutorMixin adapters
+    def _coerce_fit_batch(self, ds) -> MultiDataSet:
+        return self._as_multi(ds)
 
-    def _fit_tbptt(self, mds: MultiDataSet, tbptt: dict,
-                   data_wait_s: float = 0.0) -> None:
-        """Truncated BPTT over a MultiDataSet (the JAX package's
-        ``_fit_tbptt``): every time-series array (3-d features and
-        labels, and masks of the series' length) is split into
-        ``fwd_length`` chunks, one updater step and one iteration each;
-        the recurrent vertices' carries start at zero and cross each
-        chunk boundary detached. Each chunk is one listener iteration;
-        the batch's data wait is billed to the first chunk's
-        ``_step_timing``."""
-        fwd = tbptt["fwd_length"]
-        series = [f for f in mds.features if f.ndim == 3]
-        B, T = series[0].shape[0], series[0].shape[1]
-        carries = {name: obj.zero_state(B, device=self.device)
-                   for name, obj in self._layer_configs().items()
-                   if isinstance(obj, BaseRecurrentLayer)}
+    def _batch_is_tbptt(self, mds: MultiDataSet, tbptt) -> bool:
+        return tbptt is not None and any(np.ndim(f) == 3
+                                         for f in mds.features)
+
+    def _host_tuple(self, mds: MultiDataSet):
+        def group(arrays):
+            return None if arrays is None else tuple(arrays)
+        return host_batch((group(mds.features), group(mds.labels),
+                           group(mds.features_masks),
+                           group(mds.labels_masks)))
+
+    def _zero_carries(self, B: int):
+        return {name: obj.zero_state(B, device=self.device)
+                for name, obj in self._layer_configs().items()
+                if isinstance(obj, BaseRecurrentLayer)}
+
+    def _tbptt_chunks(self, mds: MultiDataSet, fwd: int):
+        """Every time-series array (3-d features and labels, and masks
+        of the series' length) in ``fwd``-step chunks."""
+        series = [f for f in mds.features if np.ndim(f) == 3]
+        T = series[0].shape[1]
 
         def chunks(arrays, start, ndim):
             if arrays is None:
@@ -405,19 +416,10 @@ class ComputationGraph(nn.Module):
                     or (ndim == 2 and a.shape[1] != T)
                     else a[:, start:start + fwd] for a in arrays]
         for start in range(0, T, fwd):
-            sub = MultiDataSet(chunks(mds.features, start, 3),
+            yield MultiDataSet(chunks(mds.features, start, 3),
                                chunks(mds.labels, start, 3),
                                chunks(mds.features_masks, start, 2),
                                chunks(mds.labels_masks, start, 2))
-            t_chunk = time.perf_counter()
-            self.score_value, carries = self._train_step(
-                self._batch_tuple(sub), carries)
-            self._step_timing = (data_wait_s if start == 0 else 0.0,
-                                 time.perf_counter() - t_chunk)
-            for lst in self.listeners:
-                lst.iteration_done(self, self.iteration_count,
-                                   self.score_value, sub.num_examples())
-            self.iteration_count += 1
 
     def score(self, ds) -> float:
         """The summed loss (with L1/L2 terms) on ``ds``, dropout off."""
@@ -629,8 +631,3 @@ class ComputationGraph(nn.Module):
         self.listeners.extend(listeners)
         return self
 
-    # ---- not ported yet ----
-    def warmup(self, example, *, steps_per_device_call: int = 1,
-               mesh_spec=None):
-        raise NotImplementedError(
-            f"training warmup {_NOT_PORTED.format('A7')}")

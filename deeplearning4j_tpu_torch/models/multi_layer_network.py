@@ -32,20 +32,29 @@ layers' carries crossing the chunk boundaries detached (``_fit_tbptt``).
 ``slot_streaming_session``, ``paged_slot_streaming_session``) decode
 step by step over recurrent carries and KV caches
 (``models/streaming.py``, ``models/paged_kv.py``).
-``fit``'s loop is the JAX package's at one step a device call
-(:func:`fit_epochs`): the data wait is timed apart from the step
-(``_step_timing = (data_wait_s, dispatch_s)``), the tracer's ``epoch``,
-``data_wait``, ``train_step`` and ``listeners`` spans open as in JAX,
+``fit``'s loop is the JAX package's (:func:`fit_epochs` and
+``models/kstep.KStepExecutorMixin``): the data wait is timed apart from
+the step (``_step_timing = (data_wait_s, dispatch_s)``), the tracer's
+``epoch``, ``data_wait``, ``train_step`` (``train_step_fused`` for a
+window, ``train_step_tbptt``) and ``listeners`` spans open as in JAX,
 the listeners' epoch hooks and ``iteration_done`` fire (with the loss as
 a device tensor: a listener that never reads it costs no host sync), and
-an escaping exception reaches the flight recorder. Not ported yet, and
-raising ``NotImplementedError`` when asked for: meshes (ROADMAP A6),
-k-step fusion and health (A7).
+an escaping exception reaches the flight recorder. Every step runs
+through a training program (``models/kstep.TrainProgram``): on a card a
+CUDA graph, captured at a batch signature's first sight and replayed
+after; on the CPU the eager step. ``fit(steps_per_device_call=k)`` and
+``fit_batches`` run k steps a program call, ``warmup`` builds the
+programs ahead of time, and a ``HealthMonitor`` listener gets the fused
+health vector of every step (``observability/health.py``). The step
+never rebinds the layer state or the updater state: it copies the new
+trees into them, so the graphs' addresses stay valid; rebinding either
+(or the params, or a new optimizer) drops every program. Not ported
+yet, and raising ``NotImplementedError`` when asked for: meshes
+(ROADMAP A6).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -57,6 +66,8 @@ from deeplearning4j_tpu_torch.data.iterators import (ArrayDataSetIterator,
                                                      DataSetIterator,
                                                      ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import as_device_tensor, resolve_device
+from deeplearning4j_tpu_torch.models.kstep import (KStepExecutorMixin,
+                                                   assign_tree, host_batch)
 from deeplearning4j_tpu_torch.nn.conf import updaters as updaters_mod
 from deeplearning4j_tpu_torch.nn.conf.layers.output import (
     CenterLossOutputLayer)
@@ -66,16 +77,18 @@ from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
 from deeplearning4j_tpu_torch.observability.flight_recorder import (
     on_fit_exception)
+from deeplearning4j_tpu_torch.observability.health import fused_health
 from deeplearning4j_tpu_torch.observability.tracing import trace
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
     apply_gradient_normalization)
-from deeplearning4j_tpu_torch.util.tree import (tree_flat_vector,
+from deeplearning4j_tpu_torch.util.tree import (tree_copy,
+                                                tree_flat_vector,
                                                 tree_from_flat_vector,
                                                 tree_to_device)
 
-__all__ = ["MultiLayerNetwork", "fit_epochs", "fit_one", "eval_one"]
+__all__ = ["MultiLayerNetwork", "fit_epochs", "eval_one"]
 
 _NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
 
@@ -117,27 +130,17 @@ def pretrain_step(layer, params, opt, opt_state, x, generator):
     return loss.detach(), opt_state
 
 
-def fit_epochs(model, data, epochs: int) -> None:
-    """The fit loop of both executors (the JAX package's ``fit`` and
-    ``_fit_epoch`` at one step a device call): per epoch, the listeners'
-    ``on_epoch_start``, each batch's wait for data timed apart from its
-    step, ``model._fit_batch(batch, data_wait_s)``, ``on_epoch_end``. An
+def fit_epochs(model, data, epochs: int, k: int = 1) -> None:
+    """The fit loop of both executors (the JAX package's ``fit``): per
+    epoch, the listeners' ``on_epoch_start``, the batches through
+    ``model._fit_epoch`` (k steps a program call), ``on_epoch_end``. An
     exception escaping the loop goes to the flight recorder, then on."""
     try:
         for _ in range(epochs):
             with trace.span("epoch"):
                 for lst in model.listeners:
                     lst.on_epoch_start(model)
-                batches = iter(data)
-                while True:
-                    # timed apart from the step, so an input-starved card
-                    # can be told from a host-bound one
-                    t0 = time.perf_counter()
-                    with trace.span("data_wait"):
-                        ds = next(batches, None)
-                    if ds is None:
-                        break
-                    model._fit_batch(ds, time.perf_counter() - t0)
+                model._fit_epoch(iter(data), k, model.conf.conf.tbptt)
                 for lst in model.listeners:
                     lst.on_epoch_end(model)
             model.epoch_count += 1
@@ -146,19 +149,14 @@ def fit_epochs(model, data, epochs: int) -> None:
         raise
 
 
-def fit_one(model, ds, data_wait_s: float) -> None:
-    """One updater step on a DataSet or MultiDataSet (moved to the
-    device inside the step's span and time, as the JAX package's
-    ``_fit_one`` in ``models/kstep.py`` does), then the listeners."""
-    t1 = time.perf_counter()
-    with trace.span("train_step"):
-        model.score_value, _ = model._train_step(model._batch_tuple(ds))
-    model._step_timing = (data_wait_s, time.perf_counter() - t1)
-    with trace.span("listeners"):
-        for lst in model.listeners:
-            lst.iteration_done(model, model.iteration_count,
-                               model.score_value, ds.num_examples())
-    model.iteration_count += 1
+def check_fit_args(steps_per_device_call, mesh_spec) -> int:
+    k = int(steps_per_device_call)
+    if k < 1:
+        raise ValueError("steps_per_device_call must be >= 1")
+    if mesh_spec is not None:
+        raise NotImplementedError(
+            f"mesh training {_NOT_PORTED.format('A6')}")
+    return k
 
 
 def eval_one(ev, labels, preds, mask) -> None:
@@ -210,12 +208,13 @@ class _ParamTree(nn.Module):
         return out
 
 
-class MultiLayerNetwork(nn.Module):
+class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
     def __init__(self, conf: MultiLayerConfiguration, *, device="cuda"):
         super().__init__()
         self.conf = conf
         self.layers = conf.layers
         self.device = resolve_device(device)
+        self._init_programs()
         self.layer_params = nn.ModuleList()
         self.state: Optional[List[dict]] = None
         self.iteration_count = 0
@@ -279,6 +278,7 @@ class MultiLayerNetwork(nn.Module):
                              f"{len(self.layers)} layers")
         self.layer_params = nn.ModuleList(
             _ParamTree(p, self.device) for p in params)
+        self._flush_compiled_programs()
         if self.state is None:
             self.state = [{} for _ in self.layers]
 
@@ -307,18 +307,19 @@ class MultiLayerNetwork(nn.Module):
 
     # ---- forward ----
     def _forward(self, x, *, training, generator=None, fmask=None,
-                 upto: Optional[int] = None, carries=None):
+                 upto: Optional[int] = None, carries=None, collect=None):
         """Layers ``[0, upto)`` on ``x``; returns (activations, the
         layers' new states, the new carries). ``carries``: a per-layer
         list of recurrent (h, c) initial states (None: zeros), which
         tBPTT threads across chunks; without it the new carries are
-        None."""
+        None. ``collect``: a list that gets every layer's output."""
         params = self.params
         n = len(self.layers) if upto is None else upto
         new_states = list(self.state)
         new_carries = None if carries is None else [None] * len(self.layers)
         for i in range(n):
             layer = self.layers[i]
+            self._where = f"layer {i} ({type(layer).__name__})"
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
@@ -334,6 +335,8 @@ class MultiLayerNetwork(nn.Module):
                 x, new_states[i] = layer.apply(
                     params[i], self.state[i], x, training=training,
                     generator=generator, mask=fmask)
+            if collect is not None:
+                collect.append(x)
         return x, new_states, new_carries
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -349,6 +352,18 @@ class MultiLayerNetwork(nn.Module):
         x = torch.as_tensor(x, device=self.device)
         with torch.inference_mode():
             return self(x)
+
+    def feed_forward(self, x, training: bool = False) -> List[torch.Tensor]:
+        """Every layer's activation, in order (the reference's
+        ``feedForward``)."""
+        if self.params is None:
+            self.init()
+        acts: List[torch.Tensor] = []
+        with torch.inference_mode():
+            self._forward(self._to_device(x), training=training,
+                          generator=self._generator if training else None,
+                          collect=acts)
+        return acts
 
     # ---- training ----
     def _to_device(self, a):
@@ -373,6 +388,7 @@ class MultiLayerNetwork(nn.Module):
             upto=out_idx, carries=carries)
         if out_idx in self.conf.preprocessors:
             h = self.conf.preprocessors[out_idx](h)
+        self._where = f"layer {out_idx} ({type(out_layer).__name__})"
         params = self.params
         loss = out_layer.loss_from_input(params[out_idx], h, labels,
                                          training=training,
@@ -393,85 +409,83 @@ class MultiLayerNetwork(nn.Module):
             self._generator = self._new_generator(self.conf.conf.seed)
         loss, aux = self._loss(batch, training=True,
                                generator=self._generator, carries=carries)
+        self._where = "the backward pass"
         return loss.detach(), grads_of(loss, self.params), aux
 
-    def _train_step(self, batch, carries=None):
+    def _step_body(self, batch, carries=None, *, health: bool = False):
         """loss -> grads -> gradient normalization -> updater ->
-        constraints (``_train_core`` of the JAX package). Returns the
-        loss as a device scalar, without a host sync, and the new
-        carries detached (None without ``carries``; tBPTT passes them)."""
+        constraints (``_train_core`` of the JAX package), with no host
+        read: what a training program captures. The parameters are
+        updated in place, and the new layer state and updater state are
+        copied into the live trees. Returns (the loss as a device
+        scalar, the fused health vector or None, the new carries
+        detached: None without ``carries``)."""
         loss, grads, (new_states, new_carries) = self._gradients(batch,
                                                                  carries)
+        self._where = "the updater"
         grads = apply_gradient_normalization(self.layers, grads)
         params = self.params
         with torch.no_grad():
-            updates, self.opt_state = self._optimizer.update(
+            updates, new_opt = self._optimizer.update(
                 grads, self.opt_state, params)
             updaters_mod.apply_updates(params, updates)
             for layer, p in zip(self.layers, params):
                 for k, v in apply_layer_constraints(layer, p).items():
                     if v is not p[k]:
                         p[k].copy_(v)
-        self.state = new_states
-        return loss, _detach(new_carries)
+            vec = (fused_health(loss, grads, updates, params)
+                   if health else None)
+            assign_tree(self.opt_state, new_opt)
+            assign_tree(self.state, new_states)
+        return loss, vec, _detach(new_carries)
+
+    def _train_step(self, batch, carries=None):
+        """One eager training step (the reference the captured step is
+        held to, and the body of a tBPTT chunk program): the loss as a
+        device scalar, without a host sync, and the new carries."""
+        loss, _, new_carries = self._step_body(batch, carries)
+        return loss, new_carries
 
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: Optional[int] = None,
             steps_per_device_call: int = 1, mesh_spec=None):
         """Train over a DataSet, an iterator, or (features, labels)
-        arrays, one updater step per batch."""
-        if int(steps_per_device_call) != 1:
-            raise NotImplementedError(
-                f"k-step fusion {_NOT_PORTED.format('A7')}")
-        if mesh_spec is not None:
-            raise NotImplementedError(
-                f"mesh training {_NOT_PORTED.format('A6')}")
-        if self.params is None:
-            self.init()
-        if self._optimizer is None:
-            self._build_optimizer()
-        fit_epochs(self, _as_iterator(data, labels, batch_size), epochs)
+        arrays, one updater step per batch; ``steps_per_device_call=k``
+        runs each full window of k batches as one k-step program (the
+        epoch's tail through the k=1 program) and hands the listeners
+        every step's loss from one fetch a window."""
+        k = check_fit_args(steps_per_device_call, mesh_spec)
+        self._prepare_fit()
+        fit_epochs(self, _as_iterator(data, labels, batch_size), epochs, k)
         return self
 
-    def _fit_batch(self, ds: DataSet, data_wait_s: float) -> None:
-        tbptt = self.conf.conf.tbptt
-        if tbptt is not None and ds.features.ndim == 3:
-            with trace.span("train_step_tbptt"):
-                self._fit_tbptt(ds, tbptt, data_wait_s)
-            return
-        fit_one(self, ds, data_wait_s)
+    # KStepExecutorMixin adapters
+    def _coerce_fit_batch(self, ds: DataSet) -> DataSet:
+        return ds
 
-    def _fit_tbptt(self, ds: DataSet, tbptt: dict,
-                   data_wait_s: float = 0.0) -> None:
-        """Truncated BPTT (the JAX package's ``_fit_tbptt``): features,
-        labels and masks split into ``fwd_length`` chunks along time,
-        one updater step and one iteration each; the recurrent carries
-        start at zero, cross each chunk boundary detached (the gradient
-        is truncated there) and are dropped after the batch.
-        ``bwd_length`` is not read, as in the JAX package. Each chunk is
-        one listener iteration; the batch's data wait is billed to the
-        first chunk's ``_step_timing``."""
-        fwd = tbptt["fwd_length"]
-        B, T = ds.features.shape[0], ds.features.shape[1]
-        carries = [layer.zero_state(B, device=self.device)
-                   if isinstance(layer, BaseRecurrentLayer) else None
-                   for layer in self.layers]
+    def _batch_is_tbptt(self, ds: DataSet, tbptt) -> bool:
+        return tbptt is not None and np.ndim(ds.features) == 3
+
+    def _host_tuple(self, ds: DataSet):
+        return host_batch((ds.features, ds.labels, ds.features_mask,
+                           ds.labels_mask))
+
+    def _zero_carries(self, B: int):
+        return [layer.zero_state(B, device=self.device)
+                if isinstance(layer, BaseRecurrentLayer) else None
+                for layer in self.layers]
+
+    def _tbptt_chunks(self, ds: DataSet, fwd: int):
+        """Features, labels and masks in ``fwd``-step chunks along
+        time."""
+        T = ds.features.shape[1]
 
         def chunk(a, start):
             return None if a is None else a[:, start:start + fwd]
         for start in range(0, T, fwd):
-            sub = DataSet(chunk(ds.features, start), chunk(ds.labels, start),
+            yield DataSet(chunk(ds.features, start), chunk(ds.labels, start),
                           chunk(ds.features_mask, start),
                           chunk(ds.labels_mask, start))
-            t_chunk = time.perf_counter()
-            self.score_value, carries = self._train_step(
-                self._batch_tuple(sub), carries)
-            self._step_timing = (data_wait_s if start == 0 else 0.0,
-                                 time.perf_counter() - t_chunk)
-            for lst in self.listeners:
-                lst.iteration_done(self, self.iteration_count,
-                                   self.score_value, sub.num_examples())
-            self.iteration_count += 1
 
     def score(self, ds: DataSet) -> float:
         """The loss (with L1/L2 terms) on ``ds``, dropout off."""
@@ -652,3 +666,13 @@ class MultiLayerNetwork(nn.Module):
     def add_listeners(self, *listeners):
         self.listeners.extend(listeners)
         return self
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A new network of a copy of the config, on the same device,
+        with copies of the params and state (a fresh updater)."""
+        m = MultiLayerNetwork(self.conf.clone(), device=self.device)
+        if self.params is not None:
+            m.init()
+            m.set_params(self.params)
+            m.state = tree_copy(self.state)
+        return m

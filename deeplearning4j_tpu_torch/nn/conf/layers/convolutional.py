@@ -263,8 +263,11 @@ class Deconvolution2DLayer(ConvolutionLayer):
             _transpose_pads(k, s, self.convolution_mode)
             for k, s in zip(self.kernel, self.stride))
         kh, kw = self.kernel
+        # contiguous operands: the CPU backward of conv_transpose2d on
+        # the permuted views crashed under 8 OpenMP threads
         y = F.conv_transpose2d(
-            x.permute(0, 3, 1, 2), conv_weight_oihw(w, x.dtype), None,
+            x.permute(0, 3, 1, 2).contiguous(),
+            conv_weight_oihw(w, x.dtype).contiguous(), None,
             self.stride, 0, (max(h_hi - kh + 1, 0), max(w_hi - kw + 1, 0)))
         rows, cols = y.shape[2], y.shape[3]
         y = y[:, :, kh - 1 - h_lo:rows - max(kh - 1 - h_hi, 0),

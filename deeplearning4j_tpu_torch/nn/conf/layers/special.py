@@ -264,8 +264,19 @@ class Yolo2OutputLayer(Layer):
                 torch.sigmoid(y[..., 4]), y[..., 5:])
 
     def _anchors(self, like):
-        return torch.tensor(self.anchors, dtype=like.dtype,
-                            device=like.device)
+        """The anchors as a tensor on ``like``'s device and dtype, made
+        once for each (a host-to-device copy cannot run inside a
+        captured training step; the eager run before a capture makes
+        it)."""
+        cache = self.__dict__.setdefault("_anchor_cache", {})
+        key = (like.device, like.dtype)
+        if key not in cache:
+            # a normal tensor even when first made under inference mode
+            # (``output``), so a later training step can save it
+            with torch.inference_mode(False):
+                cache[key] = torch.tensor(self.anchors, dtype=like.dtype,
+                                          device=like.device)
+        return cache[key]
 
     def apply(self, params, state, x, *, training=False, generator=None,
               mask=None):

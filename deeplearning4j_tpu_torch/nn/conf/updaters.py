@@ -125,10 +125,9 @@ def _inc(count):
 
 def _decay_pow(decay: float, count):
     """``decay ** count`` in float32, as optax's bias correction takes
-    it (a weakly typed float to an int32 power)."""
-    return torch.pow(torch.tensor(decay, dtype=torch.float32,
-                                  device=count.device),
-                     count.to(torch.float32))
+    it (a weakly typed float to an int32 power). The base is a Python
+    scalar, so no host-to-device copy runs inside a captured step."""
+    return torch.pow(decay, count.to(torch.float32))
 
 
 def apply_updates(params, updates):
@@ -370,11 +369,13 @@ def make_schedule(base_lr: float, sched: Optional[dict]
     t = sched["type"]
 
     def f32(x, like):
-        return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+        # a fill on the device, not a copy from the host: the schedule
+        # runs inside a captured training step
+        return torch.full((), x, dtype=torch.float32, device=like.device)
 
     if t == "exponential":
         g = sched.get("gamma", 0.99)
-        return lambda i: base_lr * f32(g, i) ** i.to(torch.float32)
+        return lambda i: base_lr * torch.pow(g, i.to(torch.float32))
     if t == "inverse":
         g, p = sched.get("gamma", 1e-2), sched.get("power", 1.0)
         return lambda i: base_lr / (1 + g * i.to(torch.float32)) ** p
@@ -389,8 +390,8 @@ def make_schedule(base_lr: float, sched: Optional[dict]
             1 + torch.exp(-g * (i.to(torch.float32) - s)))
     if t == "step":
         d, s = sched.get("decay_rate", 0.1), sched.get("step", 1000)
-        return lambda i: base_lr * f32(d, i) ** torch.floor(
-            i.to(torch.float32) / s)
+        return lambda i: base_lr * torch.pow(d, torch.floor(
+            i.to(torch.float32) / s))
     if t == "map":
         pairs = sorted((int(k), float(v))
                        for k, v in sched["values"].items())

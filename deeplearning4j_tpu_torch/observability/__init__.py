@@ -13,12 +13,17 @@ burn rates, threshold alerts and the flight recorder (counterpart of
 - ``flight_recorder``  bounded event ring -> post-mortem bundle on a
                        serving worker crash or ``dump()``
 - ``fleetobs``         the ``/debug/bundle`` payload of one server
-- ``compile_watch``    CUDA graph captures and replays, and the
-                       post-warmup ``zero_compile_scope`` contract
+- ``compile_watch``    CUDA graph captures and replays (serving and
+                       training), and the post-warmup
+                       ``zero_compile_scope`` contract
+- ``health``           the training-health monitor over the fused
+                       health vector each step builds on the device
+- ``step_profile``     data wait / dispatch / device fence a step, MFU
 
-All of it is host code: nothing here reads a device tensor. The step
-profiler and the training health monitor wait for ROADMAP A7; the fleet
-collector for A4b-2.
+All of it is host code apart from ``health.fused_health``, which runs
+inside the training step: nothing else here reads a device tensor
+(the monitor and the profiler read the values the step hands them).
+The fleet collector waits for ROADMAP A4b-2.
 """
 
 from deeplearning4j_tpu_torch.observability.alerts import (

@@ -4,9 +4,12 @@ in ``deeplearning4j_tpu/observability/compile_watch.py``).
 
 In the JAX package a program is compiled by XLA at its first call, and
 ``zero_compile_scope`` proves that a post-warmup burst compiled nothing.
-The port runs eagerly; its one compiled program is the paged decode step
-captured as a CUDA graph (``models/paged_kv.PagedSlotSession``), so here
-a capture is the compile and a replay the cache hit.
+The port's compiled programs are CUDA graphs: the paged decode step
+(``models/paged_kv.PagedSlotSession``) when serving, and the training
+programs (``models/kstep.TrainProgram``: the step, the k-step window and
+the tBPTT chunk step) when training, so here a capture is the compile and
+a replay the cache hit. After ``ModelServer.warmup()`` or an executor's
+``warmup``, a steady state that captures either kind raises.
 :func:`install_global_watch` creates the process-wide
 :class:`GlobalCompileStats`; the session reports each capture and replay
 to it through :func:`record_capture` / :func:`record_replay`, which do
@@ -46,8 +49,8 @@ class GlobalCompileStats:
     """Totals of the process's CUDA graph captures:
 
     - ``graph_captures`` / ``capture_secs``: graphs captured (the first
-      step of each paged session on a card, its eager warm-up run
-      included in the seconds);
+      step of each paged session, and each training program, on a card;
+      the eager run before the capture included in the seconds);
     - ``graph_replays``: steps served by replaying a captured graph.
 
     ``cache_hit`` answers the JAX question "did this run reuse compiled

@@ -26,8 +26,10 @@ live process needed. Wiring:
 
 Backend-crash dumps are debounced (``min_dump_interval_s``): a crash
 loop must not fill the disk with bundles; a fit-loop exception and an
-explicit ``dump()`` always write. The health-monitor hook of the JAX
-recorder waits for the port's health monitor (ROADMAP A7).
+explicit ``dump()`` always write. ``HealthMonitor(recorder=...)``
+(``observability/health.py``) hands every anomaly to
+:meth:`FlightRecorder.on_anomaly`, which records it and dumps
+(debounced).
 """
 
 from __future__ import annotations
@@ -158,6 +160,25 @@ class FlightRecorder:
             self.record("metrics", snapshot=self.registry.snapshot())
         except Exception:
             logger.exception("registry snapshot failed")
+
+    def put_update(self, report) -> None:
+        """Stats-storage protocol: a StatsReport (a dataclass) lands
+        in the ring, so the recorder can sit behind a HealthMonitor's
+        ``storage=``."""
+        try:
+            payload = dataclasses.asdict(report)
+        except TypeError:
+            payload = {"repr": repr(report)}
+        self.record("stats_report", report=payload)
+
+    def on_anomaly(self, anomaly: dict) -> None:
+        """Health-monitor hook (``HealthMonitor(recorder=...)``):
+        record the anomaly, then dump (debounced)."""
+        payload = dict(anomaly)
+        payload["detector"] = payload.pop("kind", "unknown")
+        self.record("anomaly", **payload)
+        self.dump(reason=f"anomaly_{payload['detector']}",
+                  force=False)
 
     def on_exception(self, where: str, exc: BaseException,
                      force: bool = True, **context) -> None:

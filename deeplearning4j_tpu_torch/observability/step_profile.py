@@ -1,0 +1,172 @@
+"""Training-step decomposition: data wait vs dispatch vs device time
+(counterpart of ``deeplearning4j_tpu/observability/step_profile.py``).
+
+The executors' fit loops time each phase of every iteration (stashed on
+the model as ``_step_timing = (data_wait_s, dispatch_s)`` and emitted as
+tracer spans); :class:`ProfilerListener` rides the listener chain,
+accumulates those phases over a reporting window, and fences the device
+every ``frequency`` iterations (a synchronize of the loss's device), so
+the work the asynchronous queue hid becomes a measured number:
+
+- ``data_wait_ms``     host blocked producing the next batch
+- ``dispatch_ms``      host enqueueing the step (a graph replay on a card)
+- ``device_fence_ms``  queued device work outstanding at the fence:
+  >> 0 means the device, not the host, bounds throughput
+- ``steps_per_sec`` / ``samples_per_sec`` and (given
+  ``flops_per_sample``) **MFU** against the card's bf16 peak.
+
+Reports land in ``.reports`` and the log. Left out: the JAX listener's
+``storage=`` (a ``ui/stats.py`` StatsReport per report), which waits for
+the UI's port.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+__all__ = ["PEAK_BF16_FLOPS", "peak_flops_for_kind",
+           "detect_peak_flops", "model_flops_utilization",
+           "TRAIN_FLOP_MULTIPLIER", "ProfilerListener"]
+
+
+# dense bf16 tensor-core peak FLOP/s of one card by
+# ``torch.cuda.get_device_name`` (longest prefix wins), from NVIDIA's
+# H100 data sheet without sparsity: the SXM part at its 700 W limit,
+# the PCIe part at 350 W. A card set below its limit runs slower: quote
+# MFU with the card's power limit beside it.
+PEAK_BF16_FLOPS = {
+    "NVIDIA H100": 989e12,
+    "NVIDIA H100 PCIe": 756e12,
+}
+
+TRAIN_FLOP_MULTIPLIER = 3.0           # bwd ~ 2x fwd
+
+
+def peak_flops_for_kind(kind: str) -> Optional[float]:
+    for prefix, peak in sorted(PEAK_BF16_FLOPS.items(),
+                               key=lambda kv: -len(kv[0])):
+        if kind.startswith(prefix):
+            return peak
+    return None
+
+
+def detect_peak_flops():
+    """(peak FLOP/s or None, device kind). None without a card or on
+    an unknown one: MFU is then omitted, never guessed."""
+    if not torch.cuda.is_available():
+        return None, "cpu"
+    kind = torch.cuda.get_device_name(0)
+    return peak_flops_for_kind(kind), kind
+
+
+def model_flops_utilization(per_item_fwd_flops: float,
+                            items_per_sec: float, train: bool,
+                            peak: Optional[float]) -> Optional[float]:
+    """Model-FLOPs MFU: analytic forward FLOPs (x3 for training) per
+    item, times measured throughput, over the card's bf16 peak."""
+    if peak is None or items_per_sec is None:
+        return None
+    mult = TRAIN_FLOP_MULTIPLIER if train else 1.0
+    return items_per_sec * per_item_fwd_flops * mult / peak
+
+
+def _fence(score) -> None:
+    """Wait for the device work queued before the step's loss."""
+    if isinstance(score, torch.Tensor) and score.is_cuda:
+        torch.cuda.current_stream(score.device).synchronize()
+
+
+class ProfilerListener(TrainingListener):
+    """Step decomposer in the standard listener chain (the JAX
+    package's, with the fence on the card).
+
+    Every ``frequency`` iterations: fence the device on the step's
+    loss, close the window, and report the phase breakdown. Between
+    reporting iterations it adds two float additions a step.
+
+    ``flops_per_sample``: analytic forward FLOPs per item (e.g. 4.09e9
+    for ResNet50 at 224²) turns samples/sec into MFU on a known card.
+    """
+
+    def __init__(self, frequency: int = 10,
+                 flops_per_sample: Optional[float] = None,
+                 train: bool = True, report: bool = True):
+        self.freq = max(1, frequency)
+        self.flops_per_sample = flops_per_sample
+        self.train = train
+        self.report = report
+        self.reports: List[Dict] = []
+        self._peak = None
+        self._peak_known = False
+        self._reset_window(None)
+
+    def _reset_window(self, mark):
+        self._mark = mark
+        self._steps = 0
+        self._samples = 0
+        self._data_wait = 0.0
+        self._dispatch = 0.0
+
+    def _peak_flops(self):
+        if not self._peak_known:
+            self._peak, _ = detect_peak_flops()
+            self._peak_known = True
+        return self._peak
+
+    def iteration_done(self, model, iteration, score, batch_size):
+        timing = getattr(model, "_step_timing", None)
+        if timing is not None:
+            self._data_wait += timing[0]
+            self._dispatch += timing[1]
+        self._steps += 1
+        self._samples += batch_size
+        if iteration % self.freq != 0:
+            return
+        t0 = time.perf_counter()
+        _fence(score)
+        fence_s = time.perf_counter() - t0
+        now = time.perf_counter()
+        if self._mark is None:
+            # the first reporting iteration only opens the window
+            self._reset_window(now)
+            return
+        steps = self._steps
+        window_s = max(now - self._mark, 1e-9)
+        samples_per_sec = self._samples / window_s
+        rep = {
+            "iteration": int(iteration),
+            "steps": steps,
+            "steps_per_sec": round(steps / window_s, 3),
+            "samples_per_sec": round(samples_per_sec, 3),
+            "step_ms": round(window_s / steps * 1e3, 4),
+            "data_wait_ms": round(self._data_wait / steps * 1e3, 4),
+            "dispatch_ms": round(self._dispatch / steps * 1e3, 4),
+            "device_fence_ms": round(fence_s * 1e3, 4),
+        }
+        rep["host_other_ms"] = round(max(
+            0.0, rep["step_ms"] - rep["data_wait_ms"]
+            - rep["dispatch_ms"] - fence_s * 1e3 / steps), 4)
+        if self.flops_per_sample is not None:
+            mfu = model_flops_utilization(
+                self.flops_per_sample, samples_per_sec, self.train,
+                self._peak_flops())
+            rep["mfu"] = None if mfu is None else round(mfu, 5)
+        self.reports.append(rep)
+        if self.report:
+            logger.info(
+                "step profile @%d: %.1f samples/sec (%.2f steps/sec) "
+                "— data_wait %.2f ms, dispatch %.2f ms, device fence "
+                "%.2f ms%s", iteration, rep["samples_per_sec"],
+                rep["steps_per_sec"], rep["data_wait_ms"],
+                rep["dispatch_ms"], rep["device_fence_ms"],
+                (f", MFU {rep['mfu']:.4f}"
+                 if rep.get("mfu") is not None else ""))
+        self._reset_window(time.perf_counter())

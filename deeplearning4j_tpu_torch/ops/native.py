@@ -33,6 +33,9 @@ _lock = threading.Lock()
 _launch_lock = threading.Lock()
 # per thread: the launches a CUDA graph capture on this thread recorded
 _capturing = threading.local()
+# per capturing stream (its handle): the same tallies, for launches made
+# on that stream by another thread
+_stream_tallies: Dict[int, dict] = {}
 
 
 def count_launch(wrapper) -> None:
@@ -43,26 +46,40 @@ def count_launch(wrapper) -> None:
     on this thread the launch is recorded, not counted: a captured launch
     runs only when the graph is replayed."""
     tally = getattr(_capturing, "tally", None)
+    if tally is None and _stream_tallies:
+        import torch
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
     if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        with _launch_lock:
+            tally[wrapper] = tally.get(wrapper, 0) + 1
         return
     with _launch_lock:
         wrapper.launches += 1
 
 
 @contextlib.contextmanager
-def capture_launches():
+def capture_launches(stream=None):
     """Within the block, this thread's ``count_launch`` calls fill the
     yielded dict (wrapper -> launches) instead of the counters: the
-    launches a CUDA graph captures. Other threads count as usual. Pass
-    the dict to :func:`count_replay` on every replay of the graph."""
+    launches a CUDA graph captures. With ``stream`` (the capturing
+    stream), launches on that stream from any thread fill it too: a
+    captured backward runs on autograd's device thread. Other launches
+    count as usual. Pass the dict to :func:`count_replay` on every
+    replay of the graph."""
     if getattr(_capturing, "tally", None) is not None:
         raise RuntimeError("capture_launches does not nest")
     _capturing.tally = tally = {}
+    key = None if stream is None else stream.cuda_stream
+    if key is not None:
+        with _launch_lock:
+            _stream_tallies[key] = tally
     try:
         yield tally
     finally:
         _capturing.tally = None
+        if key is not None:
+            with _launch_lock:
+                _stream_tallies.pop(key, None)
 
 
 def count_replay(tally) -> None:

@@ -34,9 +34,9 @@ import torch
 
 from deeplearning4j_tpu_torch import chaos
 
-__all__ = ["write_model", "restore_model", "restore_normalizer",
-           "verify_checkpoint", "params_from_jax",
-           "CheckpointIntegrityError"]
+__all__ = ["write_model", "snapshot_model", "write_snapshot",
+           "restore_model", "restore_normalizer", "verify_checkpoint",
+           "params_from_jax", "CheckpointIntegrityError"]
 
 _FORMAT = 1
 _MANIFEST = "manifest.json"
@@ -126,29 +126,85 @@ def _tensors_like(tree, template):
                            device=template.device)
 
 
-def write_model(model, path: str, *,
-                normalizer: Optional[dict] = None) -> None:
-    """Write ``model`` (a port MultiLayerNetwork or ComputationGraph) as
-    a checkpoint zip, with its updater state when it has one.
-    ``normalizer``: a data normalizer's ``to_dict()`` (or None), kept in
-    ``metadata.json`` as the JAX package keeps it."""
-    entries: Dict[str, bytes] = {
-        "configuration.json": model.conf.to_json().encode(),
-        "coefficients.npz": _save_npz(model.params),
-        "state.npz": _save_npz(model.state if model.state is not None
-                               else []),
-    }
-    if model.opt_state is not None:
-        entries["updater_state.npz"] = _save_npz(model.opt_state)
-    entries.update({
-        "metadata.json": json.dumps({
+def _host_tree(tree):
+    """``tree``'s tensors copied to host memory as numpy arrays, in the
+    same structure. The copies are queued on the current stream
+    (pinned, asynchronous) and waited for once."""
+    cuda = []
+
+    def to_host(leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.is_cuda:
+            cuda.append(leaf.device)
+            return leaf.detach().to("cpu", non_blocking=True)
+        return leaf.detach().clone()      # a copy, not a view
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v) for v in t]
+        return to_host(t)
+
+    out = walk(tree)
+    for dev in set(cuda):
+        torch.cuda.current_stream(dev).synchronize()
+
+    def to_numpy(t):
+        if isinstance(t, dict):
+            return {k: to_numpy(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_numpy(v) for v in t]
+        return t.numpy() if isinstance(t, torch.Tensor) else t
+    return to_numpy(out)
+
+
+def snapshot_model(model, *, save_updater: bool = True,
+                   normalizer: Optional[dict] = None) -> Dict[str, Any]:
+    """Device-to-host snapshot of everything :func:`write_model`
+    persists, apart from serialization, so a background writer can do
+    the expensive part off the train thread (the JAX package's
+    ``snapshot_model``). The copies run on the current stream, after
+    the steps queued before them; the call returns once they have
+    landed. The dict is self-contained: later steps, or an optimizer
+    rebuilt by an LR drop, cannot leak into a write in flight."""
+    return {
+        "conf_json": model.conf.to_json(),
+        "params": _host_tree(model.params),
+        "state": _host_tree(model.state if model.state is not None
+                            else []),
+        "opt_state": (_host_tree(model.opt_state)
+                      if save_updater and model.opt_state is not None
+                      else None),
+        "meta": {
             "format_version": _FORMAT,
             "network_type": type(model).__name__,
             "iteration_count": int(model.iteration_count),
             "epoch_count": int(model.epoch_count),
             "normalizer": normalizer,
-        }).encode(),
-    })
+        },
+    }
+
+
+def write_snapshot(snap: Dict[str, Any], path: str, *,
+                   extra_entries: Optional[Dict[str, Any]] = None
+                   ) -> None:
+    """Serialize a :func:`snapshot_model` dict to a checkpoint zip: npz
+    packing, DEFLATE, the CRC32 manifest and the ``checkpoint.write``
+    chaos site, on whatever thread calls it. ``extra_entries`` (name ->
+    str or bytes) ride inside the zip and under the manifest's CRCs."""
+    entries: Dict[str, bytes] = {
+        "configuration.json": snap["conf_json"].encode(),
+        "coefficients.npz": _save_npz(snap["params"]),
+        "state.npz": _save_npz(snap["state"]),
+    }
+    if snap["opt_state"] is not None:
+        entries["updater_state.npz"] = _save_npz(snap["opt_state"])
+    entries["metadata.json"] = json.dumps(snap["meta"]).encode()
+    for name, data in (extra_entries or {}).items():
+        entries[name] = data if isinstance(data, bytes) \
+            else str(data).encode()
     manifest = {"format_version": _FORMAT,
                 "crc32": {n: zlib.crc32(d) & 0xFFFFFFFF
                           for n, d in entries.items()}}
@@ -159,6 +215,19 @@ def write_model(model, path: str, *,
     # chaos site: a preemption/ENOSPC/bit-rot drill against the file
     # just written; restore-side verification must catch what it does
     chaos.file_fault("checkpoint.write", path)
+
+
+def write_model(model, path: str, *, save_updater: bool = True,
+                normalizer: Optional[dict] = None,
+                extra_entries: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``model`` (a port MultiLayerNetwork or ComputationGraph) as
+    a checkpoint zip, with its updater state when it has one and
+    ``save_updater``. ``normalizer``: a data normalizer's ``to_dict()``
+    (or None), kept in ``metadata.json`` as the JAX package keeps it.
+    ``extra_entries`` as for :func:`write_snapshot`."""
+    write_snapshot(snapshot_model(model, save_updater=save_updater,
+                                  normalizer=normalizer),
+                   path, extra_entries=extra_entries)
 
 
 def verify_checkpoint(path: str) -> dict:

@@ -589,8 +589,10 @@ def test_changed_updater_keeps_fresh_state(tmp_path):
 def test_unported_training_features_raise(lm_pair):
     _, tn = lm_pair
     ids, y, _, _ = _data()
-    with pytest.raises(NotImplementedError, match="k-step"):
-        tn.fit(DataSet(ids, y), steps_per_device_call=2)
+    # k-step fusion is ported (A7, tests/test_torch_kstep.py); k must be
+    # at least 1, as in the JAX package
+    with pytest.raises(ValueError, match="steps_per_device_call"):
+        tn.fit(DataSet(ids, y), steps_per_device_call=0)
     with pytest.raises(NotImplementedError, match="mesh"):
         tn.fit(DataSet(ids, y), mesh_spec="dp=2")
     # listeners are ported (A5b-3, tests/test_torch_listeners.py)
