@@ -100,7 +100,28 @@ each replay; ``kstep_phase`` runs bench.py's ``lenet_kstep`` leg
 warm, ``zero_compile_scope`` around the train and serve steady states)
 and ``checkpoint_phase`` its ``checkpoint_async`` leg (sync and async
 saves, a restore, and a JAX-written checkpoint resumed by the port's
-``ElasticTrainer``). Every phase's wall time is logged. It imports nothing of JAX or of the
+``ElasticTrainer``). Then (``retrieval_phase``) the retrieval slice:
+a 10^6 x 128 corpus (SIFT1M's shape, from a seed) built through
+``index build``'s code into a brute-force index on the card (p50 / p99
+and queries/s of B=32, k=10 batches through ``RetrievalService``, the
+batch's device time against its byte bound, 64 queries against a
+float64 oracle) and an IVF index of 1024 k-means cells (build seconds;
+recall@10 against brute force, queries/s and the host / device split
+at nprobe 1, 4, 16); ``/v1/search`` by text and by vector and the
+``/v1/index`` verbs on a port server over that index inside
+``zero_compile_scope`` after ``warmup()``; ``/v1/embed`` of 256 texts
+over a 400,000 x 300 table against numpy's masked mean pool; and
+bench.py's ``retrieval_serving`` soak (4 subprocess replicas behind the
+router, replica 0 SIGKILLed mid-run, no request lost, recall@10 >= 0.9).
+Last (``fleet_control_phase``) the fleet's control loops: a
+``FleetCollector``'s QPS cost on an LM fleet, bench.py's ``rollout_soak``
+on 4 full-width LM replicas (a good candidate promoted, a seeded
+``bad_version`` one rolled back with one incident bundle, no gold
+request lost, capacity never below 4), its ``autoscaler_soak`` shortened
+(breach to recovery seconds, no gold request lost), and the autoscaler
+growing a second LM replica under a generate stream and retiring it
+with drain (boot seconds, first-request ms, every id as one server's).
+Every phase's wall time is logged. It imports nothing of JAX or of the
 JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -5470,6 +5491,1009 @@ def checkpoint_phase(card):
             "async_total_ms": total_ms}
 
 
+# --------------------------------------------------------------------
+# retrieval_phase: vector indexes, k-means, the embedder and the
+# retrieval routes on the card (the JAX package runs these as XLA's
+# matmul, top_k and gather, so the port runs cuBLAS and torch ops: no
+# kernel of the port's own)
+# --------------------------------------------------------------------
+
+# the corpus: SIFT1M's shape (ANN-benchmarks / TEXMEX, 10^6 x 128 f32),
+# made from a seed as bench.py:3323-3327 makes its corpus
+RETR_CORPUS = "random:n=1000000,dim=128,seed=0,clusters=1024"
+RETR_NLIST, RETR_K, RETR_B = 1024, 10, 32
+RETR_BATCHES = 64          # timed B=32 search batches a configuration
+RETR_ORACLE_Q = 64         # queries held against the float64 oracle
+RETR_RECALL_Q = 1024       # queries of the IVF recall against brute force
+# the embedder: GloVe 6B's shape, values from a seed
+GLOVE_V, GLOVE_D, EMBED_TEXTS = 400_000, 300, 256
+# the soak: bench.py:3283-3285's retrieval_serving leg
+SOAK_CORPUS = "random:n=8192,dim=64,seed=0,clusters=64"
+SOAK_NLIST, SOAK_NPROBE, SOAK_CONC, SOAK_QUERIES = 64, 16, 8, 512
+SOAK_KILL_AT = 200         # the routed request replica 0 dies at
+RETR_TOL = 1e-4            # scores vs the float64 oracle; near-tie gap
+
+
+def _sync(device):
+    import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))]
+
+
+def retrieval_queries(vectors, n, seed):
+    """``n`` corpus rows (drawn from ``seed``) with noise of 0.05 a
+    coordinate: near-duplicates, as an ANN benchmark's queries are."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(vectors.shape[0], n, replace=False)
+    return (vectors[rows] + 0.05 * rng.normal(
+        size=(n, vectors.shape[1]))).astype(np.float32)
+
+
+def cosine_oracle(vectors, ids, q, k):
+    """(ids, scores) of the exact top-(k+1) by float64 cosine on the
+    host, in blocks of queries."""
+    import numpy as np
+    vn = vectors.astype(np.float64)
+    vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
+    out_i, out_s = [], []
+    for s in range(0, q.shape[0], 16):
+        qn = q[s:s + 16].astype(np.float64)
+        qn /= np.maximum(np.linalg.norm(qn, axis=1, keepdims=True), 1e-12)
+        sc = qn @ vn.T
+        top = np.argpartition(-sc, k, axis=1)[:, :k + 1]
+        order = np.argsort(-np.take_along_axis(sc, top, 1), axis=1)
+        top = np.take_along_axis(top, order, 1)
+        out_i.append(ids[top])
+        out_s.append(np.take_along_axis(sc, top, 1))
+    return np.concatenate(out_i), np.concatenate(out_s)
+
+
+def check_against_oracle(got_ids, got_scores, want_ids, want_scores, k):
+    """Scores within RETR_TOL of float64's; ids equal, except that
+    within a run of scores closer than RETR_TOL they may be ordered
+    (or, at the k-th place, chosen) differently. Returns the number of
+    ids that had to match exactly and did."""
+    import numpy as np
+    np.testing.assert_allclose(got_scores, want_scores[:, :k],
+                               atol=RETR_TOL, rtol=0)
+    exact = 0
+    for r in range(got_ids.shape[0]):
+        s = want_scores[r]
+        j = 0
+        while j < k:
+            e = j + 1
+            while e <= k and s[e - 1] - s[e] <= RETR_TOL:
+                e += 1
+            if e > k:          # a tie run across the k-th place
+                assert set(got_ids[r, j:k]) <= set(want_ids[r, j:e]), r
+                break
+            assert set(got_ids[r, j:e]) == set(want_ids[r, j:e]), \
+                (r, got_ids[r], want_ids[r])
+            exact += e - j
+            j = e
+    return exact
+
+
+def search_batches(svc, queries, nprobe=None, k=RETR_K, b=RETR_B):
+    """Every B-row batch of ``queries`` through the service, one at a
+    time: (ids, per-batch ms, wall s)."""
+    import numpy as np
+    lat, out = [], []
+    t0 = time.perf_counter()
+    for s in range(0, queries.shape[0], b):
+        t = time.perf_counter()
+        ids, _ = svc.search(queries[s:s + b], k=k, nprobe=nprobe,
+                            timeout=60.0)
+        lat.append((time.perf_counter() - t) * 1e3)
+        out.append(ids)
+    return np.concatenate(out), lat, time.perf_counter() - t0
+
+
+def recall_at(got, want, k):
+    hits = sum(len({int(g) for g in a if g >= 0} & {int(w) for w in b[:k]})
+               for a, b in zip(got, want))
+    return hits / (k * len(got))
+
+
+def retrieval_index_leg(device, card):
+    """The million-vector corpus built through ``index build``'s code,
+    brute force and IVF through RetrievalService. Returns the brute
+    index, the corpus and the embedder vocabulary for the HTTP leg."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.retrieval.index import _dot_topk
+    from deeplearning4j_tpu_torch.serving.retrieval_backend import (
+        RetrievalService)
+
+    t0 = time.perf_counter()
+    ids, vectors, vocab, table = cli._load_corpus(RETR_CORPUS)
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    brute = cli.build_index(ids, vectors, "brute", metric="cosine",
+                            device=device)
+    brute_s = time.perf_counter() - t0
+    st = brute.stats()
+    snap = brute._snap
+    nbytes = snap.mat.numel() * snap.mat.element_size()
+    log(f"retrieval corpus {RETR_CORPUS}: {vectors.shape[0]} x "
+        f"{vectors.shape[1]} f32 made in {corpus_s:.2f} s; brute index "
+        f"(index build's code) in {brute_s:.2f} s: {st['vectors']} "
+        f"vectors, capacity {st['capacity']} ({nbytes / 2 ** 20:.0f} MiB "
+        f"on {snap.mat.device})")
+    assert st["vectors"] == vectors.shape[0]
+
+    queries = retrieval_queries(vectors, RETR_B * RETR_BATCHES, seed=1)
+    svc = RetrievalService(brute, max_batch_size=RETR_B, wait_ms=2.0)
+    try:
+        svc.warmup(ks=(RETR_K,), batch_sizes=(RETR_B,))
+        got, lat, wall = search_batches(svc, queries)
+    finally:
+        svc.close(drain=True)
+    # the device's share: one batch's matmul + mask + top-k alone
+    import torch
+    qd = torch.from_numpy(brute._prep(queries[:RETR_B])).to(device)
+    dev_ms = time_ms(lambda: _dot_topk(qd, snap.mat, snap.mask, 16)) \
+        if device == "cuda" else float("nan")
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    qps = queries.shape[0] / wall
+    log(f"brute force ({card}): {RETR_BATCHES} batches of B={RETR_B}, "
+        f"k={RETR_K} through RetrievalService: p50 "
+        f"{percentile(lat, 0.5):.3f} ms, p99 {percentile(lat, 0.99):.3f} "
+        f"ms, {qps:.1f} queries/s; the batch's device time (matmul + mask "
+        f"+ top-16, CUDA events) {dev_ms:.4f} ms against its bound "
+        f"{bound_ms:.4f} ms (the {nbytes / 2 ** 20:.0f} MiB corpus read "
+        f"once at {PEAK_BYTES / 1e12:.2f} TB/s): {100 * bound_ms / dev_ms:.1f}"
+        f"% of the bound; the service's p50 {100 * bound_ms / percentile(lat, 0.5):.1f}%")
+    # exactness against float64 on the host
+    want_i, want_s = cosine_oracle(vectors, ids, queries[:RETR_ORACLE_Q],
+                                   RETR_K)
+    gi, gs = brute.search(queries[:RETR_ORACLE_Q], k=RETR_K)
+    exact = check_against_oracle(gi, gs, want_i, want_s, RETR_K)
+    log(f"brute force vs the float64 oracle: {RETR_ORACLE_Q} queries, "
+        f"scores within {RETR_TOL}, {exact} of {RETR_ORACLE_Q * RETR_K} "
+        f"ids outside near-ties equal")
+
+    t0 = time.perf_counter()
+    ivf = cli.build_index(ids, vectors, "ivf", nlist=RETR_NLIST,
+                          metric="cosine", device=device)
+    ivf_s = time.perf_counter() - t0
+    ist = ivf.stats()
+    log(f"IVF index (index build's code, k-means on the whole corpus on "
+        f"{device}): nlist {RETR_NLIST} built in {ivf_s:.2f} s; cells "
+        f"{ist['cells']}")
+    rq = queries[:RETR_RECALL_Q]
+    truth = search_batches_direct(brute, rq)
+    isvc = RetrievalService(ivf, max_batch_size=RETR_B, wait_ms=2.0)
+    recalls = {}
+    try:
+        for nprobe in (1, 4, 16):
+            isvc.warmup(ks=(RETR_K,), nprobes=(nprobe,),
+                        batch_sizes=(RETR_B,))
+            got, lat, wall = search_batches(isvc, rq, nprobe=nprobe)
+            recalls[nprobe] = recall_at(got, truth, RETR_K)
+            ivf.search(rq[:RETR_B], k=RETR_K, nprobe=nprobe)
+            split = dict(ivf.last_split)
+            log(f"IVF nprobe {nprobe} ({card}): recall@{RETR_K} against "
+                f"brute force {recalls[nprobe]:.4f} over {rq.shape[0]} "
+                f"queries; p50 {percentile(lat, 0.5):.3f} ms, p99 "
+                f"{percentile(lat, 0.99):.3f} ms, "
+                f"{rq.shape[0] / wall:.1f} queries/s "
+                f"({rq.shape[0] / wall / qps:.3f}x brute force); a batch's "
+                f"split: host (coarse scoring, candidate lists) "
+                f"{split['host_s'] * 1e3:.3f} ms, device call and copy "
+                f"back {split['device_s'] * 1e3:.3f} ms, gather width "
+                f"c_pad {split['c_pad']} ({RETR_B} x {split['c_pad']} x "
+                f"{vectors.shape[1]} f32 = "
+                f"{RETR_B * split['c_pad'] * vectors.shape[1] * 4 / 2 ** 20:.0f}"
+                f" MiB gathered)")
+    finally:
+        isvc.close(drain=True)
+    assert recalls[16] >= 0.9, recalls
+    del ivf, isvc
+    return brute, ids, vectors, vocab, table, queries
+
+
+def search_batches_direct(index, queries, k=RETR_K, b=RETR_B):
+    """The index's ids for every B-row batch of ``queries``, called
+    directly (no service)."""
+    import numpy as np
+    return np.concatenate([index.search(queries[s:s + b], k=k)[0]
+                           for s in range(0, queries.shape[0], b)])
+
+
+def retrieval_http_leg(brute, vocab, vectors, queries, device, card):
+    """The retrieval routes on two port servers: the million-vector
+    index with the corpus's own ``w{i}`` embedder (``serve --index
+    random:``'s shape) for /v1/search by text and by vector and the
+    /v1/index verbs, and a GloVe-shaped embedder for /v1/embed, held
+    against numpy's masked mean-pool. After ``warmup()``,
+    ``zero_compile_scope`` must see no capture."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    from deeplearning4j_tpu_torch.retrieval import (BruteForceIndex,
+                                                    TextEmbedder)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.retrieval_backend import (
+        RetrievalService)
+
+    stats = install_global_watch()
+    svc = RetrievalService(brute, embedder=TextEmbedder(
+        vocab, vectors, device=device), max_batch_size=RETR_B)
+    server = ModelServer(ModelRegistry(), retrieval=svc)
+    rep = server.warmup()
+    server.start()
+    try:
+        with stats.zero_compile_scope("post-warmup retrieval traffic"):
+            m = stats.mark()
+            code, body, _ = http(server.port, "/v1/search",
+                                 {"queries": ["w5", "w123456 w7"],
+                                  "k": RETR_K})
+            assert code == 200, body
+            assert body["results"][0][0]["id"] == 5, body["results"][0]
+            code, vbody, _ = http(server.port, "/v1/search",
+                                  {"vectors": queries[:4].tolist(),
+                                   "k": RETR_K})
+            assert code == 200, vbody
+            direct, _ = brute.search(queries[:4], k=RETR_K)
+            assert [[r["id"] for r in row] for row in vbody["results"]] \
+                == direct.tolist()
+            after = stats.summary(m)
+        assert after["graph_captures"] == 0, after
+        gen0 = brute.generation
+        new_id = int(vectors.shape[0]) + 7
+        steps = {}
+        t0 = time.perf_counter()
+        code, b, _ = http(server.port, "/v1/index/upsert",
+                          {"ids": [new_id], "vectors": [[9.0] *
+                                                        vectors.shape[1]]})
+        steps["upsert"] = (time.perf_counter() - t0, code, b)
+        code, hit, _ = http(server.port, "/v1/search",
+                            {"vector": [9.0] * vectors.shape[1], "k": 1})
+        assert hit["results"][0][0]["id"] == new_id, hit
+        for verb, body in (("delete", {"ids": [new_id, 3]}),
+                           ("compact", {}), ("stats", {})):
+            t0 = time.perf_counter()
+            code, b, _ = http(server.port, f"/v1/index/{verb}", body)
+            steps[verb] = (time.perf_counter() - t0, code, b)
+        assert all(c == 200 for _, c, _ in steps.values()), steps
+        st = steps["stats"][2]["index"]
+        assert st["vectors"] == vectors.shape[0] - 1, st
+        assert st["tombstones"] == 0 and st["generation"] > gen0, st
+        log(f"retrieval HTTP ({card}): warmup {rep['_search']}; text and "
+            f"vector /v1/search on the {vectors.shape[0]}-vector index "
+            f"inside zero_compile_scope: {after}; /v1/index seconds "
+            + ", ".join(f"{v} {s:.2f}" for v, (s, _, _) in steps.items())
+            + f"; stats after: {st}")
+    finally:
+        server.stop(drain=True)
+
+    # the GloVe-shaped embedder behind /v1/embed
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(GLOVE_V, GLOVE_D)).astype(np.float32)
+    gvocab = {f"t{i}": i for i in range(GLOVE_V)}
+    emb = TextEmbedder(gvocab, table, normalize=False, device=device)
+    small = BruteForceIndex(GLOVE_D, device=device)
+    small.add(np.arange(4096), table[:4096])
+    server = ModelServer(ModelRegistry(), retrieval=RetrievalService(
+        small, embedder=emb, max_batch_size=RETR_B))
+    server.start()
+    try:
+        lens = rng.integers(0, 48, EMBED_TEXTS)
+        texts = [" ".join(f"t{i}" for i in rng.integers(0, GLOVE_V, n))
+                 + (" oov" if n % 5 == 0 else "") for n in lens]
+        t0 = time.perf_counter()
+        code, body, _ = http(server.port, "/v1/embed", {"texts": texts})
+        embed_s = time.perf_counter() - t0
+        assert code == 200, body
+        got = np.asarray(body["embeddings"], np.float64)
+        packed = emb.encode(texts)
+        tok = packed[:, 0, :].astype(np.int64)
+        mask = packed[:, 1, :].astype(np.float64)
+        want = (table[tok] * mask[..., None]).sum(1) / np.maximum(
+            mask.sum(1, keepdims=True), 1.0)
+        err = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    finally:
+        server.stop(drain=True)
+    log(f"/v1/embed ({card}): {EMBED_TEXTS} texts over a {GLOVE_V} x "
+        f"{GLOVE_D} table ({GLOVE_V * GLOVE_D * 4 / 2 ** 20:.0f} MiB on "
+        f"{device}) in {embed_s * 1e3:.1f} ms; vs numpy's masked mean "
+        f"pool max |diff| {err:.3e} (atol 1e-5, rtol 1e-4)")
+
+
+def retrieval_soak(device, card):
+    """bench.py's retrieval_serving soak: four subprocess port replicas
+    (``serve --index SOAK_CORPUS --index-kind ivf``) behind the router,
+    SOAK_CONC clients sending SOAK_QUERIES vector searches with up to 3
+    retries, a seeded ``serving.replica`` kill of replica 0 at routed
+    request SOAK_KILL_AT. No request may fail; recall@10 against the
+    client's float64 oracle must reach 0.9."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import chaos, cli
+    from deeplearning4j_tpu_torch.serving.fleet import ReplicaFleet
+    from deeplearning4j_tpu_torch.serving.router import Router
+
+    ids, vectors, _, _ = cli._load_corpus(SOAK_CORPUS)
+    pool = retrieval_queries(vectors, 256, seed=2)
+    truth, _ = cosine_oracle(vectors, ids, pool, RETR_K)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p])
+    fleet = ReplicaFleet(n=4, base_port=free_ports(4), device=device,
+                         extra_args=["--index", SOAK_CORPUS,
+                                     "--index-kind", "ivf", "--nlist",
+                                     str(SOAK_NLIST), "--nprobe",
+                                     str(SOAK_NPROBE)])
+    t0 = time.perf_counter()
+    fleet.start()
+    router = Router(fleet, probe_interval_s=0.25, hedge_after_s=None,
+                    sample_rate=0.0).start()
+    try:
+        t_end = time.monotonic() + 300
+        while router.health_payload()["eligible"] < 4:
+            assert time.monotonic() < t_end, "soak fleet never came up"
+            for r in fleet.snapshot():
+                assert r.proc.poll() is None, "a soak replica died booting"
+            time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        for i in range(8):                 # warm each replica's bucket
+            assert http(router.port, "/v1/search",
+                        {"vector": pool[i].tolist(), "k": RETR_K})[0] == 200
+        chaos.install({"faults": [{"site": "serving.replica",
+                                   "kind": "kill", "at": [SOAK_KILL_AT],
+                                   "args": {"replica": 0}}]}, seed=1234)
+        lock = threading.Lock()
+        todo = list(range(SOAK_QUERIES))
+        results, failed, lat, retried = {}, [], [], [0]
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop()
+                r = i % pool.shape[0]
+                body = {"vector": pool[r].tolist(), "k": RETR_K}
+                for attempt in range(4):
+                    t = time.perf_counter()
+                    try:
+                        code, reply, _ = http(router.port, "/v1/search",
+                                              body)
+                    except OSError as e:
+                        code, reply = 0, {"error": repr(e)}
+                    if code == 200:
+                        break
+                    with lock:
+                        retried[0] += 1
+                    time.sleep(0.05 * (attempt + 1))
+                with lock:
+                    if code != 200:
+                        failed.append((i, code, reply))
+                    else:
+                        lat.append((time.perf_counter() - t) * 1e3)
+                        results[i] = [x["id"] for x in reply["results"][0]]
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(SOAK_CONC)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        killed = [r.id for r in fleet.snapshot()]
+    finally:
+        chaos.uninstall()
+        router.stop()
+        fleet.stop(drain=False, timeout=10.0)
+    hits = sum(len(set(results[i]) & set(truth[i % pool.shape[0]][:RETR_K]
+                                           .tolist()))
+               for i in results)
+    recall = hits / (RETR_K * max(len(results), 1))
+    log(f"retrieval soak ({card}): 4 subprocess replicas "
+        f"(--index {SOAK_CORPUS} ivf nlist {SOAK_NLIST} nprobe "
+        f"{SOAK_NPROBE}) up in {up_s:.1f} s; {SOAK_QUERIES} searches from "
+        f"{SOAK_CONC} clients with replica 0 SIGKILLed at routed request "
+        f"{SOAK_KILL_AT}: {len(failed)} failed, {retried[0]} retries, "
+        f"replicas left {killed}, {SOAK_QUERIES / wall:.1f} queries/s, p50 "
+        f"{percentile(lat, 0.5):.2f} ms p99 {percentile(lat, 0.99):.2f} ms; "
+        f"recall@{RETR_K} vs the client's float64 oracle {recall:.4f}")
+    assert not failed, failed[:5]
+    assert len(killed) == 3, killed
+    assert recall >= 0.9, recall
+
+
+def retrieval_phase(card):
+    """The retrieval slice on the card: the million-vector index
+    (brute force and IVF, k-means included), the embedder and the
+    retrieval routes, and the failover soak."""
+    import torch
+    device = CARD
+    brute, ids, vectors, vocab, table, queries = retrieval_index_leg(
+        device, card)
+    del table
+    retrieval_http_leg(brute, vocab, vectors, queries, device, card)
+    del brute, vocab
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    retrieval_soak(device, card)
+
+
+
+# --------------------------------------------------------------------
+# fleet_control_phase: the fleet's control loops (collector, autoscaler,
+# canary rollout) over the full-width LM on the card; host code, which
+# bench.py's own legs call CPU-dominated
+# --------------------------------------------------------------------
+
+# ids a predict row in the control drills: a reply carries V floats an
+# id as JSON, which at 8 ids held the drills' host to ~16 requests/s on
+# an H100 machine, so one id
+CTL_PREDICT_T = 1
+OBS_RUNS, OBS_REQUESTS, OBS_CONC = 4, 160, 8   # paired off/on runs
+OBS_BAR = 0.02             # bench.py's OBS_OVERHEAD_BAR
+ROLL_REPLICAS = 4
+# bench.py's autoscaler_soak, its 14 s load cut to AS_DURATION
+AS_PROFILE = (8.0, 48.0, 2.0)   # step: 8 q/s, then 48 q/s from t = 2 s
+AS_DURATION, AS_CONC, AS_KILL_AT = 10.0, 24, 150
+AS_MIX = (("gold", 0.2), ("standard", 0.5), ("best_effort", 0.3))
+# the card's autoscaler drill: a generate stream the queue watermarks
+# answer with a second LM replica
+AS_LM_REQUESTS, AS_LM_TOKENS, AS_LM_CLIENTS = 96, 48, 16
+AS_LM_PROMPTS = (16, 128)  # prompt lengths, drawn uniformly
+
+
+def send_retrying(port, path, body, deadline_s=6.0, retries=6):
+    """tools/loadgen's retry rule: a 429, 503 or network error retries
+    (Retry-After honoured, within the request's deadline), anything
+    else is final. Returns (status, reply, attempts)."""
+    t_end = time.monotonic() + deadline_s
+    attempts = 0
+    while True:
+        attempts += 1
+        try:
+            code, reply, hdrs = http(port, path, body)
+        except OSError as e:
+            code, reply, hdrs = 0, {"error": repr(e)}, {}
+        if code == 200 or code not in (0, 429, 503) \
+                or attempts > retries or time.monotonic() >= t_end:
+            return code, reply, attempts
+        wait = float(hdrs.get("Retry-After", 0) or 0.02)
+        time.sleep(max(0.0, min(wait, t_end - time.monotonic())))
+
+
+def closed_loop(port, bodies, conc):
+    """``bodies`` from ``conc`` threads, each sending its next as its
+    last returns; returns (statuses, wall seconds)."""
+    codes, lock, todo = [], threading.Lock(), list(range(len(bodies)))
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop()
+            c = send_retrying(port, "/v1/predict", bodies[i],
+                              deadline_s=60.0)[0]
+            with lock:
+                codes.append(c)
+
+    threads = [threading.Thread(target=client) for _ in range(conc)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return codes, time.perf_counter() - t0
+
+
+def lm_predicts(n, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [{"model": "lm", "inputs": rng.integers(
+        0, V, (1, CTL_PREDICT_T)).astype(float).tolist()}
+            for _ in range(n)]
+
+
+def lm_fleet(factory, n, **router_kw):
+    from deeplearning4j_tpu_torch.serving.fleet import ReplicaFleet
+    from deeplearning4j_tpu_torch.serving.router import Router
+    fleet = ReplicaFleet(factory, n=n, server_kwargs=dict(
+        wait_ms=1.0, max_batch_size=8, queue_limit=64, slots=SLOTS,
+        capacity=CAPACITY, page_size=PAGE)).start()
+    kw = dict(probe_interval_s=0.05, probe_timeout_s=0.5,
+              attempt_timeout_s=10.0, request_timeout_s=60.0,
+              hedge_after_s=None, sample_rate=1.0)
+    kw.update(router_kw)
+    return fleet, Router(fleet, **kw).start()
+
+
+def collector_drill(net, card):
+    """bench.py's observability_overhead on the LM: the same predict
+    burst through a 4-replica fleet with no collector and with a
+    FleetCollector scraping every member each second, in alternating
+    pairs. The QPS cost is host-timed: printed, not asserted."""
+    import statistics
+    import numpy as np
+    from deeplearning4j_tpu_torch.observability.fleetobs import (
+        FleetCollector)
+    fleet, router = lm_fleet(lambda: {"lm": net}, ROLL_REPLICAS,
+                             sample_rate=0.01)
+    bodies = lm_predicts(OBS_REQUESTS, seed=4)
+    try:
+        codes, _ = closed_loop(router.port, bodies[:64], OBS_CONC)  # warm
+        assert set(codes) == {200}, set(codes)
+
+        def run(with_collector):
+            col = None
+            if with_collector:
+                col = FleetCollector(fleet=fleet, router=router,
+                                     interval_s=1.0, port=0).start()
+                router.attach_fleet_health(col.fleet_health)
+            try:
+                codes, wall = closed_loop(router.port, bodies, OBS_CONC)
+                scrapes = None if col is None else \
+                    col.registry.get("fleet_scrapes_total").value
+            finally:
+                if col is not None:
+                    router.attach_fleet_health(None)
+                    col.stop()
+            assert set(codes) == {200}, set(codes)
+            return len(codes) / wall, scrapes
+
+        ratios, on, off, scrapes = [], [], [], []
+        for i in range(OBS_RUNS):
+            order = (False, True) if i % 2 == 0 else (True, False)
+            qps = {}
+            for w in order:
+                qps[w], s = run(w)
+                if w:
+                    scrapes.append(s)
+            on.append(qps[True])
+            off.append(qps[False])
+            ratios.append(qps[True] / qps[False])
+    finally:
+        router.stop()
+        fleet.stop(drain=False, timeout=10.0)
+    rel = statistics.median(ratios)
+    # what one predict's forward costs alone (host clock, synchronized)
+    x = np.zeros((1, CTL_PREDICT_T), np.float32)
+    fwd_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        net.output(x).cpu()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"one LM predict's forward alone (1 x {CTL_PREDICT_T} ids, host "
+        f"clock, output copied back): median {statistics.median(fwd_ms):.2f}"
+        f" ms over 20 warm calls")
+    log(f"collector drill ({card}, host clock): {OBS_RUNS} paired runs of "
+        f"{OBS_REQUESTS} LM predicts (1 x {CTL_PREDICT_T} ids) from "
+        f"{OBS_CONC} clients over {ROLL_REPLICAS} replicas: scraped "
+        f"{statistics.median(on):.1f} q/s ({scrapes} scrapes a run), "
+        f"unscraped {statistics.median(off):.1f} q/s; ratio {rel:.4f}, "
+        f"cost {100 * max(0.0, 1 - rel):.2f}% (bench.py's bar "
+        f"{100 * OBS_BAR:.0f}%; printed, not asserted)")
+
+
+class TierDriver:
+    """Background predicts in each tier, paced, with per-tier outcomes
+    and the running minimum of UP capacity (bench.py's rollout_soak)."""
+
+    def __init__(self, port, fleet, bodies, pace_s=0.004):
+        self.port, self.fleet, self.bodies = port, fleet, bodies
+        self.pace_s = pace_s
+        self.counts = {t: {"ok": 0, "dropped": 0, "nan": 0} for t in TIERS}
+        self.min_capacity = 10 ** 9
+        self._stop = threading.Event()
+        self._threads = []
+
+    def _loop(self, tier):
+        import numpy as np
+        from deeplearning4j_tpu_torch.serving.fleet import UP
+        i = 0
+        while not self._stop.is_set():
+            body = dict(self.bodies[i % len(self.bodies)], tier=tier)
+            i += 1
+            try:
+                code, reply, _ = http(self.port, "/v1/predict", body)
+            except OSError:
+                code, reply = 0, {}
+            c = self.counts[tier]
+            if code == 200:
+                out = np.asarray(reply["outputs"], np.float64)
+                c["ok" if np.isfinite(out).all() else "nan"] += 1
+            else:
+                c["dropped"] += 1
+            self.min_capacity = min(self.min_capacity, sum(
+                1 for r in self.fleet.snapshot() if r.fleet_state == UP))
+            time.sleep(self.pace_s)
+
+    def __enter__(self):
+        for tier in TIERS:
+            th = threading.Thread(target=self._loop, args=(tier,),
+                                  daemon=True)
+            th.start()
+            self._threads.append(th)
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=30)
+
+
+def rollout_drill(net, candidate, card):
+    """bench.py's rollout_soak on 4 in-process LM replicas behind the
+    router and collector: a good candidate (the same weights written to
+    a zip and restored) promoted, then a candidate poisoned by the
+    seeded ``serving.rollout`` ``bad_version`` fault caught by shadow
+    scoring and rolled back. Zero gold drops, UP capacity never below
+    4, one incident bundle from the bad run."""
+    import shutil
+    from deeplearning4j_tpu_torch import chaos
+    from deeplearning4j_tpu_torch.observability.fleetobs import (
+        FleetCollector)
+    from deeplearning4j_tpu_torch.serving.rollout import RolloutController
+
+    bodies = lm_predicts(64, seed=6)
+
+    def run(bad, inc_dir):
+        fleet, router = lm_fleet(lambda: {"lm": net}, ROLL_REPLICAS)
+        col = FleetCollector(fleet=fleet, router=router, interval_s=0.25,
+                             incident_min_interval_s=0.0,
+                             incident_dir=inc_dir).start()
+        rc = RolloutController(
+            fleet, router, candidate_factory=lambda: {"lm": candidate},
+            collector=col, canary_weight=0.25, shadow_sample=0.5,
+            min_requests=40, warmup_requests=10, min_shadow_compared=10,
+            gate_poll_s=0.1, drain_timeout_s=30.0, max_p99_ratio=50.0)
+        router.attach_rollout(rc)
+        if bad:
+            chaos.install({"faults": [{"site": "serving.rollout",
+                                       "kind": "bad_version",
+                                       "at": [1]}]}, seed=23)
+        try:
+            with TierDriver(router.port, fleet, bodies) as drv:
+                time.sleep(1.0)        # incumbent evidence first
+                out = {}
+                th = threading.Thread(
+                    target=lambda: out.setdefault("s", rc.run()))
+                th.start()
+                th.join(timeout=300)
+                if th.is_alive():
+                    rc.abort("smoke watchdog")
+                    th.join(timeout=60)
+                time.sleep(0.5)
+            versions = sorted(fleet.versions().values())
+        finally:
+            chaos.uninstall()
+            col.stop()
+            router.stop()
+            fleet.stop(drain=False, timeout=10.0)
+        st = out.get("s") or {}
+        incidents = sorted(d for d in (os.listdir(inc_dir)
+                                       if os.path.isdir(inc_dir) else [])
+                           if d.startswith("incident-"))
+        return st, drv, versions, incidents
+
+    tmp = tempfile.mkdtemp(prefix="rollout-")
+    try:
+        good, gdrv, gver, ginc = run(False, os.path.join(tmp, "good"))
+        bad, bdrv, bver, binc = run(True, os.path.join(tmp, "bad"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, st, drv, ver in (("good", good, gdrv, gver),
+                               ("bad", bad, bdrv, bver)):
+        log(f"rollout drill, {name} candidate ({card}): outcome "
+            f"{st.get('outcome')} (gate {st.get('last_gate')}, holds "
+            f"{st.get('holds')}) in "
+            f"{st.get('finished_unix', 0) - st.get('started_unix', 0):.2f}"
+            f" s; versions after {ver}; tiers {drv.counts}; UP capacity "
+            f"never below {drv.min_capacity}")
+        assert drv.counts["gold"]["dropped"] == 0, drv.counts
+        assert drv.min_capacity >= ROLL_REPLICAS, drv.min_capacity
+    assert good.get("outcome") == "promoted" and set(gver) == {2}, good
+    assert bad.get("outcome") == "rolled_back" and set(bver) == {1}, bad
+    assert bad.get("last_gate") == "shadow_mismatch", bad
+    assert not ginc and len(binc) == 1, (ginc, binc)
+    log(f"rollout drill: time to promoted "
+        f"{good['finished_unix'] - good['started_unix']:.2f} s, time to "
+        f"rolled back {bad['finished_unix'] - bad['started_unix']:.2f} s; "
+        f"incident bundles: good {len(ginc)}, bad {binc}")
+
+
+def open_loop(port, body_fn, rate_at, duration_s, conc, deadline_s=6.0,
+              retries=6):
+    """Arrivals at ``rate_at(t)`` requests a second for ``duration_s``,
+    sent by ``conc`` workers with ``send_retrying``; per-tier counts."""
+    times, t = [], 0.0
+    while t < duration_s:
+        times.append(t)
+        t += 1.0 / rate_at(t)
+    counts = {tier: {"sent": 0, "ok": 0, "failed": 0, "retries": 0}
+              for tier, _ in AS_MIX}
+    lock, nxt = threading.Lock(), [0]
+    t0 = time.monotonic()
+
+    def worker():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(times):
+                return
+            time.sleep(max(0.0, t0 + times[i] - time.monotonic()))
+            body = body_fn(i)
+            code, _, attempts = send_retrying(port, "/v1/predict", body,
+                                              deadline_s, retries)
+            with lock:
+                c = counts[body["tier"]]
+                c["sent"] += 1
+                c["retries"] += attempts - 1
+                c["ok" if code == 200 else "failed"] += 1
+
+    threads = [threading.Thread(target=worker) for _ in range(conc)]
+    for th in threads:
+        th.start()
+    return threads, counts
+
+
+def autoscaler_drill(card):
+    """bench.py's autoscaler_soak, shortened: sleep-based replicas (40
+    ms a request, one at a time), bounds 1..3, a ~6x step of tiered
+    load, a seeded ``serving.replica`` kill mid-spike. Prints seconds
+    from SLO breach to recovery; no gold request may fail."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import chaos
+    from deeplearning4j_tpu_torch.observability.slo import (BurnWindow, SLO,
+                                                            SLOMonitor)
+    from deeplearning4j_tpu_torch.serving.autoscaler import Autoscaler
+    from deeplearning4j_tpu_torch.serving.fleet import ReplicaFleet
+    from deeplearning4j_tpu_torch.serving.router import Router
+
+    class DelayModel:
+        def output(self, x):
+            time.sleep(0.04)
+            return np.asarray(x)
+
+    fleet = ReplicaFleet(lambda: {"default": DelayModel()}, n=1,
+                         server_kwargs=dict(wait_ms=1.0, max_batch_size=1,
+                                            queue_limit=6)).start()
+    router = Router(fleet, probe_interval_s=0.1, probe_timeout_s=0.5,
+                    attempt_timeout_s=3.0, request_timeout_s=8.0,
+                    hedge_after_s=None, sample_rate=0.0).start()
+    slos = SLOMonitor(router.registry, [SLO(
+        name="router_p_latency", objective=0.8, threshold_s=0.1,
+        metric="router_latency_seconds", labels={"route": "/v1/predict"},
+        window_s=30.0, windows=[BurnWindow(short_s=1.5, long_s=4.0,
+                                           factor=1.5)])],
+        min_eval_interval_s=0.2)
+    scaler = Autoscaler(fleet, router, slos=slos, registry=router.registry,
+                        min_replicas=1, max_replicas=3,
+                        tick_interval_s=0.25, queue_high=3.0,
+                        queue_low=0.25, up_consecutive=2,
+                        down_consecutive=10_000, up_cooldown_s=1.5,
+                        down_cooldown_s=60.0).start()
+    chaos.install({"faults": [{"site": "serving.replica", "kind": "kill",
+                               "at": [AS_KILL_AT],
+                               "args": {"replica": 0}}]}, seed=99)
+    rng = np.random.default_rng(7)
+    tiers = [name for name, _ in AS_MIX]
+    draw = rng.choice(len(tiers), 4096, p=[p for _, p in AS_MIX])
+    low, high, at = AS_PROFILE
+    marks = {"breach": None, "recover": None}
+    try:
+        threads, counts = open_loop(
+            router.port, lambda i: {"model": "default",
+                                    "inputs": [[float(i % 7), 1.0]],
+                                    "tier": tiers[draw[i % 4096]]},
+            lambda t: high if t >= at else low, AS_DURATION, AS_CONC)
+        t0 = time.monotonic()
+        while time.monotonic() < t0 + AS_DURATION + 30.0:
+            b = slos.any_breached()
+            now = time.monotonic() - t0
+            if b and marks["breach"] is None:
+                marks["breach"] = now
+            if not b and marks["breach"] is not None:
+                marks["recover"] = now
+                break
+            time.sleep(0.1)
+        for th in threads:
+            th.join(timeout=60)
+        final = fleet.size()
+        ups = router.registry.get("autoscaler_scale_events_total",
+                                  labels={"direction": "up"})
+    finally:
+        chaos.uninstall()
+        scaler.stop(wait_retires=False)
+        router.stop()
+        fleet.stop(drain=False, timeout=5.0)
+    rec = (None if None in marks.values()
+           else marks["recover"] - marks["breach"])
+    log(f"autoscaler drill (host clock): step {low:g} -> {high:g} q/s at "
+        f"t = {at:g} s for {AS_DURATION:g} s, replica 0 killed at request "
+        f"{AS_KILL_AT}: SLO breach at "
+        + ("never" if marks["breach"] is None
+           else f"{marks['breach']:.2f} s")
+        + ", recovered " + ("not within the window" if rec is None
+                            else f"{rec:.2f} s later")
+        + f"; scale-ups {0 if ups is None else int(ups.value)}, replicas "
+        f"at the end {final}; tiers {counts}")
+    assert counts["gold"]["failed"] == 0, counts
+
+
+def autoscaler_card_drill(net, da, card):
+    """The queue watermarks grow a second full-width LM replica (its
+    weights restored from a zip onto the card) under a generate stream,
+    then retire it with drain. Every request must return 200 with the
+    ids one server gives for it (or part from them only at a near tie
+    of the plain-decode reference)."""
+    import shutil
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.autoscaler import Autoscaler
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+
+    rng = np.random.default_rng(9)
+    bodies = [{"model": "lm", "prompt": rng.integers(
+        0, V, int(n)).tolist(), "n_tokens": AS_LM_TOKENS}
+              for n in rng.integers(AS_LM_PROMPTS[0], AS_LM_PROMPTS[1] + 1,
+                                    AS_LM_REQUESTS)]
+    registry = ModelRegistry()
+    registry.register("lm", net)
+    single = ModelServer(registry, slots=SLOTS, capacity=CAPACITY,
+                         page_size=PAGE).start()
+    try:
+        ref, _ = burst(single.port, "/v1/generate", bodies)
+    finally:
+        single.stop(drain=True)
+    tmp = tempfile.mkdtemp(prefix="scale-")
+    path = os.path.join(tmp, "lm.zip")
+    write_model(net, path)
+    boots = []
+
+    def factory():
+        if not boots:
+            boots.append(0.0)
+            return {"lm": net}
+        t0 = time.perf_counter()
+        model = restore_model(path, device=CARD)
+        boots.append(time.perf_counter() - t0)
+        return {"lm": model}
+
+    fleet, router = lm_fleet(factory, 1, attempt_timeout_s=300.0,
+                             request_timeout_s=600.0, sample_rate=0.0)
+    scaler = Autoscaler(fleet, router, min_replicas=1, max_replicas=2,
+                        tick_interval_s=0.25, queue_high=4.0,
+                        queue_low=0.5, up_consecutive=2,
+                        down_consecutive=8, up_cooldown_s=1.0,
+                        down_cooldown_s=1.0, drain_timeout_s=300.0)
+    grown = {}
+    grow = fleet.grow
+
+    def timed_grow(*a, **kw):
+        t0 = time.perf_counter()
+        r = grow(*a, **kw)
+        grown["boot_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        code, _, _ = http(r.port, "/v1/generate",
+                          dict(bodies[0], n_tokens=8))
+        grown["first_ms"] = (time.perf_counter() - t1) * 1e3
+        grown["first_code"] = code
+        grown["rid"] = r.id
+        return r
+
+    fleet.grow = timed_grow
+    replies = [None] * len(bodies)
+    try:
+        scaler.start()
+        lock, todo = threading.Lock(), list(range(len(bodies)))
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop(0)
+                replies[i] = http(router.port, "/v1/generate", bodies[i])
+
+        threads = [threading.Thread(target=client)
+                   for _ in range(AS_LM_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        t_end = time.monotonic() + 300
+        while "first_code" not in grown and time.monotonic() < t_end:
+            time.sleep(0.1)              # a scale-up still booting
+        peak = 1 + ("rid" in grown)
+        while fleet.size() > 1 and time.monotonic() < t_end:
+            time.sleep(0.1)
+        final = fleet.size()
+        events = {d: router.registry.get(
+            "autoscaler_scale_events_total", labels={"direction": d})
+            for d in ("up", "down")}
+    finally:
+        scaler.stop(wait_retires=True)
+        router.stop()
+        fleet.stop(drain=False, timeout=30.0)
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert all(r is not None and r[0] == 200 for r in replies), \
+        [None if r is None else r[:2] for r in replies]
+    compared = 0
+    for body, (_, reply, _), (_, alone, _) in zip(bodies, replies, ref):
+        if reply["ids"] == alone["ids"]:
+            compared += len(reply["ids"])
+        else:
+            compared += check_greedy(net, da, body["prompt"], reply["ids"],
+                                     n_tokens=AS_LM_TOKENS)
+    log(f"autoscaler on the card ({card}): {AS_LM_REQUESTS} /v1/generate "
+        f"({AS_LM_TOKENS} tokens) from {AS_LM_CLIENTS} clients through "
+        f"the router in {wall:.2f} s; grew to {peak} replica(s) (the "
+        f"grown replica booted in {grown.get('boot_s', float('nan')):.2f} "
+        f"s, its weights restored in "
+        f"{boots[-1] if len(boots) > 1 else float('nan'):.2f} s; its first "
+        f"request {grown.get('first_ms', float('nan')):.1f} ms, status "
+        f"{grown.get('first_code')}); retired back to {final} with drain; "
+        f"scale events up "
+        f"{0 if events['up'] is None else events['up'].value:g}, down "
+        f"{0 if events['down'] is None else events['down'].value:g}; "
+        f"every reply 200, greedy ids vs one server's: {compared} of "
+        f"{AS_LM_REQUESTS * AS_LM_TOKENS} compared and equal")
+    assert peak == 2 and grown.get("first_code") == 200, grown
+    assert final == 1, final
+
+
+def fleet_control_phase(attn, da, card):
+    """The control loops: the collector's cost, the canary rollout on
+    the full-width LM, the autoscaler's drill and the autoscaler growing
+    and retiring an LM replica on the card. Returns the forward and
+    decode kernels' launches on this path."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+
+    conf = lm_config()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
+                            device=CARD).init(seed=0)
+    tmp = tempfile.mkdtemp(prefix="candidate-")
+    path = os.path.join(tmp, "lm.zip")
+    write_model(net, path)         # the good candidate: the same weights
+    candidate = restore_model(path, device=CARD)
+    os.remove(path)
+    os.rmdir(tmp)
+    attn.flash_attention_fwd_cuda.launches = 0        # this path only
+    da.decode_attention_cuda.launches = 0
+    collector_drill(net, card)
+    rollout_drill(net, candidate, card)
+    del candidate
+    autoscaler_drill(card)
+    autoscaler_card_drill(net, da, card)
+    fwd, dec = (attn.flash_attention_fwd_cuda.launches,
+                da.decode_attention_cuda.launches)
+    log(f"fleet_control launches: flash_attention_fwd {fwd}, "
+        f"decode_attention {dec}")
+    assert fwd > 0 and dec > 0, (fwd, dec)
+    return fwd, dec
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -5593,11 +6617,16 @@ def main():
     timed("kstep_phase", kstep_phase, card)
     timed("aot_warmup_phase", aot_warmup_phase, card)
     timed("checkpoint_phase", checkpoint_phase, card)
+    timed("retrieval_phase", retrieval_phase, card)
+    fwd_ctl, dec_ctl = timed("fleet_control_phase", fleet_control_phase,
+                             attn, da, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
-                               "capture": captured["flash_attention_fwd"]}
+                               "capture": captured["flash_attention_fwd"],
+                               "fleet_control": fwd_ctl}
     dec["launches_by_path"] = {"generate": dec_generate,
-                               "fleet": dec_fleet, "rnn": dec_rnn}
+                               "fleet": dec_fleet, "rnn": dec_rnn,
+                               "fleet_control": dec_ctl}
     for record, name in ((dq, "flash_attention_bwd_dq"),
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],

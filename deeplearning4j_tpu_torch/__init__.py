@@ -19,5 +19,8 @@ float32 and under the bf16 policy (``dtypes.tpu_bf16()``), with conv,
 pooling and GEMMs on cuDNN and cuBLAS; the recurrent family, Keras
 import, and every layer type of the JAX package, with the whole model
 zoo, layerwise ``pretrain`` and the transfer-learning builders
-(``nn.transfer_learning``).
+(``nn.transfer_learning``); the fleet's control loops (``serving.
+autoscaler``, ``serving.rollout``, ``observability.fleetobs``) and
+retrieval serving (``retrieval``: vector indexes and the text embedder
+on the card, behind ``/v1/embed``, ``/v1/search`` and ``/v1/index``).
 """

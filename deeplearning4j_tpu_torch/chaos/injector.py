@@ -21,10 +21,10 @@ code it has: ``checkpoint.write`` / ``checkpoint.read``
 (``util/model_serializer.py``), ``data.fetch`` (``data/iterators.py``)
 ``serving.worker.step`` (``serving/scheduler.py``,
 ``serving/continuous.py``), ``serving.kv.migrate``
-(``serving/continuous.py``), ``serving.replica`` (``serving/router.py``)
-and ``serving.replica.boot`` (``serving/fleet.py``). The others wait for
-their modules (ROADMAP A4b-2, A6-A8); a plan naming them installs and
-never fires.
+(``serving/continuous.py``), ``serving.replica`` (``serving/router.py``),
+``serving.replica.boot`` (``serving/fleet.py``) and ``serving.rollout``
+(``serving/rollout.py``). The others wait for their modules (ROADMAP
+A6, A8); a plan naming them installs and never fires.
 
 ==================== ====================================================
 ``checkpoint.write`` ``util/model_serializer.write_model`` — after the

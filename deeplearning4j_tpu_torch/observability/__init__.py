@@ -12,7 +12,9 @@ burn rates, threshold alerts and the flight recorder (counterpart of
 - ``alerts``           declarative threshold rules feeding /healthz
 - ``flight_recorder``  bounded event ring -> post-mortem bundle on a
                        serving worker crash or ``dump()``
-- ``fleetobs``         the ``/debug/bundle`` payload of one server
+- ``fleetobs``         the fleet collector (merged ``/metrics``, fleet
+                       SLOs, stitched traces, incident bundles) and
+                       the ``/debug/bundle`` payload of one server
 - ``compile_watch``    CUDA graph captures and replays (serving and
                        training), and the post-warmup
                        ``zero_compile_scope`` contract
@@ -23,7 +25,6 @@ burn rates, threshold alerts and the flight recorder (counterpart of
 All of it is host code apart from ``health.fused_health``, which runs
 inside the training step: nothing else here reads a device tensor
 (the monitor and the profiler read the values the step hands them).
-The fleet collector waits for ROADMAP A4b-2.
 """
 
 from deeplearning4j_tpu_torch.observability.alerts import (

@@ -32,8 +32,7 @@ fresh whether it is polled by ``/healthz``, the background alert
 thread, or a scraper. On a fresh breach the monitor captures the
 **offending trace ids** (the exemplars sitting in the buckets above
 the threshold) into the flight recorder and dumps a bundle: the page
-arrives with the traces that burned the budget. The rollout gate
-(``compare_cohorts``) waits for the rollout controller (ROADMAP A4b-2).
+arrives with the traces that burned the budget.
 """
 
 from __future__ import annotations
@@ -51,7 +50,7 @@ from deeplearning4j_tpu_torch.observability.registry import (
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
-__all__ = ["SLO", "BurnWindow", "SLOMonitor"]
+__all__ = ["SLO", "BurnWindow", "SLOMonitor", "compare_cohorts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +129,65 @@ class SLO:
                 f"unknown SLO config key(s) {sorted(unknown)}; "
                 f"known: {sorted(known)}")
         return cls(**cfg)
+
+
+def compare_cohorts(baseline: dict, candidate: dict, *,
+                    min_requests: int = 50,
+                    max_p99_ratio: float = 1.5,
+                    max_error_rate_delta: float = 0.02,
+                    p99_floor_ms: float = 5.0) -> dict:
+    """Comparative two-cohort SLO evaluation — the rollout gate.
+
+    Each cohort is ``{"requests": int, "errors": int, "p99_ms":
+    float}`` (a FleetCollector ``cohort_stats`` row). The verdict is
+    evidence-based, never wall-clock-only:
+
+    - ``hold``: the candidate has fewer than ``min_requests``
+      requests — not enough evidence to promote OR to roll back;
+    - ``fail``: candidate error rate exceeds the baseline's by more
+      than ``max_error_rate_delta`` (gate ``error_rate``), or
+      candidate p99 exceeds ``max_p99_ratio`` x the baseline p99
+      (gate ``p99`` — the baseline is floored at ``p99_floor_ms``
+      so a sub-millisecond baseline cannot flunk a healthy
+      candidate on noise);
+    - ``pass``: both checks clear with sufficient evidence.
+
+    Returns ``{"verdict", "gate", "detail", "baseline",
+    "candidate"}`` — ``gate`` names the failed (or held) check,
+    None on pass."""
+    base_n = int(baseline.get("requests", 0) or 0)
+    cand_n = int(candidate.get("requests", 0) or 0)
+    out = {"verdict": "pass", "gate": None, "detail": "",
+           "baseline": dict(baseline), "candidate": dict(candidate)}
+    if cand_n < int(min_requests):
+        out.update(verdict="hold", gate="min_requests",
+                   detail=f"candidate has {cand_n} request(s), "
+                          f"gate needs {int(min_requests)} — "
+                          f"holding, not promoting")
+        return out
+    base_rate = (float(baseline.get("errors", 0) or 0) / base_n
+                 if base_n else 0.0)
+    cand_rate = float(candidate.get("errors", 0) or 0) / cand_n
+    if cand_rate > base_rate + float(max_error_rate_delta):
+        out.update(verdict="fail", gate="error_rate",
+                   detail=f"candidate error rate {cand_rate:.4f} "
+                          f"exceeds baseline {base_rate:.4f} + "
+                          f"delta {float(max_error_rate_delta)}")
+        return out
+    base_p99 = max(float(baseline.get("p99_ms", 0.0) or 0.0),
+                   float(p99_floor_ms))
+    cand_p99 = float(candidate.get("p99_ms", 0.0) or 0.0)
+    if cand_p99 > float(max_p99_ratio) * base_p99:
+        out.update(verdict="fail", gate="p99",
+                   detail=f"candidate p99 {cand_p99:.1f}ms exceeds "
+                          f"{float(max_p99_ratio)}x baseline "
+                          f"{base_p99:.1f}ms")
+        return out
+    out["detail"] = (f"candidate ok over {cand_n} request(s): "
+                     f"error rate {cand_rate:.4f} vs baseline "
+                     f"{base_rate:.4f}, p99 {cand_p99:.1f}ms vs "
+                     f"baseline {base_p99:.1f}ms")
+    return out
 
 
 class _SloState:

@@ -1,6 +1,7 @@
 """Serving: registry, dynamic-batching scheduler, continuous batcher, HTTP
-front end, and the replica fleet behind its router (counterpart of
-``deeplearning4j_tpu/serving``).
+front end, the replica fleet behind its router, the fleet's control
+loops (``autoscaler``, ``rollout``) and the retrieval backend
+(``retrieval_backend``) (counterpart of ``deeplearning4j_tpu/serving``).
 
 Submodules import lazily, as in the JAX package: ``serving.errors``
 stays a dependency leaf, and importing the package pulls in neither
@@ -37,6 +38,7 @@ _EXPORTS = {
     "SubprocessReplica": "fleet",
     "parse_roles": "fleet",
     "Router": "router",
+    "Autoscaler": "autoscaler",
 }
 
 __all__ = list(_EXPORTS)

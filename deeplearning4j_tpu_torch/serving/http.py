@@ -23,6 +23,16 @@
   survivor and acks, or resumes the handle here
 - ``GET  /v1/kv/prefixes`` -> {"page_size", "prefixes"}: the prefix-cache
   fingerprints, for KV-aware routing
+- ``POST /v1/embed``    {"texts" | "text", "timeout_ms"?, "tier"?} ->
+  {"embeddings", "dim", "model_version"}: the embedder is a registered
+  model ("embedder"), batched by the ordinary scheduler
+- ``POST /v1/search``   {"query" (text) | "vector"/"vectors", "k"?,
+  "nprobe"?, "filter_ids"?, "timeout_ms"?, "tier"?} -> {"results":
+  [[{"id", "score"}...]...], "k", "generation"}: text queries embed
+  first, then search; both hops share one deadline budget
+- ``POST /v1/index/{upsert,delete,compact,stats}``: admin verbs,
+  single-writer serialized on the retrieval service's admin lock
+  (``retrieval=``, ``serve --index``; see ``serving/retrieval_backend.py``)
 - ``GET  /v1/models``   -> {"models": registry listing}
 - ``GET  /healthz``     -> {"status": "ok" | "degraded" | "draining",
   ...}: always 200 for humans; the status field carries the judgement
@@ -58,8 +68,9 @@ leave as migration offers instead of finishing in place.
 ``chaos_delay_s`` (the ``serving.replica`` hang) stalls every handler.
 ``warmup()`` (``serve --aot-warmup``) runs every hosted model's predict
 buckets and one dummy generate before traffic, which captures each
-generate backend's decode-step CUDA graph (``serving/warmup.py``).
-Retrieval and the serving mesh are not ported yet (ROADMAP A4c, A6).
+generate backend's decode-step CUDA graph (``serving/warmup.py``), and
+the retrieval service's default search bucket. The serving mesh is not
+ported yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -67,6 +78,7 @@ from __future__ import annotations
 import base64
 import binascii
 import collections
+import functools
 import itertools
 import json
 import logging
@@ -223,7 +235,7 @@ class ModelServer:
                  sample_routes: Optional[Dict[str, float]] = None,
                  slow_ms: float = 250.0, slos=None, tracer=None,
                  kv_mode: str = "auto", page_size: int = 16,
-                 kv_pages: Optional[int] = None):
+                 kv_pages: Optional[int] = None, retrieval=None):
         self.registry = registry or ModelRegistry()
         self.metrics = metrics or ServingMetrics()
         # last good /metrics payload per mode, served when a rebuild
@@ -264,6 +276,19 @@ class ModelServer:
         self._draining = threading.Event()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # retrieval: a RetrievalService (or a callable building one from
+        # the server's metrics, the in-process-fleet shape, so each
+        # replica owns its index and search backends) hosting /v1/search
+        # and /v1/index. Its embedder registers as the "embedder" model,
+        # so /v1/embed is the predict path over another model.
+        self.retrieval = None
+        if retrieval is not None:
+            self.retrieval = retrieval(self.metrics) \
+                if callable(retrieval) \
+                else retrieval.attach_metrics(self.metrics)
+            emb = self.retrieval.embedder
+            if emb is not None and "embedder" not in self.registry:
+                self.registry.register("embedder", emb)
 
     # ---- backends ----
     def _get_or_create(self, table, key, make):
@@ -320,10 +345,13 @@ class ModelServer:
         buckets and (optionally) one short generate, whose first step
         captures the batcher's decode-step CUDA graph, so the first real
         request never pays a capture (see serving/warmup.py). Call
-        before serving traffic. (The JAX server also warms its retrieval
-        index: not ported, ROADMAP A4c.)"""
+        before serving traffic. A hosted index's default search bucket
+        is built and driven once too."""
         from deeplearning4j_tpu_torch.serving.warmup import warmup_server
-        return warmup_server(self, **kwargs)
+        report = warmup_server(self, **kwargs)
+        if self.retrieval is not None:
+            report["_search"] = {"buckets": self.retrieval.warmup()}
+        return report
 
     # ---- endpoint handlers (also the in-process API) ----
     @staticmethod
@@ -381,6 +409,113 @@ class ModelServer:
             timeout=self._timeout_s(body), ctx=ctx,
             tier=body.get("tier"))
         return self._stream_reply(ids, version)
+
+    # ---- retrieval: embed + search + index admin ----
+    def _require_retrieval(self):
+        if self.retrieval is None:
+            raise ModelNotFoundError(
+                "no index hosted on this server (start it with "
+                "serve --index)")
+        return self.retrieval
+
+    @staticmethod
+    def _texts_of(body: dict, plural: str = "texts",
+                  singular: str = "text"):
+        texts = body.get(plural, body.get(singular))
+        if texts is None:
+            raise ValueError(f'body needs "{plural}" (list) or '
+                             f'"{singular}" (string)')
+        if isinstance(texts, str):
+            texts = [texts]
+        if not texts or not all(isinstance(t, str) for t in texts):
+            raise ValueError(f'"{plural}" must be a non-empty list '
+                             "of strings")
+        return texts
+
+    def _embed_sched(self, texts, timeout, ctx, tier):
+        """Embed texts through the REGISTERED embedder's scheduler (the
+        predict path, not a host-side shortcut): the (B, D) query
+        matrix and the served model version."""
+        r = self._require_retrieval()
+        if r.embedder is None:
+            raise ValueError(
+                "this index has no embedder: send raw vectors")
+        sched, version = self.scheduler_for("embedder")
+        packed = r.embedder.encode(texts)
+        out = sched.predict(packed, timeout=timeout, ctx=ctx, tier=tier)
+        return np.asarray(out), version
+
+    def _handle_embed(self, body: dict, ctx=None) -> dict:
+        texts = self._texts_of(body)
+        out, version = self._embed_sched(
+            texts, self._timeout_s(body), ctx, body.get("tier"))
+        if ctx is not None:
+            ctx.attrs["model_version"] = version
+        return {"embeddings": out.tolist(), "dim": int(out.shape[1]),
+                "model_version": version}
+
+    def _handle_search(self, body: dict, ctx=None) -> dict:
+        r = self._require_retrieval()
+        has_text = "query" in body or "queries" in body
+        has_vec = "vector" in body or "vectors" in body
+        if has_text == has_vec:
+            raise ValueError(
+                'search body needs exactly one of "query"/"queries" '
+                '(text) or "vector"/"vectors" (raw floats)')
+        k = int(body.get("k", 10))
+        nprobe = body.get("nprobe")
+        if nprobe is not None:
+            nprobe = int(nprobe)
+        filter_ids = body.get("filter_ids")
+        if filter_ids is not None and not isinstance(
+                filter_ids, (list, tuple)):
+            raise ValueError('"filter_ids" must be a list of ids')
+        tier = body.get("tier")
+        timeout = self._timeout_s(body)
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        embedder_version = None
+        if has_text:
+            texts = self._texts_of(body, "queries", "query")
+            q, embedder_version = self._embed_sched(
+                texts, timeout, ctx, tier)
+        else:
+            q = np.asarray(body.get("vectors", body.get("vector")),
+                           np.float32)
+            if q.ndim == 1:
+                q = q[None, :]
+        # one deadline budget across both hops: the search leg gets
+        # whatever the embed leg left
+        remaining = None if deadline is None \
+            else deadline - time.monotonic()
+        ids, scores = r.search(q, k=k, nprobe=nprobe,
+                               filter_ids=filter_ids,
+                               timeout=remaining, ctx=ctx, tier=tier)
+        results = [[{"id": int(i), "score": float(s)}
+                    for i, s in zip(row_ids, row_scores) if i >= 0]
+                   for row_ids, row_scores in zip(ids, scores)]
+        out = {"results": results, "k": k,
+               "generation": r.index.generation}
+        if embedder_version is not None:
+            out["embedder_version"] = embedder_version
+        if ctx is not None:
+            ctx.attrs["index_generation"] = r.index.generation
+        return out
+
+    def _handle_index(self, verb: str, body: dict, ctx=None) -> dict:
+        r = self._require_retrieval()
+        if verb == "upsert":
+            if "ids" not in body:
+                raise ValueError('index upsert body needs "ids"')
+            return r.upsert(body["ids"], vectors=body.get("vectors"),
+                            texts=body.get("texts"))
+        if verb == "delete":
+            if "ids" not in body:
+                raise ValueError('index delete body needs "ids"')
+            return r.delete(body["ids"])
+        if verb == "compact":
+            return r.compact()
+        return r.stats()
 
     # ---- disaggregated prefill/decode and drain migration ----
     def _handle_kv_export(self, body: dict, ctx=None):
@@ -632,6 +767,11 @@ class ModelServer:
             payload = {"status": "ok"}
         if slo_status is not None:
             payload["slos"] = slo_status
+        if self.retrieval is not None:
+            # index generation + size ride the health payload: the
+            # fleet's convergence checks (did the upsert land on every
+            # replica) read them here
+            payload["index"] = self.retrieval.describe()
         payload["models"] = self.registry.models()
         return payload
 
@@ -654,6 +794,8 @@ class ModelServer:
             state = b.breaker.state
             if state != "closed":
                 out[b.name] = state
+        if self.retrieval is not None:
+            out.update(self.retrieval.breaker_states())
         return out
 
     # ---- HTTP plumbing ----
@@ -723,9 +865,15 @@ class ModelServer:
                     return
                 handler = {"/v1/predict": server._handle_predict,
                            "/v1/generate": server._handle_generate,
+                           "/v1/embed": server._handle_embed,
+                           "/v1/search": server._handle_search,
                            "/v1/kv/export": server._handle_kv_export,
                            "/v1/kv/import": server._handle_kv_import}.get(
                                route)
+                if route in ("/v1/index/upsert", "/v1/index/delete",
+                             "/v1/index/compact", "/v1/index/stats"):
+                    handler = functools.partial(
+                        server._handle_index, route.rsplit("/", 1)[1])
                 if handler is None:
                     self._send(404, {"error": "not found"})
                     return
@@ -845,6 +993,14 @@ class ModelServer:
             target=lambda i=i, b=b: oks.__setitem__(
                 i, b.shutdown(drain=drain, timeout=timeout)),
             daemon=True) for i, b in enumerate(backends)]
+        retrieval = self.retrieval
+        if retrieval is not None:
+            # the search backends drain in the same concurrent wave
+            # (close() also releases the retrieval gauges)
+            threads.append(threading.Thread(
+                target=lambda: oks.__setitem__(
+                    -1, retrieval.close(drain=drain, timeout=timeout)),
+                daemon=True))
         for t in threads:
             t.start()
         for t in threads:
@@ -858,4 +1014,5 @@ class ModelServer:
             httpd.server_close()
         if thread is not None:
             thread.join(timeout=5.0)
-        return all(oks.get(i, False) for i in range(len(backends)))
+        return all(oks.get(i, False) for i in range(len(backends))) \
+            and (retrieval is None or oks.get(-1, False))

@@ -35,6 +35,11 @@ class ModelRegistry:
             self._registered_at.setdefault(name, {})[version] = time.time()
             return version
 
+    def get(self, name: str, version: Optional[int] = None):
+        """The model (the highest version when ``version`` is None);
+        ModelNotFoundError otherwise."""
+        return self.resolve(name, version)[0]
+
     def resolve(self, name: str, version: Optional[int] = None):
         """(model, version actually served); ModelNotFoundError
         otherwise."""
@@ -49,6 +54,28 @@ class ModelRegistry:
                     f"model {name!r} has no version {version} "
                     f"(available: {sorted(versions)})")
             return versions[version], version
+
+    def unregister(self, name: str,
+                   version: Optional[int] = None) -> None:
+        """Swap a version out (every version when ``version`` is None).
+        In-flight requests holding the model object complete
+        normally."""
+        with self._lock:
+            versions = self._models.get(name)
+            if not versions:
+                raise ModelNotFoundError(f"no model named {name!r}")
+            if version is None:
+                del self._models[name]
+                self._registered_at.pop(name, None)
+                return
+            if version not in versions:
+                raise ModelNotFoundError(
+                    f"model {name!r} has no version {version}")
+            del versions[version]
+            self._registered_at.get(name, {}).pop(version, None)
+            if not versions:
+                del self._models[name]
+                self._registered_at.pop(name, None)
 
     def models(self) -> List[dict]:
         """The /v1/models payload."""

@@ -1,0 +1,380 @@
+"""Serving backend for the retrieval subsystem.
+
+(Counterpart of ``deeplearning4j_tpu/serving/retrieval_backend.py``,
+copied with the imports renamed. Host code: the index's own search
+runs the device work and hands back numpy arrays.)
+
+Search rides the SAME :class:`BatchScheduler` the predict path uses —
+dynamic batching, deadline expiry before the device call, priority
+tiers, the circuit breaker, chaos ``serving.worker.step``, typed
+errors with Retry-After — by presenting each pow2-bucketed
+``(k, nprobe)`` combination as its own serving model:
+
+- :class:`SearchModel` adapts an index to the ``.output`` contract:
+  input is the (B, D) query batch, output a packed ``(B, 2, k_pad)``
+  float64 tensor (row 0 the ids, row 1 the scores) so the scheduler's
+  concatenate/slice plumbing carries ragged top-k results untouched.
+- :class:`RetrievalService` owns the index, the scheduler cache (one
+  per ``(k_pad, nprobe_bucket)`` — a bounded set, since both axes are
+  pow2-bucketed and capped), the ``/v1/index`` admin verbs under a
+  single-writer lock, and the retrieval metrics
+  (``retrieval_search_seconds`` / ``retrieval_recall_estimate`` /
+  ``index_vectors_total``).
+
+Filtered searches (an explicit id allow-list) take the host-side
+subset path on the calling thread — per-request filter sets would
+defeat batching — with the SAME deadline discipline: an
+already-expired deadline raises before any scoring work happens.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.retrieval.embedder import TextEmbedder
+from deeplearning4j_tpu_torch.retrieval.index import pow2_bucket
+from deeplearning4j_tpu_torch.serving.errors import (DeadlineExceededError,
+                                               ServerClosedError)
+from deeplearning4j_tpu_torch.serving.scheduler import BatchScheduler
+
+__all__ = ["RetrievalService", "SearchModel"]
+
+_NS = "retrieval"
+
+
+class SearchModel:
+    """One index × (k, nprobe) bucket behind the serving-model
+    ``.output`` contract.
+
+    The packed float64 result keeps ids exact to 2**53 — comfortably
+    past any corpus this subsystem hosts — and lets scheduler NaN
+    poisoning (chaos ``serving.worker.step`` kind ``poison``) flow
+    through: non-finite rows unpack to id -1, never to a bogus id.
+    """
+
+    def __init__(self, index, k: int, nprobe: Optional[int]):
+        self.index = index
+        self.k = int(k)
+        self.nprobe = nprobe
+
+    def output(self, x) -> np.ndarray:
+        q = np.asarray(x, np.float32)
+        ids, scores = self.index.search(q, k=self.k,
+                                        nprobe=self.nprobe)
+        return np.stack([ids.astype(np.float64),
+                         scores.astype(np.float64)], axis=1)
+
+
+def _unpack(packed: np.ndarray, k: int) -> Tuple[np.ndarray,
+                                                 np.ndarray]:
+    """(ids, scores) out of the packed (B, 2, k_pad) tensor, trimmed
+    to k columns; any non-finite id (NaN poisoning, -inf padding)
+    becomes the -1 sentinel."""
+    packed = np.asarray(packed)
+    raw_ids = packed[:, 0, :k]
+    scores = packed[:, 1, :k].astype(np.float32)
+    ok = np.isfinite(raw_ids) & (scores > -np.inf) \
+        & ~np.isnan(scores)
+    ids = np.where(ok, raw_ids, -1).astype(np.int64)
+    scores = np.where(ok, scores,
+                      -np.inf).astype(np.float32)
+    return ids, scores
+
+
+class RetrievalService:
+    """The retrieval data + control plane one replica hosts.
+
+    Searches fan into per-bucket :class:`BatchScheduler`\\ s; index
+    mutations (``upsert`` / ``delete`` / ``compact``) serialize on
+    ``_admin_lock`` — the single writer — and become visible to
+    searches atomically through the index's snapshot publish.
+    """
+
+    def __init__(self, index, embedder: Optional[TextEmbedder] = None,
+                 metrics=None, max_batch_size: int = 32,
+                 queue_limit: int = 256, wait_ms: float = 2.0,
+                 max_k: int = 128,
+                 default_nprobe: Optional[int] = None):
+        self.index = index
+        self.embedder = embedder
+        # server-side default for requests that don't pick their own
+        # nprobe (the serve --nprobe knob); None = index default
+        self.default_nprobe = default_nprobe
+        self.max_batch_size = int(max_batch_size)
+        self.queue_limit = int(queue_limit)
+        self.wait_ms = float(wait_ms)
+        self.max_k = int(max_k)
+        # single-writer discipline: every index mutation goes through
+        # this lock, so concurrent admin calls serialize instead of
+        # interleaving their read-modify-write on the store
+        self._admin_lock = threading.Lock()
+        self._lock = threading.Lock()
+        self._scheds: Dict[Tuple[int, int],
+                           BatchScheduler] = {}
+        self._create_locks: Dict[Tuple[int, int],
+                                 threading.Lock] = {}
+        self._closed = False
+        self._recall_value = float("nan")
+        self._metrics = None
+        self._search_hist = None
+        if metrics is not None:
+            self.attach_metrics(metrics)
+
+    # ---- metrics ----
+    def attach_metrics(self, metrics) -> "RetrievalService":
+        """Register the retrieval instruments on a ServingMetrics'
+        registry (idempotent; the server calls this at adoption).
+        Constant names, no labels — created once here, removed in
+        close()."""
+        if metrics is None:
+            return self
+        from deeplearning4j_tpu_torch.observability.registry import (
+            default_latency_buckets)
+        reg = metrics.registry
+        with self._lock:
+            if self._metrics is metrics:
+                return self
+            self._metrics = metrics
+            self._search_hist = reg.histogram(
+                "retrieval_search_seconds",
+                help="end-to-end /v1/search service time, queue "
+                     "wait included",
+                buckets=default_latency_buckets())
+            reg.gauge("index_vectors_total",
+                      help="live (non-tombstoned) vectors resident "
+                           "in this replica's index",
+                      fn=lambda: float(len(self.index)))
+            reg.gauge("retrieval_recall_estimate",
+                      help="last recall@k self-estimate vs the "
+                           "exact answer (NaN until estimated; "
+                           "brute force pins 1.0)",
+                      fn=lambda: self._recall_value)
+            if self.index.kind == "brute_force":
+                self._recall_value = 1.0
+        return self
+
+    # ---- bucket resolution ----
+    def _nprobe_bucket(self, nprobe: Optional[int]) -> int:
+        """Collapse the nprobe axis to a bounded pow2 set (0 = index
+        default / not applicable): the scheduler-cache key must not
+        grow per distinct client value."""
+        if nprobe is None or not hasattr(self.index, "nlist"):
+            return 0
+        nprobe = max(1, min(int(nprobe), int(self.index.nlist)))
+        return min(pow2_bucket(nprobe),
+                   pow2_bucket(int(self.index.nlist)))
+
+    def scheduler_for(self, k: int,
+                      nprobe: Optional[int] = None
+                      ) -> Tuple[BatchScheduler, int, int]:
+        """(scheduler, k_pad, nprobe_bucket) for a search request —
+        the retrieval twin of ModelServer.scheduler_for, with the
+        same build-once-per-key discipline."""
+        if k < 1 or k > self.max_k:
+            raise ValueError(
+                f"k must be in [1, {self.max_k}]; got {k}")
+        k_pad = pow2_bucket(int(k))
+        npb = self._nprobe_bucket(nprobe)
+        key = (k_pad, npb)
+        with self._lock:
+            s = self._scheds.get(key)
+            if s is not None:
+                return s, k_pad, npb
+            if self._closed:
+                raise ServerClosedError(
+                    "retrieval service is closed; not creating "
+                    "search backends", retry_after_s=2.0)
+            create = self._create_locks.setdefault(
+                key, threading.Lock())
+        with create:
+            with self._lock:
+                s = self._scheds.get(key)
+                if s is not None:
+                    return s, k_pad, npb
+            name = f"search/k{k_pad}" + (f"/p{npb}" if npb else "")
+            s = BatchScheduler(
+                SearchModel(self.index, k_pad, npb or None),
+                max_batch_size=self.max_batch_size,
+                queue_limit=self.queue_limit,
+                wait_ms=self.wait_ms, metrics=self._metrics,
+                name=name)
+            with self._lock:
+                if not self._closed:
+                    self._scheds[key] = s
+                    return s, k_pad, npb
+        s.shutdown(drain=False)
+        raise ServerClosedError(
+            "retrieval service is closed; not creating search "
+            "backends", retry_after_s=2.0)
+
+    # ---- data plane ----
+    def search(self, queries, k: int = 10,
+               nprobe: Optional[int] = None,
+               filter_ids: Optional[List[int]] = None,
+               timeout: Optional[float] = None, ctx=None,
+               tier=None) -> Tuple[np.ndarray, np.ndarray]:
+        """(ids, scores), each (B, k). The batched path goes through
+        the bucket scheduler; filtered queries run host-side on this
+        thread with an explicit deadline check standing in for the
+        scheduler's expire-before-serve."""
+        t0 = time.monotonic()
+        if nprobe is None:
+            nprobe = self.default_nprobe
+        q = np.asarray(queries, np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        try:
+            if filter_ids is not None:
+                if k < 1 or k > self.max_k:
+                    raise ValueError(
+                        f"k must be in [1, {self.max_k}]; got {k}")
+                if timeout is not None and timeout <= 0:
+                    raise DeadlineExceededError(
+                        "deadline expired before the filtered "
+                        "search ran")
+                npb = self._nprobe_bucket(nprobe)
+                return self.index.search(
+                    q, k=int(k), nprobe=npb or None,
+                    allow_ids=filter_ids)
+            sched, k_pad, _ = self.scheduler_for(k, nprobe)
+            packed = sched.predict(q, timeout=timeout, ctx=ctx,
+                                   tier=tier)
+            return _unpack(packed, int(k))
+        finally:
+            if self._search_hist is not None:
+                self._search_hist.observe(time.monotonic() - t0)
+
+    def embed_texts(self, texts) -> np.ndarray:
+        """Host-side embed (admin upserts by text, oracles). The
+        serving-path embed goes through the embedder's OWN registered
+        model + scheduler, not through here."""
+        if self.embedder is None:
+            raise ValueError(
+                "no embedder configured on this index — send "
+                "vectors, not texts")
+        return self.embedder.embed(texts)
+
+    # ---- control plane: the /v1/index admin verbs ----
+    def upsert(self, ids, vectors=None, texts=None) -> dict:
+        """Single-writer upsert; texts embed through the configured
+        embedder. Returns the post-mutation stats payload."""
+        if (vectors is None) == (texts is None):
+            raise ValueError(
+                'upsert takes exactly one of "vectors" or "texts"')
+        if texts is not None:
+            vectors = self.embed_texts(list(texts))
+        with self._admin_lock:
+            generation = self.index.add(ids, vectors)
+        return {"upserted": int(np.asarray(ids).reshape(-1).size),
+                "generation": generation}
+
+    def delete(self, ids) -> dict:
+        with self._admin_lock:
+            removed = self.index.remove(ids)
+            generation = self.index.generation
+        return {"deleted": int(removed), "generation": generation}
+
+    def compact(self) -> dict:
+        with self._admin_lock:
+            generation = self.index.compact()
+        return {"generation": generation}
+
+    def stats(self) -> dict:
+        out = {"index": self.index.stats()}
+        if self.embedder is not None:
+            out["embedder"] = self.embedder.info()
+        with self._lock:
+            out["search_backends"] = sorted(
+                s.name for s in self._scheds.values())
+        if self._recall_value == self._recall_value:  # not NaN
+            out["recall_estimate"] = self._recall_value
+        return out
+
+    def estimate_recall(self, k: int = 10, sample: int = 16,
+                        nprobe: Optional[int] = None,
+                        seed: int = 0) -> Optional[float]:
+        """Refresh the recall self-estimate (feeds the
+        retrieval_recall_estimate gauge). Exact-by-construction
+        indexes pin 1.0."""
+        est = getattr(self.index, "estimate_recall", None)
+        val = 1.0 if est is None \
+            else est(k=k, sample=sample, nprobe=nprobe, seed=seed)
+        with self._lock:
+            if val is not None:
+                self._recall_value = float(val)
+            out = self._recall_value
+        return out if out == out else None
+
+    # ---- health / lifecycle ----
+    def describe(self) -> dict:
+        """The /healthz index advertisement: generation + size is
+        what the router's prober and fleet tests key on."""
+        snap_stats = self.index.stats()
+        out = {"kind": snap_stats["kind"],
+               "metric": snap_stats["metric"],
+               "dim": snap_stats["dim"],
+               "vectors": snap_stats["vectors"],
+               "generation": snap_stats["generation"]}
+        if "nlist" in snap_stats:
+            out["nlist"] = snap_stats["nlist"]
+        if self.embedder is not None:
+            out["embedder_dim"] = self.embedder.dim
+        return out
+
+    def breaker_states(self) -> Dict[str, str]:
+        with self._lock:
+            scheds = list(self._scheds.values())
+        return {s.name: s.breaker.state for s in scheds
+                if s.breaker.state != "closed"}
+
+    def warmup(self, ks=(10,), nprobes=(None,),
+               batch_sizes=(1,)) -> List[str]:
+        """Pre-build the named search buckets and drive one query
+        through each device path, so steady-state traffic compiles
+        zero times (asserted by the bench leg)."""
+        warmed = []
+        dim = self.index.dim
+        for k in ks:
+            for nprobe in nprobes:
+                sched, k_pad, npb = self.scheduler_for(k, nprobe)
+                model = sched.model
+                for b in batch_sizes:
+                    # the port's scheduler does not pad batches (its
+                    # module docstring): warm the row counts as given
+                    model.output(np.zeros((b, dim), np.float32))
+                warmed.append(sched.name)
+        return warmed
+
+    def close(self, drain: bool = True,
+              timeout: float = 30.0) -> bool:
+        """Shut every search backend down (concurrently, like
+        ModelServer.stop) and release the metric instruments."""
+        with self._lock:
+            if self._closed:
+                scheds = []
+            else:
+                self._closed = True
+                scheds = list(self._scheds.values())
+                self._scheds.clear()
+        oks = {}
+        threads = [threading.Thread(
+            target=lambda s=s: oks.__setitem__(
+                s, s.shutdown(drain=drain, timeout=timeout)),
+            daemon=True) for s in scheds]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout + 10.0)
+        with self._lock:
+            metrics, self._metrics = self._metrics, None
+            self._search_hist = None
+        if metrics is not None:
+            for name in ("retrieval_search_seconds",
+                         "index_vectors_total",
+                         "retrieval_recall_estimate"):
+                metrics.registry.unregister(name)
+        return all(oks.get(s, False) for s in scheds)

@@ -1,0 +1,703 @@
+"""SLO-gated canary rollouts with automatic rollback.
+
+(Counterpart of ``deeplearning4j_tpu/serving/rollout.py``, copied with the
+imports renamed: host code, no device tensor.)
+
+Deployment as a first-class, reversible state machine (the
+TF-Serving versioned-lifecycle shape from PAPERS.md 1605.08695):
+
+``idle → canary → expanding → complete | rolling_back``
+
+A :class:`RolloutController` deploys a staged candidate model
+version across a :class:`~.fleet.ReplicaFleet` one capacity-neutral
+``replace()`` at a time:
+
+**Canary.** The first replace boots ONE candidate-version replica.
+The router gives it a deterministic weighted traffic split
+(``Router.set_weight`` — trace-id-hashed, so a request's retries and
+hedges stay on-version) plus optional **shadow mirroring**: a
+sampled slice of predict traffic is duplicated to the canary, its
+answers scored against the primary's (value divergence, non-finite
+outputs, status class), and never returned to clients.
+
+**Gate.** Promotion is a **comparative SLO evaluation** over the
+FleetCollector's replica-labeled series
+(:meth:`~..observability.fleetobs.FleetCollector.cohort_stats` +
+:func:`~..observability.slo.compare_cohorts`): the candidate
+cohort's error rate and p99 must sit within configured deltas of
+the baseline cohort over a minimum request count. Evidence-based,
+never wall-clock-only — and a dead/stale collector **holds** the
+rollout (never promotes, never spuriously rolls back), the
+autoscaler's ``sensors_ok`` discipline applied to deployment.
+
+**Expansion.** After the gate passes, the remaining incumbents are
+replaced one at a time (capacity never dips below N — ``replace``
+boots the successor first), re-checking the gate between steps.
+Scaling is paused for the whole rollout (``Autoscaler.pause``) so
+grow/retire can't fight the ladder.
+
+**Rollback.** Any gate failure, canary/candidate death, expansion
+boot failure, or operator ``abort`` re-replaces every updated
+replica with the incumbent version (mid-stream sessions drain over
+the existing KV-migration ladder inside ``replace``) and emits a
+flight-recorder incident bundle whose ``rollout.json`` names WHICH
+gate failed, with offending trace exemplars from the shadow scorer,
+the router's per-version error traces, and the collector cohorts.
+
+Chaos site ``serving.rollout`` fires once per deployment step
+(canary boot + each expansion replace): ``bad_version`` poisons the
+candidate's outputs with NaNs (the shadow gate must catch it),
+``slow_version`` injects per-call latency (the p99 gate must catch
+it), ``stall`` hangs the step itself while still honoring abort —
+bad deploys as replayable seeded drills.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional
+
+from deeplearning4j_tpu_torch import chaos
+from deeplearning4j_tpu_torch.observability.slo import compare_cohorts
+from deeplearning4j_tpu_torch.serving.errors import ReplicaBootError
+from deeplearning4j_tpu_torch.serving.fleet import UP
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
+
+__all__ = ["RolloutController"]
+
+
+class _PoisonedModel:
+    """Chaos ``bad_version``: delegate to the real candidate but
+    return NaN-poisoned outputs — a 200 with garbage in it, the
+    deploy failure no status-code gate can see (the shadow scorer's
+    non-finite check is what must catch it)."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def output(self, x):
+        out = self._inner.output(x)
+        try:
+            return out * float("nan")
+        except TypeError:
+            return float("nan")
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class _SlowModel:
+    """Chaos ``slow_version``: the candidate answers correctly but
+    ``delay_s`` late on every call — the regression only the
+    comparative p99 gate can catch."""
+
+    def __init__(self, inner, delay_s: float):
+        self._inner = inner
+        self._delay_s = float(delay_s)
+
+    def output(self, x):
+        time.sleep(self._delay_s)
+        return self._inner.output(x)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class RolloutController:
+    """Drives one candidate model version across the fleet behind a
+    comparative SLO gate, rolling back automatically on any failure.
+
+    ``run()`` is synchronous and deterministic (what the soak tests
+    and the bench drive); ``start()`` wraps it in a daemon thread
+    for the CLI's operator verbs (``fleet-rollout start|status|
+    abort`` over the router's ``/v1/rollout/*``)."""
+
+    _ACTIVE = ("canary", "expanding", "rolling_back")
+
+    def __init__(self, fleet, router,
+                 candidate_factory: Callable[[], Dict],
+                 candidate_version: Optional[int] = None,
+                 collector=None, autoscaler=None,
+                 canary_weight: float = 0.25,
+                 shadow_sample: float = 0.5,
+                 min_requests: int = 50,
+                 max_p99_ratio: float = 1.5,
+                 max_error_rate_delta: float = 0.02,
+                 max_shadow_mismatch_frac: float = 0.02,
+                 min_shadow_compared: int = 10,
+                 warmup_requests: int = 10,
+                 gate_poll_s: float = 0.25,
+                 step_interval_s: float = 0.0,
+                 drain_timeout_s: float = 30.0):
+        self.fleet = fleet
+        self.router = router
+        self.collector = collector
+        self.autoscaler = autoscaler
+        self.canary_weight = float(canary_weight)
+        self.shadow_sample = float(shadow_sample)
+        self.min_requests = int(min_requests)
+        self.max_p99_ratio = float(max_p99_ratio)
+        self.max_error_rate_delta = float(max_error_rate_delta)
+        self.max_shadow_mismatch_frac = float(
+            max_shadow_mismatch_frac)
+        self.min_shadow_compared = int(min_shadow_compared)
+        self.warmup_requests = int(warmup_requests)
+        self.gate_poll_s = float(gate_poll_s)
+        self.step_interval_s = float(step_interval_s)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self._factory = candidate_factory
+        self._requested_version = candidate_version
+        self._lock = threading.Lock()
+        self._abort_evt = threading.Event()
+        self._abort_reason: Optional[str] = None
+        self._thread: Optional[threading.Thread] = None
+        self._state = "idle"
+        self._candidate_version: Optional[int] = None
+        self._canary_rid: Optional[int] = None
+        self._updated: List[int] = []
+        self._total = 0
+        self._steps = 0
+        self._holds = 0
+        self._last_verdict: Optional[str] = None
+        self._last_gate: Optional[str] = None
+        self._last_detail: Optional[str] = None
+        self._outcome: Optional[str] = None
+        self._incident_dir: Optional[str] = None
+        # the gate's evidence window: a replica_raw snapshot taken
+        # once the canary has served its warmup quota. Cohort reads
+        # diff against it, so the canary's cold-start calls and the
+        # incumbents' pre-rollout history never skew the comparison.
+        self._epoch: Optional[Dict[int, dict]] = None
+        self._started_unix: Optional[float] = None
+        self._finished_unix: Optional[float] = None
+
+    # ------------------------------------------------------------------
+    # operator surface
+    # ------------------------------------------------------------------
+    def start(self) -> threading.Thread:
+        """Run the rollout on a background thread (the CLI verb)."""
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                raise ValueError("rollout already running")
+            if self._state in self._ACTIVE:
+                raise ValueError(
+                    f"rollout already active (state {self._state})")
+            t = threading.Thread(target=self._run_guarded,
+                                 daemon=True,
+                                 name="rollout-controller")
+            self._thread = t
+        t.start()
+        return t
+
+    def join(self, timeout: Optional[float] = None) -> None:
+        """Wait for a :meth:`start`-ed rollout thread to finish —
+        the shutdown path (``abort()`` first to finish it sooner)."""
+        with self._lock:
+            t = self._thread
+        if t is not None:
+            t.join(timeout)
+
+    def abort(self, reason: str = "operator abort") -> None:
+        """Operator bail-out: the controller rolls back every
+        updated replica exactly as a gate failure would."""
+        with self._lock:
+            if self._state not in self._ACTIVE:
+                raise ValueError(
+                    f"no active rollout to abort "
+                    f"(state {self._state})")
+            self._abort_reason = str(reason)
+        self._abort_evt.set()
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "state": self._state,
+                "incumbent_version": self.fleet.incumbent_version,
+                "candidate_version": self._candidate_version,
+                "canary_rid": self._canary_rid,
+                "updated": len(self._updated),
+                "total": self._total,
+                "canary_weight": self.canary_weight,
+                "shadow_sample": self.shadow_sample,
+                "steps": self._steps,
+                "holds": self._holds,
+                "last_verdict": self._last_verdict,
+                "last_gate": self._last_gate,
+                "last_detail": self._last_detail,
+                "outcome": self._outcome,
+                "incident_dir": self._incident_dir,
+                "started_unix": self._started_unix,
+                "finished_unix": self._finished_unix,
+            }
+
+    # ------------------------------------------------------------------
+    # the state machine
+    # ------------------------------------------------------------------
+    def _run_guarded(self) -> None:
+        try:
+            self.run()
+        except Exception:
+            logger.exception("rollout controller crashed")
+
+    def run(self) -> dict:
+        """Deploy the candidate. Returns the final :meth:`status`.
+        Synchronous and seed-deterministic: every deployment step
+        passes the ``serving.rollout`` chaos site exactly once, so a
+        seeded plan names the exact step a bad deploy strikes at."""
+        with self._lock:
+            if self._state in self._ACTIVE:
+                raise ValueError(
+                    f"rollout already active (state {self._state})")
+            self._state = "canary"
+            self._abort_evt.clear()
+            self._abort_reason = None
+            self._updated = []
+            self._canary_rid = None
+            self._steps = 0
+            self._holds = 0
+            self._outcome = None
+            self._incident_dir = None
+            self._epoch = None
+            self._last_verdict = self._last_gate = None
+            self._last_detail = None
+            self._started_unix = time.time()
+            self._finished_unix = None
+        if self.autoscaler is not None:
+            self.autoscaler.pause("rollout")
+        try:
+            return self._run_inner()
+        finally:
+            # belt-and-braces: whatever path exited, the fleet must
+            # not be left split-routed or shadow-mirrored, and the
+            # autoscaler must get its pool back
+            try:
+                self.router.clear_weight()
+                self.router.clear_shadow()
+            except Exception:
+                pass
+            if self.autoscaler is not None:
+                self.autoscaler.resume("rollout")
+
+    def _run_inner(self) -> dict:
+        version = self.fleet.set_candidate(self._factory,
+                                           self._requested_version)
+        incumbent = self.fleet.incumbent_version
+        with self._lock:
+            self._candidate_version = version
+        targets = [r.id for r in self.fleet.snapshot()
+                   if r.fleet_state == UP]
+        with self._lock:
+            self._total = len(targets)
+        if not targets:
+            self.fleet.clear_candidate()
+            return self._finish("idle", "no_replicas")
+        logger.info("rollout: v%d -> v%d over %d replica(s)",
+                    incumbent, version, len(targets))
+
+        # ---- canary ----
+        self._chaos_step()
+        if self._abort_evt.is_set():
+            return self._rollback("operator_abort",
+                                  self._abort_reason or "abort")
+        try:
+            canary = self.fleet.replace(
+                self._pos_of(targets[0]) or 0,
+                drain_timeout=self.drain_timeout_s,
+                version=version)
+        except ReplicaBootError as e:
+            # the canary never booted: nothing was updated, nothing
+            # to roll back — the pool is intact
+            self.fleet.clear_candidate()
+            self._set_gate("fail", "canary_boot_failure", repr(e))
+            return self._finish("idle", "rolled_back")
+        with self._lock:
+            self._canary_rid = canary.id
+            self._updated = [canary.id]
+        self.router.set_weight(canary.id, self.canary_weight)
+        if self.shadow_sample > 0.0:
+            self.router.set_shadow(canary.id, self.shadow_sample)
+        logger.info("rollout: canary replica %d up on v%d "
+                    "(weight %.2f, shadow %.2f)", canary.id,
+                    version, self.canary_weight, self.shadow_sample)
+
+        # ---- gate loop: evidence in, verdict out ----
+        while True:
+            if self._abort_evt.is_set():
+                return self._rollback("operator_abort",
+                                      self._abort_reason or "abort")
+            verdict, gate, detail = self._evaluate_gate()
+            self._set_gate(verdict, gate, detail)
+            if verdict == "fail":
+                return self._rollback(gate, detail)
+            if verdict == "pass":
+                break
+            with self._lock:
+                self._holds += 1
+            self._abort_evt.wait(self.gate_poll_s)
+
+        # ---- expanding ----
+        with self._lock:
+            self._state = "expanding"
+        # the split served its purpose: from here the candidate is
+        # trusted enough to take unweighted traffic, and the shadow
+        # comparator would only mirror against itself
+        self.router.clear_weight(canary.id)
+        self.router.clear_shadow()
+        for rid in targets[1:]:
+            if self._abort_evt.is_set():
+                return self._rollback("operator_abort",
+                                      self._abort_reason or "abort")
+            dead = self._dead_updated()
+            if dead:
+                return self._rollback(
+                    "candidate_death",
+                    f"updated replica(s) {dead} died during "
+                    f"expansion")
+            # re-check the gate between steps: regressions that only
+            # show under the candidate's growing traffic share must
+            # stop the ladder, not ride it fleet-wide. Holds (stale
+            # collector) hold the LADDER too — promotion never
+            # advances on missing evidence.
+            verdict, gate, detail = self._evaluate_gate(
+                expansion=True)
+            self._set_gate(verdict, gate, detail)
+            if verdict == "fail":
+                return self._rollback(gate, detail)
+            while verdict == "hold":
+                if self._abort_evt.is_set():
+                    return self._rollback(
+                        "operator_abort",
+                        self._abort_reason or "abort")
+                with self._lock:
+                    self._holds += 1
+                self._abort_evt.wait(self.gate_poll_s)
+                verdict, gate, detail = self._evaluate_gate(
+                    expansion=True)
+                self._set_gate(verdict, gate, detail)
+                if verdict == "fail":
+                    return self._rollback(gate, detail)
+            pos = self._pos_of(rid)
+            if pos is None:
+                # the incumbent died on its own (chaos): its
+                # replacement is part of the ladder anyway
+                try:
+                    succ = self.fleet.grow(version=version)
+                except ReplicaBootError as e:
+                    return self._rollback("expansion_boot_failure",
+                                          repr(e))
+            else:
+                self._chaos_step()
+                if self._abort_evt.is_set():
+                    return self._rollback(
+                        "operator_abort",
+                        self._abort_reason or "abort")
+                try:
+                    succ = self.fleet.replace(
+                        pos, drain_timeout=self.drain_timeout_s,
+                        version=version)
+                except ReplicaBootError as e:
+                    return self._rollback("expansion_boot_failure",
+                                          repr(e))
+            with self._lock:
+                self._updated.append(succ.id)
+            logger.info("rollout: replica %d -> %d (v%d), %d/%d "
+                        "updated", rid, succ.id, version,
+                        len(self._updated), self._total)
+            if self.step_interval_s > 0:
+                self._abort_evt.wait(self.step_interval_s)
+
+        # ---- complete ----
+        dead = self._dead_updated()
+        if dead:
+            return self._rollback(
+                "candidate_death",
+                f"updated replica(s) {dead} died before promotion")
+        self.fleet.promote_candidate()
+        logger.info("rollout: promoted v%d fleet-wide (%d "
+                    "replica(s))", version, len(self._updated))
+        return self._finish("complete", "promoted")
+
+    # ------------------------------------------------------------------
+    # gate evaluation
+    # ------------------------------------------------------------------
+    def _cohort_rids(self) -> Dict[str, List[int]]:
+        incumbent = self.fleet.incumbent_version
+        with self._lock:
+            version = self._candidate_version
+        base, cand = [], []
+        for r in self.fleet.snapshot():
+            if r.fleet_state != UP:
+                continue
+            v = getattr(r, "model_version", incumbent)
+            if v == version:
+                cand.append(r.id)
+            elif v == incumbent:
+                base.append(r.id)
+        return {"baseline": base, "candidate": cand}
+
+    def _dead_updated(self) -> List[int]:
+        live = {r.id for r in self.fleet.snapshot()
+                if r.fleet_state == UP}
+        with self._lock:
+            return [rid for rid in self._updated
+                    if rid not in live]
+
+    def _evaluate_gate(self, expansion: bool = False):
+        """One evidence read → ``(verdict, gate, detail)`` with
+        verdict ``pass`` / ``hold`` / ``fail``. Order matters: a
+        dead canary is a fail whatever the stats say; the shadow
+        scorer can condemn a poisoned candidate that never trips a
+        status code; the comparative cohorts decide the rest."""
+        dead = self._dead_updated()
+        if dead:
+            return ("fail", "canary_death",
+                    f"candidate replica(s) {dead} died")
+        if not expansion and self.shadow_sample > 0.0:
+            st = self.router.shadow_stats()
+            compared = int(st.get("compared", 0))
+            mism = int(st.get("mismatches", 0))
+            if compared >= self.min_shadow_compared \
+                    and mism / compared \
+                    > self.max_shadow_mismatch_frac:
+                return ("fail", "shadow_mismatch",
+                        f"{mism}/{compared} shadow responses "
+                        f"diverged from the primary "
+                        f"({st.get('nan', 0)} non-finite); "
+                        f"exemplar traces "
+                        f"{st.get('exemplars', [])}")
+        if self.collector is None:
+            return ("hold", "no_collector",
+                    "no collector attached — promotion requires "
+                    "collector-fresh cohort evidence")
+        cohorts = self._cohort_rids()
+        if not cohorts["candidate"]:
+            return ("fail", "canary_death",
+                    "no live candidate-version replica")
+        if not cohorts["baseline"]:
+            # last expansion steps: nobody left to compare against
+            return ("pass", None,
+                    "no baseline cohort remains to compare")
+        with self._lock:
+            epoch = self._epoch
+        if epoch is None:
+            # the gate window hasn't opened yet: wait out the
+            # canary's cold start, then snapshot every member's
+            # counters — evidence accrues from HERE, identically
+            # windowed for both cohorts. Only the rollout thread
+            # runs the gate, so reading the epoch into a local and
+            # writing it back under the lock cannot double-open.
+            try:
+                rids = cohorts["baseline"] + cohorts["candidate"]
+                raw = self.collector.replica_raw(rids)
+            except Exception as e:
+                return ("hold", "collector_stale", repr(e))
+            served = sum(raw[rid]["requests"]
+                         for rid in cohorts["candidate"]
+                         if rid in raw)
+            if served < self.warmup_requests:
+                return ("hold", "warmup",
+                        f"canary has served {served}/"
+                        f"{self.warmup_requests} warmup requests")
+            with self._lock:
+                self._epoch = raw
+            return ("hold", "window_open",
+                    "gate evidence window opened after canary "
+                    "warmup")
+        try:
+            stats = self.collector.cohort_stats(cohorts,
+                                                since=epoch)
+        except Exception as e:
+            # dead/stale collector: HOLD — never promote on missing
+            # evidence, never roll back a healthy candidate on it
+            return ("hold", "collector_stale", repr(e))
+        res = compare_cohorts(
+            stats["baseline"], stats["candidate"],
+            min_requests=self.min_requests,
+            max_p99_ratio=self.max_p99_ratio,
+            max_error_rate_delta=self.max_error_rate_delta)
+        gate = res["gate"]
+        if res["verdict"] == "hold":
+            return ("hold", gate, res["detail"])
+        if res["verdict"] == "fail":
+            detail = res["detail"]
+            tids = stats["candidate"].get("trace_ids") or []
+            if tids:
+                detail += f"; exemplar traces {tids}"
+            return ("fail", gate, detail)
+        return ("pass", None, res["detail"])
+
+    def _set_gate(self, verdict, gate, detail) -> None:
+        with self._lock:
+            self._last_verdict = verdict
+            self._last_gate = gate
+            self._last_detail = detail
+
+    # ------------------------------------------------------------------
+    # rollback
+    # ------------------------------------------------------------------
+    def _rollback(self, gate: str, detail: str) -> dict:
+        with self._lock:
+            self._state = "rolling_back"
+            self._last_verdict = "fail"
+            self._last_gate = gate
+            self._last_detail = detail
+            updated = list(self._updated)
+        logger.warning("rollout: ROLLING BACK (%s): %s", gate,
+                       detail)
+        self.router.clear_weight()
+        self.router.clear_shadow()
+        # evidence is harvested BEFORE the candidate replicas are
+        # drained away — their per-version error traces and the
+        # shadow scorer's exemplars are the incident's payload
+        evidence = self._gather_evidence(gate, detail)
+        for rid in updated:
+            pos = self._pos_of(rid)
+            try:
+                if pos is None:
+                    # the candidate replica died outright: restore
+                    # the capacity it was holding with a fresh
+                    # incumbent boot
+                    self.fleet.grow()
+                else:
+                    self.fleet.replace(
+                        pos, drain_timeout=self.drain_timeout_s)
+            except ReplicaBootError:
+                logger.exception(
+                    "rollout: rollback boot for replica %d failed; "
+                    "retrying once", rid)
+                try:
+                    self.fleet.grow()
+                except ReplicaBootError:
+                    logger.exception(
+                        "rollout: rollback capacity restore failed")
+        self.fleet.clear_candidate()
+        self._write_incident(gate, evidence)
+        return self._finish("idle", "rolled_back")
+
+    def _gather_evidence(self, gate: str, detail: str) -> dict:
+        evidence = {"gate": gate, "detail": detail}
+        try:
+            evidence["shadow"] = self.router.shadow_stats()
+        except Exception:
+            pass
+        try:
+            evidence["versions"] = self.router.version_stats()
+        except Exception:
+            pass
+        if self.collector is not None:
+            with self._lock:
+                epoch = self._epoch
+            try:
+                evidence["cohorts"] = self.collector.cohort_stats(
+                    self._cohort_rids(), since=epoch)
+            except Exception as e:
+                evidence["cohorts_error"] = repr(e)
+        # the offending traces, deduped across every source — what
+        # the incident bundle leads with
+        tids: List[str] = []
+        tids += (evidence.get("shadow") or {}).get("exemplars", [])
+        with self._lock:
+            version = self._candidate_version
+        vstats = (evidence.get("versions") or {}).get(
+            str(version), {})
+        tids += vstats.get("error_trace_ids", [])
+        tids += ((evidence.get("cohorts") or {})
+                 .get("candidate", {}).get("trace_ids", []))
+        seen = set()
+        evidence["offending_trace_ids"] = [
+            t for t in tids if not (t in seen or seen.add(t))][:16]
+        return evidence
+
+    def _write_incident(self, gate: str, evidence: dict) -> None:
+        if self.collector is None:
+            return
+        try:
+            root = self.collector.write_incident(
+                f"rollout-rollback-{gate}")
+        except Exception:
+            logger.exception("rollout: incident bundle failed")
+            return
+        if root is None:
+            logger.warning("rollout: incident bundle suppressed by "
+                           "rate limit")
+            return
+        with self._lock:
+            self._incident_dir = root
+            evidence = dict(evidence,
+                            incumbent_version=(
+                                self.fleet.incumbent_version),
+                            candidate_version=(
+                                self._candidate_version),
+                            updated_replicas=list(self._updated),
+                            canary_rid=self._canary_rid)
+        try:
+            with open(os.path.join(root, "rollout.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(evidence, f, indent=2, default=str)
+        except OSError:
+            logger.exception("rollout: rollout.json write failed")
+
+    # ------------------------------------------------------------------
+    # plumbing
+    # ------------------------------------------------------------------
+    def _finish(self, state: str, outcome: str) -> dict:
+        with self._lock:
+            self._state = state
+            self._outcome = outcome
+            self._finished_unix = time.time()
+        logger.info("rollout: finished — %s", outcome)
+        return self.status()
+
+    def _pos_of(self, rid: int) -> Optional[int]:
+        for i, r in enumerate(self.fleet.snapshot()):
+            if r.id == rid:
+                return i
+        return None
+
+    def _chaos_step(self) -> None:
+        """The ``serving.rollout`` chaos site: exactly one hit per
+        deployment step (the canary boot and each expansion
+        replace), so a seeded ``at`` ordinal names the step a bad
+        deploy strikes at."""
+        with self._lock:
+            self._steps += 1
+        fault = chaos.hit("serving.rollout")
+        if fault is None:
+            return
+        if fault.kind == "bad_version":
+            logger.warning("rollout: [chaos] candidate poisoned "
+                           "with NaN outputs at step ordinal #%d",
+                           fault.ordinal)
+            self._wrap_candidate(_PoisonedModel)
+        elif fault.kind == "slow_version":
+            delay = float(fault.args.get("delay_s", 0.2))
+            logger.warning("rollout: [chaos] candidate latency-"
+                           "injected (+%.3fs/call) at step ordinal "
+                           "#%d", delay, fault.ordinal)
+            self._wrap_candidate(lambda m: _SlowModel(m, delay))
+        elif fault.kind == "stall":
+            delay = float(fault.args.get("delay_s", 1.0))
+            logger.warning("rollout: [chaos] deployment step "
+                           "stalled %.1fs at ordinal #%d", delay,
+                           fault.ordinal)
+            # the step hangs — but the operator's abort must still
+            # cut through it (checked right after every step)
+            self._abort_evt.wait(delay)
+
+    def _wrap_candidate(self, wrap) -> None:
+        """Re-stage the candidate factory with every model wrapped —
+        replicas booted from here on serve the faulted candidate."""
+        inner = self._factory
+
+        def wrapped():
+            return {name: wrap(m) for name, m in inner().items()}
+
+        self._factory = wrapped
+        with self._lock:
+            version = self._candidate_version
+        self.fleet.set_candidate(wrapped, version)

@@ -572,19 +572,26 @@ def test_subprocess_replica_spawns_the_port():
 @pytest.mark.parametrize("argv,item", [
     (["--roles", "prefill=1"], "roles"),
     (["--roles", "turbo=2"], "roles"),
-    (["--autoscale", "1:3"], "A4b-2"),
-    (["--queue-high", "4"], "A4b-2"),
-    (["--queue-low", "1"], "A4b-2"),
-    (["--autoscale-tick", "1"], "A4b-2"),
-    (["--slo", "{}"], "A4b-2"),
-    (["--collector", "0"], "A4b-2"),
-    (["--collector-interval", "1"], "A4b-2"),
-    (["--incident-dir", "x"], "A4b-2"),
-    (["--rollout", "m2.zip"], "A4b-2"),
-    (["--rollout-version", "2"], "A4b-2"),
-    (["--rollout-canary-weight", "0.5"], "A4b-2"),
-    (["--rollout-shadow-sample", "0.5"], "A4b-2"),
-    (["--rollout-min-requests", "5"], "A4b-2"),
+    # the control-loop flags are ported: a bad value of each refuses
+    (["--autoscale", "nope"], "MIN:MAX"),
+    (["--autoscale", "1:3", "--queue-high", "0.5"], "--queue-low"),
+    (["--autoscale", "1:3", "--queue-low", "9"], "--queue-low"),
+    (["--autoscale", "3:1", "--autoscale-tick", "1"], "1 <= MIN <= MAX"),
+    (["--slo", '[{"objective": 2.0}]'], "bad --slo"),
+    (["--rollout", "m2.zip"], "needs --collector"),
+    (["--collector", "0", "--collector-interval", "1", "--net-chaos",
+      '{"faults": [{"site": "net.replica", "kind": "nope"}]}'],
+     "bad --net-chaos"),
+    (["--collector", "0", "--incident-dir", "x", "--autoscale", "0:1"],
+     "1 <= MIN <= MAX"),
+    (["--rollout", "m2.zip", "--autoscale", "1:3"], "needs --collector"),
+    (["--rollout", "m2.zip", "--rollout-version", "2"], "needs --collector"),
+    (["--rollout", "m2.zip", "--collector", "0",
+      "--rollout-canary-weight", "0"], "canary-weight"),
+    (["--rollout", "m2.zip", "--collector", "0",
+      "--rollout-shadow-sample", "1.5"], "shadow-sample"),
+    (["--rollout", "m2.zip", "--rollout-min-requests", "5"],
+     "needs --collector"),
     (["--mesh", "tp=2"], "A6"),
 ])
 def test_serve_fleet_refuses_before_any_replica_boots(monkeypatch, argv,
