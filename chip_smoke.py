@@ -121,7 +121,14 @@ request lost, capacity never below 4), its ``autoscaler_soak`` shortened
 (breach to recovery seconds, no gold request lost), and the autoscaler
 growing a second LM replica under a generate stream and retiring it
 with drain (boot seconds, first-request ms, every id as one server's).
-Every phase's wall time is logged. It imports nothing of JAX or of the
+Last of all (``ps_phase``) the asynchronous parameter server: bench.py's
+``ps_async_training`` leg at its own size (3 worker threads on the card
+against a synchronous SGD baseline, time to target at max_staleness 0 /
+4 / 16 / unbounded, the push accounting), 2 PS workers training the LM
+at full width and depth 2 through the attention kernels (counted under
+``ps``; one push held against the CPU's within one quantum), and the
+``train-ps`` launcher with 3 worker processes surviving one dropped push
+and one server restart. Every phase's wall time is logged. It imports nothing of JAX or of the
 JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -6494,6 +6501,406 @@ def fleet_control_phase(attn, da, card):
     return fwd, dec
 
 
+PS_N_IN, PS_N_OUT, PS_HIDDEN = 8, 3, 16   # bench.py:2678-2680
+PS_BATCHES, PS_BATCH = 24, 16
+PS_LR, PS_EPOCH_CAP, PS_WORKERS = 0.2, 40, 3   # bench.py:2555, :2680
+PS_STALENESS = (0, 4, 16, None)           # the frontier, bench.py:2811
+PS_LM_LAYERS = 2         # the LM's depth here: two workers' models fit
+PS_LM_WORKERS, PS_LM_STEPS, PS_LM_B = 2, 3, 8
+PS_LM_LR = 1e-2          # the server's SGD rate on the LM's pushes
+PS_CHECK_B = 2           # rows of the one push held against the CPU
+PS_CLI_EPOCHS = 5        # train-ps launcher: 3 workers x 8 batches x 5
+PS_CLI_CHAOS = {"faults": [
+    {"site": "ps.push.drop", "kind": "drop", "at": [5]},
+    {"site": "ps.server.restart", "kind": "restart", "at": [25]}]}
+
+
+def ps_net(seed=0, device=None):
+    """The ps_async_training leg's model: 8 -> 16 relu -> 3 softmax."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = {"format_version": 1, "network_type": "MultiLayerNetwork",
+           "global": {"seed": seed},
+           "input_type": {"kind": "ff", "size": PS_N_IN},
+           "layers": [{"@type": "DenseLayer", "n_out": PS_HIDDEN,
+                       "activation": "relu"},
+                      {"@type": "OutputLayer", "n_out": PS_N_OUT}],
+           "preprocessors": {}}
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                             device=device or CARD).init(seed=seed)
+
+
+def ps_data():
+    """The leg's 24 batches of 16 (cluster-shifted gaussians, seed 0,
+    bench.py:2694-2701) as numpy (x, class) pairs."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(PS_BATCHES):
+        c = rng.integers(0, PS_N_OUT, PS_BATCH)
+        x = (rng.normal(size=(PS_BATCH, PS_N_IN))
+             + c[:, None] * 1.5).astype(np.float32)
+        out.append((x, c))
+    return out
+
+
+def ps_eval(model, batches):
+    """Mean eval loss of ``model`` over device batch tuples: one host
+    read."""
+    import torch
+    with torch.no_grad():
+        return float(torch.stack([model._loss(b, training=False)[0]
+                                  for b in batches]).mean())
+
+
+def ps_leg(card):
+    """bench.py's ``ps_async_training`` leg at its own size on the card:
+    a synchronous SGD baseline, then 3 PS worker threads at
+    max_staleness 0 / 4 / 16 / unbounded to the epoch cap, a monitor
+    thread recording when the server's params first reach the target
+    (80% of the baseline's loss drop)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.parallel.paramserver import (
+        ParameterServer, PSClient, PSWorker)
+
+    data = ps_data()
+    batches = [DataSet(x, np.eye(PS_N_OUT, dtype=np.float32)[c])
+               for x, c in data]
+    ev_model = ps_net(0)
+    ev_batches = [ev_model._batch_tuple(ds) for ds in batches]
+
+    def eval_loss(params):
+        ev_model.set_params(params)
+        return ps_eval(ev_model, ev_batches)
+
+    # synchronous baseline: plain SGD on exact gradients, on the card
+    sync = ps_net(0)
+    init_loss = eval_loss(sync.params)
+    sync._gradients(ev_batches[0])          # first call outside the clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curve = []
+    for _ in range(PS_EPOCH_CAP):
+        for b in ev_batches:
+            _, grads, _ = sync._gradients(b)
+            with torch.no_grad():
+                for p, g in zip(tree_leaves(sync.params),
+                                tree_leaves(grads)):
+                    p.sub_(PS_LR * g)
+        curve.append((time.perf_counter() - t0, eval_loss(sync.params)))
+    sync_total = time.perf_counter() - t0
+    sync_final = curve[-1][1]
+    target = init_loss - 0.8 * (init_loss - sync_final)
+    sync_ttl = next((t for t, loss in curve if loss <= target), None)
+
+    def run_ps(max_staleness):
+        m0 = ps_net(0)
+        server = ParameterServer(m0.params, lr=PS_LR,
+                                 max_staleness=max_staleness).start()
+        crossed = [None]
+        stop = threading.Event()
+        stats = [None] * PS_WORKERS
+        errors = []
+        t0 = time.perf_counter()
+
+        def monitor():
+            while not stop.wait(0.05):
+                if crossed[0] is None \
+                        and eval_loss(server.params_tree()) <= target:
+                    crossed[0] = time.perf_counter() - t0
+
+        def work(i):
+            model = m0 if i == 0 else ps_net(i)
+            client = PSClient(server.address)
+            try:
+                stats[i] = PSWorker(model, client,
+                                    name=f"ps-leg-{i}").run(
+                    batches[i::PS_WORKERS], epochs=PS_EPOCH_CAP)
+            except BaseException as e:      # raised after the join
+                errors.append(e)
+            finally:
+                client.close()
+
+        mon = threading.Thread(target=monitor, name="ps-leg-mon",
+                               daemon=True)
+        threads = [threading.Thread(target=work, args=(i,),
+                                    name=f"ps-leg-{i}", daemon=True)
+                   for i in range(PS_WORKERS)]
+        mon.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        total = time.perf_counter() - t0
+        stop.set()
+        mon.join(10)
+        try:
+            assert not any(t.is_alive() for t in threads), "worker hung"
+            if errors:
+                raise errors[0]
+            final = eval_loss(server.params_tree())
+            if crossed[0] is None and final <= target:
+                crossed[0] = total      # crossed between monitor ticks
+            st = dict(server.stats)
+        finally:
+            server.stop()
+        steps = sum(s["steps"] for s in stats)
+        # every worker step produced exactly one push: applied, or
+        # refused stale and folded back into the residual
+        assert st["pushes_applied"] + st["pushes_stale"] == steps, \
+            (max_staleness, st, steps)
+        return {"max_staleness": max_staleness,
+                "time_to_target_s": crossed[0], "total_s": total,
+                "final_loss": final, "stale_rejects": st["pushes_stale"],
+                "pushes_applied": st["pushes_applied"], "steps": steps}
+
+    frontier = [run_ps(ms) for ms in PS_STALENESS]
+    head = next(f for f in frontier if f["max_staleness"] == 4)
+    assert head["time_to_target_s"] is not None, \
+        f"s=4 never reached the target {target}: {head}"
+    ttl = head["time_to_target_s"]
+    log(f"ps_async_training ({card}; host clock; 3 worker threads, "
+        f"{PS_BATCHES}x{PS_BATCH} batches, lr {PS_LR}, cap {PS_EPOCH_CAP} "
+        f"epochs): init loss {init_loss:.6f}, target {target:.6f}; sync "
+        f"SGD final {sync_final:.6f}, time to target {sync_ttl} s, total "
+        f"{sync_total:.3f} s")
+    for f in frontier:
+        log(f"  s={f['max_staleness']}: time to target "
+            f"{f['time_to_target_s']} s, total {f['total_s']:.3f} s, final "
+            f"loss {f['final_loss']:.6f}, pushes applied "
+            f"{f['pushes_applied']}, stale rejects {f['stale_rejects']}, "
+            f"steps {f['steps']}")
+    log(f"  vs_baseline (sync / async s=4 time to target): "
+        f"{sync_ttl / ttl if sync_ttl else None}")
+
+
+def ps_lm(attn, card):
+    """PS workers training the LM at full width (depth PS_LM_LAYERS) on
+    the card: PS_LM_WORKERS threads, max_staleness 4, PS_LM_STEPS steps
+    each at B=PS_LM_B, the attention kernels counted; then one push of
+    a card worker held against the CPU's. Returns the launches."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.parallel.paramserver import (
+        ParameterServer, PSClient, PSWorker)
+
+    cfg = lm_config()
+    cfg["layers"] = (cfg["layers"][:1 + PS_LM_LAYERS]
+                     + cfg["layers"][-1:])
+
+    def lm(seed, device=None):
+        return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                                 device=device or CARD).init(seed=seed)
+
+    rng = np.random.default_rng(0)
+    data = []
+    for _ in range(PS_LM_WORKERS * PS_LM_STEPS):
+        ids = rng.integers(0, V, (PS_LM_B, T)).astype(np.float32)
+        y = np.eye(V, dtype=np.float32)[rng.integers(0, V, (PS_LM_B, T))]
+        data.append(DataSet(ids, y))
+    m0 = lm(0)
+    n_params = sum(p.numel() for p in m0.layer_params.parameters())
+    server = ParameterServer(m0.params, lr=PS_LM_LR, max_staleness=4).start()
+    ops = {"push": [], "pull": []}
+    stats = [None] * PS_LM_WORKERS
+    errors = []
+
+    def timed_op(fn, what):
+        def call(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            ops[what].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def work(i):
+        model = m0 if i == 0 else lm(i)
+        client = PSClient(server.address, op_timeout_s=60.0)
+        client.push = timed_op(client.push, "push")
+        client.pull = timed_op(client.pull, "pull")
+        try:
+            stats[i] = PSWorker(model, client, name=f"ps-lm-{i}").run(
+                data[i::PS_LM_WORKERS], epochs=1)
+        except BaseException as e:          # raised after the join
+            errors.append(e)
+        finally:
+            client.close()
+
+    for fn in (attn.flash_attention_fwd_cuda,
+               attn.flash_attention_bwd_dq_cuda,
+               attn.flash_attention_bwd_dkv_cuda):
+        fn.launches = 0
+    threads = [threading.Thread(target=work, args=(i,), name=f"ps-lm-{i}",
+                                daemon=True)
+               for i in range(PS_LM_WORKERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": attn.flash_attention_fwd_cuda.launches,
+                "flash_attention_bwd_dq":
+                    attn.flash_attention_bwd_dq_cuda.launches,
+                "flash_attention_bwd_dkv":
+                    attn.flash_attention_bwd_dkv_cuda.launches}
+    try:
+        assert not any(t.is_alive() for t in threads), "an LM worker hung"
+        if errors:
+            raise errors[0]
+        st = dict(server.stats)
+        params = server.params_tree()
+    finally:
+        server.stop()
+    steps = sum(s["steps"] for s in stats)
+    assert steps == PS_LM_WORKERS * PS_LM_STEPS, stats
+    assert st["pushes_applied"] + st["pushes_stale"] == steps, st
+    for name, n in launches.items():
+        assert n == PS_LM_LAYERS * steps, (name, n)
+    med = {k: sorted(v)[len(v) // 2] for k, v in ops.items()}
+    log(f"ps LM ({card}; V={V} D={D_MODEL} L={PS_LM_LAYERS} H={HEADS} "
+        f"T={T}, {n_params} parameters; {PS_LM_WORKERS} worker threads, "
+        f"s=4, B={PS_LM_B}): {steps} steps in {wall:.3f} s (host clock), "
+        f"{st['pushes_applied']} pushes applied, {st['pushes_stale']} "
+        f"stale; push {n_params / 2**20:.2f} MiB of int8 codes (the "
+        f"scales ride in the header), median {med['push']:.4f} s over "
+        f"{len(ops['push'])}; pull {4 * n_params / 2**20:.2f} MiB f32, "
+        f"median {med['pull']:.4f} s over {len(ops['pull'])}; last losses "
+        + ", ".join(f"{s['last_loss']:.6f}" for s in stats)
+        + "; launches " + ", ".join(f"{k} {n}" for k, n in launches.items()))
+
+    # one push, card vs CPU: the same params and batch (B=PS_CHECK_B)
+    ds = DataSet(data[0].features[:PS_CHECK_B], data[0].labels[:PS_CHECK_B])
+    decoded = {}
+    for device in (CARD, "cpu"):
+        model = lm(0, device)
+        model.set_params(params)
+        worker = PSWorker(model, client=None)
+        _, g_leaves = worker._gradients(ds)
+        residual = [torch.zeros_like(g) for g in g_leaves]
+        quantized, _ = worker.encode(g_leaves, residual)
+        decoded[device] = quantized
+        del model, worker, g_leaves, residual
+    # one quantum: a code may move by one at a rounding boundary; the
+    # two scales (absmax / 127) differ by what the absmaxes do, which
+    # moves a decoded value by up to 127 times their difference. The
+    # decoded values are compared in float64, where code x scale is exact
+    worst, worst_limit = 0.0, 0.0
+    for (qc, sc), (qh, sh) in zip(decoded[CARD], decoded["cpu"]):
+        err = float(np.abs(qc.astype(np.float64) * float(sc)
+                           - qh.astype(np.float64) * float(sh)).max())
+        quantum = max(float(sc), float(sh))
+        limit = quantum + 127 * abs(float(sc) - float(sh))
+        assert err <= limit, (err, float(sc), float(sh))
+        worst = max(worst, err / quantum)
+        worst_limit = max(worst_limit, limit / quantum)
+    log(f"one LM push at B={PS_CHECK_B}, card vs CPU (plain attention): "
+        f"{len(decoded['cpu'])} leaves, worst decoded |diff| "
+        f"{worst:.6f} quanta (limit: one quantum + 127 x the scales' "
+        f"difference, at most {worst_limit:.6f} quanta)")
+    return launches
+
+
+def ps_cli(card):
+    """``python -m deeplearning4j_tpu_torch train-ps`` as launcher on the
+    card: 3 worker processes over the leg's data as CSV, one dropped push
+    and one server restart from a chaos plan. Every process exits 0, the
+    restart shows in the server's stats, every push is accounted for,
+    and the saved model's loss is below the initial one."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+
+    data = ps_data()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="train-ps-") as tmp:
+        model_zip = os.path.join(tmp, "m.zip")
+        out_zip = os.path.join(tmp, "out.zip")
+        csv = os.path.join(tmp, "d.csv")
+        write_model(ps_net(0), model_zip)
+        with open(csv, "w") as f:
+            for x, c in data:
+                for row, label in zip(x, c):
+                    f.write(",".join(repr(float(v)) for v in row)
+                            + f",{int(label)}\n")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [repo] + [p for p in os.environ.get("PYTHONPATH", "").split(
+                os.pathsep) if p]))
+        cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch",
+               "train-ps", "--model", model_zip, "--data", csv,
+               "--label-index", str(PS_N_IN), "--classes", str(PS_N_OUT),
+               "--batch-size", str(PS_BATCH), "--epochs",
+               str(PS_CLI_EPOCHS), "--ps-workers", str(PS_WORKERS),
+               "--lr", str(PS_LR), "--max-staleness", "4",
+               "--save-every", "10", "--output", out_zip,
+               "--device", CARD, "--chaos", json.dumps(PS_CLI_CHAOS)]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        try:
+            out = proc.communicate(timeout=300)[0].decode()
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, out[-4000:]
+        steps = [int(m) for m in re.findall(
+            r"train-ps worker \d+: (\d+) steps", out)]
+        summary = re.search(
+            r"train-ps: v(\d+) \((\d+) pushes applied, (\d+) duplicate, "
+            r"(\d+) stale, (\d+) reaped, (\d+) restarts\)", out)
+        assert len(steps) == PS_WORKERS and summary, out[-4000:]
+        version, applied, dup, stale, reaped, restarts = map(
+            int, summary.groups())
+        drops = out.count("[chaos] dropping push")
+        assert restarts == 1 and drops == 1, out[-4000:]
+        # every step acknowledged: applied, a duplicate of an applied
+        # one, or refused stale; a push applied just before the restart
+        # dropped its connection is retried and refused against the
+        # rolled-back server, so it may count twice (at most one a
+        # worker)
+        total = applied + dup + stale
+        assert sum(steps) <= total <= sum(steps) + PS_WORKERS, \
+            (steps, applied, dup, stale)
+        batches = [DataSet(x, np.eye(PS_N_OUT, dtype=np.float32)[c])
+                   for x, c in data]
+        final, fresh = (restore_model(p, device=CARD)
+                        for p in (out_zip, model_zip))
+        loss_final = ps_eval(final, [final._batch_tuple(b) for b in batches])
+        loss_fresh = ps_eval(fresh, [fresh._batch_tuple(b) for b in batches])
+    assert loss_final < loss_fresh, (loss_final, loss_fresh)
+    log(f"train-ps launcher ({card}): 3 worker processes, {sum(steps)} "
+        f"steps in {wall:.3f} s of command (host clock, process starts "
+        f"included); server v{version}, {applied} pushes applied, {dup} "
+        f"duplicate, {stale} stale, {reaped} reaped, {restarts} restart, "
+        f"{drops} push dropped; loss {loss_fresh:.6f} -> {loss_final:.6f}")
+
+
+def ps_phase(attn, card):
+    """The asynchronous parameter server (ROADMAP A8b): bench.py's
+    ``ps_async_training`` leg at its own size, PS workers training the
+    full-width LM through the attention kernels, and the ``train-ps``
+    launcher's process topology under chaos. Returns the LM workers'
+    kernel launches."""
+    ps_leg(card)
+    launches = ps_lm(attn, card)
+    ps_cli(card)
+    return launches
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -6620,17 +7027,20 @@ def main():
     timed("retrieval_phase", retrieval_phase, card)
     fwd_ctl, dec_ctl = timed("fleet_control_phase", fleet_control_phase,
                              attn, da, card)
+    ps = timed("ps_phase", ps_phase, attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
-                               "fleet_control": fwd_ctl}
+                               "fleet_control": fwd_ctl,
+                               "ps": ps["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
                                "fleet_control": dec_ctl}
     for record, name in ((dq, "flash_attention_bwd_dq"),
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],
-                                      "capture": captured[name]}
+                                      "capture": captured[name],
+                                      "ps": ps[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]

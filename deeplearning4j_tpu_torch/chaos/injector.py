@@ -22,9 +22,11 @@ code it has: ``checkpoint.write`` / ``checkpoint.read``
 ``serving.worker.step`` (``serving/scheduler.py``,
 ``serving/continuous.py``), ``serving.kv.migrate``
 (``serving/continuous.py``), ``serving.replica`` (``serving/router.py``),
-``serving.replica.boot`` (``serving/fleet.py``) and ``serving.rollout``
-(``serving/rollout.py``). The others wait for their modules (ROADMAP
-A6, A8); a plan naming them installs and never fires.
+``serving.replica.boot`` (``serving/fleet.py``), ``serving.rollout``
+(``serving/rollout.py``) and ``ps.push.drop`` / ``ps.pull.timeout`` /
+``ps.server.restart`` (``parallel/paramserver.py``). The others wait
+for their modules (ROADMAP A6, A8); a plan naming them installs and
+never fires.
 
 ==================== ====================================================
 ``checkpoint.write`` ``util/model_serializer.write_model`` — after the

@@ -7,7 +7,9 @@ and ``/v1/index/*`` with ``--index``),
 with disaggregated prefill/decode roles, the autoscaler, the fleet
 collector and the canary rollout; every JAX flag but ``--mesh``),
 ``fleet-status``, ``fleet-rollout``, ``index build``, ``summary`` (a
-checkpoint zip or Keras ``.h5`` through the model guesser) and the
+checkpoint zip or Keras ``.h5`` through the model guesser),
+``train-ps`` (asynchronous parameter-server training: a launcher with
+worker subprocesses, or one server or worker a process) and the
 top-level ``--trace PATH`` and ``--flight-record DIR``.
 
     python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
@@ -22,12 +24,15 @@ top-level ``--trace PATH`` and ``--flight-record DIR``.
     python -m deeplearning4j_tpu_torch index build --corpus random: \
         --index-kind ivf --nlist 64 --out corpus.npz
     python -m deeplearning4j_tpu_torch summary --model model.h5
+    python -m deeplearning4j_tpu_torch train-ps --model m.zip \
+        --data d.csv --label-index 4 --classes 3 --ps-workers 3
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 __all__ = ["main"]
@@ -674,6 +679,154 @@ def _cmd_summary(args):
         print(model.summary())
 
 
+def _ps_batches(args):
+    from deeplearning4j_tpu_torch.data.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    rr = CSVRecordReader().initialize(args.data)
+    it = RecordReaderDataSetIterator(
+        rr, args.batch_size, label_index=args.label_index,
+        num_classes=args.classes, regression=args.classes == 0)
+    return list(it)
+
+
+def _cmd_train_ps(args):
+    """Async parameter-server training (the reference's Aeron
+    ``VoidParameterServer`` sharing, TF-style PS architecture). The
+    launcher role runs the server in-process and spawns worker
+    subprocesses (each on ``--device``); the server/worker roles exist
+    so soaks (and real deployments) can place each piece in its own
+    killable process. The server holds its params on the host; the
+    workers' gradients and codec run on ``--device``."""
+    if args.chaos:
+        from deeplearning4j_tpu_torch import chaos
+        inj = chaos.install(args.chaos, seed=args.chaos_seed)
+        print(f"chaos: fault plan installed ({len(inj.plan.faults)} "
+              f"spec(s), seed {inj.seed}; replay with --chaos-seed "
+              f"{inj.seed})", flush=True)
+    from deeplearning4j_tpu_torch.parallel.paramserver import (
+        ParameterServer, PSClient, PSWorker)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    max_staleness = None if args.max_staleness < 0 else args.max_staleness
+
+    if args.role == "worker":
+        if not args.connect:
+            sys.exit("train-ps: --role worker needs --connect HOST:PORT")
+        host, _, port = args.connect.rpartition(":")
+        model = restore_model(args.model, device=args.device)
+        batches = _ps_batches(args)
+        shard = batches[args.worker_index::max(1, args.num_workers)]
+        client = PSClient((host, int(port)), op_timeout_s=args.op_timeout)
+        try:
+            worker = PSWorker(model, client, threshold=args.push_threshold,
+                              name=f"ps-worker-{args.worker_index}")
+            stats = worker.run(shard, epochs=args.epochs)
+        finally:
+            client.close()
+        print(f"train-ps worker {args.worker_index}: "
+              f"{stats['steps']} steps, "
+              f"{stats['pushes_applied']} pushes applied, "
+              f"{stats['stale_rejects']} stale rejects, "
+              f"last loss {stats['last_loss']:.4f}")
+        return
+
+    model = restore_model(args.model, device=args.device)
+    ckpt_dir = args.ckpt_dir or ((args.output or args.model) + ".ps-ckpts")
+    server = ParameterServer(
+        model.params, lr=args.lr, max_staleness=max_staleness,
+        host=args.host, port=args.ps_port, checkpoint_dir=ckpt_dir,
+        save_every=args.save_every,
+        heartbeat_timeout_s=args.heartbeat_timeout).start()
+    print(f"train-ps: parameter server on {server.host}:{server.port} "
+          f"(version {server.version}, max_staleness={max_staleness}, "
+          f"ckpts in {ckpt_dir})", flush=True)
+
+    if args.role == "server":
+        # standalone (killable) server: serve until interrupted, then
+        # drain; a restart against the same --ckpt-dir resumes from the
+        # newest durable generation
+        try:
+            while True:
+                time.sleep(0.5)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.stop()
+            model.set_params(server.params_tree())
+            if args.output:
+                write_model(model, args.output)
+                print(f"train-ps: saved v{server.version} to "
+                      f"{args.output}")
+        return
+
+    # launcher: one worker subprocess per --ps-workers. With --net-chaos
+    # the workers dial a seeded TCP fault proxy fronting the DPS1 wire
+    # instead of the server directly
+    import subprocess
+    net_proxy = None
+    connect_to = f"{server.host}:{server.port}"
+    if args.net_chaos:
+        from deeplearning4j_tpu_torch.chaos.netproxy import NetChaosProxy
+        try:
+            net_proxy = NetChaosProxy(
+                (server.host, server.port), plan=args.net_chaos,
+                seed=args.net_chaos_seed, site="net.ps",
+                name="ps").start()
+        except (ValueError, TypeError, OSError) as e:
+            server.stop()
+            raise SystemExit(f"bad --net-chaos plan: {e}")
+        connect_to = f"{net_proxy.listen_host}:{net_proxy.port}"
+        print(f"net-chaos: PS wire proxied on {connect_to} (seed "
+              f"{net_proxy.seed}; replay with --net-chaos-seed "
+              f"{net_proxy.seed})", flush=True)
+    procs = []
+    failures = 0
+    try:
+        for i in range(args.ps_workers):
+            cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch",
+                   "train-ps", "--role", "worker",
+                   "--connect", connect_to,
+                   "--model", args.model, "--data", args.data,
+                   "--label-index", str(args.label_index),
+                   "--classes", str(args.classes),
+                   "--batch-size", str(args.batch_size),
+                   "--epochs", str(args.epochs),
+                   "--worker-index", str(i),
+                   "--num-workers", str(args.ps_workers),
+                   "--push-threshold", str(args.push_threshold),
+                   "--op-timeout", str(args.op_timeout),
+                   "--device", args.device]
+            procs.append(subprocess.Popen(cmd))
+        for i, pr in enumerate(procs):
+            if pr.wait() != 0:
+                failures += 1
+                print(f"train-ps: worker {i} exited {pr.returncode}",
+                      file=sys.stderr)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.terminate()
+                try:
+                    pr.wait(10)
+                except subprocess.TimeoutExpired:
+                    pr.kill()
+        if net_proxy is not None:
+            net_proxy.stop()
+        server.stop()
+    model.set_params(server.params_tree())
+    out = args.output or args.model
+    write_model(model, out)
+    st = server.stats
+    print(f"train-ps: v{server.version} "
+          f"({st['pushes_applied']} pushes applied, "
+          f"{st['pushes_duplicate']} duplicate, "
+          f"{st['pushes_stale']} stale, "
+          f"{st['workers_reaped']} reaped, "
+          f"{st['restarts']} restarts); saved to {out}")
+    if failures:
+        sys.exit(f"train-ps: {failures} worker(s) failed")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="deeplearning4j_tpu_torch")
     p.add_argument("--trace", metavar="PATH", default=None,
@@ -965,6 +1118,72 @@ def main(argv=None):
                    help="torch device to load the model on (default cuda; "
                         "cpu for a machine without a card)")
     s.set_defaults(fn=_cmd_summary)
+    ps = sub.add_parser(
+        "train-ps",
+        help="asynchronous parameter-server training: compressed-"
+             "delta push/pull with bounded staleness")
+    ps.add_argument("--model", required=True)
+    ps.add_argument("--data", required=True)
+    ps.add_argument("--label-index", type=int, required=True)
+    ps.add_argument("--classes", type=int, default=0,
+                    help="0 = regression")
+    ps.add_argument("--batch-size", type=int, default=64)
+    ps.add_argument("--epochs", type=int, default=1)
+    ps.add_argument("--role", choices=("launcher", "server", "worker"),
+                    default="launcher",
+                    help="launcher runs the server here and spawns "
+                         "worker subprocesses; server/worker run one "
+                         "piece each (for soaks that SIGKILL them)")
+    ps.add_argument("--ps-workers", type=int, default=2,
+                    help="worker subprocesses the launcher spawns")
+    ps.add_argument("--connect", metavar="HOST:PORT", default=None,
+                    help="(worker role) the server to join")
+    ps.add_argument("--worker-index", type=int, default=0,
+                    help="(worker role) this worker's shard index")
+    ps.add_argument("--num-workers", type=int, default=1,
+                    help="(worker role) total shard count")
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--ps-port", type=int, default=0,
+                    help="server listen port (0 = ephemeral)")
+    ps.add_argument("--lr", type=float, default=0.05,
+                    help="server-side SGD rate applied to pushed deltas")
+    ps.add_argument("--max-staleness", type=int, default=-1, metavar="N",
+                    help="refuse pushes based on params more than N "
+                         "versions behind (-1 = unbounded async, 0 = "
+                         "every push must be current)")
+    ps.add_argument("--push-threshold", type=float, default=0.0,
+                    help="EF sparsification threshold (entries with "
+                         "|g+residual| below it wait in the residual; "
+                         "the reference's ThresholdAlgorithm knob)")
+    ps.add_argument("--ckpt-dir", default=None,
+                    help="durable-generation directory (default "
+                         "OUTPUT.ps-ckpts); a restarted server resumes "
+                         "from the newest intact one")
+    ps.add_argument("--save-every", type=int, default=50, metavar="N",
+                    help="checkpoint every N applied pushes (async, off "
+                         "the serving path)")
+    ps.add_argument("--heartbeat-timeout", type=float, default=3.0,
+                    metavar="S",
+                    help="retire a worker silent for S seconds")
+    ps.add_argument("--op-timeout", type=float, default=2.0, metavar="S",
+                    help="per-op client deadline before reconnect+retry")
+    ps.add_argument("--output", default=None)
+    ps.add_argument("--chaos", metavar="PLAN", default=None,
+                    help="deterministic fault plan (sites ps.push.drop / "
+                         "ps.pull.timeout / ps.server.restart)")
+    ps.add_argument("--chaos-seed", type=int, default=None, metavar="N")
+    ps.add_argument("--net-chaos", metavar="PLAN", default=None,
+                    help="deterministic NETWORK plan on the DPS1 wire "
+                         "(launcher role): workers dial a seeded TCP "
+                         "fault proxy (site net.ps) instead of the "
+                         "server directly")
+    ps.add_argument("--net-chaos-seed", type=int, default=None,
+                    metavar="N")
+    ps.add_argument("--device", default="cuda",
+                    help="torch device of the model and the workers' "
+                         "gradients and codec (default cuda; cpu for a "
+                         "machine without a card)")
+    ps.set_defaults(fn=_cmd_train_ps)
     args = p.parse_args(argv)
     recorder = None
     if args.flight_record:
