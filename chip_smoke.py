@@ -128,7 +128,24 @@ against a synchronous SGD baseline, time to target at max_staleness 0 /
 at full width and depth 2 through the attention kernels (counted under
 ``ps``; one push held against the CPU's within one quantum), and the
 ``train-ps`` launcher with 3 worker processes surviving one dropped push
-and one server restart. Every phase's wall time is logged. It imports nothing of JAX or of the
+and one server restart. After it (``dp_phase``) data parallelism over
+``torch.distributed``, its ranks subprocesses of this script
+(``chip_smoke.py dp-rank DIR PART...`` with the multihost variables): one
+rank on nccl, then two ranks sharing the card on gloo; bench.py's
+``multichip_dp_scaling`` leg uncut (dp 1 / 2 x k 1 / 8, every program
+warmed, zero captures in the timed steady state; its first window
+after the warmup at dp=2 against dp=1), the LM at full width and depth 2
+through the attention kernels (3 Adam steps through ``fit`` on a global
+batch of 8: Adam's moments after every step and the parameters at dp=2
+against dp=1 within GRAD_RTOL (``dp_hold``), the replicas bit-equal,
+the step and reduce times, the kernels' launches under ``dp``), a
+ResNet50 step at dp=2 against
+dp=1 (the batch-norm state from global statistics), the int8
+compressed reduce against the full-precision one, and a device-loss
+drill shrinking dp=2 to dp=1. The fleet phases' replicas serve the LM
+at full width and depth FLEET_LAYERS, and slice_phase's predicts send
+SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
+wall time is logged. It imports nothing of JAX or of the
 JAX package. Any
 failure exits non-zero before the last line, which on success is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -151,6 +168,11 @@ import urllib.request
 
 V, D_MODEL, LAYERS, HEADS, T = 2048, 1024, 8, 16, 1024
 CLIENTS = 8              # concurrent one-row requests: one batch of B=8
+# ids a /v1/predict request of slice_phase: a reply is V floats an id as
+# JSON (at T ids, 8 replies took 36.7 s of a burst whose forward takes
+# 40.81 ms); the forward at the full T is timed, profiled and held
+# against the plain attention on model.output
+SLICE_PREDICT_T = 128
 TRAIN_B, TRAIN_STEPS = 8, 5   # the transformer_lm bench leg's batch
 # Adam's rate. At the bench leg's 1e-3 the loss rises over five steps
 # on one repeated batch at this width, in the JAX package as in the
@@ -158,6 +180,10 @@ TRAIN_B, TRAIN_STEPS = 8, 5   # the transformer_lm bench leg's batch
 # test_bench_leg_rate_diverges_at_full_width_in_both_packages, marked
 # slow); at 1e-4 it falls.
 TRAIN_LR = 1e-4
+# depth of train_phase's checkpoint round trip (full width): at LAYERS
+# the zip with the updater state (1.26 GB deflated) took 65.79 s to write
+# and 12.76 s to restore of the phase's 83.6 s; its 5 steps took 1.03 s
+CKPT_RT_LAYERS = 2
 # kernel vs plain version, both float32 on the card (TF32 off): the
 # sums run in another order, so allow a few ulps of accumulated error
 ATOL, RTOL = 2e-5, 2e-4
@@ -411,8 +437,10 @@ def backward_kernel_phase(attn):
     return records
 
 
-def lm_config(updater=None):
-    """The transformer_lm bench leg's model as config JSON."""
+def lm_config(updater=None, layers=None):
+    """The transformer_lm bench leg's model as config JSON (``layers``
+    transformer blocks, default LAYERS: depth is what a phase may
+    cut)."""
     return {
         "format_version": 1,
         "network_type": "MultiLayerNetwork",
@@ -421,7 +449,8 @@ def lm_config(updater=None):
         "layers": ([{"@type": "EmbeddingSequenceLayer", "n_in": V,
                      "n_out": D_MODEL}]
                    + [{"@type": "TransformerEncoderLayer",
-                       "n_heads": HEADS, "causal": True}] * LAYERS
+                       "n_heads": HEADS, "causal": True}]
+                     * (LAYERS if layers is None else layers)
                    + [{"@type": "RnnOutputLayer", "n_out": V,
                        "loss": "mcxent"}]),
         "preprocessors": {},
@@ -526,7 +555,8 @@ def slice_phase(attn, card):
                 barrier.wait(timeout=60)
                 t = time.perf_counter()
                 replies[i] = http(server.port, "/v1/predict", {
-                    "model": "lm", "inputs": ids[i:i + 1].tolist()})[1]
+                    "model": "lm",
+                    "inputs": ids[i:i + 1, :SLICE_PREDICT_T].tolist()})[1]
                 lat[i] = time.perf_counter() - t
             except Exception as e:       # reported and failed below
                 errors.append(repr(e))
@@ -545,7 +575,8 @@ def slice_phase(attn, card):
         assert not any(th.is_alive() for th in threads), "client hung"
         calls = sched.device_calls
         log(f"served {CLIENTS} concurrent /v1/predict requests (1 row x "
-            f"{T} ids each) in {calls} batch(es), {sched.rows_served} "
+            f"{SLICE_PREDICT_T} ids each) in {calls} batch(es), "
+            f"{sched.rows_served} "
             f"rows; flash_attention_fwd launches {launches}")
         assert launches == LAYERS * calls, \
             f"{launches} kernel launches for {calls} batches"
@@ -554,13 +585,14 @@ def slice_phase(attn, card):
 
     out = np.concatenate([np.asarray(r["outputs"], np.float32)
                           for r in replies])
-    assert out.shape == (CLIENTS, T, V), out.shape
+    assert out.shape == (CLIENTS, SLICE_PREDICT_T, V), out.shape
     assert np.isfinite(out).all(), "non-finite outputs"
     np.testing.assert_allclose(out.sum(-1), 1.0, atol=1e-4)
+    np.testing.assert_allclose(
+        out, served.output(ids[:, :SLICE_PREDICT_T]).cpu().numpy(),
+        atol=1e-6, rtol=1e-4)
     direct = served.output(ids)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(out, direct.cpu().numpy(), atol=1e-6,
-                               rtol=1e-4)
     device_ms = time_ms(lambda: served.output(ids), iters=3, warmup=1)
     profile_forward(served, ids)
 
@@ -583,8 +615,8 @@ def slice_phase(attn, card):
     log(f"request latency s (host clock, {card}): "
         f"min {min(lat):.3f} median {sorted(lat)[CLIENTS // 2]:.3f} "
         f"max {max(lat):.3f}; burst wall {wall:.3f} s = "
-        f"{CLIENTS * T / wall:.1f} tokens/s end to end; model.output "
-        f"for the same {CLIENTS} rows {device_ms:.2f} ms = "
+        f"{CLIENTS * SLICE_PREDICT_T / wall:.1f} tokens/s end to end; "
+        f"model.output of {CLIENTS} rows x {T} ids {device_ms:.2f} ms = "
         f"{CLIENTS * T / device_ms * 1e3:.1f} tokens/s on the device "
         f"path (JSON of {V} probabilities per token is the rest)")
     return launches
@@ -631,6 +663,22 @@ def profile_train_step(net, ds):
           f"{100 * max(0.0, 1 - busy_ms / wall_ms):.1f}%")
 
 
+class Parts:
+    """Wall seconds of a phase's parts, each ending at a device sync:
+    where a phase's time goes beyond what it measures."""
+
+    def __init__(self):
+        self.seconds = {}
+        self.t0 = time.perf_counter()
+
+    def __call__(self, name):
+        import torch
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t0, 2)
+        self.t0 = now
+
+
 class plain_attention:
     """Within the block, the LM's attention runs on the plain forward
     and backward (the kernels' reference), on the card."""
@@ -659,8 +707,8 @@ def train_phase(attn, card):
     """Train the full-width LM with Adam (TRAIN_LR) through ``fit``: one
     step held against the same step on the plain attention, TRAIN_STEPS
     steps with the loss falling and every kernel launched once per layer
-    and step,
-    a checkpoint round trip with the updater state, and one more step
+    and step; then, on the LM at depth CKPT_RT_LAYERS after one step, a
+    checkpoint round trip with the updater state, and one more step
     from the restored model equal to one from the original. Returns the
     main path's launch counts."""
     import numpy as np
@@ -674,6 +722,7 @@ def train_phase(attn, card):
     from deeplearning4j_tpu_torch.util.model_serializer import (
         _flatten, restore_model, write_model)
 
+    part = Parts()
     conf = MultiLayerConfiguration.from_dict(
         lm_config(updaters.adam(TRAIN_LR)))
     net = MultiLayerNetwork(conf, device="cuda").init(seed=0)
@@ -682,6 +731,7 @@ def train_phase(attn, card):
     y = np.eye(V, dtype="float32")[rng.integers(0, V, (TRAIN_B, T))]
     ds = DataSet(ids, y)
 
+    part("init and data")
     # one step's loss and gradients: kernels vs the plain attention
     batch = net._batch_tuple(ds)
     loss_k, grads_k, _ = net._gradients(batch)
@@ -703,6 +753,7 @@ def train_phase(attn, card):
         f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
         f"max|diff| / max|grad| {worst:.3e} (limit {GRAD_RTOL})")
     del grads_k, grads_p, flat_k, flat_p
+    part("gradients vs plain")
 
     # the main path: TRAIN_STEPS steps through fit, counted and timed
     losses, step_ms = [], []
@@ -732,6 +783,7 @@ def train_phase(attn, card):
     assert losses[-1] < losses[0], f"loss did not fall: {losses}"
     for name, n in launches.items():
         assert n == LAYERS * TRAIN_STEPS, (name, n)
+    part(f"{TRAIN_STEPS} fit steps")
     warm = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
     log(f"training step time (CUDA events, {card}): steps "
         + ", ".join(f"{x:.2f}" for x in step_ms) + f" ms; warm median "
@@ -739,23 +791,34 @@ def train_phase(attn, card):
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         "GiB")
     profile_train_step(net, ds)
+    part("profiled step")
 
     # checkpoint with the updater state; one more step from each
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(lm_config(
+        updaters.adam(TRAIN_LR), layers=CKPT_RT_LAYERS)),
+        device="cuda").init(seed=0)
+    net.fit(ds)
+    part(f"a step of the LM at depth {CKPT_RT_LAYERS}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "lm.zip")
         write_model(net, path)
+        part("write_model")
         resumed = restore_model(path, device="cuda")
+        part("restore_model")
     assert resumed.iteration_count == net.iteration_count
     net.fit(ds)
     resumed.fit(ds)
     torch.cuda.synchronize()
+    part("a step each (the resumed model's captured anew)")
     diff = max((a - b).abs().max().item() for a, b in
                zip(updaters.tree_leaves(net.params),
                    updaters.tree_leaves(resumed.params)))
     assert diff <= 1e-6, f"resumed step differs by {diff}"
     assert abs(float(net.score_value) - float(resumed.score_value)) <= 1e-6
-    log(f"write_model -> restore_model with updater_state.npz, one more "
-        f"step each: max |param diff| {diff:.3e} (limit 1e-6)")
+    log(f"write_model -> restore_model with updater_state.npz (the LM at "
+        f"depth {CKPT_RT_LAYERS}), one more step each: max |param diff| "
+        f"{diff:.3e} (limit 1e-6)")
+    log(f"train_phase parts, wall s ({card}): {json.dumps(part.seconds)}")
     return launches
 
 
@@ -1675,6 +1738,10 @@ def serving_surface_phase(attn, da, card, net, server):
 
 
 FLEET_ROLES = ["prefill", "decode", "decode"]
+# the fleet's replicas (and fleet_control_phase's) serve the LM at full
+# width and this depth: the phases exercise the router, the leases and
+# the control loops, host-bound, and took 126-207 s each at depth LAYERS
+FLEET_LAYERS = 2
 FLEET_PAGES = 512                 # KV pool pages per replica
 # The drain drill's streams: 4 greedy 256-token streams on fresh prompts.
 # A stream migrates only if it is still live once the successor has
@@ -1824,7 +1891,7 @@ def free_ports(n):
     raise RuntimeError(f"no {n} consecutive free ports")
 
 
-def fleet_phase(attn, da, card, net, bodies):
+def fleet_phase(attn, da, card, bodies):
     """Disaggregated prefill/decode and drain migration across a fleet
     of port servers on the card. A ReplicaFleet of 3 in-process
     replicas (roles prefill=1, decode=2; each slots=8, capacity=1024,
@@ -1845,11 +1912,16 @@ def fleet_phase(attn, da, card, net, bodies):
     leaves the pool), ``fleet.kill()`` of a decode replica under
     predicts (none fails, the router drops it); and one subprocess
     replica of the port: a predict through a router, its imports, then
-    SIGKILL. Returns the launches of the forward and decode kernels in
-    the predicts and the burst."""
+    SIGKILL. The replicas serve the LM at full width and depth
+    FLEET_LAYERS. Returns the launches of the forward and decode kernels
+    in the predicts and the burst."""
     import shutil
     from collections import Counter
     import numpy as np
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.serving.fleet import ReplicaFleet
     from deeplearning4j_tpu_torch.serving.http import ModelServer
     from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
@@ -1857,6 +1929,9 @@ def fleet_phase(attn, da, card, net, bodies):
     from deeplearning4j_tpu_torch.util.model_serializer import (
         restore_model, write_model)
 
+    part = Parts()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+        lm_config(layers=FLEET_LAYERS)), device="cuda").init(seed=0)
     tmp = tempfile.mkdtemp(prefix="fleet-")
     path = os.path.join(tmp, "lm.zip")
     write_model(net, path)
@@ -1906,6 +1981,7 @@ def fleet_phase(attn, da, card, net, bodies):
     del registry, single
     single_tps = GEN_REQUESTS * GEN_TOKENS / single_wall
 
+    part("the model, its zip and one server's burst")
     t0 = time.perf_counter()
     fleet = ReplicaFleet(factory, n=len(FLEET_ROLES), roles=FLEET_ROLES,
                          server_kwargs=kw).start()
@@ -1947,7 +2023,7 @@ def fleet_phase(attn, da, card, net, bodies):
             f"replica(s), flash_attention_fwd launches {fwd_launches}; "
             f"outputs vs the same model on the plain attention: max "
             f"|diff| {worst:.3e} (atol 1e-6, rtol 1e-4)")
-        assert batches > 0 and fwd_launches == LAYERS * batches, \
+        assert batches > 0 and fwd_launches == FLEET_LAYERS * batches, \
             (fwd_launches, batches)
 
         # the disaggregated burst
@@ -1983,7 +2059,7 @@ def fleet_phase(attn, da, card, net, bodies):
         assert (handoffs, fallbacks) == (GEN_REQUESTS, 0)
         assert exports == {"prefill": GEN_REQUESTS, "decode": 0}, exports
         assert imports == {"prefill": 0, "decode": GEN_REQUESTS}, imports
-        assert dec_launches == LAYERS * sum(steps.values()), \
+        assert dec_launches == FLEET_LAYERS * sum(steps.values()), \
             (dec_launches, steps)
         compared = 0
         for body, (_, reply, _), (_, alone, _) in zip(
@@ -2180,6 +2256,7 @@ def fleet_phase(attn, da, card, net, bodies):
         router.stop()
         fleet.stop(drain=False, timeout=30.0)
 
+    part("the in-process fleet's drills")
     # one subprocess replica of the port on the card: a predict through a
     # router, what the child imported, then SIGKILL
     os.environ["PYTHONPATH"] = os.pathsep.join(
@@ -2219,6 +2296,8 @@ def fleet_phase(attn, da, card, net, bodies):
         srouter.stop()
         sub.stop(drain=False)
         shutil.rmtree(tmp, ignore_errors=True)
+    part("the subprocess replica")
+    log(f"fleet_phase parts, wall s ({card}): {json.dumps(part.seconds)}")
     return fwd_launches, dec_launches
 
 
@@ -5947,7 +6026,9 @@ def retrieval_phase(card):
 # id as JSON, which at 8 ids held the drills' host to ~16 requests/s on
 # an H100 machine, so one id
 CTL_PREDICT_T = 1
-OBS_RUNS, OBS_REQUESTS, OBS_CONC = 4, 160, 8   # paired off/on runs
+# paired off/on runs (4 until the smoke's time limit; the cost is
+# printed, not asserted)
+OBS_RUNS, OBS_REQUESTS, OBS_CONC = 2, 160, 8
 OBS_BAR = 0.02             # bench.py's OBS_OVERHEAD_BAR
 ROLL_REPLICAS = 4
 # bench.py's autoscaler_soak, its 14 s load cut to AS_DURATION
@@ -6467,9 +6548,9 @@ def autoscaler_card_drill(net, da, card):
 
 def fleet_control_phase(attn, da, card):
     """The control loops: the collector's cost, the canary rollout on
-    the full-width LM, the autoscaler's drill and the autoscaler growing
-    and retiring an LM replica on the card. Returns the forward and
-    decode kernels' launches on this path."""
+    the full-width LM (depth FLEET_LAYERS), the autoscaler's drill and
+    the autoscaler growing and retiring an LM replica on the card.
+    Returns the forward and decode kernels' launches on this path."""
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
@@ -6477,7 +6558,7 @@ def fleet_control_phase(attn, da, card):
     from deeplearning4j_tpu_torch.util.model_serializer import (
         restore_model, write_model)
 
-    conf = lm_config()
+    conf = lm_config(layers=FLEET_LAYERS)
     net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(conf),
                             device=CARD).init(seed=0)
     tmp = tempfile.mkdtemp(prefix="candidate-")
@@ -6488,11 +6569,17 @@ def fleet_control_phase(attn, da, card):
     os.rmdir(tmp)
     attn.flash_attention_fwd_cuda.launches = 0        # this path only
     da.decode_attention_cuda.launches = 0
-    collector_drill(net, card)
-    rollout_drill(net, candidate, card)
+    drills = {}
+    for name, drill, args in (
+            ("collector", collector_drill, (net, card)),
+            ("rollout", rollout_drill, (net, candidate, card)),
+            ("autoscaler", autoscaler_drill, (card,)),
+            ("autoscaler_card", autoscaler_card_drill, (net, da, card))):
+        t0 = time.perf_counter()
+        drill(*args)
+        drills[name] = round(time.perf_counter() - t0, 1)
     del candidate
-    autoscaler_drill(card)
-    autoscaler_card_drill(net, da, card)
+    log(f"fleet_control drills, wall s: {json.dumps(drills)}")
     fwd, dec = (attn.flash_attention_fwd_cuda.launches,
                 da.decode_attention_cuda.launches)
     log(f"fleet_control launches: flash_attention_fwd {fwd}, "
@@ -6901,6 +6988,577 @@ def ps_phase(attn, card):
     return launches
 
 
+# ---- data parallelism (dp_phase): ranks as subprocesses of this script
+
+DP_LEG_TOTAL = 192        # timed steps a configuration (bench.py:3062)
+DP_LEG_KS = (1, 8)
+DP_LEG_ROWS = 64          # the leg's global batch (bench.py:3056-3058)
+DP_LM_LAYERS = 2          # the LM's depth here, as in ps_phase
+DP_LM_B, DP_LM_STEPS = 8, 3
+DP_RESNET_ROLLS = (4, 2)  # reordered dp=1 reruns: the step's own noise
+DP_COMP_ROWS = 4          # rows a rank of the compressed check
+DP_LOSS_BATCHES = 4       # the device-loss drill's batches, loss at the 2nd
+DP_TIMEOUT_S = 420
+
+
+def dp_leg_net(seed=1):
+    """bench.py:3045's leg model: 32 -> 64 relu -> 64 relu -> 10, Adam
+    1e-3."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = {"format_version": 1, "network_type": "MultiLayerNetwork",
+           "global": {"seed": seed, "updater": updaters.adam(1e-3)},
+           "input_type": {"kind": "ff", "size": 32},
+           "layers": [{"@type": "DenseLayer", "n_out": 64,
+                       "activation": "relu"},
+                      {"@type": "DenseLayer", "n_out": 64,
+                       "activation": "relu"},
+                      {"@type": "OutputLayer", "n_out": 10}],
+           "preprocessors": {}}
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                             device=CARD).init()
+
+
+def dp_rows(n, seed=0, n_in=32, n_out=10):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, n_in)).astype(np.float32)
+    y = np.eye(n_out, dtype=np.float32)[rng.integers(0, n_out, n)]
+    return x, y
+
+
+def dp_shard(*arrays):
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        local_batch_slice)
+    sl = local_batch_slice(arrays[0].shape[0])
+    return [a[sl] for a in arrays]
+
+
+def dp_snapshot(net, what):
+    """What a model's fit steps produced, flat by name: its parameters
+    (``what="params"``) or Adam's moments (``"moments"``: ``mu/...``,
+    ``nu/...``)."""
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    if what == "params":
+        return _flatten(net.params)
+    out = {}
+    for k, v in _flatten(net.opt_state).items():
+        parts = k.split("/")
+        for moment in (".mu", ".nu"):
+            if moment in parts:
+                i = parts.index(moment)
+                out[moment[1:] + "/" + "/".join(parts[i + 1:])] = v
+    return out
+
+
+def dp_part_leg(world, out):
+    """The multichip_dp_scaling leg on this rank: dp x k steps/s, every
+    program warmed, zero captures in the timed steady state. The first
+    window after the warmup (k steps from the seed's init on the same
+    64 global rows at every dp) is kept for the dp=2 vs dp=1 check."""
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.observability.compile_watch import (
+        install_global_watch)
+    from deeplearning4j_tpu_torch.parallel.multihost import process_index
+    stats = install_global_watch()
+    ds = DataSet(*dp_shard(*dp_rows(DP_LEG_ROWS)))
+    res = {}
+    for k in DP_LEG_KS:
+        m = dp_leg_net(seed=1)
+        m.use_mesh(f"dp={world}")
+        m.warmup(ds, steps_per_device_call=k)
+        batches = [ds] * k
+        m.fit_batches(batches, steps_per_device_call=k)
+        if process_index() == 0:
+            tag = os.path.join(out, f"leg_dp{world}_k{k}")
+            _save_leaves(tag + "_m1", dp_snapshot(m, "moments"))
+            _save_leaves(tag + "_p", dp_snapshot(m, "params"))
+        for _ in range(max(2, 16 // k) - 1):
+            m.fit_batches(batches, steps_per_device_call=k)
+        ctx = m._mesh_ctx
+        ctx.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with stats.zero_compile_scope(f"dp={world} k={k} steady state"):
+            for _ in range(DP_LEG_TOTAL // k):
+                m.fit_batches(batches, steps_per_device_call=k)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        res[f"dp{world}_k{k}_steps_per_sec"] = DP_LEG_TOTAL / dt
+        res["reduce"] = ctx.reduce_route(m)
+    return res
+
+
+def dp_lm_net():
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = lm_config(updaters.adam(TRAIN_LR))
+    cfg["layers"] = cfg["layers"][:1 + DP_LM_LAYERS] + cfg["layers"][-1:]
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                             device=CARD).init(seed=0)
+
+
+def _save_leaves(path, leaves):
+    """A flat dict of arrays as one float32 .npy and its keys."""
+    import numpy as np
+    keys = sorted(leaves)
+    np.save(path + ".npy", np.concatenate(
+        [np.asarray(leaves[k], np.float32).reshape(-1) for k in keys]))
+    with open(path + ".json", "w") as f:
+        json.dump([[k, list(np.shape(leaves[k]))] for k in keys], f)
+
+
+def _load_leaves(path):
+    import numpy as np
+    flat = np.load(path + ".npy")
+    with open(path + ".json") as f:
+        keys = json.load(f)
+    out, off = {}, 0
+    for k, shape in keys:
+        n = int(np.prod(shape)) if shape else 1
+        out[k] = flat[off:off + n].reshape(shape)
+        off += n
+    return out
+
+
+def dp_part_lm(world, out):
+    """The LM at full width, depth DP_LM_LAYERS: DP_LM_STEPS Adam steps
+    through ``fit`` on a global batch of DP_LM_B, this rank's rows; what
+    they produced (parameters and Adam's moments), the attention
+    kernels' launches, the step times, the reduce's bytes and time."""
+    import hashlib
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.parallel.multihost import process_index
+    net = dp_lm_net()
+    rng = np.random.default_rng(0)          # as train_phase
+    ids = rng.integers(0, V, (DP_LM_B, T)).astype("float32")
+    y = np.eye(V, dtype="float32")[rng.integers(0, V, (DP_LM_B, T))]
+    ds = DataSet(*dp_shard(ids, y))
+    net.use_mesh(f"dp={world}")
+    ctx = net._mesh_ctx
+    kernels = (attn.flash_attention_fwd_cuda,
+               attn.flash_attention_bwd_dq_cuda,
+               attn.flash_attention_bwd_dkv_cuda)
+    for fn in kernels:                     # the dp path only
+        fn.launches = 0
+    step_ms, losses = [], []
+    ctx.reduce_seconds, ctx.reduce_bytes = 0.0, 0
+    tag = os.path.join(out, f"lm_dp{world}")
+    for step in range(DP_LM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(net.score_value))
+        if process_index() == 0:
+            _save_leaves(f"{tag}_m{step + 1}", dp_snapshot(net, "moments"))
+    launches = {"flash_attention_fwd": kernels[0].launches,
+                "flash_attention_bwd_dq": kernels[1].launches,
+                "flash_attention_bwd_dkv": kernels[2].launches}
+    in_step_s = ctx.reduce_seconds
+    # the bucket's all-reduce alone: loss + every gradient, float32
+    n = 1 + sum(p.numel() for p in net.parameters())
+    bucket = torch.zeros(n, device=CARD)
+    reduce_ms = []
+    for _ in range(3):
+        ctx.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx.all_reduce_(bucket)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    snap = {**dp_snapshot(net, "params"), **dp_snapshot(net, "moments")}
+    digest = hashlib.sha256(b"".join(
+        np.ascontiguousarray(snap[k]).tobytes()
+        for k in sorted(snap))).hexdigest()
+    if process_index() == 0:
+        _save_leaves(tag + "_p", dp_snapshot(net, "params"))
+    return {"step_ms": step_ms, "losses": losses, "launches": launches,
+            "bucket_bytes": 4 * n, "reduce_ms": reduce_ms,
+            "in_step_reduce_s": in_step_s, "digest": digest,
+            "reduce": ctx.reduce_route(net)}
+
+
+def dp_hold(got, ref, snaps, steps, lr):
+    """dp=2 (the files ``got_*``) against dp=1 (``ref_*``) after the
+    same ``fit`` steps from the same init on the same global rows. Fails
+    unless
+
+    - Adam's moments ``mu`` and ``nu`` after each of ``snaps`` fit
+      calls (the mean gradient every step applied, weighted, and its
+      square: a sum where a mean belongs doubles ``mu``) are each within
+      GRAD_RTOL of their tensor's largest entry;
+    - the parameters after the calls are too, over the entries whose
+      moments agreed to GRAD_RTOL of their own size after every call.
+      Adam moves an entry by lr * mu / (sqrt(nu) + eps) a step: where a
+      gradient is at the rounding level of its tensor, or changes sign
+      so that ``mu`` cancels, the two runs move it differently, by up to
+      ``lr`` a step, which is the bound the other entries are held to.
+
+    Returns (the worst relative error of the moments, of the held
+    parameters, the entries not held and their largest difference)."""
+    import numpy as np
+    worst_m, held = 0.0, {}
+    for t in range(1, snaps + 1):
+        m_ref = _load_leaves(f"{ref}_m{t}")
+        m_got = _load_leaves(f"{got}_m{t}")
+        for k, a in m_ref.items():
+            diff = np.abs(m_got[k] - a)
+            scale = float(np.abs(a).max())
+            e = float(diff.max())
+            assert e <= GRAD_RTOL * scale, (t, k, e, scale)
+            worst_m = max(worst_m, e / max(scale, 1e-30))
+            name = k.split("/", 1)[1]
+            ok = diff <= GRAD_RTOL * np.abs(a)
+            held[name] = held[name] & ok if name in held else ok
+        del m_ref, m_got
+    p_ref, p_got = _load_leaves(f"{ref}_p"), _load_leaves(f"{got}_p")
+    worst_p, loose, loose_max = 0.0, 0, 0.0
+    for k, a in p_ref.items():
+        diff = np.abs(p_got[k] - a)
+        scale = float(np.abs(a).max())
+        mask = held[k]
+        e = float(diff[mask].max()) if mask.any() else 0.0
+        assert e <= GRAD_RTOL * scale, (k, e, scale)
+        worst_p = max(worst_p, e / max(scale, 1e-30))
+        if not mask.all():
+            loose += int((~mask).sum())
+            loose_max = max(loose_max, float(diff[~mask].max()))
+    assert loose_max <= 2 * lr * steps, loose_max
+    return worst_m, worst_p, loose, loose_max
+
+
+def dp_part_resnet(world, out):
+    """One ResNet50 step at cnn_phase's card-vs-CPU input (B=CHECK_B,
+    CHECK_HW x CHECK_HW, nesterovs) over the mesh: the parameter update
+    and the new batch-norm state; at dp=1 also the same step on the
+    rows reordered (the step's own rounding noise)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.parallel.multihost import process_index
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (CHECK_B, CHECK_HW, CHECK_HW, 3)).astype("float32")
+    y = np.eye(RESNET_CLASSES, dtype="float32")[
+        rng.integers(0, RESNET_CLASSES, CHECK_B)]
+    zm = zoo.ResNet50(n_classes=RESNET_CLASSES,
+                      input_shape=(CHECK_HW, CHECK_HW, 3),
+                      updater=updaters.nesterovs(0.1, 0.9))
+    init = zm.init(device="cpu")
+    p0 = _flatten(init.params)
+    res = {}
+    for roll in (0,) + (DP_RESNET_ROLLS if world == 1 else ()):
+        net = ComputationGraph(zm.conf(), device=CARD)
+        net.set_params(init.params)
+        net.state = {n: {k: v.to(CARD) for k, v in s.items()}
+                     for n, s in init.state.items()}
+        net._build_optimizer()
+        xs, ys = dp_shard(np.roll(x, roll, axis=0), np.roll(y, roll, axis=0))
+        t0 = time.perf_counter()
+        net.fit(DataSet(xs, ys), mesh_spec=f"dp={world}")
+        torch.cuda.synchronize()
+        leaves = {"update/" + k: v - p0[k]
+                  for k, v in _flatten(net.params).items()}
+        leaves.update({"state/" + k: v
+                       for k, v in _flatten(net.state).items()})
+        if process_index() == 0:
+            _save_leaves(os.path.join(out, f"resnet_dp{world}_r{roll}"),
+                         leaves)
+        res[f"roll{roll}_s"] = time.perf_counter() - t0
+        res["loss"] = float(net.score_value)
+        res["reduce"] = net._mesh_ctx.reduce_route(net)
+        del net
+    return res
+
+
+def dp_comp_net():
+    """__graft_entry__.py's compressed-reduce dryrun model: 16 -> 32
+    tanh -> 10, SGD 0.1, seed 7."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = {"format_version": 1, "network_type": "MultiLayerNetwork",
+           "global": {"seed": 7, "updater": updaters.sgd(0.1)},
+           "input_type": {"kind": "ff", "size": 16},
+           "layers": [{"@type": "DenseLayer", "n_out": 32,
+                       "activation": "tanh"},
+                      {"@type": "OutputLayer", "n_out": 10}],
+           "preprocessors": {}}
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                             device=CARD).init()
+
+
+def dp_part_compressed(world, out):
+    """dp=N with the int8 + EF reduce (threshold 1e-4) against the
+    full-precision reduce: 3 epochs of one batch of DP_COMP_ROWS rows a
+    rank (the JAX package's dryrun, __graft_entry__.py:135-173)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    n = DP_COMP_ROWS * world
+    x = np.random.default_rng(5).normal(0, 1, (n, 16)).astype("float32")
+    y = np.eye(10, dtype="float32")[
+        np.random.default_rng(6).integers(0, 10, n)]
+    batch = DataSet(*dp_shard(x, y))
+    losses = {}
+    for name, comp in (("plain", None), ("int8", {"threshold": 1e-4})):
+        net = dp_comp_net()
+        pw = ParallelWrapper(net, build_mesh(MeshSpec(data=world)),
+                             prefetch_buffer=0, dcn_compression=comp)
+        pw.fit(ListDataSetIterator([batch]), epochs=3)
+        losses[name] = float(net.score_value)
+        losses[name + "_describe"] = pw.describe()["reduce"]
+    return losses
+
+
+def dp_part_loss(world, out):
+    """One ``parallel.device`` loss drill: the last rank lost at the 2nd
+    batch, the mesh shrunk to the largest power of two of the
+    survivors, the steps going on there."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import chaos
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.observability.registry import REGISTRY
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    x, y = dp_rows(8 * world * DP_LOSS_BATCHES, seed=3)
+    net = dp_leg_net(seed=2)
+    pw = ParallelWrapper(net, build_mesh(MeshSpec(data=world)),
+                         prefetch_buffer=0)
+    before = REGISTRY.snapshot().get("elastic_mesh_shrinks_total", 0.0)
+    chaos.install({"faults": [{"site": "parallel.device", "kind": "loss",
+                               "at": [2]}]}, seed=11)
+    trained = []
+    try:
+        for i in range(DP_LOSS_BATCHES):
+            rows = slice(i * 8 * world, (i + 1) * 8 * world)
+            trained.append(pw._train_batch(DataSet(*dp_shard(x[rows],
+                                                             y[rows]))))
+    finally:
+        chaos.uninstall()
+    shrinks = REGISTRY.snapshot().get("elastic_mesh_shrinks_total",
+                                      0.0) - before
+    return {"trained": trained, "dp_after": pw.mesh.size,
+            "shrinks": shrinks, "iterations": net.iteration_count,
+            "loss": float(net.score_value) if pw.active else None,
+            "active": pw.active}
+
+
+DP_PARTS = {"leg": dp_part_leg, "lm": dp_part_lm, "resnet": dp_part_resnet,
+            "compressed": dp_part_compressed, "loss": dp_part_loss}
+
+
+def dp_rank_main(out, parts):
+    """One rank of dp_phase: ``python3 chip_smoke.py dp-rank DIR PART...``
+    with the multihost variables set. Writes DIR/dp{N}_rank{i}.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        initialize_distributed, process_count, process_index)
+    assert initialize_distributed(device=CARD)
+    rank, world = process_index(), process_count()
+    res = {"backend": dist.get_backend(), "card": card_name(),
+           "device": torch.cuda.get_device_name(0)}
+    for part in parts:
+        t0 = time.perf_counter()
+        res[part] = DP_PARTS[part](world, out)
+        res[part + "_s"] = time.perf_counter() - t0
+        log(f"dp={world} rank {rank}: {part} {res[part + '_s']:.1f} s")
+    with open(os.path.join(out, f"dp{world}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(world, out, parts):
+    """``world`` ranks of this script over one card; their results."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, DL4J_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   DL4J_TPU_NUM_PROCESSES=str(world),
+                   DL4J_TPU_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "dp-rank", out]
+            + list(parts), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        for line in text.splitlines():
+            if " rank " in line and line.startswith("dp="):
+                log("  " + line)
+        assert p.returncode == 0, (f"dp={world} rank {rank} exited "
+                                   f"{p.returncode}:\n{text[-6000:]}")
+    out_json = []
+    for rank in range(world):
+        with open(os.path.join(out, f"dp{world}_rank{rank}.json")) as f:
+            out_json.append(json.load(f))
+    return out_json
+
+
+def dp_phase(attn, card):
+    """Data parallelism over torch.distributed on the card, ranks as
+    subprocesses (dp=1: one rank, nccl; dp=2: two ranks on the one card,
+    gloo): bench.py's multichip_dp_scaling leg uncut; the LM at full
+    width and depth DP_LM_LAYERS through the attention kernels (what the
+    fit steps produced at dp=2 vs dp=1, ``dp_hold``; replicas
+    bit-equal); the leg's first window likewise; a ResNet50
+    step's update and batch-norm state at dp=2 vs dp=1 (global batch
+    statistics); the int8 compressed reduce vs the full-precision one;
+    a device-loss drill shrinking dp=2 to dp=1. Returns the attention
+    kernels' launches on this path."""
+    import shutil
+    import numpy as np
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="dp-", dir=os.path.join(here, "build"))
+    try:
+        one = run_ranks(1, out, ["leg", "lm", "resnet"])
+        two = run_ranks(2, out, ["leg", "lm", "resnet", "compressed",
+                                 "loss"])
+        log(f"dp ranks: dp=1 backend {one[0]['backend']}, dp=2 backend "
+            f"{two[0]['backend']} (two ranks on one card: nccl refuses "
+            f"them, gloo stages CUDA tensors through the host); "
+            f"{one[0]['card']}")
+        # (a) the leg
+        rates = {**one[0]["leg"], **two[0]["leg"]}
+        vs = rates["dp2_k8_steps_per_sec"] / rates["dp2_k1_steps_per_sec"]
+        log(f"multichip_dp_scaling ({card}): " + ", ".join(
+            f"{k} {rates[k]:.1f}" for k in sorted(rates)
+            if k.endswith("steps_per_sec")) + f"; vs_baseline (dp2_k8 / "
+            f"dp2_k1) {vs:.3f}; zero captures in every timed steady "
+            f"state; dp=1 reduce: {one[0]['leg']['reduce']}; dp=2 reduce: "
+            f"{two[0]['leg']['reduce']}; rank 1's dp=2 rates: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in sorted(two[1]["leg"].items())
+                if k.endswith("steps_per_sec")))
+        log("  (as the JAX leg's note says of its 2-core host: on one "
+            "card dp=2 shares one device and cannot beat dp=1; the leg "
+            "measures the data-parallel path's overhead and k-fusion on "
+            "it)")
+        for k in DP_LEG_KS:
+            worst_m, worst_p, loose, loose_max = dp_hold(
+                os.path.join(out, f"leg_dp2_k{k}"),
+                os.path.join(out, f"leg_dp1_k{k}"), 1, k, 1e-3)
+            log(f"multichip_dp_scaling dp=2 vs dp=1, the first window "
+                f"after the warmup (k={k}: {k} Adam steps on the same "
+                f"{DP_LEG_ROWS} rows): Adam's moments worst max|diff| / "
+                f"max|moment| of a tensor {worst_m:.3e}, parameters "
+                f"{worst_p:.3e} (limit {GRAD_RTOL}); {loose} entries whose "
+                f"moments differ by more than {GRAD_RTOL} of their own "
+                f"size not held, max|diff| "
+                f"{loose_max:.3e}")
+        # (b) the LM: what its fit steps produced, dp=2 vs dp=1
+        lm1, lm2 = one[0]["lm"], two[0]["lm"]
+        assert two[0]["lm"]["digest"] == two[1]["lm"]["digest"], \
+            "dp=2 replicas differ"
+        worst_m, worst_p, loose, loose_max = dp_hold(
+            os.path.join(out, "lm_dp2"), os.path.join(out, "lm_dp1"),
+            DP_LM_STEPS, DP_LM_STEPS, TRAIN_LR)
+        launches = {}
+        for res in (one[0], two[0], two[1]):
+            for k, n in res["lm"]["launches"].items():
+                assert n == DP_LM_LAYERS * DP_LM_STEPS, (k, n)
+                launches[k] = launches.get(k, 0) + n
+        for tag, lm in (("dp=1", lm1), ("dp=2", lm2)):
+            warm = lm["step_ms"][1:]
+            log(f"LM dp ({card}; V={V} D={D_MODEL} L={DP_LM_LAYERS} "
+                f"H={HEADS} T={T}, global B={DP_LM_B}) {tag}: "
+                f"{DP_LM_STEPS} Adam steps, losses " + ", ".join(
+                    f"{x:.6f}" for x in lm["losses"]) + "; step ms "
+                + ", ".join(f"{x:.2f}" for x in lm["step_ms"])
+                + f" (warm median {sorted(warm)[len(warm) // 2]:.2f}); "
+                f"the bucket's all-reduce alone {lm['bucket_bytes']} bytes "
+                "in " + ", ".join(f"{x:.2f}" for x in lm["reduce_ms"])
+                + f" ms; host-staged reduce inside the steps "
+                f"{lm['in_step_reduce_s'] * 1e3:.1f} ms in all; "
+                f"{lm['reduce']}")
+        log(f"LM dp=2 vs dp=1 after {DP_LM_STEPS} Adam steps through fit: "
+            f"Adam's moments worst max|diff| / max|moment| of a tensor "
+            f"{worst_m:.3e}, parameters {worst_p:.3e} (limit {GRAD_RTOL});"
+            f" {loose} entries whose moments differ by more than "
+            f"{GRAD_RTOL} of their own size not held,"
+            f" max|diff| {loose_max:.3e} (Adam's bound 2 x lr x steps "
+            f"{2 * TRAIN_LR * DP_LM_STEPS:g}); dp=2 replicas bit-equal "
+            f"(sha256 {lm2['digest'][:16]}); launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items()))
+        # (c) ResNet50: global batch statistics
+        ref = _load_leaves(os.path.join(out, "resnet_dp1_r0"))
+        others = [_load_leaves(os.path.join(out, f"resnet_dp1_r{r}"))
+                  for r in DP_RESNET_ROLLS]
+        got = _load_leaves(os.path.join(out, "resnet_dp2_r0"))
+        rows = _leaf_errors(got, ref, others, F32_FACTOR)
+        log(f"ResNet50 one step dp=2 vs dp=1 ({card}; B={CHECK_B}, "
+            f"{CHECK_HW}x{CHECK_HW}; {two[0]['resnet']['reduce']}): loss "
+            f"{two[0]['resnet']['loss']:.6f} vs {one[0]['resnet']['loss']:.6f}"
+            f"; {len(ref)} leaves (updates, batch-norm state); L2 |dp2 - "
+            f"dp1| / ({F32_FACTOR:g} x dp=1's reorder difference + "
+            f"{FLOOR_RTOL:g} x |dp1|), worst three: " + "; ".join(
+                f"{k} {r:.3f}" for r, k, _, _ in rows[:3]) + " (limit 1)")
+        assert rows[0][0] <= 1.0, rows[:3]
+        # (d) the compressed reduce
+        comp = two[0]["compressed"]
+        assert math.isfinite(comp["int8"])
+        assert abs(comp["int8"] - comp["plain"]) < 0.05 * max(
+            abs(comp["plain"]), 1.0), comp
+        assert two[1]["compressed"]["int8"] == comp["int8"]
+        log(f"dp=2 int8-compressed reduce ({card}): loss "
+            f"{comp['int8']:.4f} vs uncompressed {comp['plain']:.4f} "
+            f"(limit 5%); {comp['int8_describe']}")
+        # (e) the device-loss drill
+        r0, r1 = two[0]["loss"], two[1]["loss"]
+        assert r0["shrinks"] == r1["shrinks"] == 1.0, (r0, r1)
+        assert r0["dp_after"] == r1["dp_after"] == 1, (r0, r1)
+        assert r0["trained"] == [True] * DP_LOSS_BATCHES, r0
+        assert r1["trained"] == [True] + [False] * (DP_LOSS_BATCHES - 1), r1
+        assert r0["active"] and not r1["active"]
+        assert math.isfinite(r0["loss"])
+        log(f"device-loss drill ({card}): rank 1 lost at batch 2, dp=2 -> "
+            f"dp=1, rank 0 trained {r0['iterations']} batches (loss "
+            f"{r0['loss']:.4f}), rank 1 left after {r1['iterations']}; "
+            f"elastic_mesh_shrinks_total {r0['shrinks']:g}")
+        log("dp rank seconds: " + json.dumps(
+            {f"dp{len(g)}_rank{i}": {p: round(r[p + "_s"], 1)
+                                     for p in DP_PARTS if p + "_s" in r}
+             for g in (one, two) for i, r in enumerate(g)}))
+        return launches
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -7009,7 +7667,7 @@ def main():
         server.stop(drain=True)
     timed("warmup_phase", warmup_phase, card)
     fwd_fleet, dec_fleet = timed("fleet_phase", fleet_phase, attn, da,
-                                 card, net, bodies)
+                                 card, bodies)
     del net
     torch.cuda.empty_cache()
     timed("cnn_phase", cnn_phase, card)
@@ -7028,11 +7686,13 @@ def main():
     fwd_ctl, dec_ctl = timed("fleet_control_phase", fleet_control_phase,
                              attn, da, card)
     ps = timed("ps_phase", ps_phase, attn, card)
+    dp = timed("dp_phase", dp_phase, attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
                                "fleet_control": fwd_ctl,
-                               "ps": ps["flash_attention_fwd"]}
+                               "ps": ps["flash_attention_fwd"],
+                               "dp": dp["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
                                "fleet_control": dec_ctl}
@@ -7040,7 +7700,7 @@ def main():
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],
                                       "capture": captured[name],
-                                      "ps": ps[name]}
+                                      "ps": ps[name], "dp": dp[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]
@@ -7059,4 +7719,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dp-rank"]:
+        sys.exit(dp_rank_main(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

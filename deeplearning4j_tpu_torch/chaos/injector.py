@@ -23,10 +23,10 @@ code it has: ``checkpoint.write`` / ``checkpoint.read``
 ``serving/continuous.py``), ``serving.kv.migrate``
 (``serving/continuous.py``), ``serving.replica`` (``serving/router.py``),
 ``serving.replica.boot`` (``serving/fleet.py``), ``serving.rollout``
-(``serving/rollout.py``) and ``ps.push.drop`` / ``ps.pull.timeout`` /
-``ps.server.restart`` (``parallel/paramserver.py``). The others wait
-for their modules (ROADMAP A6, A8); a plan naming them installs and
-never fires.
+(``serving/rollout.py``), ``parallel.device``
+(``parallel/wrapper.py``) and ``ps.push.drop`` / ``ps.pull.timeout`` /
+``ps.server.restart`` (``parallel/paramserver.py``): every site of the
+table below.
 
 ==================== ====================================================
 ``checkpoint.write`` ``util/model_serializer.write_model`` — after the

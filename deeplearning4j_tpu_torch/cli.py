@@ -5,12 +5,16 @@ so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
 and ``/v1/index/*`` with ``--index``),
 ``serve-fleet`` (N in-process replicas behind the health-aware router,
 with disaggregated prefill/decode roles, the autoscaler, the fleet
-collector and the canary rollout; every JAX flag but ``--mesh``),
+collector and the canary rollout; every JAX flag but ``--mesh``, a
+tensor-parallel serving mesh that waits for ROADMAP A6b),
 ``fleet-status``, ``fleet-rollout``, ``index build``, ``summary`` (a
-checkpoint zip or Keras ``.h5`` through the model guesser),
-``train-ps`` (asynchronous parameter-server training: a launcher with
-worker subprocesses, or one server or worker a process) and the
-top-level ``--trace PATH`` and ``--flight-record DIR``.
+checkpoint zip or Keras ``.h5`` through the model guesser), ``train``
+(CSV training; ``--mesh dp=N`` / ``--workers N`` data-parallel over N
+processes started with the multihost variables, ``--k-step``,
+``--aot-warmup``, ``--health``, ``--async-checkpoint``), ``train-ps``
+(asynchronous parameter-server training: a launcher with worker
+subprocesses, or one server or worker a process) and the top-level
+``--trace PATH`` and ``--flight-record DIR``.
 
     python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
         --slots 8 --capacity 1024 --trace-sample 0.01 --slo slo.json
@@ -24,6 +28,10 @@ top-level ``--trace PATH`` and ``--flight-record DIR``.
     python -m deeplearning4j_tpu_torch index build --corpus random: \
         --index-kind ivf --nlist 64 --out corpus.npz
     python -m deeplearning4j_tpu_torch summary --model model.h5
+    DL4J_TPU_COORDINATOR=127.0.0.1:29500 DL4J_TPU_NUM_PROCESSES=2 \
+    DL4J_TPU_PROCESS_ID=0 python -m deeplearning4j_tpu_torch train \
+        --model m.zip --data d.csv --label-index 4 --classes 3 \
+        --mesh dp=2                      # and PROCESS_ID=1 beside it
     python -m deeplearning4j_tpu_torch train-ps --model m.zip \
         --data d.csv --label-index 4 --classes 3 --ps-workers 3
 """
@@ -286,8 +294,8 @@ def _validate_fleet_args(args):
     exits here, not after N replicas started (and leaked). Returns the
     autoscaler's (min, max) bounds or None."""
     if args.mesh is not None:
-        raise SystemExit("serve-fleet --mesh is not ported yet "
-                         "(ROADMAP A6)")
+        raise SystemExit("serve-fleet --mesh (a tensor-parallel serving "
+                         "mesh) is not ported yet (ROADMAP A6b)")
     bounds = None
     if args.autoscale:
         try:
@@ -689,6 +697,171 @@ def _ps_batches(args):
     return list(it)
 
 
+def _rank_shard(it):
+    """``it`` with each global batch cut to this rank's slice
+    (``multihost.local_batch_slice``): how a data-parallel rank reads
+    the CSV every rank holds."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import DataSetIterator
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        local_batch_slice)
+
+    class RankShard(DataSetIterator):
+        def reset(self):
+            it.reset()
+
+        def _iterate(self):
+            for ds in it:
+                sl = local_batch_slice(ds.num_examples())
+                yield DataSet(*(None if a is None else a[sl] for a in (
+                    ds.features, ds.labels, ds.features_mask,
+                    ds.labels_mask)))
+    return RankShard()
+
+
+def _cmd_train(args):
+    """Train a saved model on CSV data (the JAX ``train`` verb), on
+    ``--device``. ``--mesh dp=N`` / ``--workers N`` train data-parallel
+    over N ranks, one process each, launched with the multihost
+    variables (``DL4J_TPU_COORDINATOR``, ``DL4J_TPU_NUM_PROCESSES``,
+    ``DL4J_TPU_PROCESS_ID``): every rank reads the CSV and trains on its
+    slice of each batch; only the coordinator writes the model."""
+    if args.chaos:
+        # the plan is JSON (inline or a file); the effective seed is
+        # printed so any chaotic run can be replayed exactly
+        from deeplearning4j_tpu_torch import chaos
+        inj = chaos.install(args.chaos, seed=args.chaos_seed)
+        print(f"chaos: fault plan installed ({len(inj.plan.faults)} "
+              f"spec(s), seed {inj.seed}; replay with --chaos-seed "
+              f"{inj.seed})")
+    from deeplearning4j_tpu_torch.data.records import (
+        CSVRecordReader, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+        LAUNCH_RECIPE, parse_mesh_spec)
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        initialize_distributed, is_coordinator, process_count,
+        process_index, rank_device)
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    from deeplearning4j_tpu_torch.train.listeners import (
+        PerformanceListener, ScoreIterationListener)
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_model, write_model)
+    workers = args.workers if args.workers and args.workers > 1 else 0
+    if args.health == "rollback" and workers:
+        # nothing in the ParallelWrapper path catches the rollback flag
+        sys.exit("train: --health rollback is not supported with "
+                 "--workers >1 (rollback needs the single-worker "
+                 "ElasticTrainer loop); use --health warn/raise or "
+                 "drop --workers")
+    if args.k_step < 1:
+        sys.exit("train: --k-step must be >= 1")
+    if args.mesh and workers:
+        sys.exit("train: pass either --mesh (declarative sharded "
+                 "fit) or --workers (legacy data-parallel wrapper), "
+                 "not both")
+    if args.k_step > 1 and workers:
+        sys.exit("train: --k-step >1 is not supported with "
+                 "--workers >1 (the legacy wrapper steps per-batch); "
+                 "use --mesh \"dp=N\" — the sharded fit path fuses "
+                 "k-step windows")
+    if args.aot_warmup and workers:
+        sys.exit("train: --aot-warmup is not supported with "
+                 "--workers >1 (warmup builds the single-worker "
+                 "programs; with --mesh the warmed programs ARE the "
+                 "data-parallel ones)")
+    ranks = workers
+    if args.mesh:
+        try:
+            ranks = parse_mesh_spec(args.mesh).n_devices()
+        except (ValueError, TypeError) as e:
+            sys.exit(f"train: bad --mesh: {e}")
+    device = args.device
+    if ranks > 1:
+        if not initialize_distributed(device=device):
+            sys.exit(f"train: {ranks} ranks need {ranks} processes: "
+                     f"{LAUNCH_RECIPE}")
+        device = rank_device(device)
+    model = restore_model(args.model, device=device)
+    if args.mesh:
+        # installed BEFORE warmup and the trainer: the warmed programs
+        # and any checkpoint restore must be the data-parallel ones
+        try:
+            model.use_mesh(args.mesh)
+        except (ValueError, NotImplementedError) as e:
+            sys.exit(f"train: {e}")
+        ctx = model._mesh_ctx
+        print(f"mesh: {ctx.plan} over {ctx.world} device(s); "
+              f"backend {ctx.backend}; {ctx.reduce_route(model)}")
+    rr = CSVRecordReader().initialize(args.data)
+    it = RecordReaderDataSetIterator(
+        rr, args.batch_size, label_index=args.label_index,
+        num_classes=args.classes, regression=args.classes == 0)
+    if process_count() > 1:
+        it = _rank_shard(it)
+    model.set_listeners(ScoreIterationListener(10),
+                        PerformanceListener(frequency=10))
+    if args.health:
+        from deeplearning4j_tpu_torch.observability.flight_recorder import (
+            get_recorder)
+        from deeplearning4j_tpu_torch.observability.health import (
+            HealthMonitor)
+        model.add_listeners(HealthMonitor(policy=args.health,
+                                          recorder=get_recorder()))
+    if args.aot_warmup:
+        # after the listeners (the health toggle rebuilds the programs):
+        # one batch for its shape, then the iterator rewound
+        ds0 = next(iter(it), None)
+        if ds0 is None:
+            sys.exit("train: --aot-warmup found no data to derive "
+                     "the batch shape from")
+        it.reset()
+        rep = model.warmup(ds0, steps_per_device_call=args.k_step)
+        print("aot warmup: "
+              + (", ".join(f"{n} captured in {s:.2f}s"
+                           for n, s in rep.items())
+                 or "all programs already warm"))
+    use_elastic = args.health == "rollback" or args.async_checkpoint
+    ckpt_dir = (args.output or args.model) + ".ckpts"
+    if workers:
+        # under ElasticTrainer the trainer owns the batch loop: no
+        # wrapper-level prefetch there
+        wrapper_prefetch = 0 if use_elastic else args.prefetch
+        if use_elastic and args.prefetch:
+            print("train: --prefetch is inactive under the elastic "
+                  "trainer (it owns the batch loop; checkpointable "
+                  "iterator state requires consuming batches in "
+                  "step order)")
+        pw = (ParallelWrapper.builder(model).workers(workers)
+              .prefetch_buffer(wrapper_prefetch).build())
+        print(f"workers: {pw.describe()}")
+        if use_elastic:
+            from deeplearning4j_tpu_torch.train.fault_tolerance import (
+                ElasticTrainer)
+            ElasticTrainer(model, ckpt_dir, save_every=10,
+                           async_checkpoint=args.async_checkpoint,
+                           wrapper=pw).fit(it, epochs=args.epochs)
+        else:
+            pw.fit(it, epochs=args.epochs)
+    elif use_elastic:
+        # the rollback policy needs a checkpoint loop to roll back TO
+        from deeplearning4j_tpu_torch.train.fault_tolerance import (
+            ElasticTrainer)
+        ElasticTrainer(model, ckpt_dir, save_every=10,
+                       async_checkpoint=args.async_checkpoint,
+                       steps_per_device_call=args.k_step).fit(
+            it, epochs=args.epochs)
+    else:
+        model.fit(it, epochs=args.epochs,
+                  steps_per_device_call=args.k_step)
+    out = args.output or args.model
+    if is_coordinator():
+        write_model(model, out)
+        print(f"trained {args.epochs} epochs; saved to {out}")
+    else:
+        print(f"rank {process_index()}: trained {args.epochs} epochs; "
+              f"the coordinator saves the model")
+
+
 def _cmd_train_ps(args):
     """Async parameter-server training (the reference's Aeron
     ``VoidParameterServer`` sharing, TF-style PS architecture). The
@@ -965,7 +1138,7 @@ def main(argv=None):
     f.add_argument("--net-chaos-seed", type=int, default=None,
                    metavar="N")
     f.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="serving mesh: not ported yet (ROADMAP A6); "
+                   help="serving mesh: not ported yet (ROADMAP A6b); "
                         "given, the verb exits before any replica boots")
     f.add_argument("--autoscale", metavar="MIN:MAX", default=None,
                    help="run the SLO-driven autoscaler over the "
@@ -1118,6 +1291,63 @@ def main(argv=None):
                    help="torch device to load the model on (default cuda; "
                         "cpu for a machine without a card)")
     s.set_defaults(fn=_cmd_summary)
+    t = sub.add_parser("train", help="train a saved model on CSV data")
+    t.add_argument("--model", required=True)
+    t.add_argument("--data", required=True)
+    t.add_argument("--label-index", type=int, required=True)
+    t.add_argument("--classes", type=int, default=0,
+                   help="0 = regression")
+    t.add_argument("--batch-size", type=int, default=64)
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--workers", type=int, default=0,
+                   help=">1 = data-parallel over that many ranks "
+                        "(legacy wrapper; prefer --mesh)")
+    t.add_argument("--mesh", metavar="SPEC", default=None,
+                   help="data-parallel training: 'dp=N' | JSON. Run N "
+                        "processes with DL4J_TPU_COORDINATOR=HOST:PORT "
+                        "DL4J_TPU_NUM_PROCESSES=N DL4J_TPU_PROCESS_ID=i "
+                        "(or under torchrun); each trains on its slice "
+                        "of every batch, gradients all-reduced each "
+                        "step (nccl with a card a rank, else gloo); "
+                        "composes with --k-step and --aot-warmup. tp, "
+                        "pp and sp wait for ROADMAP A6b")
+    t.add_argument("--prefetch", type=int, default=2)
+    t.add_argument("--output", default=None)
+    t.add_argument("--health", nargs="?", const="warn", default=None,
+                   choices=["warn", "raise", "rollback"],
+                   metavar="POLICY",
+                   help="attach the training-health monitor (fused "
+                        "NaN/Inf check in the train step + "
+                        "divergence/plateau/gradient detectors); "
+                        "POLICY = warn | raise | rollback "
+                        "(default warn)")
+    t.add_argument("--k-step", type=int, default=1, metavar="N",
+                   help="run N train steps a program call (one CUDA "
+                        "graph replay on a card); listeners and health "
+                        "still see every step, checkpoints land on "
+                        "N-step boundaries; an epoch tail of "
+                        "n_batches %% N runs through the single-step "
+                        "program")
+    t.add_argument("--aot-warmup", action="store_true",
+                   help="capture the train-step programs from the "
+                        "first batch's shape before training: the "
+                        "steady state then captures nothing for "
+                        "batches of that shape")
+    t.add_argument("--async-checkpoint", action="store_true",
+                   help="train under ElasticTrainer with background "
+                        "checkpoint writes: saves cost the train "
+                        "thread a device->host snapshot only")
+    t.add_argument("--chaos", metavar="PLAN", default=None,
+                   help="install a deterministic fault-injection plan "
+                        "for this run: inline JSON or a path to a JSON "
+                        "file; fired faults count as "
+                        "chaos_faults_fired_total")
+    t.add_argument("--chaos-seed", type=int, default=None, metavar="N")
+    t.add_argument("--device", default="cuda",
+                   help="torch device of the model (default cuda; a "
+                        "rank takes cuda:LOCAL_RANK modulo the cards; "
+                        "cpu for a machine without a card)")
+    t.set_defaults(fn=_cmd_train)
     ps = sub.add_parser(
         "train-ps",
         help="asynchronous parameter-server training: compressed-"

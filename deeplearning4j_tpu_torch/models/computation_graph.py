@@ -37,10 +37,10 @@ graph a batch signature on a card, k steps a program with
 ``steps_per_device_call=k``; ``fit_batches`` and ``warmup`` as on
 MultiLayerNetwork); ``evaluate``, ``evaluate_regression`` and
 ``evaluate_roc`` score one output, ``evaluate_outputs`` every output in
-one pass.
-
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-meshes (ROADMAP A6).
+one pass. ``fit(mesh_spec="dp=N")`` trains data-parallel as
+MultiLayerNetwork does (each output's masked loss over the global
+batch's mask total); tensor, sequence and pipeline meshes wait for
+ROADMAP A6b.
 """
 
 from __future__ import annotations
@@ -69,6 +69,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.output import (
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.observability.health import fused_health
+from deeplearning4j_tpu_torch.parallel import global_batch
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -309,6 +310,7 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         params = self.params
         total = torch.zeros((), device=self.device)
         for i, out_name in enumerate(self.conf.network_outputs):
+            global_batch.set_output(i)
             obj = self.conf.vertices[out_name][0]
             if not (isinstance(obj, Layer) and obj.has_loss()):
                 raise ValueError(f"Output vertex '{out_name}' has no loss")
@@ -342,8 +344,13 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         captures (MultiLayerNetwork's ``_step_body``, by vertex name).
         Returns (the loss, the fused health vector or None, the new
         carries detached)."""
-        loss, grads, (new_state, new_carries) = self._gradients(batch,
-                                                                carries)
+        loss, grads, aux = self._gradients(batch, carries)
+        loss, grads = global_batch.reduce_gradients(loss, grads)
+        return self._apply_step(loss, grads, aux, health)
+
+    def _apply_step(self, loss, grads, aux, health: bool = False):
+        """The update half of ``_step_body`` (MultiLayerNetwork's)."""
+        new_state, new_carries = aux
         self._where = "the updater"
         grads = apply_gradient_normalization(self._layer_configs(), grads)
         params = self.params
@@ -373,7 +380,7 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         """Train over a DataSet, a MultiDataSet, or an iterable of
         either, one updater step per batch; ``steps_per_device_call=k``
         as on MultiLayerNetwork."""
-        k = check_fit_args(steps_per_device_call, mesh_spec)
+        k = check_fit_args(self, steps_per_device_call, mesh_spec)
         self._prepare_fit()
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]

@@ -40,10 +40,22 @@ window), ``fit_batches`` (ElasticTrainer's window entry point),
 k=1 graph without advancing the parameters) and
 ``_flush_compiled_programs`` (drop every graph and its memory pool
 wherever an address or a constant the graphs baked changes).
+
+Data parallelism (``use_mesh``, ``fit(mesh_spec=)``,
+``warmup(mesh_spec=)``; ``parallel/mesh_spec.py``): before a step or a
+window every rank's batches are trimmed to the shortest rank's and
+steps with an empty shard dropped (one host all-reduce), and the
+window carries each step's global mask totals. The program's step
+reduces the loss and gradients over the mesh (``parallel/global_batch.
+py``). On a card under ``nccl`` the all-reduce is captured in the
+window's graph; under ``gloo`` (ranks sharing a card) every step runs
+eagerly, its bucket all-reduced through the host, and captures
+nothing: gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 import weakref
 from typing import Dict, Optional, Sequence, Tuple
@@ -55,6 +67,9 @@ from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.observability import compile_watch
 from deeplearning4j_tpu_torch.observability.tracing import trace
 from deeplearning4j_tpu_torch.ops import native
+from deeplearning4j_tpu_torch.parallel import global_batch
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["signature", "stack_batches", "host_batch", "TrainProgram",
            "warmup_train_programs", "KStepExecutorMixin", "assign_tree"]
@@ -164,12 +179,20 @@ class TrainProgram:
         self.tbptt = tbptt
         self.cuda = model.device.type == "cuda"
         self.carries = carries
+        # data parallelism (``use_mesh``): the window is (batches, the
+        # steps' global mask totals) and each step reduces over the mesh
+        self.dp = model._mesh_ctx
+        # gloo's collectives cannot be captured: under gloo on a card
+        # every step runs eagerly (its bucket staged through the host)
+        self.eager = (self.cuda and self.dp is not None
+                      and self.dp.group is not None
+                      and self.dp.backend != "nccl")
         self.graph = None
         self.tally: dict = {}
         self.capture_seconds: Optional[float] = None
         self.replays = 0
         self._out = None
-        if self.cuda:
+        if self.cuda and not self.eager:
             dev = model.device
             self._static = _tmap(
                 lambda a: torch.empty((self.k,) + tuple(a.shape),
@@ -201,10 +224,15 @@ class TrainProgram:
                     assign_tree(carries, new)
                 new = carries
             return loss.reshape(1), None, new
+        totals = None
+        if self.dp is not None:
+            window, totals = window
         losses, healths = [], []
         for i in range(self.k):
             batch = _tmap(lambda a: a[i], window)
-            loss, vec, _ = m._step_body(batch, None, health=self.health)
+            with global_batch.scope(self.dp,
+                                    None if totals is None else totals[i]):
+                loss, vec, _ = m._step_body(batch, None, health=self.health)
             losses.append(loss)
             healths.append(vec)
         return (torch.stack(losses),
@@ -240,7 +268,7 @@ class TrainProgram:
         card, clones of the static outputs, taken on the caller's
         stream after the replay, so a later replay cannot overwrite what
         a listener holds."""
-        if not self.cuda:
+        if not self.cuda or self.eager:
             window = _tmap(lambda a: a.to(self.model.device), window)
             return self._body(window, carries)
         stream = self.model._training_stream()
@@ -273,7 +301,7 @@ class TrainProgram:
                  _tree_clone(m.opt_state), _tree_clone(self.carries),
                  m._generator.get_state())
         try:
-            if self.cuda:
+            if self.cuda and not self.eager:
                 stream = m._training_stream()
                 current = torch.cuda.current_stream(m.device)
                 stream.wait_stream(current)
@@ -348,12 +376,12 @@ def warmup_train_programs(model, example, k: int) -> Dict[str, float]:
     what was built; programs already built are skipped."""
     out: Dict[str, float] = {}
     batch = host_batch(example)
-    window = _tmap(lambda a: a[None], batch)
+    window = model._dp_window(_tmap(lambda a: a[None], batch), [batch])
     prog, built = model._program_for(window, 1)
     if built:
         out["train_step"] = prog.warm(window)
     if k > 1:
-        window = stack_batches([batch] * k)
+        window = model._dp_window(stack_batches([batch] * k), [batch] * k)
         prog, built = model._program_for(window, k)
         if built:
             out[f"kstep_{k}"] = prog.warm(window)
@@ -368,6 +396,106 @@ class KStepExecutorMixin:
     ``_host_tuple(ds)`` (host tensors), ``_coerce_fit_batch``,
     ``_batch_is_tbptt``, ``_tbptt_chunks(ds, fwd)`` and
     ``_zero_carries(B)``; batches need ``num_examples()``."""
+
+    # the installed MeshContext (None = one device); a class default so
+    # both executors inherit it
+    _mesh_ctx = None
+
+    def use_mesh(self, mesh_spec, devices=None):
+        """Install a declarative mesh spec (``"dp=4"`` | dict | JSON | a
+        prebuilt ``MeshContext``) on this executor: every replica made
+        equal to the mesh's first rank's, each rank's dropout generator
+        offset by its rank, and every training program dropped so the
+        next step builds the data-parallel one. The same spec over the
+        same ranks keeps the installed context and its programs
+        (``warmup(mesh_spec=X)`` then ``fit(mesh_spec=X)`` captures
+        nothing new). Collective: every rank calls it."""
+        from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+            MeshContext, build_mesh_context, resolve_mesh_spec)
+        if mesh_spec is None:
+            return self
+        if self.conf.conf.tbptt is not None:
+            raise NotImplementedError(
+                "tBPTT does not compose with mesh_spec yet (the chunked "
+                "step threads recurrent carries the data-parallel "
+                "program does not hold); drop tbptt or the mesh spec")
+        if self.params is None:
+            self.init()
+        cur = self._mesh_ctx
+        if isinstance(mesh_spec, MeshContext):
+            ctx = mesh_spec
+            if cur is not None and cur.same_as(ctx):
+                return self
+        else:
+            # the installed context is kept without a collective when the
+            # spec resolves to the same plan over the same ranks
+            plan, ranks = resolve_mesh_spec(mesh_spec, devices)
+            if (cur is not None and cur.plan == plan
+                    and cur.mesh.ranks == ranks):
+                return self
+            ctx = build_mesh_context(plan, self, ranks)
+        if not ctx.member:
+            raise ValueError(
+                f"this process is not one of the mesh's ranks "
+                f"{ctx.mesh.ranks}: only they train on it")
+        if self._optimizer is None:
+            self._build_optimizer()
+        if self._generator is None:
+            self._generator = self._new_generator(self.conf.conf.seed)
+        self._mesh_ctx = ctx
+        ctx.place_model(self)
+        self._flush_compiled_programs()
+        logger.info("data parallel: %s", ctx.describe(self))
+        return self
+
+    def _layer_objects(self):
+        if hasattr(self, "_layer_configs"):
+            return list(self._layer_configs().values())
+        return list(self.layers)
+
+    def _masked_outputs(self) -> bool:
+        from deeplearning4j_tpu_torch.nn.conf.layers.output import (
+            RnnOutputLayer)
+        outs = getattr(self.conf, "network_outputs", None)
+        objs = ([self.conf.vertices[n][0] for n in outs] if outs
+                else self._layer_objects()[-1:])
+        return any(isinstance(o, RnnOutputLayer) for o in objs)
+
+    def _dp_window(self, window, tups):
+        """Under a mesh, the program's window is (the batches, each
+        step's global mask total of each output, ``[k, n_outputs]``)."""
+        ctx = self._mesh_ctx
+        if ctx is None:
+            return window
+        outs = len(getattr(self.conf, "network_outputs", None) or [0])
+        rows = np.zeros((len(tups), outs))
+        if self._masked_outputs():
+            for i, tup in enumerate(tups):
+                masks = tup[3]
+                if not isinstance(masks, (tuple, list)):
+                    masks = [masks] * outs
+                for j, mk in enumerate(masks):
+                    if mk is not None:
+                        rows[i, j] = float(mk.sum())
+            rows = ctx.host_all_reduce(rows)
+        return window, torch.as_tensor(rows, dtype=torch.float32)
+
+    def _dp_trim(self, items):
+        """Under a mesh: every rank's batches trimmed to the shortest
+        rank's (one host all-reduce for the list); None for a step in
+        which some rank's shard is empty, dropped on every rank."""
+        ctx = self._mesh_ctx
+        if ctx is None:
+            return items
+        local = [m.num_examples() for m in items]
+        mins = ctx.host_all_reduce(local, op="min")
+        return [None if int(lo) == 0 else
+                (m if int(lo) == n else truncate_batch(m, int(lo)))
+                for m, n, lo in zip(items, local, mins)]
+
+    def _global_examples(self, ds) -> int:
+        ctx = self._mesh_ctx
+        return ds.num_examples() * (1 if ctx is None else ctx.world)
 
     def _init_programs(self) -> None:
         self._programs: Dict[tuple, TrainProgram] = {}
@@ -464,12 +592,20 @@ class KStepExecutorMixin:
         self._sync_health_mode()
 
     # ---- one step ----
-    def _fit_one(self, ds, data_wait_s: float = 0.0) -> None:
-        """One step through the k=1 program, then the listeners."""
+    def _fit_one(self, ds, data_wait_s: float = 0.0, *,
+                 trimmed: bool = False) -> bool:
+        """One step through the k=1 program, then the listeners. Under a
+        mesh the batch is first trimmed to the shortest rank's; returns
+        False for a step dropped on every rank (an empty shard)."""
+        if not trimmed:
+            ds = self._dp_trim([ds])[0]
+            if ds is None:
+                return False
         t1 = time.perf_counter()
         with trace.span("train_step"):
             batch = self._host_tuple(ds)
-            window = _tmap(lambda a: a[None], batch)
+            window = self._dp_window(_tmap(lambda a: a[None], batch),
+                                     [batch])
             prog, _ = self._program_for(window, 1)
             losses, healths, _ = prog.run(window)
         self._last_health = None if healths is None else healths[0]
@@ -479,8 +615,10 @@ class KStepExecutorMixin:
         with trace.span("listeners"):
             for lst in self.listeners:
                 lst.iteration_done(self, self.iteration_count,
-                                   self.score_value, ds.num_examples())
+                                   self.score_value,
+                                   self._global_examples(ds))
         self.iteration_count += 1
+        return True
 
     def _run_tbptt(self, ds, tbptt, data_wait_s: float = 0.0) -> None:
         """Truncated BPTT (the JAX package's ``_fit_tbptt``): the
@@ -568,7 +706,8 @@ class KStepExecutorMixin:
         if k < 1:
             raise ValueError("steps_per_device_call must be >= 1")
         self._prepare_fit()
-        items = [self._coerce_fit_batch(d) for d in batches]
+        items = [m for m in self._dp_trim(
+            [self._coerce_fit_batch(d) for d in batches]) if m is not None]
         tbptt = self.conf.conf.tbptt
         if k > 1 and len(items) == k and not any(
                 self._batch_is_tbptt(m, tbptt) for m in items):
@@ -584,7 +723,7 @@ class KStepExecutorMixin:
                 with trace.span("train_step_tbptt"):
                     self._run_tbptt(m, tbptt)
             else:
-                self._fit_one(m)
+                self._fit_one(m, trimmed=True)
             out.append(float(self.score_value))
         return np.asarray(out, dtype=np.float64)
 
@@ -594,22 +733,24 @@ class KStepExecutorMixin:
         another shape) batch by batch through the k=1 program."""
         if not pending:
             return
-        batches = [d for d, _ in pending]
-        waits = [w for _, w in pending]
+        kept = [(d, w) for d, (_, w) in zip(
+            self._dp_trim([d for d, _ in pending]), pending) if d is not None]
         del pending[:]
+        batches = [d for d, _ in kept]
+        waits = [w for _, w in kept]
         if len(batches) == k and k > 1:
             tups = [self._host_tuple(d) for d in batches]
             if len({signature(t) for t in tups}) == 1:
                 self._dispatch_window(tups, batches, waits, k)
                 return
         for d, w in zip(batches, waits):
-            self._fit_one(d, w)
+            self._fit_one(d, w, trimmed=True)
 
     def _dispatch_window(self, tups, batches, waits, k: int):
         """One k-step program call, then the listener pass over its
         outputs: the losses (and the health block) are fetched once a
         window, and every step is still seen by the listeners."""
-        window = stack_batches(tups)
+        window = self._dp_window(stack_batches(tups), tups)
         prog, _ = self._program_for(window, k)
         t1 = time.perf_counter()
         with trace.span("train_step_fused"):
@@ -628,7 +769,7 @@ class KStepExecutorMixin:
                 for lst in self.listeners:
                     lst.iteration_done(self, self.iteration_count,
                                        loss_host[i],
-                                       batches[i].num_examples())
+                                       self._global_examples(batches[i]))
                 self.iteration_count += 1
         return loss_host
 
@@ -642,14 +783,31 @@ class KStepExecutorMixin:
         assert it). Attach listeners (a HealthMonitor in particular)
         first: the health toggle rebuilds the programs. Returns
         ``{program: seconds}``."""
-        if mesh_spec is not None:
-            raise NotImplementedError(
-                "mesh training is not ported to deeplearning4j_tpu_torch "
-                "yet (ROADMAP A6)")
+        self.use_mesh(mesh_spec)
         self._prepare_fit()
         return warmup_train_programs(
             self, self._host_tuple(self._coerce_fit_batch(example)),
             int(steps_per_device_call))
+
+
+def truncate_batch(ds, target: int):
+    """Trim a batch to its first ``target`` examples (DataSet or
+    MultiDataSet; the JAX wrapper's ``_truncate_batch``): the ranks'
+    shards stay equal without the gradient bias padding by repetition
+    would cause."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+
+    def take(a):
+        return None if a is None else a[:target]
+
+    if isinstance(ds, MultiDataSet):
+        def take_list(lst):
+            return None if lst is None else [take(a) for a in lst]
+        return MultiDataSet(take_list(ds.features), take_list(ds.labels),
+                            take_list(ds.features_masks),
+                            take_list(ds.labels_masks))
+    return DataSet(take(ds.features), take(ds.labels),
+                   take(ds.features_mask), take(ds.labels_mask))
 
 
 def _carry_leaves(carries):

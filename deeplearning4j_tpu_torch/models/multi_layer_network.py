@@ -48,9 +48,13 @@ programs ahead of time, and a ``HealthMonitor`` listener gets the fused
 health vector of every step (``observability/health.py``). The step
 never rebinds the layer state or the updater state: it copies the new
 trees into them, so the graphs' addresses stay valid; rebinding either
-(or the params, or a new optimizer) drops every program. Not ported
-yet, and raising ``NotImplementedError`` when asked for: meshes
-(ROADMAP A6).
+(or the params, or a new optimizer) drops every program.
+``fit(mesh_spec="dp=N")`` (or ``use_mesh``) trains data-parallel over a
+``torch.distributed`` process group, each rank on its own shard of the
+global batch (``parallel/mesh_spec.py``): the gradients and the loss
+are all-reduced between the backward and gradient normalization
+(``_step_body``'s hook; ``_apply_step`` is the update half). Tensor,
+sequence and pipeline meshes wait for ROADMAP A6b.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from deeplearning4j_tpu_torch.observability.flight_recorder import (
     on_fit_exception)
 from deeplearning4j_tpu_torch.observability.health import fused_health
 from deeplearning4j_tpu_torch.observability.tracing import trace
+from deeplearning4j_tpu_torch.parallel import global_batch
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -89,9 +94,6 @@ from deeplearning4j_tpu_torch.util.tree import (tree_copy,
                                                 tree_to_device)
 
 __all__ = ["MultiLayerNetwork", "fit_epochs", "eval_one"]
-
-_NOT_PORTED = "is not ported to deeplearning4j_tpu_torch yet (ROADMAP {})"
-
 
 def _detach(carries):
     """Recurrent carries (a list or dict of (h, c) or None, or None) cut
@@ -149,13 +151,14 @@ def fit_epochs(model, data, epochs: int, k: int = 1) -> None:
         raise
 
 
-def check_fit_args(steps_per_device_call, mesh_spec) -> int:
+def check_fit_args(model, steps_per_device_call, mesh_spec) -> int:
+    """k, checked; a ``mesh_spec`` is installed on ``model``
+    (``use_mesh``) and stays for later fits, as in the JAX package."""
     k = int(steps_per_device_call)
     if k < 1:
         raise ValueError("steps_per_device_call must be >= 1")
     if mesh_spec is not None:
-        raise NotImplementedError(
-            f"mesh training {_NOT_PORTED.format('A6')}")
+        model.use_mesh(mesh_spec)
     return k
 
 
@@ -420,8 +423,17 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         copied into the live trees. Returns (the loss as a device
         scalar, the fused health vector or None, the new carries
         detached: None without ``carries``)."""
-        loss, grads, (new_states, new_carries) = self._gradients(batch,
-                                                                 carries)
+        loss, grads, aux = self._gradients(batch, carries)
+        # data parallelism: the mean loss and gradients over the mesh
+        loss, grads = global_batch.reduce_gradients(loss, grads)
+        return self._apply_step(loss, grads, aux, health)
+
+    def _apply_step(self, loss, grads, aux, health: bool = False):
+        """The update half of ``_step_body``: gradient normalization ->
+        updater -> constraints on ``grads``, the new layer state copied
+        into the live tree; returns (loss, health vector or None, the
+        new carries detached)."""
+        new_states, new_carries = aux
         self._where = "the updater"
         grads = apply_gradient_normalization(self.layers, grads)
         params = self.params
@@ -454,7 +466,7 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         runs each full window of k batches as one k-step program (the
         epoch's tail through the k=1 program) and hands the listeners
         every step's loss from one fetch a window."""
-        k = check_fit_args(steps_per_device_call, mesh_spec)
+        k = check_fit_args(self, steps_per_device_call, mesh_spec)
         self._prepare_fit()
         fit_epochs(self, _as_iterator(data, labels, batch_size), epochs, k)
         return self

@@ -12,7 +12,10 @@ biased variance (``F.batch_norm`` would update it with the unbiased
 one), and ``(x − mean)`` promotes a bf16 input against the float32
 statistics, so the layer's output is float32 under the bf16 policy as
 in the JAX package. The state is a plain ``{"mean", "var"}`` dict
-returned by ``apply``, computed under ``no_grad``.
+returned by ``apply``, computed under ``no_grad``. Inside a
+data-parallel step (``parallel/global_batch.py``) the statistics are the
+global batch's, from all-reduced float32 sums, as the JAX package's
+GSPMD step computes them.
 
 Local response normalization sums the squares over a window of ``n``
 channels zero-padded by ``n // 2`` on each side, as the JAX layer's
@@ -34,6 +37,7 @@ from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer, Layer,
                                                           register_layer)
+from deeplearning4j_tpu_torch.parallel import global_batch
 
 __all__ = ["BatchNormalization", "LayerNormalization",
            "LocalResponseNormalization", "layer_norm"]
@@ -84,9 +88,19 @@ class BatchNormalization(BaseLayer):
         axes = tuple(range(x.dim() - 1))   # all but the channel axis
         if training:
             xs = x.float()
-            mean = xs.mean(dim=axes)
-            var = torch.clamp(xs.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
+            gb = global_batch.active()
+            if gb is None:
+                mean = xs.mean(dim=axes)
+                ex2 = xs.square().mean(dim=axes)
+            else:
+                # the global batch's statistics: all-reduced float32
+                # sums over equal shards, the gradient through them
+                c = xs.shape[-1]
+                sums = global_batch.all_reduce_sum(torch.cat(
+                    [xs.sum(dim=axes), xs.square().sum(dim=axes)]))
+                n = (xs.numel() // c) * gb.ctx.world
+                mean, ex2 = sums[:c] / n, sums[c:] / n
+            var = torch.clamp(ex2 - mean.square(), min=0.0)
             with torch.no_grad():
                 new_state = {
                     "mean": (self.decay * state["mean"]

@@ -10,7 +10,10 @@ masked loss over the present timesteps. ``LossLayer`` is the loss
 alone, without weights. ``CenterLossOutputLayer`` adds the center loss:
 its per-class feature centers are layer *state*, and both executors add
 ``lambda_ * center_loss`` to the loss and take ``update_centers`` as the
-new state. The sequence-parallel loss (ROADMAP A6) is not ported yet.
+new state. Inside a data-parallel step (``parallel/global_batch.py``)
+the masked recurrent loss divides by the global batch's mask total and
+the centers move toward the global batch's class means, as in the JAX
+package's GSPMD step. The sequence-parallel loss waits for ROADMAP A6b.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
                                                           register_layer)
+from deeplearning4j_tpu_torch.parallel import global_batch
 
 __all__ = ["OutputLayer", "RnnOutputLayer", "LossLayer",
            "CenterLossOutputLayer"]
@@ -131,7 +135,13 @@ class RnnOutputLayer(OutputLayer):
             else mask
         per = self._per_example(z, labels, m)      # (B,) summed over T, F
         if mask is not None:
-            # DL4J averages over *present* timesteps across the batch
+            # DL4J averages over *present* timesteps across the batch:
+            # the global batch's under data parallelism, where the mean
+            # of the ranks' losses is the step's loss
+            total = global_batch.mask_total(mask)
+            if total is not None:
+                return (per.sum() * global_batch.world()
+                        / torch.clamp(total, min=1.0))
             return per.sum() / torch.clamp(mask.sum(), min=1.0)
         return per.mean() / z.shape[1]
 
@@ -194,7 +204,13 @@ class CenterLossOutputLayer(OutputLayer):
         x, labels = x.to(dt), labels.to(dt)
         keep_float32(x)
         counts = torch.sum(labels, dim=0)[:, None]
-        mean_per_class = (labels.T @ x) / torch.clamp(counts, min=1.0)
+        sums = labels.T @ x
+        if global_batch.active() is not None:
+            # the global batch's class counts and sums
+            both = global_batch.all_reduce_sum(
+                torch.cat([counts, sums], dim=1))
+            counts, sums = both[:, :1], both[:, 1:]
+        mean_per_class = sums / torch.clamp(counts, min=1.0)
         centers = state["centers"]
         new = torch.where(counts > 0, (1 - self.alpha) * centers
                           + self.alpha * mean_per_class, centers)

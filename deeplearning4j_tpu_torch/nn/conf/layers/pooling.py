@@ -15,7 +15,7 @@ of real elements in each window, as the JAX layer does.
 ``GlobalPoolingLayer.apply_stream`` pools a stream chunk by chunk over
 a running statistic (max, sum and count, sum, or sum of |x|^p), so each
 step returns the pool of the stream so far. The sequence-parallel
-combine is not ported yet (ROADMAP A6).
+combine waits for ROADMAP A6b.
 """
 
 from __future__ import annotations

@@ -69,8 +69,8 @@ leave as migration offers instead of finishing in place.
 ``warmup()`` (``serve --aot-warmup``) runs every hosted model's predict
 buckets and one dummy generate before traffic, which captures each
 generate backend's decode-step CUDA graph (``serving/warmup.py``), and
-the retrieval service's default search bucket. The serving mesh is not
-ported yet (ROADMAP A6).
+the retrieval service's default search bucket. The serving mesh (a
+tensor-parallel backend) waits for ROADMAP A6b.
 """
 
 from __future__ import annotations

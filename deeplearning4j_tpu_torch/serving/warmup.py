@@ -84,7 +84,7 @@ def warmup_server(server, *, generate: bool = True,
     for entry in server.registry.models():
         name = entry["name"]
         # the serving mesh (the JAX package's resolve_serving_model)
-        # is not ported (ROADMAP A6): the registry's model is served
+        # waits for ROADMAP A6b: the registry's model is served
         model, version = server.registry.resolve(name)
         r = {"version": version, "predict_buckets": [],
              "generate": False, "seconds": 0.0, "skipped": []}

@@ -40,8 +40,16 @@ A restore copies the checkpoint's arrays into the model's live
 parameter, state and updater tensors, so the model's captured training
 programs stay valid across resumes and rollbacks. The checkpoints are
 the JAX package's zips: a directory either package's trainer wrote
-resumes in the other. Not ported: ``wrapper=`` (ParallelWrapper) and
-``mesh_spec=``, which wait for ROADMAP A6.
+resumes in the other.
+
+Data parallelism: ``mesh_spec=`` installs the spec on the model up front
+(``use_mesh``, so a restore lands in the data-parallel replicas too) and
+composes with ``steps_per_device_call``; ``wrapper=`` (a
+``ParallelWrapper``) trains each batch through ``wrapper.fit_batch`` and
+each window through ``wrapper.fit_batches``. Every rank runs its own
+trainer over the same checkpoint directory: only the coordinator (rank
+0) writes and sweeps it, every rank restores from it, and the ranks
+meet at a barrier before a resume or a rollback reads it.
 """
 
 from __future__ import annotations
@@ -277,10 +285,31 @@ class ElasticTrainer:
             # fails loudly everywhere instead of silently clamping
             # in one mode and crashing in another
             raise ValueError("steps_per_device_call must be >= 1")
-        if mesh_spec is not None or wrapper is not None:
-            raise NotImplementedError(
-                "ElasticTrainer's mesh_spec= and wrapper= are not ported "
-                "to deeplearning4j_tpu_torch yet (ROADMAP A6)")
+        # mesh_spec: train data-parallel over a declarative mesh
+        # ("dp=4" | dict | JSON — parallel/mesh_spec.py): the spec is
+        # installed on the model up front (so a checkpoint restore lands
+        # in the replicas too) and composes with steps_per_device_call.
+        # Mutually exclusive with ``wrapper`` (two ways to state the
+        # same parallelism).
+        self.wrapper = wrapper
+        if mesh_spec is not None:
+            if wrapper is not None:
+                raise ValueError(
+                    "pass either mesh_spec (the executor's sharded "
+                    "fit path) or wrapper (an explicit "
+                    "ParallelWrapper), not both")
+            model.use_mesh(mesh_spec)
+        if wrapper is not None:
+            if self.k > 1 and not wrapper.supports_fused_windows():
+                # the compressed reduce has no fused k-step program —
+                # failing loudly beats silently training with a
+                # different cadence than the operator asked for
+                raise ValueError(
+                    "steps_per_device_call > 1 needs a wrapper mesh "
+                    "that fuses (no dcn_compression); this wrapper's "
+                    "mesh step is per-batch — drop the wrapper or use "
+                    "steps_per_device_call=1")
+            wrapper._place_model()
         self.dir = checkpoint_dir
         os.makedirs(checkpoint_dir, exist_ok=True)
         self.save_every = max(1, save_every)
@@ -320,6 +349,29 @@ class ElasticTrainer:
         cks = self._ckpts()
         return cks[-1][1] if cks else None
 
+    def _mesh(self):
+        """The data-parallel context this trainer's steps run on (None
+        on one device or off the mesh)."""
+        ctx = (self.wrapper._ctx if self.wrapper is not None
+               else getattr(self.model, "_mesh_ctx", None))
+        return ctx if ctx is not None and ctx.member else None
+
+    def _writes(self) -> bool:
+        """Only the coordinator writes (and sweeps, and quarantines)
+        the shared checkpoint directory under data parallelism."""
+        if self._mesh() is None and self.wrapper is None:
+            return True
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            is_coordinator)
+        return is_coordinator()
+
+    def _meet(self) -> None:
+        """Every rank at one point: the coordinator's writes are on
+        disk before any rank reads the directory."""
+        ctx = self._mesh()
+        if ctx is not None:
+            ctx.barrier()
+
     def _sweep_stale_tmp(self) -> None:
         """A crash mid-``write_model`` leaks ``ckpt_N.zip.tmp<pid>``
         forever (the pid suffix means a restarted process never
@@ -327,6 +379,8 @@ class ElasticTrainer:
         on start — but only when the owning pid is dead, so a second
         trainer pointed at a shared directory can never delete a
         write another live process is mid-way through."""
+        if not self._writes():
+            return
         for f in os.listdir(self.dir):
             m = _TMP_RE.match(f)
             if not m:
@@ -362,6 +416,8 @@ class ElasticTrainer:
         this call cost the train thread either way."""
         from deeplearning4j_tpu_torch.util.model_serializer import (
             snapshot_model)
+        if not self._writes():
+            return None             # the coordinator's replica is ours
         t0 = time.perf_counter()
         it = self.model.iteration_count
         # the data position rides in the same zip: one atomic artifact,
@@ -554,6 +610,8 @@ class ElasticTrainer:
         ``*.corrupt`` — out of the generation sequence (so fallback
         terminates) but kept on disk as evidence."""
         from deeplearning4j_tpu_torch.train import listeners as _listeners
+        if not self._writes():
+            return              # the coordinator quarantines it
         q = path + ".corrupt"
         logger.warning("checkpoint %s failed integrity/restore (%r): "
                        "quarantining as %s and falling back to the "
@@ -599,6 +657,7 @@ class ElasticTrainer:
                 self._quarantine(path, e)
 
     def _resume(self):
+        self._meet()
         if not self._ckpts():
             return
         if self.model.params is None:
@@ -747,7 +806,12 @@ class ElasticTrainer:
                     # this one batch (exercising the rollback path)
                     ds = self._chaos_step(ds)
                     try:
-                        model.fit(ds)
+                        if self.wrapper is not None:
+                            # fit_batch, not fit([ds]): the trainer
+                            # owns the epoch loop
+                            self.wrapper.fit_batch(ds)
+                        else:
+                            model.fit(ds)
                     except Exception as e:
                         # HealthMonitor's rollback policy raises a
                         # rollback-flagged TrainingDivergedError from
@@ -856,9 +920,11 @@ class ElasticTrainer:
                 try:
                     # full windows run as one k-step program; the
                     # epoch tail (len < k) through the k=1 program
-                    losses = model.fit_batches(
-                        [d for _, d in window],
-                        steps_per_device_call=k)
+                    fit_batches = (self.wrapper.fit_batches
+                                   if self.wrapper is not None
+                                   else model.fit_batches)
+                    losses = fit_batches([d for _, d in window],
+                                         steps_per_device_call=k)
                 except Exception as e:
                     if not getattr(e, "rollback", False):
                         raise
@@ -955,6 +1021,7 @@ class ElasticTrainer:
         # generation; restoring before it lands would silently roll
         # back further than necessary
         self.checkpoint_barrier()
+        self._meet()
         # generation-by-generation fallback: a corrupt newest
         # checkpoint must cost one quarantine, not the run
         path = self._restore_latest_intact()

@@ -331,8 +331,12 @@ def test_stale_tmp_of_a_dead_writer_is_swept(tmp_path, zip_path):
 
 
 def test_unported_options_raise(tmp_path, zip_path):
-    with pytest.raises(NotImplementedError, match="A6"):
+    # mesh_spec= is ported (tests/test_torch_dp_train.py): dp=2 needs two
+    # ranks, tensor parallelism waits for A6b
+    with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         TTrainer(_port(zip_path), str(tmp_path / "m"), mesh_spec="dp=2")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        TTrainer(_port(zip_path), str(tmp_path / "t"), mesh_spec="tp=2")
     with pytest.raises(ValueError, match="steps_per_device_call"):
         TTrainer(_port(zip_path), str(tmp_path / "k"),
                  steps_per_device_call=0)

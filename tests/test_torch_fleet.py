@@ -592,7 +592,7 @@ def test_subprocess_replica_spawns_the_port():
       "--rollout-shadow-sample", "1.5"], "shadow-sample"),
     (["--rollout", "m2.zip", "--rollout-min-requests", "5"],
      "needs --collector"),
-    (["--mesh", "tp=2"], "A6"),
+    (["--mesh", "tp=2"], "A6b"),
 ])
 def test_serve_fleet_refuses_before_any_replica_boots(monkeypatch, argv,
                                                       item):

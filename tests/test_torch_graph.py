@@ -508,8 +508,12 @@ def test_unported_graph_features_raise(every_vertex_pair):
         == {"train_step", "kstep_2"}
     tc.fit(MultiDataSet(xs, ys), steps_per_device_call=2)
     assert tc.iteration_count == 1
-    with pytest.raises(NotImplementedError, match="A6"):
+    # data parallelism is ported (tests/test_torch_parallel.py): dp=2
+    # needs two ranks; tensor parallelism waits for A6b
+    with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         tn.fit(MultiDataSet(xs, ys), mesh_spec="dp=2")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        tn.fit(MultiDataSet(xs, ys), mesh_spec="tp=2")
 
 
 def test_cuda_graph_without_a_card_raises(every_vertex_pair, tmp_path,

@@ -316,8 +316,12 @@ def test_invalid_k_and_mesh(tmp_path):
     x, y = _batches(1, seed=10)[0]
     with pytest.raises(ValueError, match="steps_per_device_call"):
         tn.fit_batches([TDataSet(x, y)], steps_per_device_call=0)
-    with pytest.raises(NotImplementedError, match="A6"):
+    # data parallelism is ported (tests/test_torch_parallel.py): one
+    # process is one rank, and tensor parallelism waits for A6b
+    with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         tn.warmup(TDataSet(x, y), mesh_spec="dp=2")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        tn.warmup(TDataSet(x, y), mesh_spec="tp=2")
 
 
 def test_feed_forward_and_clone_match_jax(tmp_path):

@@ -593,7 +593,9 @@ def test_unported_training_features_raise(lm_pair):
     # at least 1, as in the JAX package
     with pytest.raises(ValueError, match="steps_per_device_call"):
         tn.fit(DataSet(ids, y), steps_per_device_call=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # data parallelism is ported (tests/test_torch_parallel.py): dp=2
+    # needs two ranks
+    with pytest.raises(ValueError, match="mesh spec dp=2 needs 2"):
         tn.fit(DataSet(ids, y), mesh_spec="dp=2")
     # listeners are ported (A5b-3, tests/test_torch_listeners.py)
     marker = object()
