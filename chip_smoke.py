@@ -142,7 +142,17 @@ the step and reduce times, the kernels' launches under ``dp``), a
 ResNet50 step at dp=2 against
 dp=1 (the batch-norm state from global statistics), the int8
 compressed reduce against the full-precision one, and a device-loss
-drill shrinking dp=2 to dp=1. The fleet phases' replicas serve the LM
+drill shrinking dp=2 to dp=1. Then (``tp_sp_pp_phase``) tensor,
+sequence and pipeline parallelism, two rank processes sharing the card
+(gloo): the LM at full width and depth 2, 3 Adam steps on dp_phase's
+rows at sp=2 (each rank's half of the sequence, attention through the
+ring on the flash kernels), tp=2 (8 heads a rank) and pp=2 (one encoder
+layer a stage, 4 microbatches), each held against dp_phase's one-rank
+run by ``dp_hold``, with the kernels' launches under each (``tp_sp_pp``),
+the ring's, the tp all-reduces' and the pipeline's bytes and
+host-staged ms a step and each stage's idle (bubble) ms; and ``serve
+--mesh tp=2`` as two CLI rank processes, rank 0's ``/v1/predict`` held
+against the one-rank model's output. The fleet phases' replicas serve the LM
 at full width and depth FLEET_LAYERS, and slice_phase's predicts send
 SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
 wall time is logged. It imports nothing of JAX or of the
@@ -158,6 +168,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -180,10 +191,13 @@ TRAIN_B, TRAIN_STEPS = 8, 5   # the transformer_lm bench leg's batch
 # test_bench_leg_rate_diverges_at_full_width_in_both_packages, marked
 # slow); at 1e-4 it falls.
 TRAIN_LR = 1e-4
-# depth of train_phase's checkpoint round trip (full width): at LAYERS
-# the zip with the updater state (1.26 GB deflated) took 65.79 s to write
-# and 12.76 s to restore of the phase's 83.6 s; its 5 steps took 1.03 s
-CKPT_RT_LAYERS = 2
+# depth of the checkpoint round trips of slice_phase and train_phase
+# (full width): at LAYERS the zip with the updater state (1.26 GB
+# deflated) took 65.79 s to write and 12.76 s to restore of
+# train_phase's 83.6 s, and slice_phase's zip of the L=8 LM 31.0 s; at
+# depth 2 train_phase's write still took 17.23 s (deflate at ~20 MB/s
+# on the host)
+CKPT_RT_LAYERS = 1
 # kernel vs plain version, both float32 on the card (TF32 off): the
 # sums run in another order, so allow a few ulps of accumulated error
 ATOL, RTOL = 2e-5, 2e-4
@@ -509,8 +523,9 @@ def http(port, path, body=None, headers=None):
 
 
 def slice_phase(attn, card):
-    """Build, save, restore and serve the full-width LM. Returns the
-    main path's launch count."""
+    """Build and serve the full-width LM (its zip written, verified and
+    restored at depth CKPT_RT_LAYERS). Returns the main path's launch
+    count."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
@@ -524,22 +539,26 @@ def slice_phase(attn, card):
 
     t0 = time.perf_counter()
     conf = MultiLayerConfiguration.from_dict(lm_config())
-    net = MultiLayerNetwork(conf, device="cuda").init(seed=0)
-    n_params = sum(p.numel() for p in net.parameters())
+    served = MultiLayerNetwork(conf, device="cuda").init(seed=0)
+    n_params = sum(p.numel() for p in served.parameters())
     ids = np.random.default_rng(0).integers(
         0, V, (CLIENTS, T)).astype(np.float32)
+    init_s = time.perf_counter() - t0
+    # the zip round trip at depth CKPT_RT_LAYERS (the host's deflate)
+    t0 = time.perf_counter()
+    net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+        lm_config(layers=CKPT_RT_LAYERS)), device="cuda").init(seed=0)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "lm.zip")
         write_model(net, path)
         verify_checkpoint(path)
-        served = restore_model(path, device="cuda")
+        restored = restore_model(path, device="cuda")
     log(f"LM V={V} D={D_MODEL} L={LAYERS} H={HEADS} T={T}: {n_params} "
-        f"params; init + write + verify + restore "
-        f"{time.perf_counter() - t0:.1f} s")
-    ref = net.output(ids[:2])
-    assert torch.equal(served.output(ids[:2]), ref), \
+        f"params, init {init_s:.1f} s; write + verify + restore at depth "
+        f"{CKPT_RT_LAYERS} {time.perf_counter() - t0:.1f} s")
+    assert torch.equal(restored.output(ids[:2]), net.output(ids[:2])), \
         "restored model's output differs from the original's"
-    del net
+    del net, restored
 
     registry = ModelRegistry()
     registry.register("lm", served)
@@ -3669,20 +3688,28 @@ def vgg16_import(card):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "vgg16.zip")
         write_model(net, path)
-        # one batch size a comparison: cuDNN may take another algorithm
-        # for another shape
-        rows = net.output(xd[:CPU_ROWS])
-        again = load_model_guess(path, device="cuda")
-        assert torch.equal(again.output(xd[:CPU_ROWS]), rows)
-        del again
-        r = subprocess.run(
+        # the summary CLI reads the zip while this process restores it
+        cli = subprocess.Popen(
             [sys.executable, "-m", "deeplearning4j_tpu_torch", "summary",
-             "--model", path, "--device", "cuda"], capture_output=True,
-            text=True, timeout=300, check=True,
+             "--model", path, "--device", "cuda"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
             cwd=os.path.dirname(os.path.abspath(__file__)))
-        lines = r.stdout.splitlines()
-        assert lines[0] == "format: checkpoint", r.stdout
-        assert lines[-1] == f"total params: {n_params}", r.stdout
+        try:
+            # one batch size a comparison: cuDNN may take another
+            # algorithm for another shape
+            rows = net.output(xd[:CPU_ROWS])
+            again = load_model_guess(path, device="cuda")
+            assert torch.equal(again.output(xd[:CPU_ROWS]), rows)
+            del again
+            stdout, stderr = cli.communicate(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        assert cli.returncode == 0, stderr
+        lines = stdout.splitlines()
+        assert lines[0] == "format: checkpoint", stdout
+        assert lines[-1] == f"total params: {n_params}", stdout
         log(f"summary CLI of the zip: {lines[0]}; {len(lines) - 3} layers; "
             f"{lines[-1]}")
         if present["h5py"]:
@@ -6026,9 +6053,9 @@ def retrieval_phase(card):
 # id as JSON, which at 8 ids held the drills' host to ~16 requests/s on
 # an H100 machine, so one id
 CTL_PREDICT_T = 1
-# paired off/on runs (4 until the smoke's time limit; the cost is
-# printed, not asserted)
-OBS_RUNS, OBS_REQUESTS, OBS_CONC = 2, 160, 8
+# paired off/on runs (4, then 2, until the smoke's time limit; the
+# cost is printed, not asserted)
+OBS_RUNS, OBS_REQUESTS, OBS_CONC = 1, 160, 8
 OBS_BAR = 0.02             # bench.py's OBS_OVERHEAD_BAR
 ROLL_REPLICAS = 4
 # bench.py's autoscaler_soak, its 14 s load cut to AS_DURATION
@@ -7138,6 +7165,7 @@ def dp_part_lm(world, out):
     import torch
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.parallel import collectives
     from deeplearning4j_tpu_torch.parallel.multihost import process_index
     net = dp_lm_net()
     rng = np.random.default_rng(0)          # as train_phase
@@ -7152,7 +7180,7 @@ def dp_part_lm(world, out):
     for fn in kernels:                     # the dp path only
         fn.launches = 0
     step_ms, losses = [], []
-    ctx.reduce_seconds, ctx.reduce_bytes = 0.0, 0
+    collectives.reset_stats()
     tag = os.path.join(out, f"lm_dp{world}")
     for step in range(DP_LM_STEPS):
         torch.cuda.synchronize()
@@ -7166,7 +7194,7 @@ def dp_part_lm(world, out):
     launches = {"flash_attention_fwd": kernels[0].launches,
                 "flash_attention_bwd_dq": kernels[1].launches,
                 "flash_attention_bwd_dkv": kernels[2].launches}
-    in_step_s = ctx.reduce_seconds
+    in_step_s = collectives.STATS["dp"]["seconds"]
     # the bucket's all-reduce alone: loss + every gradient, float32
     n = 1 + sum(p.numel() for p in net.parameters())
     bucket = torch.zeros(n, device=CARD)
@@ -7392,6 +7420,9 @@ def dp_rank_main(out, parts):
     return 0
 
 
+RANK_SCRIPT = os.path.abspath(__file__)     # what run_ranks starts
+
+
 def run_ranks(world, out, parts):
     """``world`` ranks of this script over one card; their results."""
     import socket
@@ -7404,7 +7435,7 @@ def run_ranks(world, out, parts):
                    DL4J_TPU_NUM_PROCESSES=str(world),
                    DL4J_TPU_PROCESS_ID=str(rank))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "dp-rank", out]
+            [sys.executable, RANK_SCRIPT, "dp-rank", out]
             + list(parts), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     logs = []
@@ -7431,7 +7462,7 @@ def run_ranks(world, out, parts):
     return out_json
 
 
-def dp_phase(attn, card):
+def dp_phase(attn, card, out):
     """Data parallelism over torch.distributed on the card, ranks as
     subprocesses (dp=1: one rank, nccl; dp=2: two ranks on the one card,
     gloo): bench.py's multichip_dp_scaling leg uncut; the LM at full
@@ -7441,119 +7472,380 @@ def dp_phase(attn, card):
     step's update and batch-norm state at dp=2 vs dp=1 (global batch
     statistics); the int8 compressed reduce vs the full-precision one;
     a device-loss drill shrinking dp=2 to dp=1. Returns the attention
-    kernels' launches on this path."""
-    import shutil
+    kernels' launches on this path; leaves the dp=1 LM run's files in
+    ``out`` (``tp_sp_pp_phase`` holds its runs against them)."""
     import numpy as np
-    here = os.path.dirname(os.path.abspath(__file__))
-    out = tempfile.mkdtemp(prefix="dp-", dir=os.path.join(here, "build"))
-    try:
-        one = run_ranks(1, out, ["leg", "lm", "resnet"])
-        two = run_ranks(2, out, ["leg", "lm", "resnet", "compressed",
-                                 "loss"])
-        log(f"dp ranks: dp=1 backend {one[0]['backend']}, dp=2 backend "
-            f"{two[0]['backend']} (two ranks on one card: nccl refuses "
-            f"them, gloo stages CUDA tensors through the host); "
-            f"{one[0]['card']}")
-        # (a) the leg
-        rates = {**one[0]["leg"], **two[0]["leg"]}
-        vs = rates["dp2_k8_steps_per_sec"] / rates["dp2_k1_steps_per_sec"]
-        log(f"multichip_dp_scaling ({card}): " + ", ".join(
-            f"{k} {rates[k]:.1f}" for k in sorted(rates)
-            if k.endswith("steps_per_sec")) + f"; vs_baseline (dp2_k8 / "
-            f"dp2_k1) {vs:.3f}; zero captures in every timed steady "
-            f"state; dp=1 reduce: {one[0]['leg']['reduce']}; dp=2 reduce: "
-            f"{two[0]['leg']['reduce']}; rank 1's dp=2 rates: " + ", ".join(
-                f"{k} {v:.1f}" for k, v in sorted(two[1]["leg"].items())
-                if k.endswith("steps_per_sec")))
-        log("  (as the JAX leg's note says of its 2-core host: on one "
-            "card dp=2 shares one device and cannot beat dp=1; the leg "
-            "measures the data-parallel path's overhead and k-fusion on "
-            "it)")
-        for k in DP_LEG_KS:
-            worst_m, worst_p, loose, loose_max = dp_hold(
-                os.path.join(out, f"leg_dp2_k{k}"),
-                os.path.join(out, f"leg_dp1_k{k}"), 1, k, 1e-3)
-            log(f"multichip_dp_scaling dp=2 vs dp=1, the first window "
-                f"after the warmup (k={k}: {k} Adam steps on the same "
-                f"{DP_LEG_ROWS} rows): Adam's moments worst max|diff| / "
-                f"max|moment| of a tensor {worst_m:.3e}, parameters "
-                f"{worst_p:.3e} (limit {GRAD_RTOL}); {loose} entries whose "
-                f"moments differ by more than {GRAD_RTOL} of their own "
-                f"size not held, max|diff| "
-                f"{loose_max:.3e}")
-        # (b) the LM: what its fit steps produced, dp=2 vs dp=1
-        lm1, lm2 = one[0]["lm"], two[0]["lm"]
-        assert two[0]["lm"]["digest"] == two[1]["lm"]["digest"], \
-            "dp=2 replicas differ"
+    one = run_ranks(1, out, ["leg", "lm", "resnet"])
+    two = run_ranks(2, out, ["leg", "lm", "resnet", "compressed",
+                             "loss"])
+    log(f"dp ranks: dp=1 backend {one[0]['backend']}, dp=2 backend "
+        f"{two[0]['backend']} (two ranks on one card: nccl refuses "
+        f"them, gloo stages CUDA tensors through the host); "
+        f"{one[0]['card']}")
+    # (a) the leg
+    rates = {**one[0]["leg"], **two[0]["leg"]}
+    vs = rates["dp2_k8_steps_per_sec"] / rates["dp2_k1_steps_per_sec"]
+    log(f"multichip_dp_scaling ({card}): " + ", ".join(
+        f"{k} {rates[k]:.1f}" for k in sorted(rates)
+        if k.endswith("steps_per_sec")) + f"; vs_baseline (dp2_k8 / "
+        f"dp2_k1) {vs:.3f}; zero captures in every timed steady "
+        f"state; dp=1 reduce: {one[0]['leg']['reduce']}; dp=2 reduce: "
+        f"{two[0]['leg']['reduce']}; rank 1's dp=2 rates: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(two[1]["leg"].items())
+            if k.endswith("steps_per_sec")))
+    log("  (as the JAX leg's note says of its 2-core host: on one "
+        "card dp=2 shares one device and cannot beat dp=1; the leg "
+        "measures the data-parallel path's overhead and k-fusion on "
+        "it)")
+    for k in DP_LEG_KS:
         worst_m, worst_p, loose, loose_max = dp_hold(
-            os.path.join(out, "lm_dp2"), os.path.join(out, "lm_dp1"),
-            DP_LM_STEPS, DP_LM_STEPS, TRAIN_LR)
+            os.path.join(out, f"leg_dp2_k{k}"),
+            os.path.join(out, f"leg_dp1_k{k}"), 1, k, 1e-3)
+        log(f"multichip_dp_scaling dp=2 vs dp=1, the first window "
+            f"after the warmup (k={k}: {k} Adam steps on the same "
+            f"{DP_LEG_ROWS} rows): Adam's moments worst max|diff| / "
+            f"max|moment| of a tensor {worst_m:.3e}, parameters "
+            f"{worst_p:.3e} (limit {GRAD_RTOL}); {loose} entries whose "
+            f"moments differ by more than {GRAD_RTOL} of their own "
+            f"size not held, max|diff| "
+            f"{loose_max:.3e}")
+    # (b) the LM: what its fit steps produced, dp=2 vs dp=1
+    lm1, lm2 = one[0]["lm"], two[0]["lm"]
+    assert two[0]["lm"]["digest"] == two[1]["lm"]["digest"], \
+        "dp=2 replicas differ"
+    worst_m, worst_p, loose, loose_max = dp_hold(
+        os.path.join(out, "lm_dp2"), os.path.join(out, "lm_dp1"),
+        DP_LM_STEPS, DP_LM_STEPS, TRAIN_LR)
+    launches = {}
+    for res in (one[0], two[0], two[1]):
+        for k, n in res["lm"]["launches"].items():
+            assert n == DP_LM_LAYERS * DP_LM_STEPS, (k, n)
+            launches[k] = launches.get(k, 0) + n
+    for tag, lm in (("dp=1", lm1), ("dp=2", lm2)):
+        warm = lm["step_ms"][1:]
+        log(f"LM dp ({card}; V={V} D={D_MODEL} L={DP_LM_LAYERS} "
+            f"H={HEADS} T={T}, global B={DP_LM_B}) {tag}: "
+            f"{DP_LM_STEPS} Adam steps, losses " + ", ".join(
+                f"{x:.6f}" for x in lm["losses"]) + "; step ms "
+            + ", ".join(f"{x:.2f}" for x in lm["step_ms"])
+            + f" (warm median {sorted(warm)[len(warm) // 2]:.2f}); "
+            f"the bucket's all-reduce alone {lm['bucket_bytes']} bytes "
+            "in " + ", ".join(f"{x:.2f}" for x in lm["reduce_ms"])
+            + f" ms; host-staged reduce inside the steps "
+            f"{lm['in_step_reduce_s'] * 1e3:.1f} ms in all; "
+            f"{lm['reduce']}")
+    log(f"LM dp=2 vs dp=1 after {DP_LM_STEPS} Adam steps through fit: "
+        f"Adam's moments worst max|diff| / max|moment| of a tensor "
+        f"{worst_m:.3e}, parameters {worst_p:.3e} (limit {GRAD_RTOL});"
+        f" {loose} entries whose moments differ by more than "
+        f"{GRAD_RTOL} of their own size not held,"
+        f" max|diff| {loose_max:.3e} (Adam's bound 2 x lr x steps "
+        f"{2 * TRAIN_LR * DP_LM_STEPS:g}); dp=2 replicas bit-equal "
+        f"(sha256 {lm2['digest'][:16]}); launches "
+        + ", ".join(f"{k} {n}" for k, n in launches.items()))
+    # (c) ResNet50: global batch statistics
+    ref = _load_leaves(os.path.join(out, "resnet_dp1_r0"))
+    others = [_load_leaves(os.path.join(out, f"resnet_dp1_r{r}"))
+              for r in DP_RESNET_ROLLS]
+    got = _load_leaves(os.path.join(out, "resnet_dp2_r0"))
+    rows = _leaf_errors(got, ref, others, F32_FACTOR)
+    log(f"ResNet50 one step dp=2 vs dp=1 ({card}; B={CHECK_B}, "
+        f"{CHECK_HW}x{CHECK_HW}; {two[0]['resnet']['reduce']}): loss "
+        f"{two[0]['resnet']['loss']:.6f} vs {one[0]['resnet']['loss']:.6f}"
+        f"; {len(ref)} leaves (updates, batch-norm state); L2 |dp2 - "
+        f"dp1| / ({F32_FACTOR:g} x dp=1's reorder difference + "
+        f"{FLOOR_RTOL:g} x |dp1|), worst three: " + "; ".join(
+            f"{k} {r:.3f}" for r, k, _, _ in rows[:3]) + " (limit 1)")
+    assert rows[0][0] <= 1.0, rows[:3]
+    # (d) the compressed reduce
+    comp = two[0]["compressed"]
+    assert math.isfinite(comp["int8"])
+    assert abs(comp["int8"] - comp["plain"]) < 0.05 * max(
+        abs(comp["plain"]), 1.0), comp
+    assert two[1]["compressed"]["int8"] == comp["int8"]
+    log(f"dp=2 int8-compressed reduce ({card}): loss "
+        f"{comp['int8']:.4f} vs uncompressed {comp['plain']:.4f} "
+        f"(limit 5%); {comp['int8_describe']}")
+    # (e) the device-loss drill
+    r0, r1 = two[0]["loss"], two[1]["loss"]
+    assert r0["shrinks"] == r1["shrinks"] == 1.0, (r0, r1)
+    assert r0["dp_after"] == r1["dp_after"] == 1, (r0, r1)
+    assert r0["trained"] == [True] * DP_LOSS_BATCHES, r0
+    assert r1["trained"] == [True] + [False] * (DP_LOSS_BATCHES - 1), r1
+    assert r0["active"] and not r1["active"]
+    assert math.isfinite(r0["loss"])
+    log(f"device-loss drill ({card}): rank 1 lost at batch 2, dp=2 -> "
+        f"dp=1, rank 0 trained {r0['iterations']} batches (loss "
+        f"{r0['loss']:.4f}), rank 1 left after {r1['iterations']}; "
+        f"elastic_mesh_shrinks_total {r0['shrinks']:g}")
+    log("dp rank seconds: " + json.dumps(
+        {f"dp{len(g)}_rank{i}": {p: round(r[p + "_s"], 1)
+                                 for p in DP_PARTS if p + "_s" in r}
+         for g in (one, two) for i, r in enumerate(g)}))
+    return launches
+
+
+TSP_STEPS_MICRO = 4           # the pipeline's microbatches (2 rows each)
+TSP_SERVE_IDS = 64            # ids a /v1/predict request of serve --mesh
+TSP_SERVE_REQUESTS = 4
+
+
+def _full_trees(net):
+    """(params, updater state) of ``net`` whole: under tensor
+    parallelism gathered over its model group (every rank calls it)."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        full_opt_state, full_params)
+    return full_params(net), full_opt_state(net)
+
+
+def mp_part_lm(world, out, mode):
+    """The LM at full width, depth DP_LM_LAYERS, DP_LM_STEPS Adam steps
+    on dp_part_lm's rows (its global batch of DP_LM_B) over ``world``
+    ranks in ``mode``: "sp" (ParallelWrapper over a seq mesh, this rank's
+    time chunk through the ring), "tp" (``fit(mesh_spec="tp=N")``: H/N
+    heads a rank, W1 by columns, W2 by rows) or "pp"
+    (``NetworkSpmdPipeline``: one encoder layer a stage, TSP_STEPS_MICRO
+    microbatches). What the steps produced (Adam's moments after each,
+    the parameters after all, whole), the attention kernels' launches,
+    the step times and the collectives' bytes and host-staged time."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.parallel import collectives
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.parallel.multihost import process_index
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    net = dp_lm_net()
+    rng = np.random.default_rng(0)          # as dp_part_lm
+    ids = rng.integers(0, V, (DP_LM_B, T)).astype("float32")
+    y = np.eye(V, dtype="float32")[rng.integers(0, V, (DP_LM_B, T))]
+    bridge = None
+    if mode == "sp":
+        from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+        pw = ParallelWrapper(net, build_mesh(MeshSpec(data=1, seq=world)),
+                             prefetch_buffer=0)
+        ds = DataSet(pw.local_shard(ids), pw.local_shard(y))
+        step = lambda: pw.fit_batch(ds)
+    elif mode == "tp":
+        net.use_mesh(f"tp={world}")
+        ds = DataSet(ids, y)
+        step = lambda: net.fit(ds)
+    else:
+        from deeplearning4j_tpu_torch.parallel.pipeline_spmd import (
+            NetworkSpmdPipeline)
+        bridge = NetworkSpmdPipeline(
+            net, build_mesh(MeshSpec(data=1, pipe=world)),
+            n_microbatches=TSP_STEPS_MICRO)
+        step = lambda: bridge.train_batch(ids, y)
+    kernels = (attn.flash_attention_fwd_cuda,
+               attn.flash_attention_bwd_dq_cuda,
+               attn.flash_attention_bwd_dkv_cuda)
+    for fn in kernels:                     # this path only
+        fn.launches = 0
+    step_ms, losses, stats, idle = [], [], [], []
+    tag = os.path.join(out, f"lm_{mode}{world}")
+    for i in range(DP_LM_STEPS):
+        collectives.reset_stats()
+        idle0 = bridge.pipe.idle_seconds if bridge is not None else 0.0
+        torch.cuda.synchronize()
+        dist.barrier()             # the ranks start each step together
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        # the step's own collectives (not the snapshot's gathers below)
+        stats.append({k: dict(v) for k, v in collectives.STATS.items()
+                      if v["calls"]})
+        if bridge is not None:
+            idle.append((bridge.pipe.idle_seconds - idle0) * 1e3)
+        losses.append(float(net.score_value))
+        if bridge is not None:
+            bridge.collect_params(updater=True)
+        params, opt = _full_trees(net)
+        if process_index() == 0:
+            moments = {}
+            for k, v in _flatten(opt).items():
+                parts = k.split("/")
+                for moment in (".mu", ".nu"):
+                    if moment in parts:
+                        j = parts.index(moment)
+                        moments[moment[1:] + "/" + "/".join(
+                            parts[j + 1:])] = v
+            _save_leaves(f"{tag}_m{i + 1}", moments)
+    if process_index() == 0:
+        _save_leaves(tag + "_p", _flatten(params))
+    res = {"step_ms": step_ms, "losses": losses, "idle_ms": idle,
+           "launches": {"flash_attention_fwd": kernels[0].launches,
+                        "flash_attention_bwd_dq": kernels[1].launches,
+                        "flash_attention_bwd_dkv": kernels[2].launches},
+           "stats": stats}
+    if mode == "tp":
+        res["route"] = net._mesh_ctx.reduce_route(net)
+        res["modes"] = net._tp.describe()["modes"]
+    if mode == "pp":
+        res["pipe"] = bridge.describe()
+    return res
+
+
+DP_PARTS.update({
+    "lm_sp": lambda world, out: mp_part_lm(world, out, "sp"),
+    "lm_tp": lambda world, out: mp_part_lm(world, out, "tp"),
+    "lm_pp": lambda world, out: mp_part_lm(world, out, "pp")})
+
+
+def serve_mesh_drill(out, card):
+    """``serve --mesh tp=2`` as two rank processes of the CLI on the card
+    (multihost variables, gloo: they share it): rank 0 answers
+    TSP_SERVE_REQUESTS ``/v1/predict`` requests of TSP_SERVE_IDS ids for
+    the LM at full width and depth DP_LM_LAYERS, each held within
+    ATOL / RTOL of the one-rank model's ``output`` on the card; ctrl-c
+    drains rank 0 and stops rank 1. Returns the requests' ms."""
+    import socket
+    import signal
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    net = dp_lm_net()
+    path = os.path.join(out, "lm_serve.zip")
+    write_model(net, path)
+    rng = np.random.default_rng(9)
+    rows = [rng.integers(0, V, (1, TSP_SERVE_IDS)).astype("float32")
+            for _ in range(TSP_SERVE_REQUESTS)]
+    want = [net.output(r).cpu().numpy() for r in rows]
+    del net
+    torch.cuda.empty_cache()
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            ports.append(sk.getsockname()[1])
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=here,
+                   DL4J_TPU_COORDINATOR=f"127.0.0.1:{ports[0]}",
+                   DL4J_TPU_NUM_PROCESSES="2", DL4J_TPU_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve",
+             "--model", f"lm={path}", "--mesh", "tp=2", "--device", CARD,
+             "--port", str(ports[1])], env=env, cwd=out,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    ms, errs = [], []
+    try:
+        base = f"http://127.0.0.1:{ports[1]}"
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                health = json.loads(urllib.request.urlopen(
+                    base + "/healthz", timeout=5).read())
+                break
+            except OSError:
+                assert time.monotonic() < deadline, "serve --mesh: no rank 0"
+                assert procs[0].poll() is None, procs[0].stdout.read()
+                time.sleep(0.5)
+        assert health["mesh"]["axes"]["tp"] == 2, health
+        for r, w in zip(rows, want):
+            body = json.dumps({"model": "lm", "inputs": r.tolist()}).encode()
+            t0 = time.perf_counter()
+            got = json.loads(urllib.request.urlopen(urllib.request.Request(
+                base + "/v1/predict", data=body,
+                headers={"Content-Type": "application/json"}),
+                timeout=120).read())["outputs"]
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = np.asarray(got, np.float32)
+            assert got.shape == w.shape, (got.shape, w.shape)
+            assert np.allclose(got, w, rtol=RTOL, atol=ATOL), \
+                float(np.abs(got - w).max())
+            errs.append(float(np.abs(got - w).max()))
+        procs[0].send_signal(signal.SIGINT)
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (f"serve --mesh rank {rank} exited "
+                                   f"{p.returncode}:\n{text[-4000:]}")
+    assert "serving mesh: tp=2" in logs[0] and "draining" in logs[0]
+    assert "following the mesh's rank 0" in logs[1]
+    log(f"serve --mesh tp=2 ({card}; two rank processes on the card, "
+        f"gloo; LM V={V} D={D_MODEL} L={DP_LM_LAYERS} H={HEADS}): "
+        f"{len(ms)} /v1/predict requests of {TSP_SERVE_IDS} ids, ms "
+        + ", ".join(f"{x:.1f}" for x in ms) + "; max|tp=2 - one rank| "
+        + ", ".join(f"{e:.2e}" for e in errs)
+        + f" (limit atol {ATOL} + rtol {RTOL}); rank 1 followed "
+        "and stopped on rank 0's ctrl-c")
+    return ms
+
+
+def tp_sp_pp_phase(attn, card, ref_dir):
+    """Tensor, sequence and pipeline parallelism on the card, two rank
+    processes sharing it (gloo): the LM at full width and depth
+    DP_LM_LAYERS, DP_LM_STEPS Adam steps on dp_part_lm's rows, at sp=2
+    (local T = T/2 through the ring on the flash kernels), tp=2 (H/2
+    heads a rank) and pp=2 (one encoder layer a stage), each held against
+    dp_phase's one-rank run in ``ref_dir`` by ``dp_hold``; then
+    ``serve --mesh tp=2`` (``serve_mesh_drill``). Returns the attention
+    kernels' launches on this path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="tsp-", dir=os.path.join(here, "build"))
+    try:
+        ranks = run_ranks(2, out, ["lm_sp", "lm_tp", "lm_pp"])
+        ref = os.path.join(ref_dir, "lm_dp1")
         launches = {}
-        for res in (one[0], two[0], two[1]):
-            for k, n in res["lm"]["launches"].items():
-                assert n == DP_LM_LAYERS * DP_LM_STEPS, (k, n)
-                launches[k] = launches.get(k, 0) + n
-        for tag, lm in (("dp=1", lm1), ("dp=2", lm2)):
-            warm = lm["step_ms"][1:]
-            log(f"LM dp ({card}; V={V} D={D_MODEL} L={DP_LM_LAYERS} "
-                f"H={HEADS} T={T}, global B={DP_LM_B}) {tag}: "
-                f"{DP_LM_STEPS} Adam steps, losses " + ", ".join(
-                    f"{x:.6f}" for x in lm["losses"]) + "; step ms "
-                + ", ".join(f"{x:.2f}" for x in lm["step_ms"])
-                + f" (warm median {sorted(warm)[len(warm) // 2]:.2f}); "
-                f"the bucket's all-reduce alone {lm['bucket_bytes']} bytes "
-                "in " + ", ".join(f"{x:.2f}" for x in lm["reduce_ms"])
-                + f" ms; host-staged reduce inside the steps "
-                f"{lm['in_step_reduce_s'] * 1e3:.1f} ms in all; "
-                f"{lm['reduce']}")
-        log(f"LM dp=2 vs dp=1 after {DP_LM_STEPS} Adam steps through fit: "
-            f"Adam's moments worst max|diff| / max|moment| of a tensor "
-            f"{worst_m:.3e}, parameters {worst_p:.3e} (limit {GRAD_RTOL});"
-            f" {loose} entries whose moments differ by more than "
-            f"{GRAD_RTOL} of their own size not held,"
-            f" max|diff| {loose_max:.3e} (Adam's bound 2 x lr x steps "
-            f"{2 * TRAIN_LR * DP_LM_STEPS:g}); dp=2 replicas bit-equal "
-            f"(sha256 {lm2['digest'][:16]}); launches "
-            + ", ".join(f"{k} {n}" for k, n in launches.items()))
-        # (c) ResNet50: global batch statistics
-        ref = _load_leaves(os.path.join(out, "resnet_dp1_r0"))
-        others = [_load_leaves(os.path.join(out, f"resnet_dp1_r{r}"))
-                  for r in DP_RESNET_ROLLS]
-        got = _load_leaves(os.path.join(out, "resnet_dp2_r0"))
-        rows = _leaf_errors(got, ref, others, F32_FACTOR)
-        log(f"ResNet50 one step dp=2 vs dp=1 ({card}; B={CHECK_B}, "
-            f"{CHECK_HW}x{CHECK_HW}; {two[0]['resnet']['reduce']}): loss "
-            f"{two[0]['resnet']['loss']:.6f} vs {one[0]['resnet']['loss']:.6f}"
-            f"; {len(ref)} leaves (updates, batch-norm state); L2 |dp2 - "
-            f"dp1| / ({F32_FACTOR:g} x dp=1's reorder difference + "
-            f"{FLOOR_RTOL:g} x |dp1|), worst three: " + "; ".join(
-                f"{k} {r:.3f}" for r, k, _, _ in rows[:3]) + " (limit 1)")
-        assert rows[0][0] <= 1.0, rows[:3]
-        # (d) the compressed reduce
-        comp = two[0]["compressed"]
-        assert math.isfinite(comp["int8"])
-        assert abs(comp["int8"] - comp["plain"]) < 0.05 * max(
-            abs(comp["plain"]), 1.0), comp
-        assert two[1]["compressed"]["int8"] == comp["int8"]
-        log(f"dp=2 int8-compressed reduce ({card}): loss "
-            f"{comp['int8']:.4f} vs uncompressed {comp['plain']:.4f} "
-            f"(limit 5%); {comp['int8_describe']}")
-        # (e) the device-loss drill
-        r0, r1 = two[0]["loss"], two[1]["loss"]
-        assert r0["shrinks"] == r1["shrinks"] == 1.0, (r0, r1)
-        assert r0["dp_after"] == r1["dp_after"] == 1, (r0, r1)
-        assert r0["trained"] == [True] * DP_LOSS_BATCHES, r0
-        assert r1["trained"] == [True] + [False] * (DP_LOSS_BATCHES - 1), r1
-        assert r0["active"] and not r1["active"]
-        assert math.isfinite(r0["loss"])
-        log(f"device-loss drill ({card}): rank 1 lost at batch 2, dp=2 -> "
-            f"dp=1, rank 0 trained {r0['iterations']} batches (loss "
-            f"{r0['loss']:.4f}), rank 1 left after {r1['iterations']}; "
-            f"elastic_mesh_shrinks_total {r0['shrinks']:g}")
-        log("dp rank seconds: " + json.dumps(
-            {f"dp{len(g)}_rank{i}": {p: round(r[p + "_s"], 1)
-                                     for p in DP_PARTS if p + "_s" in r}
-             for g in (one, two) for i, r in enumerate(g)}))
+        for mode in ("sp", "tp", "pp"):
+            part = f"lm_{mode}"
+            worst_m, worst_p, loose, loose_max = dp_hold(
+                os.path.join(out, f"lm_{mode}2"), ref, DP_LM_STEPS,
+                DP_LM_STEPS, TRAIN_LR)
+            per = {}
+            for r in ranks:
+                for k, n in r[part]["launches"].items():
+                    per[k] = per.get(k, 0) + n
+                    launches[k] = launches.get(k, 0) + n
+            for k, n in per.items():
+                assert n > 0, (mode, k, n)
+            r0 = ranks[0][part]
+            warm = r0["step_ms"][1:]
+            extra = ""
+            if mode == "pp":
+                extra = "; each stage's idle (bubble) ms in the warm " \
+                    "steps: " + "; ".join(
+                        f"stage {r[part]['pipe']['stage']} " + ", ".join(
+                            f"{x:.1f} of {y:.1f}" for x, y in zip(
+                                r[part]["idle_ms"][1:],
+                                r[part]["step_ms"][1:])) for r in ranks)
+            if mode == "tp":
+                extra = f"; {r0['route']}; modes {r0['modes']}"
+            log(f"LM {mode}=2 vs one rank ({card}; V={V} D={D_MODEL} "
+                f"L={DP_LM_LAYERS} H={HEADS} T={T}, B={DP_LM_B}; two gloo "
+                f"ranks on the card): {DP_LM_STEPS} Adam steps, losses "
+                + ", ".join(f"{x:.6f}" for x in r0["losses"])
+                + "; step ms " + ", ".join(f"{x:.1f}" for x in r0["step_ms"])
+                + f" (warm median {sorted(warm)[len(warm) // 2]:.1f}); "
+                f"Adam's moments worst max|diff| / max|moment| "
+                f"{worst_m:.3e}, parameters {worst_p:.3e} (limit "
+                f"{GRAD_RTOL}); {loose} entries not held, max|diff| "
+                f"{loose_max:.3e}; attention launches "
+                + ", ".join(f"{k} {n}" for k, n in per.items())
+                + "; rank 0's collectives a step: " + "; ".join(
+                    ", ".join(f"{k} {v['bytes']} bytes in {v['calls']} "
+                              f"calls, {v['seconds'] * 1e3:.1f} ms "
+                              f"host-staged" for k, v in st.items())
+                    for st in r0["stats"]) + extra)
+            kind = {"sp": "ring", "tp": "tp", "pp": "pipe"}[mode]
+            for i, st in enumerate(r0["stats"][1:], 2):
+                v = st.get(kind, {"bytes": 0, "seconds": 0.0})
+                log(f"  {mode}=2 step {i} (warm), rank 0: {kind} "
+                    f"{v['bytes']} bytes, {v['seconds'] * 1e3:.1f} ms "
+                    f"host-staged of the step's {r0['step_ms'][i - 1]:.1f}")
+        log("  (nccl across ranks, i.e. the ring's device send/recv and "
+            "tp's captured all-reduce, needs a card a rank: two ranks on "
+            "one card run gloo)")
+        serve_mesh_drill(out, card)
         return launches
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -7686,13 +7978,20 @@ def main():
     fwd_ctl, dec_ctl = timed("fleet_control_phase", fleet_control_phase,
                              attn, da, card)
     ps = timed("ps_phase", ps_phase, attn, card)
-    dp = timed("dp_phase", dp_phase, attn, card)
+    dp_dir = tempfile.mkdtemp(prefix="dp-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        dp = timed("dp_phase", dp_phase, attn, card, dp_dir)
+        tsp = timed("tp_sp_pp_phase", tp_sp_pp_phase, attn, card, dp_dir)
+    finally:
+        shutil.rmtree(dp_dir, ignore_errors=True)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
                                "fleet_control": fwd_ctl,
                                "ps": ps["flash_attention_fwd"],
-                               "dp": dp["flash_attention_fwd"]}
+                               "dp": dp["flash_attention_fwd"],
+                               "tp_sp_pp": tsp["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
                                "fleet_control": dec_ctl}
@@ -7700,7 +7999,8 @@ def main():
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],
                                       "capture": captured[name],
-                                      "ps": ps[name], "dp": dp[name]}
+                                      "ps": ps[name], "dp": dp[name],
+                                      "tp_sp_pp": tsp[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]

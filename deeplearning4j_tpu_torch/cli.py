@@ -6,11 +6,14 @@ and ``/v1/index/*`` with ``--index``),
 ``serve-fleet`` (N in-process replicas behind the health-aware router,
 with disaggregated prefill/decode roles, the autoscaler, the fleet
 collector and the canary rollout; every JAX flag but ``--mesh``, a
-tensor-parallel serving mesh that waits for ROADMAP A6b),
+tensor-parallel mesh a replica, queued as ROADMAP A6c), ``serve --mesh
+tp=N`` (predict tensor-parallel over N rank processes: rank 0 serves,
+the others follow),
 ``fleet-status``, ``fleet-rollout``, ``index build``, ``summary`` (a
 checkpoint zip or Keras ``.h5`` through the model guesser), ``train``
-(CSV training; ``--mesh dp=N`` / ``--workers N`` data-parallel over N
-processes started with the multihost variables, ``--k-step``,
+(CSV training; ``--mesh dp=N,tp=M`` / ``--workers N`` data- and
+tensor-parallel over the processes started with the multihost
+variables, sp and pp routed as in the JAX package, ``--k-step``,
 ``--aot-warmup``, ``--health``, ``--async-checkpoint``), ``train-ps``
 (asynchronous parameter-server training: a launcher with worker
 subprocesses, or one server or worker a process) and the top-level
@@ -223,13 +226,48 @@ def _cmd_serve(args):
         restore_model, verify_checkpoint)
     if not args.model and not args.index:
         raise SystemExit("serve needs --model and/or --index")
+    device = args.device
+    leader = True
+    if args.mesh:
+        from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+            LAUNCH_RECIPE, parse_mesh_spec)
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            initialize_distributed, process_index, rank_device)
+        try:
+            plan = parse_mesh_spec(args.mesh)
+        except (ValueError, TypeError) as e:
+            raise SystemExit(f"serve: bad --mesh: {e}")
+        if plan.sp > 1 or plan.pp > 1:
+            raise SystemExit("serve: serving meshes take dp/tp axes only; "
+                             "sp and pp belong to training")
+        if args.index:
+            raise SystemExit("serve: --index does not compose with --mesh "
+                             "(the embedder/search models are not "
+                             "tensor-parallel)")
+        if plan.n_devices() > 1:
+            if not initialize_distributed(device=device):
+                raise SystemExit(f"serve: --mesh {plan} needs "
+                                 f"{plan.n_devices()} processes: "
+                                 f"{LAUNCH_RECIPE}")
+            device = rank_device(device)
+        leader = process_index() == 0
     registry = ModelRegistry()
     for spec in args.model or []:
         name, path = _parse_model_spec(spec)
         verify_checkpoint(path)
-        version = registry.register(name, restore_model(
-            path, device=args.device))
-        print(f"registered {name} v{version} from {path} on {args.device}")
+        version = registry.register(name, restore_model(path, device=device))
+        print(f"registered {name} v{version} from {path} on {device}")
+    if not leader:
+        # a follower rank: its shards of every hosted model, then the
+        # leader's forwards until it stops
+        from deeplearning4j_tpu_torch.serving.tp_backend import (
+            follow, host_models)
+        host_models(registry, args.mesh)
+        print(f"rank {process_index()}: following the mesh's rank 0",
+              flush=True)
+        n = follow()
+        print(f"rank {process_index()}: {n} forwards; stopped")
+        return
     metrics = ServingMetrics()
     slos = None
     if args.slo:
@@ -245,9 +283,13 @@ def _cmd_serve(args):
                          metrics=metrics, sample_rate=args.trace_sample,
                          slow_ms=args.slow_ms, slos=slos,
                          kv_mode=args.kv_mode, page_size=args.page_size,
-                         kv_pages=args.kv_pages,
+                         kv_pages=args.kv_pages, mesh=args.mesh,
                          retrieval=_retrieval_factory(args) if args.index
                          else None)
+    if args.mesh:
+        print(f"serving mesh: {server.mesh_plan} "
+              f"({server.mesh_plan.n_devices()} rank(s); predict "
+              f"tensor-parallel, generate refused)")
     if args.index:
         st = server.retrieval.stats()["index"]
         print(f"index: {st['kind']}/{st['metric']} on {args.device}: "
@@ -294,8 +336,10 @@ def _validate_fleet_args(args):
     exits here, not after N replicas started (and leaked). Returns the
     autoscaler's (min, max) bounds or None."""
     if args.mesh is not None:
-        raise SystemExit("serve-fleet --mesh (a tensor-parallel serving "
-                         "mesh) is not ported yet (ROADMAP A6b)")
+        raise SystemExit(
+            "serve-fleet --mesh (a tensor-parallel mesh a replica) is not "
+            "ported: each replica would need a rank set of its own "
+            "(ROADMAP A6c; A6b ported the single-server serve --mesh)")
     bounds = None
     if args.autoscale:
         try:
@@ -697,10 +741,11 @@ def _ps_batches(args):
     return list(it)
 
 
-def _rank_shard(it):
+def _rank_shard(it, ctx=None):
     """``it`` with each global batch cut to this rank's slice
-    (``multihost.local_batch_slice``): how a data-parallel rank reads
-    the CSV every rank holds."""
+    (``multihost.local_batch_slice``, or under a mesh its data index's
+    rows, ``MeshContext.local_shard``: the ranks of one model group read
+    the same rows): how a rank reads the CSV every rank holds."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.data.iterators import DataSetIterator
     from deeplearning4j_tpu_torch.parallel.multihost import (
@@ -712,10 +757,16 @@ def _rank_shard(it):
 
         def _iterate(self):
             for ds in it:
+                arrays = (ds.features, ds.labels, ds.features_mask,
+                          ds.labels_mask)
+                if ctx is not None:
+                    yield DataSet(*(None if a is None else
+                                    ctx.local_shard(a, temporal=False)
+                                    for a in arrays))
+                    continue
                 sl = local_batch_slice(ds.num_examples())
-                yield DataSet(*(None if a is None else a[sl] for a in (
-                    ds.features, ds.labels, ds.features_mask,
-                    ds.labels_mask)))
+                yield DataSet(*(None if a is None else a[sl]
+                                for a in arrays))
     return RankShard()
 
 
@@ -737,7 +788,7 @@ def _cmd_train(args):
     from deeplearning4j_tpu_torch.data.records import (
         CSVRecordReader, RecordReaderDataSetIterator)
     from deeplearning4j_tpu_torch.parallel.mesh_spec import (
-        LAUNCH_RECIPE, parse_mesh_spec)
+        LAUNCH_RECIPE, PP_ROUTE, SP_ROUTE, parse_mesh_spec)
     from deeplearning4j_tpu_torch.parallel.multihost import (
         initialize_distributed, is_coordinator, process_count,
         process_index, rank_device)
@@ -772,9 +823,15 @@ def _cmd_train(args):
     ranks = workers
     if args.mesh:
         try:
-            ranks = parse_mesh_spec(args.mesh).n_devices()
+            plan = parse_mesh_spec(args.mesh)
         except (ValueError, TypeError) as e:
             sys.exit(f"train: bad --mesh: {e}")
+        # sp and pp route as the JAX package's build_mesh_context does
+        if plan.pp > 1:
+            sys.exit(f"train: {PP_ROUTE}")
+        if plan.sp > 1:
+            sys.exit(f"train: {SP_ROUTE}")
+        ranks = plan.n_devices()
     device = args.device
     if ranks > 1:
         if not initialize_distributed(device=device):
@@ -797,7 +854,7 @@ def _cmd_train(args):
         rr, args.batch_size, label_index=args.label_index,
         num_classes=args.classes, regression=args.classes == 0)
     if process_count() > 1:
-        it = _rank_shard(it)
+        it = _rank_shard(it, model._mesh_ctx)
     model.set_listeners(ScoreIterationListener(10),
                         PerformanceListener(frequency=10))
     if args.health:
@@ -854,7 +911,19 @@ def _cmd_train(args):
         model.fit(it, epochs=args.epochs,
                   steps_per_device_call=args.k_step)
     out = args.output or args.model
-    if is_coordinator():
+    if getattr(model, "_tp", None) is not None:
+        # the zip holds the full parameters: every rank of each model
+        # group joins the gather, the coordinator writes
+        from deeplearning4j_tpu_torch.util.model_serializer import (
+            snapshot_model, write_snapshot)
+        snap = snapshot_model(model)
+        if is_coordinator():
+            write_snapshot(snap, out)
+            print(f"trained {args.epochs} epochs; saved to {out}")
+        else:
+            print(f"rank {process_index()}: trained {args.epochs} epochs; "
+                  f"the coordinator saves the model")
+    elif is_coordinator():
         write_model(model, out)
         print(f"trained {args.epochs} epochs; saved to {out}")
     else:
@@ -1066,6 +1135,13 @@ def main(argv=None):
                         "to --max-batch-size + one generate, which "
                         "captures the decode step's CUDA graph): the "
                         "first real request never pays a capture")
+    v.add_argument("--mesh", metavar="SPEC", default=None,
+                   help="serve predict tensor-parallel: 'tp=N' | "
+                        "'dp=M,tp=N' | JSON. Run one process a rank with "
+                        "DL4J_TPU_COORDINATOR=HOST:PORT "
+                        "DL4J_TPU_NUM_PROCESSES=N DL4J_TPU_PROCESS_ID=i "
+                        "and the same flags: rank 0 serves HTTP, the "
+                        "others follow it; generate is refused")
     _add_index_flags(v)
     v.set_defaults(fn=_cmd_serve)
 
@@ -1138,8 +1214,9 @@ def main(argv=None):
     f.add_argument("--net-chaos-seed", type=int, default=None,
                    metavar="N")
     f.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="serving mesh: not ported yet (ROADMAP A6b); "
-                        "given, the verb exits before any replica boots")
+                   help="a tensor-parallel mesh a replica: not ported "
+                        "(ROADMAP A6c; serve --mesh runs one); given, the "
+                        "verb exits before any replica boots")
     f.add_argument("--autoscale", metavar="MIN:MAX", default=None,
                    help="run the SLO-driven autoscaler over the "
                         "fleet: replica count moves inside "
@@ -1309,8 +1386,10 @@ def main(argv=None):
                         "(or under torchrun); each trains on its slice "
                         "of every batch, gradients all-reduced each "
                         "step (nccl with a card a rank, else gloo); "
-                        "composes with --k-step and --aot-warmup. tp, "
-                        "pp and sp wait for ROADMAP A6b")
+                        "composes with --k-step and --aot-warmup. "
+                        "'dp=N,tp=M' also splits the layers tensor-"
+                        "parallel (N*M processes); sp and pp exit "
+                        "naming ParallelWrapper and pipeline_spmd")
     t.add_argument("--prefetch", type=int, default=2)
     t.add_argument("--output", default=None)
     t.add_argument("--health", nargs="?", const="warn", default=None,

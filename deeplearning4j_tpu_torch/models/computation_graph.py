@@ -39,8 +39,10 @@ MultiLayerNetwork); ``evaluate``, ``evaluate_regression`` and
 ``evaluate_roc`` score one output, ``evaluate_outputs`` every output in
 one pass. ``fit(mesh_spec="dp=N")`` trains data-parallel as
 MultiLayerNetwork does (each output's masked loss over the global
-batch's mask total); tensor, sequence and pipeline meshes wait for
-ROADMAP A6b.
+batch's mask total), and ``fit(mesh_spec="dp=N,tp=M")`` tensor-parallel
+with the rules keyed by vertex name (``tensor_parallel.graph_tp_rules``;
+an op vertex takes full features). Sequence meshes train through
+``ParallelWrapper``.
 """
 
 from __future__ import annotations
@@ -199,6 +201,8 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
             masks.update(zip(self.conf.network_inputs, fmasks))
         new_state = {}
         new_carries = None if carries is None else {}
+        # tensor parallelism: which activations hold feature shards
+        tp, sharded = self._tp, {}
         for name in self.conf.topological_order():
             if only is not None and name not in only:
                 continue
@@ -206,6 +210,14 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
             self._where = f"vertex {name!r} ({type(obj).__name__})"
             xs = [acts[i] for i in ins]
             in_masks = [masks.get(i) for i in ins]
+            if tp is not None:
+                if isinstance(obj, Layer):
+                    xs[0] = tp.prepare(name, xs[0], sharded.get(ins[0],
+                                                                False))
+                    sharded[name] = tp.out_sharded(name)
+                else:
+                    xs = [tp.full(x, sharded.get(i, False))
+                          for x, i in zip(xs, ins)]
             if isinstance(obj, Layer):
                 in_mask = in_masks[0]
                 if exclude_outputs and name in self.conf.network_outputs \
@@ -226,6 +238,12 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
                         params[name], xd, c0, training=training,
                         generator=generator, mask=in_mask)
                     new_state[name] = self.state[name]
+                elif tp is not None:
+                    with tp.layer(name):
+                        y, new_state[name] = obj.apply(
+                            params[name], self.state[name], xs[0],
+                            training=training, generator=generator,
+                            mask=in_mask)
                 else:
                     y, new_state[name] = obj.apply(
                         params[name], self.state[name], xs[0],
@@ -247,6 +265,9 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
                 acts[name] = obj.apply(xs, mask=use_mask)
                 masks[name] = obj.propagate_mask(in_masks, xs,
                                                  mask_env=masks)
+        if tp is not None:
+            acts = {n: tp.full(a, sharded.get(n, False))
+                    for n, a in acts.items()}
         return acts, new_state, new_carries
 
     def forward(self, *inputs):
@@ -495,7 +516,11 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def params_flat(self) -> np.ndarray:
-        return tree_flat_vector(self.params)
+        """Every parameter in one flat vector (the full parameters under
+        tensor parallelism: collective over the model group)."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            full_params)
+        return tree_flat_vector(full_params(self))
 
     def set_params_flat(self, flat: np.ndarray) -> None:
         self.set_params(tree_from_flat_vector(self.params, flat))

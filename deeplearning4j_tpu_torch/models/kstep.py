@@ -50,7 +50,10 @@ reduces the loss and gradients over the mesh (``parallel/global_batch.
 py``). On a card under ``nccl`` the all-reduce is captured in the
 window's graph; under ``gloo`` (ranks sharing a card) every step runs
 eagerly, its bucket all-reduced through the host, and captures
-nothing: gloo's collectives cannot be captured.
+nothing: gloo's collectives cannot be captured. A data x model mesh
+(``dp=..,tp=..``) reduces the bucket over the data axis; each layer's
+tensor-parallel collectives run inside the step (captured under nccl,
+eager under gloo; ``parallel/tensor_parallel.py``).
 """
 
 from __future__ import annotations
@@ -183,10 +186,10 @@ class TrainProgram:
         # steps' global mask totals) and each step reduces over the mesh
         self.dp = model._mesh_ctx
         # gloo's collectives cannot be captured: under gloo on a card
-        # every step runs eagerly (its bucket staged through the host)
+        # every step runs eagerly (its bucket staged through the host),
+        # and so does a sequence-parallel step (the ring's sends)
         self.eager = (self.cuda and self.dp is not None
-                      and self.dp.group is not None
-                      and self.dp.backend != "nccl")
+                      and self.dp.eager_steps(model.device))
         self.graph = None
         self.tally: dict = {}
         self.capture_seconds: Optional[float] = None
@@ -397,9 +400,11 @@ class KStepExecutorMixin:
     ``_batch_is_tbptt``, ``_tbptt_chunks(ds, fwd)`` and
     ``_zero_carries(B)``; batches need ``num_examples()``."""
 
-    # the installed MeshContext (None = one device); a class default so
-    # both executors inherit it
+    # the installed MeshContext (None = one device) and the tensor-
+    # parallel plan of the parameters this rank holds (None = full
+    # parameters); class defaults so both executors inherit them
     _mesh_ctx = None
+    _tp = None
 
     def use_mesh(self, mesh_spec, devices=None):
         """Install a declarative mesh spec (``"dp=4"`` | dict | JSON | a
@@ -442,8 +447,8 @@ class KStepExecutorMixin:
             self._build_optimizer()
         if self._generator is None:
             self._generator = self._new_generator(self.conf.conf.seed)
-        self._mesh_ctx = ctx
         ctx.place_model(self)
+        self._mesh_ctx = ctx
         self._flush_compiled_programs()
         logger.info("data parallel: %s", ctx.describe(self))
         return self

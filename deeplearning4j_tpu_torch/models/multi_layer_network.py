@@ -53,8 +53,13 @@ trees into them, so the graphs' addresses stay valid; rebinding either
 ``torch.distributed`` process group, each rank on its own shard of the
 global batch (``parallel/mesh_spec.py``): the gradients and the loss
 are all-reduced between the backward and gradient normalization
-(``_step_body``'s hook; ``_apply_step`` is the update half). Tensor,
-sequence and pipeline meshes wait for ROADMAP A6b.
+(``_step_body``'s hook; ``_apply_step`` is the update half).
+``fit(mesh_spec="dp=N,tp=M")`` also splits the layers by the tensor-
+parallel rules (``parallel/tensor_parallel.py``): each rank holds its
+shards, ``_forward`` runs every layer under its mode (``self._tp``),
+and ``params_flat`` / ``write_model`` gather the full parameters.
+Sequence meshes train through ``ParallelWrapper``, pipelines through
+``parallel/pipeline_spmd.py``.
 """
 
 from __future__ import annotations
@@ -320,12 +325,23 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         n = len(self.layers) if upto is None else upto
         new_states = list(self.state)
         new_carries = None if carries is None else [None] * len(self.layers)
+        tp, sharded = self._tp, False
         for i in range(n):
             layer = self.layers[i]
             self._where = f"layer {i} ({type(layer).__name__})"
+            if tp is not None:
+                # tensor parallelism: the layout this layer's mode takes
+                x = tp.prepare(i, x, sharded)
+                sharded = tp.out_sharded(i)
             if i in self.conf.preprocessors:
                 x = self.conf.preprocessors[i](x)
-            if carries is not None and isinstance(layer, BaseRecurrentLayer):
+            if tp is not None:
+                with tp.layer(i):
+                    x, new_states[i] = layer.apply(
+                        params[i], self.state[i], x, training=training,
+                        generator=generator, mask=fmask)
+            elif carries is not None and isinstance(layer,
+                                                    BaseRecurrentLayer):
                 c0 = carries[i]
                 if c0 is None:
                     c0 = layer.zero_state(x.shape[0], device=x.device)
@@ -339,7 +355,9 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
                     params[i], self.state[i], x, training=training,
                     generator=generator, mask=fmask)
             if collect is not None:
-                collect.append(x)
+                collect.append(x if tp is None else tp.full(x, sharded))
+        if tp is not None:
+            x = tp.full(x, sharded)
         return x, new_states, new_carries
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -575,7 +593,12 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def params_flat(self) -> np.ndarray:
-        return tree_flat_vector(self.params)
+        """Every parameter in one flat vector, in the JAX package's
+        order; under tensor parallelism the full parameters (gathered
+        over the model group: every rank of it calls this)."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            full_params)
+        return tree_flat_vector(full_params(self))
 
     def set_params_flat(self, flat: np.ndarray) -> None:
         self.set_params(tree_from_flat_vector(self.params, flat))

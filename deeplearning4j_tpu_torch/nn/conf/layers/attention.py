@@ -17,8 +17,17 @@ one page per row. Positions are host data, as in the sessions that own
 them; the paged session uploads them once a step, inside its captured
 graph, as a :class:`PagedIndex` that every layer reads. The projections
 and the block's MLP run with TF32 off on the card
-(``device.keep_float32``). The sequence-parallel branches are not ported
-yet.
+(``device.keep_float32``).
+
+Under sequence parallelism (``parallel/seq_context.py``) ``apply``
+attends over the whole sequence through the ring
+(``parallel/ring_attention.ring_self_attention``: the same flash
+kernels a chunk, the key-mask chunk rotating with its k/v), and zeroes
+the padded query rows. Under tensor parallelism
+(``parallel/tensor_parallel.py``) a rank holds the columns of Wq, Wk,
+Wv (its H/tp heads) and W1 and the rows of Wo and W2: the input enters
+through ``copy_to_model``, the row products are summed with
+``reduce_from_model`` before their bias.
 """
 
 from __future__ import annotations
@@ -34,9 +43,19 @@ from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
                                                           register_layer)
 from deeplearning4j_tpu_torch.nn.conf.layers.normalization import (
     layer_norm)
+from deeplearning4j_tpu_torch.parallel import seq_context, tensor_parallel
 
 __all__ = ["SelfAttentionLayer", "TransformerEncoderLayer", "PagedIndex",
            "paged_index"]
+
+
+def _tp_group():
+    """The model group when this layer runs under the tensor-parallel
+    head split, else None."""
+    act = tensor_parallel.current_mode()
+    if act is not None and act[0] == tensor_parallel.TPRule.ATTENTION:
+        return act[1]
+    return None
 
 
 def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -150,21 +169,36 @@ class SelfAttentionLayer(BaseLayer):
         from deeplearning4j_tpu_torch.ops.attention import flash_attention
         x = self.apply_input_dropout(x, training=training,
                                      generator=generator)
+        grp = _tp_group()
+        if grp is not None:
+            # tensor parallelism: this rank's heads (Wq/Wk/Wv columns)
+            x = tensor_parallel.copy_to_model(x, grp)
         q, k, v = self._project_qkv(params, x)
-        if mask is not None:
+        ring = seq_context.current_seq_axis()
+        if ring is not None:
+            # sequence parallelism: x is this rank's time chunk; the
+            # attention spans the whole sequence through the ring (the
+            # key-mask chunk rotates with its k/v)
+            from deeplearning4j_tpu_torch.parallel.ring_attention import (
+                ring_self_attention)
+            out = ring_self_attention(q, k, v, group=ring,
+                                      causal=self.causal, kv_mask=mask)
+            if mask is not None:
+                out = out * mask[:, :, None, None].to(out.dtype)
+        elif mask is not None:
             out = flash_attention(q, k, v, causal=self.causal,
                                   kv_mask=mask)
             out = out * mask[:, :, None, None].to(out.dtype)
         else:
             out = flash_attention(q, k, v, causal=self.causal)
-        return self._out_proj(params, out), state
+        return self._out_proj(params, out, grp), state
 
     def _project_qkv(self, params, x):
         """The shared q/k/v projection and head split: one
         implementation for apply and every streaming method."""
         B, T, _ = x.shape
-        H = self.n_heads
-        Dh = self.n_out // H
+        Dh = self.n_out // self.n_heads
+        H = params["Wq"].shape[1] // Dh      # H / tp under tensor parallel
         keep_float32(x)
         q = x @ params["Wq"]
         k = x @ params["Wk"]
@@ -176,9 +210,14 @@ class SelfAttentionLayer(BaseLayer):
         return (q.reshape(B, T, H, Dh), k.reshape(B, T, H, Dh),
                 v.reshape(B, T, H, Dh))
 
-    def _out_proj(self, params, out):
+    def _out_proj(self, params, out, grp=None):
+        """The output projection; ``grp``: the model group whose head
+        shards' partial products are summed (Wo by rows) before the
+        bias."""
         B, T = out.shape[:2]
-        proj = out.reshape(B, T, self.n_out) @ params["Wo"]
+        proj = out.reshape(B, T, -1) @ params["Wo"]
+        if grp is not None:
+            proj = tensor_parallel.reduce_from_model(proj, grp)
         if self.out_bias:
             proj = proj + params["bo"]
         return proj
@@ -332,8 +371,14 @@ class TransformerEncoderLayer(BaseLayer):
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         keep_float32(h)
         act = self.activation_fn()
-        return act(h @ params["W1"] + params["b1"]) @ params["W2"] \
-            + params["b2"]
+        grp = _tp_group()
+        if grp is None:
+            return act(h @ params["W1"] + params["b1"]) @ params["W2"] \
+                + params["b2"]
+        # tensor parallelism: W1 by columns, W2 by rows
+        h = tensor_parallel.copy_to_model(h, grp)
+        y = act(h @ params["W1"] + params["b1"]) @ params["W2"]
+        return tensor_parallel.reduce_from_model(y, grp) + params["b2"]
 
     def _stream_block(self, params, x, attend):
         h = layer_norm(x, params["ln1_g"], params["ln1_b"])

@@ -44,6 +44,7 @@ from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer, Layer,
                                                           register_layer)
+from deeplearning4j_tpu_torch.parallel import tensor_parallel
 
 __all__ = ["ConvolutionLayer", "Convolution1DLayer", "Deconvolution2DLayer",
            "SeparableConvolution2DLayer", "DepthwiseConvolution2DLayer",
@@ -168,6 +169,10 @@ class ConvolutionLayer(BaseLayer):
               mask=None):
         x = self.apply_input_dropout(x, training=training,
                                      generator=generator)
+        tp = tensor_parallel.current_mode()
+        if tp is not None and tp[0] == tensor_parallel.TPRule.COLUMN:
+            # tensor parallelism: this rank's output channels
+            x = tensor_parallel.copy_to_model(x, tp[1])
         y = self._conv(x, params["W"])
         if self.has_bias:
             y = y + params["b"]

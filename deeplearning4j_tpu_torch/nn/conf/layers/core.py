@@ -28,6 +28,7 @@ from deeplearning4j_tpu_torch import dtypes
 from deeplearning4j_tpu_torch.device import keep_float32
 from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.parallel import tensor_parallel
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (BaseLayer,
                                                           FeedForwardLayer,
                                                           Layer,
@@ -60,9 +61,16 @@ class DenseLayer(FeedForwardLayer):
         if x.dim() > 2 and x.shape[-1] != params["W"].shape[0]:
             x = x.reshape(x.shape[0], -1)
         keep_float32(x)
+        tp = tensor_parallel.current_mode()
+        if tp is not None and tp[0] == tensor_parallel.TPRule.COLUMN:
+            x = tensor_parallel.copy_to_model(x, tp[1])
         pol = dtypes.policy()
         y = pol.cast_to_output(pol.cast_to_compute(x)
                                @ pol.cast_to_compute(params["W"]))
+        if tp is not None and tp[0] == tensor_parallel.TPRule.ROW:
+            # the partial products of the input shards, summed before
+            # the bias and the activation
+            y = tensor_parallel.reduce_from_model(y, tp[1])
         if self.has_bias:
             y = y + params["b"]
         return self.activation_fn()(y), state

@@ -13,7 +13,11 @@ its per-class feature centers are layer *state*, and both executors add
 new state. Inside a data-parallel step (``parallel/global_batch.py``)
 the masked recurrent loss divides by the global batch's mask total and
 the centers move toward the global batch's class means, as in the JAX
-package's GSPMD step. The sequence-parallel loss waits for ROADMAP A6b.
+package's GSPMD step. In a sequence-parallel step the global batch is
+split over data x seq: the mask total is taken over those ranks (by the
+data-parallel scope's host reduce, or else by an all-reduce over
+``seq_context.current_loss_axes``) and scaled by their count, so the
+mean of the ranks' losses is the global masked mean.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from deeplearning4j_tpu_torch.nn import losses as losses_mod
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import (FeedForwardLayer,
                                                           register_layer)
-from deeplearning4j_tpu_torch.parallel import global_batch
+from deeplearning4j_tpu_torch.parallel import (collectives, global_batch,
+                                               seq_context)
 
 __all__ = ["OutputLayer", "RnnOutputLayer", "LossLayer",
            "CenterLossOutputLayer"]
@@ -142,6 +147,14 @@ class RnnOutputLayer(OutputLayer):
             if total is not None:
                 return (per.sum() * global_batch.world()
                         / torch.clamp(total, min=1.0))
+            axes = seq_context.current_loss_axes()
+            if axes is not None:
+                # a sequence-parallel step outside the data-parallel
+                # scope: the mask total over the ranks the batch is
+                # split over, scaled by their count
+                total = collectives.all_reduce_(
+                    mask.sum().detach().float().clone(), axes, kind="seq")
+                return per.sum() * axes.size / torch.clamp(total, min=1.0)
             return per.sum() / torch.clamp(mask.sum(), min=1.0)
         return per.mean() / z.shape[1]
 

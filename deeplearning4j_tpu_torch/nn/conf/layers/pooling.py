@@ -14,8 +14,11 @@ and zeros for the sums, and ``same``-mode averages divide by the count
 of real elements in each window, as the JAX layer does.
 ``GlobalPoolingLayer.apply_stream`` pools a stream chunk by chunk over
 a running statistic (max, sum and count, sum, or sum of |x|^p), so each
-step returns the pool of the stream so far. The sequence-parallel
-combine waits for ROADMAP A6b.
+step returns the pool of the stream so far. Under sequence parallelism
+(``parallel/seq_context.py``) a time pool is taken over the rank's
+chunk and combined over the ring (max, sums and counts; differentiable,
+``seq_context.seq_sum`` / ``seq_max``), as the JAX layer combines with
+``pmax`` / ``psum`` / ``pmean``.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers.base import Layer, register_layer
 from deeplearning4j_tpu_torch.nn.conf.layers.convolutional import (
     _conv_padding, _first, _out_dim, _pair)
+from deeplearning4j_tpu_torch.parallel import seq_context
 
 __all__ = ["PoolingType", "SubsamplingLayer", "Subsampling1DLayer",
            "GlobalPoolingLayer"]
@@ -182,34 +186,44 @@ class GlobalPoolingLayer(Layer):
 
     def apply(self, params, state, x, *, training=False, generator=None,
               mask=None):
+        ring = None
         if x.dim() == 4:
             axes = (1, 2)
         elif x.dim() == 3:
             axes = (1,)
+            # sequence parallelism: x is this rank's time chunk: pool it,
+            # then combine over the ring, so every rank holds the pool
+            # of the whole sequence
+            ring = seq_context.current_seq_axis()
         else:
             return x, state
+        psum = lambda t: seq_context.seq_sum(t, ring)
         if mask is not None and x.dim() == 3:
             m = mask[..., None]
             if self.pooling == PoolingType.MAX:
                 big_neg = torch.finfo(x.dtype).min
-                return torch.amax(torch.where(m > 0, x, big_neg),
-                                  dim=1), state
+                out = torch.amax(torch.where(m > 0, x, big_neg), dim=1)
+                return seq_context.seq_max(out, ring), state
             if self.pooling == PoolingType.SUM:
-                return torch.sum(x * m, dim=1), state
+                return psum(torch.sum(x * m, dim=1)), state
             if self.pooling == PoolingType.AVG:
-                return (torch.sum(x * m, dim=1)
-                        / torch.clamp(torch.sum(m, dim=1), min=1.0)), state
+                num = psum(torch.sum(x * m, dim=1))
+                den = psum(torch.sum(m, dim=1))
+                return num / torch.clamp(den, min=1.0), state
             if self.pooling == PoolingType.PNORM:
                 p = float(self.pnorm)
-                s = torch.sum((torch.abs(x) * m) ** p, dim=1)
+                s = psum(torch.sum((torch.abs(x) * m) ** p, dim=1))
                 return s ** (1.0 / p), state
+        n = 1 if ring is None else ring.size
         if self.pooling == PoolingType.MAX:
-            return torch.amax(x, dim=axes), state
+            return seq_context.seq_max(torch.amax(x, dim=axes), ring), state
         if self.pooling == PoolingType.AVG:
-            return torch.mean(x, dim=axes), state
+            # equal chunks: the mean of the chunks' means
+            return psum(torch.mean(x, dim=axes)) / n, state
         if self.pooling == PoolingType.SUM:
-            return torch.sum(x, dim=axes), state
+            return psum(torch.sum(x, dim=axes)), state
         if self.pooling == PoolingType.PNORM:
             p = float(self.pnorm)
-            return torch.sum(torch.abs(x) ** p, dim=axes) ** (1.0 / p), state
+            return psum(torch.sum(torch.abs(x) ** p, dim=axes)) \
+                ** (1.0 / p), state
         raise ValueError(self.pooling)

@@ -9,8 +9,16 @@ rank a device (:mod:`~deeplearning4j_tpu_torch.parallel.mesh`,
 (:mod:`~deeplearning4j_tpu_torch.parallel.inference`), the asynchronous
 parameter server (:mod:`~deeplearning4j_tpu_torch.parallel.paramserver`)
 and gradient compression
-(:mod:`~deeplearning4j_tpu_torch.parallel.compression`). Tensor,
-sequence and pipeline parallelism wait for ROADMAP A6b.
+(:mod:`~deeplearning4j_tpu_torch.parallel.compression`), and the rest
+of the mesh: tensor parallelism over the ``model`` axis
+(:mod:`~deeplearning4j_tpu_torch.parallel.tensor_parallel`), sequence
+parallelism with ring attention on the flash kernels
+(:mod:`~deeplearning4j_tpu_torch.parallel.seq_context`,
+:mod:`~deeplearning4j_tpu_torch.parallel.ring_attention`), and
+pipelines, one rank a stage
+(:mod:`~deeplearning4j_tpu_torch.parallel.pipeline_spmd`) or stages on
+devices of one process
+(:mod:`~deeplearning4j_tpu_torch.parallel.pipeline`).
 """
 
 from deeplearning4j_tpu_torch.parallel.compression import (  # noqa: F401

@@ -15,6 +15,9 @@ layers, which then take their batch statistics over the mesh:
   step's output, computed on the host before the step
   (:func:`mask_total`).
 
+"The mesh" is the data x seq group of the step's ``MeshContext``: the
+ranks of one model group (tensor parallelism) hold the same rows.
+
 :func:`reduce_gradients` is the executors' hook between the backward
 and gradient normalization: the loss and every gradient as one flat
 float32 bucket, all-reduced and averaged. Outside a scope (one device,
@@ -53,11 +56,18 @@ def scope(ctx, totals: Optional[torch.Tensor] = None):
     """The layers and :func:`reduce_gradients` see ``ctx`` (a
     ``MeshContext``, or None for a no-op scope) on this thread for the
     duration; ``totals``: the step's global mask total of each
-    output."""
+    output. A mesh with a seq axis also installs its ring
+    (``seq_context.sequence_parallel_gspmd``)."""
     prev = active()
     _LOCAL.step = None if ctx is None else _Step(ctx, totals)
     try:
-        yield
+        if ctx is not None and ctx.plan.sp > 1:
+            from deeplearning4j_tpu_torch.parallel.seq_context import (
+                sequence_parallel_gspmd)
+            with sequence_parallel_gspmd(ctx):
+                yield
+        else:
+            yield
     finally:
         _LOCAL.step = prev
 

@@ -16,13 +16,19 @@ the device either way; the reduce's route is what differs. A group
 asked for ``nccl`` that cannot be built raises: it is never rebuilt on
 gloo behind the caller's back.
 
-Not here: JAX's ``data_sharding`` and ``replicated``. Under data
-parallelism the parameters are replicated by construction (every rank
-holds and updates its own full copy from the same reduced gradient)
-and each rank is handed its own shard of the batch
-(``multihost.local_batch_slice`` / ``per_host_iterator``), so there is
-no placement to state. Meshes with a ``model``, ``pipe`` or ``seq``
-axis above 1 wait for ROADMAP A6b.
+The rank grid is laid out in the JAX axis order: rank ``devices[d, m,
+p, s]`` sits at data index d, model index m, pipe index p and seq
+index s. :meth:`Mesh.axis_group` gives the process group over the ranks
+that share this rank's position on every axis but the named ones (the
+model group of tensor parallelism, the seq ring, the data x seq group
+the gradients reduce over); every such group of every position is made
+once, by every rank in the same order, and cached by its ranks.
+
+Not here: JAX's ``data_sharding`` and ``replicated``. Each rank is
+handed its own shard of the batch (``multihost.local_batch_slice``,
+``MeshContext.local_shard``) and holds its own shard of the parameters
+(replicated under data parallelism, sliced by the tensor-parallel rules
+under ``model``), so there is no placement to state.
 """
 
 from __future__ import annotations
@@ -104,6 +110,7 @@ class Mesh:
         self.group = group
         self.host_group = host_group
         self.backend = backend
+        self._axis_groups: dict = {}
 
     @property
     def ranks(self) -> list:
@@ -119,6 +126,48 @@ class Mesh:
     def group_rank(self, rank: Optional[int] = None) -> int:
         """This (or ``rank``'s) position in the mesh's flat rank list."""
         return self.ranks.index(_rank() if rank is None else rank)
+
+    def coords(self, rank: Optional[int] = None) -> dict:
+        """This (or ``rank``'s) index on each axis."""
+        r = _rank() if rank is None else rank
+        pos = np.argwhere(self.devices == r)
+        if not len(pos):
+            raise ValueError(f"rank {r} is not in {self!r}")
+        return dict(zip(AXES, (int(i) for i in pos[0])))
+
+    def axis_ranks(self, axes: Sequence[str],
+                   rank: Optional[int] = None) -> list:
+        """The ranks that share this (or ``rank``'s) index on every axis
+        but ``axes``, in grid order (the first named axis slowest)."""
+        c = self.coords(rank)
+        idx = tuple(slice(None) if a in axes else c[a] for a in AXES)
+        return [int(r) for r in self.devices[idx].flat]
+
+    def axis_group(self, axes: Sequence[str]):
+        """(process group, host group, ranks) over :meth:`axis_ranks`;
+        (None, None, ranks) when that is one rank. The first call for a
+        set of axes makes the groups of every position of the grid:
+        collective, as :func:`build_mesh` (every rank calls it, in the
+        same order)."""
+        axes = tuple(axes)
+        if axes not in self._axis_groups:
+            by_pos = {}
+            others = [a for a in AXES if a not in axes]
+            shape = [self.shape[a] for a in others]
+            for pos in np.ndindex(*shape):
+                sel = dict(zip(others, pos))
+                idx = tuple(slice(None) if a in axes else sel[a]
+                            for a in AXES)
+                ranks = [int(r) for r in self.devices[idx].flat]
+                if len(ranks) > 1:
+                    g, h, _ = _groups(ranks)
+                else:
+                    g = h = None
+                by_pos[tuple(ranks)] = (g, h)
+            self._axis_groups[axes] = by_pos
+        ranks = self.axis_ranks(axes) if self.contains() else []
+        g, h = self._axis_groups[axes].get(tuple(ranks), (None, None))
+        return g, h, ranks
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
@@ -165,14 +214,24 @@ def _groups(ranks: Sequence[int]):
 def build_mesh(spec: MeshSpec = MeshSpec(),
                devices: Optional[Sequence[int]] = None) -> Mesh:
     """A mesh over ``devices`` (ranks; default every rank of the
-    default group), shaped by ``spec``. Collective when a process group
-    is up: every rank calls it with the same arguments."""
+    default group), shaped by ``spec``, with the process groups of its
+    axes when it has a model, pipe or seq axis. Collective when a
+    process group is up: every rank calls it with the same
+    arguments."""
     ranks = list(devices if devices is not None
                  else range(device_count()))
     shape = spec.resolve(len(ranks))
     arr = np.array(ranks, dtype=np.int64).reshape(shape)
     group, host, backend = _groups(ranks)
-    return Mesh(arr, group, host, backend)
+    mesh = Mesh(arr, group, host, backend)
+    if group is not None and any(mesh.shape[a] > 1
+                                 for a in ("model", "pipe", "seq")):
+        # every group a step of this mesh may use, made here while every
+        # rank is in the call
+        for axes in (("data", "seq"), ("data",), ("model",), ("seq",),
+                     ("pipe",)):
+            mesh.axis_group(axes)
+    return mesh
 
 
 def largest_pow2(n: int) -> int:
@@ -184,20 +243,40 @@ def largest_pow2(n: int) -> int:
 
 
 def shrink_data_mesh(mesh: Mesh, lost) -> Mesh:
-    """Shrink a pure data-parallel mesh over the ranks surviving
-    ``lost`` (an iterable of ranks), at the largest power-of-two dp
-    that fits: dp=8 with one rank lost becomes dp=4, over the first
-    four survivors. Parameters are replicated over 'data', so every
-    survivor holds a complete copy. Meshes that shard 'model', 'pipe'
-    or 'seq' do not shrink (ROADMAP A6b). Collective, as
+    """Shrink the DATA axis of a mesh over the ranks surviving ``lost``
+    (an iterable of ranks), at the largest power-of-two dp that fits:
+    dp=8 with one rank lost becomes dp=4, over the first four survivors.
+
+    Two shapes shrink, as in the JAX package:
+
+    - pure data-parallel: parameters are replicated over 'data', so
+      every survivor holds a complete copy;
+    - data x model (dp x tp): every dp ROW of the (data, model) grid
+      holds one complete set of tp shards, so a lost rank costs its
+      whole row, and the mesh rebuilds over the largest power-of-two
+      count of intact rows, the tp axis kept.
+
+    Meshes sharding 'pipe' or 'seq' do not shrink: that state died with
+    the rank; restart from a checkpoint. Collective, as
     :func:`build_mesh`."""
-    for ax in ("model", "pipe", "seq"):
+    for ax in ("pipe", "seq"):
         if mesh.shape.get(ax, 1) > 1:
             raise NotImplementedError(
-                f"elastic shrink supports data-parallel meshes; axis "
-                f"{ax!r} has size {mesh.shape[ax]} (tensor, pipeline and "
-                f"sequence parallelism wait for ROADMAP A6b)")
+                f"elastic shrink supports data / data x model "
+                f"meshes; axis {ax!r} has size {mesh.shape[ax]} — "
+                "sharded state died with the device, restart from a "
+                "checkpoint instead")
     lost = set(int(r) for r in lost)
+    tp = mesh.shape.get("model", 1)
+    if tp > 1:
+        grid = mesh.devices.reshape(mesh.shape.get("data", 1), tp)
+        rows = [[int(r) for r in row] for row in grid
+                if not any(int(r) in lost for r in row)]
+        if not rows:
+            raise RuntimeError("no intact dp row survives the loss")
+        dp = largest_pow2(len(rows))
+        return build_mesh(MeshSpec(data=dp, model=tp),
+                          [r for row in rows[:dp] for r in row])
     survivors = [r for r in mesh.ranks if r not in lost]
     if not survivors:
         raise RuntimeError("no surviving devices to shrink onto")

@@ -33,8 +33,15 @@ the all-reduce is captured in the window's CUDA graph; under ``gloo``
 all-reduced through the host, because gloo's collectives cannot be
 captured. :meth:`MeshContext.describe` says which.
 
-Only ``dp`` runs here: ``tp``, ``pp`` and ``sp`` above 1 raise naming
-ROADMAP A6b.
+``tp`` (tensor parallelism) composes with ``dp`` here: the bucket
+reduces over the data axis alone (the ranks of one model group hold
+different shards), and :meth:`MeshContext.place_model` slices each
+rank's shards out of the broadcast full parameters by the tensor-
+parallel rules (``parallel/tensor_parallel.py``). ``sp`` (sequence
+parallelism) trains through ``ParallelWrapper`` (``allow_sp=True``
+here): the bucket reduces over data x seq, and the step runs under the
+ring (``parallel/seq_context.py``). ``pp`` meshes raise and point to
+``parallel/pipeline_spmd.py``, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -47,14 +54,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, MeshSpec,
+from deeplearning4j_tpu_torch.parallel import collectives
+from deeplearning4j_tpu_torch.parallel.collectives import RankGroup
+from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, MeshSpec, _rank,
                                                     build_mesh, device_count)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["MeshPlan", "parse_mesh_spec", "MeshContext",
-           "resolve_mesh_spec", "build_mesh_context", "LAUNCH_RECIPE",
-           "A6B"]
+           "resolve_mesh_spec", "build_mesh_context", "LAUNCH_RECIPE"]
 
 _KEYS = ("dp", "tp", "pp", "sp")
 
@@ -64,8 +72,17 @@ LAUNCH_RECIPE = (
     "--nproc-per-node N), then call "
     "parallel.multihost.initialize_distributed() (the README "
     "'Data-parallel training' recipe)")
-A6B = ("tensor, pipeline and sequence parallelism are not ported to "
-       "deeplearning4j_tpu_torch yet (ROADMAP A6b)")
+PP_ROUTE = (
+    "pp (pipeline) meshes do not run through the single-program fit "
+    "path — the GPipe schedule needs the staged executor in "
+    "parallel/pipeline_spmd.py (NetworkSpmdPipeline, one rank a "
+    "stage); drop pp from the spec or use that module directly")
+SP_ROUTE = (
+    "sp (sequence-parallel) meshes train through ParallelWrapper's "
+    "sequence-parallel step (per batch: the ring's rotations do not "
+    "compose with the fused k-step windows): build the mesh with "
+    "parallel.mesh.build_mesh(MeshSpec(seq=...)) and wrap the model in "
+    "ParallelWrapper, or drop sp from the spec")
 
 
 class MeshPlan:
@@ -159,20 +176,79 @@ def _flat(tensors):
 
 
 class MeshContext:
-    """A resolved data-parallel mesh for one model: the plan, the
+    """A resolved mesh for one model: the plan, the
     :class:`~deeplearning4j_tpu_torch.parallel.mesh.Mesh` (ranks and
-    groups), this rank's place in it, and the step's collectives."""
+    groups), this rank's place in it, and the step's collectives.
+
+    The gradient bucket, the batch trim and the mask totals reduce over
+    the data x seq group of this rank (:meth:`loss_group`; ``world`` is
+    its size); tensor parallelism runs over :meth:`model_group`, the
+    ring over :meth:`seq_group`, a pipeline over :meth:`pipe_group`."""
 
     def __init__(self, plan: MeshPlan, mesh: Mesh):
         self.plan = plan
         self.mesh = mesh
-        self.world = mesh.size
         self.member = mesh.contains()
         self.rank = mesh.group_rank() if self.member else -1
         self.backend = mesh.backend
-        self.reduce_seconds = 0.0    # host-staged reduces (gloo)
-        self.reduce_bytes = 0
-        self._pinned = None
+        self._groups = {}
+        loss = self.loss_group()
+        self.world = loss.size
+        self.group = loss.group
+        self.host_group = loss.host_group
+        # the dropout offset: the ranks of one model group draw the same
+        # masks (their activations are replicas), the others their own
+        self.data_rank = loss.index if self.member else -1
+
+    def _axis(self, axes) -> RankGroup:
+        """The :class:`RankGroup` over ``axes`` through this rank."""
+        axes = tuple(axes)
+        if axes not in self._groups:
+            if not self.member:
+                self._groups[axes] = RankGroup(None, None, [], 0,
+                                              self.backend)
+            else:
+                g, h, ranks = self.mesh.axis_group(axes)
+                if len(ranks) == self.mesh.size:
+                    g, h = self.mesh.group, self.mesh.host_group
+                self._groups[axes] = RankGroup(
+                    g, h, ranks, ranks.index(_rank()), self.backend)
+        return self._groups[axes]
+
+    def loss_group(self) -> RankGroup:
+        """The ranks the batch is split over: data x seq."""
+        return self._axis(("data", "seq"))
+
+    def data_group(self) -> RankGroup:
+        return self._axis(("data",))
+
+    def model_group(self) -> RankGroup:
+        return self._axis(("model",))
+
+    def seq_group(self) -> RankGroup:
+        return self._axis(("seq",))
+
+    def pipe_group(self) -> RankGroup:
+        return self._axis(("pipe",))
+
+    def local_shard(self, a, *, temporal: bool = True):
+        """This rank's part of a GLOBAL batch array: its data index's
+        rows and, under sequence parallelism with ``temporal``, its seq
+        index's chunk of axis 1 (time). What each rank feeds a step."""
+        c = self.mesh.coords()
+        dp, sp = self.plan.dp, self.plan.sp
+        n = a.shape[0]
+        if n % dp:
+            raise ValueError(f"batch of {n} rows is not divisible by "
+                             f"dp={dp}")
+        a = a[c["data"] * (n // dp):(c["data"] + 1) * (n // dp)]
+        if sp > 1 and temporal:
+            t = a.shape[1]
+            if t % sp:
+                raise ValueError(f"{t} timesteps are not divisible by "
+                                 f"sp={sp}")
+            a = a[:, c["seq"] * (t // sp):(c["seq"] + 1) * (t // sp)]
+        return a
 
     @staticmethod
     def from_mesh(mesh: Mesh) -> "MeshContext":
@@ -181,24 +257,32 @@ class MeshContext:
                         pp=shape.get("pipe", 1), sp=shape.get("seq", 1))
         return MeshContext(plan, mesh)
 
-    @property
-    def group(self):
-        return self.mesh.group
-
     def same_as(self, other: "MeshContext") -> bool:
         return (self.plan == other.plan
                 and self.mesh.ranks == other.mesh.ranks)
+
+    def eager_steps(self, device) -> bool:
+        """Whether a step on ``device`` runs eagerly instead of as a
+        captured CUDA graph: under gloo on a card (its collectives
+        cannot be captured), and under sequence parallelism (the ring's
+        sends are per batch)."""
+        return (torch.device(device).type == "cuda"
+                and self.mesh.group is not None
+                and (self.backend != "nccl" or self.plan.sp > 1))
 
     def reduce_route(self, model=None, device=None) -> str:
         """Which step design a model's captured training takes here."""
         dev = torch.device(device if device is not None
                            else getattr(model, "device", "cpu"))
-        if self.group is None:
+        if self.mesh.group is None:
             return "one rank: no collective"
         if dev.type != "cuda":
             return f"{self.backend}: eager steps on the CPU"
-        if self.backend == "nccl":
+        if self.backend == "nccl" and not self.eager_steps(dev):
             return "nccl: all-reduce captured in the window's CUDA graph"
+        if self.backend == "nccl":
+            return ("nccl: eager steps (the ring's sends run per batch), "
+                    "collectives on the device")
         return ("gloo: eager steps, the bucket all-reduced through the "
                 "host (gloo's collectives cannot be captured)")
 
@@ -207,39 +291,60 @@ class MeshContext:
         out.update({"ranks": self.mesh.ranks, "backend": self.backend,
                     "rank": self.rank,
                     "reduce": self.reduce_route(model)})
+        tp = getattr(model, "_tp", None)
+        if tp is not None:
+            out["tensor_parallel"] = tp.describe()
         return out
 
     # ---- placement ----
-    def place_model(self, model, src: Optional[int] = None) -> None:
-        """Make every replica equal to rank ``src``'s (default the
+    def place_model(self, model, src: Optional[int] = None, *,
+                    training: bool = True) -> None:
+        """Make every rank's model equal to rank ``src``'s (default the
         mesh's first rank): parameters, layer state and updater state
-        broadcast from it.
-        Each rank's dropout generator is offset by its rank (JAX folds
-        the axis index into the key), so the shards draw different
-        masks."""
+        broadcast from it; then, under ``tp``, each rank keeps its shards
+        of the parameters and the updater state
+        (``tensor_parallel.shard_model``). A model placed on an earlier
+        mesh is gathered back to full parameters first (collective over
+        that mesh's model group). A model placed to train under ``tp``
+        is refused first, on every rank alike, when its update takes a
+        norm over split parameters
+        (``tensor_parallel.refuse_norm_updates``).
+        Each rank's dropout generator is offset by its index in the
+        data x seq group (JAX folds the axis index into the key), so the
+        shards draw different masks and the ranks of one model group the
+        same."""
+        from deeplearning4j_tpu_torch.parallel import tensor_parallel
         if model.params is None:
             model.init()
         if not self.member:
             return
-        if self.group is not None and self.world > 1:
+        if training and self.plan.tp > 1:
+            tensor_parallel.refuse_norm_updates(model)
+        tensor_parallel.unshard_model(model)
+        if self.mesh.group is not None and self.mesh.size > 1:
             src = self.mesh.ranks[0] if src is None else src
             leaves = [t for t in _tree_tensors(
                 (model.params, model.state, model.opt_state))]
             self.broadcast(leaves, src)
-        if model._generator is not None and self.rank > 0:
+        if self.plan.tp > 1:
+            tensor_parallel.shard_model(model, self.model_group())
+        if model._generator is not None and self.data_rank > 0:
             model._generator.manual_seed(
-                int(model.conf.conf.seed) + self.rank)
+                int(model.conf.conf.seed) + self.data_rank)
 
     def broadcast(self, leaves, src: int) -> None:
-        """Copy ``src``'s values of ``leaves`` into every member's, as
-        one flat float32 buffer (integer leaves are counters)."""
+        """Copy ``src``'s values of ``leaves`` into every member's of the
+        mesh, as one flat float32 buffer (integer leaves are counters;
+        ``collectives.broadcast_``, under ``STATS["dp"]``)."""
         if not leaves:
             return
+        m = self.mesh
+        grp = RankGroup(m.group, m.host_group, m.ranks,
+                        m.ranks.index(_rank()), self.backend)
         with torch.no_grad():
             flat = _flat(leaves)
-            if self.backend != "nccl":
-                flat = flat.cpu()
-            dist.broadcast(flat, src=src, group=self.group)
+            collectives.broadcast_(flat, grp, m.ranks.index(src),
+                                   kind="dp")
             off = 0
             for t in leaves:
                 n = t.numel()
@@ -261,34 +366,16 @@ class MeshContext:
 
     # ---- the gradient bucket ----
     def all_reduce_(self, bucket: torch.Tensor) -> torch.Tensor:
-        """Sum ``bucket`` over the mesh in place. On a card under gloo
-        the bucket goes through one pinned host buffer (a copy out, a
-        host all-reduce, a copy back on the current stream). A mesh of
-        one rank in a process group still calls the collective, so
-        dp=1 runs the route dp=N does."""
-        if self.group is None:
-            return bucket
-        if bucket.is_cuda and self.backend != "nccl":
-            import time
-            t0 = time.perf_counter()
-            if (self._pinned is None
-                    or self._pinned.numel() != bucket.numel()):
-                self._pinned = torch.empty(bucket.shape, dtype=bucket.dtype,
-                                           pin_memory=True)
-            host = self._pinned
-            host.copy_(bucket, non_blocking=True)
-            torch.cuda.current_stream(bucket.device).synchronize()
-            dist.all_reduce(host, group=self.group)
-            bucket.copy_(host, non_blocking=True)
-            self.reduce_seconds += time.perf_counter() - t0
-            self.reduce_bytes += bucket.numel() * bucket.element_size()
-            return bucket
-        dist.all_reduce(bucket, group=self.group)
-        self.reduce_bytes += bucket.numel() * bucket.element_size()
-        return bucket
+        """Sum ``bucket`` over the mesh's data x seq group in place
+        (``collectives.all_reduce_``: on a card under gloo through one
+        pinned host buffer; its bytes and seconds under
+        ``STATS["dp"]``). A mesh of one rank in a process group still
+        calls the collective, so dp=1 runs the route dp=N does."""
+        return collectives.all_reduce_(bucket, self.loss_group(),
+                                       kind="dp")
 
     def barrier(self) -> None:
-        if self.group is not None and self.world > 1:
+        if self.mesh.group is not None and self.mesh.size > 1:
             dist.barrier(group=self.mesh.host_group)
 
 
@@ -303,15 +390,19 @@ def _tree_tensors(tree):
         yield tree
 
 
-def resolve_mesh_spec(mesh_spec, devices: Optional[Sequence[int]] = None):
+def resolve_mesh_spec(mesh_spec, devices: Optional[Sequence[int]] = None,
+                      *, allow_sp: bool = False):
     """(the validated :class:`MeshPlan`, the ranks its mesh takes: the
-    first ``dp`` of ``devices``, default every rank of the process
-    group). No collective."""
+    first ``n_devices()`` of ``devices``, default every rank of the
+    process group). ``pp`` raises and points to
+    ``parallel/pipeline_spmd.py``; ``sp`` raises unless ``allow_sp`` and
+    points to ``ParallelWrapper``, as the JAX package routes them. No
+    collective."""
     plan = parse_mesh_spec(mesh_spec)
-    if plan.tp > 1 or plan.pp > 1 or plan.sp > 1:
-        raise NotImplementedError(
-            f"mesh spec {plan}: {A6B}; drop tp, pp and sp from the spec "
-            f"(dp trains here)")
+    if plan.pp > 1:
+        raise NotImplementedError(PP_ROUTE)
+    if plan.sp > 1 and not allow_sp:
+        raise NotImplementedError(SP_ROUTE)
     ranks = (list(devices) if devices is not None
              else list(range(device_count())))
     need = plan.n_devices()
@@ -324,14 +415,15 @@ def resolve_mesh_spec(mesh_spec, devices: Optional[Sequence[int]] = None):
 
 
 def build_mesh_context(mesh_spec, model=None,
-                       devices: Optional[Sequence[int]] = None
-                       ) -> MeshContext:
+                       devices: Optional[Sequence[int]] = None,
+                       *, allow_sp: bool = False) -> MeshContext:
     """Parse + validate ``mesh_spec`` against the process group's ranks
-    and build the :class:`MeshContext` over the first ``dp`` of them
-    (``devices``: the ranks to use, default all). Collective the first
-    time a subset of the group (or, under nccl, any set) is meshed:
-    every rank calls it."""
-    plan, ranks = resolve_mesh_spec(mesh_spec, devices)
+    and build the :class:`MeshContext` over the first ``n_devices()`` of
+    them (``devices``: the ranks to use, default all). Collective the
+    first time a subset of the group (or, under nccl, any set) is
+    meshed, and when the mesh has a model or seq axis (its groups are
+    made): every rank calls it."""
+    plan, ranks = resolve_mesh_spec(mesh_spec, devices, allow_sp=allow_sp)
     mesh = build_mesh(plan.to_mesh_spec(), ranks)
     ctx = MeshContext(plan, mesh)
     logger.info("mesh spec %s resolved over ranks %s, backend %s; %s",

@@ -36,8 +36,26 @@ parameters and updater state from a survivor. Counted as
 ``elastic_mesh_{shrinks,regrows}_total`` and recorded by the flight
 recorder. The compression residual re-zeroes on a rebuild, as in JAX.
 
-Sequence and pipeline meshes (the JAX wrapper's ``seq`` step) wait for
-ROADMAP A6b.
+TENSOR AND SEQUENCE MESHES: a mesh with a ``model`` axis places the
+model's shards by the tensor-parallel rules
+(``MeshContext.place_model``); its bucket reduces over the data axis.
+A mesh with a ``seq`` axis runs the JAX wrapper's sequence-parallel step
+(``_validate_seq_model`` first: every layer must be exact on a local
+time chunk, or collapse time through a pooling layer): each rank is
+given its data index's rows and its seq index's chunk of time
+(``MeshContext.local_shard``), the step runs under the ring
+(``parallel/seq_context.py``: attention over the whole sequence, the
+masked loss over the global mask total, pooling combined over the
+ring), and the bucket reduces over data x seq. data x model x seq
+composes both. A seq step runs per batch and eagerly (the ring's sends
+are not captured); with ``dcn_compression`` the seq part of the
+gradient reduces in full precision first and the data part through the
+int8 reduce, as the JAX wrapper compresses the data axis alone. Pipe
+meshes raise and point to ``parallel/pipeline_spmd.py``. A shrink of a
+data x model mesh drops every dp row that lost a rank
+(``mesh.shrink_data_mesh``): the shards are gathered back to full
+parameters over the old model groups first, and placed again over the
+new mesh.
 """
 
 from __future__ import annotations
@@ -56,11 +74,21 @@ from deeplearning4j_tpu_torch.nn.conf.updaters import tree_map
 from deeplearning4j_tpu_torch.parallel.mesh import (Mesh, MeshSpec,
                                                     build_mesh, largest_pow2,
                                                     shrink_data_mesh)
-from deeplearning4j_tpu_torch.parallel.mesh_spec import A6B, MeshContext
+from deeplearning4j_tpu_torch.parallel.mesh_spec import (PP_ROUTE,
+                                                         MeshContext)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["ParallelWrapper", "GraphParallelWrapper"]
+
+# what is exact on a local time chunk (the JAX layers' and vertices'
+# ``seq_parallelizable``), and what collapses time with a collective
+_SEQ_POINTWISE = {"DenseLayer", "ActivationLayer", "DropoutLayer",
+                  "EmbeddingSequenceLayer", "RnnOutputLayer",
+                  "SelfAttentionLayer", "TransformerEncoderLayer",
+                  "LayerNormalization", "ElementWiseVertex", "MergeVertex",
+                  "SubsetVertex", "ScaleVertex", "ShiftVertex"}
+_SEQ_COLLAPSES = {"GlobalPoolingLayer"}
 
 
 class ParallelWrapper:
@@ -73,11 +101,19 @@ class ParallelWrapper:
         EncodingHandler threshold encoding)."""
         self.model = model
         self.mesh = mesh if mesh is not None else build_mesh(MeshSpec())
-        for ax in ("model", "pipe", "seq"):
-            if self.mesh.shape.get(ax, 1) > 1:
-                raise NotImplementedError(
-                    f"ParallelWrapper over a mesh with {ax}="
-                    f"{self.mesh.shape[ax]}: {A6B}")
+        if self.mesh.shape.get("pipe", 1) > 1:
+            raise NotImplementedError(PP_ROUTE)
+        if dcn_compression is not None and (
+                self.mesh.shape.get("model", 1) > 1
+                or (self.mesh.shape.get("seq", 1) > 1
+                    and self.mesh.shape.get("data", 1) == 1)):
+            # the int8 reduce runs over the data axis alone
+            raise NotImplementedError(
+                "dcn_compression composes with 'data' x 'seq' meshes of "
+                f"dp > 1; this mesh is {self.mesh.shape}")
+        self._seq_collapses = False
+        if self.mesh.shape.get("seq", 1) > 1:
+            self._validate_seq_model()
         self.prefetch = prefetch_buffer
         self.dcn_compression = dcn_compression
         self._residual = None
@@ -89,6 +125,86 @@ class ParallelWrapper:
         self._lost: set = set()
         self.mesh_shrinks = 0
         self.mesh_regrows = 0
+
+    # ---- sequence parallelism ----
+    def _validate_seq_model(self):
+        """Sequence parallelism splits TIME: every layer (vertex) must be
+        exact on a local chunk (pointwise in time, or riding the ring as
+        attention does), or collapse time with a collective (global
+        pooling) and feed only deterministic layers after it. Raises
+        otherwise, as the JAX wrapper does."""
+        from deeplearning4j_tpu_torch.models.computation_graph import (
+            ComputationGraph)
+        model = self.model
+        if isinstance(model, ComputationGraph):
+            bad = [f"vertex '{n}' ({type(obj).__name__})"
+                   for n, (obj, _) in model.conf.vertices.items()
+                   if type(obj).__name__ not in _SEQ_POINTWISE]
+            if bad:
+                raise ValueError(
+                    "these graph vertices cannot train over a 'seq' "
+                    "mesh axis (not pointwise in time): " + ", ".join(bad)
+                    + " — or drop the seq axis from the mesh")
+            in_types = getattr(model.conf, "input_types", None)
+            if not in_types:
+                raise ValueError(
+                    "sequence-parallel graphs need set_input_types("
+                    "InputType.recurrent(...)) so the wrapper can prove "
+                    "every input is temporal before splitting axis 1 "
+                    "over 'seq'")
+            non_rnn = [f"input {i} ({t.kind})"
+                       for i, t in enumerate(in_types) if t.kind != "rnn"]
+            if non_rnn:
+                raise ValueError("sequence-parallel graphs need recurrent "
+                                 "(B, T, ...) inputs; got "
+                                 + ", ".join(non_rnn))
+            return
+        in_t = getattr(model.conf, "input_type", None)
+        if in_t is None or in_t.kind != "rnn":
+            raise ValueError(
+                "sequence-parallel training needs set_input_type("
+                "InputType.recurrent(...)) — got "
+                f"{getattr(in_t, 'kind', None)!r}; the wrapper splits "
+                "axis 1 over 'seq', which is only time for recurrent "
+                "inputs")
+        bad, collapsed = [], False
+        for i, layer in enumerate(model.layers):
+            name = type(layer).__name__
+            if collapsed:
+                if getattr(layer, "dropout", 0.0):
+                    bad.append(f"layer {i} ({name}: dropout after the "
+                               "time collapse)")
+                continue
+            if name in _SEQ_COLLAPSES:
+                collapsed = True
+            elif name not in _SEQ_POINTWISE:
+                bad.append(f"layer {i} ({name})")
+        if bad:
+            raise ValueError(
+                "these layers cannot train over a 'seq' mesh axis (not "
+                "pointwise in time): " + ", ".join(bad)
+                + " — use attention/dense/time-distributed layers "
+                  "(optionally a GlobalPoolingLayer collapse), or drop "
+                  "the seq axis from the mesh")
+        self._seq_collapses = collapsed
+        pps = getattr(model.conf, "preprocessors", None) or {}
+        if pps:
+            names = ", ".join(f"layer {i}: {type(p).__name__}"
+                              for i, p in sorted(pps.items()))
+            raise ValueError(
+                "input preprocessors are not supported under sequence "
+                f"parallelism ({names}) — they reshape with global "
+                "timestep counts; restructure the net so activations "
+                "stay (B, T, ...) end to end, or drop the seq axis")
+
+    def local_shard(self, a, *, temporal: Optional[bool] = None):
+        """This rank's part of a GLOBAL batch array (rows by its data
+        index; time by its seq index, unless ``temporal`` is False: the
+        labels of a net that pools time away are (B, K))."""
+        ctx = self._ctx or MeshContext.from_mesh(self.mesh)
+        if temporal is None:
+            temporal = not self._seq_collapses
+        return ctx.local_shard(a, temporal=temporal)
 
     # ---- builder parity ----
     class Builder:
@@ -195,16 +311,28 @@ class ParallelWrapper:
         ranks, the loss averaged."""
         from deeplearning4j_tpu_torch.parallel.compression import (
             make_compressed_psum_ef)
+        from deeplearning4j_tpu_torch.parallel import (collectives,
+                                                       seq_context)
         m = self.model
         ctx = self._ctx
         n = ctx.world
-        loss, grads, (new_state, _) = m._gradients(m._batch_tuple(ds))
+        if ctx.plan.sp > 1:
+            with seq_context.sequence_parallel_gspmd(ctx):
+                loss, grads, (new_state, _) = m._gradients(
+                    m._batch_tuple(ds))
+            # the seq part in full precision, the data part compressed
+            seq = ctx.seq_group()
+            grads = tree_map(lambda g: collectives.all_reduce_(
+                g.clone(), seq, kind="seq"), grads)
+        else:
+            loss, grads, (new_state, _) = m._gradients(m._batch_tuple(ds))
         grads = tree_map(lambda g: g / n, grads)
         if self._residual is None:
             self._residual = self._init_residual()
         psum_ef = make_compressed_psum_ef(
             float(self.dcn_compression.get("threshold", 0.0)))
-        grads, self._residual = psum_ef(grads, self._residual, ctx.group)
+        data = ctx.data_group()
+        grads, self._residual = psum_ef(grads, self._residual, data.group)
         with torch.no_grad():
             def merge(s):
                 s = s.clone()
@@ -320,9 +448,13 @@ class ParallelWrapper:
         rank of the current mesh (outside ``exclude``), which holds the
         last committed step; the programs and the compression residual
         dropped (rebuilt for the new group)."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            unshard_model)
         holders = [r for r in self.mesh.ranks if r not in exclude]
         src = next((r for r in new_mesh.ranks if r in holders),
                    new_mesh.ranks[0])
+        # tp shards back to full parameters over the old model groups
+        unshard_model(self.model)
         self.mesh = new_mesh
         self._ctx = None
         self._residual = None
@@ -357,8 +489,10 @@ class ParallelWrapper:
             devices = [r for r in self._initial_ranks
                        if r not in self._lost]
         old_dp = self.mesh.shape.get("data", 1)
-        dp = min(self._initial_dp, largest_pow2(len(devices)))
-        self._rebuild_on(build_mesh(MeshSpec(data=dp), devices[:dp]))
+        tp = self.mesh.shape.get("model", 1)
+        dp = min(self._initial_dp, largest_pow2(len(devices) // tp))
+        self._rebuild_on(build_mesh(MeshSpec(data=dp, model=tp),
+                                    devices[:dp * tp]))
         self.mesh_regrows += 1
         logger.warning("mesh regrown dp=%d -> dp=%d over ranks %s",
                        old_dp, dp, self.mesh.ranks)

@@ -1,7 +1,8 @@
 """Serving: registry, dynamic-batching scheduler, continuous batcher, HTTP
 front end, the replica fleet behind its router, the fleet's control
-loops (``autoscaler``, ``rollout``) and the retrieval backend
-(``retrieval_backend``) (counterpart of ``deeplearning4j_tpu/serving``).
+loops (``autoscaler``, ``rollout``), the retrieval backend
+(``retrieval_backend``) and the tensor-parallel predict backend
+(``tp_backend``) (counterpart of ``deeplearning4j_tpu/serving``).
 
 Submodules import lazily, as in the JAX package: ``serving.errors``
 stays a dependency leaf, and importing the package pulls in neither
@@ -39,6 +40,7 @@ _EXPORTS = {
     "parse_roles": "fleet",
     "Router": "router",
     "Autoscaler": "autoscaler",
+    "TensorParallelModel": "tp_backend",
 }
 
 __all__ = list(_EXPORTS)

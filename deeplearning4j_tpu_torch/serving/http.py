@@ -69,8 +69,11 @@ leave as migration offers instead of finishing in place.
 ``warmup()`` (``serve --aot-warmup``) runs every hosted model's predict
 buckets and one dummy generate before traffic, which captures each
 generate backend's decode-step CUDA graph (``serving/warmup.py``), and
-the retrieval service's default search bucket. The serving mesh (a
-tensor-parallel backend) waits for ROADMAP A6b.
+the retrieval service's default search bucket. ``mesh="tp=2"`` (``serve
+--mesh``) serves predict tensor-parallel: this server is the mesh's rank
+0 and every other rank runs ``serving/tp_backend.follow``; every hosted
+model is sharded at construction, generate is refused, and ``/healthz``
+carries the mesh's shape.
 """
 
 from __future__ import annotations
@@ -235,7 +238,8 @@ class ModelServer:
                  sample_routes: Optional[Dict[str, float]] = None,
                  slow_ms: float = 250.0, slos=None, tracer=None,
                  kv_mode: str = "auto", page_size: int = 16,
-                 kv_pages: Optional[int] = None, retrieval=None):
+                 kv_pages: Optional[int] = None, mesh=None,
+                 retrieval=None):
         self.registry = registry or ModelRegistry()
         self.metrics = metrics or ServingMetrics()
         # last good /metrics payload per mode, served when a rebuild
@@ -281,6 +285,36 @@ class ModelServer:
         # replica owns its index and search backends) hosting /v1/search
         # and /v1/index. Its embedder registers as the "embedder" model,
         # so /v1/embed is the predict path over another model.
+        # mesh: a declarative serving mesh spec ("tp=2" | "dp=2,tp=2" |
+        # dict; parallel/mesh_spec.py). Predict then runs TENSOR-PARALLEL:
+        # every hosted model is wrapped in serving/tp_backend.
+        # TensorParallelModel here, in registry order, on every rank of
+        # the mesh (this server is rank 0's; the other ranks run
+        # tp_backend.follow). Generate stays unsharded and is refused.
+        self.mesh_plan = None
+        self._tp_models: Dict[Tuple[str, int], object] = {}
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+                parse_mesh_spec)
+            from deeplearning4j_tpu_torch.serving.tp_backend import (
+                host_models)
+            self.mesh_plan = parse_mesh_spec(mesh)
+            if self.mesh_plan.sp > 1:
+                raise ServingError("serving meshes take dp/tp axes only; "
+                                   "sp belongs to training")
+            if retrieval is not None:
+                raise ServingError(
+                    "retrieval serving does not compose with --mesh (the "
+                    "embedder/search models are not tensor-parallel); "
+                    "host the index on an unsharded replica")
+            self._tp_models = host_models(self.registry, self.mesh_plan)
+            _help = ("serving mesh shape per axis (absent = unsharded "
+                     "serving)")
+            axes = self.mesh_plan.describe()["axes"]
+            reg = self.metrics.registry
+            for axis in ("dp", "tp"):
+                reg.gauge("serving_mesh_devices", help=_help,
+                          labels={"axis": axis}).set(axes[axis])
         self.retrieval = None
         if retrieval is not None:
             self.retrieval = retrieval(self.metrics) \
@@ -307,11 +341,26 @@ class ModelServer:
             return (list(self._schedulers.values())
                     + list(self._batchers.values()))
 
+    def resolve_serving_model(self, name: str,
+                              version: Optional[int] = None):
+        """(model, version) as the predict path serves it: the
+        registry's model, or its tensor-parallel proxy on a mesh."""
+        model, version = self.registry.resolve(name, version)
+        if self.mesh_plan is None:
+            return model, version
+        tp = self._tp_models.get((name, version))
+        if tp is None:
+            raise ServingError(
+                f"model {name!r} v{version} was registered after the "
+                "mesh server started; every rank shards the models it "
+                "hosts at boot")
+        return tp, version
+
     def scheduler_for(self, name: str, version: Optional[int] = None
                       ) -> Tuple[BatchScheduler, int]:
         """(scheduler, served version): the single resolution point for
         a predict request."""
-        model, version = self.registry.resolve(name, version)
+        model, version = self.resolve_serving_model(name, version)
         s = self._get_or_create(
             self._schedulers, (name, version),
             lambda: BatchScheduler(
@@ -324,6 +373,11 @@ class ModelServer:
                     ) -> Tuple[ContinuousBatcher, int]:
         """(batcher, served version): the resolution point for a
         generate request."""
+        if self.mesh_plan is not None:
+            raise ServingError(
+                "generate is not supported on a mesh-sharded server yet "
+                "(the decode KV path is single-device) — serve streaming "
+                "models from an unsharded replica")
         model, version = self.registry.resolve(name, version)
         if not hasattr(model, "slot_streaming_session"):
             raise ServingError(
@@ -772,6 +826,8 @@ class ModelServer:
             # fleet's convergence checks (did the upsert land on every
             # replica) read them here
             payload["index"] = self.retrieval.describe()
+        if self.mesh_plan is not None:
+            payload["mesh"] = self.mesh_plan.describe()
         payload["models"] = self.registry.models()
         return payload
 
@@ -1014,5 +1070,9 @@ class ModelServer:
             httpd.server_close()
         if thread is not None:
             thread.join(timeout=5.0)
+        if self.mesh_plan is not None:
+            from deeplearning4j_tpu_torch.serving.tp_backend import (
+                stop_followers)
+            stop_followers()
         return all(oks.get(i, False) for i in range(len(backends))) \
             and (retrieval is None or oks.get(-1, False))

@@ -83,9 +83,9 @@ def warmup_server(server, *, generate: bool = True,
     report: Dict[str, dict] = {}
     for entry in server.registry.models():
         name = entry["name"]
-        # the serving mesh (the JAX package's resolve_serving_model)
-        # waits for ROADMAP A6b: the registry's model is served
-        model, version = server.registry.resolve(name)
+        # the model as predict serves it (its tensor-parallel proxy on
+        # a mesh server: each bucket then runs on every rank)
+        model, version = server.resolve_serving_model(name)
         r = {"version": version, "predict_buckets": [],
              "generate": False, "seconds": 0.0, "skipped": []}
         t0 = time.perf_counter()

@@ -42,8 +42,11 @@ programs stay valid across resumes and rollbacks. The checkpoints are
 the JAX package's zips: a directory either package's trainer wrote
 resumes in the other.
 
-Data parallelism: ``mesh_spec=`` installs the spec on the model up front
-(``use_mesh``, so a restore lands in the data-parallel replicas too) and
+Data and tensor parallelism: ``mesh_spec=`` installs the spec on the
+model up front (``use_mesh``, so a restore lands in the data-parallel
+replicas too; under ``tp`` each rank copies in its shards of the full
+checkpoint, and every rank of the writer's model group joins its
+snapshot, which gathers the shards) and
 composes with ``steps_per_device_call``; ``wrapper=`` (a
 ``ParallelWrapper``) trains each batch through ``wrapper.fit_batch`` and
 each window through ``wrapper.fit_batches``. Every rank runs its own
@@ -417,6 +420,10 @@ class ElasticTrainer:
         from deeplearning4j_tpu_torch.util.model_serializer import (
             snapshot_model)
         if not self._writes():
+            if getattr(self.model, "_tp", None) is not None:
+                # tensor parallelism: the writer's snapshot gathers the
+                # shards of its model group, whose ranks join it here
+                snapshot_model(self.model)
             return None             # the coordinator's replica is ours
         t0 = time.perf_counter()
         it = self.model.iteration_count
@@ -579,12 +586,18 @@ class ElasticTrainer:
         m = self.model
         if m.params is None:
             m.init()
+        params, opt = loaded.params, loaded.opt_state
+        if getattr(m, "_tp", None) is not None:
+            # tensor parallelism: this rank's shards of the full zip
+            from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+                local_trees)
+            params, opt = local_trees(m, params, opt)
         # copied INTO the live tensors (host to device), so the
         # model's captured training programs keep their addresses
         with torch.no_grad():
-            assign_tree(m.params, loaded.params)
+            assign_tree(m.params, params)
             assign_tree(m.state, loaded.state)
-            assign_tree(m.opt_state, loaded.opt_state)
+            assign_tree(m.opt_state, opt)
         m.iteration_count = loaded.iteration_count
         m.epoch_count = loaded.epoch_count
         self._it_state = None

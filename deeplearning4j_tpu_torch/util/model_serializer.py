@@ -168,15 +168,20 @@ def snapshot_model(model, *, save_updater: bool = True,
     ``snapshot_model``). The copies run on the current stream, after
     the steps queued before them; the call returns once they have
     landed. The dict is self-contained: later steps, or an optimizer
-    rebuilt by an LR drop, cannot leak into a write in flight."""
+    rebuilt by an LR drop, cannot leak into a write in flight.
+    A tensor-parallel model's shards are gathered into the full
+    parameters and updater state first (collective over its model
+    group: every rank of it calls this), so the zip has the layout of
+    an unsharded model's."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+        full_opt_state, full_params)
+    opt = full_opt_state(model) if save_updater else None
     return {
         "conf_json": model.conf.to_json(),
-        "params": _host_tree(model.params),
+        "params": _host_tree(full_params(model)),
         "state": _host_tree(model.state if model.state is not None
                             else []),
-        "opt_state": (_host_tree(model.opt_state)
-                      if save_updater and model.opt_state is not None
-                      else None),
+        "opt_state": (_host_tree(opt) if opt is not None else None),
         "meta": {
             "format_version": _FORMAT,
             "network_type": type(model).__name__,

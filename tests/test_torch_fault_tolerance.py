@@ -331,12 +331,15 @@ def test_stale_tmp_of_a_dead_writer_is_swept(tmp_path, zip_path):
 
 
 def test_unported_options_raise(tmp_path, zip_path):
-    # mesh_spec= is ported (tests/test_torch_dp_train.py): dp=2 needs two
-    # ranks, tensor parallelism waits for A6b
+    # mesh_spec= is ported (tests/test_torch_dp_train.py): dp=2 and tp=2
+    # need two ranks (tests/test_torch_tensor_parallel.py), pp routes to
+    # the pipeline as in JAX
     with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         TTrainer(_port(zip_path), str(tmp_path / "m"), mesh_spec="dp=2")
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         TTrainer(_port(zip_path), str(tmp_path / "t"), mesh_spec="tp=2")
+    with pytest.raises(NotImplementedError, match="pipeline_spmd"):
+        TTrainer(_port(zip_path), str(tmp_path / "p"), mesh_spec="pp=2")
     with pytest.raises(ValueError, match="steps_per_device_call"):
         TTrainer(_port(zip_path), str(tmp_path / "k"),
                  steps_per_device_call=0)

@@ -508,12 +508,15 @@ def test_unported_graph_features_raise(every_vertex_pair):
         == {"train_step", "kstep_2"}
     tc.fit(MultiDataSet(xs, ys), steps_per_device_call=2)
     assert tc.iteration_count == 1
-    # data parallelism is ported (tests/test_torch_parallel.py): dp=2
-    # needs two ranks; tensor parallelism waits for A6b
+    # data and tensor parallelism are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_tensor_parallel.py): dp=2 and tp=2 need two ranks;
+    # sp trains through ParallelWrapper, as in JAX
     with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         tn.fit(MultiDataSet(xs, ys), mesh_spec="dp=2")
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
         tn.fit(MultiDataSet(xs, ys), mesh_spec="tp=2")
+    with pytest.raises(NotImplementedError, match="ParallelWrapper"):
+        tn.fit(MultiDataSet(xs, ys), mesh_spec="sp=2")
 
 
 def test_cuda_graph_without_a_card_raises(every_vertex_pair, tmp_path,

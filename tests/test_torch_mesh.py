@@ -91,13 +91,34 @@ def test_shrink_arithmetic_agrees_with_jax(monkeypatch, lost):
 
 
 def test_shrink_refuses_sharded_axes(monkeypatch):
+    """Pipe and seq meshes refuse with JAX's message; a data x model
+    mesh keeps the intact dp rows, as JAX's shrink does."""
     monkeypatch.setattr(tmesh, "_groups", lambda ranks: (None, None, None))
-    m = tmesh.build_mesh(tmesh.MeshSpec(data=2, seq=2), list(range(4)))
-    with pytest.raises(NotImplementedError, match="A6b"):
-        tmesh.shrink_data_mesh(m, {3})
+    for spec in ({"data": 2, "seq": 2}, {"data": 2, "pipe": 2}):
+        m = tmesh.build_mesh(tmesh.MeshSpec(**spec), list(range(4)))
+        jm = jmesh.build_mesh(jmesh.MeshSpec(**spec), jax.devices()[:4])
+        with pytest.raises(NotImplementedError) as want:
+            jmesh.shrink_data_mesh(jm, {jm.devices.flat[3]})
+        with pytest.raises(NotImplementedError) as got:
+            tmesh.shrink_data_mesh(m, {3})
+        assert str(got.value) == str(want.value)
     with pytest.raises(RuntimeError, match="no surviving"):
         tmesh.shrink_data_mesh(tmesh.build_mesh(tmesh.MeshSpec(data=2),
                                                 [0, 1]), {0, 1})
+    jm = jmesh.build_mesh(jmesh.MeshSpec(data=4, model=2),
+                          jax.devices()[:8])
+    tm = tmesh.build_mesh(tmesh.MeshSpec(data=4, model=2), list(range(8)))
+    for lost in ({7}, {0, 3}, {1, 2, 4}, {0, 2, 4, 6}):
+        try:
+            want = jmesh.shrink_data_mesh(
+                jm, {d for d in jm.devices.flat if d.id in lost})
+        except RuntimeError as e:
+            with pytest.raises(RuntimeError, match=str(e)):
+                tmesh.shrink_data_mesh(tm, lost)
+            continue
+        got = tmesh.shrink_data_mesh(tm, lost)
+        assert got.ranks == [d.id for d in want.devices.flat]
+        assert got.shape == dict(want.shape)
 
 
 @pytest.mark.parametrize("hosts,rank,batch", [(1, 0, 64), (2, 0, 64),
@@ -142,8 +163,24 @@ def test_too_many_ranks_names_the_launch_recipe():
 
 @pytest.mark.parametrize("spec", ["tp=2", "pp=2", "sp=2", "dp=1,tp=2"])
 def test_tensor_pipeline_and_sequence_meshes_name_a6b(spec):
-    with pytest.raises(NotImplementedError, match="A6b"):
+    """The spec routes as JAX's ``build_mesh_context`` does (these meshes
+    once raised naming ROADMAP A6b): tp builds (here it needs the
+    ranks, so the error names the launch recipe, where JAX's names the
+    virtual devices), pp points to pipeline_spmd and sp to
+    ParallelWrapper, each with the type JAX raises."""
+    plan = tspec.parse_mesh_spec(spec)
+    if plan.tp > 1:
+        with pytest.raises(ValueError, match="DL4J_TPU_COORDINATOR"):
+            tspec.build_mesh_context(spec)
+        ctx = jspec.build_mesh_context(spec)
+        assert ctx.plan.tp == plan.tp
+        return
+    with pytest.raises(NotImplementedError) as want:
+        jspec.build_mesh_context(spec)
+    with pytest.raises(NotImplementedError) as got:
         tspec.build_mesh_context(spec)
+    key = "pipeline_spmd.py" if plan.pp > 1 else "ParallelWrapper"
+    assert key in str(want.value) and key in str(got.value)
 
 
 def _tiny(tmp_path, seed=1):
@@ -167,7 +204,7 @@ def test_fit_refusals_and_dp1_in_one_process(tmp_path):
     rng = np.random.default_rng(0)
     ds = DataSet(rng.normal(size=(6, 4)).astype(np.float32),
                  np.eye(3, dtype=np.float32)[rng.integers(0, 3, 6)])
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(NotImplementedError, match="ParallelWrapper"):
         net.fit(ds, mesh_spec="sp=2")
     with pytest.raises(ValueError, match="DL4J_TPU_PROCESS_ID"):
         net.warmup(ds, mesh_spec="dp=2")
