@@ -152,7 +152,19 @@ run by ``dp_hold``, with the kernels' launches under each (``tp_sp_pp``),
 the ring's, the tp all-reduces' and the pipeline's bytes and
 host-staged ms a step and each stage's idle (bubble) ms; and ``serve
 --mesh tp=2`` as two CLI rank processes, rank 0's ``/v1/predict`` held
-against the one-rank model's output. The fleet phases' replicas serve the LM
+against the one-rank model's output. Last (``nlp_phase``) the Word2Vec
+family, which runs no kernel of the port's own (plain torch ops, as the
+JAX package leaves it to XLA): skip-gram with negative sampling over
+tests/test_nlp.py's 100,000-word corpus at D=300 (the step's warm ms
+against its byte bound, the host's share, pairs/s) and 2048 nearest
+queries; every step function (skip-gram and CBOW with negative sampling
+and hierarchical softmax, PV-DBOW and PV-DM, GloVe's epoch) on the card
+against its CPU run on the real streams; each other trainer fit once
+(HS, CBOW, ParagraphVectors with ``infer_vector``, GloVe, DeepWalk and
+Node2Vec on a two-community graph); ``TextEmbedder.from_word2vec``
+behind ``/v1/embed`` and ``/v1/search``; the ``.vec`` round trip and
+the ``summary`` CLI on it; ``fit(mesh=)`` at dp=2 as two gloo ranks
+against one rank; and t-SNE of the 500 most frequent words. The fleet phases' replicas serve the LM
 at full width and depth FLEET_LAYERS, and slice_phase's predicts send
 SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
 wall time is logged. It imports nothing of JAX or of the
@@ -7851,6 +7863,601 @@ def tp_sp_pp_phase(attn, card, ref_dir):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# --------------------------------------------------------------------
+# nlp_phase: the Word2Vec family on the card. No kernel of its own: the
+# JAX package leaves these steps to XLA, the port to plain torch ops
+# (cuBLAS, the gather and scatter kernels).
+# --------------------------------------------------------------------
+
+NLP_V = 100_000            # tests/test_nlp.py:586-609's corpus (seed 0):
+NLP_SENT = 20              # every word once in 20-token sentences, plus
+NLP_HEAD, NLP_HEAD_WORDS = 20_000, 200   # a head of 20,000 over 200 words
+NLP_D = 300                # the width of retrieval_phase's 400,000 x 300
+NLP_D_SMALL = 100          # the other trainers and the step checks
+NLP_B, NLP_WINDOW, NLP_NEG = 4096, 5, 5
+NLP_TIMED = 20             # warm steps timed by CUDA events (3 untimed)
+NLP_QUERIES, NLP_CHUNK, NLP_K = 2048, 256, 5
+NLP_CHECK_STEPS = 4        # card-vs-CPU steps on the real streams
+NLP_CHECK_TOL = 1e-5       # max|diff| over each table's max|entry|
+NLP_GLOVE_EPOCHS = 5
+NLP_GRAPH_N, NLP_GRAPH_DEG, NLP_GRAPH_CROSS = 2000, 10, 20
+NLP_WALKS, NLP_WALK_LEN = 4, 20
+NLP_N2V_WALKS = 2          # Node2Vec's p/q choice is ~40 us a step
+NLP_GRAPH_LR = 0.1         # at 0.025, one epoch leaves every vertex at
+                           # cosine ~0.999 to every other
+NLP_EMBED_TEXTS = 8
+NLP_TSNE_WORDS, NLP_TSNE_ITERS = 500, 6
+NLP_DP_CORPUS = ["the quick brown fox jumps over the lazy dog",
+                 "a quick red fox runs past a lazy cat",
+                 "dogs and cats and foxes run fast"] * 20
+
+
+def nlp_corpus():
+    """tests/test_nlp.py:586-609's 100k-vocabulary corpus: (words,
+    sentences of tokens)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    words = [f"w{i:06d}" for i in range(NLP_V)]
+    order = rng.permutation(NLP_V)
+    corpus = [[words[j] for j in order[i:i + NLP_SENT]]
+              for i in range(0, NLP_V, NLP_SENT)]
+    head = [words[int(i)] for i in
+            rng.integers(0, NLP_HEAD_WORDS, NLP_HEAD)]
+    corpus += [head[i:i + NLP_SENT] for i in range(0, len(head), NLP_SENT)]
+    return words, corpus
+
+
+def nlp_w2v(D, **kw):
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    b = (Word2Vec.builder().layer_size(D).window_size(NLP_WINDOW)
+         .negative_sample(NLP_NEG).min_word_frequency(1).epochs(1)
+         .batch_size(NLP_B).sampling(0.0).seed(0).device(CARD))
+    for k, v in kw.items():
+        getattr(b, k)(v)
+    return b.build()
+
+
+def nlp_step_bytes(D, B, K, centers, contexts, negs):
+    """The least bytes of one skip-gram NS step: each distinct touched
+    row of syn0 and syn1 read and written once (a row the batch names
+    again comes from cache), the indices read once."""
+    import numpy as np
+    u0 = len(np.unique(centers))
+    u1 = len(np.unique(np.concatenate([contexts, negs.reshape(-1)])))
+    return 8 * D * (u0 + u1) + 8 * B * (K + 2)
+
+
+def nlp_skipgram_leg(corpus, card):
+    """Skip-gram NS at NLP_D: the fit (vocab, pairs, steps) timed, the
+    step's warm ms by CUDA events against its byte bound, the host ms a
+    step, pairs/s; then words_nearest_batch. Returns the trained model
+    and its pairs."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp.word2vec import ns_step
+    w2v = nlp_w2v(NLP_D)
+    t0 = time.perf_counter()
+    w2v.build_vocab(corpus)
+    vocab_s = time.perf_counter() - t0
+    # the host half of the fit alone: the pair stream and the epoch's
+    # permutation + negatives, drawn from the fit's generator
+    rng = np.random.default_rng(w2v.seed + 1)
+    t0 = time.perf_counter()
+    pairs = w2v._training_pairs(corpus, rng)
+    pairs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order, negs = w2v._epoch(len(pairs), NLP_B, rng)
+    torch.cuda.synchronize()
+    draws_s = time.perf_counter() - t0
+    steps = order.shape[0]
+    del order, negs
+    t0 = time.perf_counter()
+    w2v.fit(corpus)
+    fit_s = time.perf_counter() - t0
+    assert w2v.syn0.shape == (len(w2v.vocab), NLP_D)
+    assert np.isfinite(w2v.syn0).all() and np.isfinite(w2v.syn1).all()
+    # the step on the card, warm, from the trained tables
+    syn0, syn1 = w2v._tables()
+    evs, sizes = [], []
+    it = w2v.sg_batches(pairs, np.random.default_rng(7))
+    for i in range(NLP_TIMED + 3):
+        c, x, n = next(it)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ns_step(syn0, syn1, c, x, n, 0.01)
+        e1.record()
+        if i >= 3:
+            evs.append((e0, e1))
+            sizes.append(nlp_step_bytes(NLP_D, NLP_B, NLP_NEG, c.cpu().numpy(),
+                                        x.cpu().numpy(), n.cpu().numpy()))
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in evs)
+    step_ms = ms[len(ms) // 2]
+    # the kernels' own time a step (the profiler, the last batch again):
+    # the rest of the event-timed step is the host enqueueing its ops
+    kern_ms = device_ms(lambda: ns_step(syn0, syn1, c, x, n, 0.01), 20)
+    nbytes = float(np.median(sizes))
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    flops = 2 * 3 * NLP_B * (NLP_NEG + 1) * NLP_D
+    host_ms = (pairs_s + draws_s) * 1e3 / steps
+    log(f"word2vec skip-gram NS ({card}): vocab {len(w2v.vocab)} "
+        f"({vocab_s:.2f} s with the {NLP_D}-wide init), {len(pairs)} pairs, "
+        f"{steps} steps of B={NLP_B} K={NLP_NEG}, D={NLP_D} (two "
+        f"{len(w2v.vocab)} x {NLP_D} f32 tables, "
+        f"{2 * len(w2v.vocab) * NLP_D * 4 / 1e6:.0f} MB); fit {fit_s:.2f} s, "
+        f"{len(pairs) / fit_s:.0f} pairs/s; the step's warm median "
+        f"{step_ms:.4f} ms (min {ms[0]:.4f}, max {ms[-1]:.4f}; CUDA events, "
+        f"{NLP_TIMED} steps) against its byte bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB at {PEAK_BYTES / 1e12:.2f} TB/s; "
+        f"{flops / 1e9:.2f} GFLOP, {flops / PEAK_F32_FLOPS * 1e3:.4f} ms at "
+        f"the f32 rate): {bound_ms / step_ms:.1%}; the kernels' device "
+        f"time a step {kern_ms:.4f} ms (profiler; "
+        f"{bound_ms / kern_ms:.1%} of the bound); host a step "
+        f"{host_ms:.3f} ms (pairs {pairs_s:.2f} s + permutation and "
+        f"negatives drawn and uploaded {draws_s:.2f} s, over {steps} steps): "
+        f"host share of the fit's step {host_ms / (host_ms + step_ms):.1%}")
+    words = [w.word for w in w2v.vocab.words]
+    queries = [words[int(i)] for i in
+               np.random.default_rng(0).integers(0, len(words),
+                                                 NLP_QUERIES)]
+    secs = []
+    for _ in range(2):          # the first uploads the unit rows
+        t0 = time.perf_counter()
+        res = w2v.words_nearest_batch(queries, n=NLP_K, chunk=NLP_CHUNK)
+        secs.append(time.perf_counter() - t0)
+        assert len(res) == NLP_QUERIES
+        assert all(len(r) == NLP_K for r in res)
+        assert all(q not in r for q, r in zip(queries, res))
+    log(f"words_nearest_batch ({card}): {NLP_QUERIES} queries, k={NLP_K}, "
+        f"chunk {NLP_CHUNK}, over {len(words)} x {NLP_D}: "
+        f"{secs[0]:.3f} s with the unit rows' upload, {secs[1]:.3f} s warm "
+        f"({secs[1] / NLP_QUERIES * 1e3:.4f} ms a query)")
+    return w2v, pairs
+
+
+def nlp_hold(name, tables, run, card, reordered=None):
+    """``run(tables, device)`` (NLP_CHECK_STEPS steps in place) on the
+    card and on the CPU from the same numpy ``tables``; fails unless
+    every table agrees within NLP_CHECK_TOL of its largest entry. With
+    ``reordered`` (the same run with its terms summed in another order,
+    on the CPU), a table may also be within 4x the CPU's own difference
+    under that reorder."""
+    import torch
+
+    def go(fn, dev):
+        ts = [torch.tensor(t, device=dev) for t in tables]
+        fn(ts, dev)
+        return [t.cpu().numpy() for t in ts]
+
+    def rel(a, b):
+        return float(abs(a - b).max() / max(abs(a).max(), 1e-30))
+    cpu, got = go(run, "cpu"), go(run, CARD)
+    errs, limits = [], []
+    for i, (a, b, t0) in enumerate(zip(cpu, got, tables)):
+        assert (a != t0).any(), f"{name}: a table did not move"
+        errs.append(rel(a, b))
+        limits.append(NLP_CHECK_TOL)
+    if reordered is not None:
+        own = [rel(a, b) for a, b in zip(cpu, go(reordered, "cpu"))]
+        limits = [max(l, 4 * o) for l, o in zip(limits, own)]
+    assert all(e <= l for e, l in zip(errs, limits)), (name, errs, limits)
+    return [(e, l) for e, l in zip(errs, limits)]
+
+
+def nlp_step_checks(w2v, pairs, corpus, card):
+    """Each step function on the card against its CPU run, from the same
+    tables, on NLP_CHECK_STEPS batches of the real streams: skip-gram NS
+    at NLP_D from the trained tables, then HS, CBOW NS and HS, PV-DBOW
+    and DM and GloVe's epoch at NLP_D_SMALL over the same vocab."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.nlp.glove import Glove, glove_epoch_step
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors, doc_step)
+    from deeplearning4j_tpu_torch.nlp.word2vec import (cbow_step, hs_step,
+                                                       ns_step)
+
+    def batches(model, n, rng, negatives=True):
+        order, negs = model._epoch(n, NLP_B, rng, negatives)
+        return [(order[i].cpu().numpy(),
+                 None if negs is None else negs[i].cpu().numpy())
+                for i in range(NLP_CHECK_STEPS)]
+
+    def idx(a, dev):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    report = {}
+    sg = batches(w2v, len(pairs), np.random.default_rng(11))
+
+    def run_ns(ts, dev):
+        for sel, negs in sg:
+            ns_step(*ts, idx(pairs[sel, 0], dev), idx(pairs[sel, 1], dev),
+                    idx(negs, dev), 0.025)
+    report[f"skip-gram NS D={NLP_D}"] = nlp_hold(
+        "ns", [w2v.syn0, w2v.syn1], run_ns, card)
+
+    D = NLP_D_SMALL
+    rng = np.random.default_rng(12)
+    V = len(w2v.vocab)
+    small = [((rng.random((V, D)) - 0.5) / D).astype(np.float32),
+             (rng.normal(size=(V, D)) * 0.1).astype(np.float32)]
+    hsm = nlp_w2v(D, use_hierarchic_softmax=True)
+    hsm.vocab = w2v.vocab
+    t0 = time.perf_counter()
+    hsm._tables_from_vocab()
+    huff_s = time.perf_counter() - t0
+    hs_np = hsm._hs_arrays
+    hs_sel = batches(hsm, len(pairs), np.random.default_rng(13), False)
+
+    def hs_of(dev):
+        return (idx(hs_np[0], dev), torch.from_numpy(hs_np[1]).to(dev),
+                torch.from_numpy(hs_np[2]).to(dev))
+
+    def run_hs(ts, dev):
+        hs = hs_of(dev)
+        for sel, _ in hs_sel:
+            hs_step(*ts, hs, idx(pairs[sel, 0], dev),
+                    idx(pairs[sel, 1], dev), 0.025)
+    report[f"skip-gram HS D={D}"] = nlp_hold("hs", small, run_hs, card)
+
+    crng = np.random.default_rng(14)
+    ctxs, masks, centers = hsm._cbow_batches(corpus, crng)
+    cb = batches(hsm, len(centers), crng)
+    for use_hs in (False, True):
+        def run_cbow(ts, dev, use_hs=use_hs):
+            hs = hs_of(dev) if use_hs else None
+            for sel, negs in cb:
+                cbow_step(*ts, idx(ctxs[sel], dev),
+                          torch.from_numpy(masks[sel]).to(dev),
+                          idx(centers[sel], dev), idx(negs, dev), 0.025, hs)
+        report[f"CBOW {'HS' if use_hs else 'NS'} D={D}"] = nlp_hold(
+            "cbow", small, run_cbow, card)
+
+    for dm in (False, True):
+        pv = ParagraphVectors(dm=dm, layer_size=D, window=NLP_WINDOW,
+                              negative=NLP_NEG, batch_size=NLP_B,
+                              device=CARD)
+        pv.vocab = w2v.vocab
+        pv._tables_from_vocab()
+        dp = pv._doc_pairs(corpus)
+        di = np.array([p[0] for p in dp], np.int64)
+        ce = np.array([p[1] for p in dp], np.int64)
+        cx = np.array([p[2] for p in dp], np.int64) if dm else None
+        pb = batches(pv, len(dp), np.random.default_rng(15))
+        docs = (rng.normal(size=(len(corpus), D)) * 0.1).astype(np.float32)
+
+        def run_pv(ts, dev, cx=cx, di=di, ce=ce, pb=pb):
+            for sel, negs in pb:
+                doc_step(ts[2], ts[0], ts[1], idx(di[sel], dev),
+                         idx(ce[sel], dev),
+                         None if cx is None else idx(cx[sel], dev),
+                         idx(negs, dev), 0.025)
+        tables = small + [docs]
+        if not dm:      # DBOW leaves syn0 as it is: hold syn1 and docs
+            def run_pv(ts, dev, run=run_pv, s0=small[0]):
+                run([torch.tensor(s0, device=dev)] + ts, dev)
+            tables = small[1:] + [docs]
+        report[f"PV-{'DM' if dm else 'DBOW'} D={D}"] = nlp_hold(
+            "pv", tables, run_pv, card)
+
+    g = Glove(layer_size=D, window=NLP_WINDOW, device=CARD)
+    g.vocab = w2v.vocab
+    t0 = time.perf_counter()
+    co = g._cooccurrences(corpus)
+    co_s = time.perf_counter() - t0
+    rows = np.array([k[0] for k in co], np.int64)
+    cols = np.array([k[1] for k in co], np.int64)
+    vals = np.array(list(co.values()), np.float32)
+    wgt = np.minimum(1.0, (vals / g.x_max) ** g.alpha).astype(np.float32)
+    params = small + [np.zeros(V, np.float32), np.zeros(V, np.float32)]
+
+    def run_glove(ts, dev, perm=slice(None)):
+        accum = [torch.full_like(t, 1e-8) for t in ts]
+        args = (idx(rows[perm], dev), idx(cols[perm], dev),
+                torch.from_numpy(np.log(vals[perm])).to(dev),
+                torch.from_numpy(wgt[perm]).to(dev))
+        for _ in range(2):
+            glove_epoch_step(ts, accum, *args, g.learning_rate)
+    # AdaGrad's first step divides a gradient by ~sqrt(g^2 + 1e-8): where
+    # the co-occurrences' terms cancel, their summation order (the card's
+    # atomics) moves the step by up to lr * rounding / 1e-4, so the card
+    # is also held within 4x the CPU's own difference under a reorder
+    perm = np.random.default_rng(16).permutation(len(vals))
+    report[f"GloVe epoch D={D}"] = nlp_hold(
+        "glove", params, run_glove, card,
+        reordered=lambda ts, dev: run_glove(ts, dev, perm))
+    log(f"word2vec steps, card vs CPU ({card}; {NLP_CHECK_STEPS} steps of "
+        f"B={NLP_B} from the same tables on the real streams, GloVe 2 "
+        f"epochs over {len(vals)} co-occurrences; Huffman of "
+        f"{V} words {huff_s:.2f} s, co-occurrences {co_s:.2f} s): max|diff| "
+        f"over max|entry| by table (limit): "
+        + "; ".join(f"{k} " + ", ".join(f"{e:.2e} ({l:.1e})" for e, l in v)
+                    for k, v in report.items()))
+
+
+def nlp_graph(n, seed=0):
+    """Two communities of ``n/2`` vertices: NLP_GRAPH_DEG random edges
+    a vertex inside its own, NLP_GRAPH_CROSS edges across."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.deepwalk import Graph
+    rng = np.random.default_rng(seed)
+    g = Graph(n)
+    half = n // 2
+    for v in range(n):
+        base = 0 if v < half else half
+        for u in rng.integers(0, half, NLP_GRAPH_DEG // 2):
+            if base + int(u) != v:
+                g.add_edge(v, base + int(u))
+    for a, b in zip(rng.integers(0, half, NLP_GRAPH_CROSS),
+                    rng.integers(half, n, NLP_GRAPH_CROSS)):
+        g.add_edge(int(a), int(b))
+    return g
+
+
+def nlp_trainers_leg(corpus, card):
+    """HS and CBOW, PV-DBOW and PV-DM (+ infer_vector), GloVe, DeepWalk
+    and Node2Vec, each fit once on the card at NLP_D_SMALL; returns the
+    HS model (for the .vec round trip)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.deepwalk import DeepWalk, Node2Vec
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph_vectors import (
+        ParagraphVectors)
+    D = NLP_D_SMALL
+    secs = {}
+
+    def fit(name, make):
+        t0 = time.perf_counter()
+        m = make()
+        secs[name] = time.perf_counter() - t0
+        return m
+
+    hs = fit("skip-gram HS", lambda: nlp_w2v(
+        D, use_hierarchic_softmax=True).fit(corpus))
+    fit("CBOW NS", lambda: nlp_w2v(
+        D, elements_learning_algorithm="cbow").fit(corpus))
+    labels = [f"doc_{i}" for i in range(len(corpus))]
+    for dm in (False, True):
+        name = "PV-DM" if dm else "PV-DBOW"
+        pv = fit(name, lambda dm=dm: ParagraphVectors(
+            dm=dm, layer_size=D, window=NLP_WINDOW, negative=NLP_NEG,
+            min_word_frequency=1, batch_size=NLP_B, subsampling=0.0,
+            seed=0, device=CARD).fit_documents(corpus, labels))
+        t0 = time.perf_counter()
+        v = pv.infer_vector(corpus[3])
+        secs[name + " infer_vector"] = time.perf_counter() - t0
+        assert v.shape == (D,) and np.isfinite(v).all()
+        assert np.isfinite(pv.doc_vectors).all()
+    glove = fit("GloVe", lambda: Glove(
+        layer_size=D, window=NLP_WINDOW, min_word_frequency=1,
+        epochs=NLP_GLOVE_EPOCHS, seed=0, device=CARD).fit(corpus))
+    assert np.isfinite(glove.syn0).all()
+    graph = nlp_graph(NLP_GRAPH_N)
+    half = NLP_GRAPH_N // 2
+    pick = np.random.default_rng(1).integers(0, half, (200, 2))
+    for name, cls, kw in (("DeepWalk", DeepWalk, {}),
+                          ("Node2Vec", Node2Vec, dict(p=0.5, q=2.0))):
+        walks = NLP_N2V_WALKS if cls is Node2Vec else NLP_WALKS
+        m = fit(name, lambda cls=cls, kw=kw, walks=walks: cls(
+            vector_size=64, window_size=NLP_WINDOW, walk_length=NLP_WALK_LEN,
+            walks_per_vertex=walks, batch_size=NLP_B, seed=0, device=CARD,
+            learning_rate=NLP_GRAPH_LR, **kw).fit(graph))
+        same = np.mean([m.similarity(int(a), int(b)) for a, b in pick])
+        cross = np.mean([m.similarity(int(a), int(b) + half)
+                         for a, b in pick])
+        assert same > cross, (name, same, cross)
+        secs[name + " same vs cross"] = (same, cross)
+    log(f"word2vec trainers ({card}; D={D}, B={NLP_B}, 1 epoch over the "
+        f"corpus, GloVe {NLP_GLOVE_EPOCHS} epochs, graphs of {NLP_GRAPH_N} "
+        f"vertices, walks of {NLP_WALK_LEN}): " + "; ".join(
+            f"{k} {v[0]:.3f} vs {v[1]:.3f} mean cosine" if isinstance(v, tuple)
+            else f"{k} {v:.2f} s" for k, v in secs.items()))
+    return hs
+
+
+def nlp_serve_leg(w2v, card):
+    """``TextEmbedder.from_word2vec`` on the trained model behind a
+    ModelServer's retrieval backend: /v1/embed of NLP_EMBED_TEXTS texts
+    against numpy's mean pool of syn0's rows, a text /v1/search over the
+    trained vectors against numpy's cosine top-k."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.retrieval import (BruteForceIndex,
+                                                    TextEmbedder)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.serving.retrieval_backend import (
+        RetrievalService)
+    emb = TextEmbedder.from_word2vec(w2v)
+    assert emb.device.type == CARD
+    index = BruteForceIndex(NLP_D, device=CARD)
+    V = w2v.syn0.shape[0]
+    index.add(np.arange(V), w2v.syn0)
+    server = ModelServer(ModelRegistry(), retrieval=RetrievalService(
+        index, embedder=emb, max_batch_size=32))
+    server.start()
+    rng = np.random.default_rng(3)
+    words = [w.word for w in w2v.vocab.words]
+    texts = [" ".join(words[int(i)] for i in rng.integers(0, V, n))
+             + (" oov" if n % 3 == 0 else "")
+             for n in rng.integers(1, 30, NLP_EMBED_TEXTS)]
+    try:
+        t0 = time.perf_counter()
+        code, body, _ = http(server.port, "/v1/embed", {"texts": texts})
+        embed_ms = (time.perf_counter() - t0) * 1e3
+        assert code == 200, body
+        got = np.asarray(body["embeddings"], np.float64)
+        want = []
+        for t in texts:
+            ids = [w2v.vocab.index_of(x) for x in t.split()]
+            v = w2v.syn0[[i for i in ids if i >= 0]].astype(np.float64)
+            m = v.mean(0)
+            want.append(m / max(np.linalg.norm(m), 1e-12))
+        want = np.asarray(want)
+        err = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+        query = " ".join(words[:3])
+        t0 = time.perf_counter()
+        code, body, _ = http(server.port, "/v1/search",
+                             {"queries": [query], "k": NLP_K})
+        search_ms = (time.perf_counter() - t0) * 1e3
+        assert code == 200, body
+        ids = [r["id"] for r in body["results"][0]]
+        unit = w2v.syn0 / np.maximum(
+            np.linalg.norm(w2v.syn0, axis=1, keepdims=True), 1e-12)
+        q = w2v.syn0[:3].astype(np.float64).mean(0)   # the query's mean
+        scores = unit.astype(np.float64) @ (q / np.linalg.norm(q))
+        top = np.argsort(-scores)[:NLP_K]
+        assert ids[0] == int(top[0]), (ids, top)
+        assert set(ids) <= set(np.argsort(-scores)[:NLP_K + 3].tolist())
+    finally:
+        server.stop(drain=True)
+    log(f"from_word2vec behind ModelServer ({card}): /v1/embed of "
+        f"{NLP_EMBED_TEXTS} texts over the {V} x {NLP_D} table in "
+        f"{embed_ms:.1f} ms, max|diff| vs numpy's mean pool {err:.2e} "
+        f"(atol 1e-4, rtol 1e-4); text /v1/search k={NLP_K} over the "
+        f"trained vectors in {search_ms:.1f} ms, ids {ids} (numpy's top "
+        f"{top.tolist()})")
+
+
+def nlp_vec_leg(model, path, card):
+    """write_word_vectors -> read_word_vectors on the 100k table, then
+    the ``summary`` CLI on the file in a subprocess (returned running)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.serializer import (read_word_vectors,
+                                                         write_word_vectors)
+    t0 = time.perf_counter()
+    write_word_vectors(model, path)
+    w_s = time.perf_counter() - t0
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch", "summary",
+         "--model", path, "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    cache, vecs = read_word_vectors(path)
+    r_s = time.perf_counter() - t0
+    assert [w.word for w in cache.words] == \
+        [w.word for w in model.vocab.words]
+    err = float(np.abs(vecs - model.syn0).max())
+    # 6 decimals (5e-7), then float32's rounding at the largest entry
+    limit = 5e-7 + float(np.spacing(np.abs(model.syn0).max()))
+    assert err <= limit, (err, limit)
+    log(f".vec round trip ({card}): {vecs.shape[0]} x {vecs.shape[1]} "
+        f"written in {w_s:.2f} s ({os.path.getsize(path) / 1e6:.1f} MB), "
+        f"read in {r_s:.2f} s, max|diff| {err:.2e} (limit {limit:.2e})")
+    return cli, time.perf_counter()
+
+
+def nlp_dp_model():
+    """The data-parallel drill's model, one rank's and every rank's: JAX's
+    TestDataParallelEmbeddings configuration on the card."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    return (Word2Vec.builder().iterate(NLP_DP_CORPUS).layer_size(16)
+            .min_word_frequency(1).epochs(2).batch_size(64).seed(0)
+            .device(CARD).build())
+
+
+def nlp_part_w2v(world, out):
+    """One rank of nlp_phase's data-parallel drill: Word2Vec.fit(mesh=)
+    of nlp_dp_model over the data axis of every rank."""
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    w = nlp_dp_model()
+    t0 = time.perf_counter()
+    w.fit(mesh=build_mesh(MeshSpec(data=world)))
+    return {"syn0": w.syn0.tolist(), "syn1": w.syn1.tolist(),
+            "nearest": w.words_nearest("fox", n=3),
+            "fit_s": time.perf_counter() - t0}
+
+
+DP_PARTS["w2v"] = nlp_part_w2v
+
+
+def nlp_phase(card):
+    """The Word2Vec family on the card (A8c): skip-gram NS over
+    tests/test_nlp.py's 100k-vocabulary corpus at D=300 (B=4096, window
+    5, 5 negatives, no subsampling, 1 epoch, seed 0; the step against
+    its byte bound, the host's share, pairs/s) and words_nearest_batch
+    (2048 queries, chunk 256); every step function on the card against
+    its CPU run on the real streams; HS, CBOW, PV-DBOW / DM (+
+    infer_vector), GloVe, DeepWalk and Node2Vec each fit once;
+    ``TextEmbedder.from_word2vec`` behind a ModelServer (/v1/embed,
+    /v1/search); the ``.vec`` round trip and the ``summary`` CLI;
+    ``fit(mesh=)`` at dp=2 (two gloo ranks on the card) against one
+    rank; t-SNE of the 500 most frequent words.
+
+    Cuts, for the phase's 90 s: the other trainers and the step checks
+    run at D=100 (the skip-gram leg at 300); the .vec round trip writes
+    the D=100 HS table (100,000 x 100; the text format costs ~1 us a
+    value to write on the host); the graphs are 2,000 vertices with 4
+    walks a vertex (2 for Node2Vec, whose p/q choice is ~40 us a step);
+    t-SNE runs NLP_TSNE_ITERS iterations, not 500 (the host Barnes-Hut
+    tree is ~1.1 s an iteration at 500 points), while the dp drill
+    runs."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from deeplearning4j_tpu_torch.clustering.tsne import BarnesHutTsne
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="nlp-", dir=os.path.join(here, "build"))
+    try:
+        t0 = time.perf_counter()
+        words, corpus = nlp_corpus()
+        log(f"nlp corpus: {len(corpus)} sentences, "
+            f"{sum(map(len, corpus))} tokens ({time.perf_counter() - t0:.2f}"
+            f" s)")
+        w2v, pairs = nlp_skipgram_leg(corpus, card)
+        nlp_step_checks(w2v, pairs, corpus, card)
+        del pairs
+        hs = nlp_trainers_leg(corpus, card)
+        nlp_serve_leg(w2v, card)
+        cli, cli_t0 = nlp_vec_leg(hs, os.path.join(out, "x.vec"), card)
+        del hs
+
+        def tsne():
+            x = w2v.syn0[:NLP_TSNE_WORDS]       # the vocab is by frequency
+            t0 = time.perf_counter()
+            y = BarnesHutTsne(n_iter=NLP_TSNE_ITERS,
+                              exaggeration_iters=NLP_TSNE_ITERS // 2,
+                              seed=0).fit(x)
+            return y, time.perf_counter() - t0
+        with ThreadPoolExecutor(1) as pool:
+            job = pool.submit(tsne)
+            t0 = time.perf_counter()
+            ranks = run_ranks(2, out, ["w2v"])
+            dp_s = time.perf_counter() - t0
+            single = nlp_dp_model()
+            single.fit()
+            for r in ranks:
+                np.testing.assert_allclose(np.asarray(r["w2v"]["syn0"]),
+                                           single.syn0, rtol=1e-3,
+                                           atol=1e-4)
+                np.testing.assert_allclose(np.asarray(r["w2v"]["syn1"]),
+                                           single.syn1, rtol=1e-3,
+                                           atol=1e-4)
+                assert r["w2v"]["nearest"] == single.words_nearest("fox",
+                                                                   n=3)
+            err = float(np.abs(np.asarray(ranks[0]["w2v"]["syn0"])
+                               - single.syn0).max())
+            log(f"Word2Vec.fit(mesh=) dp=2 ({card}; two gloo ranks on the "
+                f"card, {ranks[0]['backend']}): {dp_s:.1f} s with the ranks' "
+                f"start, fits {ranks[0]['w2v']['fit_s']:.2f} / "
+                f"{ranks[1]['w2v']['fit_s']:.2f} s; syn0 max|diff| vs one "
+                f"rank {err:.2e} (rtol 1e-3, atol 1e-4); words_nearest('fox'"
+                f", 3) {ranks[0]['w2v']['nearest']} on both")
+            y, tsne_s = job.result()
+        assert y.shape == (NLP_TSNE_WORDS, 2) and np.isfinite(y).all()
+        log(f"t-SNE ({card}, host): the {NLP_TSNE_WORDS} most frequent "
+            f"words of the D={NLP_D} model, {NLP_TSNE_ITERS} iterations, "
+            f"{tsne_s:.2f} s (beside the dp drill)")
+        text, _ = cli.communicate(timeout=300)
+        assert cli.returncode == 0, text
+        assert text.startswith("format: word_vectors"), text
+        log(f"summary --model x.vec ({card}): {text.strip()!r}, "
+            f"{time.perf_counter() - cli_t0:.1f} s after its start")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -7985,6 +8592,7 @@ def main():
         tsp = timed("tp_sp_pp_phase", tp_sp_pp_phase, attn, card, dp_dir)
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
+    timed("nlp_phase", nlp_phase, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],

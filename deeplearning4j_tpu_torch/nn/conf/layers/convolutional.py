@@ -25,7 +25,7 @@ hi differ (the ResNet50 stem's 7×7 stride-2 conv on 224 pads (2, 3))
 the input is zero-padded explicitly; torch's symmetric padding would
 shift every window by one pixel. The transposed convolution pads as
 ``lax.conv_transpose`` does (``_transpose_pads``), by cropping the full
-transposed output, or extending it with ``output_padding``.
+transposed output, or extending its end with rows of zeros.
 
 Float32 convolutions on the card run with cuDNN's TF32 off, as the JAX
 package computes them: every convolution calls ``device.keep_float32``
@@ -263,17 +263,20 @@ class Deconvolution2DLayer(ConvolutionLayer):
         keep_float32(x)
         # the full transpose pads the dilated input by k - 1 a side;
         # lax's padding crops that (lo, hi <= k - 1) or extends its end
-        # by rows of zero contributions (hi > k - 1: output_padding)
+        # by rows no input reaches (hi > k - 1), zeros
         (h_lo, h_hi), (w_lo, w_hi) = (
             _transpose_pads(k, s, self.convolution_mode)
             for k, s in zip(self.kernel, self.stride))
         kh, kw = self.kernel
         # contiguous operands: the CPU backward of conv_transpose2d on
-        # the permuted views crashed under 8 OpenMP threads
-        y = F.conv_transpose2d(
+        # the permuted views crashed under 8 OpenMP threads; and the rows
+        # past the last input's reach are zeros padded on here, not
+        # output_padding, whose CPU backward at a 1x1 kernel and stride
+        # 2 crashed too
+        y = F.pad(F.conv_transpose2d(
             x.permute(0, 3, 1, 2).contiguous(),
-            conv_weight_oihw(w, x.dtype).contiguous(), None,
-            self.stride, 0, (max(h_hi - kh + 1, 0), max(w_hi - kw + 1, 0)))
+            conv_weight_oihw(w, x.dtype).contiguous(), None, self.stride),
+            (0, max(w_hi - kw + 1, 0), 0, max(h_hi - kh + 1, 0)))
         rows, cols = y.shape[2], y.shape[3]
         y = y[:, :, kh - 1 - h_lo:rows - max(kh - 1 - h_hi, 0),
               kw - 1 - w_lo:cols - max(kw - 1 - w_hi, 0)].permute(0, 2, 3, 1)

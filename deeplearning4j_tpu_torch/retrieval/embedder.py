@@ -16,8 +16,9 @@ registers in the ``ModelRegistry`` like any predict model (it exposes
 lengths pad to pow2 buckets (capped at ``max_tokens``), as in the JAX
 package, so both pack the same wire tensor.
 
-``from_word2vec`` waits for the Word2Vec family (ROADMAP A8); the
-``TextEmbedder(vocab, table)`` constructor is the path the CLI uses.
+``from_word2vec`` adapts a trained Word2Vec / ParagraphVectors (its
+vocab, ``syn0`` and tokenizer); the ``TextEmbedder(vocab, table)``
+constructor is the path the CLI uses.
 
 Out-of-vocabulary tokens drop out of the mean (mask 0); an all-OOV or
 empty text embeds to the zero vector, which cosine search scores
@@ -99,11 +100,12 @@ class TextEmbedder:
     @classmethod
     def from_word2vec(cls, w2v, **kwargs) -> "TextEmbedder":
         """Adapt a trained SequenceVectors (Word2Vec /
-        ParagraphVectors): not ported yet."""
-        raise NotImplementedError(
-            "TextEmbedder.from_word2vec needs the Word2Vec family, which "
-            "is not ported yet (ROADMAP A8); build the embedder from a "
-            "vocab and a table: TextEmbedder(vocab, vectors)")
+        ParagraphVectors): its vocab + syn0 + tokenizer, on the model's
+        device unless ``device`` says otherwise."""
+        kwargs.setdefault("tokenizer_factory",
+                          getattr(w2v, "_tokenizer", None))
+        kwargs.setdefault("device", getattr(w2v, "device", "cuda"))
+        return cls(w2v.vocab, np.asarray(w2v.syn0), **kwargs)
 
     # ---- host side: tokenize + pack ----
     def encode(self, texts: Union[str, Sequence[str]]) -> np.ndarray:

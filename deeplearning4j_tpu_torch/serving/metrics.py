@@ -11,7 +11,7 @@ few float adds, and nothing here reads a device tensor. Each
 ``ServingMetrics`` owns its registry by default (parallel test servers
 must not share counters); pass ``registry=observability.REGISTRY`` to
 join the process-wide pipe. The JAX package's ``publish_to`` bridge
-into the training UI's stats storage waits for the UI (ROADMAP A8).
+into the training UI's stats storage waits for the UI (ROADMAP A8d).
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@
 
 Mirrors deeplearning4j-core util/ModelGuesser.java (194 LoC): given a
 path, detect framework checkpoint zip vs Keras HDF5 vs word-vector
-text, and load accordingly. The port has no word vectors yet (ROADMAP
-A8, ``nlp/*``): such a file is recognized and refused.
+text, and load accordingly: a network on ``device``, or word vectors
+as ``(VocabCache, numpy table)`` (``nlp.serializer.read_word_vectors``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,8 @@ def guess_format(path: str) -> str:
 
 def load_model_guess(path: str, *, device="cuda"):
     """The network in ``path`` (a checkpoint zip or a Keras ``.h5``) on
-    ``device``."""
+    ``device``, or the word vectors of a ``.vec`` text file (host
+    arrays, as the JAX package returns them)."""
     kind = guess_format(path)
     if kind == "checkpoint":
         from deeplearning4j_tpu_torch.util.model_serializer import (
@@ -51,7 +52,6 @@ def load_model_guess(path: str, *, device="cuda"):
             import_keras_model_and_weights)
         return import_keras_model_and_weights(path, device=device)
     if kind == "word_vectors":
-        raise NotImplementedError(
-            f"{path} holds word vectors, which are not ported to "
-            "deeplearning4j_tpu_torch yet (ROADMAP A8, nlp/*)")
+        from deeplearning4j_tpu_torch.nlp.serializer import read_word_vectors
+        return read_word_vectors(path)
     raise ValueError(f"Cannot determine model format of {path}")

@@ -16,7 +16,6 @@ may differ by what one ulp of the scale moves: 2 ulps of a total,
 """
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -32,6 +31,7 @@ from jax.sharding import PartitionSpec as P
 
 from deeplearning4j_tpu.parallel import compression as jc
 from deeplearning4j_tpu_torch.parallel import compression as tc
+from torch_dp_worker import free_port
 
 pytestmark = pytest.mark.ps
 
@@ -163,12 +163,6 @@ _RANK_SCRIPT = textwrap.dedent("""
 """)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _jax_collective(x, r, y):
     mesh = Mesh(np.array(jax.devices()[:2]), ("d",))
     out = {}
@@ -208,7 +202,7 @@ def test_collective_half_matches_jax_shard_map(tmp_path):
     y = rng.normal(size=(2, 10)).astype(np.float32)
     src = str(tmp_path / "in.npz")
     np.savez(src, x=x, r=r, y=y)
-    port = str(_free_port())
+    port = str(free_port())
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen(
         [sys.executable, "-c", _RANK_SCRIPT, str(rank), port, src,

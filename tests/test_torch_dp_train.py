@@ -12,6 +12,7 @@ is held against the JAX ``train --mesh dp=2`` on the same zip and CSV.
 
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -122,7 +123,11 @@ def test_cli_train_mesh_dp2_matches_jax(tmp_path, capsys):
     args = ["train", "--model", mpath, "--data", data, "--label-index",
             "4", "--classes", "3", "--batch-size", "8", "--epochs", "2",
             "--mesh", "dp=2", "--k-step", "2", "--aot-warmup"]
-    logs = worker.launch(2, tmp_path, [], argv=[
+    # the ranks' own budget: two CLI processes import torch, warm the
+    # k-step programs up and train 12 steps; ~9 s alone and under 24 s
+    # beside the port's other test files on six loaded workers, with
+    # room for the whole suite's heavier mix
+    logs = worker.launch(2, tmp_path, [], timeout=180, argv=[
         sys.executable, "-m", "deeplearning4j_tpu_torch"] + args + [
         "--output", str(tmp_path / "port.zip"), "--device", "cpu"])
     assert "mesh: dp=2 over 2 device(s); backend gloo" in logs[0]
@@ -135,3 +140,49 @@ def test_cli_train_mesh_dp2_matches_jax(tmp_path, capsys):
     np.testing.assert_allclose(port.params_flat(), want.params_flat(),
                                rtol=RTOL, atol=ATOL)
     assert os.listdir(tmp_path).count("port.zip") == 1
+
+
+def test_free_ports_come_from_this_workers_block(monkeypatch):
+    """Ports for the ranks' rendezvous come from below the kernel's
+    ephemeral range, a block a pytest-xdist worker, and are never handed
+    out twice in a row."""
+    for name, idx in (("gw0", 0), ("gw5", 5), ("master", 0)):
+        monkeypatch.setenv("PYTEST_XDIST_WORKER", name)
+        base = worker._PORT_BASE + idx * worker._PORT_BLOCK
+        ports = [worker.free_port() for _ in range(5)]
+        assert len(set(ports)) == 5
+        assert all(base <= p < base + worker._PORT_BLOCK for p in ports)
+
+
+def test_two_processes_of_one_worker_name_start_apart():
+    """Two runs on one machine name their workers alike and so share
+    blocks: two processes of the same worker name, started one after
+    the other, are not handed the same first port."""
+    import subprocess
+    env = dict(os.environ, PYTEST_XDIST_WORKER="gw3",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    code = "import torch_dp_worker as w; print(w.free_port())"
+    port0, port1 = (int(subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True,
+        text=True, check=True, timeout=60).stdout) for _ in range(2))
+    base = worker._PORT_BASE + 3 * worker._PORT_BLOCK
+    assert all(base <= p < base + worker._PORT_BLOCK
+               for p in (port0, port1))
+    assert port0 != port1
+
+
+def test_launch_stops_the_ranks_when_one_fails(tmp_path):
+    """Rank 1 exits at once; rank 0, which would wait for it, is
+    stopped, and the failure carries both ranks' logs."""
+    argv = [sys.executable, "-c",
+            "import os, sys, time\n"
+            "if os.environ['DL4J_TPU_PROCESS_ID'] == '1':\n"
+            "    print('rank 1 gives up'); sys.exit(3)\n"
+            "time.sleep(120)\n"]
+    t0 = time.monotonic()
+    with pytest.raises(AssertionError) as failed:
+        worker.launch(2, tmp_path, [], timeout=120, argv=argv)
+    assert time.monotonic() - t0 < 60
+    msg = str(failed.value)
+    assert "--- rank 0 (exit -9)" in msg
+    assert "--- rank 1 (exit 3):\nrank 1 gives up" in msg

@@ -19,7 +19,6 @@ subprocess replica would spawn. No test asserts a wall-clock time.
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -49,6 +48,7 @@ from deeplearning4j_tpu_torch.serving.fleet import (ReplicaFleet,
 from deeplearning4j_tpu_torch.serving.lifecycle import CircuitBreaker
 from deeplearning4j_tpu_torch.serving.router import Router
 from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+from torch_dp_worker import free_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, D, L, H, CAP, PS = 64, 32, 2, 4, 64, 4
@@ -608,15 +608,9 @@ def test_serve_fleet_refuses_before_any_replica_boots(monkeypatch, argv,
     assert item in str(e.value)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_serve_fleet_cli_splits_prefill_and_decode(zip_path, whole,
                                                    tmp_path):
-    port = _free_port()
+    port = free_port()
     env = {**os.environ, "PYTHONPATH": REPO}
     proc = subprocess.Popen(
         [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve-fleet",

@@ -453,8 +453,13 @@ def test_load_model_guess_and_summary(keras_files, tmp_path, capsys):
     wv = tmp_path / "vectors.txt"
     wv.write_text("2 3\nthe 0.1 0.2 0.3\nof 0.4 0.5 0.6\n")
     assert tguess.guess_format(str(wv)) == "word_vectors"
-    with pytest.raises(NotImplementedError, match="A8"):
-        tguess.load_model_guess(str(wv), device="cpu")
+    t_vocab, t_vecs = tguess.load_model_guess(str(wv), device="cpu")
+    j_vocab, j_vecs = jguess.load_model_guess(str(wv))
+    assert [w.word for w in t_vocab.words] == \
+        [w.word for w in j_vocab.words] == ["the", "of"]
+    np.testing.assert_array_equal(t_vecs, j_vecs)
+    cli.main(["summary", "--model", str(wv), "--device", "cpu"])
+    assert capsys.readouterr().out == "format: word_vectors\n"
     junk = tmp_path / "junk.bin"
     shutil.copy(h5, junk)
     with open(junk, "r+b") as f:

@@ -273,14 +273,19 @@ def test_parallel_inference_equals_direct_output(tmp_path, mode):
 def test_parallel_inference_sheds_when_full(tmp_path):
     net = _tiny(tmp_path)
     gate = threading.Event()
-    slow = type("Slow", (), {"output": lambda self, x: (gate.wait(10),
-                                                        net.output(x))[1]})()
+    entered = threading.Event()
+    slow = type("Slow", (), {"output": lambda self, x: (
+        entered.set(), gate.wait(10), net.output(x))[2]})()
     pi = tinf.ParallelInference.builder(slow).queue_limit(1) \
         .batch_limit(1).build()
     x = np.zeros((1, 4), np.float32)
     t = threading.Thread(target=lambda: pi.output(x))
     t2 = threading.Thread(target=lambda: pi.output(x))
+    # the worker holds the first request before the second is queued:
+    # started together, the second could find the first still queued
+    # and be shed itself, and the queue then drain before the check
     t.start()
+    assert entered.wait(10)
     t2.start()
     try:
         import time

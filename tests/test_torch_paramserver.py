@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.parallel.paramserver import (
     read_frame, run_async_training)
 from deeplearning4j_tpu_torch.util import model_serializer as tser
 from fixtures import tiny_classifier
+from torch_dp_worker import free_port
 
 pytestmark = pytest.mark.ps
 
@@ -893,14 +894,6 @@ def test_train_ps_launcher_two_cpu_workers(tmp_path):
     assert os.listdir(out_zip + ".ps-ckpts")
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 @pytest.mark.slow
 class TestMultiProcessSoak:
     def test_sigkill_worker_and_server_training_completes(self, tmp_path):
@@ -910,7 +903,7 @@ class TestMultiProcessSoak:
         process exits 0 and the final model trains below its starting
         loss; every wait is bounded."""
         model_zip, csv = _write_fixtures(tmp_path)
-        port = _free_port()
+        port = free_port()
         ck = str(tmp_path / "ck")
         out_zip = str(tmp_path / "out.zip")
         env = dict(os.environ, PYTHONPATH=REPO)

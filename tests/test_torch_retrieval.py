@@ -312,8 +312,29 @@ def test_embedder_matches_jax(normalize):
                                te.output(bad).numpy(), atol=1e-5,
                                rtol=1e-4)
     assert je.info() == te.info()
-    with pytest.raises(NotImplementedError, match="A8"):
-        TextEmbedder.from_word2vec(object())
+    # from_word2vec on a trained model: the JAX model's tables carried
+    # across, and the port's own fit of the same configuration
+    from deeplearning4j_tpu.nlp.word2vec import Word2Vec as JaxW2V
+    from deeplearning4j_tpu_torch.nlp.word2vec import (Word2Vec,
+                                                       vectors_from_jax)
+    corpus = [" ".join(VOCAB_WORDS[i % len(VOCAB_WORDS)]
+                       for i in range(s, s + 12)) for s in range(40)]
+    jw = JaxW2V.builder().iterate(corpus).layer_size(16) \
+        .min_word_frequency(1).epochs(2).seed(0).build()
+    jw.fit()
+    tw = Word2Vec.builder().iterate(corpus).layer_size(16) \
+        .min_word_frequency(1).epochs(2).seed(0).device("cpu").build()
+    tw.fit()
+    words = [w.word for w in jw.vocab.words]
+    carried = vectors_from_jax({"syn0": jw.syn0, "syn1": jw.syn1}, words,
+                               [w.count for w in jw.vocab.words],
+                               device="cpu")
+    want = JaxEmbedder.from_word2vec(jw, normalize=normalize).embed(TEXTS)
+    for model, atol in ((carried, 1e-5), (tw, 1e-4)):
+        emb = TextEmbedder.from_word2vec(model, normalize=normalize)
+        assert emb.device.type == "cpu"
+        np.testing.assert_allclose(emb.embed(TEXTS), want, atol=atol,
+                                   rtol=1e-4)
 
 
 def test_embedder_mean_pool_oracle():

@@ -386,13 +386,6 @@ def test_tp2_serving_equals_the_unsharded_model(runs):
     assert "generate is not supported" in str(leader["refused"])
 
 
-def _free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def test_serve_mesh_cli_two_ranks(tmp_path):
     """``serve --mesh tp=2`` as two rank processes: rank 0 refuses a
     malformed /v1/predict (400) and answers the next with the unsharded
@@ -403,7 +396,7 @@ def test_serve_mesh_cli_two_ranks(tmp_path):
     write_model(net, path)
     ids = np.random.default_rng(4).integers(0, V, (3, T)).astype(np.float32)
     want = np.asarray(net.output(ids))
-    coord, http = _free_port(), _free_port()
+    coord, http = worker.free_port(), worker.free_port()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     procs = []
     for rank in range(2):

@@ -17,6 +17,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -24,42 +25,82 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# Ports for the rendezvous and the servers that tests start in
+# subprocesses, handed out here and nowhere else. A port from bind(0) is
+# free only until the socket closes: under the suite's parallel workers
+# another test's bind(0), or any outgoing connection, can take it before
+# the subprocess binds it. So ports come from below the kernel's
+# ephemeral range, where neither reaches, in a block of this xdist
+# worker's own (two workers of a run never hand out the same port). A
+# process walks its block from an offset of its own pid, so two runs on
+# one machine, whose workers share names and blocks, do not walk it in
+# step; each port is checked free by a bind.
+_PORT_BASE, _PORT_BLOCK, _PORT_BLOCKS = 16000, 1000, 16
+_port_next = [os.getpid() % _PORT_BLOCK]
+
+
+def free_port() -> int:
+    """A localhost TCP port no other test of this run is handed."""
+    name = os.environ.get("PYTEST_XDIST_WORKER", "gw0")
+    idx = int(name[2:]) if name[2:].isdigit() else 0
+    base = _PORT_BASE + (idx % _PORT_BLOCKS) * _PORT_BLOCK
+    for _ in range(_PORT_BLOCK):
+        port = base + _port_next[0] % _PORT_BLOCK
+        _port_next[0] += 1
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {base}..{base + _PORT_BLOCK - 1}")
 
 
 def launch(world, out_dir, scenarios, timeout=90, argv=None):
     """Run ``world`` ranks of this script (or of ``argv`` with the rank
     variables set) over ``out_dir``; returns their logs. Fails the
-    caller's test on a non-zero exit, or (TimeoutExpired) when the ranks
-    together outlast ``timeout`` seconds."""
-    port = _free_port()
-    procs = []
+    caller's test, with every rank's log, on a non-zero exit or when the
+    ranks together outlast ``timeout`` seconds; a failed rank stops the
+    others, whose rendezvous would wait for it."""
+    cmd = argv or [sys.executable, os.path.abspath(__file__),
+                   str(out_dir)] + list(scenarios)
+    port = free_port()
+    procs, outs = [], []
     for rank in range(world):
         env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
                    DL4J_TPU_COORDINATOR=f"127.0.0.1:{port}",
                    DL4J_TPU_NUM_PROCESSES=str(world),
                    DL4J_TPU_PROCESS_ID=str(rank))
-        cmd = argv or [sys.executable, os.path.abspath(__file__),
-                       str(out_dir)] + list(scenarios)
+        out = tempfile.TemporaryFile()
+        outs.append(out)
         procs.append(subprocess.Popen(cmd, env=env, cwd=str(out_dir),
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT))
-    logs = []
+                                      stdout=out, stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
+    timed_out = False
     try:
-        for p in procs:
-            logs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0].decode())
+        while True:
+            codes = [p.poll() for p in procs]
+            if None not in codes or any(codes):
+                break
+            if time.monotonic() > deadline:
+                timed_out = True
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait(10)
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{log}"
+            p.wait(10)
+    logs = []
+    for out in outs:
+        out.seek(0)
+        logs.append(out.read().decode(errors="replace"))
+        out.close()
+    everything = "\n".join(f"--- rank {r} (exit {p.returncode}):\n{log}"
+                           for r, (p, log) in enumerate(zip(procs, logs)))
+    assert not timed_out, (f"the ranks outlasted {timeout} s; killed:\n"
+                           + everything)
+    assert all(p.returncode == 0 for p in procs), everything
     return logs
 
 
@@ -422,6 +463,24 @@ def sc_card(rank, world):
     out["route"] = np.array(net._mesh_ctx.reduce_route(net))
     out["backend"] = np.array(net._mesh_ctx.backend)
     return out
+
+
+def sc_word2vec(rank, world):
+    """``Word2Vec.fit(mesh=)`` over the data axis of every rank, on the
+    corpus and configuration in ``word2vec.json``."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    with open("word2vec.json") as f:
+        cfg = json.load(f)
+    w = (Word2Vec.builder().iterate(cfg["corpus"])
+         .layer_size(cfg["layer_size"]).min_word_frequency(1)
+         .epochs(cfg["epochs"]).batch_size(cfg["batch_size"])
+         .seed(cfg["seed"]).use_hierarchic_softmax(cfg["hs"])
+         .device("cpu").build())
+    w.fit(mesh=build_mesh(MeshSpec(data=world)))
+    return {"syn0": w.syn0, "syn1": w.syn1,
+            "nearest": np.array(json.dumps(w.words_nearest(
+                cfg["query"], n=3)))}
 
 
 SCENARIOS = {n[3:]: f for n, f in list(globals().items())
