@@ -164,7 +164,21 @@ against its CPU run on the real streams; each other trainer fit once
 Node2Vec on a two-community graph); ``TextEmbedder.from_word2vec``
 behind ``/v1/embed`` and ``/v1/search``; the ``.vec`` round trip and
 the ``summary`` CLI on it; ``fit(mesh=)`` at dp=2 as two gloo ranks
-against one rank; and t-SNE of the 500 most frequent words. The fleet phases' replicas serve the LM
+against one rank; and t-SNE of the 500 most frequent words. Last
+(``library_phase``) the rest of the library: the full-width LM trained
+4 Adam steps through ``fit`` with the stats pipeline (StatsListener ->
+HealthMonitor -> FileStatsStorage, a ProfilerListener's storage, the
+training UI's routes over HTTP; one report's histograms held equal to
+``np.histogram``'s and its mean magnitudes and update:param ratios
+within 1e-5 on the same parameters), the L-BFGS oracle against the
+plain attention and 3 L-BFGS iterations on the LM (the loss falling),
+every config of tests/test_gradientcheck.py and the transformer block
+checked in float64 on the card, the legacy k-NN server over
+retrieval_phase's 10^6 x 128 corpus (200 requests, 20 held against a
+float64 brute force), the streaming route (16 (1, T) id messages
+through the LM over a socket broker, published at once by a client
+process, equal to ``net.output``), and the
+``ui`` and ``serve-knn`` verbs as subprocesses stopped by SIGINT. The fleet phases' replicas serve the LM
 at full width and depth FLEET_LAYERS, and slice_phase's predicts send
 SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
 wall time is logged. It imports nothing of JAX or of the
@@ -181,6 +195,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -7432,7 +7447,8 @@ def dp_rank_main(out, parts):
     return 0
 
 
-RANK_SCRIPT = os.path.abspath(__file__)     # what run_ranks starts
+# what run_ranks and the streaming leg's client start
+RANK_SCRIPT = os.path.abspath(__file__)
 
 
 def run_ranks(world, out, parts):
@@ -8458,6 +8474,654 @@ def nlp_phase(card):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ----------------------------------------------------------- library_phase
+
+LIB_STEPS = 4              # Adam steps through fit with the stats pipeline
+LIB_LBFGS_ITERS = 3        # optimize(..., "lbfgs", iterations=3)
+LIB_KNN_REQUESTS = 200     # /knn and /knnindex requests at k = LIB_KNN_K
+LIB_KNN_K = 10
+LIB_KNN_CHECKED = 20       # of them held against the float64 brute force
+LIB_KNN_CLI_ROWS = 100_000  # the serve-knn verb's .npy (of the corpus)
+LIB_STREAM_MSGS = 16       # (1, T) id messages through the route
+GC_REL = 1e-3              # the gradient check's limit (both packages')
+
+
+def gc_configs():
+    """tests/test_gradientcheck.py's configs and data, and the
+    transformer block of tests/test_native_and_kernels.py:364-383, built
+    by the port's builder: (name, network factory on a device, dataset,
+    subset)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+    from deeplearning4j_tpu_torch.models.computation_graph import (
+        ComputationGraph)
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.graph import (ElementWiseVertex,
+                                                        MergeVertex)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType as IT
+
+    def mln(layers, it, l1=0.0, l2=0.0, seed=3):
+        def make(device):
+            b = NeuralNetConfiguration.builder().set_seed(seed).l1(l1).l2(
+                l2).list()
+            for layer in layers():
+                b = b.layer(layer)
+            return MultiLayerNetwork(b.set_input_type(it).build(),
+                                     device=device).init()
+        return make
+
+    def data(n=8, fin=4, fout=3, seed=0):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(0, 1, (n, fin))
+        return DataSet(x, np.eye(fout)[rng.integers(0, fout, n)])
+
+    def seq(seed, shape, classes, mask=None):
+        rng = np.random.default_rng(seed)
+        x = rng.normal(0, 1, shape)
+        y = np.eye(classes)[rng.integers(0, classes, shape[:2])]
+        return DataSet(x, y, features_mask=mask, labels_mask=mask)
+
+    def graves(device):
+        import torch
+        net = mln(lambda: [L.GravesLSTM(n_out=4),
+                           L.RnnOutputLayer(n_out=2, loss="mcxent")],
+                  IT.recurrent(3, 5))(device)
+        rng = np.random.default_rng(11)
+        wc = net.params[0]["wc"]        # peepholes start at 0: perturb
+        with torch.no_grad():
+            wc.copy_(torch.from_numpy(rng.normal(0, 0.1, tuple(wc.shape))))
+        return net
+
+    def graph(build, device):
+        return ComputationGraph(build(), device=device).init()
+
+    def two_branch():
+        return (NeuralNetConfiguration.builder().set_seed(5).graph_builder()
+                .add_inputs("in")
+                .add_layer("a", L.DenseLayer(n_out=4, activation="tanh"),
+                           "in")
+                .add_layer("b", L.DenseLayer(n_out=4,
+                                             activation="sigmoid"), "in")
+                .add_vertex("add", ElementWiseVertex(op="add"), "a", "b")
+                .add_vertex("cat", MergeVertex(), "add", "a")
+                .add_layer("out", L.OutputLayer(n_out=3, loss="mcxent"),
+                           "cat")
+                .set_outputs("out").set_input_types(IT.feed_forward(4))
+                .build())
+
+    def multi_output():
+        return (NeuralNetConfiguration.builder().set_seed(6).graph_builder()
+                .add_inputs("in")
+                .add_layer("h", L.DenseLayer(n_out=6, activation="tanh"),
+                           "in")
+                .add_layer("out1", L.OutputLayer(n_out=3, loss="mcxent"),
+                           "h")
+                .add_layer("out2", L.OutputLayer(n_out=2, loss="mse",
+                                                 activation="identity"), "h")
+                .set_outputs("out1", "out2")
+                .set_input_types(IT.feed_forward(4)).build())
+
+    rng = np.random.default_rng(7)
+    mds = MultiDataSet([rng.normal(0, 1, (6, 4))],
+                       [np.eye(3)[rng.integers(0, 3, 6)],
+                        rng.normal(0, 1, (6, 2))])
+    mask = np.ones((4, 6))
+    mask[2:, 4:] = 0
+    r1 = np.random.default_rng(1)
+    cnn_ds = DataSet(r1.normal(0, 1, (4, 6, 6, 2)),
+                     np.eye(3)[r1.integers(0, 3, 4)])
+    r0 = np.random.default_rng(0)
+    block_ds = DataSet(r0.normal(0, 1, (4, 6, 8)),
+                       np.eye(2)[r0.integers(0, 2, 4)])
+    return [
+        ("dense_softmax", mln(lambda: [
+            L.DenseLayer(n_out=5, activation="tanh"),
+            L.OutputLayer(n_out=3, loss="mcxent")], IT.feed_forward(4)),
+         data(), None),
+        ("dense_with_l1_l2", mln(lambda: [
+            L.DenseLayer(n_out=5, activation="sigmoid"),
+            L.OutputLayer(n_out=3, loss="mcxent")], IT.feed_forward(4),
+            l1=1e-2, l2=1e-2), data(), None),
+        ("mse_identity", mln(lambda: [
+            L.DenseLayer(n_out=5, activation="relu"),
+            L.OutputLayer(n_out=3, loss="mse", activation="identity")],
+            IT.feed_forward(4)), data(), None),
+        ("cnn", mln(lambda: [
+            L.ConvolutionLayer(n_out=3, kernel=(3, 3), activation="tanh"),
+            L.SubsamplingLayer(kernel=(2, 2), stride=(2, 2)),
+            L.OutputLayer(n_out=3, loss="mcxent")],
+            IT.convolutional(6, 6, 2)), cnn_ds, None),
+        ("lstm", mln(lambda: [L.LSTM(n_out=4),
+                              L.RnnOutputLayer(n_out=2, loss="mcxent")],
+                     IT.recurrent(3, 5)), seq(2, (4, 5, 3), 2), None),
+        ("graves_lstm_peepholes", graves, seq(4, (4, 5, 3), 2), None),
+        ("lstm_masked", mln(lambda: [L.LSTM(n_out=4),
+                                     L.RnnOutputLayer(n_out=2,
+                                                      loss="mcxent")],
+                            IT.recurrent(3, 6)),
+         seq(5, (4, 6, 3), 2, mask), None),
+        ("batchnorm", mln(lambda: [
+            L.DenseLayer(n_out=5, activation="identity"),
+            L.BatchNormalization(), L.OutputLayer(n_out=3, loss="mcxent")],
+            IT.feed_forward(4)), data(), None),
+        ("two_branch_graph", lambda d: graph(two_branch, d), data(), None),
+        ("multi_output_graph", lambda d: graph(multi_output, d), mds, None),
+        ("transformer_block", mln(lambda: [
+            L.TransformerEncoderLayer(n_heads=2, ffn_multiplier=2),
+            L.GlobalPoolingLayer(pooling="avg"), L.OutputLayer(n_out=2)],
+            IT.recurrent(8, 6), seed=1), block_ds, 150),
+    ]
+
+
+def lib_gradient_checks(card):
+    """Every gradient-check config in float64 on the card: each passes
+    (its parameters, largest relative error and seconds printed)."""
+    from deeplearning4j_tpu_torch import gradientcheck as gc
+    rows, t_all = [], time.perf_counter()
+    for name, make, ds, subset in gc_configs():
+        net = make(CARD)
+        t0 = time.perf_counter()
+        rep = gc.gradient_check_report(net, ds, subset=subset)
+        rep["seconds"] = time.perf_counter() - t0
+        assert rep["ok"] and rep["failures"] == 0, (name, rep)
+        assert rep["max_rel_error"] <= GC_REL
+        rows.append(f"{name} {rep['params']} params, max rel "
+                    f"{rep['max_rel_error']:.3e}, {rep['seconds']:.2f} s")
+    log(f"gradient checks in float64 on the card ({card}; limit {GC_REL}, "
+        f"eps 1e-6): " + "; ".join(rows)
+        + f"; {time.perf_counter() - t_all:.1f} s in all")
+
+
+class _LibProbe:
+    """Before the StatsListener, at ``iteration``: the parameters and
+    the listener's device copy of the previous report's, fetched once
+    to the host."""
+
+    def __init__(self, stats, iteration):
+        self.stats, self.iteration, self.got = stats, iteration, None
+        self.ms = 0.0
+
+    def on_epoch_start(self, model):
+        pass
+
+    def on_epoch_end(self, model):
+        pass
+
+    def iteration_done(self, model, iteration, score, batch_size):
+        if iteration != self.iteration:
+            return
+        t0 = time.perf_counter()
+        # copies: on the CPU .numpy() would share the tensors' memory
+        now = {name: p.detach().cpu().numpy().ravel().copy()
+               for _, name, p in self.stats.named_params(model)}
+        prev = {n: t.cpu().numpy().copy()
+                for n, t in self.stats._prev.items()}
+        self.got = (now, prev)
+        self.ms = (time.perf_counter() - t0) * 1e3
+
+
+def lib_hold_report(report, now, prev, n_layers):
+    """One StatsReport of the LM against numpy on the same parameters:
+    every histogram's counts equal ``np.histogram``'s, the mean
+    magnitudes and update:param ratios within 1e-5 relative."""
+    import numpy as np
+    worst = 0.0
+    for name, arr in now.items():
+        counts, _ = np.histogram(arr, bins=20)
+        assert report.histograms[f"param/{name}"]["counts"] == \
+            counts.tolist(), name
+        want = float(np.mean(np.abs(arr), dtype=np.float64))
+        got = report.param_mean_magnitudes[name]
+        worst = max(worst, abs(got - want) / want)
+    upd = {n: now[n] - prev[n] for n in now}
+    counts, _ = np.histogram(np.concatenate(list(upd.values())), bins=20)
+    assert report.histograms["update/all"]["counts"] == counts.tolist()
+    for layer in range(n_layers):
+        names = [n for n in now if n.split("_", 1)[0] == str(layer)]
+        if not names:
+            continue
+        mu = np.mean(np.abs(np.concatenate([upd[n] for n in names])),
+                     dtype=np.float64)
+        mp = np.mean(np.abs(np.concatenate([now[n] for n in names])),
+                     dtype=np.float64)
+        got = report.update_ratios[str(layer)]
+        worst = max(worst, abs(got - mu / mp) / (mu / mp))
+    assert worst <= 1e-5, worst
+    return len(now) + 1, worst
+
+
+def lib_stats_leg(net, ds, card, out):
+    """LIB_STEPS Adam steps of the full-width LM through ``fit`` with
+    the stats pipeline: StatsListener(frequency=1, histograms) ->
+    HealthMonitor(storage=FileStatsStorage), the monitor and a
+    ProfilerListener(storage=) on the chain, and a UIServer (port 0,
+    attach_model, attach_health) read over HTTP. Returns the stats
+    file's path."""
+    import torch
+    from deeplearning4j_tpu_torch.observability.health import HealthMonitor
+    from deeplearning4j_tpu_torch.observability.step_profile import (
+        ProfilerListener)
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    from deeplearning4j_tpu_torch.ui.stats import (FileStatsStorage,
+                                                   StatsListener)
+
+    class TimedStats(StatsListener):
+        def iteration_done(self, model, iteration, score, batch_size):
+            torch.cuda.synchronize()   # the step's own work is not ours
+            t0 = time.perf_counter()
+            super().iteration_done(model, iteration, score, batch_size)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+
+    path = os.path.join(out, "stats.jsonl")
+    storage = FileStatsStorage(path)
+    health = HealthMonitor(policy="warn", storage=storage)
+    stats = TimedStats(health, frequency=1, session_id="lm",
+                       collect_histograms=True)
+    stats.ms = []
+    # the last report (iterations count from 0)
+    probe = _LibProbe(stats, LIB_STEPS - 1)
+    prof = ProfilerListener(frequency=1, storage=storage,
+                            session_id="profile", report=False)
+    net.set_listeners(probe, stats, health, prof)
+    ui = UIServer(port=0)
+    ui.start()
+    try:
+        ui.attach(storage)
+        ui.attach_model(net)
+        ui.attach_health(monitor=health)
+        step_ms = []
+        for _ in range(LIB_STEPS):
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        net.set_listeners()
+        base = f"http://127.0.0.1:{ui.port}"
+        with urllib.request.urlopen(base + "/", timeout=60) as r:
+            assert "Training dashboard" in r.read().decode()
+        sessions = http(ui.port, "/api/sessions")[1]
+        assert sessions == ["lm", "profile"], sessions
+        ups = http(ui.port, "/api/updates?session=lm")[1]
+        flow = http(ui.port, "/api/flow")[1]
+        doc = http(ui.port, "/api/health")[1]
+    finally:
+        ui.stop()
+    reports = storage.get_all_updates("lm")
+    assert len(ups) == len(reports) == LIB_STEPS
+    assert [u["iteration"] for u in ups] == [r.iteration for r in reports]
+    losses = [r.score for r in reports]
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    assert len(flow["nodes"]) == len(net.layers) + 1
+    assert doc["status"] == "ok" and doc["monitor"]["anomaly_count"] == 0
+    assert len(storage.get_all_updates("profile")) == LIB_STEPS - 1
+    assert probe.got is not None
+    n_hist, worst = lib_hold_report(reports[-1], *probe.got,
+                                    len(net.layers))
+    del probe.got
+    warm_step = sorted(step_ms[1:-1])[len(step_ms[1:-1]) // 2]
+    warm_stats = sorted(stats.ms[1:])[len(stats.ms[1:]) // 2]
+    log(f"stats pipeline on the LM ({card}): {LIB_STEPS} Adam steps through "
+        f"fit, losses {', '.join(f'{x:.6f}' for x in losses)}; StatsListener "
+        f"{', '.join(f'{x:.2f}' for x in stats.ms)} ms a report (warm "
+        f"median {warm_stats:.2f} ms, {warm_stats / warm_step:.1%} of the "
+        f"{warm_step:.2f} ms fit call it is part of; steps "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)} ms, the first with the "
+        f"capture, the last with the probe's {probe.ms:.0f} ms fetch of "
+        f"the parameters twice); a report's JSON "
+        f"{len(reports[-1].to_json())} bytes; the last report's "
+        f"{n_hist} histograms equal np.histogram's, mean magnitudes and "
+        f"ratios within {worst:.2e} relative (limit 1e-5); /, "
+        f"/api/sessions {sessions}, /api/updates ({len(ups)}), /api/flow "
+        f"({len(flow['nodes'])} nodes), /api/health {doc['status']}")
+    return path
+
+
+def lib_lbfgs_leg(attn, net, ds, card):
+    """optimize(net, ds, "lbfgs", iterations=LIB_LBFGS_ITERS) on the
+    full-width LM: the loss history must fall. Its evaluations are
+    counted by the forward kernel's launches (LAYERS an evaluation):
+    the first, then one per line-search trial (the steps it accepted
+    are logged)."""
+    import torch
+    from deeplearning4j_tpu_torch.train import second_order
+
+    class Steps(second_order.BackTrackLineSearch):
+        def search(self, *args):
+            res = super().search(*args)
+            self.accepted.append(res[0])
+            return res
+
+    line_search = Steps()
+    line_search.accepted = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd0 = attn.flash_attention_fwd_cuda.launches
+    t0 = time.perf_counter()
+    hist = second_order.optimize(net, ds, algorithm="lbfgs",
+                                 iterations=LIB_LBFGS_ITERS,
+                                 line_search=line_search)
+    torch.cuda.synchronize()
+    run = {"seconds": time.perf_counter() - t0, "evaluations":
+           (attn.flash_attention_fwd_cuda.launches - fwd0) // LAYERS}
+    assert all(math.isfinite(x) for x in hist), hist
+    assert all(b < a for a, b in zip(hist, hist[1:])), hist
+    peak = torch.cuda.max_memory_allocated()
+    log(f"L-BFGS on the LM ({card}; B={TRAIN_B}, T={T}, history 10): losses "
+        f"{', '.join(f'{x:.6f}' for x in hist)}; {run['evaluations']} "
+        f"evaluations (the first, then the line searches' trials, which "
+        f"accepted steps {line_search.accepted}) in {run['seconds']:.2f} s, "
+        f"{run['seconds'] / run['evaluations'] * 1e3:.2f} ms an evaluation "
+        f"(forward + backward + line-search scalars); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above "
+        f"the model and its Adam state)")
+
+
+def lib_oracle_vs_plain(attn, net, ds, card):
+    """The L-BFGS oracle's first value_and_grad on the kernels against
+    the same oracle under plain_attention: each parameter's gradient
+    within GRAD_RTOL of its largest entry, the loss within 1e-5."""
+    import torch
+    from deeplearning4j_tpu_torch.train import second_order
+    from deeplearning4j_tpu_torch.util.tree import flat_views, ordered_leaves
+    oracle, x0 = second_order._flat_oracle(net, ds)
+    loss_k, g_k = oracle(x0)
+    with plain_attention(attn):
+        loss_p, g_p = oracle(x0)
+    torch.cuda.synchronize()
+    live = ordered_leaves(net.params)
+    worst = 0.0
+    for a, b in zip(flat_views(g_k, live), flat_views(g_p, live)):
+        scale = b.abs().max().item()
+        e = (a - b).abs().max().item()
+        assert e <= GRAD_RTOL * scale + 1e-12, (e, scale)
+        worst = max(worst, e / max(scale, 1e-30))
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    log(f"L-BFGS oracle, kernels vs plain attention ({card}): loss "
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst gradient "
+        f"max|diff| / max|grad| {worst:.3e} over {len(live)} tensors "
+        f"(limit {GRAD_RTOL}); x0 {x0.numel()} float32 on {x0.device}")
+
+
+def lib_knn_oracle(points64, q, k):
+    """(ids, distances) of the exact top-(k+1) neighbours by float64
+    euclidean distance on the host."""
+    import numpy as np
+    sq = np.einsum("ij,ij->i", points64, points64)
+    d2 = sq[:, None] - 2.0 * (points64 @ q.T) + (q * q).sum(1)[None, :]
+    ids, dists = [], []
+    for j in range(q.shape[0]):
+        top = np.argpartition(d2[:, j], k + 8)[:k + 8]
+        d = np.linalg.norm(points64[top] - q[j], axis=1)
+        order = np.argsort(d, kind="stable")[:k + 1]
+        ids.append(top[order])
+        dists.append(d[order])
+    return np.asarray(ids), np.asarray(dists)
+
+
+def lib_knn_leg(vectors, card):
+    """NearestNeighborsServer over retrieval_phase's 10^6 x 128 corpus:
+    LIB_KNN_REQUESTS /knn and /knnindex requests at k=LIB_KNN_K, 20
+    held against a float64 brute force (ties as sets)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.services.nearest_neighbors import (
+        NearestNeighborsServer)
+    t0 = time.perf_counter()
+    server = NearestNeighborsServer(vectors, port=0, device=CARD).start()
+    boot_s = time.perf_counter() - t0
+    try:
+        rng = np.random.default_rng(3)
+        half = LIB_KNN_REQUESTS // 2
+        queries = retrieval_queries(vectors, half, seed=3)
+        rows = rng.choice(vectors.shape[0], half, replace=False)
+        bodies = ([("/knn", {"vector": q.tolist(), "k": LIB_KNN_K})
+                   for q in queries]
+                  + [("/knnindex", {"index": int(r), "k": LIB_KNN_K})
+                     for r in rows])
+        order = rng.permutation(len(bodies))
+        lat, answers = [], {}
+        t0 = time.perf_counter()
+        for i in order:
+            path, body = bodies[i]
+            t = time.perf_counter()
+            code, res, _ = http(server.port, path, body)
+            lat.append((time.perf_counter() - t) * 1e3)
+            assert code == 200, (code, res)
+            answers[i] = res
+        wall = time.perf_counter() - t0
+        checked = list(range(LIB_KNN_CHECKED // 2)) + list(
+            range(half, half + LIB_KNN_CHECKED // 2))
+        q = np.stack([queries[i] if i < half
+                      else vectors[rows[i - half]] for i in checked])
+        want_ids, want_d = lib_knn_oracle(server.points,
+                                          q.astype(np.float64), LIB_KNN_K)
+        got_ids = np.array([answers[i]["indices"] for i in checked])
+        got_d = np.array([answers[i]["distances"] for i in checked])
+        exact = check_against_oracle(got_ids, -got_d, want_ids, -want_d,
+                                     LIB_KNN_K)
+        for j, i in enumerate(checked[LIB_KNN_CHECKED // 2:]):
+            assert got_ids[LIB_KNN_CHECKED // 2 + j][0] == rows[i - half]
+            assert got_d[LIB_KNN_CHECKED // 2 + j][0] == 0.0
+    finally:
+        server.stop()
+    log(f"k-NN server ({card}): {vectors.shape[0]} x {vectors.shape[1]} "
+        f"f32 ({RETR_CORPUS}) up in {boot_s:.2f} s; {len(bodies)} requests "
+        f"(/knn and /knnindex, k={LIB_KNN_K}, one client): p50 "
+        f"{percentile(lat, 0.5):.2f} ms, p99 {percentile(lat, 0.99):.2f} ms, "
+        f"{len(bodies) / wall:.1f} queries/s; {LIB_KNN_CHECKED} against the "
+        f"float64 brute force: distances within {RETR_TOL}, {exact} ids "
+        f"exact, the rest in tie runs; /knnindex self-distance 0.0")
+
+
+def lib_verb_port(proc, pattern):
+    line = proc.stdout.readline()
+    m = re.search(pattern, line)
+    assert m, line + proc.stdout.read()
+    return int(m.group(1))
+
+
+def lib_stop_verb(proc, name):
+    proc.send_signal(signal.SIGINT)
+    text, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, (name, proc.returncode, text)
+
+
+def lib_stream_messages():
+    """The streaming leg's LIB_STREAM_MSGS (1, T) id messages (seeded)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, V, (1, T)).astype(np.float32)
+            for _ in range(LIB_STREAM_MSGS)]
+
+
+def stream_client_main(out):
+    """The streaming leg's other process (``chip_smoke.py stream-client
+    DIR``): a SocketBrokerServer, its port on stdout; on a line on stdin
+    (the route has subscribed), every message published to ``ids`` at
+    once, and each output read back from ``probs`` into DIR with the
+    seconds since the first publish and its payload's bytes."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.services.streaming import (
+        NDArrayConsumer, NDArrayPublisher, SocketBroker, SocketBrokerServer,
+        _decode)
+    srv = SocketBrokerServer()
+    try:
+        print(f"broker on port {srv.port}", flush=True)
+        sys.stdin.readline()
+        broker = SocketBroker(srv.host, srv.port)
+        consumer = NDArrayConsumer(broker, "probs")
+        pub = NDArrayPublisher(broker, "ids")
+        t0 = time.perf_counter()
+        for m in lib_stream_messages():
+            pub.publish(m)
+        arrived, sizes = [], []
+        for i in range(LIB_STREAM_MSGS):
+            payload = consumer.queue.get(timeout=300)
+            arrived.append(time.perf_counter() - t0)
+            sizes.append(len(payload))
+            np.save(os.path.join(out, f"probs{i}.npy"), _decode(payload))
+        with open(os.path.join(out, "stream.json"), "w") as f:
+            json.dump({"arrived": arrived, "bytes": sizes}, f)
+    finally:
+        srv.close()
+    return 0
+
+
+def lib_stream_route(net, client):
+    """InferenceRoute over the SocketBrokerServer of ``client`` (a
+    ``stream-client`` process, so that decoding the outputs overlaps the
+    route): LIB_STREAM_MSGS (1, T) id messages through the full-width LM,
+    published at once; the client writes what came back."""
+    from deeplearning4j_tpu_torch.services.streaming import (InferenceRoute,
+                                                             SocketBroker)
+    port = lib_verb_port(client, r"broker on port (\d+)")
+    route = InferenceRoute(SocketBroker("127.0.0.1", port), net, "ids",
+                           "probs").start()
+    try:
+        text, _ = client.communicate(input="go\n", timeout=900)
+        assert client.returncode == 0, text
+    finally:
+        route.stop()
+
+
+def lib_stream_check(net, card, out):
+    """The route's outputs equal net.output on the same ids (ATOL/RTOL);
+    these reference forwards come after the launches are read."""
+    import numpy as np
+    with open(os.path.join(out, "stream.json")) as f:
+        got = json.load(f)
+    worst = 0.0
+    for i, m in enumerate(lib_stream_messages()):
+        out_i = np.load(os.path.join(out, f"probs{i}.npy"))
+        want = net.output(m).cpu().numpy()
+        assert out_i.shape == want.shape == (1, T, V), out_i.shape
+        np.testing.assert_allclose(out_i, want, atol=ATOL, rtol=RTOL)
+        worst = max(worst, float(np.abs(out_i - want).max()))
+    at = got["arrived"]
+    gaps = [(b - a) * 1e3 for a, b in zip(at, at[1:])]
+    log(f"streaming route ({card}): {LIB_STREAM_MSGS} (1, {T}) id messages "
+        f"through InferenceRoute over a SocketBrokerServer, published at "
+        f"once by another process (the LM's (1, {T}, {V}) f32 output back "
+        f"as JSON, {np.mean(got['bytes']) / 1e6:.1f} MB a message): the "
+        f"first back after {at[0] * 1e3:.1f} ms, then p50 "
+        f"{percentile(gaps, 0.5):.1f} ms a message (max {max(gaps):.1f}), "
+        f"all {LIB_STREAM_MSGS} in {at[-1]:.1f} s; outputs vs net.output "
+        f"max|diff| {worst:.2e} (atol {ATOL}, rtol {RTOL})")
+
+
+def library_phase(attn, card):
+    """The rest of the library on the card: the full-width LM
+    trained LIB_STEPS Adam steps through ``fit`` with the stats pipeline
+    (StatsListener -> HealthMonitor -> FileStatsStorage, ProfilerListener
+    storage, the UI server's routes; one report held against numpy),
+    L-BFGS on the LM (its oracle against plain attention first), every
+    gradient-check config in float64 on the card, the legacy k-NN server
+    over 10^6 x 128 points and the serve-knn verb, the streaming route
+    through the LM, and the ``ui`` verb on the stats file. Returns the
+    flash kernels' launches on the LM paths (fit, L-BFGS, the route)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+
+    from deeplearning4j_tpu_torch import cli
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="library-", dir=os.path.join(here,
+                                                                "build"))
+    part = Parts()
+    verbs = []
+    try:
+        # the k-NN corpus first, so the serve-knn verb boots (a process
+        # of its own) while the LM legs run
+        _, vectors, _, _ = cli._load_corpus(RETR_CORPUS)
+        npy = os.path.join(out, "points.npy")
+        np.save(npy, vectors[:LIB_KNN_CLI_ROWS])
+        verbs.append(subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve-knn",
+             "--points", npy, "--port", "0", "--device", CARD], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        # the streaming leg's broker and clients, in a process of their own
+        verbs.append(subprocess.Popen(
+            [sys.executable, RANK_SCRIPT, "stream-client", out],
+            cwd=here, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+        part("the k-NN corpus, the serve-knn verb and stream client started")
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+            lm_config(updaters.adam(TRAIN_LR))), device=CARD).init(seed=0)
+        rng = np.random.default_rng(0)          # as train_phase's batch
+        ids = rng.integers(0, V, (TRAIN_B, T)).astype("float32")
+        y = np.eye(V, dtype="float32")[rng.integers(0, V, (TRAIN_B, T))]
+        ds = DataSet(ids, y)
+        lib_oracle_vs_plain(attn, net, ds, card)
+        part("LM init, the oracle vs plain attention")
+        # the LM paths' launches: counts set to 0 here, read after
+        fns = (attn.flash_attention_fwd_cuda,
+               attn.flash_attention_bwd_dq_cuda,
+               attn.flash_attention_bwd_dkv_cuda)
+        for fn in fns:
+            fn.launches = 0
+        stats_path = lib_stats_leg(net, ds, card, out)
+        part(f"{LIB_STEPS} fit steps with the stats pipeline")
+        ui = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "ui",
+             "--port", "0", "--stats-file", stats_path], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        verbs.append(ui)
+        lib_lbfgs_leg(attn, net, ds, card)
+        part("L-BFGS")
+        lib_stream_route(net, verbs[1])
+        # read before the route's check, whose reference forwards are
+        # no launches of the path
+        launches = {"flash_attention_fwd": fns[0].launches,
+                    "flash_attention_bwd_dq": fns[1].launches,
+                    "flash_attention_bwd_dkv": fns[2].launches}
+        for name, n in launches.items():
+            assert n > 0, (name, n)
+        lib_stream_check(net, card, out)
+        part("streaming route")
+        del net, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        port = lib_verb_port(ui, r"localhost:(\d+)/")
+        sessions = http(port, "/api/sessions")[1]
+        assert sessions == ["lm", "profile"], sessions
+        lib_stop_verb(ui, "ui")
+        log(f"ui --stats-file ({card}): /api/sessions {sessions}; SIGINT -> "
+            f"exit 0 ({time.perf_counter() - t0:.2f} s after its wait)")
+        lib_gradient_checks(card)
+        part("gradient checks")
+        lib_knn_leg(vectors, card)
+        part("k-NN server")
+        verb = verbs[0]
+        port = lib_verb_port(verb, r"on port (\d+) \(")
+        code, res, _ = http(port, "/knnindex", {"index": 7, "k": 3})
+        assert code == 200 and res["indices"][0] == 7, res
+        lib_stop_verb(verb, "serve-knn")
+        log(f"serve-knn --points ({LIB_KNN_CLI_ROWS} corpus rows, .npy, "
+            f"{card}): "
+            f"/knnindex 7 -> {res['indices']}; SIGINT -> exit 0")
+        part("the serve-knn verb")
+    finally:
+        for p in verbs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out, ignore_errors=True)
+    log(f"library_phase launches on the LM paths: {json.dumps(launches)}; "
+        f"parts, wall s ({card}): {json.dumps(part.seconds)}")
+    return launches
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -8593,13 +9257,15 @@ def main():
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
     timed("nlp_phase", nlp_phase, card)
+    lib = timed("library_phase", library_phase, attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
                                "fleet_control": fwd_ctl,
                                "ps": ps["flash_attention_fwd"],
                                "dp": dp["flash_attention_fwd"],
-                               "tp_sp_pp": tsp["flash_attention_fwd"]}
+                               "tp_sp_pp": tsp["flash_attention_fwd"],
+                               "library": lib["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
                                "fleet_control": dec_ctl}
@@ -8608,7 +9274,8 @@ def main():
         record["launches_by_path"] = {"train": record["launches"],
                                       "capture": captured[name],
                                       "ps": ps[name], "dp": dp[name],
-                                      "tp_sp_pp": tsp[name]}
+                                      "tp_sp_pp": tsp[name],
+                                      "library": lib[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]
@@ -8629,4 +9296,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dp-rank"]:
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["stream-client"]:
+        sys.exit(stream_client_main(sys.argv[2]))
     sys.exit(main())

@@ -22,5 +22,10 @@ zoo, layerwise ``pretrain`` and the transfer-learning builders
 (``nn.transfer_learning``); the fleet's control loops (``serving.
 autoscaler``, ``serving.rollout``, ``observability.fleetobs``) and
 retrieval serving (``retrieval``: vector indexes and the text embedder
-on the card, behind ``/v1/embed``, ``/v1/search`` and ``/v1/index``).
+on the card, behind ``/v1/embed``, ``/v1/search`` and ``/v1/index``);
+parallel training (the parameter server, data, tensor, sequence and
+pipeline parallelism), the Word2Vec family, and the rest of the library
+(layer-named errors, the gradient check, the second-order solvers, the
+training UI, the estimators and the k-NN and streaming services): every
+module of the JAX package but its jax version shims.
 """

@@ -1,5 +1,5 @@
-"""Command line (counterpart of ``deeplearning4j_tpu/cli.py``). Ported
-so far: ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
+"""Command line (counterpart of ``deeplearning4j_tpu/cli.py``; every
+verb of the JAX CLI): ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``,
 ``/metrics``, ``/healthz``, ``/readyz`` and ``/debug/*``;
 ``--aot-warmup``; a vector index behind ``/v1/embed``, ``/v1/search``
 and ``/v1/index/*`` with ``--index``),
@@ -16,8 +16,10 @@ tensor-parallel over the processes started with the multihost
 variables, sp and pp routed as in the JAX package, ``--k-step``,
 ``--aot-warmup``, ``--health``, ``--async-checkpoint``), ``train-ps``
 (asynchronous parameter-server training: a launcher with worker
-subprocesses, or one server or worker a process) and the top-level
-``--trace PATH`` and ``--flight-record DIR``.
+subprocesses, or one server or worker a process), ``ui`` (the training
+dashboard over a stats file), ``serve-knn`` (the legacy k-NN REST
+server) and the top-level ``--trace PATH`` and ``--flight-record DIR``.
+Verbs that run a model or an index take ``--device`` (default cuda).
 
     python -m deeplearning4j_tpu_torch serve --model lm=lm.zip --port 8080 \
         --slots 8 --capacity 1024 --trace-sample 0.01 --slo slo.json
@@ -31,6 +33,8 @@ subprocesses, or one server or worker a process) and the top-level
     python -m deeplearning4j_tpu_torch index build --corpus random: \
         --index-kind ivf --nlist 64 --out corpus.npz
     python -m deeplearning4j_tpu_torch summary --model model.h5
+    python -m deeplearning4j_tpu_torch ui --port 9000 --stats-file s.jsonl
+    python -m deeplearning4j_tpu_torch serve-knn --points p.npy --port 9200
     DL4J_TPU_COORDINATOR=127.0.0.1:29500 DL4J_TPU_NUM_PROCESSES=2 \
     DL4J_TPU_PROCESS_ID=0 python -m deeplearning4j_tpu_torch train \
         --model m.zip --data d.csv --label-index 4 --classes 3 \
@@ -719,6 +723,44 @@ def _cmd_index_build(args):
               + (", embedder vocab+table included"
                  if vocab is not None else "")
               + ": load it with serve --index")
+
+
+def _cmd_ui(args):
+    """The training dashboard (``ui/server.py``) over a stats file; host
+    code, no device. ctrl-c stops it and exits 0."""
+    from deeplearning4j_tpu_torch.ui.server import UIServer
+    from deeplearning4j_tpu_torch.ui.stats import FileStatsStorage
+    server = UIServer(port=args.port)
+    server.start()
+    if args.stats_file:
+        server.attach(FileStatsStorage(args.stats_file))
+    print(f"UI on http://localhost:{server.port}/ (ctrl-c to stop)",
+          flush=True)
+    try:
+        _sleep_until_interrupted()
+    except KeyboardInterrupt:
+        server.stop()
+
+
+def _cmd_serve_knn(args):
+    """The legacy k-NN REST server over a ``.npy`` of points, its index
+    on ``--device``. ctrl-c stops it and exits 0."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.device import resolve_device
+    from deeplearning4j_tpu_torch.services.nearest_neighbors import (
+        NearestNeighborsServer)
+    device = resolve_device(args.device)
+    pts = np.load(args.points)
+    server = NearestNeighborsServer(pts, args.port, args.distance,
+                                    device=device)
+    server.start()
+    print(f"k-NN server on port {server.port} ({pts.shape[0]} points, "
+          f"{device})", flush=True)
+    try:
+        _sleep_until_interrupted()
+    except KeyboardInterrupt:
+        server.stop()
 
 
 def _cmd_summary(args):
@@ -1493,6 +1535,21 @@ def main(argv=None):
                          "gradients and codec (default cuda; cpu for a "
                          "machine without a card)")
     ps.set_defaults(fn=_cmd_train_ps)
+
+    u = sub.add_parser("ui", help="training dashboard server")
+    u.add_argument("--port", type=int, default=9000)
+    u.add_argument("--stats-file", default=None)
+    u.set_defaults(fn=_cmd_ui)
+
+    k = sub.add_parser("serve-knn", help="k-NN REST server")
+    k.add_argument("--points", required=True)
+    k.add_argument("--port", type=int, default=9200)
+    k.add_argument("--distance", default="euclidean",
+                   choices=["euclidean", "cosine"])
+    k.add_argument("--device", default="cuda",
+                   help="torch device of the index (default cuda; cpu "
+                        "for a machine without a card)")
+    k.set_defaults(fn=_cmd_serve_knn)
     args = p.parse_args(argv)
     recorder = None
     if args.flight_record:

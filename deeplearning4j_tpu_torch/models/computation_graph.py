@@ -70,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.output import (
     CenterLossOutputLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
+from deeplearning4j_tpu_torch.nn.errors import layer_error_context
 from deeplearning4j_tpu_torch.observability.health import fused_health
 from deeplearning4j_tpu_torch.parallel import global_batch
 from deeplearning4j_tpu_torch.train.constraints import (
@@ -191,7 +192,9 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         input through, for the loss to take. ``carries``: recurrent
         (h, c) initial states by vertex name (missing: zeros), which
         tBPTT threads across chunks; without it the new carries are
-        None. ``only``: the set of vertices to run (None: all)."""
+        None. ``only``: the set of vertices to run (None: all). A
+        failure in a vertex raises ``NetworkExecutionError`` naming it
+        (``nn/errors.py``)."""
         params = self.params
         acts: Dict[str, torch.Tensor] = dict(
             zip(self.conf.network_inputs, inputs))
@@ -226,29 +229,30 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
                     new_state[name] = self.state[name]
                     masks[name] = in_mask
                     continue
-                if carries is not None and isinstance(obj,
-                                                      BaseRecurrentLayer):
-                    c0 = carries.get(name)
-                    if c0 is None:
-                        c0 = obj.zero_state(xs[0].shape[0],
-                                            device=xs[0].device)
-                    xd = obj.apply_input_dropout(xs[0], training=training,
-                                                 generator=generator)
-                    y, new_carries[name] = obj.apply_rnn(
-                        params[name], xd, c0, training=training,
-                        generator=generator, mask=in_mask)
-                    new_state[name] = self.state[name]
-                elif tp is not None:
-                    with tp.layer(name):
+                with layer_error_context(f"vertex '{name}'", obj, xs[0]):
+                    if carries is not None and isinstance(
+                            obj, BaseRecurrentLayer):
+                        c0 = carries.get(name)
+                        if c0 is None:
+                            c0 = obj.zero_state(xs[0].shape[0],
+                                                device=xs[0].device)
+                        xd = obj.apply_input_dropout(
+                            xs[0], training=training, generator=generator)
+                        y, new_carries[name] = obj.apply_rnn(
+                            params[name], xd, c0, training=training,
+                            generator=generator, mask=in_mask)
+                        new_state[name] = self.state[name]
+                    elif tp is not None:
+                        with tp.layer(name):
+                            y, new_state[name] = obj.apply(
+                                params[name], self.state[name], xs[0],
+                                training=training, generator=generator,
+                                mask=in_mask)
+                    else:
                         y, new_state[name] = obj.apply(
                             params[name], self.state[name], xs[0],
                             training=training, generator=generator,
                             mask=in_mask)
-                else:
-                    y, new_state[name] = obj.apply(
-                        params[name], self.state[name], xs[0],
-                        training=training, generator=generator,
-                        mask=in_mask)
                 acts[name] = y
                 # a layer that collapses time nulls the (B, T) mask
                 if in_mask is not None and (y.dim() < 3
@@ -262,7 +266,9 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
                     use_mask = masks.get(obj.mask_input)
                 else:
                     use_mask = combine_masks_or(in_masks)
-                acts[name] = obj.apply(xs, mask=use_mask)
+                with layer_error_context(f"vertex '{name}'", obj,
+                                         xs[0] if xs else None):
+                    acts[name] = obj.apply(xs, mask=use_mask)
                 masks[name] = obj.propagate_mask(in_masks, xs,
                                                  mask_env=masks)
         if tp is not None:

@@ -84,6 +84,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
     MultiLayerConfiguration)
+from deeplearning4j_tpu_torch.nn.errors import layer_error_context
 from deeplearning4j_tpu_torch.observability.flight_recorder import (
     on_fit_exception)
 from deeplearning4j_tpu_torch.observability.health import fused_health
@@ -320,7 +321,9 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         layers' new states, the new carries). ``carries``: a per-layer
         list of recurrent (h, c) initial states (None: zeros), which
         tBPTT threads across chunks; without it the new carries are
-        None. ``collect``: a list that gets every layer's output."""
+        None. ``collect``: a list that gets every layer's output. A
+        failure in a preprocessor or layer raises
+        ``NetworkExecutionError`` naming it (``nn/errors.py``)."""
         params = self.params
         n = len(self.layers) if upto is None else upto
         new_states = list(self.state)
@@ -334,26 +337,30 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
                 x = tp.prepare(i, x, sharded)
                 sharded = tp.out_sharded(i)
             if i in self.conf.preprocessors:
-                x = self.conf.preprocessors[i](x)
-            if tp is not None:
-                with tp.layer(i):
+                pre = self.conf.preprocessors[i]
+                with layer_error_context(f"preprocessor before layer {i}",
+                                         pre, x):
+                    x = pre(x)
+            with layer_error_context(f"layer {i}", layer, x):
+                if tp is not None:
+                    with tp.layer(i):
+                        x, new_states[i] = layer.apply(
+                            params[i], self.state[i], x, training=training,
+                            generator=generator, mask=fmask)
+                elif carries is not None and isinstance(layer,
+                                                        BaseRecurrentLayer):
+                    c0 = carries[i]
+                    if c0 is None:
+                        c0 = layer.zero_state(x.shape[0], device=x.device)
+                    x = layer.apply_input_dropout(x, training=training,
+                                                  generator=generator)
+                    x, new_carries[i] = layer.apply_rnn(
+                        params[i], x, c0, training=training,
+                        generator=generator, mask=fmask)
+                else:
                     x, new_states[i] = layer.apply(
                         params[i], self.state[i], x, training=training,
                         generator=generator, mask=fmask)
-            elif carries is not None and isinstance(layer,
-                                                    BaseRecurrentLayer):
-                c0 = carries[i]
-                if c0 is None:
-                    c0 = layer.zero_state(x.shape[0], device=x.device)
-                x = layer.apply_input_dropout(x, training=training,
-                                              generator=generator)
-                x, new_carries[i] = layer.apply_rnn(
-                    params[i], x, c0, training=training,
-                    generator=generator, mask=fmask)
-            else:
-                x, new_states[i] = layer.apply(
-                    params[i], self.state[i], x, training=training,
-                    generator=generator, mask=fmask)
             if collect is not None:
                 collect.append(x if tp is None else tp.full(x, sharded))
         if tp is not None:

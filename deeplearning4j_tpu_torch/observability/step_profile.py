@@ -15,9 +15,9 @@ the work the asynchronous queue hid becomes a measured number:
 - ``steps_per_sec`` / ``samples_per_sec`` and (given
   ``flops_per_sample``) **MFU** against the card's bf16 peak.
 
-Reports land in ``.reports`` and the log. Left out: the JAX listener's
-``storage=`` (a ``ui/stats.py`` StatsReport per report), which waits for
-the UI's port.
+Reports land in ``.reports``, the log, and (optionally) a
+``ui/stats.py`` storage via the ``profile`` field of StatsReport, so
+the dashboard carries the decomposition with no new wiring.
 """
 
 from __future__ import annotations
@@ -94,14 +94,22 @@ class ProfilerListener(TrainingListener):
 
     ``flops_per_sample``: analytic forward FLOPs per item (e.g. 4.09e9
     for ResNet50 at 224²) turns samples/sec into MFU on a known card.
+    ``storage``: a ``ui/stats.py`` stats storage; each report is
+    appended as a StatsReport whose ``profile`` dict carries the
+    breakdown.
     """
 
     def __init__(self, frequency: int = 10,
                  flops_per_sample: Optional[float] = None,
-                 train: bool = True, report: bool = True):
+                 train: bool = True, storage=None,
+                 session_id: Optional[str] = None,
+                 worker_id: str = "worker_0", report: bool = True):
         self.freq = max(1, frequency)
         self.flops_per_sample = flops_per_sample
         self.train = train
+        self.storage = storage
+        self.session_id = session_id or f"profile_{int(time.time())}"
+        self.worker_id = worker_id
         self.report = report
         self.reports: List[Dict] = []
         self._peak = None
@@ -169,4 +177,12 @@ class ProfilerListener(TrainingListener):
                 rep["dispatch_ms"], rep["device_fence_ms"],
                 (f", MFU {rep['mfu']:.4f}"
                  if rep.get("mfu") is not None else ""))
+        if self.storage is not None:
+            from deeplearning4j_tpu_torch.ui.stats import StatsReport
+            self.storage.put_update(StatsReport(
+                session_id=self.session_id, worker_id=self.worker_id,
+                iteration=int(iteration), timestamp=time.time(),
+                score=float(score),
+                samples_per_sec=rep["samples_per_sec"],
+                duration_ms=rep["step_ms"], profile=dict(rep)))
         self._reset_window(time.perf_counter())

@@ -32,6 +32,15 @@ are not ported yet.
 an autograd Function that keeps (o, lse) from the forward and calls the
 backward kernels; the mask gets no gradient, as the JAX package's
 custom VJP gives it a zero cotangent.
+
+float64 (the gradient check's type, ``gradientcheck.py``): the kernels
+are float32, as the TPU kernels are, and the JAX package computes
+float64 attention with its plain jnp formulation, never Pallas. So
+``flash_attention`` routes float64 q, k, v to the forward's plain
+version, differentiated by autograd, on the CPU and on a card alike:
+the route is keyed on the dtype alone. A float32 CUDA tensor
+still takes the kernels or raises; nothing falls back from a failed
+launch.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ _HEAD_DIMS = (32, 64, 128)
 _PRECISIONS = ("default", "highest")
 
 
-def _check(q, k, v, kv_mask, precision):
+def _check(q, k, v, kv_mask, precision, dtypes=(torch.float32,)):
     if precision not in _PRECISIONS:
         raise ValueError(f"precision must be one of {_PRECISIONS}, "
                          f"got {precision!r}")
@@ -65,9 +74,10 @@ def _check(q, k, v, kv_mask, precision):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 (the only dtype "
-                            f"ported so far), got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"q, k, v must share one dtype, {names}; "
+                            f"{name} is {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if kv_mask is not None:
@@ -84,10 +94,12 @@ def flash_attention_fwd_plain(q, k, v, kv_mask=None, *, causal=False,
                               precision="default"
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: an explicit einsum, the
-    masks as -1e30, a float32 softmax, fully masked rows zeroed, and
-    lse = logsumexp (-1e30 for a row that saw no key). Materializes
-    the (B, H, T, T) scores. Returns (o, lse)."""
-    _check(q, k, v, kv_mask, precision)
+    masks as -1e30, a softmax, fully masked rows zeroed, and lse =
+    logsumexp (-1e30 for a row that saw no key). Materializes the (B,
+    H, T, T) scores. Returns (o, lse). Takes float32, the kernel's
+    type, or float64 (``flash_attention``'s float64 route), and
+    computes in that type."""
+    _check(q, k, v, kv_mask, precision, (torch.float32, torch.float64))
     T, D = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
     live = torch.ones((1, 1, T, T), dtype=torch.bool, device=q.device)
@@ -392,7 +404,12 @@ def flash_attention(q, k, v, *, causal: bool = False,
     (B, T, H, D). An int or bool ``kv_mask`` is taken as 0/1. With grad
     enabled and an input that requires it, the call goes through the
     autograd Function (forward and backward kernels); otherwise (e.g.
-    under ``torch.inference_mode``) it is the forward alone."""
+    under ``torch.inference_mode``) it is the forward alone. float64
+    q, k, v take the plain forward on either device (the module
+    docstring says why)."""
+    if q.dtype == torch.float64:
+        return flash_attention_fwd_plain(q, k, v, kv_mask, causal=causal,
+                                         precision=precision)[0]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, kv_mask, causal, precision)

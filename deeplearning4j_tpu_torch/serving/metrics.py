@@ -10,8 +10,8 @@ exemplars. Every instrument is host-side: recording is a lock and a
 few float adds, and nothing here reads a device tensor. Each
 ``ServingMetrics`` owns its registry by default (parallel test servers
 must not share counters); pass ``registry=observability.REGISTRY`` to
-join the process-wide pipe. The JAX package's ``publish_to`` bridge
-into the training UI's stats storage waits for the UI (ROADMAP A8d).
+join the process-wide pipe. ``publish_to`` bridges a snapshot into the
+training UI's stats storage (``ui/stats.py``).
 """
 
 from __future__ import annotations
@@ -284,6 +284,7 @@ class ServingMetrics:
         self._occupancy: Dict[str, BatchOccupancy] = {}
         self._streaming: Dict[tuple, StreamingMetrics] = {}
         self._gauges: Dict[str, Callable[[], float]] = {}
+        self._iteration = 0      # publish_to's report counter
 
     def streaming(self, name: str,
                   version: str = "0") -> StreamingMetrics:
@@ -416,3 +417,28 @@ class ServingMetrics:
 
     def prometheus_text(self, openmetrics: bool = False) -> str:
         return self.registry.prometheus_text(openmetrics=openmetrics)
+
+    # ---- bridge into the training-UI stats pipeline ----
+    def publish_to(self, storage, session_id: str = "serving",
+                   endpoint: Optional[str] = None) -> None:
+        """Append one StatsReport snapshot to a ``ui/stats.py``
+        storage (InMemory or File): serving throughput rides the
+        ``samples_per_sec`` series and p50 latency the
+        ``duration_ms`` series, so the existing dashboard and its
+        remote-POST route chart serving load with no new wiring."""
+        from deeplearning4j_tpu_torch.ui.stats import StatsReport
+        snap = self.snapshot()
+        eps = snap["endpoints"]
+        if endpoint is not None:
+            eps = {endpoint: eps[endpoint]} if endpoint in eps else {}
+        requests = sum(e["requests"] for e in eps.values())
+        rps = sum(e["requests_per_sec"] for e in eps.values())
+        p50 = max((e["latency"]["p50_ms"] for e in eps.values()),
+                  default=0.0)
+        with self._lock:
+            self._iteration += 1
+            it = self._iteration
+        storage.put_update(StatsReport(
+            session_id=session_id, worker_id="serving_0", iteration=it,
+            timestamp=time.time(), score=float(requests),
+            samples_per_sec=float(rps), duration_ms=float(p50)))

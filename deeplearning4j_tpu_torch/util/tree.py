@@ -9,11 +9,14 @@ package's for the same params.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import numpy as np
 import torch
 
 __all__ = ["tree_copy", "tree_to_device", "tree_flat_vector",
-           "tree_from_flat_vector"]
+           "tree_from_flat_vector", "ordered_leaves", "flat_views",
+           "substituted_params"]
 
 
 def _sorted_leaves(tree):
@@ -75,3 +78,47 @@ def tree_from_flat_vector(tree, flat):
         return out
 
     return fill(tree)
+
+
+def ordered_leaves(tree) -> list:
+    """The leaves of ``tree`` in the JAX package's flat order."""
+    return list(_sorted_leaves(tree))
+
+
+def flat_views(flat: torch.Tensor, like) -> list:
+    """Views of the flat vector ``flat``, one a tensor of ``like`` and of
+    its shape, in order (the inverse of concatenating them)."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel()
+        out.append(flat[off:off + n].view(t.shape))
+        off += n
+    return out
+
+
+@contextmanager
+def substituted_params(model, leaves):
+    """Within the block, ``model.params`` holds ``leaves`` (tensors, in
+    :func:`ordered_leaves` order, each of its parameter's shape) in
+    place of the model's registered parameters, so the executors'
+    ``_loss`` computes on them (of another dtype, or views of one flat
+    vector that autograd differentiates). The live parameters are back
+    on exit, untouched."""
+    live = ordered_leaves(model.params)
+    if len(live) != len(leaves):
+        raise ValueError(f"{len(leaves)} leaves for {len(live)} parameters")
+    for p, t in zip(live, leaves):
+        if t.shape != p.shape:
+            raise ValueError(f"leaf of shape {tuple(t.shape)} for a "
+                             f"parameter of {tuple(p.shape)}")
+    by_id = {id(p): t for p, t in zip(live, leaves)}
+    swapped = [(mod, name, p) for mod in model.modules()
+               for name, p in mod._parameters.items()
+               if p is not None and id(p) in by_id]
+    try:
+        for mod, name, p in swapped:
+            mod._parameters[name] = by_id[id(p)]
+        yield
+    finally:
+        for mod, name, p in swapped:
+            mod._parameters[name] = p

@@ -483,6 +483,32 @@ def sc_word2vec(rank, world):
                 cfg["query"], n=3)))}
 
 
+def estimator_conf():
+    """tests/test_ui_services.py's estimator network, built by the
+    port's own builder."""
+    from deeplearning4j_tpu_torch.nn.conf import layers, updaters
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    return (NeuralNetConfiguration.builder().set_seed(0)
+            .updater(updaters.adam(0.05)).list()
+            .layer(layers.DenseLayer(n_out=12, activation="relu"))
+            .layer(layers.OutputLayer(n_out=3))
+            .set_input_type(InputType.feed_forward(4)).build())
+
+
+def sc_estimator(rank, world):
+    """``NetworkEstimator(mesh=)``: every rank fits on the same full
+    arrays of ``estimator.npz`` (40-row global batches, 60 epochs)."""
+    from deeplearning4j_tpu_torch.ml import NetworkEstimator
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    d = np.load("estimator.npz")
+    model = NetworkEstimator(estimator_conf, epochs=60, batch_size=40,
+                             mesh=build_mesh(MeshSpec(data=world)),
+                             device="cpu").fit(d["x"], d["y"])
+    return {"flat": _flat(model.network), "probs": model.transform(d["xt"])}
+
+
 SCENARIOS = {n[3:]: f for n, f in list(globals().items())
              if n.startswith("sc_")}
 
