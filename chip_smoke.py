@@ -150,9 +150,18 @@ ring on the flash kernels), tp=2 (8 heads a rank) and pp=2 (one encoder
 layer a stage, 4 microbatches), each held against dp_phase's one-rank
 run by ``dp_hold``, with the kernels' launches under each (``tp_sp_pp``),
 the ring's, the tp all-reduces' and the pipeline's bytes and
-host-staged ms a step and each stage's idle (bubble) ms; and ``serve
---mesh tp=2`` as two CLI rank processes, rank 0's ``/v1/predict`` held
-against the one-rank model's output. Last (``nlp_phase``) the Word2Vec
+host-staged ms a step and each stage's idle (bubble) ms; tp=2 again
+with a global-norm gradient clip and a max_norm constraint on a
+Megatron dense pair (``lm_tpn``: the norms over the full arrays, held
+against the same config's one-rank run, every kernel launched on both
+ranks, the clip's ms and share of the step); and ``serve --mesh tp=2``
+as two CLI rank processes, rank 0's ``/v1/predict`` held against the
+one-rank model's output. Then (``mesh_fleet_phase``) ``serve-fleet
+--mesh tp=2 --replicas 2``, four rank processes on the card: a predict
+burst through the router held against the one-rank model (QPS, p50), a
+follower SIGKILLed under a client's predicts (its rank 0 gone, the
+replica replaced, every request 200), every drained rank's
+forward-kernel launches. Last (``nlp_phase``) the Word2Vec
 family, which runs no kernel of the port's own (plain torch ops, as the
 JAX package leaves it to XLA): skip-gram with negative sampling over
 tests/test_nlp.py's 100,000-word corpus at D=300 (the step's warm ms
@@ -175,7 +184,7 @@ plain attention and 3 L-BFGS iterations on the LM (the loss falling),
 every config of tests/test_gradientcheck.py and the transformer block
 checked in float64 on the card, the legacy k-NN server over
 retrieval_phase's 10^6 x 128 corpus (200 requests, 20 held against a
-float64 brute force), the streaming route (16 (1, T) id messages
+float64 brute force), the streaming route (4 (1, T) id messages
 through the LM over a socket broker, published at once by a client
 process, equal to ``net.output``), and the
 ``ui`` and ``serve-knn`` verbs as subprocesses stopped by SIGINT. The fleet phases' replicas serve the LM
@@ -196,6 +205,7 @@ import os
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -7159,6 +7169,61 @@ def dp_lm_net():
                              device=CARD).init(seed=0)
 
 
+# the norms of the tensor-parallel update (lm_tpn): a global-norm clip
+# and a max_norm constraint on a Megatron dense pair (D -> D, tanh) ahead
+# of the output layer; at init the pair's columns have norms near 1.0
+TPN_CLIP, TPN_MAX_NORM = 1.0, 1.0
+TPN_CLIP_REPS = 5          # timed runs of the clip alone (median)
+
+
+def dp_lm_tpn_net():
+    """dp_lm_net's LM under a global-norm gradient clip (TPN_CLIP), with
+    a Megatron dense pair ahead of its output layer under a max_norm
+    constraint (TPN_MAX_NORM): at tp=2 a COLUMN and a ROW split layer
+    whose column norms cross the split or not. (The transformer block's
+    MLP lives in the block's nested parameters, which a constraint does
+    not reach in either package.)"""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    cfg = lm_config(updaters.adam(TRAIN_LR))
+    cfg["global"]["gradient_clip"] = {"type": "norm", "v": TPN_CLIP}
+    dense = {"@type": "DenseLayer", "n_out": D_MODEL, "activation": "tanh",
+             "constraints": [{"type": "max_norm",
+                              "max_norm": TPN_MAX_NORM}]}
+    cfg["layers"] = (cfg["layers"][:1 + DP_LM_LAYERS] + [dense, dense]
+                     + cfg["layers"][-1:])
+    return MultiLayerNetwork(MultiLayerConfiguration.from_dict(cfg),
+                             device=CARD).init(seed=0)
+
+
+def tpn_clip_ms(net):
+    """ms of the step's global-norm clip alone on gradients shaped like
+    ``net``'s parameters (its squared sums and, under tp, their one
+    all-reduce over the model group): the median of TPN_CLIP_REPS runs,
+    the ranks starting each together."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.nn.conf.updaters import (
+        clip_by_global_norm)
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel
+    from deeplearning4j_tpu_torch.util.tree import tree_copy
+    grads = tree_copy(net.params)
+    clip = clip_by_global_norm(TPN_CLIP)
+    ms = []
+    for _ in range(TPN_CLIP_REPS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with tensor_parallel.sharded_norms(net), torch.no_grad():
+            clip.update(grads, {})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms)
+
+
 def _save_leaves(path, leaves):
     """A flat dict of arrays as one float32 .npy and its keys."""
     import numpy as np
@@ -7500,10 +7565,13 @@ def dp_phase(attn, card, out):
     step's update and batch-norm state at dp=2 vs dp=1 (global batch
     statistics); the int8 compressed reduce vs the full-precision one;
     a device-loss drill shrinking dp=2 to dp=1. Returns the attention
-    kernels' launches on this path; leaves the dp=1 LM run's files in
-    ``out`` (``tp_sp_pp_phase`` holds its runs against them)."""
+    kernels' launches on this path; leaves the dp=1 LM runs' files in
+    ``out`` (``tp_sp_pp_phase`` holds its runs against them: the LM's,
+    and ``dp_lm_tpn_net``'s at one rank)."""
     import numpy as np
-    one = run_ranks(1, out, ["leg", "lm", "resnet"])
+    # lm_tpn at one rank: the reference tp_sp_pp_phase holds its tp=2
+    # run of the same config against
+    one = run_ranks(1, out, ["leg", "lm", "resnet", "lm_tpn"])
     two = run_ranks(2, out, ["leg", "lm", "resnet", "compressed",
                              "loss"])
     log(f"dp ranks: dp=1 backend {one[0]['backend']}, dp=2 backend "
@@ -7556,7 +7624,7 @@ def dp_phase(attn, card, out):
             f"{DP_LM_STEPS} Adam steps, losses " + ", ".join(
                 f"{x:.6f}" for x in lm["losses"]) + "; step ms "
             + ", ".join(f"{x:.2f}" for x in lm["step_ms"])
-            + f" (warm median {sorted(warm)[len(warm) // 2]:.2f}); "
+            + f" (warm median {statistics.median(warm):.2f}); "
             f"the bucket's all-reduce alone {lm['bucket_bytes']} bytes "
             "in " + ", ".join(f"{x:.2f}" for x in lm["reduce_ms"])
             + f" ms; host-staged reduce inside the steps "
@@ -7631,7 +7699,9 @@ def mp_part_lm(world, out, mode):
     on dp_part_lm's rows (its global batch of DP_LM_B) over ``world``
     ranks in ``mode``: "sp" (ParallelWrapper over a seq mesh, this rank's
     time chunk through the ring), "tp" (``fit(mesh_spec="tp=N")``: H/N
-    heads a rank, W1 by columns, W2 by rows) or "pp"
+    heads a rank, W1 by columns, W2 by rows), "tpn" (the same on
+    ``dp_lm_tpn_net``: the update's global-norm clip and max_norm
+    constraint over the full arrays; also the clip's ms alone) or "pp"
     (``NetworkSpmdPipeline``: one encoder layer a stage, TSP_STEPS_MICRO
     microbatches). What the steps produced (Adam's moments after each,
     the parameters after all, whole), the attention kernels' launches,
@@ -7645,7 +7715,7 @@ def mp_part_lm(world, out, mode):
     from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
     from deeplearning4j_tpu_torch.parallel.multihost import process_index
     from deeplearning4j_tpu_torch.util.model_serializer import _flatten
-    net = dp_lm_net()
+    net = dp_lm_tpn_net() if mode == "tpn" else dp_lm_net()
     rng = np.random.default_rng(0)          # as dp_part_lm
     ids = rng.integers(0, V, (DP_LM_B, T)).astype("float32")
     y = np.eye(V, dtype="float32")[rng.integers(0, V, (DP_LM_B, T))]
@@ -7656,7 +7726,7 @@ def mp_part_lm(world, out, mode):
                              prefetch_buffer=0)
         ds = DataSet(pw.local_shard(ids), pw.local_shard(y))
         step = lambda: pw.fit_batch(ds)
-    elif mode == "tp":
+    elif mode in ("tp", "tpn"):
         net.use_mesh(f"tp={world}")
         ds = DataSet(ids, y)
         step = lambda: net.fit(ds)
@@ -7712,6 +7782,10 @@ def mp_part_lm(world, out, mode):
     if mode == "tp":
         res["route"] = net._mesh_ctx.reduce_route(net)
         res["modes"] = net._tp.describe()["modes"]
+    if mode == "tpn":
+        res["modes"] = ({} if net._tp is None
+                        else net._tp.describe()["modes"])
+        res["clip_ms"] = tpn_clip_ms(net)
     if mode == "pp":
         res["pipe"] = bridge.describe()
     return res
@@ -7720,7 +7794,8 @@ def mp_part_lm(world, out, mode):
 DP_PARTS.update({
     "lm_sp": lambda world, out: mp_part_lm(world, out, "sp"),
     "lm_tp": lambda world, out: mp_part_lm(world, out, "tp"),
-    "lm_pp": lambda world, out: mp_part_lm(world, out, "pp")})
+    "lm_pp": lambda world, out: mp_part_lm(world, out, "pp"),
+    "lm_tpn": lambda world, out: mp_part_lm(world, out, "tpn")})
 
 
 def serve_mesh_drill(out, card):
@@ -7815,17 +7890,22 @@ def tp_sp_pp_phase(attn, card, ref_dir):
     DP_LM_LAYERS, DP_LM_STEPS Adam steps on dp_part_lm's rows, at sp=2
     (local T = T/2 through the ring on the flash kernels), tp=2 (H/2
     heads a rank) and pp=2 (one encoder layer a stage), each held against
-    dp_phase's one-rank run in ``ref_dir`` by ``dp_hold``; then
-    ``serve --mesh tp=2`` (``serve_mesh_drill``). Returns the attention
-    kernels' launches on this path."""
+    dp_phase's one-rank run in ``ref_dir`` by ``dp_hold``; the same at
+    tp=2 under a global-norm clip and a max_norm constraint
+    (``dp_lm_tpn_net``, held against its one-rank run in ``ref_dir``;
+    every kernel launched on both ranks; the clip's ms alone and its
+    share of the step); then ``serve --mesh tp=2``
+    (``serve_mesh_drill``). Returns the attention kernels' launches on
+    this path."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = tempfile.mkdtemp(prefix="tsp-", dir=os.path.join(here, "build"))
     try:
-        ranks = run_ranks(2, out, ["lm_sp", "lm_tp", "lm_pp"])
-        ref = os.path.join(ref_dir, "lm_dp1")
+        ranks = run_ranks(2, out, ["lm_sp", "lm_tp", "lm_pp", "lm_tpn"])
         launches = {}
-        for mode in ("sp", "tp", "pp"):
+        for mode in ("sp", "tp", "pp", "tpn"):
             part = f"lm_{mode}"
+            ref = os.path.join(ref_dir, "lm_tpn1" if mode == "tpn"
+                               else "lm_dp1")
             worst_m, worst_p, loose, loose_max = dp_hold(
                 os.path.join(out, f"lm_{mode}2"), ref, DP_LM_STEPS,
                 DP_LM_STEPS, TRAIN_LR)
@@ -7834,6 +7914,8 @@ def tp_sp_pp_phase(attn, card, ref_dir):
                 for k, n in r[part]["launches"].items():
                     per[k] = per.get(k, 0) + n
                     launches[k] = launches.get(k, 0) + n
+                    if mode == "tpn":     # every kernel on both ranks
+                        assert n > 0, (mode, k, n)
             for k, n in per.items():
                 assert n > 0, (mode, k, n)
             r0 = ranks[0][part]
@@ -7848,12 +7930,31 @@ def tp_sp_pp_phase(attn, card, ref_dir):
                                 r[part]["step_ms"][1:])) for r in ranks)
             if mode == "tp":
                 extra = f"; {r0['route']}; modes {r0['modes']}"
+            if mode == "tpn":
+                med = statistics.median(warm)
+                clip0 = ranks[0][part]["clip_ms"]
+                with open(os.path.join(ref_dir, "dp1_rank0.json")) as f:
+                    alone = json.load(f)["lm_tpn"]
+                warm1 = alone["step_ms"][1:]
+                assert r0["modes"] == {
+                    **{str(i): "attention_heads"
+                       for i in range(1, 1 + DP_LM_LAYERS)},
+                    str(1 + DP_LM_LAYERS): "column",
+                    str(2 + DP_LM_LAYERS): "row"}, r0["modes"]
+                extra = (f"; gradient_clip by norm {TPN_CLIP} and "
+                         f"max_norm {TPN_MAX_NORM} on a dense pair, modes "
+                         f"{r0['modes']}; the clip alone {clip0:.3f} ms "
+                         f"(rank 0; rank 1 {ranks[1][part]['clip_ms']:.3f}"
+                         f" ms), {100 * clip0 / med:.2f}% of the warm "
+                         f"median step; at one rank the clip "
+                         f"{alone['clip_ms']:.3f} ms of a "
+                         f"{statistics.median(warm1):.1f} ms warm median step")
             log(f"LM {mode}=2 vs one rank ({card}; V={V} D={D_MODEL} "
                 f"L={DP_LM_LAYERS} H={HEADS} T={T}, B={DP_LM_B}; two gloo "
                 f"ranks on the card): {DP_LM_STEPS} Adam steps, losses "
                 + ", ".join(f"{x:.6f}" for x in r0["losses"])
                 + "; step ms " + ", ".join(f"{x:.1f}" for x in r0["step_ms"])
-                + f" (warm median {sorted(warm)[len(warm) // 2]:.1f}); "
+                + f" (warm median {statistics.median(warm):.1f}); "
                 f"Adam's moments worst max|diff| / max|moment| "
                 f"{worst_m:.3e}, parameters {worst_p:.3e} (limit "
                 f"{GRAD_RTOL}); {loose} entries not held, max|diff| "
@@ -7864,7 +7965,8 @@ def tp_sp_pp_phase(attn, card, ref_dir):
                               f"calls, {v['seconds'] * 1e3:.1f} ms "
                               f"host-staged" for k, v in st.items())
                     for st in r0["stats"]) + extra)
-            kind = {"sp": "ring", "tp": "tp", "pp": "pipe"}[mode]
+            kind = {"sp": "ring", "tp": "tp", "pp": "pipe",
+                    "tpn": "tp"}[mode]
             for i, st in enumerate(r0["stats"][1:], 2):
                 v = st.get(kind, {"bytes": 0, "seconds": 0.0})
                 log(f"  {mode}=2 step {i} (warm), rank 0: {kind} "
@@ -7876,6 +7978,198 @@ def tp_sp_pp_phase(attn, card, ref_dir):
         serve_mesh_drill(out, card)
         return launches
     finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+MESH_FLEET_BURST = 16        # predicts through the router, CLIENTS at once
+MESH_FLEET_IDS = 64          # ids a request (TSP_SERVE_IDS)
+MESH_BOOT_S = 300.0          # four ranks' imports, contexts and models
+MESH_GONE_S = 5.0            # a dead follower's rank 0 is gone within this
+
+
+def _pid_alive(pid):
+    """Whether process ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def mesh_fleet_phase(card):
+    """``serve-fleet --mesh tp=2 --replicas 2`` on the card: the LM at
+    full width and depth FLEET_LAYERS, each replica a rank set of two
+    ``serve --mesh`` processes (four gloo ranks share the card). A burst
+    of MESH_FLEET_BURST predicts through the router, CLIENTS at a time,
+    each held within ATOL / RTOL of the one-rank model's ``output`` on
+    the card (QPS and p50 printed); then one replica's follower is
+    SIGKILLed while a client keeps predicting through the router: its
+    rank 0 must be gone within MESH_GONE_S, the fleet must boot a
+    successor, and every request of the drill must return 200 with the
+    right answer. A predict to each replica's rank 0 and ctrl-c follow;
+    every rank of the replicas that drained reports its forward-kernel
+    launches in its log (the SIGKILLed set cannot). Returns their sum."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="meshfleet-",
+                           dir=os.path.join(here, "build"))
+    proc = None
+    try:
+        net = MultiLayerNetwork(MultiLayerConfiguration.from_dict(
+            lm_config(None, FLEET_LAYERS)), device=CARD).init(seed=0)
+        path = os.path.join(out, "lm.zip")
+        write_model(net, path)
+        rng = np.random.default_rng(21)
+        rows = [rng.integers(0, V, (1, MESH_FLEET_IDS)).astype("float32")
+                for _ in range(MESH_FLEET_BURST)]
+        want = [net.output(r).cpu().numpy() for r in rows]
+        del net
+        torch.cuda.empty_cache()
+        port = free_ports(1)
+        base = f"http://127.0.0.1:{port}"
+        logs = os.path.join(out, "ranks")
+        fleet_log = open(os.path.join(out, "fleet.log"), "w")
+        t_boot = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch", "serve-fleet",
+             "--model", f"lm={path}", "--mesh", "tp=2", "--replicas", "2",
+             "--device", CARD, "--port", str(port), "--probe-interval",
+             "0.5", "--log-dir", logs],
+            env=dict(os.environ, PYTHONPATH=here), cwd=out,
+            stdout=fleet_log, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)     # the fleet and its ranks: a group
+
+        def fleet_text():
+            with open(os.path.join(out, "fleet.log")) as f:
+                return f.read()
+
+        def ready(limit_s):
+            t_end = time.monotonic() + limit_s
+            while True:
+                assert proc.poll() is None, fleet_text()[-6000:]
+                assert time.monotonic() < t_end, "mesh fleet not ready"
+                try:
+                    if http(port, "/healthz")[1]["eligible"] == 2:
+                        return http(port, "/fleet")[1]["replicas"]
+                except (OSError, ValueError, KeyError):
+                    pass
+                time.sleep(0.25)
+
+        def predict(i, url=base):
+            body = json.dumps({"model": "lm",
+                               "inputs": rows[i].tolist()}).encode()
+            t0 = time.perf_counter()
+            got = json.loads(urllib.request.urlopen(urllib.request.Request(
+                url + "/v1/predict", data=body,
+                headers={"Content-Type": "application/json"}),
+                timeout=300).read())["outputs"]
+            ms = (time.perf_counter() - t0) * 1e3
+            got = np.asarray(got, np.float32)
+            assert got.shape == want[i].shape, (got.shape, want[i].shape)
+            assert np.allclose(got, want[i], rtol=RTOL, atol=ATOL), \
+                float(np.abs(got - want[i]).max())
+            return ms, float(np.abs(got - want[i]).max())
+
+        view = ready(MESH_BOOT_S)
+        boot_s = time.perf_counter() - t_boot
+        assert [len(r["pids"]) for r in view] == [2, 2], view
+        for r in view:
+            health = json.loads(urllib.request.urlopen(
+                r["url"] + "/healthz", timeout=30).read())
+            assert health["mesh"]["axes"]["tp"] == 2, health
+        with ThreadPoolExecutor(CLIENTS) as pool:
+            t0 = time.perf_counter()
+            res = list(pool.map(predict, range(MESH_FLEET_BURST)))
+            wall = time.perf_counter() - t0
+        ms = sorted(m for m, _ in res)
+        log(f"serve-fleet --mesh tp=2 --replicas 2 ({card}; LM V={V} "
+            f"D={D_MODEL} L={FLEET_LAYERS} H={HEADS}; four gloo ranks on "
+            f"the card): boot {boot_s:.1f} s; {MESH_FLEET_BURST} "
+            f"/v1/predict of {MESH_FLEET_IDS} ids through the router, "
+            f"{CLIENTS} at a time: {MESH_FLEET_BURST / wall:.2f} QPS, p50 "
+            f"{ms[len(ms) // 2]:.1f} ms, max {ms[-1]:.1f} ms; max|fleet - "
+            f"one rank| {max(e for _, e in res):.2e} (limit atol {ATOL} "
+            f"+ rtol {RTOL})")
+        # the kill drill: a client predicts through the router throughout
+        dead = view[0]
+        codes, stop = [], threading.Event()
+
+        def client():
+            i = 0
+            while not stop.is_set():
+                try:
+                    predict(i % MESH_FLEET_BURST)
+                    codes.append(200)
+                except urllib.error.HTTPError as e:
+                    codes.append(e.code)
+                except Exception as e:
+                    codes.append(repr(e))
+                i += 1
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        time.sleep(1.0)
+        t_kill = time.monotonic()
+        os.kill(dead["pids"][1], signal.SIGKILL)
+        while _pid_alive(dead["pids"][0]):
+            assert time.monotonic() - t_kill < MESH_GONE_S, \
+                "rank 0 outlived its follower"
+            time.sleep(0.02)
+        gone_s = time.monotonic() - t_kill
+        while True:
+            view = ready(MESH_BOOT_S)
+            if dead["id"] not in [r["id"] for r in view]:
+                break
+            time.sleep(0.25)
+        replaced_s = time.monotonic() - t_kill
+        time.sleep(1.0)
+        stop.set()
+        th.join(300)
+        assert codes and all(c == 200 for c in codes), codes
+        log(f"  mesh replica {dead['id']}'s follower SIGKILLed: its rank "
+            f"0 gone in {gone_s:.2f} s (limit {MESH_GONE_S} s), the "
+            f"replica replaced by {[r['id'] for r in view]} in "
+            f"{replaced_s:.1f} s; {len(codes)} predicts through the router "
+            f"meanwhile, all 200 and within the limit")
+        for r in view:               # every rank of the final replicas
+            predict(0, r["url"])
+        proc.send_signal(signal.SIGINT)
+        proc.wait(120)
+        text = fleet_text()
+        assert proc.returncode == 0 and "draining fleet" in text, \
+            text[-6000:]
+        pids = dead["pids"] + [p for r in view for p in r["pids"]]
+        assert not [p for p in pids if _pid_alive(p)], "a rank outlived it"
+        fwd, per = 0, []
+        for r in view:
+            for rank in range(2):
+                with open(os.path.join(
+                        logs, f"replica-{r['id']}-rank-{rank}.log")) as f:
+                    rank_log = f.read()
+                m = re.search(r"kernel launches (\{.*?\})", rank_log)
+                assert m, rank_log[-4000:]
+                n = json.loads(m.group(1))["flash_attention_fwd_cuda"]
+                assert n > 0, (r["id"], rank, n)
+                per.append(n)
+                fwd += n
+        log(f"  forward-kernel launches by rank process of the replicas "
+            f"that drained ({[r['id'] for r in view]}): {per} (the "
+            f"SIGKILLed set's are not read); no rank outlived ctrl-c")
+        return fwd
+    finally:
+        if proc is not None:    # whatever failed, no rank outlives it
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait(30)
         shutil.rmtree(out, ignore_errors=True)
 
 
@@ -9256,6 +9550,7 @@ def main():
         tsp = timed("tp_sp_pp_phase", tp_sp_pp_phase, attn, card, dp_dir)
     finally:
         shutil.rmtree(dp_dir, ignore_errors=True)
+    mfleet = timed("mesh_fleet_phase", mesh_fleet_phase, card)
     timed("nlp_phase", nlp_phase, card)
     lib = timed("library_phase", library_phase, attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
@@ -9265,6 +9560,7 @@ def main():
                                "ps": ps["flash_attention_fwd"],
                                "dp": dp["flash_attention_fwd"],
                                "tp_sp_pp": tsp["flash_attention_fwd"],
+                               "mesh_fleet": mfleet,
                                "library": lib["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,

@@ -5,8 +5,8 @@ verb of the JAX CLI): ``serve`` (``/v1/predict``, ``/v1/generate``, ``/v1/kv/*``
 and ``/v1/index/*`` with ``--index``),
 ``serve-fleet`` (N in-process replicas behind the health-aware router,
 with disaggregated prefill/decode roles, the autoscaler, the fleet
-collector and the canary rollout; every JAX flag but ``--mesh``, a
-tensor-parallel mesh a replica, queued as ROADMAP A6c), ``serve --mesh
+collector and the canary rollout; with ``--mesh`` each replica a rank
+set of ``serve --mesh`` processes), ``serve --mesh
 tp=N`` (predict tensor-parallel over N rank processes: rank 0 serves,
 the others follow),
 ``fleet-status``, ``fleet-rollout``, ``index build``, ``summary`` (a
@@ -28,6 +28,8 @@ Verbs that run a model or an index take ``--device`` (default cuda).
         --replicas 3 --roles prefill=1,decode=2 --slots 8 --capacity 1024
     python -m deeplearning4j_tpu_torch serve-fleet --model lm=lm.zip \
         --autoscale 1:4 --collector 9290 --rollout lm=lm_v2.zip
+    python -m deeplearning4j_tpu_torch serve-fleet --model lm=lm.zip \
+        --mesh tp=2 --replicas 2 --log-dir ranks   # 4 rank processes
     python -m deeplearning4j_tpu_torch fleet-status --collector URL
     python -m deeplearning4j_tpu_torch fleet-rollout start --router URL
     python -m deeplearning4j_tpu_torch index build --corpus random: \
@@ -46,6 +48,7 @@ Verbs that run a model or an index take ``--device`` (default cuda).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -234,20 +237,10 @@ def _cmd_serve(args):
     leader = True
     if args.mesh:
         from deeplearning4j_tpu_torch.parallel.mesh_spec import (
-            LAUNCH_RECIPE, parse_mesh_spec)
+            LAUNCH_RECIPE)
         from deeplearning4j_tpu_torch.parallel.multihost import (
             initialize_distributed, process_index, rank_device)
-        try:
-            plan = parse_mesh_spec(args.mesh)
-        except (ValueError, TypeError) as e:
-            raise SystemExit(f"serve: bad --mesh: {e}")
-        if plan.sp > 1 or plan.pp > 1:
-            raise SystemExit("serve: serving meshes take dp/tp axes only; "
-                             "sp and pp belong to training")
-        if args.index:
-            raise SystemExit("serve: --index does not compose with --mesh "
-                             "(the embedder/search models are not "
-                             "tensor-parallel)")
+        plan = _mesh_plan_or_exit("serve", args)
         if plan.n_devices() > 1:
             if not initialize_distributed(device=device):
                 raise SystemExit(f"serve: --mesh {plan} needs "
@@ -266,11 +259,13 @@ def _cmd_serve(args):
         # leader's forwards until it stops
         from deeplearning4j_tpu_torch.serving.tp_backend import (
             follow, host_models)
+        from deeplearning4j_tpu_torch.ops.native import launch_counts
         host_models(registry, args.mesh)
         print(f"rank {process_index()}: following the mesh's rank 0",
               flush=True)
         n = follow()
-        print(f"rank {process_index()}: {n} forwards; stopped")
+        print(f"rank {process_index()}: {n} forwards; kernel launches "
+              f"{json.dumps(launch_counts())}; stopped", flush=True)
         return
     metrics = ServingMetrics()
     slos = None
@@ -332,6 +327,28 @@ def _cmd_serve(args):
     except KeyboardInterrupt:
         print("draining...")
         server.stop(drain=True)
+        if args.mesh:
+            from deeplearning4j_tpu_torch.ops.native import launch_counts
+            print(f"rank 0: kernel launches {json.dumps(launch_counts())}; "
+                  "stopped", flush=True)
+
+
+def _mesh_plan_or_exit(verb, args):
+    """The serving mesh of ``--mesh``, or exit with the refusals of the
+    JAX package's ModelServer(mesh=): a bad spec, sp or pp, --index."""
+    from deeplearning4j_tpu_torch.parallel.mesh_spec import parse_mesh_spec
+    try:
+        plan = parse_mesh_spec(args.mesh)
+    except (ValueError, TypeError) as e:
+        raise SystemExit(f"{verb}: bad --mesh: {e}")
+    if plan.sp > 1 or plan.pp > 1:
+        raise SystemExit(f"{verb}: serving meshes take dp/tp axes only; "
+                         "sp and pp belong to training")
+    if args.index:
+        raise SystemExit(f"{verb}: --index does not compose with --mesh "
+                         "(the embedder/search models are not "
+                         "tensor-parallel)")
+    return plan
 
 
 def _validate_fleet_args(args):
@@ -340,10 +357,7 @@ def _validate_fleet_args(args):
     exits here, not after N replicas started (and leaked). Returns the
     autoscaler's (min, max) bounds or None."""
     if args.mesh is not None:
-        raise SystemExit(
-            "serve-fleet --mesh (a tensor-parallel mesh a replica) is not "
-            "ported: each replica would need a rank set of its own "
-            "(ROADMAP A6c; A6b ported the single-server serve --mesh)")
+        _mesh_plan_or_exit("serve-fleet", args)
     bounds = None
     if args.autoscale:
         try:
@@ -432,18 +446,36 @@ def _cmd_serve_fleet(args):
         return {name: restore_model(path, device=args.device)
                 for name, path in specs}
 
-    fleet = ReplicaFleet(
-        factory, n=args.replicas, roles=roles,
-        net_chaos=args.net_chaos or None,
-        net_chaos_seed=args.net_chaos_seed, device=args.device,
-        server_kwargs=dict(max_batch_size=args.max_batch_size,
-                           queue_limit=args.queue_limit,
-                           wait_ms=args.wait_ms, slots=args.slots,
-                           capacity=args.capacity, kv_mode=args.kv_mode,
-                           page_size=args.page_size,
-                           kv_pages=args.kv_pages,
-                           retrieval=_retrieval_factory(args)
-                           if args.index else None)).start()
+    if args.mesh:
+        # a replica is a rank set of `serve --mesh` processes, booted
+        # from the model specs (a version's specs are its "factory")
+        fleet = ReplicaFleet(
+            None, n=args.replicas, roles=roles, model_specs=args.model,
+            mesh=args.mesh, log_dir=args.log_dir,
+            net_chaos=args.net_chaos or None,
+            net_chaos_seed=args.net_chaos_seed, device=args.device,
+            extra_args=["--max-batch-size", str(args.max_batch_size),
+                        "--queue-limit", str(args.queue_limit),
+                        "--wait-ms", str(args.wait_ms)]).start()
+        print(f"mesh: every replica is {args.mesh} over "
+              f"{fleet.replica(0).world} rank processes on {args.device} "
+              f"(predict tensor-parallel, generate refused)"
+              + (f"; rank logs under {args.log_dir}" if args.log_dir
+                 else ""))
+    else:
+        fleet = ReplicaFleet(
+            factory, n=args.replicas, roles=roles,
+            net_chaos=args.net_chaos or None,
+            net_chaos_seed=args.net_chaos_seed, device=args.device,
+            server_kwargs=dict(max_batch_size=args.max_batch_size,
+                               queue_limit=args.queue_limit,
+                               wait_ms=args.wait_ms, slots=args.slots,
+                               capacity=args.capacity,
+                               kv_mode=args.kv_mode,
+                               page_size=args.page_size,
+                               kv_pages=args.kv_pages,
+                               retrieval=_retrieval_factory(args)
+                               if args.index else None)).start()
     if args.net_chaos:
         print(f"net-chaos: every replica fronted by a seeded TCP fault "
               f"proxy (seed {fleet._net_seed}; replay with "
@@ -519,6 +551,8 @@ def _cmd_serve_fleet(args):
             return {name: restore_model(path, device=args.device)
                     for name, path in specs}
 
+        if args.mesh:
+            candidate_factory = list(args.rollout)
         rollout = RolloutController(
             fleet, router, candidate_factory=candidate_factory,
             candidate_version=args.rollout_version,
@@ -1256,9 +1290,16 @@ def main(argv=None):
     f.add_argument("--net-chaos-seed", type=int, default=None,
                    metavar="N")
     f.add_argument("--mesh", metavar="SPEC", default=None,
-                   help="a tensor-parallel mesh a replica: not ported "
-                        "(ROADMAP A6c; serve --mesh runs one); given, the "
-                        "verb exits before any replica boots")
+                   help="serve every replica tensor-parallel over this "
+                        "mesh spec (see serve --mesh): a replica is a "
+                        "rank set of 'serve --mesh' processes, rank 0 "
+                        "on the replica's port, each boot on a "
+                        "coordinator port of its own; a rank set that "
+                        "loses a rank is killed whole and replaced")
+    f.add_argument("--log-dir", metavar="DIR", default=None,
+                   help="with --mesh: each rank's output goes to "
+                        "DIR/replica-<id>-rank-<i>.log (default: "
+                        "discarded)")
     f.add_argument("--autoscale", metavar="MIN:MAX", default=None,
                    help="run the SLO-driven autoscaler over the "
                         "fleet: replica count moves inside "

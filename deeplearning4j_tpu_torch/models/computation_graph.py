@@ -72,7 +72,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers.recurrent import (
     BaseRecurrentLayer)
 from deeplearning4j_tpu_torch.nn.errors import layer_error_context
 from deeplearning4j_tpu_torch.observability.health import fused_health
-from deeplearning4j_tpu_torch.parallel import global_batch
+from deeplearning4j_tpu_torch.parallel import global_batch, tensor_parallel
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -379,21 +379,25 @@ class ComputationGraph(KStepExecutorMixin, nn.Module):
         """The update half of ``_step_body`` (MultiLayerNetwork's)."""
         new_state, new_carries = aux
         self._where = "the updater"
-        grads = apply_gradient_normalization(self._layer_configs(), grads)
-        params = self.params
-        with torch.no_grad():
-            updates, new_opt = self._optimizer.update(
-                grads, self.opt_state, params)
-            updaters_mod.apply_updates(params, updates)
-            for name, obj in self._layer_configs().items():
-                p = params[name]
-                for k, v in apply_layer_constraints(obj, p).items():
-                    if v is not p[k]:
-                        p[k].copy_(v)
-            vec = (fused_health(loss, grads, updates, params)
-                   if health else None)
-            assign_tree(self.opt_state, new_opt)
-            assign_tree(self.state, new_state)
+        with tensor_parallel.sharded_norms(self):
+            grads = apply_gradient_normalization(self._layer_configs(),
+                                                 grads)
+            params = self.params
+            dims = tensor_parallel.norm_dims() or {}
+            with torch.no_grad():
+                updates, new_opt = self._optimizer.update(
+                    grads, self.opt_state, params)
+                updaters_mod.apply_updates(params, updates)
+                for name, obj in self._layer_configs().items():
+                    p = params[name]
+                    for k, v in apply_layer_constraints(
+                            obj, p, dims.get(name)).items():
+                        if v is not p[k]:
+                            p[k].copy_(v)
+                vec = (fused_health(loss, grads, updates, params)
+                       if health else None)
+                assign_tree(self.opt_state, new_opt)
+                assign_tree(self.state, new_state)
         return loss, vec, _detach(new_carries)
 
     def _train_step(self, batch, carries=None):

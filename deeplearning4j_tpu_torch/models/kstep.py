@@ -558,7 +558,10 @@ class KStepExecutorMixin:
 
     def _sync_health_mode(self) -> None:
         """Build the fused health vector into the step iff a listener
-        wants device health (one flush a toggle, not a fit)."""
+        wants device health (one flush a toggle, not a fit). Under
+        tensor parallelism the vector's norms all-reduce over the model
+        group, so every rank of the group attaches such a listener or
+        none does (as for ``StatsListener``)."""
         want = any(getattr(lst, "wants_device_health", False)
                    for lst in self.listeners)
         if want != self._health_enabled:

@@ -89,7 +89,7 @@ from deeplearning4j_tpu_torch.observability.flight_recorder import (
     on_fit_exception)
 from deeplearning4j_tpu_torch.observability.health import fused_health
 from deeplearning4j_tpu_torch.observability.tracing import trace
-from deeplearning4j_tpu_torch.parallel import global_batch
+from deeplearning4j_tpu_torch.parallel import global_batch, tensor_parallel
 from deeplearning4j_tpu_torch.train.constraints import (
     apply_layer_constraints)
 from deeplearning4j_tpu_torch.train.gradnorm import (
@@ -460,20 +460,24 @@ class MultiLayerNetwork(KStepExecutorMixin, nn.Module):
         new carries detached)."""
         new_states, new_carries = aux
         self._where = "the updater"
-        grads = apply_gradient_normalization(self.layers, grads)
-        params = self.params
-        with torch.no_grad():
-            updates, new_opt = self._optimizer.update(
-                grads, self.opt_state, params)
-            updaters_mod.apply_updates(params, updates)
-            for layer, p in zip(self.layers, params):
-                for k, v in apply_layer_constraints(layer, p).items():
-                    if v is not p[k]:
-                        p[k].copy_(v)
-            vec = (fused_health(loss, grads, updates, params)
-                   if health else None)
-            assign_tree(self.opt_state, new_opt)
-            assign_tree(self.state, new_states)
+        # under tensor parallelism every norm below is the full arrays'
+        with tensor_parallel.sharded_norms(self):
+            grads = apply_gradient_normalization(self.layers, grads)
+            params = self.params
+            dims = tensor_parallel.norm_dims() or [None] * len(params)
+            with torch.no_grad():
+                updates, new_opt = self._optimizer.update(
+                    grads, self.opt_state, params)
+                updaters_mod.apply_updates(params, updates)
+                for layer, p, d in zip(self.layers, params, dims):
+                    for k, v in apply_layer_constraints(layer, p,
+                                                        d).items():
+                        if v is not p[k]:
+                            p[k].copy_(v)
+                vec = (fused_health(loss, grads, updates, params)
+                       if health else None)
+                assign_tree(self.opt_state, new_opt)
+                assign_tree(self.state, new_states)
         return loss, vec, _detach(new_carries)
 
     def _train_step(self, batch, carries=None):

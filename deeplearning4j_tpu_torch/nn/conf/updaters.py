@@ -291,8 +291,15 @@ def _set_to_zero() -> Transform:
 
 
 def clip_by_global_norm(max_norm: float) -> Transform:
+    """optax's clip_by_global_norm. Under tensor parallelism (an update
+    inside ``tensor_parallel.sharded_norms``) the norm is the full
+    parameters': split leaves' partial sums all-reduced over the model
+    group, replicated leaves counted once."""
+    from deeplearning4j_tpu_torch.parallel import tensor_parallel
+
     def update(g, state, params=None):
-        norm = torch.sqrt(sum((x * x).sum() for x in tree_leaves(g)))
+        norm = torch.sqrt(tensor_parallel.tree_sq_sum(
+            g, tensor_parallel.norm_dims()))
         keep = norm < max_norm
         return tree_map(lambda x: torch.where(keep, x, x / norm * max_norm),
                     g), state

@@ -38,6 +38,7 @@ import numpy as np
 
 import torch
 
+from deeplearning4j_tpu_torch.parallel import tensor_parallel
 from deeplearning4j_tpu_torch.train.listeners import TrainingListener
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
@@ -72,34 +73,42 @@ def fused_health(loss, grads, updates, params) -> torch.Tensor:
     float32 ``[finite_bits, loss, |grads|, |updates|, |params|]``
     (global L2 norms). No host read: the executor copies it into the
     captured step's static output, and the monitor fetches the vector
-    once (the JAX package's ``fused_health``)."""
-    def leaves(tree):
-        from deeplearning4j_tpu_torch.nn.conf.updaters import tree_leaves
-        return [a for a in tree_leaves(tree)
-                if isinstance(a, torch.Tensor) and a.is_floating_point()]
+    once (the JAX package's ``fused_health``).
 
-    def finite(tree):
-        ok = torch.ones((), dtype=torch.bool, device=loss.device)
-        for a in leaves(tree):
-            ok = ok & torch.isfinite(a).all()
-        return ok
-
-    def norm(tree):
-        total = torch.zeros((), dtype=torch.float32, device=loss.device)
-        for a in leaves(tree):
-            total = total + torch.sum(torch.square(a.float()))
-        return torch.sqrt(total)
+    Under tensor parallelism (an update inside
+    ``tensor_parallel.sharded_norms``) the norms and finiteness are the
+    full arrays': the split leaves' squared sums and non-finite counts
+    of the three trees go in one all-reduce over the model group, and
+    each replicated leaf is counted once. Every rank of the group then
+    builds the vector, so every rank attaches the listener that wants
+    it."""
+    loss = loss.detach().float()
+    trees = (grads, updates, params)
+    dims = tensor_parallel.norm_dims()
+    zero = torch.zeros((), dtype=torch.float32, device=loss.device)
+    split = [[zero, zero] for _ in trees]
+    whole = [[zero, zero] for _ in trees]
+    for t, tree in enumerate(trees):
+        for a, d in tensor_parallel.leaf_dims(tree, dims):
+            if not (isinstance(a, torch.Tensor) and a.is_floating_point()):
+                continue
+            acc = whole[t] if d is None else split[t]
+            acc[0] = acc[0] + torch.sum(torch.square(a.float()))
+            acc[1] = acc[1] + (~torch.isfinite(a)).sum().float()
+    part = tensor_parallel.model_sum_(torch.stack(
+        [v for pair in split for v in pair]))
+    total = part + torch.stack([v for pair in whole for v in pair])
+    sq, bad = total[0::2], total[1::2]
 
     def bit(ok, value):
         return torch.where(ok, 0.0, float(value))
 
-    loss = loss.detach().float()
     bits = (bit(torch.isfinite(loss), BIT_LOSS)
-            + bit(finite(grads), BIT_GRADS)
-            + bit(finite(updates), BIT_UPDATES)
-            + bit(finite(params), BIT_PARAMS))
-    return torch.stack([bits, loss, norm(grads), norm(updates),
-                        norm(params)])
+            + bit(bad[0] == 0, BIT_GRADS)
+            + bit(bad[1] == 0, BIT_UPDATES)
+            + bit(bad[2] == 0, BIT_PARAMS))
+    return torch.stack([bits, loss, torch.sqrt(sq[0]), torch.sqrt(sq[1]),
+                        torch.sqrt(sq[2])])
 
 
 def _bit_names(bits: int) -> str:
@@ -116,7 +125,9 @@ class HealthMonitor(TrainingListener):
 
     Attach with ``model.add_listeners(HealthMonitor(...))``; the
     executors see ``wants_device_health`` and compile the fused
-    finite check into the train step. Optionally chain it into the
+    finite check into the train step. A tensor-parallel model's check
+    is collective over its model group: every rank of the group
+    attaches the monitor. Optionally chain it into the
     stats pipe (``storage=`` forwards every report after inspecting
     it) and hand it a ``recorder`` (FlightRecorder) so every anomaly
     lands in the post-mortem ring.

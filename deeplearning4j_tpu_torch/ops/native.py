@@ -21,7 +21,8 @@ import threading
 from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "count_launch", "capture_launches", "count_replay"]
+           "count_launch", "capture_launches", "count_replay",
+           "launch_counts"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -87,6 +88,17 @@ def count_replay(tally) -> None:
     with _launch_lock:
         for wrapper, n in tally.items():
             wrapper.launches += n
+
+
+def launch_counts() -> Dict[str, int]:
+    """{wrapper name: launches} of every hand-written kernel's wrapper in
+    this process (a mesh rank prints them as it exits)."""
+    from deeplearning4j_tpu_torch.ops import attention, decode_attention
+    return {w.__name__: w.launches for w in (
+        attention.flash_attention_fwd_cuda,
+        attention.flash_attention_bwd_dq_cuda,
+        attention.flash_attention_bwd_dkv_cuda,
+        decode_attention.decode_attention_cuda)}
 
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -19,13 +19,15 @@ in one place, :func:`_staged`.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["RankGroup", "STATS", "reset_stats", "all_reduce_",
+__all__ = ["RankGroup", "STATS", "reset_stats", "lost_rank_as_dist_error",
+           "all_reduce_",
            "all_gather_last", "broadcast_", "rotate", "send", "recv"]
 
 
@@ -113,6 +115,21 @@ def _stage_in(grp, t: torch.Tensor, host: torch.Tensor) -> None:
     grp.pinned[key] = (grp.pinned[key][0], ev)
 
 
+@contextlib.contextmanager
+def lost_rank_as_dist_error():
+    """A failed collective as ``torch.distributed.DistError``: gloo
+    raises a bare RuntimeError when a peer is gone, which a layer would
+    report as its own failure. As a DistError the layers pass it through
+    unchanged and a serving mesh's leader answers it as a replica that
+    cannot serve (``serving/tp_backend.py``)."""
+    try:
+        yield
+    except dist.DistError:
+        raise
+    except RuntimeError as e:
+        raise dist.DistError(str(e)) from e
+
+
 def all_reduce_(t: torch.Tensor, grp, op: str = "sum",
                 kind: str = "tp") -> torch.Tensor:
     """Reduce ``t`` over ``grp`` in place (``op``: sum or max); with no
@@ -125,11 +142,13 @@ def all_reduce_(t: torch.Tensor, grp, op: str = "sum",
     if _staged(grp, t.device):
         t0 = time.perf_counter()
         host = _stage_out(grp, t)
-        dist.all_reduce(host, op=rop, group=grp.group)
+        with lost_rank_as_dist_error():
+            dist.all_reduce(host, op=rop, group=grp.group)
         _stage_in(grp, t, host)
         _count(kind, nbytes, time.perf_counter() - t0)
         return t
-    dist.all_reduce(t, op=rop, group=grp.group)
+    with lost_rank_as_dist_error():
+        dist.all_reduce(t, op=rop, group=grp.group)
     _count(kind, nbytes)
     return t
 
@@ -145,7 +164,8 @@ def all_gather_last(t: torch.Tensor, grp, kind: str = "tp") -> torch.Tensor:
     if staged:
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(grp.size)]
-    dist.all_gather(parts, src, group=grp.group)
+    with lost_rank_as_dist_error():
+        dist.all_gather(parts, src, group=grp.group)
     out = torch.cat(parts, dim=-1)
     if staged:
         out = out.to(t.device)
@@ -166,11 +186,13 @@ def broadcast_(t: torch.Tensor, grp, src_index: int,
     if _staged(grp, t.device):
         t0 = time.perf_counter()
         host = _stage_out(grp, t)
-        dist.broadcast(host, src=src, group=grp.group)
+        with lost_rank_as_dist_error():
+            dist.broadcast(host, src=src, group=grp.group)
         _stage_in(grp, t, host)
         _count(kind, nbytes, time.perf_counter() - t0)
         return t
-    dist.broadcast(t, src=src, group=grp.group)
+    with lost_rank_as_dist_error():
+        dist.broadcast(t, src=src, group=grp.group)
     _count(kind, nbytes)
     return t
 

@@ -297,18 +297,15 @@ class MeshContext:
         return out
 
     # ---- placement ----
-    def place_model(self, model, src: Optional[int] = None, *,
-                    training: bool = True) -> None:
+    def place_model(self, model, src: Optional[int] = None) -> None:
         """Make every rank's model equal to rank ``src``'s (default the
         mesh's first rank): parameters, layer state and updater state
         broadcast from it; then, under ``tp``, each rank keeps its shards
         of the parameters and the updater state
         (``tensor_parallel.shard_model``). A model placed on an earlier
         mesh is gathered back to full parameters first (collective over
-        that mesh's model group). A model placed to train under ``tp``
-        is refused first, on every rank alike, when its update takes a
-        norm over split parameters
-        (``tensor_parallel.refuse_norm_updates``).
+        that mesh's model group). Its update's norms are then the full
+        arrays' (``tensor_parallel.sharded_norms``).
         Each rank's dropout generator is offset by its index in the
         data x seq group (JAX folds the axis index into the key), so the
         shards draw different masks and the ranks of one model group the
@@ -318,8 +315,6 @@ class MeshContext:
             model.init()
         if not self.member:
             return
-        if training and self.plan.tp > 1:
-            tensor_parallel.refuse_norm_updates(model)
         tensor_parallel.unshard_model(model)
         if self.mesh.group is not None and self.mesh.size > 1:
             src = self.mesh.ranks[0] if src is None else src

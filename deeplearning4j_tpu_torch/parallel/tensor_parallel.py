@@ -41,6 +41,15 @@ divide.
 ``params_flat``, ``write_model`` and the checkpoint zip hold: a tp=2
 checkpoint has exactly the layout the JAX package writes. They are
 collective over the model group.
+
+The update's norms (a global-norm gradient clip, a layer's L2 gradient
+normalization, the norm constraints, the health vector) are the JAX
+package's norms over the full arrays. While the executor's update runs
+under :func:`sharded_norms`, they take each squared sum through
+:func:`sq_sum` / :func:`tree_sq_sum`: a sum across a leaf's split
+all-reduces the partial sums over the model group; a sum along a kept
+split axis, or over a replicated leaf (equal on every rank of the
+group), is whole on each rank already and is taken once.
 """
 
 from __future__ import annotations
@@ -61,7 +70,8 @@ __all__ = ["TPRule", "default_tp_rules", "graph_tp_rules", "shard_params",
            "copy_to_model", "reduce_from_model", "gather_from_model",
            "scatter_to_model", "current_mode", "full_params",
            "full_opt_state", "shard_model", "unshard_model",
-           "local_trees", "refuse_norm_updates"]
+           "local_trees", "sharded_norms", "norm_dims", "leaf_dims",
+           "sq_sum", "tree_sq_sum", "model_sum_"]
 
 
 class TPRule:
@@ -393,45 +403,6 @@ def _model_items(model, rules=None):
     return out
 
 
-# gradient normalizations that act on each entry alone: a shard's
-# entries come out as the full tensor's would
-_ENTRYWISE = ("", "none", "clip_element_wise_absolute_value")
-
-
-def refuse_norm_updates(model) -> None:
-    """Raise before a model trains tensor-parallel when its update takes
-    a norm over a split layer's parameters: ``gradient_clip`` by norm,
-    a split layer's L2 gradient normalization, or its norm constraints.
-    Each rank holds only its shards, so such a norm would differ from
-    rank to rank and the replicas drift apart (the JAX package's GSPMD
-    takes it over the full arrays). Value clipping, element-wise gradient
-    clipping and the non-negative constraint act on each entry alone
-    and run as they are."""
-    split = [(key, layer) for key, layer, _, rule in
-             _model_items(model) if rule != TPRule.REPLICATE]
-    if not split:
-        return
-    why = None
-    clip = getattr(model.conf.conf, "gradient_clip", None)
-    if clip is not None and clip.get("type") == "norm":
-        why = "gradient_clip by norm (a global norm over every parameter)"
-    for key, layer in split:
-        kind = (getattr(layer, "gradient_normalization", None)
-                or "").lower()
-        if why is None and kind not in _ENTRYWISE:
-            why = f"layer {key}'s gradient normalization {kind!r}"
-        norms = [c["type"] for c in getattr(layer, "constraints", ())
-                 if c["type"] != "non_negative"]
-        if why is None and norms:
-            why = f"layer {key}'s parameter constraints {norms}"
-    if why is not None:
-        raise NotImplementedError(
-            f"{why} takes a norm over parameters tensor parallelism "
-            f"splits, which the port does not reduce over the model "
-            f"group yet (ROADMAP A6d); train this model without tp, or "
-            f"drop the norm")
-
-
 def make_plan(model, grp, rules=None) -> TPPlan:
     """The :class:`TPPlan` of ``model`` (with its FULL parameters) over
     the model group ``grp``."""
@@ -587,3 +558,84 @@ def unshard_model(model) -> None:
     model.set_params(params)
     if opt is not None:
         model.opt_state = opt
+
+
+# ---- norms over shards
+
+@contextlib.contextmanager
+def sharded_norms(model):
+    """Run ``model``'s update with its norms over the full arrays: inside,
+    :func:`norm_dims` gives the split dim of every parameter (the params'
+    tree, an int a split leaf, None a replicated one) and :func:`sq_sum`
+    reduces over the model group. Without a plan it changes nothing."""
+    plan = getattr(model, "_tp", None)
+    if plan is None or plan.n == 1:
+        yield
+        return
+    prev = getattr(_tls, "norms", None)
+    _tls.norms = (plan.grp, _dims_tree(plan, _keys(model), model.params))
+    try:
+        yield
+    finally:
+        _tls.norms = prev
+
+
+def norm_dims():
+    """The split dims of the parameters whose update runs under
+    :func:`sharded_norms` (a tree like the params), or None."""
+    act = getattr(_tls, "norms", None)
+    return None if act is None else act[1]
+
+
+def leaf_dims(tree, dims=None):
+    """(leaf, its split dim or None) of every leaf of ``tree``, walked
+    with ``dims`` (a tree of the same structure; None: every leaf
+    whole), in ``tree``'s order: the same on every rank of a model
+    group."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_dims(v, None if dims is None else dims[k])
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_dims(v, None if dims is None else dims[i])
+    else:
+        yield tree, dims
+
+
+def model_sum_(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed in place over the model group of the update running
+    under :func:`sharded_norms`; as it is outside one."""
+    act = getattr(_tls, "norms", None)
+    if act is not None:
+        collectives.all_reduce_(t, act[0])
+    return t
+
+
+def sq_sum(x: torch.Tensor, dim: Optional[int], axes=None) -> torch.Tensor:
+    """The full array's squared sum over ``axes`` (every axis when None;
+    else kept as size-1 dims), from this rank's shard ``x`` split along
+    ``dim`` (None: replicated). A sum across the split is all-reduced
+    over the model group (:func:`model_sum_`); one along a kept split
+    axis, or over a replicated leaf, is whole already."""
+    sq = x * x
+    if axes is None:
+        s = sq.sum()
+        crosses = dim is not None
+    else:
+        s = sq.sum(dim=axes, keepdim=True)
+        crosses = dim is not None and dim in {a % x.dim() for a in axes}
+    return model_sum_(s) if crosses else s
+
+
+def tree_sq_sum(tree, dims=None) -> torch.Tensor:
+    """One squared sum over every leaf of ``tree`` (full arrays): the
+    split leaves' partial sums in one all-reduce, each replicated leaf
+    added once. With every leaf whole (``dims`` None) it is the leaves'
+    sums added in order."""
+    split, whole = [], []
+    for x, d in leaf_dims(tree, dims):
+        (whole if d is None else split).append((x * x).sum())
+    total = model_sum_(torch.stack(split).sum()) if split else None
+    for s in whole:
+        total = s if total is None else total + s
+    return total

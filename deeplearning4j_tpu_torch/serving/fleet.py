@@ -19,6 +19,14 @@ Two replica flavours:
 - :class:`SubprocessReplica` — ``python -m deeplearning4j_tpu_torch serve``
   in a child process. ``kill()`` is a REAL ``SIGKILL``; drain rides
   SIGINT (the CLI's ctrl-c drain path).
+- :class:`MeshReplica` — a tensor-parallel replica (``mesh="tp=2"``):
+  ``serve --mesh SPEC`` as a rank set of child processes, rank 0 serving
+  on the replica's port and the others following it. The JAX package
+  drives every device from one process, so its replicas are in-process
+  ``ModelServer(mesh=)``; here a process has one default process group,
+  so each replica is a rank set of its own, on its own coordinator port.
+  The set lives and dies whole: when any rank exits, the replica kills
+  the rest and the fleet replaces it.
 
 Fleet operations:
 
@@ -51,7 +59,9 @@ from __future__ import annotations
 
 import collections
 import logging
+import os
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -61,7 +71,7 @@ from typing import Callable, Deque, Dict, List, Optional
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 __all__ = ["ReplicaFleet", "InProcessReplica", "SubprocessReplica",
-           "parse_roles"]
+           "MeshReplica", "parse_roles", "free_port"]
 
 # fleet_state lifecycle: up -> draining -> dead (kill skips draining)
 UP, DRAINING, DEAD = "up", "draining", "dead"
@@ -106,6 +116,15 @@ def parse_roles(spec, n: Optional[int] = None) -> List[str]:
             f"roles name {len(roles)} replica(s) but the fleet has "
             f"{n} — make them agree")
     return roles
+
+
+def free_port(host: str = "127.0.0.1") -> int:
+    """A port nothing listens on now: each mesh replica's boot takes its
+    coordinator port (and, without a base port, its serving port) from
+    here."""
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
 
 
 class _BaseReplica:
@@ -160,6 +179,10 @@ class _BaseReplica:
 
     def hang(self, delay_s: float) -> None:
         raise NotImplementedError
+
+    def wait_ready(self) -> None:
+        """Block until the replica serves (a boot that returns from
+        ``start`` before its listener is up waits here)."""
 
     def migrate(self) -> int:
         """Arm drain migration on the replica's generate backends
@@ -330,6 +353,197 @@ class SubprocessReplica(_BaseReplica):
             conn.close()
 
 
+class MeshReplica(SubprocessReplica):
+    """A tensor-parallel replica: ``serve --mesh SPEC`` as a rank set of
+    child processes (``parallel/mesh_spec.py``'s multihost variables, a
+    coordinator port of its own a boot). Rank 0 hosts the
+    ``ModelServer`` on the replica's port; the other ranks follow it
+    (``serving/tp_backend.follow``).
+
+    ``start`` launches every rank; ``wait_ready`` blocks until rank 0
+    answers ``/healthz`` (every rank's torch import, CUDA context and
+    model load included), then watches the set: when any rank exits
+    unbidden, the replica kills itself whole (the other ranks: a leader
+    waiting in a collective on a dead follower would wait out gloo's
+    timeout; and its chaos proxy) and ``on_exit(self)`` runs (the fleet
+    replaces the replica). ``kill`` SIGKILLs and reaps
+    every rank; ``stop(drain=True)`` sends SIGINT to rank 0, which
+    drains and sends its followers home, and kills what is left after
+    the timeout; ``hang`` SIGSTOPs every rank for ``delay_s``;
+    ``migrate`` goes over HTTP. Each rank's output goes to
+    ``log_dir/replica-<id>-rank-<i>.log`` when a ``log_dir`` is given."""
+
+    POLL_S = 0.1            # the watcher's period
+    BOOT_S = 300.0          # every rank's import, context and model load
+
+    def __init__(self, rid: int, model_specs: List[str], port: int,
+                 mesh: str, extra_args: Optional[List[str]] = None,
+                 device: str = "cuda", log_dir: Optional[str] = None,
+                 on_exit: Optional[Callable[["MeshReplica"], None]] = None):
+        from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+            parse_mesh_spec)
+        super().__init__(rid, model_specs, port, extra_args=extra_args,
+                         device=device)
+        self.mesh = str(mesh)
+        self.world = parse_mesh_spec(self.mesh).n_devices()
+        self.log_dir = log_dir
+        self.on_exit = on_exit
+        self.procs: List[subprocess.Popen] = []
+        self._ended = threading.Event()     # planned end: kill / stop
+        self._cont: Optional[threading.Timer] = None
+
+    @property
+    def pids(self) -> List[int]:
+        """The ranks' process ids, rank order."""
+        return [p.pid for p in self.procs]
+
+    def command(self) -> List[str]:
+        return super().command() + ["--mesh", self.mesh]
+
+    def start(self) -> "MeshReplica":
+        coordinator = free_port()
+        for rank in range(self.world):
+            env = dict(os.environ,
+                       DL4J_TPU_COORDINATOR=f"127.0.0.1:{coordinator}",
+                       DL4J_TPU_NUM_PROCESSES=str(self.world),
+                       DL4J_TPU_PROCESS_ID=str(rank))
+            out = subprocess.DEVNULL
+            if self.log_dir is not None:
+                os.makedirs(self.log_dir, exist_ok=True)
+                out = open(os.path.join(
+                    self.log_dir, f"replica-{self.id}-rank-{rank}.log"),
+                    "ab")
+            try:
+                self.procs.append(subprocess.Popen(
+                    self.command(), env=env, stdout=out,
+                    stderr=subprocess.STDOUT))
+            finally:
+                if out is not subprocess.DEVNULL:
+                    out.close()
+        self.proc = self.procs[0]
+        return self
+
+    def _exited(self):
+        """(rank, exit code) of the first rank that has exited, or
+        None."""
+        for rank, p in enumerate(self.procs):
+            code = p.poll()
+            if code is not None:
+                return rank, code
+        return None
+
+    def wait_ready(self) -> None:
+        import http.client
+        deadline = time.monotonic() + self.BOOT_S
+        while True:
+            gone = self._exited()
+            if gone is not None:
+                self.kill()
+                raise RuntimeError(
+                    f"mesh replica {self.id}: rank {gone[0]} exited with "
+                    f"{gone[1]} before rank 0 served")
+            try:
+                conn = http.client.HTTPConnection(self.host, self.port,
+                                                  timeout=2.0)
+                try:
+                    conn.request("GET", "/healthz")
+                    conn.getresponse().read()
+                    break
+                finally:
+                    conn.close()
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                self.kill()
+                raise TimeoutError(
+                    f"mesh replica {self.id}: rank 0 did not serve within "
+                    f"{self.BOOT_S:g} s")
+            time.sleep(0.2)
+        threading.Thread(target=self._watch, daemon=True,
+                         name=f"mesh-replica-{self.id}").start()
+
+    def _watch(self) -> None:
+        """The set lives and dies whole: the first rank to exit unbidden
+        takes the others with it."""
+        while not self._ended.wait(self.POLL_S):
+            gone = self._exited()
+            if gone is None:
+                continue
+            if self._ended.is_set():
+                return
+            logger.warning("fleet: mesh replica %d's rank %d exited with "
+                           "%s; killing its other ranks", self.id,
+                           gone[0], gone[1])
+            serving = self.fleet_state == UP
+            self.kill()         # its chaos proxy too: the replica is dead
+            if serving and self.on_exit is not None:
+                self.on_exit(self)
+            return
+
+    def _signal(self, sig) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                try:
+                    p.send_signal(sig)
+                except ProcessLookupError:
+                    pass
+
+    def _kill_ranks(self) -> None:
+        if self._cont is not None:
+            self._cont.cancel()
+        self._signal(signal.SIGCONT)    # a hung set must die too
+        self._signal(signal.SIGKILL)
+        for p in self.procs:
+            try:
+                p.wait(5.0)             # reap: no zombies
+            except subprocess.TimeoutExpired:
+                pass
+
+    def kill(self) -> None:
+        self.fleet_state = DEAD
+        self._ended.set()
+        self._stop_proxy()
+        self._kill_ranks()
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        self.fleet_state = DEAD
+        self._ended.set()
+        ok = True
+        if drain and self.proc is not None and self.proc.poll() is None:
+            if self._cont is not None:
+                self._cont.cancel()
+            self._signal(signal.SIGCONT)
+            # rank 0 drains, then sends its followers home
+            self.proc.send_signal(signal.SIGINT)
+            deadline = time.monotonic() + timeout
+            for p in self.procs:
+                try:
+                    p.wait(max(0.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    ok = False
+        else:
+            ok = not drain
+        self._kill_ranks()
+        self._stop_proxy()
+        return ok
+
+    def hang(self, delay_s: float) -> None:
+        """Stop every rank for ``delay_s`` seconds (0 resumes them now):
+        the whole replica wedges, probes included, as the JAX chaos
+        site hangs a whole replica."""
+        if self._cont is not None:
+            self._cont.cancel()
+            self._cont = None
+        if delay_s <= 0:
+            self._signal(signal.SIGCONT)
+            return
+        self._signal(signal.SIGSTOP)
+        self._cont = threading.Timer(delay_s, self._signal,
+                                     args=(signal.SIGCONT,))
+        self._cont.daemon = True
+        self._cont.start()
+
+
 class ReplicaFleet:
     """N replicas managed as one unit; the router holds a reference
     and reads ``snapshot()`` per routing decision (so a drain is
@@ -342,13 +556,25 @@ class ReplicaFleet:
                  extra_args: Optional[List[str]] = None,
                  net_chaos=None,
                  net_chaos_seed: Optional[int] = None,
-                 model_version: int = 1, device: str = "cuda"):
+                 model_version: int = 1, device: str = "cuda",
+                 mesh: Optional[str] = None, log_dir: Optional[str] = None):
         if model_factory is None and not model_specs \
                 and not extra_args:
             raise ValueError("fleet needs a model_factory (in-process"
                              " replicas) or model_specs / extra_args "
                              "such as --index (subprocess)")
-        if model_factory is None and base_port <= 0:
+        # a tensor-parallel mesh a replica: every replica is a rank set
+        # of ``serve --mesh`` processes (MeshReplica), each version's
+        # "factory" the list of model specs its ranks boot from, and a
+        # replica without a base port serves on a free port
+        self._mesh = mesh
+        self._log_dir = log_dir
+        if mesh is not None:
+            if model_factory is not None or not model_specs:
+                raise ValueError("a mesh fleet boots its replicas from "
+                                 "model_specs, not a model_factory")
+            model_factory = list(model_specs)
+        elif model_factory is None and base_port <= 0:
             # subprocess replicas advertise base_port + rid to the
             # router; 0 would mean "probe http://127.0.0.1:0 forever"
             # — a silently unreachable fleet
@@ -406,6 +632,7 @@ class ReplicaFleet:
         # fabricates an incident bundle. Bounded: only the most
         # recent departures matter (a scrape cycle or two).
         self._departed: Deque[int] = collections.deque(maxlen=64)
+        self._stopped = False
 
     def subscribe(self, fn: Callable[[], None]) -> None:
         """Register a pool-mutation hook (the router uses it to
@@ -516,7 +743,15 @@ class ReplicaFleet:
                         f"{self._candidate_version})")
                 factory = self._candidate_factory
                 boot_version = int(version)
-        if factory is not None:
+        if self._mesh is not None:
+            r = MeshReplica(rid, factory,
+                            self._base_port + rid if self._base_port > 0
+                            else free_port(), self._mesh,
+                            extra_args=self._extra_args,
+                            device=self._device, log_dir=self._log_dir,
+                            on_exit=self._rank_set_died)
+            r.model_version = boot_version
+        elif factory is not None:
             r = InProcessReplica(rid, factory,
                                  self._server_kwargs,
                                  model_version=boot_version)
@@ -554,7 +789,8 @@ class ReplicaFleet:
                 time.sleep(float(fault.args.get("delay_s", 0.25)))
         r = self._new_replica(role, version=version)
         try:
-            return self._wrap_net(r.start())
+            r.start().wait_ready()
+            return self._wrap_net(r)
         except Exception as e:
             raise ReplicaBootError(
                 f"replica {r.id} failed to boot: {e!r}") from e
@@ -619,8 +855,17 @@ class ReplicaFleet:
                 time.sleep(delay)
 
     def start(self) -> "ReplicaFleet":
-        fresh = [self._wrap_net(self._new_replica().start())
-                 for _ in range(self.n)]
+        fresh = []
+        try:
+            for _ in range(self.n):
+                fresh.append(self._new_replica().start())
+            for r in fresh:             # the boots overlap
+                r.wait_ready()
+        except BaseException:
+            for r in fresh:             # no replica outlives a failed start
+                r.kill()
+            raise
+        fresh = [self._wrap_net(r) for r in fresh]
         with self._lock:
             self._replicas.extend(fresh)
         return self
@@ -639,6 +884,29 @@ class ReplicaFleet:
     def size(self) -> int:
         with self._lock:
             return len(self._replicas)
+
+    def _rank_set_died(self, r: _BaseReplica) -> None:
+        """A mesh replica's rank set died unbidden (the replica has
+        killed itself whole): drop it from the pool and grow a successor
+        of its role and version, off the watcher's thread."""
+        def replace():
+            with self._lock:
+                if self._stopped or r not in self._replicas:
+                    return
+                self._replicas.remove(r)
+            self._notify()
+            logger.warning("fleet: replacing mesh replica %d (its rank "
+                           "set died)", r.id)
+            try:
+                successor = self.grow(role=r.role, version=r.model_version)
+            except Exception:
+                logger.exception("fleet: no successor for mesh replica "
+                                 "%d", r.id)
+                return
+            if self._stopped:   # the fleet stopped during the boot
+                successor.kill()
+        threading.Thread(target=replace, daemon=True,
+                         name=f"fleet-replace-{r.id}").start()
 
     # ---- fault verbs ----
     def kill(self, pos: int) -> Optional[_BaseReplica]:
@@ -845,6 +1113,7 @@ class ReplicaFleet:
     # ---- shutdown ----
     def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
         with self._lock:
+            self._stopped = True
             replicas = list(self._replicas)
             self._replicas.clear()
             timers = list(self._timers)

@@ -2164,8 +2164,9 @@ class Router:
         roles = {r.id: getattr(r, "role", MIXED) for r in snapshot}
         versions = {r.id: getattr(r, "model_version", 1)
                     for r in snapshot}
+        pids = {r.id: getattr(r, "pids", None) for r in snapshot}
         out = {"replicas": [
-            {"id": v.rid, "url": v.url,
+            {"id": v.rid, "url": v.url, "pids": pids.get(v.rid),
              "state": states.get(v.rid, "dead"),
              "health": v.health,
              "role": roles.get(v.rid, MIXED),

@@ -74,7 +74,7 @@ class TensorParallelModel:
                                "belongs to training")
         if model.params is None:
             model.init()
-        self.ctx.place_model(model, training=False)
+        self.ctx.place_model(model)
         self.leader = self.ctx.member and self.ctx.rank == 0
         self.forwards = 0
         self.index = len(_HOSTED)
@@ -112,18 +112,30 @@ class TensorParallelModel:
 
     def _run(self, xp: np.ndarray) -> torch.Tensor:
         """The header and the padded rows out to every rank, then this
-        rank's forward (the leader's side of :func:`follow`)."""
+        rank's forward (the leader's side of :func:`follow`). A failed
+        collective (a rank of the mesh is gone) is the replica's fault,
+        not the request's: it raises ``ServerClosedError`` (503), which a
+        fleet's router fails over."""
+        from deeplearning4j_tpu_torch.serving.errors import (
+            ServerClosedError)
         with _CHANNEL:
-            head = _header(_OP_FORWARD, self.index, xp.shape)
-            self._broadcast(head)
-            data = torch.from_numpy(np.ascontiguousarray(xp))
-            self._broadcast(data)
-            return self._forward_rows(data)
+            try:
+                head = _header(_OP_FORWARD, self.index, xp.shape)
+                self._broadcast(head)
+                data = torch.from_numpy(np.ascontiguousarray(xp))
+                self._broadcast(data)
+                return self._forward_rows(data)
+            except dist.DistError as e:
+                raise ServerClosedError(
+                    f"the serving mesh lost a rank: {e}") from e
 
     def _broadcast(self, t: torch.Tensor) -> None:
+        from deeplearning4j_tpu_torch.parallel.collectives import (
+            lost_rank_as_dist_error)
         mesh = self.ctx.mesh
         if mesh.group is not None and mesh.size > 1:
-            dist.broadcast(t, src=mesh.ranks[0], group=mesh.host_group)
+            with lost_rank_as_dist_error():
+                dist.broadcast(t, src=mesh.ranks[0], group=mesh.host_group)
 
     def _forward_rows(self, data: torch.Tensor) -> torch.Tensor:
         """This rank's rows (its data index's slice) through its shards;

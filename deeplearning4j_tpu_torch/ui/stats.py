@@ -247,7 +247,9 @@ class StatsListener(TrainingListener):
     every parameter, and from the second report on the per-layer
     ``update_mean_magnitudes`` and ``update_ratios`` (mean |update| over
     mean |param|) with ``"all"`` and ``histograms["update/all"]`` over
-    every layer whose shapes did not change."""
+    every layer whose shapes did not change. A tensor-parallel model's
+    report reads its full parameters (gathered over the model group, a
+    collective): every rank of the group attaches the listener."""
 
     def __init__(self, storage, frequency: int = 10,
                  session_id: Optional[str] = None,
@@ -378,7 +380,11 @@ class StatsListener(TrainingListener):
 
     @staticmethod
     def _iter_params(model):
-        params = model.params
+        # a tensor-parallel model's full parameters, gathered over its
+        # model group: every rank of the group reports alike
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            full_params)
+        params = full_params(model)
         if isinstance(params, dict):
             return [params[k] for k in sorted(params)]
         return params

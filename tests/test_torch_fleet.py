@@ -592,7 +592,12 @@ def test_subprocess_replica_spawns_the_port():
       "--rollout-shadow-sample", "1.5"], "shadow-sample"),
     (["--rollout", "m2.zip", "--rollout-min-requests", "5"],
      "needs --collector"),
-    (["--mesh", "tp=2"], "A6b"),
+    # a serving mesh a replica: the JAX mesh server's refusals
+    (["--mesh", "sp=2"], "dp/tp axes only"),
+    (["--mesh", "dp=1,pp=2"], "dp/tp axes only"),
+    (["--mesh", "tp=2", "--index", "random:n=64,dim=8"],
+     "--index does not compose with --mesh"),
+    (["--mesh", "tp"], "bad --mesh"),
 ])
 def test_serve_fleet_refuses_before_any_replica_boots(monkeypatch, argv,
                                                       item):

@@ -1,10 +1,11 @@
 """The port's tensor parallelism against the JAX package's, on the CPU.
 
-The rule table and the parameter placement against JAX's
-(``parallel/tensor_parallel.py``) in this process; training, the
-checkpoint zip, the elastic dp x tp shrink and tensor-parallel serving
-over gloo ranks (``tests/torch_mp_worker.py``), against the JAX package
-on one device. Initial weights cross by a zip the JAX package writes.
+The rule table, the parameter placement and the squared sums over
+shards against JAX's (``parallel/tensor_parallel.py``) in this process;
+training (every norm the update takes among it), the health vector and
+the stats listener's reports, the checkpoint zip, the elastic dp x tp
+shrink and tensor-parallel serving over gloo ranks
+(``tests/torch_mp_worker.py``), against the JAX package on one device. Initial weights cross by a zip the JAX package writes.
 Tolerances are ``tests/test_parallel.py``'s: rtol 1e-5, atol 1e-6 for
 one SGD step of the MLP, rtol 2e-4, atol 2e-5 after Adam steps.
 """
@@ -54,16 +55,13 @@ pytestmark = [pytest.mark.mesh,
 V, T, C = 11, 8, 16
 
 
-def mlp(seed=9, clip=None, norm=None, constraints=()):
+def mlp(seed=9, clip=None):
     b = NeuralNetConfiguration.builder().set_seed(seed)
     if clip is not None:                 # ("norm" | "value", v)
         b = (b.clip_gradient_norm if clip[0] == "norm"
              else b.clip_gradient_value)(clip[1])
-    if norm is not None:
-        b = b.gradient_normalization(*norm)
     conf = (b.updater(updaters.sgd(0.1)).list()
-            .layer(DenseLayer(n_out=16, activation="tanh",
-                              constraints=constraints))
+            .layer(DenseLayer(n_out=16, activation="tanh"))
             .layer(OutputLayer(n_out=3))
             .set_input_type(InputType.feed_forward(4)).build())
     return MultiLayerNetwork(conf).init()
@@ -71,6 +69,39 @@ def mlp(seed=9, clip=None, norm=None, constraints=()):
 
 def mlp_value_clip(seed=9):
     return mlp(seed, clip=("value", 0.05))
+
+
+def mlp2(seed=9, clip=None, norm=None, constraints=()):
+    """Two hidden dense layers: one COLUMN and one ROW split under tp."""
+    b = NeuralNetConfiguration.builder().set_seed(seed)
+    if clip is not None:
+        b = b.clip_gradient_norm(clip)
+    if norm is not None:
+        b = b.gradient_normalization(*norm)
+    b = b.updater(updaters.sgd(0.1)).list()
+    for _ in range(2):
+        b = b.layer(DenseLayer(n_out=16, activation="tanh",
+                               constraints=constraints))
+    conf = (b.layer(OutputLayer(n_out=3))
+            .set_input_type(InputType.feed_forward(4)).build())
+    return MultiLayerNetwork(conf).init()
+
+
+# every norm the update takes, each active on mlp2's first steps over the
+# iris rows (global gradient norm ~3.1; per layer ~2.4, 1.7, 0.9; the
+# hidden weights' column norms ~0.5 and ~0.9)
+NORM_CASES = {
+    "n_clip": {"clip": 1.0},
+    "n_rl2l": {"norm": ("renormalize_l2_per_layer",)},
+    "n_rl2p": {"norm": ("renormalize_l2_per_param_type",)},
+    "n_cl2l": {"norm": ("clip_l2_per_layer", 1.0)},
+    "n_cl2p": {"norm": ("clip_l2_per_param_type", 0.5)},
+    "n_max": {"constraints": ({"type": "max_norm", "max_norm": 0.5},)},
+    "n_minmax": {"constraints": ({"type": "min_max_norm", "min_norm": 0.6,
+                                  "max_norm": 0.8, "rate": 0.7},)},
+    "n_unit": {"constraints": ({"type": "unit_norm",
+                                "apply_to_biases": True},)},
+}
 
 
 def attn_net(seed=7):
@@ -84,9 +115,11 @@ def attn_net(seed=7):
     return MultiLayerNetwork(conf).init()
 
 
-def attn_graph(seed=3):
-    conf = (NeuralNetConfiguration.builder().set_seed(seed)
-            .updater(updaters.adam(0.01)).graph_builder()
+def attn_graph(seed=3, clip=None, updater=None):
+    b = NeuralNetConfiguration.builder().set_seed(seed)
+    if clip is not None:
+        b = b.clip_gradient_norm(clip)
+    conf = (b.updater(updater or updaters.adam(0.01)).graph_builder()
             .add_inputs("in")
             .add_layer("attn", SelfAttentionLayer(n_out=16, n_heads=4), "in")
             .add_layer("ff", DenseLayer(n_out=16, activation="relu"), "attn")
@@ -118,12 +151,23 @@ def _data():
     iris = (xs[:64].astype(np.float32), ys[:64].astype(np.float32))
     return {"mlp": iris, "mlpcv": iris,
             "attn": (seq_x, seq_y), "cg": (seq_x, seq_y),
-            "lm": (ids, ids_y)}
+            "lm": (ids, ids_y), "health": iris, "n_cg": (seq_x, seq_y),
+            **{name: iris for name in NORM_CASES}}
+
+
+def cg_norm_clip(seed=3, clip=0.5):
+    """The attention graph (heads and a COLUMN dense split) under a
+    global-norm clip, trained by SGD."""
+    return attn_graph(seed, clip=clip, updater=updaters.sgd(0.1))
 
 
 MAKERS = {"mlp": mlp, "mlpcv": mlp_value_clip, "attn": attn_net,
-          "cg": attn_graph, "lm": lm}
-STEPS = {"mlp": 1, "mlpcv": 1, "attn": 3, "cg": 3, "lm": 2}
+          "cg": attn_graph, "lm": lm, "n_cg": cg_norm_clip,
+          "health": lambda: mlp2(clip=1.0),
+          **{name: (lambda kw=kw: mlp2(**kw))
+             for name, kw in NORM_CASES.items()}}
+STEPS = {"mlp": 1, "mlpcv": 1, "attn": 3, "cg": 3, "lm": 2, "n_cg": 3,
+         "health": 2, **{name: 2 for name in NORM_CASES}}
 
 
 def _jax_trained(name):
@@ -143,8 +187,9 @@ def runs(tmp_path_factory):
     data = _data()
     out = {}
     for world, spec, names, extra in (
-            (4, "dp=2,tp=2", ["mlp", "mlpcv", "attn", "cg"],
-             ["elastic:dp=2,tp=2", "tpk:dp=2,tp=2"]),
+            (4, "dp=2,tp=2", ["mlp", "mlpcv", "attn", "cg", "n_cg"]
+             + list(NORM_CASES),
+             ["elastic:dp=2,tp=2", "tpk:dp=2,tp=2", "tph:dp=2,tp=2"]),
             (2, "tp=2", ["lm"], ["serve:tp=2"])):
         d = tmp_path_factory.mktemp(f"tp{world}")
         for name in names:
@@ -157,8 +202,11 @@ def runs(tmp_path_factory):
             write_model(lm(seed=13), str(d / "serve.zip"))
         else:
             _elastic_inputs(d)
-            # a global-norm clip over split layers: refused on every rank
-            write_model(mlp(clip=("norm", 1.0)), str(d / "mlpcn.zip"))
+            np.savez(d / "health.npz", x=data["health"][0],
+                     y=data["health"][1])
+            write_model(MAKERS["health"](), str(d / "health.zip"))
+            with open(d / "health.json", "w") as f:
+                json.dump(STEPS["health"], f)
         scenarios = [f"tp:{spec}"] + extra
         worker.launch(world, d, scenarios, timeout=150,
                       argv=_argv(d, scenarios))
@@ -257,50 +305,195 @@ def test_dp2_tp2_training_matches_jax_single_device(runs, name, tol):
     assert set(modes.values()) >= {"column"}, modes
 
 
-def test_dp2_tp2_refuses_a_norm_over_split_layers(runs):
-    """A global-norm gradient clip would be taken over each rank's
-    shards alone: every rank of dp=2 x tp=2 refuses it before a step
-    (value clipping, held against JAX above, runs)."""
-    for r in runs[4]["tp"]:
-        assert "gradient_clip by norm" in str(r["mlpcn_refused"])
+@pytest.mark.parametrize("name", sorted(NORM_CASES) + ["n_cg"])
+def test_dp2_tp2_norm_update_matches_jax_single_device(runs, name):
+    """Every norm the update takes (the global-norm clip, the four L2
+    gradient normalizations, the max / min-max / unit-norm constraints,
+    a graph's clip) over dp=2 x tp=2 equals the JAX package's on one
+    device, which takes it over the full arrays; and the norm acted
+    (the run differs from the same model without it)."""
+    want = _jax_trained(name).params_flat()
+    ranks = runs[4]["tp"]
+    tol = (2e-4, 2e-5) if name == "n_cg" else (1e-5, 1e-6)
+    for r in ranks:
+        np.testing.assert_allclose(r[name], want, rtol=tol[0], atol=tol[1])
+    modes = json.loads(str(ranks[0][name + "_modes"]))["modes"]
+    if name == "n_cg":
+        assert set(modes.values()) == {"attention_heads", "column"}, modes
+        plain = attn_graph(updater=updaters.sgd(0.1))
+    else:                # one COLUMN and one ROW split dense layer
+        assert modes == {"0": "column", "1": "row"}, modes
+        plain = mlp2()
+    x, y = _data()[name]
+    for _ in range(STEPS[name]):
+        plain.fit(DataSet(x, y))
+    assert np.abs(plain.params_flat() - want).max() > 1e-3
 
 
-@pytest.mark.parametrize("case,refused", [
-    ({"clip": ("norm", 1.0)}, "gradient_clip by norm"),
-    ({"clip": ("value", 0.5)}, None),
-    ({"norm": ("renormalize_l2_per_layer",)}, "gradient normalization"),
-    ({"norm": ("clip_l2_per_param_type", 1.0)}, "gradient normalization"),
-    ({"norm": ("clip_element_wise_absolute_value", 0.5)}, None),
-    ({"constraints": ({"type": "max_norm", "max_norm": 2.0},)},
-     "constraints"),
-    ({"constraints": ({"type": "non_negative"},)}, None),
-    ("graph", "gradient_clip by norm"),
+def _jax_health_and_stats():
+    from deeplearning4j_tpu.train.listeners import TrainingListener
+    from deeplearning4j_tpu.ui.stats import (InMemoryStatsStorage,
+                                             StatsListener)
+
+    class Rows(TrainingListener):
+        wants_device_health = True
+
+        def __init__(self):
+            self.rows = []
+
+        def iteration_done(self, model, iteration, score, batch_size):
+            self.rows.append(np.asarray(model._last_health, np.float32))
+
+    net = MAKERS["health"]()
+    rows, storage = Rows(), InMemoryStatsStorage()
+    net.set_listeners(rows, StatsListener(storage, frequency=1,
+                                          session_id="s",
+                                          collect_histograms=False))
+    x, y = _data()["health"]
+    for _ in range(STEPS["health"]):
+        net.fit(DataSet(x, y))
+    return net, rows.rows, storage.get_all_updates("s")
+
+
+def test_dp2_tp2_fused_health_matches_jax_single_device(runs):
+    """The fused health vector of each step under dp=2 x tp=2 (norms and
+    finiteness over the full arrays) equals the JAX package's on one
+    device: finite bits exactly, loss and norms to rtol 1e-5, on every
+    rank (each attaches the listener: the vector's all-reduce is over
+    the model group), and every rank's parameters agree."""
+    net, want, _ = _jax_health_and_stats()
+    ranks = runs[4]["tph"]
+    for r in ranks:
+        np.testing.assert_allclose(r["p"], net.params_flat(), rtol=1e-5,
+                                   atol=1e-6)
+        got = r["rows"]
+        assert got.shape == (STEPS["health"], 5)
+        np.testing.assert_array_equal(got[:, 0], np.stack(want)[:, 0])
+        np.testing.assert_allclose(got[:, 1:], np.stack(want)[:, 1:],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_dp2_tp2_stats_report_matches_jax_single_device(runs):
+    """Each StatsListener report under dp=2 x tp=2 reads the full
+    parameters: the same names and parameter mean magnitudes as the JAX
+    package's reports on one device (rtol 1e-5), and the update mean
+    magnitudes of the second report (rtol 1e-4: a difference of
+    parameters)."""
+    _, _, want = _jax_health_and_stats()
+    for r in runs[4]["tph"]:
+        got = json.loads(str(r["reports"]))
+        assert len(got) == len(want) == STEPS["health"]
+        for g, w in zip(got, want):
+            assert set(g["param"]) == set(w.param_mean_magnitudes)
+            for k, v in w.param_mean_magnitudes.items():
+                np.testing.assert_allclose(g["param"][k], v, rtol=1e-5,
+                                           err_msg=k)
+            assert set(g["update"]) == set(w.update_mean_magnitudes)
+            for k, v in w.update_mean_magnitudes.items():
+                np.testing.assert_allclose(g["update"][k], v, rtol=1e-4,
+                                           atol=1e-8, err_msg=k)
+
+
+# ---- the squared sums over shards, in this process: two ranks as two
+# threads, the model group's all-reduce as an exchange between them
+
+class _Exchange:
+    """``collectives.all_reduce_`` over two threads: each rank's tensor
+    becomes the sum of both."""
+
+    def __init__(self):
+        import threading
+        self.barrier = threading.Barrier(2)
+        self.slots = [None, None]
+        self.calls = [0, 0]
+
+    def __call__(self, t, grp, op="sum", kind="tp"):
+        r = grp.index
+        self.calls[r] += 1
+        self.slots[r] = t.clone()
+        self.barrier.wait()
+        total = self.slots[0] + self.slots[1]
+        self.barrier.wait()
+        t.copy_(total)
+        return t
+
+
+def _on_two_ranks(monkeypatch, shards, dims, fn):
+    """``fn()`` on each of two simulated ranks, rank r holding
+    ``shards[r]`` (a layer's params dict) with split ``dims``, inside
+    ``sharded_norms``; returns (the results, the all-reduces each rank
+    made)."""
+    import threading
+    import torch
+    from deeplearning4j_tpu_torch.parallel import collectives
+    ex = _Exchange()
+    monkeypatch.setattr(collectives, "all_reduce_", ex)
+    out = [None, None]
+
+    class Model:
+        pass
+
+    def rank(r):
+        m = Model()
+        m.params = [{k: torch.from_numpy(v) for k, v in shards[r].items()}]
+        m._tp = ttp.TPPlan(RankGroup(None, None, [0, 1], r, "gloo"),
+                           {0: "row"}, {0: dims})
+        with ttp.sharded_norms(m):
+            out[r] = fn(m.params[0], ttp.norm_dims()[0])
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    return out, ex.calls
+
+
+@pytest.mark.parametrize("shape,dim,axes", [
+    ((6, 4), 0, (0,)),          # ROW weight, column norms: reduced
+    ((6, 4), 1, (0,)),          # COLUMN weight, column norms: local
+    ((8,), 0, (0,)),            # a COLUMN layer's bias: reduced
+    ((6, 4), 1, None),          # any split leaf, a whole-leaf norm
+    ((6, 4), None, (0,)),       # replicated: local, taken once
+    ((3, 3, 4, 6), 3, (0, 1, 2)),   # conv by output channels: local
 ])
-def test_norm_updates_over_split_layers_are_refused(tmp_path, case,
-                                                    refused):
-    """``refuse_norm_updates``: a norm over parameters tp splits (a
-    global-norm clip, a split layer's L2 gradient normalization or
-    norm constraints) is refused; entry-wise clipping and the
-    non-negative constraint are not."""
-    if case == "graph":
-        conf = (NeuralNetConfiguration.builder().set_seed(3)
-                .clip_gradient_norm(1.0).updater(updaters.adam(0.01))
-                .graph_builder().add_inputs("in")
-                .add_layer("ff", DenseLayer(n_out=16), "in")
-                .add_layer("out", OutputLayer(n_out=3), "ff")
-                .set_outputs("out")
-                .set_input_types(InputType.feed_forward(4)).build())
-        net = ComputationGraph(conf).init()
-    else:
-        net = mlp(**case)
-    path = str(tmp_path / "m.zip")
-    write_model(net, path)
-    port = t_restore(path, device="cpu")
-    if refused is None:
-        ttp.refuse_norm_updates(port)
-    else:
-        with pytest.raises(NotImplementedError, match=refused):
-            ttp.refuse_norm_updates(port)
+def test_sq_sum_of_two_shards_is_the_full_arrays(monkeypatch, shape, dim,
+                                                 axes):
+    """``tensor_parallel.sq_sum`` on two shards of one array gives each
+    rank the full array's squared sum over the axes (a kept split axis:
+    this rank's slice of it), all-reducing only across the split."""
+    full = np.random.default_rng(len(shape)).normal(
+        size=shape).astype(np.float32)
+    want = (full.astype(np.float64) ** 2).sum(
+        axis=axes, keepdims=axes is not None)
+    shards = ([{"w": a} for a in np.split(full, 2, axis=dim)]
+              if dim is not None else [{"w": full}, {"w": full}])
+    got, calls = _on_two_ranks(
+        monkeypatch, shards, {"w": dim},
+        lambda p, d: ttp.sq_sum(p["w"], d["w"], axes).numpy())
+    crosses = dim is not None and (axes is None or dim in axes)
+    assert calls == ([1, 1] if crosses else [0, 0])
+    for r in (0, 1):
+        part = want if crosses or dim is None or axes is None \
+            else np.split(want, 2, axis=dim)[r]
+        np.testing.assert_allclose(got[r], part, rtol=1e-5)
+
+
+def test_tree_sq_sum_counts_replicated_leaves_once(monkeypatch):
+    """A layer's squared sum over split and replicated leaves: the split
+    partials in one all-reduce, the replicated bias added once."""
+    rng = np.random.default_rng(3)
+    w = rng.normal(size=(6, 4)).astype(np.float32)
+    b = rng.normal(size=(4,)).astype(np.float32)
+    shards = [{"W": a, "b": b} for a in np.split(w, 2, axis=0)]
+    got, calls = _on_two_ranks(
+        monkeypatch, shards, {"W": 0, "b": None},
+        lambda p, d: float(ttp.tree_sq_sum(p, d)))
+    assert calls == [1, 1]
+    want = float((w.astype(np.float64) ** 2).sum()
+                 + (b.astype(np.float64) ** 2).sum())
+    assert got[0] == got[1]
+    np.testing.assert_allclose(got[0], want, rtol=1e-6)
 
 
 def test_tp2_lm_matches_jax_and_its_zip_loads_into_jax(runs):

@@ -72,8 +72,7 @@ def _fit_steps(net, ds, steps, mesh_spec=None):
 
 def sc_tp(rank, world, arg):
     """``fit(mesh_spec=arg)`` (dp x tp) of the zips named in tp.json,
-    each for its step count, on this rank's rows; and, where the test
-    wrote mlpcn.zip (a global-norm clip), that fit's refusal."""
+    each for its step count, on this rank's rows."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.parallel.mesh_spec import (
         build_mesh_context)
@@ -95,16 +94,53 @@ def sc_tp(rank, world, arg):
             snap = snapshot_model(net)
             if rank == 0:
                 write_snapshot(snap, "lm_tp.zip")
-    if os.path.exists("mlpcn.zip"):      # norm-clipped: refused alike
-        d = np.load("mlp.npz")
-        try:
-            _net("mlpcn").fit(DataSet(ctx.local_shard(d["x"], temporal=False),
-                                      ctx.local_shard(d["y"], temporal=False)),
-                              mesh_spec=ctx)
-            out["mlpcn_refused"] = np.array("")
-        except NotImplementedError as e:
-            out["mlpcn_refused"] = np.array(str(e))
     return out
+
+
+def _health_rows():
+    """A listener that asks for the fused health vector and keeps each
+    step's row (``.rows``)."""
+    from deeplearning4j_tpu_torch.train.listeners import TrainingListener
+
+    class HealthRows(TrainingListener):
+        wants_device_health = True
+
+        def __init__(self):
+            self.rows = []
+
+        def iteration_done(self, model, iteration, score, batch_size):
+            self.rows.append(np.asarray(model._last_health, np.float32))
+    return HealthRows()
+
+
+def sc_tph(rank, world, arg):
+    """health.zip's model for health.json's step count under ``arg``
+    (dp x tp), with a StatsListener reporting every step on every rank
+    and a health-vector listener, both on every rank (each is
+    collective over the model group): the health rows, and each
+    report's parameter and update magnitudes."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel.mesh_spec import (
+        build_mesh_context)
+    from deeplearning4j_tpu_torch.ui.stats import (InMemoryStatsStorage,
+                                                   StatsListener)
+    with open("health.json") as f:
+        steps = json.load(f)
+    ctx = build_mesh_context(arg)
+    d = np.load("health.npz")
+    net = _net("health")
+    rows, storage = _health_rows(), InMemoryStatsStorage()
+    stats = StatsListener(storage, frequency=1, session_id="s",
+                          collect_histograms=False)
+    net.set_listeners(rows, stats)
+    ds = DataSet(*(ctx.local_shard(d[k], temporal=False) for k in ("x", "y")))
+    _fit_steps(net, ds, steps, mesh_spec=ctx)
+    reports = [{"param": r.param_mean_magnitudes,
+                "update": r.update_mean_magnitudes}
+               for r in storage.get_all_updates("s")]
+    return {"rows": np.stack(rows.rows),
+            "reports": np.array(json.dumps(reports)),
+            "p": _flat(net)}
 
 
 def sc_tpk(rank, world, arg):
