@@ -9,7 +9,11 @@ tensor-core (HMMA) instructions of each kernel function in the built
 libraries (and fails if any of the nine, three kernels at D = 32, 64
 and 128, has none), holds each kernel
 (the flash-attention forward, dq and dk/dv, the paged decode attention)
-against its plain PyTorch version on the card, serves the full-width
+against its plain PyTorch version on the card, at those head dims and
+at 4, 8, 16, 48 and 96, which the wrappers zero-pad to the next of them
+(times and bounds at the true D; every kernel time is held against its
+bound, and a time under it fails the run; 160, past the kernels' limit,
+must be refused), serves the full-width
 transformer LM (V=2048, D=1024, L=8, H=16, T=1024; random weights from
 a seed) through ``ModelServer`` ``/v1/predict`` and checks what comes
 back, trains the same LM with Adam for a few steps through ``fit``
@@ -187,7 +191,18 @@ retrieval_phase's 10^6 x 128 corpus (200 requests, 20 held against a
 float64 brute force), the streaming route (4 (1, T) id messages
 through the LM over a socket broker, published at once by a client
 process, equal to ``net.output``), and the
-``ui`` and ``serve-knn`` verbs as subprocesses stopped by SIGINT. The fleet phases' replicas serve the LM
+``ui`` and ``serve-knn`` verbs as subprocesses stopped by SIGINT. Last
+(``surface_phase``) the package's public surface: the README quickstart
+through ``from deeplearning4j_tpu_torch import MultiLayerNetwork,
+NeuralNetConfiguration`` (LeNet, 8 batches of the MNIST surrogate,
+evaluated), the committed v1 checkpoint fixtures against their
+``*_io.npz`` outputs, bench.py's disaggregation model (head dim 16)
+trained one step and served through ``/v1/generate`` on the decode
+kernel against the plain decode attention, the five card-runnable
+examples at tests/test_examples.py's settings (the flash kernels
+launched by the three attention ones), and ``evict_model`` on the
+full-width LM served as v1 and v2 (v1's parameter and page-pool bytes
+freed, v2 still answering). The fleet phases' replicas serve the LM
 at full width and depth FLEET_LAYERS, and slice_phase's predicts send
 SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
 wall time is logged. It imports nothing of JAX or of the
@@ -248,6 +263,14 @@ PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 # (csrc/tf32_mma.cuh): 165 TFLOP/s, the fastest f32-accurate route on
 # the card, so the bound every kernel is held to
 PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
+# head dims the attention kernels are not instantiated for (they are at
+# 32, 64 and 128): zero-padded to the next of those, at the true D's
+# scale (ops/native.kernel_head_dim); 160 is past the kernels' limit
+PAD_DIMS = (4, 8, 16, 48, 96)
+REFUSED_DIM = 160
+# the widths timed a kernel: the padded ones and, beside them, 32 and 128
+# unpadded (64 is the LM shape's, timed on its own)
+TIMED_DIMS = (4, 8, 16, 32, 48, 96, 128)
 
 
 def log(*a):
@@ -301,9 +324,36 @@ def attention_bound(B, T_, H, D, causal, kv_mask=None):
     return bound(flops, nbytes)
 
 
+def padded_cases(pad):
+    """The head-dim cases of the flash kernels' checks at every PAD_DIMS
+    width: causal at the LM's T, and a ragged T with a key mask (row 5
+    fully masked), causal and not."""
+    ragged = pad[:, :333]
+    return [((2, T, HEADS, D), True, None, f"D={D}, causal")
+            for D in PAD_DIMS] + [
+        ((8, 333, 4, D), causal, ragged,
+         f"D={D}, ragged T=333, kv_mask, "
+         + ("causal" if causal else "non-causal"))
+        for D in PAD_DIMS for causal in (True, False)]
+
+
+def assert_refused(call, what):
+    """``call`` must raise the kernels' head-dim limit error."""
+    try:
+        call()
+    except ValueError as e:
+        assert f"head dim {REFUSED_DIM} exceeds" in str(e) \
+            and "limit of 128" in str(e), e
+        log(f"{what}: D={REFUSED_DIM} refused ({e})")
+        return
+    raise AssertionError(f"{what}: D={REFUSED_DIM} was not refused")
+
+
 def kernel_phase(attn):
-    """Hold flash_attention_fwd against its plain version on the card;
-    time it at the LM shape. Returns the kernel's record (without
+    """Hold flash_attention_fwd against its plain version on the card,
+    at D = 32, 64, 128 and every PAD_DIMS width; check D = REFUSED_DIM
+    is refused; time it at the LM shape and at each padded width (the
+    bound at the true D). Returns the kernel's record (without
     launches)."""
     import torch
     import torch.nn.functional as F
@@ -329,8 +379,9 @@ def kernel_phase(attn):
               "predict T=128, non-causal"),
              # rnn_phase's hybrid check (4 heads of 64)
              ((HYBRID_B, HYBRID_T, 4, 64), True, None,
-              "hybrid T=256, 4 heads, causal")]
+              "hybrid T=256, 4 heads, causal")] + padded_cases(pad)
     max_err = 0.0
+    err_by_dim = {}
     for shape, causal, mask, what in cases:
         q, k, v = rand(*shape), rand(*shape), rand(*shape)
         o, lse = attn.flash_attention_fwd(q, k, v, mask, causal=causal)
@@ -346,9 +397,13 @@ def kernel_phase(attn):
         err = max((o - po).abs().max().item(),
                   (lse - plse).abs().max().item())
         max_err = max(max_err, err)
+        err_by_dim[shape[3]] = max(err_by_dim.get(shape[3], 0.0), err)
         log(f"kernel case {what} {tuple(shape)}: max |kernel - plain| "
             f"= {err:.3e} (atol {ATOL}, rtol {RTOL})")
         del q, k, v, o, lse, po, plse
+    q = rand(1, 8, 1, REFUSED_DIM)
+    assert_refused(lambda: attn.flash_attention_fwd(q, q, q),
+                   "flash_attention_fwd")
 
     B = 8
     q, k, v = rand(B, T, HEADS, 64), rand(B, T, HEADS, 64), \
@@ -359,7 +414,22 @@ def kernel_phase(attn):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
+    by_dim = {}
+    for D in TIMED_DIMS:
+        qd, kd, vd = (rand(B, T, HEADS, D) for _ in range(3))
+        ms_d = time_ms(lambda: attn.flash_attention_fwd(qd, kd, vd,
+                                                        causal=True))
+        b_d = attention_bound(B, T, HEADS, D, True)
+        check_bound(ms_d, b_d, f"flash_attention_fwd at D={D}")
+        by_dim[str(D)] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
+                          "bound_by": b_d["bound_by"],
+                          "max_abs_err": err_by_dim[D]}
+        log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D={D}) "
+            f"causal{padded_note(D)}: {ms_d:.4f} ms a call, bound at "
+            f"the true D {b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
+        del qd, kd, vd
     b = attention_bound(B, T, HEADS, 64, True)
+    check_bound(ms, b, "flash_attention_fwd at D=64")
     log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D=64) causal: "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
@@ -371,7 +441,20 @@ def kernel_phase(attn):
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "deeplearning4j_tpu/ops/attention.py:71",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "by_head_dim": by_dim}
+
+
+def native_head_dim(D):
+    from deeplearning4j_tpu_torch.ops.native import kernel_head_dim
+    return kernel_head_dim(D)
+
+
+def padded_note(D, once=False):
+    Dp = native_head_dim(D)
+    if Dp == D:
+        return ""
+    return (f", padded to {Dp} (one pad for both kernels, slices)" if once
+            else f", padded to {Dp} (pad, kernel, slice)")
 
 
 def backward_bound(B, T_, H, D, causal, which):
@@ -389,8 +472,11 @@ def backward_bound(B, T_, H, D, causal, which):
 
 def backward_kernel_phase(attn):
     """Hold the dq and dk/dv kernels against their plain versions on the
-    card in the forward's cases; time them at the LM shape.
-    Returns their records (without launches)."""
+    card in the forward's cases (the PAD_DIMS widths among them), and
+    ``flash_attention_bwd_cuda`` (the path's route) against them; check
+    D = REFUSED_DIM is refused; time them at the LM shape and, inside
+    the path's route, at each width of TIMED_DIMS. Returns their records
+    (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -415,8 +501,9 @@ def backward_kernel_phase(attn):
               "predict T=128, non-causal"),
              # rnn_phase's hybrid check (4 heads of 64)
              ((HYBRID_B, HYBRID_T, 4, 64), True, None,
-              "hybrid T=256, 4 heads, causal")]
+              "hybrid T=256, 4 heads, causal")] + padded_cases(pad)
     err = {"dq": 0.0, "dkv": 0.0}
+    err_by_dim = {"dq": {}, "dkv": {}}
     for shape, causal, mask, what in cases:
         q, k, v, do = (rand(*shape) for _ in range(4))
         o, lse = attn.flash_attention_fwd(q, k, v, mask, causal=causal)
@@ -424,7 +511,14 @@ def backward_kernel_phase(attn):
             q, k, v, o, lse, do, mask, causal=causal)
         dk, dv = attn.flash_attention_bwd_dkv_cuda(
             q, k, v, lse, delta, do, mask, causal=causal)
+        # the route autograd and the ring take (operands padded once for
+        # both kernels): the same launches on the same values
+        route = attn.flash_attention_bwd_cuda(q, k, v, o, lse, do, mask,
+                                              causal=causal)
         torch.cuda.synchronize()
+        for a, b in zip(route, (dq, dk, dv)):
+            assert torch.equal(a, b), \
+                f"flash_attention_bwd_cuda differs from dq, dk/dv: {what}"
         pdq, pdelta = attn.flash_attention_bwd_dq_plain(
             q, k, v, o, lse, do, mask, causal=causal)
         pdk, pdv = attn.flash_attention_bwd_dkv_plain(
@@ -439,12 +533,50 @@ def backward_kernel_phase(attn):
         e_dkv = max((dk - pdk).abs().max().item(),
                     (dv - pdv).abs().max().item())
         err["dq"], err["dkv"] = max(err["dq"], e_dq), max(err["dkv"], e_dkv)
+        for which, e in (("dq", e_dq), ("dkv", e_dkv)):
+            by = err_by_dim[which]
+            by[shape[3]] = max(by.get(shape[3], 0.0), e)
         log(f"backward case {what} {tuple(shape)}: max |kernel - plain| "
             f"dq/delta {e_dq:.3e}, dk/dv {e_dkv:.3e} (atol {ATOL}, rtol "
-            f"{RTOL})")
+            f"{RTOL}); flash_attention_bwd_cuda bit-identical")
         del q, k, v, do, o, lse, dq, delta, dk, dv, pdq, pdelta, pdk, pdv
+        del route
+    q = rand(1, 8, 1, REFUSED_DIM)
+    lse = torch.zeros(1, 1, 8, device="cuda")
+    assert_refused(lambda: attn.flash_attention_bwd_dq_cuda(
+        q, q, q, q, lse, q), "flash_attention_bwd_dq")
+    assert_refused(lambda: attn.flash_attention_bwd_dkv_cuda(
+        q, q, q, lse, lse, q), "flash_attention_bwd_dkv")
+    assert_refused(lambda: attn.flash_attention_bwd_cuda(
+        q, q, q, q, lse, q), "flash_attention_bwd")
 
     B = 8
+    by_dim = {"dq": {}, "dkv": {}}
+    for D in TIMED_DIMS:
+        # at each width, the backward as the path runs it: one pad for
+        # both kernels, dq, dk/dv, the slices; each kernel's device time
+        # and the whole call's
+        qd, kd, vd, dod = (rand(B, T, HEADS, D) for _ in range(4))
+        od, lsed = attn.flash_attention_fwd(qd, kd, vd, causal=True)
+        route_ms, kern = device_times(
+            lambda: attn.flash_attention_bwd_cuda(qd, kd, vd, od, lsed, dod,
+                                                  causal=True),
+            iters=20, kernels=("dq_kernel", "dkv_kernel"))
+        for which in ("dq", "dkv"):
+            b_d = backward_bound(B, T, HEADS, D, True, which)
+            ms_d = kern[which + "_kernel"]
+            check_bound(ms_d, b_d, f"flash_attention_bwd_{which} at D={D}")
+            by_dim[which][str(D)] = {
+                "ms": ms_d, "route_ms": route_ms,
+                "bound_ms": b_d["bound_ms"], "bound_by": b_d["bound_by"],
+                "max_abs_err": err_by_dim[which][D]}
+            log(f"flash_attention_bwd_{which} at (B={B}, T={T}, "
+                f"H={HEADS}, D={D}) causal{padded_note(D, once=True)}: "
+                f"the kernel {ms_d:.4f} ms of device time a call "
+                f"(torch.profiler) of flash_attention_bwd_cuda's "
+                f"{route_ms:.4f} ms, bound at the true D "
+                f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
+        del qd, kd, vd, dod, od, lsed
     q, k, v, do = (rand(B, T, HEADS, 64) for _ in range(4))
     o, lse = attn.flash_attention_fwd(q, k, v, causal=True)
     _, delta = attn.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do,
@@ -469,6 +601,7 @@ def backward_kernel_phase(attn):
     for which, name, line in (("dq", "flash_attention_bwd_dq", 263),
                               ("dkv", "flash_attention_bwd_dkv", 312)):
         b = backward_bound(B, T, HEADS, 64, True, which)
+        check_bound(ms[which], b, f"{name} at D=64")
         log(f"{name} at (B={B}, T={T}, H={HEADS}, D=64) causal: kernel "
             f"{ms[which]:.4f} ms, plain {plain_ms[which]:.4f} ms, bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}); kernel at "
@@ -480,7 +613,8 @@ def backward_kernel_phase(attn):
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"deeplearning4j_tpu/ops/attention.py:{line}",
             "max_abs_err": err[which], "ms": ms[which],
-            "plain_ms": plain_ms[which], **b, "library_ms": library_ms})
+            "plain_ms": plain_ms[which], **b, "library_ms": library_ms,
+            "by_head_dim": by_dim[which]})
     log(f"whole backward: dq + dk/dv kernels {ms['dq'] + ms['dkv']:.4f} "
         f"ms; torch.autograd.grad through scaled_dot_product_attention "
         f"(f32, causal) {library_ms:.4f} ms (the library_ms of both "
@@ -886,25 +1020,61 @@ PROMPT_MIN, PROMPT_MAX = 16, 512       # prompt lengths, drawn uniformly
 TIE_RTOL = 1e-5
 
 
-def device_ms(fn, iters=50):
-    """Device time of one call of ``fn``: the CUDA kernels' time in a
-    torch.profiler window of ``iters`` warm calls, over ``iters``. Fails if
-    the profiler recorded no device time."""
+def device_times(fn, iters=50, kernels=(), tries=5, fixed=True):
+    """Device time of one call of ``fn``, from torch.profiler over a
+    window of ``iters`` warm calls: (the CUDA events' ms a call, {each
+    of ``kernels`` (name substrings): its ms a call}). The profiler
+    loses events now and then (a process's first window, or one kernel
+    of a window), so a window counts only if it holds ``iters`` of each
+    of ``kernels`` and, where ``fn`` launches the same kernels every
+    call (``fixed``), a multiple of ``iters`` device events; one that
+    does not is logged and taken again, and after ``tries`` such
+    windows the call fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        count = sum(c for _, c, _ in events)
+        named = {k: [(c, us) for key, c, us in events if k in key]
+                 for k in kernels}
+        counts = {k: sum(c for c, _ in v) for k, v in named.items()}
+        if count and (count % iters == 0 or not fixed) \
+                and all(n == iters for n in counts.values()):
+            return (sum(us for _, _, us in events) / 1e3 / iters,
+                    {k: sum(us for _, us in v) / 1e3 / iters
+                     for k, v in named.items()})
+        log(f"device_times: window {attempt + 1} of {tries} holds {count} "
+            f"device events for {iters} calls ({counts} of the named "
+            "kernels); taken again")
+    raise RuntimeError(f"torch.profiler lost device events in {tries} "
+                       "windows")
+
+
+def device_ms(fn, iters=50, kernels=(), fixed=True):
+    """The device ms of one call of ``fn`` (``device_times``)."""
+    return device_times(fn, iters, kernels, fixed=fixed)[0]
+
+
+def check_bound(ms, b, what):
+    """Fail on a time under its bound: no run of the work is faster, so
+    such a reading lost some of it."""
+    if not ms >= b["bound_ms"]:
+        raise AssertionError(f"{what}: {ms} ms is under its bound "
+                             f"{b['bound_ms']} ms ({b['bound_by']})")
+
+
+# the decode wrapper's own launches a call (csrc/decode_attention.cu)
+DECODE_KERNELS = ("decode_split_kernel", "decode_merge_kernel")
 
 
 def decode_bound(S, t, H, D, pos, P):
@@ -930,22 +1100,39 @@ def paged_inputs(g, S, t, D, pos, ps=PAGE, P=CAPACITY // PAGE, H=HEADS):
     return q, kp, vp, table, torch.tensor(pos, dtype=torch.int32)
 
 
+def session_pools(da, kp, vp):
+    """``kp``, ``vp`` copied into pools laid out as the sessions allocate
+    them (``zero_kv_pool``: at a padded head dim, the D-wide view of a
+    buffer at the kernel's width, which the kernel reads in place)."""
+    out = []
+    for p in (kp, vp):
+        pool = da.zero_kv_pool(*p.shape, device=p.device)
+        pool.copy_(p)
+        out.append(pool)
+    return out
+
+
 def decode_kernel_phase(da):
     """Hold the paged decode-attention kernel against its plain version
-    on the card at D = 32, 64, 128 (page edges, chunk edges of the split
+    on the card at D = 32, 64, 128 and every PAD_DIMS width (there on
+    the sessions' padded pools, the dense case on a contiguous pool the
+    wrapper pads by a copy), check D = REFUSED_DIM is refused
+    (page edges, chunk edges of the split
     kernel with positions read from device memory, t = 1, 4, 16 and 128,
     a shared prefix, a dense cache, an inactive slot, and at D = 64 the
     hybrid check's dense cache of 4 rows x 256, 4 heads), check that two
     launches on the same inputs give the same bits, and time it at the
     decode shape (S=8 slots, H=16, D=64, t=1, every slot at position 511
-    of a 1024-token page table of 16-token pages). Returns its record
-    (without launches)."""
+    of a 1024-token page table of 16-token pages) and at each padded
+    width (the bound at the true D). Returns its record (without
+    launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
+    err_by_dim = {}
     c = da.KEY_CHUNK
-    for D in (32, 64, 128):
+    for D in (32, 64, 128) + PAD_DIMS:
         cases = []
         q, kp, vp, table, pos = paged_inputs(
             g, 8, 1, D, [0, 1, 15, 16, 17, 511, 1023, 0])
@@ -979,6 +1166,12 @@ def decode_kernel_phase(da):
                 cases.append(("hybrid dense cache of 256, 4 heads", q, kp,
                               vp, torch.arange(HYBRID_B, dtype=torch.int32,
                                                device="cuda")[:, None], pos))
+        if D in PAD_DIMS:
+            cases = [(what, q, *session_pools(da, kp, vp), table, pos)
+                     if "dense" not in what else
+                     (what + ", a contiguous pool (padded by a copy)", q,
+                      kp, vp, table, pos)
+                     for what, q, kp, vp, table, pos in cases]
         for what, q, kp, vp, table, pos in cases:
             host = pos.cpu()
             o = da.decode_attention_cuda(q, kp, vp, table, pos,
@@ -992,13 +1185,37 @@ def decode_kernel_phase(da):
             torch.testing.assert_close(o, ref, atol=ATOL, rtol=RTOL)
             err = (o - ref).abs().max().item()
             max_err = max(max_err, err)
+            err_by_dim[D] = max(err_by_dim.get(D, 0.0), err)
             log(f"decode kernel D={D} {what} {tuple(q.shape)} pos "
                 f"{host.tolist()}: max |kernel - plain| = {err:.3e} (atol "
                 f"{ATOL}, rtol {RTOL}); a second launch bit-identical")
         del cases, q, kp, vp, table, o, again, ref
+    q, kp, vp, table, pos = paged_inputs(g, 2, 1, REFUSED_DIM, [0, 1],
+                                         P=2, H=2)
+    assert_refused(lambda: da.decode_attention_cuda(q, kp, vp, table, pos),
+                   "decode_attention")
 
-    S, D, P = SLOTS, 64, CAPACITY // PAGE
+    S, P = SLOTS, CAPACITY // PAGE
     pos_list = [511] * S
+    by_dim = {}
+    for D in TIMED_DIMS:
+        q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list)
+        kp, vp = session_pools(da, kp, vp)
+        pos = host.cuda()
+        ms_d = device_ms(lambda: da.decode_attention_cuda(
+            q, kp, vp, table, pos, host_pos=host), kernels=DECODE_KERNELS)
+        b_d = decode_bound(S, 1, HEADS, D, pos_list, P)
+        check_bound(ms_d, b_d, f"decode_attention at D={D}")
+        by_dim[str(D)] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
+                          "bound_by": b_d["bound_by"],
+                          "max_abs_err": err_by_dim[D]}
+        log(f"decode_attention at (S={S}, t=1, H={HEADS}, D={D}, pos 511) "
+            f"on the sessions' pools{padded_note(D)}: {ms_d:.4f} ms of "
+            f"device time a call (torch.profiler), bound at the true D "
+            f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
+        del q, kp, vp, table
+
+    D = 64
     q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list)
     pos = host.cuda()                 # as the replayed step passes them
     # the library yardstick, never called by the port: gather each slot's
@@ -1029,9 +1246,12 @@ def decode_kernel_phase(da):
     # torch.profiler
     per_call = {k: time_ms(fn, iters=100, warmup=10)
                 for k, fn in calls.items()}
-    ms, plain_ms, library_ms = (device_ms(calls[k])
-                                for k in ("kernel", "plain", "library"))
+    ms, plain_ms, library_ms = (
+        device_ms(calls[k], kernels=DECODE_KERNELS if k == "kernel" else ())
+        for k in ("kernel", "plain", "library"))
     b = decode_bound(S, 1, HEADS, D, pos_list, P)
+    for k, t in (("kernel", ms), ("plain", plain_ms), ("library", library_ms)):
+        check_bound(t, b, f"decode_attention's {k} at D={D}")
     log(f"decode_attention at (S={S}, t=1, H={HEADS}, D={D}, pos 511, "
         f"page_size {PAGE}, {da.n_key_splits(P * PAGE)} key chunks a "
         f"(slot, head)), device time per call (torch.profiler): kernel "
@@ -1046,7 +1266,7 @@ def decode_kernel_phase(da):
             "source": "deeplearning4j_tpu_torch/csrc/decode_attention.cu",
             "replaces": "deeplearning4j_tpu/nn/conf/layers/attention.py:290",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "by_head_dim": by_dim}
 
 
 class plain_decode_attention:
@@ -1064,7 +1284,8 @@ class plain_decode_attention:
         self.da.decode_attention = self.saved
 
 
-def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS):
+def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS,
+                 capacity=CAPACITY):
     """Hold served greedy ids against ``streaming_session(capacity,
     batch=1).generate`` on the plain decode attention. A mismatch passes
     only at a step where the reference's top two probabilities are
@@ -1072,7 +1293,7 @@ def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS):
     Returns the number of ids compared."""
     import numpy as np
     with plain_decode_attention(da):
-        ref = net.streaming_session(capacity=CAPACITY, batch=1).generate(
+        ref = net.streaming_session(capacity=capacity, batch=1).generate(
             np.asarray(prompt)[None], n_tokens)[0].cpu().numpy()
     ids = np.asarray(ids)
     bad = np.flatnonzero(ids != ref)
@@ -1080,7 +1301,7 @@ def check_greedy(net, da, prompt, ids, n_tokens=GEN_TOKENS):
         return ids.size
     m = int(bad[0])
     with plain_decode_attention(da):          # the reference at step m
-        sess = net.streaming_session(capacity=CAPACITY, batch=1)
+        sess = net.streaming_session(capacity=capacity, batch=1)
         probs = sess.step(np.asarray(prompt, np.float32)[None, :, None])
         for tok in ref[:m]:
             probs = sess.step(np.full((1, 1, 1), tok, np.float32))
@@ -5791,6 +6012,9 @@ def retrieval_index_leg(device, card):
     dev_ms = time_ms(lambda: _dot_topk(qd, snap.mat, snap.mask, 16)) \
         if device == "cuda" else float("nan")
     bound_ms = nbytes / PEAK_BYTES * 1e3
+    if device == "cuda":
+        check_bound(dev_ms, {"bound_ms": bound_ms, "bound_by": "bytes"},
+                    "the brute-force batch")
     qps = queries.shape[0] / wall
     log(f"brute force ({card}): {RETR_BATCHES} batches of B={RETR_B}, "
         f"k={RETR_K} through RetrievalService: p50 "
@@ -8286,9 +8510,14 @@ def nlp_skipgram_leg(corpus, card):
     step_ms = ms[len(ms) // 2]
     # the kernels' own time a step (the profiler, the last batch again):
     # the rest of the event-timed step is the host enqueueing its ops
-    kern_ms = device_ms(lambda: ns_step(syn0, syn1, c, x, n, 0.01), 20)
+    # (its windows of 20 calls held 1737 or 1800 device events, so their
+    # count is not held to a multiple of the calls; the bound check is)
+    kern_ms = device_ms(lambda: ns_step(syn0, syn1, c, x, n, 0.01), 20,
+                        fixed=False)
     nbytes = float(np.median(sizes))
     bound_ms = nbytes / PEAK_BYTES * 1e3
+    check_bound(kern_ms, {"bound_ms": bound_ms, "bound_by": "bytes"},
+                "the skip-gram NS step's kernels")
     flops = 2 * 3 * NLP_B * (NLP_NEG + 1) * NLP_D
     host_ms = (pairs_s + draws_s) * 1e3 / steps
     log(f"word2vec skip-gram NS ({card}): vocab {len(w2v.vocab)} "
@@ -8776,7 +9005,10 @@ LIB_KNN_REQUESTS = 200     # /knn and /knnindex requests at k = LIB_KNN_K
 LIB_KNN_K = 10
 LIB_KNN_CHECKED = 20       # of them held against the float64 brute force
 LIB_KNN_CLI_ROWS = 100_000  # the serve-knn verb's .npy (of the corpus)
-LIB_STREAM_MSGS = 16       # (1, T) id messages through the route
+# (1, T) id messages through the route: 4, not 16, to pay for
+# surface_phase within the smoke's time (each message is ~3.6 s of JSON
+# on the card's host)
+LIB_STREAM_MSGS = 4
 GC_REL = 1e-3              # the gradient check's limit (both packages')
 
 
@@ -9416,6 +9648,298 @@ def library_phase(attn, card):
     return launches
 
 
+# surface_phase: bench.py:3128's disaggregation model (head dim 16)
+DISAGG_V, DISAGG_D, DISAGG_H = 64, 32, 2
+DISAGG_CAP, DISAGG_PS = 96, 16
+DISAGG_PROMPT, DISAGG_TOKENS = 32, 8
+SURFACE_GEN_REQUESTS = 8
+# the examples at tests/test_examples.py's settings
+SURFACE_EXAMPLES = [
+    ("lenet_mnist", ["--epochs", "2", "--batch", "128"],
+     ["Accuracy", "checkpoint round trip OK"]),
+    ("word2vec_text", [], ["nearest(king):", "vectors written"]),
+    ("elastic_transformer", ["--epochs", "4"],
+     ["restart == uninterrupted: OK", "Accuracy after resume"]),
+    ("streaming_generation", ["--epochs", "1", "--gen-tokens", "8"],
+     ["bounded session matches eager decode OK"]),
+    ("tpu_transformer_generate",
+     ["--epochs", "1", "--gen-tokens", "8", "--trace", "{trace}"],
+     ["running on CUDA", "generated:", "step profile:",
+      "compile watch:"]),
+]
+# the examples whose training runs the three flash kernels
+ATTENTION_EXAMPLES = ("elastic_transformer", "streaming_generation",
+                      "tpu_transformer_generate")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+
+
+def surface_readme_quickstart(card):
+    """README.md's quickstart through the package's top-level names:
+    LeNet, 8 batches of the MNIST surrogate, evaluated."""
+    import math as _math
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork,
+                                          NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.data.fetchers import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ConvolutionLayer, DenseLayer, OutputLayer, SubsamplingLayer)
+    conf = (NeuralNetConfiguration.builder()
+            .set_seed(12345)
+            .updater(updaters.adam(1e-3))
+            .list()
+            .layer(ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .set_input_type(InputType.convolutional_flat(28, 28, 1))
+            .build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    t0 = time.perf_counter()
+    net.fit(MnistDataSetIterator(128, train=True, n=1024), epochs=1)
+    acc = net.evaluate(MnistDataSetIterator(256, train=False, n=1024,
+                                            shuffle=False)).accuracy()
+    loss = float(net.score_value)
+    assert _math.isfinite(loss) and 0.0 <= acc <= 1.0, (loss, acc)
+    log(f"README quickstart on {net.device} ({card}): 8 batches of 128 "
+        f"in {time.perf_counter() - t0:.2f} s, loss {loss:.4f}, "
+        f"accuracy {acc:.4f} on 1024 surrogate test digits")
+
+
+def surface_v1_fixtures():
+    """The committed v1 zips restored on the card, their outputs held
+    to ``*_io.npz`` (rtol 1e-4, atol 1e-5)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+    for name in ("mln_v1", "cg_v1"):
+        model = restore_model(os.path.join(FIXTURES, f"{name}.zip"),
+                              device="cuda")
+        io_ = np.load(os.path.join(FIXTURES, f"{name}_io.npz"))
+        out = model.output(io_["x"])
+        out = (out[0] if isinstance(out, (list, tuple)) else out)
+        out = out.cpu().numpy()
+        diff = float(np.abs(out - io_["out"]).max())
+        np.testing.assert_allclose(out, io_["out"], rtol=1e-4, atol=1e-5)
+        log(f"{name}.zip on the card: outputs vs {name}_io.npz max |diff| "
+            f"{diff:.3e} (rtol 1e-4, atol 1e-5)")
+
+
+def surface_disagg_generate(attn, da, card):
+    """bench.py:3128's disaggregation model (V=64, width 32 over 2 heads:
+    head dim 16) trained one Adam step, then served through
+    ``/v1/generate``: SURFACE_GEN_REQUESTS concurrent requests of
+    DISAGG_PROMPT ids, greedy ids against the same model's on the plain
+    decode attention, the decode kernel's launches moving."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork,
+                                          NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import InputType, updaters
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        EmbeddingSequenceLayer, RnnOutputLayer, TransformerEncoderLayer)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    conf = (NeuralNetConfiguration.builder().set_seed(0)
+            .updater(updaters.adam(1e-3)).list()
+            .layer(EmbeddingSequenceLayer(n_in=DISAGG_V, n_out=DISAGG_D))
+            .layer(TransformerEncoderLayer(n_heads=DISAGG_H, causal=True))
+            .layer(RnnOutputLayer(n_out=DISAGG_V, loss="mcxent"))
+            .set_input_type(InputType.recurrent(DISAGG_V, DISAGG_CAP))
+            .build())
+    net = MultiLayerNetwork(conf, device="cuda").init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, DISAGG_V, (8, DISAGG_PROMPT + 1))
+    y = np.eye(DISAGG_V, dtype=np.float32)[ids[:, 1:]]
+    fwd0, dq0 = (attn.flash_attention_fwd_cuda.launches,
+                 attn.flash_attention_bwd_dq_cuda.launches)
+    net.fit(DataSet(ids[:, :-1].astype(np.float32), y))
+    loss = float(net.score_value)
+    assert math.isfinite(loss), loss
+    assert attn.flash_attention_fwd_cuda.launches > fwd0
+    assert attn.flash_attention_bwd_dq_cuda.launches > dq0
+    registry = ModelRegistry()
+    registry.register("disagg", net)
+    server = ModelServer(registry, slots=4, capacity=DISAGG_CAP,
+                         page_size=DISAGG_PS).start()
+    bodies = [{"model": "disagg", "n_tokens": DISAGG_TOKENS,
+               "prompt": rng.integers(1, DISAGG_V, DISAGG_PROMPT).tolist()}
+              for _ in range(SURFACE_GEN_REQUESTS)]
+    replies = [None] * len(bodies)
+    try:
+        dec0 = da.decode_attention_cuda.launches
+
+        def client(i):
+            replies[i] = http(server.port, "/v1/generate", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        launches = da.decode_attention_cuda.launches - dec0
+        batcher, _ = server.batcher_for("disagg")
+        assert batcher._paged
+    finally:
+        server.stop(drain=True)
+    assert all(r is not None and r[0] == 200 for r in replies), replies
+    assert launches > 0, "the decode kernel did not run"
+    compared = sum(check_greedy(net, da, b["prompt"], r[1]["ids"],
+                                n_tokens=DISAGG_TOKENS,
+                                capacity=DISAGG_CAP)
+                   for b, r in zip(bodies, replies))
+    log(f"disaggregation model (bench.py:3128: V={DISAGG_V}, width "
+        f"{DISAGG_D}, {DISAGG_H} heads of {DISAGG_D // DISAGG_H}) on "
+        f"{card}: one Adam step (loss {loss:.4f}), then "
+        f"{len(bodies)} concurrent /v1/generate requests of "
+        f"{DISAGG_PROMPT} ids x {DISAGG_TOKENS} tokens on 4 paged slots: "
+        f"decode_attention launches {launches}; {compared} greedy ids "
+        "equal to the plain decode attention's")
+
+
+def surface_examples(attn, da, card, tmp):
+    """The card-runnable examples with ``--device cuda``, in this
+    process: the lines tests/test_examples.py asserts, and the flash
+    forward, dq and dk/dv launches of the attention examples."""
+    import contextlib
+    import importlib
+    import io as _io
+    counters = {"fwd": attn.flash_attention_fwd_cuda,
+                "dq": attn.flash_attention_bwd_dq_cuda,
+                "dkv": attn.flash_attention_bwd_dkv_cuda,
+                "decode": da.decode_attention_cuda}
+    for name, args, lines in SURFACE_EXAMPLES:
+        mod = importlib.import_module(
+            f"deeplearning4j_tpu_torch.examples.{name}")
+        argv = [a.replace("{trace}", os.path.join(tmp, "trace.json"))
+                for a in args] + ["--device", "cuda"]
+        before = {k: w.launches for k, w in counters.items()}
+        buf = _io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main(argv)
+        secs = time.perf_counter() - t0
+        out = buf.getvalue()
+        moved = {k: w.launches - before[k] for k, w in counters.items()}
+        if name == "tpu_transformer_generate":   # its exit status
+            assert rc == 0, rc
+        for line in lines:
+            assert line in out, (name, line, out[-2000:])
+        if name in ATTENTION_EXAMPLES:
+            assert all(moved[k] > 0 for k in ("fwd", "dq", "dkv")), \
+                (name, moved)
+        tail = [ln for ln in out.splitlines()
+                if any(x in ln for x in lines + ["launches", "compile"])]
+        log(f"example {name} {' '.join(argv)} ({card}): {secs:.2f} s, "
+            f"kernel launches {moved}; " + " | ".join(tail[-4:]))
+
+
+def surface_evict(da, card):
+    """``ModelServer.evict_model`` on the full-width LM (bench.py:982,
+    seed 0) registered as v1 and v2: after both generate, v1 unregistered
+    and evicted frees at least its parameter bytes plus its page pool's
+    bytes (reckoned from their shapes) of ``memory_allocated``; v2 still
+    answers 200 with its earlier ids; v1's series leave /metrics."""
+    import torch
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.updaters import tree_leaves
+    from deeplearning4j_tpu_torch.ops.native import kernel_head_dim
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    registry = ModelRegistry()
+    for _ in range(2):
+        registry.register("lm", MultiLayerNetwork(
+            MultiLayerConfiguration.from_dict(lm_config()),
+            device="cuda").init(seed=0))
+    server = ModelServer(registry, slots=SLOTS, capacity=CAPACITY,
+                         page_size=PAGE).start()
+    try:
+        body = {"model": "lm", "prompt": list(range(1, 33)),
+                "n_tokens": 8}
+        ids = {}
+        for v in (1, 2):
+            code, reply, _ = http(server.port, "/v1/generate",
+                                  dict(body, version=v))
+            assert code == 200 and reply["model_version"] == v, reply
+            ids[v] = reply["ids"]
+        v1, _ = registry.resolve("lm", 1)
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in tree_leaves(v1.params)
+                          if isinstance(p, torch.Tensor))
+        pages = server._batchers[("lm", 1)].session.pages_total() + 1
+        pool_bytes = (2 * LAYERS * pages * PAGE * HEADS
+                      * kernel_head_dim(D_MODEL // HEADS) * 4)
+        del v1
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        registry.unregister("lm", version=1)
+        drained = server.evict_model("lm", version=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_allocated()
+        freed = before - after
+        # the step graph's private pool leaves reserved memory only
+        log(f"evict_model('lm', version=1) ({card}): drained {drained}; "
+            f"memory_reserved {reserved} -> {torch.cuda.memory_reserved()} "
+            f"B; memory_allocated {before} -> {after} B, freed {freed} B; "
+            f"v1's parameters {param_bytes} B + page pool {pool_bytes} B "
+            f"({pages} pages x {PAGE} x {HEADS} heads x "
+            f"{kernel_head_dim(D_MODEL // HEADS)} x 4 B x k, v x {LAYERS} "
+            f"layers) = {param_bytes + pool_bytes} B")
+        assert drained
+        assert freed >= param_bytes + pool_bytes, (freed, param_bytes,
+                                                   pool_bytes)
+        code, reply, _ = http(server.port, "/v1/generate", body)
+        assert code == 200 and reply["model_version"] == 2, reply
+        assert reply["ids"] == ids[2], (reply["ids"], ids[2])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/metrics?format=prometheus",
+                timeout=60) as resp:
+            text = resp.read().decode()
+        assert "generate/lm/v1" not in text and "generate/lm/v2" in text
+        log("v2 answers 200 with its earlier ids; generate/lm/v1's series "
+            "are gone from /metrics, generate/lm/v2's remain")
+    finally:
+        server.stop(drain=True)
+
+
+def surface_phase(attn, da, card):
+    """The package's public surface on the card: the README quickstart
+    through the top-level names, the v1 checkpoint fixtures, the
+    head-dim-16 disaggregation model served through ``/v1/generate``,
+    the examples, and ``evict_model`` on the full-width LM. Returns the
+    four kernels' launches in the phase (counts set to 0 just before,
+    read just after)."""
+    wrappers = {"flash_attention_fwd": attn.flash_attention_fwd_cuda,
+                "flash_attention_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+                "flash_attention_bwd_dkv":
+                    attn.flash_attention_bwd_dkv_cuda,
+                "decode_attention": da.decode_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    tmp = tempfile.mkdtemp(prefix="surface-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        surface_readme_quickstart(card)
+        surface_v1_fixtures()
+        surface_disagg_generate(attn, da, card)
+        surface_examples(attn, da, card, tmp)
+        surface_evict(da, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"surface_phase kernel launches: {launches}")
+    return launches
+
+
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
@@ -9553,6 +10077,7 @@ def main():
     mfleet = timed("mesh_fleet_phase", mesh_fleet_phase, card)
     timed("nlp_phase", nlp_phase, card)
     lib = timed("library_phase", library_phase, attn, card)
+    surface = timed("surface_phase", surface_phase, attn, da, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
@@ -9561,17 +10086,20 @@ def main():
                                "dp": dp["flash_attention_fwd"],
                                "tp_sp_pp": tsp["flash_attention_fwd"],
                                "mesh_fleet": mfleet,
-                               "library": lib["flash_attention_fwd"]}
+                               "library": lib["flash_attention_fwd"],
+                               "surface": surface["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
-                               "fleet_control": dec_ctl}
+                               "fleet_control": dec_ctl,
+                               "surface": surface["decode_attention"]}
     for record, name in ((dq, "flash_attention_bwd_dq"),
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],
                                       "capture": captured[name],
                                       "ps": ps[name], "dp": dp[name],
                                       "tp_sp_pp": tsp[name],
-                                      "library": lib[name]}
+                                      "library": lib[name],
+                                      "surface": surface[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]

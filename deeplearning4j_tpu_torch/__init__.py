@@ -27,5 +27,31 @@ parallel training (the parameter server, data, tensor, sequence and
 pipeline parallelism), the Word2Vec family, and the rest of the library
 (layer-named errors, the gradient check, the second-order solvers, the
 training UI, the estimators and the k-NN and streaming services): every
-module of the JAX package but its jax version shims.
+module of the JAX package but its jax version shims, with the JAX
+package's public names (the top-level ones below among them; the
+jax-only exceptions are listed in ``tests/test_torch_public_api.py``)
+and its examples (``examples/``). The package-level names resolve at
+first use (``_lazy.py``): importing the package imports no torch, and
+builds and loads no kernel (a kernel is built at its first launch,
+``ops/native.py``).
 """
+
+from deeplearning4j_tpu_torch import _lazy
+
+__all__ = [
+    "dtypes",
+    "NeuralNetConfiguration",
+    "MultiLayerConfiguration",
+    "ComputationGraphConfiguration",
+    "MultiLayerNetwork",
+    "ComputationGraph",
+]
+
+__getattr__ = _lazy.exports(__name__, {
+    "dtypes": "dtypes",
+    "NeuralNetConfiguration": "nn.conf.builder",
+    "MultiLayerConfiguration": "nn.conf.multi_layer",
+    "ComputationGraphConfiguration": "nn.conf.graph_conf",
+    "MultiLayerNetwork": "models.multi_layer_network",
+    "ComputationGraph": "models.computation_graph",
+})

@@ -21,6 +21,10 @@ from deeplearning4j_tpu_torch.chaos.injector import (  # noqa: F401
     FaultPlan, FaultSpec, SITES, SimulatedCrashError, current,
     file_fault, hit, install, parse_plan, step_fault, uninstall,
 )
+from deeplearning4j_tpu_torch.chaos.netproxy import (  # noqa: F401
+    NET_KINDS, NET_SITES, NetChaosProxy, NetFault, NetSpec,
+    NetworkPlan, parse_net_plan,
+)
 from deeplearning4j_tpu_torch.chaos.retry import (  # noqa: F401
     DEFAULT_IO_RETRY, RetryPolicy, retrying_io,
 )
@@ -29,4 +33,6 @@ __all__ = ["ChaosError", "ChaosIOError", "ChaosOSError", "Fault",
            "FaultInjector", "FaultPlan", "FaultSpec", "SITES",
            "SimulatedCrashError", "current", "file_fault", "hit",
            "install", "parse_plan", "step_fault", "uninstall",
+           "NET_KINDS", "NET_SITES", "NetChaosProxy", "NetFault",
+           "NetSpec", "NetworkPlan", "parse_net_plan",
            "DEFAULT_IO_RETRY", "RetryPolicy", "retrying_io"]

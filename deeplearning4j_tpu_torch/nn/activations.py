@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["get", "ACTIVATIONS", "softmax"]
+__all__ = ["get", "register", "ACTIVATIONS", "softmax"]
 
 
 def softmax(x, dim=-1):
@@ -46,6 +46,12 @@ ACTIVATIONS = {
     "cube": lambda x: x ** 3,
     "threshold": lambda x: (x > 0).to(x.dtype),
 }
+
+
+def register(name: str, fn) -> None:
+    """Register activation ``fn`` (tensor -> tensor) under ``name``, for
+    ``get`` and config JSON (as in the JAX package)."""
+    ACTIVATIONS[name.lower()] = fn
 
 
 def get(name):

@@ -127,6 +127,17 @@ class ComputationGraphConfiguration:
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        """The config as YAML: the JAX package's text (PyYAML, imported
+        here so that the package needs it only for YAML)."""
+        import yaml
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        import yaml
+        return ComputationGraphConfiguration.from_dict(yaml.safe_load(s))
+
     def clone(self) -> "ComputationGraphConfiguration":
         return ComputationGraphConfiguration.from_dict(self.to_dict())
 

@@ -251,13 +251,18 @@ class SelfAttentionLayer(BaseLayer):
 
     def zero_stream_cache(self, batch: int, capacity: int, device="cpu"):
         """A fixed-capacity float32 {'k', 'v'} cache, (batch, capacity,
-        H, Dh) each: two distinct buffers, written in place."""
+        H, Dh) each: two distinct buffers, written in place. On the card,
+        at a head dim the decode kernel is not built for, each is the
+        Dh-wide view
+        of a buffer padded to the kernel's width
+        (``ops.decode_attention.zero_kv_pool``), which the kernel reads in
+        place."""
+        from deeplearning4j_tpu_torch.ops.decode_attention import (
+            zero_kv_pool)
         H = self.n_heads
         Dh = self.n_out // H
-        return {"k": torch.zeros((batch, capacity, H, Dh),
-                                 dtype=torch.float32, device=device),
-                "v": torch.zeros((batch, capacity, H, Dh),
-                                 dtype=torch.float32, device=device)}
+        return {"k": zero_kv_pool(batch, capacity, H, Dh, device),
+                "v": zero_kv_pool(batch, capacity, H, Dh, device)}
 
     def apply_stream_bounded(self, params, cache, x, pos):
         """One decode step over a fixed-capacity cache: ``x`` is the new

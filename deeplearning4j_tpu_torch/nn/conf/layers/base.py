@@ -77,6 +77,16 @@ class Layer:
                    input_type: InputType):
         return {}, {}
 
+    def num_params(self, input_type: InputType) -> int:
+        """The count of this layer's parameters for ``input_type``: the
+        entries of the params ``initialize`` gives (as in the JAX
+        package)."""
+        from deeplearning4j_tpu_torch.nn.conf.updaters import tree_leaves
+        params, _ = self.initialize(torch.Generator().manual_seed(0),
+                                    input_type)
+        return sum(p.numel() for p in tree_leaves(params)
+                   if isinstance(p, torch.Tensor))
+
     def apply(self, params, state, x, *, training=False, generator=None,
               mask=None):
         raise NotImplementedError

@@ -92,6 +92,17 @@ class MultiLayerConfiguration:
     def from_json(s: str) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(json.loads(s))
 
+    def to_yaml(self) -> str:
+        """The config as YAML: the JAX package's text (PyYAML, imported
+        here so that the package needs it only for YAML)."""
+        import yaml
+        return yaml.safe_dump(self.to_dict(), sort_keys=False)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        import yaml
+        return MultiLayerConfiguration.from_dict(yaml.safe_load(s))
+
     def clone(self) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration.from_dict(self.to_dict())
 

@@ -27,8 +27,12 @@ inside the training step: nothing else here reads a device tensor
 (the monitor and the profiler read the values the step hands them).
 """
 
+from deeplearning4j_tpu_torch import _lazy
 from deeplearning4j_tpu_torch.observability.alerts import (
     AlertManager, AlertRule,
+)
+from deeplearning4j_tpu_torch.observability.compile_watch import (
+    install_global_watch,
 )
 from deeplearning4j_tpu_torch.observability.flight_recorder import (
     FlightRecorder,
@@ -45,8 +49,22 @@ from deeplearning4j_tpu_torch.observability.tracing import (
 )
 
 __all__ = [
-    "AlertManager", "AlertRule", "FlightRecorder", "REGISTRY",
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "Tracer",
-    "get_tracer", "trace", "RequestContext", "Sampler",
-    "current_context", "SLO", "BurnWindow", "SLOMonitor",
+    "AlertManager", "AlertRule", "FlightRecorder", "HealthMonitor",
+    "TrainingDivergedError", "fused_health", "install_global_watch",
+    "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
+    "ProfilerListener", "detect_peak_flops", "model_flops_utilization",
+    "peak_flops_for_kind", "Tracer", "get_tracer", "trace",
+    "RequestContext", "Sampler", "current_context", "SLO", "BurnWindow",
+    "SLOMonitor",
 ]
+
+# the torch-side modules resolve at first use: the rest is host code
+# that light processes import
+__getattr__ = _lazy.exports(__name__, {
+    name: mod for mod, names in (
+        ("health", ("HealthMonitor", "TrainingDivergedError",
+                    "fused_health")),
+        ("step_profile", ("ProfilerListener", "detect_peak_flops",
+                          "model_flops_utilization",
+                          "peak_flops_for_kind")))
+    for name in names})

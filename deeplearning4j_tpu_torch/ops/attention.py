@@ -21,6 +21,15 @@ and padded QUERY rows are the caller's to zero.
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
 
+Head dims: the kernels are instantiated at D = 32, 64 and 128
+(``native.HEAD_DIMS``). Any other D up to 128 runs at the next of those,
+Dp: the wrappers zero-pad q, k, v (and o, do) along D into contiguous
+(B, T, H, Dp) buffers, launch with the scale of the TRUE D, and slice
+o, dq, dk, dv back to D (lse and delta need no slicing: zero columns
+change no q.k and no rowsum(do * o)). D > 128 is refused
+(``native.kernel_head_dim``). The LM's D = 64 takes the kernels as it
+is, without a copy.
+
 Both ``precision`` values give float32 results here ('highest'
 semantics): inputs are f32; all three kernels multiply on the tensor
 cores in three TF32 passes (csrc/tf32_mma.cuh), accumulating in f32,
@@ -58,10 +67,9 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_bwd", "flash_attention_bwd_cuda",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq_cuda",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_cuda",
-           "flash_attention_bwd_dkv_plain"]
+           "flash_attention_bwd_dkv_plain", "pad_head_dim"]
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
 _PRECISIONS = ("default", "highest")
 
 
@@ -90,18 +98,24 @@ def _check(q, k, v, kv_mask, precision, dtypes=(torch.float32,)):
                              f"{q.device}")
 
 
+def _scale(D: int) -> float:
+    return 1.0 / math.sqrt(D)
+
+
 def flash_attention_fwd_plain(q, k, v, kv_mask=None, *, causal=False,
-                              precision="default"
+                              precision="default", scale=None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch: an explicit einsum, the
     masks as -1e30, a softmax, fully masked rows zeroed, and lse =
     logsumexp (-1e30 for a row that saw no key). Materializes the (B,
     H, T, T) scores. Returns (o, lse). Takes float32, the kernel's
     type, or float64 (``flash_attention``'s float64 route), and
-    computes in that type."""
+    computes in that type. ``scale`` defaults to 1/sqrt(D), as the
+    kernels' (a padded launch passes its true D's)."""
     _check(q, k, v, kv_mask, precision, (torch.float32, torch.float64))
     T, D = q.shape[1], q.shape[3]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
+        _scale(D) if scale is None else scale)
     live = torch.ones((1, 1, T, T), dtype=torch.bool, device=q.device)
     if causal:
         live = torch.tril(live)
@@ -117,23 +131,38 @@ def flash_attention_fwd_plain(q, k, v, kv_mask=None, *, causal=False,
     return o, lse
 
 
+def pad_head_dim(t: torch.Tensor, Dp: int) -> torch.Tensor:
+    """``t`` (..., D) zero-padded to (..., Dp) in a fresh contiguous
+    buffer; ``t`` itself when D == Dp."""
+    D = t.shape[-1]
+    return t if D == Dp else torch.nn.functional.pad(t, (0, Dp - D))
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """A padded launch's (..., Dp) output back at the true D, contiguous
+    as an unpadded launch's."""
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
 def _kernel_inputs(q, tensors):
     """The CUDA kernels' checks and operand layout: CUDA tensors, a head
-    dim they were built for, a grid they can launch, and every (B, T, H,
-    D) operand with a contiguous last dimension and 16-byte aligned rows
-    (copied only where that does not hold already)."""
+    dim up to the kernels' limit, a grid they can launch, and every (B,
+    T, H, Dp) operand with a contiguous last dimension and 16-byte
+    aligned rows: at a head dim the kernels are built for, copied only
+    where that does not hold already; at any other, zero-padded to
+    ``native.kernel_head_dim(D)`` (a fresh buffer, so aligned)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
     B, T, H, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not one of the kernel's "
-                         f"{_HEAD_DIMS}")
+    Dp = native.kernel_head_dim(D)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's 65535")
     out = []
     for t in tensors:
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
+        if Dp != D:
+            t = pad_head_dim(t, Dp)
+        elif t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
             t = t.contiguous()
         out.append(t)
@@ -153,13 +182,14 @@ def _entry(source: str, symbol: str, n_ptr: int, n_strides: int):
     return fn
 
 
-def _launch(fn, name, q, pointers, tensors, causal):
-    """Call ``fn`` on q's current stream; raise on a launch error."""
+def _launch(fn, name, q, pointers, tensors, causal, scale):
+    """Call ``fn`` on q's current stream at q's (kernel) head dim and
+    ``scale``; raise on a launch error."""
     B, T, H, D = q.shape
     strides = [s for t in tensors for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*pointers, B, T, H, D, *strides, 1.0 / math.sqrt(D),
+        err = fn(*pointers, B, T, H, D, *strides, scale,
                  int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -172,11 +202,19 @@ def _ptr(t: Optional[torch.Tensor]):
 def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
                              precision="default"
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream.
+    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream
+    (at a head dim it is not built for, on zero-padded operands).
     Returns (o, lse). ``flash_attention_fwd_cuda.launches`` counts the
     launches."""
     _check(q, k, v, kv_mask, precision)
+    D = q.shape[3]
     q, k, v = _kernel_inputs(q, (q, k, v))
+    o, lse = _fwd_launch(q, k, v, kv_mask, causal, _scale(D))
+    return _unpad(o, D), lse
+
+
+def _fwd_launch(q, k, v, kv_mask, causal, scale):
+    """The forward kernel on operands ``_kernel_inputs`` laid out."""
     B, T, H, D = q.shape
     if kv_mask is not None:
         kv_mask = kv_mask.to(torch.float32).contiguous()
@@ -188,7 +226,7 @@ def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
                 6, 12)
     _launch(fn, "flash_attention_fwd", q,
             [_ptr(t) for t in (q, k, v, kv_mask, o, lse)], (q, k, v, o),
-            causal)
+            causal, scale)
     native.count_launch(flash_attention_fwd_cuda)
     return o, lse
 
@@ -233,12 +271,12 @@ def _check_bwd(q, k, v, lse, do, kv_mask, o=None):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-def _recompute_p(q, k, lse, kv_mask, causal):
+def _recompute_p(q, k, lse, kv_mask, causal, scale):
     """The TPU kernels' p: exp(q.k * scale - lse), 0 where the row saw no
     key (lse <= -1e30/2) and where causal or kv_mask hides the key.
     (B, H, Tq, Tk)."""
-    T, D = q.shape[1], q.shape[3]
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
+    T = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     live = torch.ones((1, 1, T, T), dtype=torch.bool, device=q.device)
     if causal:
         live = torch.tril(live)
@@ -250,28 +288,29 @@ def _recompute_p(q, k, lse, kv_mask, causal):
 
 
 def flash_attention_bwd_dq_plain(q, k, v, o, lse, do, kv_mask=None, *,
-                                 causal=False
+                                 causal=False, scale=None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_dq_kernel``'s function in plain PyTorch: delta = rowsum(do·o),
     p recomputed from lse, ds = p·(do·vᵀ − delta)·scale, dq = ds·k.
-    Returns (dq, delta (B, H, T))."""
+    Returns (dq, delta (B, H, T)). ``scale`` as the forward's."""
     _check_bwd(q, k, v, lse, do, kv_mask, o)
-    scale = 1.0 / math.sqrt(q.shape[3])
+    scale = _scale(q.shape[3]) if scale is None else scale
     delta = (do * o).sum(-1).permute(0, 2, 1)
-    p = _recompute_p(q, k, lse, kv_mask, causal)
+    p = _recompute_p(q, k, lse, kv_mask, causal, scale)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
     ds = p * (dp - delta[..., None]) * scale
     return torch.einsum("bhqk,bkhd->bqhd", ds, k), delta
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, lse, delta, do, kv_mask=None,
-                                  *, causal=False
+                                  *, causal=False, scale=None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_dkv_kernel``'s function in plain PyTorch: dv = pᵀ·do and
-    dk = dsᵀ·q, with the dq pass's delta. Returns (dk, dv)."""
+    dk = dsᵀ·q, with the dq pass's delta. Returns (dk, dv). ``scale``
+    as the forward's."""
     _check_bwd(q, k, v, lse, do, kv_mask)
-    scale = 1.0 / math.sqrt(q.shape[3])
-    p = _recompute_p(q, k, lse, kv_mask, causal)
+    scale = _scale(q.shape[3]) if scale is None else scale
+    p = _recompute_p(q, k, lse, kv_mask, causal, scale)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
     ds = p * (dp - delta[..., None]) * scale
@@ -293,10 +332,18 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
                                 causal=False
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dq kernel of ``csrc/flash_attention_bwd.cu``, which
-    also writes delta, on the current stream. Returns (dq, delta).
+    also writes delta, on the current stream (at a head dim it is not
+    built for, on zero-padded operands). Returns (dq, delta).
     ``flash_attention_bwd_dq_cuda.launches`` counts the launches."""
     _check_bwd(q, k, v, lse, do, kv_mask, o)
+    D = q.shape[3]
     q, k, v, o, do = _kernel_inputs(q, (q, k, v, o, do))
+    dq, delta = _dq_launch(q, k, v, o, lse, do, kv_mask, causal, _scale(D))
+    return _unpad(dq, D), delta
+
+
+def _dq_launch(q, k, v, o, lse, do, kv_mask, causal, scale):
+    """The dq kernel on operands ``_kernel_inputs`` laid out."""
     B, T, H, D = q.shape
     lse = lse.contiguous()
     if kv_mask is not None:
@@ -309,7 +356,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
                 9, 18)
     _launch(fn, "flash_attention_bwd_dq", q,
             [_ptr(t) for t in (q, k, v, o, do, lse, kv_mask, dq, delta)],
-            (q, k, v, o, do, dq), causal)
+            (q, k, v, o, do, dq), causal, scale)
     native.count_launch(flash_attention_bwd_dq_cuda)
     return dq, delta
 
@@ -321,14 +368,23 @@ def flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask=None,
                                  *, causal=False
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel of ``csrc/flash_attention_bwd.cu`` on the
-    current stream, with the dq pass's delta. Returns (dk, dv).
+    current stream, with the dq pass's delta (at a head dim it is not
+    built for, on zero-padded operands). Returns (dk, dv).
     ``flash_attention_bwd_dkv_cuda.launches`` counts the launches."""
     _check_bwd(q, k, v, lse, do, kv_mask)
     if tuple(delta.shape) != tuple(lse.shape) \
             or delta.dtype != torch.float32 or delta.device != q.device:
         raise ValueError(f"delta must be float32 {tuple(lse.shape)} on "
                          f"{q.device}")
+    D = q.shape[3]
     q, k, v, do = _kernel_inputs(q, (q, k, v, do))
+    dk, dv = _dkv_launch(q, k, v, lse, delta, do, kv_mask, causal,
+                         _scale(D))
+    return _unpad(dk, D), _unpad(dv, D)
+
+
+def _dkv_launch(q, k, v, lse, delta, do, kv_mask, causal, scale):
+    """The dk/dv kernel on operands ``_kernel_inputs`` laid out."""
     B, T, H, D = q.shape
     lse, delta = lse.contiguous(), delta.contiguous()
     if kv_mask is not None:
@@ -341,7 +397,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask=None,
                 9, 18)
     _launch(fn, "flash_attention_bwd_dkv", q,
             [_ptr(t) for t in (q, k, v, do, lse, delta, kv_mask, dk, dv)],
-            (q, k, v, do, dk, dv), causal)
+            (q, k, v, do, dk, dv), causal, scale)
     native.count_launch(flash_attention_bwd_dkv_cuda)
     return dk, dv
 
@@ -351,13 +407,15 @@ flash_attention_bwd_dkv_cuda.launches = 0
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, kv_mask=None, *,
                              causal=False):
-    """Both backward kernels: dq (with delta), then dk/dv. Returns (dq,
-    dk, dv)."""
-    dq, delta = flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask,
-                                            causal=causal)
-    dk, dv = flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask,
-                                          causal=causal)
-    return dq, dk, dv
+    """Both backward kernels: dq (with delta), then dk/dv, on operands
+    padded once for both. Returns (dq, dk, dv)."""
+    _check_bwd(q, k, v, lse, do, kv_mask, o)
+    D = q.shape[3]
+    q, k, v, o, do = _kernel_inputs(q, (q, k, v, o, do))
+    dq, delta = _dq_launch(q, k, v, o, lse, do, kv_mask, causal, _scale(D))
+    dk, dv = _dkv_launch(q, k, v, lse, delta, do, kv_mask, causal,
+                         _scale(D))
+    return _unpad(dq, D), _unpad(dk, D), _unpad(dv, D)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, kv_mask=None, *,

@@ -32,6 +32,18 @@ holds that split and merge, written in plain PyTorch, to the plain
 version). Dispatch: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel or an error. There is no fallback from one to the
 other.
+
+Head dims: the kernel is instantiated at Dh = 32, 64 and 128
+(``native.HEAD_DIMS``); any other Dh up to 128 runs at the next of
+those, Dp, with the scale of the true Dh. Copying a pool to Dp every
+step would cost more than the step, so the sessions' pools are
+allocated padded from the start: on the card :func:`zero_kv_pool` gives
+the Dh-wide view of a zeroed (N, page_size, H, Dp) buffer. Everything
+that writes, copies, zeroes or ships pages goes through the view (the
+lease wire carries Dh), the padding columns stay zero, and the kernel
+reads the buffer under it in place. Per step only q is padded and o sliced. A
+pool of another layout (the eager ``apply_stream``'s concatenated
+cache) is padded by a copy a call.
 """
 
 from __future__ import annotations
@@ -46,10 +58,9 @@ from deeplearning4j_tpu_torch.ops import native
 
 __all__ = ["decode_attention", "decode_attention_cuda",
            "decode_attention_plain", "host_positions", "n_key_splits",
-           "KEY_CHUNK"]
+           "zero_kv_pool", "KEY_CHUNK"]
 
 _NEG_INF = -1e30
-_HEAD_DIMS = (32, 64, 128)
 KEY_CHUNK = 128         # keys a CTA of the split kernel takes (kChunk)
 
 
@@ -59,6 +70,40 @@ def n_key_splits(span: int) -> int:
     span only, never on the positions, so a captured launch holds for
     every step."""
     return -(-int(span) // KEY_CHUNK)
+
+
+def zero_kv_pool(n: int, rows: int, H: int, Dh: int, device="cpu",
+                 padded=None) -> torch.Tensor:
+    """A zeroed float32 (n, rows, H, Dh) k or v pool. On the card
+    (``padded`` None and a CUDA ``device``, or ``padded`` True), one the
+    kernel reads in place: at a head dim it is built for, a contiguous
+    tensor; at any other up to its limit, the Dh-wide view of a zeroed
+    (n, rows, H, Dp) buffer (``native.kernel_head_dim``). Otherwise, and
+    past the limit (the kernel refuses it), a contiguous tensor: the
+    plain version reads any Dh."""
+    if padded is None:
+        padded = torch.device(device).type == "cuda"
+    Dp = native.kernel_head_dim(Dh) \
+        if padded and Dh <= native.HEAD_DIMS[-1] else Dh
+    buf = torch.zeros((n, rows, H, Dp), dtype=torch.float32, device=device)
+    return buf if Dp == Dh else buf[..., :Dh]
+
+
+def _kernel_pool(p: torch.Tensor, Dp: int) -> torch.Tensor:
+    """A pool as the kernel reads it, at width Dp: the (N, rows, H, Dp)
+    buffer under a :func:`zero_kv_pool` view (same address, no copy),
+    or, for a pool of another layout, a zero-padded copy."""
+    N, rows, H, D = p.shape
+    if D == Dp:
+        if not p.is_contiguous() or p.data_ptr() % 16:
+            # the pools are written in place by the sessions: never copied
+            raise ValueError("a pool must be contiguous and 16-byte "
+                             "aligned")
+        return p
+    if p.stride() == (rows * H * Dp, H * Dp, Dp, 1) \
+            and p.data_ptr() % 16 == 0:
+        return p.as_strided((N, rows, H, Dp), p.stride())
+    return torch.nn.functional.pad(p, (0, Dp - D))
 
 
 def host_positions(pos, n: int) -> torch.Tensor:
@@ -132,11 +177,12 @@ def _check(q, k_pool, v_pool, table, pos):
 
 
 def decode_attention_plain(q, k_pool, v_pool, table, pos,
-                           host_pos=None) -> torch.Tensor:
+                           host_pos=None, scale=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, the JAX step written out:
     gather each slot's virtual cache (S, P * page_size, H, Dh), einsum,
     ``where(k_pos <= q_pos, ., -1e30)``, softmax, einsum. With device
-    positions it reads them on the device (no sync, graph-safe)."""
+    positions it reads them on the device (no sync, graph-safe).
+    ``scale`` defaults to Dh^-0.5, as the kernel's."""
     S = q.shape[0] if q.dim() == 4 else 0
     host, dev = _positions(pos, host_pos, S, q.device)
     _check(q, k_pool, v_pool, table, host)
@@ -148,7 +194,8 @@ def decode_attention_plain(q, k_pool, v_pool, table, pos,
     P = table.shape[1]
     k = k_pool[table].reshape(S, P * ps, H, D)
     v = v_pool[table].reshape(S, P * ps, H, D)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (D ** -0.5)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * (
+        D ** -0.5 if scale is None else scale)
     k_pos = torch.arange(P * ps, device=q.device)[None, None, :]
     q_pos = (dev.long()[:, None]
              + torch.arange(t, device=q.device)[None, :])[:, :, None]
@@ -173,7 +220,9 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos,
     """Launch ``csrc/decode_attention.cu`` (its split and merge kernels)
     on q's current stream. Returns o (S, t, H, Dh). Host positions are
     uploaded here; a device ``pos`` (with ``host_pos``) is read in
-    place, so the call can be captured in a CUDA graph.
+    place, so the call can be captured in a CUDA graph. At a head dim
+    the kernel is not built for, q is zero-padded, the pools read at
+    their padded width (:func:`zero_kv_pool`) and o sliced back.
     ``decode_attention_cuda.launches`` counts the calls."""
     S = q.shape[0] if q.dim() == 4 else 0
     host, dev = _positions(pos, host_pos, S, q.device)
@@ -181,15 +230,11 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos,
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
-    S, t, H, D = q.shape
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head dim {D} is not one of the kernel's "
-                         f"{_HEAD_DIMS}")
-    for name, p in (("k_pool", k_pool), ("v_pool", v_pool)):
-        # the pools are written in place by the sessions: never copied
-        if not p.is_contiguous() or p.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             "aligned")
+    S, t, H, Dh = q.shape
+    D = native.kernel_head_dim(Dh)
+    k_pool, v_pool = _kernel_pool(k_pool, D), _kernel_pool(v_pool, D)
+    if D != Dh:
+        q = torch.nn.functional.pad(q, (0, D - Dh))
     q = q.contiguous()
     if q.data_ptr() % 16:
         # a contiguous view at an odd offset: the kernel reads q with
@@ -200,7 +245,7 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos,
         dev = host.pin_memory().to(q.device, non_blocking=True)
     o = torch.empty((S, t, H, D), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
-        return o
+        return o[..., :Dh]
     P, ps = table.shape[1], k_pool.shape[1]
     n_split = n_key_splits(P * ps)
     partials = torch.empty(S * t * H * n_split * (D + 2),
@@ -211,12 +256,12 @@ def decode_attention_cuda(q, k_pool, v_pool, table, pos,
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  table.data_ptr(), dev.data_ptr(), o.data_ptr(),
                  partials.data_ptr(), S, t, H, D, ps, P, n_split,
-                 1.0 / math.sqrt(D), stream)
+                 1.0 / math.sqrt(Dh), stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
     native.count_launch(decode_attention_cuda)
-    return o
+    return o if D == Dh else o[..., :Dh].contiguous()
 
 
 decode_attention_cuda.launches = 0

@@ -1031,6 +1031,43 @@ class ModelServer:
         logger.info("model server on http://%s:%d/", self.host, self.port)
         return self
 
+    # ---- lifecycle ----
+    def evict_model(self, name: str, version: Optional[int] = None,
+                    drain: bool = True, timeout: float = 30.0) -> bool:
+        """Release the backends of a swapped-out model version (every
+        version of ``name`` when ``version`` is None): its predict
+        scheduler, its generate batcher (the worker thread, the session
+        with its page pool and captured step graphs) and its
+        tensor-parallel wrap live until evicted, so pair this with
+        ``registry.unregister`` on long-running servers. Each backend is
+        shut down with ``drain`` and ``timeout`` and its endpoint's
+        metric series dropped. Returns whether every backend drained."""
+        def evicted(k):
+            return k[0] == name and (version is None or k[1] == version)
+
+        ok = True
+        with self._lock:
+            keys = [k for k in set(self._schedulers) | set(self._batchers)
+                    if evicted(k)]
+            backends = ([self._schedulers.pop(k) for k in keys
+                         if k in self._schedulers]
+                        + [self._batchers.pop(k) for k in keys
+                           if k in self._batchers])
+            # a re-registered version must re-place its shards, not
+            # serve a stale proxy
+            tps = [self._tp_models.pop(k) for k in list(self._tp_models)
+                   if evicted(k)]
+        for b in backends + tps:
+            ok = b.shutdown(drain=drain, timeout=timeout) and ok
+        for b in backends:
+            # hot-swapped versions must not accrete dead
+            # serving_*{endpoint=.../vN} series
+            try:
+                self.metrics.evict_endpoint(b.name)
+            except Exception:
+                logger.exception("metrics eviction for %s failed", b.name)
+        return ok
+
     def stop(self, drain: bool = True, timeout: float = 30.0) -> bool:
         """Refuse new work, let every scheduler and batcher complete its
         queued and in-flight requests (concurrently), then stop the

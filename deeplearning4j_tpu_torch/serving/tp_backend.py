@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +77,7 @@ class TensorParallelModel:
         self.ctx.place_model(model)
         self.leader = self.ctx.member and self.ctx.rank == 0
         self.forwards = 0
+        self._warm = set()      # padded batch shapes run on the mesh
         self.index = len(_HOSTED)
         _HOSTED.append(self)
 
@@ -124,10 +125,41 @@ class TensorParallelModel:
                 self._broadcast(head)
                 data = torch.from_numpy(np.ascontiguousarray(xp))
                 self._broadcast(data)
-                return self._forward_rows(data)
+                y = self._forward_rows(data)
+                self._warm.add(tuple(xp.shape))
+                return y
             except dist.DistError as e:
                 raise ServerClosedError(
                     f"the serving mesh lost a rank: {e}") from e
+
+    def warmup_bucket(self, batch_rows: int,
+                      per_item_shape: Tuple[int, ...]) -> float:
+        """Run one forward of ``batch_rows`` zero rows of
+        ``per_item_shape`` over the mesh's ranks (padded as a request
+        is) without serving a request: the shape's first-call costs
+        (cuBLAS and cuDNN workspaces and heuristics, the collectives'
+        buffers) paid before traffic. Returns its seconds, 0.0 when that
+        padded shape already ran. The leader only."""
+        import time
+        if not self.leader:
+            raise RuntimeError("only the mesh's rank 0 warms buckets; the "
+                               "other ranks run tp_backend.follow()")
+        xp = self._padded(np.zeros((int(batch_rows),)
+                                   + tuple(per_item_shape), np.float32))
+        if tuple(xp.shape) in self._warm:
+            return 0.0
+        t0 = time.perf_counter()
+        y = self._run(xp)
+        if y.device.type == "cuda":
+            torch.cuda.synchronize(y.device)
+        return time.perf_counter() - t0
+
+    def shutdown(self, drain: bool = True, timeout: float = 30.0) -> bool:
+        """The backend lifecycle's call: the proxy owns no worker thread
+        or queue, only the sharded parameters, which go with the object
+        (``ModelServer.evict_model`` drops it). Returns True, as the JAX
+        package's."""
+        return True
 
     def _broadcast(self, t: torch.Tensor) -> None:
         from deeplearning4j_tpu_torch.parallel.collectives import (

@@ -36,7 +36,8 @@ from deeplearning4j_tpu_torch import chaos
 
 __all__ = ["write_model", "snapshot_model", "write_snapshot",
            "restore_model", "restore_normalizer", "verify_checkpoint",
-           "params_from_jax", "CheckpointIntegrityError"]
+           "params_from_jax", "save_pytree_npz", "load_pytree_npz",
+           "CheckpointIntegrityError"]
 
 _FORMAT = 1
 _MANIFEST = "manifest.json"
@@ -62,10 +63,24 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     return flat
 
 
-def _save_npz(tree) -> bytes:
+def save_pytree_npz(tree) -> bytes:
+    """``tree`` (nested dicts and lists of tensors or arrays) as npz
+    bytes keyed by "/"-joined paths, dict keys sorted: the bytes of the
+    zip's ``coefficients.npz`` / ``state.npz`` / ``updater_state.npz``
+    entries, equal to the JAX package's for the same arrays."""
     buf = io.BytesIO()
     np.savez(buf, **_flatten(tree))
     return buf.getvalue()
+
+
+def load_pytree_npz(data: bytes, template) -> Any:
+    """Restore npz bytes (either package's) into the structure of
+    ``template``, key by key and shape by shape: a tensor leaf gives a
+    tensor of its dtype and device, any other leaf a numpy array of its
+    dtype."""
+    with np.load(io.BytesIO(data)) as arch:
+        flat = {k: arch[k] for k in arch.files}
+    return _tensors_like(_unflatten_like(flat, template), template)
 
 
 def params_from_jax(params: Union[List[Dict[str, Any]], Dict[str, Any]],
@@ -122,6 +137,8 @@ def _tensors_like(tree, template):
         return {k: _tensors_like(tree[k], v) for k, v in template.items()}
     if isinstance(template, list):
         return [_tensors_like(a, v) for a, v in zip(tree, template)]
+    if not isinstance(template, torch.Tensor):
+        return np.asarray(tree, dtype=np.asarray(template).dtype)
     return torch.as_tensor(np.asarray(tree), dtype=template.dtype,
                            device=template.device)
 
@@ -201,11 +218,11 @@ def write_snapshot(snap: Dict[str, Any], path: str, *,
     str or bytes) ride inside the zip and under the manifest's CRCs."""
     entries: Dict[str, bytes] = {
         "configuration.json": snap["conf_json"].encode(),
-        "coefficients.npz": _save_npz(snap["params"]),
-        "state.npz": _save_npz(snap["state"]),
+        "coefficients.npz": save_pytree_npz(snap["params"]),
+        "state.npz": save_pytree_npz(snap["state"]),
     }
     if snap["opt_state"] is not None:
-        entries["updater_state.npz"] = _save_npz(snap["opt_state"])
+        entries["updater_state.npz"] = save_pytree_npz(snap["opt_state"])
     entries["metadata.json"] = json.dumps(snap["meta"]).encode()
     for name, data in (extra_entries or {}).items():
         entries[name] = data if isinstance(data, bytes) \

@@ -502,9 +502,52 @@ def test_kernel_reads_strided_inputs(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_unsupported_head_dim(cuda_device):
-    q = torch.randn(1, 8, 1, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="head dim"):
-        tattn.flash_attention_fwd(q, q, q)
+    """Past 128, the kernels' limit, every launcher refuses the head dim
+    and says the JAX package runs it."""
+    q = torch.randn(1, 8, 1, 160, device=cuda_device)
+    lse = torch.zeros(1, 1, 8, device=cuda_device)
+    for call in (lambda: tattn.flash_attention_fwd(q, q, q),
+                 lambda: tattn.flash_attention_bwd(q, q, q, q, lse, q),
+                 lambda: tattn.flash_attention_bwd_dq_cuda(q, q, q, q, lse,
+                                                           q),
+                 lambda: tattn.flash_attention_bwd_dkv_cuda(q, q, q, lse,
+                                                            lse, q)):
+        with pytest.raises(ValueError, match="head dim 160 exceeds.*128"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 8, 16, 48, 96])
+@pytest.mark.parametrize("masked,causal,T", [(False, True, 64),
+                                             (True, False, 100),
+                                             (True, True, 77)])
+def test_padded_head_dims_match_plain_on_card(cuda_device, D, masked,
+                                              causal, T):
+    """A head dim the kernels are not built for runs at the next of
+    32/64/128, zero-padded, with the true D's scale: the forward, dq and
+    dk/dv launches (one each) against the plain versions at D."""
+    q, k, v, do, mask = _bwd_inputs(D + T, 2, T, 3, D, masked)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
+    g = torch.from_numpy(do).to(cuda_device)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = (tattn.flash_attention_fwd_cuda.launches,
+              tattn.flash_attention_bwd_dq_cuda.launches,
+              tattn.flash_attention_bwd_dkv_cuda.launches)
+    o, lse = tattn.flash_attention_fwd(*t, m, causal=causal)
+    dq, dk, dv = tattn.flash_attention_bwd(*t, o, lse, g, m, causal=causal)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_fwd_cuda.launches,
+            tattn.flash_attention_bwd_dq_cuda.launches,
+            tattn.flash_attention_bwd_dkv_cuda.launches) == tuple(
+        n + 1 for n in before)
+    assert o.shape == dq.shape == dk.shape == dv.shape == (2, T, 3, D)
+    po, plse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    torch.testing.assert_close(o, po, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, plse, atol=ATOL, rtol=RTOL)
+    want = tattn.flash_attention_bwd_plain(*t, po, plse, g, m,
+                                           causal=causal)
+    for a, b in zip((dq, dk, dv), want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.cuda

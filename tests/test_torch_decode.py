@@ -457,15 +457,49 @@ def test_kernel_shared_prefix_page_on_card(cuda_device):
 @pytest.mark.cuda
 def test_kernel_refuses_device_positions_and_odd_head_dim(cuda_device):
     """Device positions without their host copy are refused (the checks
-    read the host copy only), as is a head dim the kernel lacks."""
+    read the host copy only), as is a head dim past the kernel's limit
+    of 128."""
+    q, kp, vp, table = (x.to(cuda_device) for x in _op_inputs(
+        4, 2, 1, 4, 3, D=160, H=2))
+    with pytest.raises(ValueError, match="head dim 160 exceeds.*128"):
+        tda.decode_attention(q, kp, vp, table, [0, 1])
     q, kp, vp, table = (x.to(cuda_device) for x in _op_inputs(
         4, 2, 1, 4, 3, D=48, H=2))
-    with pytest.raises(ValueError, match="head dim"):
-        tda.decode_attention(q, kp, vp, table, [0, 1])
     with pytest.raises(ValueError, match="host"):
         tda.decode_attention(q, kp, vp, table,
                              torch.zeros(2, dtype=torch.int32,
                                          device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 8, 16, 48, 96])
+@pytest.mark.parametrize("case", range(len(_CARD_CASES)))
+def test_padded_head_dims_match_plain_on_card(cuda_device, D, case):
+    """A head dim the kernel is not built for: the pools the sessions
+    allocate (``zero_kv_pool``, read in place at the padded width) and a
+    contiguous pool (padded by a copy) both give the plain version's
+    output at D, in one launch each."""
+    S, t, ps, P, pos = _CARD_CASES[case]
+    q, kp, vp, table = (x.to(cuda_device) for x in _op_inputs(
+        case, S, t, ps, P, D=D, H=4))
+    if ps == 1024:
+        table = torch.arange(S, dtype=torch.int32,
+                             device=cuda_device)[:, None]
+    if case == 0:
+        table[7] = 0
+    ref = tda.decode_attention_plain(q, kp, vp, table, pos)
+    pk, pv = (tda.zero_kv_pool(*kp.shape, device=cuda_device)
+              for _ in range(2))
+    pk.copy_(kp)
+    pv.copy_(vp)
+    assert pk.stride(2) > D
+    before = tda.decode_attention_cuda.launches
+    for pools in ((pk, pv), (kp, vp)):
+        o = tda.decode_attention(q, *pools, table, pos)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape
+        torch.testing.assert_close(o, ref, atol=2e-5, rtol=2e-4)
+    assert tda.decode_attention_cuda.launches == before + 2
 
 
 @pytest.mark.cuda

@@ -579,6 +579,19 @@ def test_tp2_serving_equals_the_unsharded_model(runs):
     assert "generate is not supported" in str(leader["refused"])
 
 
+def test_tp2_warmup_bucket_shutdown_and_evict(runs):
+    """``TensorParallelModel.warmup_bucket`` runs a new bucket's forward
+    over the ranks (its seconds; 0.0 once warm, and for a bucket the
+    predicts ran), ``shutdown`` returns True, and
+    ``ModelServer.evict_model`` drops the tp wrap."""
+    leader, follower = runs[2]["serve"]
+    first, again, served = leader["warm"].tolist()
+    assert first > 0.0 and again == 0.0 and served == 0.0
+    assert bool(leader["shut"]) and bool(leader["evicted"])
+    assert "registered after the mesh server started" in str(leader["gone"])
+    assert int(follower["forwards"]) >= 4
+
+
 def test_serve_mesh_cli_two_ranks(tmp_path):
     """``serve --mesh tp=2`` as two rank processes: rank 0 refuses a
     malformed /v1/predict (400) and answers the next with the unsharded

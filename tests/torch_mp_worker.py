@@ -313,12 +313,26 @@ def sc_serve(rank, world, arg):
             server.batcher_for("m")
         except Exception as e:           # ServingError
             refused = str(e)
+        # a bucket no request ran (16 rows), then again; the one the
+        # predicts ran (pow2 of the batch's rows)
+        warm = [model.warmup_bucket(16, d["x"].shape[1:]),
+                model.warmup_bucket(16, d["x"].shape[1:]),
+                model.warmup_bucket(len(d["x"]), d["x"].shape[1:])]
+        shut = model.shutdown(drain=True, timeout=5.0)
+        evicted = server.evict_model("m")
+        gone = ""
+        try:
+            server.resolve_serving_model("m")
+        except Exception as e:           # the tp wrap went with it
+            gone = str(e)
     finally:
         server.stop(drain=True)
     return {"got": got, "one": one, "want": want, "after": after,
             "checked": np.array(checked), "failed": np.array(failed),
             "describe": np.array(desc), "health": np.array(health),
-            "refused": np.array(refused)}
+            "refused": np.array(refused), "warm": np.array(warm),
+            "shut": np.array(shut), "evicted": np.array(evicted),
+            "gone": np.array(gone)}
 
 
 def sc_card(rank, world, arg):
