@@ -6,14 +6,15 @@
 Builds every hand-written kernel of ``deeplearning4j_tpu_torch/csrc``
 for sm_90a (and fails if ``ptxas`` reports a spill), counts the
 tensor-core (HMMA) instructions of each kernel function in the built
-libraries (and fails if any of the nine, three kernels at D = 32, 64
-and 128, has none), holds each kernel
+libraries (and fails if any of the twelve, three kernels at D = 32, 64
+and 128 and their wide variants, has none), holds each kernel
 (the flash-attention forward, dq and dk/dv, the paged decode attention)
-against its plain PyTorch version on the card, at those head dims and
-at 4, 8, 16, 48 and 96, which the wrappers zero-pad to the next of them
-(times and bounds at the true D; every kernel time is held against its
-bound, and a time under it fails the run; 160, past the kernels' limit,
-must be refused), serves the full-width
+against its plain PyTorch version on the card, at those head dims, at
+4, 8, 16, 48 and 96, which the wrappers zero-pad to the next of them,
+and at 160, 192 and 256, which the wide variants run at 256 (times and
+bounds at the true D, and at the LM's width over 4 heads; every kernel
+time is held against its bound, and a time under it fails the run),
+serves the full-width
 transformer LM (V=2048, D=1024, L=8, H=16, T=1024; random weights from
 a seed) through ``ModelServer`` ``/v1/predict`` and checks what comes
 back, trains the same LM with Adam for a few steps through ``fit``
@@ -202,7 +203,14 @@ kernel against the plain decode attention, the five card-runnable
 examples at tests/test_examples.py's settings (the flash kernels
 launched by the three attention ones), and ``evict_model`` on the
 full-width LM served as v1 and v2 (v1's parameter and page-pool bytes
-freed, v2 still answering). The fleet phases' replicas serve the LM
+freed, v2 still answering). Then (``wide_head_phase``) the LM's config
+over 4 heads (head dim 256) at depth 2: a predict and a step's
+gradients against the plain attention, an Adam step, and greedy
+``/v1/generate`` ids against the plain decode's; and
+(``rank_examples_phase``) the two rank examples, ``data_parallel_resnet``
+and ``long_context_lm``, their 4 ranks sharing the card under gloo
+(the ring's flash launches counted in long_context_lm's ranks). The
+fleet phases' replicas serve the LM
 at full width and depth FLEET_LAYERS, and slice_phase's predicts send
 SLICE_PREDICT_T ids a request (the smoke's time limit). Every phase's
 wall time is logged. It imports nothing of JAX or of the
@@ -265,12 +273,17 @@ PEAK_F32_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 495e12, 3.35e12
 PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 # head dims the attention kernels are not instantiated for (they are at
 # 32, 64 and 128): zero-padded to the next of those, at the true D's
-# scale (ops/native.kernel_head_dim); 160 is past the kernels' limit
+# scale (ops/native.kernel_head_dim)
 PAD_DIMS = (4, 8, 16, 48, 96)
-REFUSED_DIM = 160
+# past 128 the kernels' wide variants (each CTA owns 128 of the output's
+# columns): 160 and 192 zero-padded to 256, and 256 itself
+WIDE_DIMS = (160, 192, 256)
 # the widths timed a kernel: the padded ones and, beside them, 32 and 128
-# unpadded (64 is the LM shape's, timed on its own)
-TIMED_DIMS = (4, 8, 16, 32, 48, 96, 128)
+# unpadded (64 is the LM shape's, timed on its own), and the wide ones
+TIMED_DIMS = (4, 8, 16, 32, 48, 96, 128) + WIDE_DIMS
+# the LM's width over 4 heads: head dim D_MODEL / 4 = 256, timed at the
+# LM's B and T, and driven end to end by wide_head_phase
+WIDE_LM_HEADS = 4
 
 
 def log(*a):
@@ -326,35 +339,24 @@ def attention_bound(B, T_, H, D, causal, kv_mask=None):
 
 def padded_cases(pad):
     """The head-dim cases of the flash kernels' checks at every PAD_DIMS
-    width: causal at the LM's T, and a ragged T with a key mask (row 5
-    fully masked), causal and not."""
+    and WIDE_DIMS width: causal at the LM's T, and a ragged T with a key
+    mask (row 5 fully masked), causal and not."""
     ragged = pad[:, :333]
+    dims = PAD_DIMS + WIDE_DIMS
     return [((2, T, HEADS, D), True, None, f"D={D}, causal")
-            for D in PAD_DIMS] + [
+            for D in dims] + [
         ((8, 333, 4, D), causal, ragged,
          f"D={D}, ragged T=333, kv_mask, "
          + ("causal" if causal else "non-causal"))
-        for D in PAD_DIMS for causal in (True, False)]
-
-
-def assert_refused(call, what):
-    """``call`` must raise the kernels' head-dim limit error."""
-    try:
-        call()
-    except ValueError as e:
-        assert f"head dim {REFUSED_DIM} exceeds" in str(e) \
-            and "limit of 128" in str(e), e
-        log(f"{what}: D={REFUSED_DIM} refused ({e})")
-        return
-    raise AssertionError(f"{what}: D={REFUSED_DIM} was not refused")
+        for D in dims for causal in (True, False)]
 
 
 def kernel_phase(attn):
     """Hold flash_attention_fwd against its plain version on the card,
-    at D = 32, 64, 128 and every PAD_DIMS width; check D = REFUSED_DIM
-    is refused; time it at the LM shape and at each padded width (the
-    bound at the true D). Returns the kernel's record (without
-    launches)."""
+    at D = 32, 64, 128 and every PAD_DIMS and WIDE_DIMS width; time it
+    at the LM shape, at each of those widths and at the LM's width over
+    WIDE_LM_HEADS heads (the bound at the true D). Returns the kernel's
+    record (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -401,9 +403,6 @@ def kernel_phase(attn):
         log(f"kernel case {what} {tuple(shape)}: max |kernel - plain| "
             f"= {err:.3e} (atol {ATOL}, rtol {RTOL})")
         del q, k, v, o, lse, po, plse
-    q = rand(1, 8, 1, REFUSED_DIM)
-    assert_refused(lambda: attn.flash_attention_fwd(q, q, q),
-                   "flash_attention_fwd")
 
     B = 8
     q, k, v = rand(B, T, HEADS, 64), rand(B, T, HEADS, 64), \
@@ -428,6 +427,19 @@ def kernel_phase(attn):
             f"causal{padded_note(D)}: {ms_d:.4f} ms a call, bound at "
             f"the true D {b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
         del qd, kd, vd
+    # the LM's width over WIDE_LM_HEADS heads
+    Hw, Dw = WIDE_LM_HEADS, D_MODEL // WIDE_LM_HEADS
+    qd, kd, vd = (rand(B, T, Hw, Dw) for _ in range(3))
+    ms_d = time_ms(lambda: attn.flash_attention_fwd(qd, kd, vd, causal=True))
+    b_d = attention_bound(B, T, Hw, Dw, True)
+    check_bound(ms_d, b_d, f"flash_attention_fwd at H={Hw}, D={Dw}")
+    by_dim[f"{Dw}@H{Hw}"] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
+                             "bound_by": b_d["bound_by"],
+                             "max_abs_err": err_by_dim[Dw]}
+    log(f"flash_attention_fwd at the LM's width over {Hw} heads (B={B}, "
+        f"T={T}, H={Hw}, D={Dw}) causal: {ms_d:.4f} ms a call, bound "
+        f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
+    del qd, kd, vd
     b = attention_bound(B, T, HEADS, 64, True)
     check_bound(ms, b, "flash_attention_fwd at D=64")
     log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D=64) causal: "
@@ -472,11 +484,11 @@ def backward_bound(B, T_, H, D, causal, which):
 
 def backward_kernel_phase(attn):
     """Hold the dq and dk/dv kernels against their plain versions on the
-    card in the forward's cases (the PAD_DIMS widths among them), and
-    ``flash_attention_bwd_cuda`` (the path's route) against them; check
-    D = REFUSED_DIM is refused; time them at the LM shape and, inside
-    the path's route, at each width of TIMED_DIMS. Returns their records
-    (without launches)."""
+    card in the forward's cases (the PAD_DIMS and WIDE_DIMS widths among
+    them), and ``flash_attention_bwd_cuda`` (the path's route) against
+    them; time them at the LM shape and, inside the path's route, at
+    each width of TIMED_DIMS and at the LM's width over WIDE_LM_HEADS
+    heads. Returns their records (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -541,37 +553,35 @@ def backward_kernel_phase(attn):
             f"{RTOL}); flash_attention_bwd_cuda bit-identical")
         del q, k, v, do, o, lse, dq, delta, dk, dv, pdq, pdelta, pdk, pdv
         del route
-    q = rand(1, 8, 1, REFUSED_DIM)
-    lse = torch.zeros(1, 1, 8, device="cuda")
-    assert_refused(lambda: attn.flash_attention_bwd_dq_cuda(
-        q, q, q, q, lse, q), "flash_attention_bwd_dq")
-    assert_refused(lambda: attn.flash_attention_bwd_dkv_cuda(
-        q, q, q, lse, lse, q), "flash_attention_bwd_dkv")
-    assert_refused(lambda: attn.flash_attention_bwd_cuda(
-        q, q, q, q, lse, q), "flash_attention_bwd")
 
     B = 8
     by_dim = {"dq": {}, "dkv": {}}
-    for D in TIMED_DIMS:
+    Hw = WIDE_LM_HEADS
+    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
         # at each width, the backward as the path runs it: one pad for
         # both kernels, dq, dk/dv, the slices; each kernel's device time
-        # and the whole call's
-        qd, kd, vd, dod = (rand(B, T, HEADS, D) for _ in range(4))
+        # and the whole call's (past 128, the wide variants')
+        qd, kd, vd, dod = (rand(B, T, H, D) for _ in range(4))
         od, lsed = attn.flash_attention_fwd(qd, kd, vd, causal=True)
+        wide = native_head_dim(D) > 128
+        names = {"dq": "dq_wide_kernel" if wide else "dq_kernel",
+                 "dkv": "dkv_wide_kernel" if wide else "dkv_kernel"}
         route_ms, kern = device_times(
             lambda: attn.flash_attention_bwd_cuda(qd, kd, vd, od, lsed, dod,
                                                   causal=True),
-            iters=20, kernels=("dq_kernel", "dkv_kernel"))
+            iters=20, kernels=tuple(names.values()))
+        key = str(D) if H == HEADS else f"{D}@H{H}"
         for which in ("dq", "dkv"):
-            b_d = backward_bound(B, T, HEADS, D, True, which)
-            ms_d = kern[which + "_kernel"]
-            check_bound(ms_d, b_d, f"flash_attention_bwd_{which} at D={D}")
-            by_dim[which][str(D)] = {
+            b_d = backward_bound(B, T, H, D, True, which)
+            ms_d = kern[names[which]]
+            check_bound(ms_d, b_d,
+                        f"flash_attention_bwd_{which} at H={H}, D={D}")
+            by_dim[which][key] = {
                 "ms": ms_d, "route_ms": route_ms,
                 "bound_ms": b_d["bound_ms"], "bound_by": b_d["bound_by"],
                 "max_abs_err": err_by_dim[which][D]}
             log(f"flash_attention_bwd_{which} at (B={B}, T={T}, "
-                f"H={HEADS}, D={D}) causal{padded_note(D, once=True)}: "
+                f"H={H}, D={D}) causal{padded_note(D, once=True)}: "
                 f"the kernel {ms_d:.4f} ms of device time a call "
                 f"(torch.profiler) of flash_attention_bwd_cuda's "
                 f"{route_ms:.4f} ms, bound at the true D "
@@ -622,10 +632,10 @@ def backward_kernel_phase(attn):
     return records
 
 
-def lm_config(updater=None, layers=None):
+def lm_config(updater=None, layers=None, heads=HEADS):
     """The transformer_lm bench leg's model as config JSON (``layers``
     transformer blocks, default LAYERS: depth is what a phase may
-    cut)."""
+    cut; ``heads`` attention heads, default HEADS)."""
     return {
         "format_version": 1,
         "network_type": "MultiLayerNetwork",
@@ -634,7 +644,7 @@ def lm_config(updater=None, layers=None):
         "layers": ([{"@type": "EmbeddingSequenceLayer", "n_in": V,
                      "n_out": D_MODEL}]
                    + [{"@type": "TransformerEncoderLayer",
-                       "n_heads": HEADS, "causal": True}]
+                       "n_heads": heads, "causal": True}]
                      * (LAYERS if layers is None else layers)
                    + [{"@type": "RnnOutputLayer", "n_out": V,
                        "loss": "mcxent"}]),
@@ -1114,25 +1124,25 @@ def session_pools(da, kp, vp):
 
 def decode_kernel_phase(da):
     """Hold the paged decode-attention kernel against its plain version
-    on the card at D = 32, 64, 128 and every PAD_DIMS width (there on
-    the sessions' padded pools, the dense case on a contiguous pool the
-    wrapper pads by a copy), check D = REFUSED_DIM is refused
+    on the card at D = 32, 64, 128 and every PAD_DIMS and WIDE_DIMS width
+    (at a padded one on the sessions' padded pools, the dense case on a
+    contiguous pool the wrapper pads by a copy)
     (page edges, chunk edges of the split
     kernel with positions read from device memory, t = 1, 4, 16 and 128,
     a shared prefix, a dense cache, an inactive slot, and at D = 64 the
     hybrid check's dense cache of 4 rows x 256, 4 heads), check that two
     launches on the same inputs give the same bits, and time it at the
     decode shape (S=8 slots, H=16, D=64, t=1, every slot at position 511
-    of a 1024-token page table of 16-token pages) and at each padded
-    width (the bound at the true D). Returns its record (without
-    launches)."""
+    of a 1024-token page table of 16-token pages), at each width of
+    TIMED_DIMS and at the LM's width over WIDE_LM_HEADS heads (the bound
+    at the true D). Returns its record (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(2)
     max_err = 0.0
     err_by_dim = {}
     c = da.KEY_CHUNK
-    for D in (32, 64, 128) + PAD_DIMS:
+    for D in (32, 64, 128) + PAD_DIMS + WIDE_DIMS:
         cases = []
         q, kp, vp, table, pos = paged_inputs(
             g, 8, 1, D, [0, 1, 15, 16, 17, 511, 1023, 0])
@@ -1166,7 +1176,7 @@ def decode_kernel_phase(da):
                 cases.append(("hybrid dense cache of 256, 4 heads", q, kp,
                               vp, torch.arange(HYBRID_B, dtype=torch.int32,
                                                device="cuda")[:, None], pos))
-        if D in PAD_DIMS:
+        if native_head_dim(D) != D:
             cases = [(what, q, *session_pools(da, kp, vp), table, pos)
                      if "dense" not in what else
                      (what + ", a contiguous pool (padded by a copy)", q,
@@ -1190,29 +1200,28 @@ def decode_kernel_phase(da):
                 f"{host.tolist()}: max |kernel - plain| = {err:.3e} (atol "
                 f"{ATOL}, rtol {RTOL}); a second launch bit-identical")
         del cases, q, kp, vp, table, o, again, ref
-    q, kp, vp, table, pos = paged_inputs(g, 2, 1, REFUSED_DIM, [0, 1],
-                                         P=2, H=2)
-    assert_refused(lambda: da.decode_attention_cuda(q, kp, vp, table, pos),
-                   "decode_attention")
 
     S, P = SLOTS, CAPACITY // PAGE
     pos_list = [511] * S
     by_dim = {}
-    for D in TIMED_DIMS:
-        q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list)
+    Hw = WIDE_LM_HEADS
+    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
+        q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list, H=H)
         kp, vp = session_pools(da, kp, vp)
         pos = host.cuda()
         ms_d = device_ms(lambda: da.decode_attention_cuda(
             q, kp, vp, table, pos, host_pos=host), kernels=DECODE_KERNELS)
-        b_d = decode_bound(S, 1, HEADS, D, pos_list, P)
-        check_bound(ms_d, b_d, f"decode_attention at D={D}")
-        by_dim[str(D)] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
-                          "bound_by": b_d["bound_by"],
-                          "max_abs_err": err_by_dim[D]}
-        log(f"decode_attention at (S={S}, t=1, H={HEADS}, D={D}, pos 511) "
+        b_d = decode_bound(S, 1, H, D, pos_list, P)
+        check_bound(ms_d, b_d, f"decode_attention at H={H}, D={D}")
+        by_dim[str(D) if H == HEADS else f"{D}@H{H}"] = {
+            "ms": ms_d, "bound_ms": b_d["bound_ms"],
+            "bound_by": b_d["bound_by"], "max_abs_err": err_by_dim[D],
+            "pool_bytes": 2 * kp.untyped_storage().nbytes()}
+        log(f"decode_attention at (S={S}, t=1, H={H}, D={D}, pos 511) "
             f"on the sessions' pools{padded_note(D)}: {ms_d:.4f} ms of "
             f"device time a call (torch.profiler), bound at the true D "
-            f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
+            f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']}); k and v pools "
+            f"{2 * kp.untyped_storage().nbytes()} bytes")
         del q, kp, vp, table
 
     D = 64
@@ -2978,9 +2987,11 @@ def lenet_phase(card):
 
 
 def resnet_serve(net, card):
-    """Write the trained ResNet50, restore it, serve SERVE_ROWS rows
-    through ModelServer /v1/predict: probabilities sum to 1 and equal
-    ``output`` of the restored net on the same rows."""
+    """Write the trained ResNet50 (its parameters and batch-norm state:
+    serving reads no updater state, and train_phase round-trips one),
+    restore it, serve SERVE_ROWS rows through ModelServer /v1/predict:
+    probabilities sum to 1 and equal ``output`` of the restored net on
+    the same rows."""
     import numpy as np
     import torch
     from deeplearning4j_tpu_torch.models.computation_graph import (
@@ -2992,7 +3003,7 @@ def resnet_serve(net, card):
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "resnet.zip")
         t0 = time.perf_counter()
-        write_model(net, path)
+        write_model(net, path, save_updater=False)
         restored = restore_model(path, device="cuda")
         io_s = time.perf_counter() - t0
     assert isinstance(restored, ComputationGraph)
@@ -5880,7 +5891,7 @@ RETR_RECALL_Q = 1024       # queries of the IVF recall against brute force
 GLOVE_V, GLOVE_D, EMBED_TEXTS = 400_000, 300, 256
 # the soak: bench.py:3283-3285's retrieval_serving leg
 SOAK_CORPUS = "random:n=8192,dim=64,seed=0,clusters=64"
-SOAK_NLIST, SOAK_NPROBE, SOAK_CONC, SOAK_QUERIES = 64, 16, 8, 512
+SOAK_NLIST, SOAK_NPROBE, SOAK_CONC, SOAK_QUERIES = 64, 16, 8, 256
 SOAK_KILL_AT = 200         # the routed request replica 0 dies at
 RETR_TOL = 1e-4            # scores vs the float64 oracle; near-tie gap
 
@@ -6315,8 +6326,9 @@ def retrieval_phase(card):
 # an H100 machine, so one id
 CTL_PREDICT_T = 1
 # paired off/on runs (4, then 2, until the smoke's time limit; the
-# cost is printed, not asserted)
-OBS_RUNS, OBS_REQUESTS, OBS_CONC = 1, 160, 8
+# cost is printed, not asserted), of 80 requests each (160 until the
+# wide-head and rank-example phases)
+OBS_RUNS, OBS_REQUESTS, OBS_CONC = 1, 80, 8
 OBS_BAR = 0.02             # bench.py's OBS_OVERHEAD_BAR
 ROLL_REPLICAS = 4
 # bench.py's autoscaler_soak, its 14 s load cut to AS_DURATION
@@ -6884,7 +6896,7 @@ PS_LM_LAYERS = 2         # the LM's depth here: two workers' models fit
 PS_LM_WORKERS, PS_LM_STEPS, PS_LM_B = 2, 3, 8
 PS_LM_LR = 1e-2          # the server's SGD rate on the LM's pushes
 PS_CHECK_B = 2           # rows of the one push held against the CPU
-PS_CLI_EPOCHS = 5        # train-ps launcher: 3 workers x 8 batches x 5
+PS_CLI_EPOCHS = 2        # train-ps launcher: 3 workers x 8 batches x 2
 PS_CLI_CHAOS = {"faults": [
     {"site": "ps.push.drop", "kind": "drop", "at": [5]},
     {"site": "ps.server.restart", "kind": "restart", "at": [25]}]}
@@ -8205,7 +8217,7 @@ def tp_sp_pp_phase(attn, card, ref_dir):
         shutil.rmtree(out, ignore_errors=True)
 
 
-MESH_FLEET_BURST = 16        # predicts through the router, CLIENTS at once
+MESH_FLEET_BURST = 8         # predicts through the router, CLIENTS at once
 MESH_FLEET_IDS = 64          # ids a request (TSP_SERVE_IDS)
 MESH_BOOT_S = 300.0          # four ranks' imports, contexts and models
 MESH_GONE_S = 5.0            # a dead follower's rank 0 is gone within this
@@ -9005,10 +9017,10 @@ LIB_KNN_REQUESTS = 200     # /knn and /knnindex requests at k = LIB_KNN_K
 LIB_KNN_K = 10
 LIB_KNN_CHECKED = 20       # of them held against the float64 brute force
 LIB_KNN_CLI_ROWS = 100_000  # the serve-knn verb's .npy (of the corpus)
-# (1, T) id messages through the route: 4, not 16, to pay for
-# surface_phase within the smoke's time (each message is ~3.6 s of JSON
-# on the card's host)
-LIB_STREAM_MSGS = 4
+# (1, T) id messages through the route: 2 (16 until surface_phase, then
+# 4 until the wide-head and rank-example phases), within the smoke's
+# time (each message is ~3.6 s of JSON on the card's host)
+LIB_STREAM_MSGS = 2
 GC_REL = 1e-3              # the gradient check's limit (both packages')
 
 
@@ -9939,29 +9951,297 @@ def surface_phase(attn, da, card):
     log(f"surface_phase kernel launches: {launches}")
     return launches
 
+# the head-dim-256 model path: the LM's config over WIDE_LM_HEADS heads
+WIDE_LAYERS = 2            # its depth (the width is the LM's)
+WIDE_PREDICT_B = 2         # rows of the predict held against the plain one
+WIDE_GEN_REQUESTS = 4      # concurrent /v1/generate requests
+WIDE_GEN_PROMPT, WIDE_GEN_TOKENS, WIDE_CAP = 64, 8, 128
+
+
+def wide_head_phase(attn, da, card):
+    """The LM's config (V, D_MODEL, T) over WIDE_LM_HEADS heads, head dim
+    D_MODEL / WIDE_LM_HEADS = 256 (the kernels' wide variants), at depth
+    WIDE_LAYERS: a predict (``output``) and one step's loss and gradients
+    held against the same model on the plain attention on the card, one
+    Adam step through ``fit``, then WIDE_GEN_REQUESTS concurrent greedy
+    ``/v1/generate`` requests on paged slots held against the plain
+    decode attention's ids. Returns the four kernels' launches in the
+    phase (counts set to 0 just before, read just after)."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf import updaters
+    from deeplearning4j_tpu_torch.nn.conf.multi_layer import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.serving.http import ModelServer
+    from deeplearning4j_tpu_torch.serving.registry import ModelRegistry
+    from deeplearning4j_tpu_torch.util.model_serializer import _flatten
+    wrappers = {"flash_attention_fwd": attn.flash_attention_fwd_cuda,
+                "flash_attention_bwd_dq": attn.flash_attention_bwd_dq_cuda,
+                "flash_attention_bwd_dkv":
+                    attn.flash_attention_bwd_dkv_cuda,
+                "decode_attention": da.decode_attention_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    Dh = D_MODEL // WIDE_LM_HEADS
+    conf = MultiLayerConfiguration.from_dict(lm_config(
+        updaters.adam(TRAIN_LR), layers=WIDE_LAYERS, heads=WIDE_LM_HEADS))
+    net = MultiLayerNetwork(conf, device="cuda").init(seed=0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, V, (TRAIN_B, T)).astype("float32")
+    y = np.eye(V, dtype="float32")[rng.integers(0, V, (TRAIN_B, T))]
+    ds = DataSet(ids, y)
+
+    # a predict, kernels vs plain attention
+    out = net.output(ids[:WIDE_PREDICT_B])
+    before = attn.flash_attention_fwd_cuda.launches
+    with plain_attention(attn):
+        plain_out = net.output(ids[:WIDE_PREDICT_B])
+    assert attn.flash_attention_fwd_cuda.launches == before
+    torch.testing.assert_close(out, plain_out, atol=1e-6, rtol=1e-4)
+    assert out.shape == (WIDE_PREDICT_B, T, V), tuple(out.shape)
+    pred_err = (out - plain_out).abs().max().item()
+    # one step's loss and gradients, kernels vs plain attention
+    batch = net._batch_tuple(ds)
+    loss_k, grads_k, _ = net._gradients(batch)
+    with plain_attention(attn):
+        loss_p, grads_p, _ = net._gradients(batch)
+    torch.cuda.synchronize()
+    worst = 0.0
+    flat_k, flat_p = _flatten(grads_k), _flatten(grads_p)
+    assert flat_k.keys() == flat_p.keys()
+    for path, gp in flat_p.items():
+        scale = float(np.abs(gp).max())
+        e = float(np.abs(flat_k[path] - gp).max())
+        assert e <= GRAD_RTOL * scale + 1e-12, (path, e, scale)
+        worst = max(worst, e / max(scale, 1e-30))
+    assert abs(loss_k.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    del grads_k, grads_p, flat_k, flat_p
+    # one Adam step through fit
+    before = {k: w.launches for k, w in wrappers.items()}
+    t0 = time.perf_counter()
+    net.fit(ds)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss = float(net.score_value)
+    assert math.isfinite(loss), loss
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        assert wrappers[k].launches - before[k] == WIDE_LAYERS, \
+            (k, wrappers[k].launches - before[k])
+
+    registry = ModelRegistry()
+    registry.register("wide", net)
+    server = ModelServer(registry, slots=4, capacity=WIDE_CAP,
+                         page_size=PAGE).start()
+    bodies = [{"model": "wide", "n_tokens": WIDE_GEN_TOKENS,
+               "prompt": rng.integers(1, V, WIDE_GEN_PROMPT).tolist()}
+              for _ in range(WIDE_GEN_REQUESTS)]
+    replies = [None] * len(bodies)
+    try:
+        dec0 = da.decode_attention_cuda.launches
+
+        def client(i):
+            replies[i] = http(server.port, "/v1/generate", bodies[i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(bodies))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        decodes = da.decode_attention_cuda.launches - dec0
+        batcher, _ = server.batcher_for("wide")
+        assert batcher._paged
+    finally:
+        server.stop(drain=True)
+    assert all(r is not None and r[0] == 200 for r in replies), replies
+    assert decodes > 0, "the decode kernel did not run"
+    launches = {k: w.launches for k, w in wrappers.items()}
+    compared = sum(check_greedy(net, da, b["prompt"], r[1]["ids"],
+                                n_tokens=WIDE_GEN_TOKENS,
+                                capacity=WIDE_CAP)
+                   for b, r in zip(bodies, replies))
+    log(f"head dim {Dh} (the LM's V={V}, width {D_MODEL}, T={T} over "
+        f"{WIDE_LM_HEADS} heads, depth {WIDE_LAYERS}) on {card}: predict "
+        f"of {WIDE_PREDICT_B} rows max |kernels - plain| {pred_err:.3e} "
+        f"(atol 1e-6, rtol 1e-4); a step's loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f}, worst gradient max|diff| / max|grad| "
+        f"{worst:.3e} (limit {GRAD_RTOL}); one Adam step through fit "
+        f"{step_s:.3f} s (loss {loss:.4f}); {len(bodies)} concurrent "
+        f"/v1/generate requests of {WIDE_GEN_PROMPT} ids x "
+        f"{WIDE_GEN_TOKENS} tokens on 4 paged slots: {compared} greedy "
+        f"ids equal to the plain decode attention's; launches {launches}")
+    return launches
+
+
+# the rank examples at tests/test_examples.py's settings; their ranks
+# share the card under gloo
+RANK_EXAMPLES = {
+    "data_parallel_resnet": (["--img", "32", "--steps", "3"],
+                             ["4 devices", "final loss"]),
+    "long_context_lm": (["--epochs", "8"],
+                        ["data=2 x seq=2",
+                         "matches single-device params: True"]),
+}
+RANK_EXAMPLE_WORLD = 4
+RANK_EXAMPLE_TIMEOUT_S = 300
+
+
+def example_rank_main(out, name, argv):
+    """One rank of a rank example: ``python3 chip_smoke.py example-rank
+    DIR NAME ARGS...`` with the multihost variables set. Runs the
+    example's ``main(ARGS)`` as that rank and writes DIR/NAME_rank{i}.json:
+    its exit status, what it printed, the kernels' launches."""
+    import contextlib
+    import importlib
+    import io as _io
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from deeplearning4j_tpu_torch.ops import native
+    mod = importlib.import_module(
+        f"deeplearning4j_tpu_torch.examples.{name}")
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    rank = int(os.environ["DL4J_TPU_PROCESS_ID"])
+    with open(os.path.join(out, f"{name}_rank{rank}.json"), "w") as f:
+        json.dump({"rc": rc, "stdout": buf.getvalue(),
+                   "launches": native.launch_counts()}, f)
+    return rc
+
+
+def start_example_ranks(name, argv, out):
+    """Start RANK_EXAMPLE_WORLD ranks of ``example-rank`` over the card
+    (``wait_example_ranks`` collects them)."""
+    port = free_ports(1)
+    procs = []
+    for rank in range(RANK_EXAMPLE_WORLD):
+        env = dict(os.environ, DL4J_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   DL4J_TPU_NUM_PROCESSES=str(RANK_EXAMPLE_WORLD),
+                   DL4J_TPU_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, RANK_SCRIPT, "example-rank", out, name]
+            + argv, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def wait_example_ranks(name, procs, out):
+    """Each rank's result of ``start_example_ranks``; fails on a rank's
+    exit code, and stops them all after RANK_EXAMPLE_TIMEOUT_S."""
+    logs = []
+    deadline = time.monotonic() + RANK_EXAMPLE_TIMEOUT_S
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    results = []
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (f"{name} rank {rank} exited "
+                                   f"{p.returncode}:\n{text[-6000:]}")
+        with open(os.path.join(out, f"{name}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_examples_phase(attn, card):
+    """The two rank examples with ``--device cuda``, their
+    RANK_EXAMPLE_WORLD ranks each sharing the card under gloo, at
+    tests/test_examples.py's settings and with the lines it asserts, the
+    two at once: ``long_context_lm``'s ranks started here through
+    ``example-rank`` (each counts its kernel launches: the ring's flash
+    forward, dq and dk/dv at head dim 4, padded to 32), then
+    ``data_parallel_resnet`` as a user runs it (its ``main`` starts its
+    own ranks). Returns the three flash kernels' launches summed over
+    long_context_lm's ranks."""
+    import contextlib
+    import importlib
+    import io as _io
+    from deeplearning4j_tpu_torch.examples import _ranks
+    assert not _ranks.is_rank()
+    lc_argv, lc_lines = RANK_EXAMPLES["long_context_lm"]
+    tmp = tempfile.mkdtemp(prefix="rank-examples-", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        t_lc = time.perf_counter()
+        procs = start_example_ranks("long_context_lm",
+                                    lc_argv + ["--device", "cuda"], tmp)
+        try:
+            argv, lines = RANK_EXAMPLES["data_parallel_resnet"]
+            mod = importlib.import_module(
+                "deeplearning4j_tpu_torch.examples.data_parallel_resnet")
+            buf = _io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv + ["--device", "cuda"])
+            secs = time.perf_counter() - t0
+        finally:
+            ranks = wait_example_ranks("long_context_lm", procs, tmp)
+        lc_secs = time.perf_counter() - t_lc
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = buf.getvalue()
+    assert rc == 0, (rc, out[-2000:])
+    for line in lines:
+        assert line in out, ("data_parallel_resnet", line, out[-2000:])
+    log(f"example data_parallel_resnet {' '.join(argv)} --device cuda "
+        f"({card}, {RANK_EXAMPLE_WORLD} ranks it started, gloo, beside "
+        f"long_context_lm's): {secs:.2f} s; "
+        + " | ".join(out.strip().splitlines()[-2:]))
+    argv, lines, secs = lc_argv, lc_lines, lc_secs
+    out = ranks[0]["stdout"]
+    for line in lines:
+        assert line in out, ("long_context_lm", line, out[-2000:])
+    names = {"flash_attention_fwd": attn.flash_attention_fwd_cuda.__name__,
+             "flash_attention_bwd_dq":
+                 attn.flash_attention_bwd_dq_cuda.__name__,
+             "flash_attention_bwd_dkv":
+                 attn.flash_attention_bwd_dkv_cuda.__name__}
+    for r in ranks:
+        assert r["rc"] == 0, r
+        assert all(r["launches"][n] > 0 for n in names.values()), \
+            r["launches"]
+    launches = {k: sum(r["launches"][n] for r in ranks)
+                for k, n in names.items()}
+    log(f"example long_context_lm {' '.join(argv)} --device cuda ({card}, "
+        f"{RANK_EXAMPLE_WORLD} ranks through example-rank, gloo): "
+        f"{secs:.2f} s; flash launches over the ranks {launches}; "
+        + " | ".join(out.strip().splitlines()[-2:]))
+    return launches
+
 
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
-    Fails unless all nine kernel functions (the forward, dq and dk/dv,
-    each at D = 32, 64 and 128) are there and each has at least one (a
-    build that fell back to FMA code has none)."""
+    Fails unless all twelve kernel functions (the forward, dq and dk/dv,
+    each at D = 32, 64 and 128, and their wide variants at 128-wide
+    chunks) are there and each has at least one (a build that fell back
+    to FMA code has none)."""
     tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
     counts = {}
+    kernels = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel",
+               "flash_fwd_wide_kernel", "dq_wide_kernel", "dkv_wide_kernel")
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         sass = subprocess.run([tool, "-sass", native._target(name)],
                               capture_output=True, text=True,
                               check=True).stdout
         for part in re.split(r"\n\s*Function : ", sass)[1:]:
-            m = re.search(r"(flash_fwd_kernel|dkv_kernel|dq_kernel)ILi(\d+)E",
+            m = re.search(r"(" + "|".join(kernels) + r")ILi(\d+)E",
                           part.split("\n", 1)[0])
             counts[f"{m.group(1)}<{m.group(2)}>"] = len(
                 re.findall(r"\bHMMA\b", part))
     log("tensor-core (HMMA) instructions per kernel function (cuobjdump "
         "-sass): " + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-    expected = {f"{kernel}<{d}>" for kernel in ("flash_fwd_kernel",
-                                                "dq_kernel", "dkv_kernel")
-                for d in (32, 64, 128)}
+    expected = {f"{kernel}<{d}>" for kernel in kernels[:3]
+                for d in (32, 64, 128)} | {f"{kernel}<128>"
+                                           for kernel in kernels[3:]}
     assert set(counts) == expected, counts
     for k, n in counts.items():
         assert n > 0, f"{k} has no tensor-core instruction"
@@ -10078,6 +10358,8 @@ def main():
     timed("nlp_phase", nlp_phase, card)
     lib = timed("library_phase", library_phase, attn, card)
     surface = timed("surface_phase", surface_phase, attn, da, card)
+    wide = timed("wide_head_phase", wide_head_phase, attn, da, card)
+    ranked = timed("rank_examples_phase", rank_examples_phase, attn, card)
     fwd["launches_by_path"] = {"serve": fwd_serve, "fleet": fwd_fleet,
                                "rnn": fwd_rnn, "keras": fwd_keras,
                                "capture": captured["flash_attention_fwd"],
@@ -10087,11 +10369,15 @@ def main():
                                "tp_sp_pp": tsp["flash_attention_fwd"],
                                "mesh_fleet": mfleet,
                                "library": lib["flash_attention_fwd"],
-                               "surface": surface["flash_attention_fwd"]}
+                               "surface": surface["flash_attention_fwd"],
+                               "wide_head": wide["flash_attention_fwd"],
+                               "rank_examples":
+                                   ranked["flash_attention_fwd"]}
     dec["launches_by_path"] = {"generate": dec_generate,
                                "fleet": dec_fleet, "rnn": dec_rnn,
                                "fleet_control": dec_ctl,
-                               "surface": surface["decode_attention"]}
+                               "surface": surface["decode_attention"],
+                               "wide_head": wide["decode_attention"]}
     for record, name in ((dq, "flash_attention_bwd_dq"),
                          (dkv, "flash_attention_bwd_dkv")):
         record["launches_by_path"] = {"train": record["launches"],
@@ -10099,7 +10385,9 @@ def main():
                                       "ps": ps[name], "dp": dp[name],
                                       "tp_sp_pp": tsp[name],
                                       "library": lib[name],
-                                      "surface": surface[name]}
+                                      "surface": surface[name],
+                                      "wide_head": wide[name],
+                                      "rank_examples": ranked[name]}
     for record in (fwd, dq, dkv, dec):
         record["launches"] = sum(record["launches_by_path"].values())
     records = [fwd, dq, dkv, dec]
@@ -10122,4 +10410,7 @@ if __name__ == "__main__":
         sys.exit(dp_rank_main(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["stream-client"]:
         sys.exit(stream_client_main(sys.argv[2]))
+    if sys.argv[1:2] == ["example-rank"]:
+        sys.exit(example_rank_main(sys.argv[2], sys.argv[3],
+                                   sys.argv[4:]))
     sys.exit(main())

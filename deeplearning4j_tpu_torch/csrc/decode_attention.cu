@@ -57,6 +57,19 @@
 //     M), skipping empty chunks. A fixed order and no atomics: every
 //     launch on the same inputs gives the same bits.
 //
+// Head dims past 128 (Dh = 128 * n_chunks, the wrapper's padded width):
+// a lane's k row and its share of o grow with Dh, and at QT = 16 the
+// warps' o partials in shared memory alone would pass the 48 KB a
+// kernel may hold statically. So a wide launch splits o's columns over
+// CTAs as the flash kernels do: each CTA of (key chunk, slot, head, query
+// tile) and o-chunk z scores its keys over the whole row (q staged in
+// dynamic shared memory at the full width, k read 16 bytes at a time in
+// a loop) and runs p.v for its own 128 columns of o. Every chunk computes
+// the same scores in the same order; chunk 0 writes the (m, l) partials,
+// each chunk its columns of the o partials, and the merge kernel, which
+// takes any width, is unchanged. The cost is the scores' k reads once
+// for every chunk of o (k's bytes twice at Dh = 256, v's once).
+//
 // The positions are read from device memory (pos, S int32), so a graph
 // replay reads the step's positions from the buffer it was captured
 // with; the caller checks them on its host copy before the launch or
@@ -116,15 +129,18 @@ __device__ __forceinline__ void load_row(const float* p, float (&r)[VL]) {
   }
 }
 
-template <int D, int QT>
+// DQ: the row width when it is the chunk width D (a narrow launch, all
+// sizes known at compile time), or 0 for a wide launch, whose row width
+// Dq is an argument and whose q lives in dynamic shared memory.
+template <int D, int QT, int DQ>
 struct Smem {
-  float4 q[QT][D / 4];
+  float4 q[QT][DQ ? D / 4 : 1];
   float m[kWarps][QT];
   float l[kWarps][QT];
   float acc[kWarps][QT][D];
 };
 
-template <int D, int QT>
+template <int D, int QT, int DQ>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const float* __restrict__ q,
                         const float* __restrict__ k_pool,
@@ -134,17 +150,24 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ part_o,
                         float2* __restrict__ part_ml, int t, int H,
                         int page_size, int P, int n_split,
-                        float scale_log2) {
+                        float scale_log2, int dq_arg) {
   constexpr int VL = D / 32;                    // output dims a lane owns
-  constexpr int C4 = D / 4;                     // float4 chunks of a row
-  constexpr int CH = QT == 1 ? (C4 < 16 ? C4 : 16) : 4;  // k chunks in flight
+  // k chunks in flight
+  constexpr int CH = QT == 1 ? (D / 4 < 16 ? D / 4 : 16) : 4;
   constexpr int VB = QT == 1 ? 8 : 4;           // v rows loaded together
-  static_assert(C4 % CH == 0, "head dim must be 32, 64 or 128");
+  static_assert((D / 4) % CH == 0, "chunk width must be 32, 64 or 128");
   static_assert(kKeyTile % VB == 0, "v batch must divide the key tile");
-  __shared__ Smem<D, QT> sm;
+  static_assert(DQ == 0 || DQ == D, "a narrow launch's row is its chunk");
+  __shared__ Smem<D, QT, DQ> sm;
+  extern __shared__ float4 q_wide[];            // QT x Dq / 4, wide only
+  const int dq = DQ ? DQ : dq_arg;              // the row's width
+  const int C4 = dq / 4;                        // float4 chunks of a row
+  const int n_chunks = DQ ? 1 : dq / D;         // o's column chunks
+  float4* q_s = DQ ? &sm.q[0][0] : q_wide;      // q_s[i * C4 + c]
 
   const int split = blockIdx.x % n_split;
-  const int q0 = (blockIdx.x / n_split) * QT;
+  const int z = (blockIdx.x / n_split) % n_chunks;   // o's chunk
+  const int q0 = (blockIdx.x / n_split / n_chunks) * QT;
   const int s = blockIdx.z, h = blockIdx.y;
   const int nq = min(QT, t - q0);               // queries of this tile
   const int p0 = pos[s];
@@ -156,25 +179,25 @@ __global__ void __launch_bounds__(kThreads)
       ((static_cast<long long>(s) * t + q0) * H + h) * n_split + split;
   const long long pstep = static_cast<long long>(H) * n_split;
   if (c0 >= c1) {                               // block-uniform
-    if (threadIdx.x < nq)
+    if (threadIdx.x < nq && z == 0)
       part_ml[prow + threadIdx.x * pstep] = make_float2(-INFINITY, 0.f);
     return;
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long row = static_cast<long long>(H) * D;  // floats a position
+  const long long row = static_cast<long long>(H) * dq;  // floats a position
 
   for (int idx = threadIdx.x; idx < QT * C4; idx += kThreads) {
     const int i = idx / C4, c = idx % C4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (i < nq) {
       x = reinterpret_cast<const float4*>(
-          q + ((static_cast<long long>(s) * t + q0 + i) * H + h) * D)[c];
+          q + ((static_cast<long long>(s) * t + q0 + i) * H + h) * dq)[c];
       x.x *= scale_log2;
       x.y *= scale_log2;
       x.z *= scale_log2;
       x.w *= scale_log2;
     }
-    sm.q[i][c] = x;
+    q_s[i * C4 + c] = x;
   }
   __syncthreads();
 
@@ -194,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool live = j < c1;
     // the key's row offset in either pool (head h); a dead lane points at
     // row 0 of page 0, which exists, and its p is 0
-    long long krow = static_cast<long long>(h) * D;
+    long long krow = static_cast<long long>(h) * dq;
     if (live) {
       const long long page = trow[j / page_size];
       krow += (page * page_size + j % page_size) * row;
@@ -213,7 +236,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int i = 0; i < QT; ++i) {
 #pragma unroll
           for (int u = 0; u < CH; ++u) {
-            const float4 qq = sm.q[i][c0k + u];
+            const float4 qq = q_s[i * C4 + c0k + u];
             sc[i] = fmaf(qq.x, kr[u].x, sc[i]);
             sc[i] = fmaf(qq.y, kr[u].y, sc[i]);
             sc[i] = fmaf(qq.z, kr[u].z, sc[i]);
@@ -240,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < VB; ++u) {
         const long long vrow = __shfl_sync(kFull, krow, jb + u);
-        load_row<VL>(v_pool + vrow + lane * VL, vv[u]);
+        load_row<VL>(v_pool + vrow + z * D + lane * VL, vv[u]);
       }
 #pragma unroll
       for (int u = 0; u < VB; ++u) {
@@ -283,8 +306,8 @@ __global__ void __launch_bounds__(kThreads)
       num = fmaf(sm.acc[w][i][d], f, num);
     }
     const long long r = prow + i * pstep;
-    part_o[r * D + d] = num;
-    if (d == 0) part_ml[r] = make_float2(mx, den);
+    part_o[r * dq + z * D + d] = num;
+    if (d == 0 && z == 0) part_ml[r] = make_float2(mx, den);
   }
 }
 
@@ -313,36 +336,51 @@ __global__ void __launch_bounds__(kThreads)
   o[idx] = num / den;
 }
 
-template <int D, int QT>
+constexpr int kWideChunk = 128;   // o's columns a wide CTA owns
+
+// DQ = D: a narrow launch at row width D; DQ = 0: a wide one at row width
+// dq (a multiple of D), its q staged in dq * QT * 4 bytes of dynamic
+// shared memory.
+template <int D, int QT, int DQ>
 int launch(const float* q, const float* k_pool, const float* v_pool,
            const int* table, const int* pos, float* o, float* part_o,
-           float2* part_ml, int S, int t, int H, int page_size, int P,
-           int n_split, float scale_log2, cudaStream_t stream) {
+           float2* part_ml, int S, int t, int H, int dq, int page_size,
+           int P, int n_split, float scale_log2, cudaStream_t stream) {
   const int n_qt = (t + QT - 1) / QT;
-  const dim3 grid(n_split * n_qt, H, S);
-  decode_split_kernel<D, QT><<<grid, kThreads, 0, stream>>>(
+  size_t smem = 0;
+  if constexpr (DQ == 0) {
+    smem = sizeof(float) * QT * dq;
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_split_kernel<D, QT, DQ>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(n_split * n_qt * (dq / D), H, S);
+  decode_split_kernel<D, QT, DQ><<<grid, kThreads, smem, stream>>>(
       q, k_pool, v_pool, table, pos, part_o, part_ml, t, H, page_size, P,
-      n_split, scale_log2);
+      n_split, scale_log2, dq);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_out = static_cast<long long>(S) * t * H * D;
+  const long long n_out = static_cast<long long>(S) * t * H * dq;
   const unsigned blocks =
       static_cast<unsigned>((n_out + kThreads - 1) / kThreads);
   decode_merge_kernel<<<blocks, kThreads, 0, stream>>>(part_o, part_ml, o,
-                                                       n_out, D, n_split);
+                                                       n_out, dq, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DQ>
 int launch_d(const float* q, const float* k_pool, const float* v_pool,
              const int* table, const int* pos, float* o, float* part_o,
-             float2* part_ml, int S, int t, int H, int page_size, int P,
-             int n_split, float scale_log2, cudaStream_t stream) {
+             float2* part_ml, int S, int t, int H, int dq, int page_size,
+             int P, int n_split, float scale_log2, cudaStream_t stream) {
   if (t == 1)
-    return launch<D, 1>(q, k_pool, v_pool, table, pos, o, part_o, part_ml,
-                        S, t, H, page_size, P, n_split, scale_log2, stream);
-  return launch<D, 16>(q, k_pool, v_pool, table, pos, o, part_o, part_ml, S,
-                       t, H, page_size, P, n_split, scale_log2, stream);
+    return launch<D, 1, DQ>(q, k_pool, v_pool, table, pos, o, part_o,
+                            part_ml, S, t, H, dq, page_size, P, n_split,
+                            scale_log2, stream);
+  return launch<D, 16, DQ>(q, k_pool, v_pool, table, pos, o, part_o,
+                           part_ml, S, t, H, dq, page_size, P, n_split,
+                           scale_log2, stream);
 }
 
 }  // namespace
@@ -356,8 +394,10 @@ extern "C" int dl4j_decode_attention_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   const long long span = static_cast<long long>(P) * page_size;
   const long long rows = static_cast<long long>(S) * t * H;
+  const long long n_chunks = D > 128 ? D / kWideChunk : 1;
   if (n_split != (span + kChunk - 1) / kChunk ||
-      static_cast<long long>(n_split) * ((t + 15) / 16) > 0x7fffffffLL ||
+      static_cast<long long>(n_split) * ((t + 15) / 16) * n_chunks >
+          0x7fffffffLL ||
       rows * D / kThreads >= 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* qf = static_cast<const float*>(q);
@@ -372,15 +412,18 @@ extern "C" int dl4j_decode_attention_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch_d<32>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, page_size,
-                          P, n_split, sl, st);
+      return launch_d<32, 32>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, D,
+                              page_size, P, n_split, sl, st);
     case 64:
-      return launch_d<64>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, page_size,
-                          P, n_split, sl, st);
+      return launch_d<64, 64>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, D,
+                              page_size, P, n_split, sl, st);
     case 128:
-      return launch_d<128>(qf, kf, vf, tf, pf, of, po, pml, S, t, H,
-                           page_size, P, n_split, sl, st);
+      return launch_d<128, 128>(qf, kf, vf, tf, pf, of, po, pml, S, t, H, D,
+                                page_size, P, n_split, sl, st);
     default:
+      if (D > 128 && D % kWideChunk == 0)
+        return launch_d<kWideChunk, 0>(qf, kf, vf, tf, pf, of, po, pml, S, t,
+                                       H, D, page_size, P, n_split, sl, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -62,8 +62,25 @@
 //     (b*h, tile) with the heaviest tiles of every head first.
 //
 // Any T (the ragged edge is zero-filled by the copies and masked), D in
-// {32, 64, 128} (streamed tiles of 32 rows, so nothing spills), strides
+// {32, 64, 128} (streamed tiles of 32 rows, so nothing spills) or a
+// multiple of 128 past it (the wide kernels below), strides
 // in elements (the last dimension contiguous, rows 16-byte aligned).
+//
+// Head dims past 128 (Dp = 128 * n_chunks, zero-padded by the wrapper):
+// the accumulators and partials of D = 128 already take most of a
+// thread's 255 registers, so the wide kernels split the OUTPUT's columns
+// over a third grid dimension of kWideChunk (128) wide chunks. A CTA
+// streams the 128-wide slices of every operand of s and dp (dq: q, do,
+// k, v; dk/dv: k, v, q, do) through the ring and sums s and dp over the
+// whole Dp, then computes p and ds and its own 128 columns of dq (or of
+// dk and dv). Its slices run in the order z + 1, ..., z (mod n_chunks),
+// so the tile's last slice is the CTA's own chunk z, which the output's
+// product reads (dq: k's slice z; dk/dv: q's and do's) from the stage it
+// already holds. The registers stay D = 128's; the cost is that s and
+// dp are recomputed once for every chunk of the output (1.5x the bound's
+// operations at Dp = 256), and that the resident tiles of the narrow
+// kernels are re-read from L2 for every streamed tile. Chunk 0 writes
+// delta.
 //
 // C interface (loaded with ctypes), one entry per TPU kernel, each
 // returning cudaGetLastError() after its launch (0 on success); they
@@ -482,6 +499,411 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+constexpr int kWideChunk = 128;   // output columns a wide CTA owns
+
+// The wide kernels' ring stage: the C-wide slices of two kRows x S
+// tiles (the rows the CTA owns) and two R x S tiles (the streamed rows),
+// and two R-float rows (dq: the kv_mask; dk/dv: lse and delta), brought
+// on a tile's last slice.
+template <int C>
+struct WideLayout {
+  static constexpr int S = C + 4;
+  static constexpr int R = 32;
+  static constexpr int kStage = (2 * kRows + 2 * R) * S + 2 * R;
+  static constexpr size_t kBytes = sizeof(float) * kStages * kStage;
+};
+
+// dq's columns [z C, z C + C), z = blockIdx.z, at D = Dp > 128: steps i =
+// it * n_chunks + j bring slice (z + 1 + j) % n_chunks of q, do, k and v
+// for key tile it; s and dp sum over the slices, and on the last (slice
+// z) ds and dq += ds . k_z run as in dq_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ o,
+               const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ kv_mask, float* __restrict__ dq,
+               float* __restrict__ delta, int T, int H, int Dp, Strides sq,
+               Strides sk, Strides sv, Strides so, Strides sdo,
+               Strides sdq, float scale, int causal) {
+  using L = WideLayout<C>;
+  constexpr int S = L::S, R = L::R;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);   // kStages x kStage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int z = blockIdx.z;                              // dq's chunk
+  const int r0 = 16 * warp;                              // the warp's rows
+  const int n_chunks = Dp / C;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = o + b * so.b + h * so.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* maskb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+
+  // stage st <- step i: slice (z + 1 + j) % n_chunks of q, do (the
+  // CTA's rows) and k, v (key tile it); the kv_mask on the last slice
+  auto load_step = [&](int i, int st) {
+    const int it = i / n_chunks, j = i - it * n_chunks;
+    const int c = (z + 1 + j) % n_chunks;
+    float* q_s = ring + st * L::kStage;
+    float* do_s = q_s + kRows * S;
+    float* k_s = do_s + kRows * S;
+    copy_rows<C>(q_s, qb + c * C, sq.t, q0, kRows, T);
+    copy_rows<C>(do_s, dob + c * C, sdo.t, q0, kRows, T);
+    copy_rows<C>(k_s, kb + c * C, sk.t, it * R, R, T);
+    copy_rows<C>(k_s + R * S, vb + c * C, sv.t, it * R, R, T);
+    if (maskb && j == n_chunks - 1)
+      copy_vec(k_s + 2 * R * S, maskb, it * R, R, T, tid);
+  };
+
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int n_steps = (k_end + R - 1) / R * n_chunks;
+  load_step(0, 0);
+  tf32mma::cp_async_commit();
+
+  // delta = rowsum(do * o) over the whole Dp, as dq_kernel's
+  float row_delta[2] = {0.f, 0.f};
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int row = q0 + r0 + i;
+    float acc = 0.f;
+    if (row < T) {   // uniform across the warp
+      const float* orow = ob + row * so.t;
+      const float* drow = dob + row * sdo.t;
+      for (int c = lane; c < Dp; c += 32) acc = fmaf(orow[c], drow[c], acc);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (row < T && lane == 0 && z == 0) delta[(long long)bh * T + row] = acc;
+    if (i == g) row_delta[0] = acc;
+    if (i == g + 8) row_delta[1] = acc;
+  }
+  const float scale_log2 = scale * kLog2e;
+  int row_idx[2];
+  float lse_log2[2];
+  bool row_live[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row_idx[hh] = q0 + r0 + g + 8 * hh;
+    const float row_lse = row_idx[hh] < T
+                              ? lse[(long long)bh * T + row_idx[hh]]
+                              : kNegInf;
+    row_live[hh] = row_lse > kDead;
+    lse_log2[hh] = row_lse * kLog2e;
+  }
+
+  float acc[C / 8][4], s[R / 8][4], dp[R / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    tf32mma::cp_async_wait<0>();   // this step has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (i + 1 < n_steps) load_step(i + 1, (i + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int it = i / n_chunks, j = i - it * n_chunks;
+    const int k0 = it * R;
+    const float* q_s = ring + (i % kStages) * L::kStage;
+    const float* do_s = q_s + kRows * S;
+    const float* k_s = do_s + kRows * S;
+    const float* v_s = k_s + R * S;
+    const float* live_s = v_s + R * S;
+
+    // s += q_c.k_c^T and dp += do_c.v_c^T for the warp's 16 rows x R keys
+    if (j == 0) {
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll 2
+    for (int c = 0; c < C; c += 8) {
+      Frag aq[4], ado[4];
+      tf32mma::load_a<S>(aq, q_s, r0, c, g, t);
+      tf32mma::load_a<S>(ado, do_s, r0, c, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bk[2], bv[2];
+        tf32mma::load_b_t<S>(bk, k_s, 8 * n, c, g, t);
+        tf32mma::mma3(s[n], aq, bk);
+        tf32mma::load_b_t<S>(bv, v_s, 8 * n, c, g, t);
+        tf32mma::mma3(dp[n], ado, bv);
+      }
+    }
+    if (j != n_chunks - 1) continue;
+
+    // ds = p (dp - delta) scale, in place of s
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int key = k0 + col;
+        const bool ok = row_live[hh] &&
+                        (maskb ? live_s[col] > 0.f : key < T) &&
+                        (!causal || key <= row_idx[hh]);
+        const float p = ok ? softmax_p(s[n][e], scale_log2, lse_log2[hh])
+                           : 0.f;
+        s[n][e] = p * (dp[n][e] - row_delta[hh]) * scale;
+      }
+    }
+
+    // dq_z += ds . k_z (this stage holds slice z) into a tile partial
+    float part[C / 8][4];
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < R / 8; ++jj) {
+      Frag a[4];
+      tf32mma::as_a(a, s[jj]);
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n) {
+        Frag bk[2];
+        tf32mma::load_b_pairs<S>(bk, k_s, 8 * jj, 8 * n, g, t);
+        tf32mma::mma3(part[n], a, bk);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+  }
+
+  float* dqb = dq + b * sdq.b + h * sdq.h + z * C;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row_idx[hh] >= T) continue;
+    float* row = dqb + row_idx[hh] * sdq.t + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n) =
+          make_float2(acc[n][2 * hh], acc[n][2 * hh + 1]);
+  }
+}
+
+// dk's and dv's columns [z C, z C + C), z = blockIdx.z, at D = Dp > 128:
+// steps i = it * n_chunks + j bring slice (z + 1 + j) % n_chunks of k, v
+// (the CTA's keys) and q, do (query tile it); s^T and dp^T sum over the
+// slices, and on the last (slice z) p, ds and dv += p^T . do_z, dk +=
+// ds^T . q_z run as in dkv_kernel (no partials: as at D = 128 they would
+// spill).
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v,
+                const float* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta,
+                const float* __restrict__ kv_mask, float* __restrict__ dk,
+                float* __restrict__ dv, int T, int H, int Dp, Strides sq,
+                Strides sk, Strides sv, Strides sdo, Strides sdk,
+                Strides sdv, float scale, int causal) {
+  using L = WideLayout<C>;
+  constexpr int S = L::S, R = L::R;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);   // kStages x kStage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * kRows;   // heaviest (causal) first
+  const int z = blockIdx.z;            // dk's and dv's chunk
+  const int r0 = 16 * warp;            // the warp's key rows
+  const int n_chunks = Dp / C;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * T;
+  const float* deltab = delta + (long long)bh * T;
+  const int q_begin = causal ? k0 : 0;   // R divides kRows
+
+  // stage st <- step i: slice (z + 1 + j) % n_chunks of k, v (the CTA's
+  // keys) and q, do (query tile it); lse and delta on the last slice
+  auto load_step = [&](int i, int st) {
+    const int it = i / n_chunks, j = i - it * n_chunks;
+    const int c = (z + 1 + j) % n_chunks;
+    const int q0 = q_begin + it * R;
+    float* k_s = ring + st * L::kStage;
+    float* v_s = k_s + kRows * S;
+    float* q_s = v_s + kRows * S;
+    copy_rows<C>(k_s, kb + c * C, sk.t, k0, kRows, T);
+    copy_rows<C>(v_s, vb + c * C, sv.t, k0, kRows, T);
+    copy_rows<C>(q_s, qb + c * C, sq.t, q0, R, T);
+    copy_rows<C>(q_s + R * S, dob + c * C, sdo.t, q0, R, T);
+    if (j == n_chunks - 1) {
+      copy_vec(q_s + 2 * R * S, lseb, q0, R, T, tid);
+      copy_vec(q_s + 2 * R * S + R, deltab, q0, R, T, tid - R);
+    }
+  };
+
+  const int n_steps = (T - q_begin + R - 1) / R * n_chunks;
+  load_step(0, 0);
+  tf32mma::cp_async_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  int key[2];
+  bool key_live[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    key[hh] = k0 + r0 + g + 8 * hh;
+    key_live[hh] = key[hh] < T &&
+                   (kv_mask == nullptr ||
+                    kv_mask[(long long)b * T + key[hh]] > 0.f);
+  }
+
+  float dk_acc[C / 8][4], dv_acc[C / 8][4], s[R / 8][4], dp[R / 8][4];
+#pragma unroll
+  for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    tf32mma::cp_async_wait<0>();   // this step has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (i + 1 < n_steps) load_step(i + 1, (i + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int it = i / n_chunks, j = i - it * n_chunks;
+    const int q0 = q_begin + it * R;
+    const float* k_s = ring + (i % kStages) * L::kStage;
+    const float* v_s = k_s + kRows * S;
+    const float* q_s = v_s + kRows * S;
+    const float* do_s = q_s + R * S;
+    const float* lse_s = do_s + R * S;
+    const float* delta_s = lse_s + R;
+
+    // s^T += k_c.q_c^T and dp^T += v_c.do_c^T for 16 keys x R queries
+    if (j == 0) {
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll 2
+    for (int c = 0; c < C; c += 8) {
+      Frag ak[4], av[4];
+      tf32mma::load_a<S>(ak, k_s, r0, c, g, t);
+      tf32mma::load_a<S>(av, v_s, r0, c, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bq[2], bdo[2];
+        tf32mma::load_b_t<S>(bq, q_s, 8 * n, c, g, t);
+        tf32mma::mma3(s[n], ak, bq);
+        tf32mma::load_b_t<S>(bdo, do_s, 8 * n, c, g, t);
+        tf32mma::mma3(dp[n], av, bdo);
+      }
+    }
+    if (j != n_chunks - 1) continue;
+
+    // p^T in place of s, ds^T in place of dp
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int qi = q0 + col;
+        const float row_lse = lse_s[col];
+        const bool ok = key_live[hh] && qi < T && row_lse > kDead &&
+                        (!causal || key[hh] <= qi);
+        const float p = ok ? softmax_p(s[n][e], scale_log2,
+                                       row_lse * kLog2e)
+                           : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - delta_s[col]) * scale;
+      }
+    }
+
+    // dv_z += p^T . do_z and dk_z += ds^T . q_z (this stage holds slice z)
+#pragma unroll
+    for (int jj = 0; jj < R / 8; ++jj) {
+      Frag ap[4], ads[4];
+      tf32mma::as_a(ap, s[jj]);
+      tf32mma::as_a(ads, dp[jj]);
+#pragma unroll
+      for (int n = 0; n < C / 8; ++n) {
+        Frag bdo[2], bq[2];
+        tf32mma::load_b_pairs<S>(bdo, do_s, 8 * jj, 8 * n, g, t);
+        tf32mma::mma3(dv_acc[n], ap, bdo);
+        tf32mma::load_b_pairs<S>(bq, q_s, 8 * jj, 8 * n, g, t);
+        tf32mma::mma3(dk_acc[n], ads, bq);
+      }
+    }
+  }
+
+  float* dkb = dk + b * sdk.b + h * sdk.h + z * C;
+  float* dvb = dv + b * sdv.b + h * sdv.h + z * C;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (key[hh] >= T) continue;
+    float* dkr = dkb + key[hh] * sdk.t + 2 * t;
+    float* dvr = dvb + key[hh] * sdv.t + 2 * t;
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n) {
+      *reinterpret_cast<float2*>(dkr + 8 * n) =
+          make_float2(dk_acc[n][2 * hh], dk_acc[n][2 * hh + 1]);
+      *reinterpret_cast<float2*>(dvr + 8 * n) =
+          make_float2(dv_acc[n][2 * hh], dv_acc[n][2 * hh + 1]);
+    }
+  }
+}
+
+int launch_dq_wide(const float* q, const float* k, const float* v,
+                   const float* o, const float* dout, const float* lse,
+                   const float* kv_mask, float* dq, float* delta, int B,
+                   int T, int H, int D, Strides sq, Strides sk, Strides sv,
+                   Strides so, Strides sdo, Strides sdq, float scale,
+                   int causal, cudaStream_t stream) {
+  constexpr int C = kWideChunk;
+  const size_t smem = WideLayout<C>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      dq_wide_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (T + kRows - 1) / kRows, D / C);
+  dq_wide_kernel<C><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, dout, lse, kv_mask, dq, delta, T, H, D, sq, sk, sv, so,
+      sdo, sdq, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_wide(const float* q, const float* k, const float* v,
+                    const float* dout, const float* lse, const float* delta,
+                    const float* kv_mask, float* dk, float* dv, int B, int T,
+                    int H, int D, Strides sq, Strides sk, Strides sv,
+                    Strides sdo, Strides sdk, Strides sdv, float scale,
+                    int causal, cudaStream_t stream) {
+  constexpr int C = kWideChunk;
+  const size_t smem = WideLayout<C>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_wide_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (T + kRows - 1) / kRows, D / C);
+  dkv_wide_kernel<C><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, kv_mask, dk, dv, T, H, D, sq, sk, sv, sdo,
+      sdk, sdv, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_dq(const float* q, const float* k, const float* v,
               const float* o, const float* dout, const float* lse,
@@ -557,6 +979,10 @@ extern "C" int dl4j_flash_attention_bwd_dq_f32(
       return launch_dq<128>(qf, kf, vf, of, df, lf, mf, dqf, deltaf, B, T,
                             H, sq, sk, sv, so, sdo, sdq, scale, causal, st);
     default:
+      if (D > 128 && D % kWideChunk == 0)
+        return launch_dq_wide(qf, kf, vf, of, df, lf, mf, dqf, deltaf, B, T,
+                              H, D, sq, sk, sv, so, sdo, sdq, scale, causal,
+                              st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -597,6 +1023,10 @@ extern "C" int dl4j_flash_attention_bwd_dkv_f32(
                              T, H, sq, sk, sv, sdo, sdk, sdv, scale, causal,
                              st);
     default:
+      if (D > 128 && D % kWideChunk == 0)
+        return launch_dkv_wide(qf, kf, vf, df, lf, deltaf, mf, dkf, dvf, B,
+                               T, H, D, sq, sk, sv, sdo, sdk, sdv, scale,
+                               causal, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -58,6 +58,20 @@
 // TPU's sequential 'arbitrary' grid axis with VMEM scratch becomes the
 // key loop inside the CTA.
 //
+// Head dims past 128 (Dp = 128 * n_chunks, the operands zero-padded to
+// it by the wrapper): a warp's o accumulator and its tile partial are D/2
+// floats a thread each, so a plain launch at D = 256 would take twice
+// D = 128's registers, which already nears the 255 limit. The wide kernel
+// instead splits o's columns over a third grid dimension of kWideChunk
+// (128) wide chunks: each CTA accumulates s = q.k^T over the whole Dp in
+// 128-wide slices streamed through the ring (q's slice too, re-read from
+// L2 for every key tile, since a resident q at Dp no longer fits in
+// shared memory beside the ring), then runs the softmax and o += p.v for
+// its own 128 columns of o. The registers stay D = 128's; the cost is
+// that s is recomputed once for every chunk of o (1.5x the bound's
+// operations at Dp = 256). Every chunk sums s in the same order, so
+// every chunk has the same m and l; chunk 0 writes lse.
+//
 // C interface (loaded with ctypes): dl4j_flash_attention_fwd_f32 returns
 // cudaGetLastError() after the launch (0 on success). It allocates
 // nothing; strides are in elements, the last dimension must be
@@ -326,6 +340,219 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The wide kernel's shared memory: kStages ring stages, each a slice
+// of kRows q rows and R k rows (C columns each), and, on a key tile's
+// last step, R v rows of the CTA's own chunk and R kv_mask entries.
+template <int C>
+struct WideLayout {
+  static constexpr int S = C + 4;
+  static constexpr int R = 32;
+  static constexpr int kStage = (kRows + 2 * R) * S + R;
+  static constexpr size_t kBytes = sizeof(float) * kStages * kStage;
+};
+
+constexpr int kWideChunk = 128;   // o's columns a wide CTA owns
+
+// D = Dp > 128, a multiple of C: o's columns [z C, z C + C) for z =
+// blockIdx.z. Steps i = it * n_chunks + c stream q's and k's slice c of
+// key tile it; the tile's last step (c = n_chunks - 1) also brings v's
+// slice z, and after it the tile's softmax and p.v run as in
+// flash_fwd_kernel.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ kv_mask,
+                      float* __restrict__ o, float* __restrict__ lse, int T,
+                      int H, int Dp, Strides sq, Strides sk, Strides sv,
+                      Strides so, float scale, int causal) {
+  using L = WideLayout<C>;
+  constexpr int S = L::S, R = L::R, N = C / 8;
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);   // kStages x kStage
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;   // heaviest first
+  const int z = blockIdx.z;                              // o's chunk
+  const int r0 = 16 * warp;                              // the warp's rows
+  const int n_chunks = Dp / C;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* maskb = kv_mask ? kv_mask + (long long)b * T : nullptr;
+
+  // stage st <- step i: q's and k's slice c of key tile it (and, on the
+  // tile's last step, v's slice z and the kv_mask)
+  auto load_step = [&](int i, int st) {
+    const int it = i / n_chunks, c = i - it * n_chunks;
+    float* q_s = ring + st * L::kStage;
+    float* k_s = q_s + kRows * S;
+    copy_rows<C, kRows>(q_s, qb + c * C, sq.t, q0, T);
+    copy_rows<C, R>(k_s, kb + c * C, sk.t, it * R, T);
+    if (c == n_chunks - 1) {
+      copy_rows<C, R>(k_s + R * S, vb + z * C, sv.t, it * R, T);
+      if (maskb) copy_vec(k_s + 2 * R * S, maskb, it * R, R, T, tid);
+    }
+  };
+
+  const int k_end = causal ? min(T, q0 + kRows) : T;
+  const int n_steps = (k_end + R - 1) / R * n_chunks;
+  load_step(0, 0);
+  tf32mma::cp_async_commit();
+
+  const float scale_log2 = scale * kLog2e;
+  int row[2];
+  float m[2], l[2];   // base-2 running max; this lane's share of the sum
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    row[hh] = q0 + r0 + g + 8 * hh;
+    m[hh] = kNegInf;
+    l[hh] = 0.f;
+  }
+  float acc[N][4], s[R / 8][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    tf32mma::cp_async_wait<0>();   // this step has landed ...
+    __syncthreads();               // ... and the last one's readers are done
+    if (i + 1 < n_steps) load_step(i + 1, (i + 1) % kStages);
+    tf32mma::cp_async_commit();
+
+    const int it = i / n_chunks, c = i - it * n_chunks;
+    const int k0 = it * R;
+    // causal: every key of the tile lies past the warp's last row
+    if (causal && k0 > q0 + r0 + 15) continue;
+    const float* q_s = ring + (i % kStages) * L::kStage;
+    const float* k_s = q_s + kRows * S;
+
+    // s += q_c.k_c^T for the warp's 16 rows x R keys
+    if (c == 0) {
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    }
+#pragma unroll 2
+    for (int cc = 0; cc < C; cc += 8) {
+      Frag a[4];
+      tf32mma::load_a<S>(a, q_s, r0, cc, g, t);
+#pragma unroll
+      for (int n = 0; n < R / 8; ++n) {
+        Frag bk[2];
+        tf32mma::load_b_t<S>(bk, k_s, 8 * n, cc, g, t);
+        tf32mma::mma3(s[n], a, bk);
+      }
+    }
+    if (c != n_chunks - 1) continue;
+
+    // the tile's last slice: s in base 2, the masks, the tile's row max
+    const float* v_s = k_s + R * S;
+    const float* live_s = v_s + R * S;
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * n + 2 * t + (e & 1);
+        const int key = k0 + col;
+        const bool ok = (maskb ? live_s[col] > 0.f : key < T) &&
+                        (!causal || key <= row[e >> 1]);
+        s[n][e] = ok ? s[n][e] * scale_log2 : kNegInf;
+      }
+    }
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float corr[2], m_sub[2], rowsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh]);
+      m_sub[hh] = m_new <= kDead ? 0.f : m_new;
+      corr[hh] = exp2_ftz(m[hh] - m_sub[hh]);
+      m[hh] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < R / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2_ftz(s[n][e] - m_sub[e >> 1]);
+        rowsum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) l[hh] = fmaf(l[hh], corr[hh], rowsum[hh]);
+
+    // o_z += p.v_z into a tile partial added to acc * corr in f32
+    float part[N][4];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+      Frag a[4];
+      tf32mma::as_a(a, s[j]);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        Frag bv[2];
+        tf32mma::load_b_pairs<S>(bv, v_s, 8 * j, 8 * n, g, t);
+        tf32mma::mma3(part[n], a, bv);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], corr[e >> 1], part[n][e]);
+  }
+
+  float* ob = o + b * so.b + h * so.h + z * C;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (row[hh] >= T) continue;
+    const float denom = fmaxf(l[hh], 1e-30f);
+    float* out = ob + row[hh] * so.t + 2 * t;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n) = make_float2(
+          acc[n][2 * hh] / denom, acc[n][2 * hh + 1] / denom);
+    if (t == 0 && z == 0)
+      lse[(long long)bh * T + row[hh]] =
+          l[hh] > 0.f ? m[hh] * kLn2 + logf(denom) : kNegInf;
+  }
+}
+
+int launch_wide(const float* q, const float* k, const float* v,
+                const float* kv_mask, float* o, float* lse, int B, int T,
+                int H, int D, Strides sq, Strides sk, Strides sv,
+                Strides so, float scale, int causal, cudaStream_t stream) {
+  constexpr int C = kWideChunk;
+  const size_t smem = WideLayout<C>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * H, (T + kRows - 1) / kRows, D / C);
+  flash_fwd_wide_kernel<C><<<grid, kThreads, smem, stream>>>(
+      q, k, v, kv_mask, o, lse, T, H, D, sq, sk, sv, so, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch(const float* q, const float* k, const float* v,
            const float* kv_mask, float* o, float* lse, int B, int T, int H,
@@ -372,6 +599,9 @@ extern "C" int dl4j_flash_attention_fwd_f32(
       return launch<128>(qf, kf, vf, mf, of, lf, B, T, H, sq, sk, sv, so,
                          scale, causal, st);
     default:
+      if (D > 128 && D % kWideChunk == 0)
+        return launch_wide(qf, kf, vf, mf, of, lf, B, T, H, D, sq, sk, sv,
+                           so, scale, causal, st);
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -22,13 +22,14 @@ Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
 
 Head dims: the kernels are instantiated at D = 32, 64 and 128
-(``native.HEAD_DIMS``). Any other D up to 128 runs at the next of those,
-Dp: the wrappers zero-pad q, k, v (and o, do) along D into contiguous
-(B, T, H, Dp) buffers, launch with the scale of the TRUE D, and slice
-o, dq, dk, dv back to D (lse and delta need no slicing: zero columns
-change no q.k and no rowsum(do * o)). D > 128 is refused
-(``native.kernel_head_dim``). The LM's D = 64 takes the kernels as it
-is, without a copy.
+(``native.HEAD_DIMS``), and their wide variants run any multiple of 128
+past that (each CTA owns 128 of the output's columns and sums q.k over
+the whole width). Any other D runs at the next of those, Dp
+(``native.kernel_head_dim``): the wrappers zero-pad q, k, v (and o, do)
+along D into contiguous (B, T, H, Dp) buffers, launch with the scale of
+the TRUE D, and slice o, dq, dk, dv back to D (lse and delta need no
+slicing: zero columns change no q.k and no rowsum(do * o)). The LM's
+D = 64 takes the kernels as it is, without a copy.
 
 Both ``precision`` values give float32 results here ('highest'
 semantics): inputs are f32; all three kernels multiply on the tensor
@@ -145,12 +146,12 @@ def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
 
 
 def _kernel_inputs(q, tensors):
-    """The CUDA kernels' checks and operand layout: CUDA tensors, a head
-    dim up to the kernels' limit, a grid they can launch, and every (B,
-    T, H, Dp) operand with a contiguous last dimension and 16-byte
-    aligned rows: at a head dim the kernels are built for, copied only
-    where that does not hold already; at any other, zero-padded to
-    ``native.kernel_head_dim(D)`` (a fresh buffer, so aligned)."""
+    """The CUDA kernels' checks and operand layout: CUDA tensors, a grid
+    they can launch, and every (B, T, H, Dp) operand with a contiguous
+    last dimension and 16-byte aligned rows: at a head dim the kernels
+    are built for, copied only where that does not hold already; at any
+    other, zero-padded to ``native.kernel_head_dim(D)`` (a fresh buffer,
+    so aligned)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")

@@ -35,15 +35,16 @@ other.
 
 Head dims: the kernel is instantiated at Dh = 32, 64 and 128
 (``native.HEAD_DIMS``); any other Dh up to 128 runs at the next of
-those, Dp, with the scale of the true Dh. Copying a pool to Dp every
-step would cost more than the step, so the sessions' pools are
-allocated padded from the start: on the card :func:`zero_kv_pool` gives
-the Dh-wide view of a zeroed (N, page_size, H, Dp) buffer. Everything
-that writes, copies, zeroes or ships pages goes through the view (the
-lease wire carries Dh), the padding columns stay zero, and the kernel
-reads the buffer under it in place. Per step only q is padded and o sliced. A
-pool of another layout (the eager ``apply_stream``'s concatenated
-cache) is padded by a copy a call.
+those, Dp, and any Dh past 128 at the next multiple of 128 (the wide
+launch: each CTA owns 128 of o's columns), with the scale of the true
+Dh. Copying a pool to Dp every step would cost more than the step, so
+the sessions' pools are allocated padded from the start: on the card
+:func:`zero_kv_pool` gives the Dh-wide view of a zeroed (N, page_size,
+H, Dp) buffer. Everything that writes, copies, zeroes or ships pages
+goes through the view (the lease wire carries Dh), the padding columns
+stay zero, and the kernel reads the buffer under it in place. Per step
+only q is padded and o sliced. A pool of another layout (the eager
+``apply_stream``'s concatenated cache) is padded by a copy a call.
 """
 
 from __future__ import annotations
@@ -77,14 +78,12 @@ def zero_kv_pool(n: int, rows: int, H: int, Dh: int, device="cpu",
     """A zeroed float32 (n, rows, H, Dh) k or v pool. On the card
     (``padded`` None and a CUDA ``device``, or ``padded`` True), one the
     kernel reads in place: at a head dim it is built for, a contiguous
-    tensor; at any other up to its limit, the Dh-wide view of a zeroed
-    (n, rows, H, Dp) buffer (``native.kernel_head_dim``). Otherwise, and
-    past the limit (the kernel refuses it), a contiguous tensor: the
-    plain version reads any Dh."""
+    tensor; at any other, the Dh-wide view of a zeroed (n, rows, H, Dp)
+    buffer (``native.kernel_head_dim``). Otherwise a contiguous tensor:
+    the plain version reads any Dh."""
     if padded is None:
         padded = torch.device(device).type == "cuda"
-    Dp = native.kernel_head_dim(Dh) \
-        if padded and Dh <= native.HEAD_DIMS[-1] else Dh
+    Dp = native.kernel_head_dim(Dh) if padded else Dh
     buf = torch.zeros((n, rows, H, Dp), dtype=torch.float32, device=device)
     return buf if Dp == Dh else buf[..., :Dh]
 

@@ -22,7 +22,8 @@ from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
            "count_launch", "capture_launches", "count_replay",
-           "launch_counts", "HEAD_DIMS", "kernel_head_dim"]
+           "launch_counts", "HEAD_DIMS", "WIDE_CHUNK",
+           "kernel_head_dim"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -33,6 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the head dims every attention kernel (csrc/flash_attention_{fwd,bwd}.cu,
 # csrc/decode_attention.cu) is instantiated for
 HEAD_DIMS = (32, 64, 128)
+# past the largest, the kernels' wide variants run any multiple of this:
+# each CTA owns one such chunk of the output's columns
+WIDE_CHUNK = 128
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -46,17 +50,15 @@ _stream_tallies: Dict[int, dict] = {}
 def kernel_head_dim(D: int) -> int:
     """The width an attention kernel runs head dim ``D`` at: ``D`` where
     the kernels are instantiated for it, else the next of
-    :data:`HEAD_DIMS`, the operands zero-padded to it along D (a zero
-    column changes no q.k, no rowsum(do * o) and no real column of o,
-    dq, dk or dv; the wrappers pass the scale of the true D). Past the
-    largest the kernels refuse it."""
+    :data:`HEAD_DIMS`, and past the largest the next multiple of
+    :data:`WIDE_CHUNK` (the wide kernels); the operands are zero-padded
+    to it along D (a zero column changes no q.k, no rowsum(do * o) and
+    no real column of o, dq, dk or dv; the wrappers pass the scale of the
+    true D)."""
     for Dp in HEAD_DIMS:
         if D <= Dp:
             return Dp
-    raise ValueError(
-        f"head dim {D} exceeds the attention kernels' limit of "
-        f"{HEAD_DIMS[-1]} (they run every head dim from 1 to "
-        f"{HEAD_DIMS[-1]}); the JAX package deeplearning4j_tpu runs it")
+    return -(-D // WIDE_CHUNK) * WIDE_CHUNK
 
 
 def count_launch(wrapper) -> None:

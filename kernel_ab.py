@@ -8,7 +8,10 @@ in turns, on one NVIDIA card.
 Builds every ``csrc/*.cu`` of this checkout and of the other directory
 with the same ``nvcc`` flags, then times each kernel entry (the
 flash-attention forward, dq and dk/dv) at the LM shape (B=8, T=1024,
-H=16, D=64, causal, float32) with CUDA events, in the order other,
+H=16, D=64, causal, float32) with CUDA events, and the paged decode
+attention at its decode shape (S=8 slots, t=1, H=16, D=64, every slot
+at position 511 of 64 pages of 16 tokens) by its kernels' device time
+(torch.profiler: a call's host work outlasts them), in the order other,
 this, this, other, and prints one JSON line of the times in ms. The C
 interfaces must be the same in both (they are each kernel's contract);
 the other's outputs are held against this checkout's plain versions
@@ -34,6 +37,7 @@ def main(argv):
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from deeplearning4j_tpu_torch.ops import attention as attn
+    from deeplearning4j_tpu_torch.ops import decode_attention as da
     from deeplearning4j_tpu_torch.ops import native
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -94,6 +98,17 @@ def main(argv):
             q, k, v, lse, delta, do, causal=True)}
     plain = (o, lse, *attn.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                      causal=True))
+    S, P, PS = 8, 64, 16
+    N = S * P + 1
+    kp, vp = (torch.randn(N, PS, H, D, device="cuda", generator=g)
+              for _ in range(2))
+    q1 = torch.randn(S, 1, H, D, device="cuda", generator=g)
+    table = (torch.randperm(N - 1, device="cuda", generator=g)[:S * P]
+             .reshape(S, P).int() + 1)
+    host = torch.full((S,), 511, dtype=torch.int32)
+    pos = host.cuda()
+    decode = lambda: da.decode_attention_cuda(q1, kp, vp, table, pos,
+                                              host_pos=host)
     for side in ("other", "this"):
         use(side)
         got = (*entries["flash_attention_fwd"](),
@@ -101,12 +116,31 @@ def main(argv):
                *entries["flash_attention_bwd_dkv"]())
         for a, b in zip(got, plain):
             torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
+        torch.testing.assert_close(
+            decode(), da.decode_attention_plain(q1, kp, vp, table, host),
+            atol=2e-5, rtol=2e-4)
+
+    def device_ms(fn, iters=50):
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if "decode_" in e.key) / 1e3 / iters
+
     times = {name: [] for name in entries}
+    times["decode_attention"] = []
     order = ("other", "this", "this", "other")
     for side in order:
         use(side)
         for name, fn in entries.items():
             times[name].append(time_ms(fn))
+        times["decode_attention"].append(device_ms(decode))
     use("this")
     print(json.dumps({"card": card, "shape": [B, T, H, D], "causal": True,
                       "order": order, "ms": times}), flush=True)

@@ -501,30 +501,56 @@ def test_kernel_reads_strided_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_unsupported_head_dim(cuda_device):
-    """Past 128, the kernels' limit, every launcher refuses the head dim
-    and says the JAX package runs it."""
-    q = torch.randn(1, 8, 1, 160, device=cuda_device)
-    lse = torch.zeros(1, 1, 8, device=cuda_device)
-    for call in (lambda: tattn.flash_attention_fwd(q, q, q),
-                 lambda: tattn.flash_attention_bwd(q, q, q, q, lse, q),
-                 lambda: tattn.flash_attention_bwd_dq_cuda(q, q, q, q, lse,
-                                                           q),
-                 lambda: tattn.flash_attention_bwd_dkv_cuda(q, q, q, lse,
-                                                            lse, q)):
-        with pytest.raises(ValueError, match="head dim 160 exceeds.*128"):
-            call()
+@pytest.mark.parametrize("D", [160, 192, 256])
+@pytest.mark.parametrize("masked,causal,T", [(False, True, 130),
+                                             (True, False, 77),
+                                             (True, True, 77)])
+def test_kernel_refuses_unsupported_head_dim(cuda_device, D, masked,
+                                             causal, T):
+    """Past 128, where the kernels refused until their wide variants
+    came, every head dim runs: the forward, dq and dk/dv launchers (one
+    launch each, at the next multiple of 128) against the plain
+    versions at D."""
+    q, k, v, do, mask = _bwd_inputs(D + T, 2, T, 3, D, masked)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
+    g = torch.from_numpy(do).to(cuda_device)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = (tattn.flash_attention_fwd_cuda.launches,
+              tattn.flash_attention_bwd_dq_cuda.launches,
+              tattn.flash_attention_bwd_dkv_cuda.launches)
+    o, lse = tattn.flash_attention_fwd(*t, m, causal=causal)
+    dq, delta = tattn.flash_attention_bwd_dq_cuda(*t, o, lse, g, m,
+                                                  causal=causal)
+    dk, dv = tattn.flash_attention_bwd_dkv_cuda(*t, lse, delta, g, m,
+                                                causal=causal)
+    torch.cuda.synchronize()
+    assert (tattn.flash_attention_fwd_cuda.launches,
+            tattn.flash_attention_bwd_dq_cuda.launches,
+            tattn.flash_attention_bwd_dkv_cuda.launches) == tuple(
+        n + 1 for n in before)
+    po, plse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    torch.testing.assert_close(o, po, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, plse, atol=ATOL, rtol=RTOL)
+    pdq, pdelta = tattn.flash_attention_bwd_dq_plain(*t, o, lse, g, m,
+                                                     causal=causal)
+    pdk, pdv = tattn.flash_attention_bwd_dkv_plain(*t, lse, pdelta, g, m,
+                                                   causal=causal)
+    for a, b in ((dq, pdq), (delta, pdelta), (dk, pdk), (dv, pdv)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    if masked:
+        assert torch.all(o[1] == 0) and torch.all(dq[1] == 0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [4, 8, 16, 48, 96])
+@pytest.mark.parametrize("D", [4, 8, 16, 48, 96, 160, 192])
 @pytest.mark.parametrize("masked,causal,T", [(False, True, 64),
                                              (True, False, 100),
                                              (True, True, 77)])
 def test_padded_head_dims_match_plain_on_card(cuda_device, D, masked,
                                               causal, T):
     """A head dim the kernels are not built for runs at the next of
-    32/64/128, zero-padded, with the true D's scale: the forward, dq and
+    32/64/128 (past 128, the next multiple of 128), zero-padded, with
+    the true D's scale: the forward, dq and
     dk/dv launches (one each) against the plain versions at D."""
     q, k, v, do, mask = _bwd_inputs(D + T, 2, T, 3, D, masked)
     t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]

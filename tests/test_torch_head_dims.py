@@ -1,9 +1,10 @@
 """Head dims the attention kernels are not instantiated for.
 
-The port's kernels are built at D = 32, 64 and 128; any other D up to
-128 runs at the next of those, its operands zero-padded along D, with
-the scale of the true D (``ops/native.kernel_head_dim``,
-``ops/attention.py``, ``ops/decode_attention.py``). The CUDA launches
+The port's kernels are built at D = 32, 64 and 128, and their wide
+variants at any multiple of 128 past that; any other D runs at the next
+of those, its operands zero-padded along D, with the scale of the true
+D (``ops/native.kernel_head_dim``, ``ops/attention.py``,
+``ops/decode_attention.py``). The CUDA launches
 themselves run on the card (``-m cuda`` in ``test_torch_attention.py``
 and ``test_torch_decode.py``); here the padding's arithmetic is held on
 the CPU: the plain versions on zero-padded (B, T, H, Dp) operands at the
@@ -34,16 +35,19 @@ from deeplearning4j_tpu_torch.ops import native
 from deeplearning4j_tpu_torch.serving.continuous import ContinuousBatcher
 from deeplearning4j_tpu_torch.util import model_serializer as tser
 
-PAD_DIMS = [4, 8, 16, 24, 48, 96]
+PAD_DIMS = [4, 8, 16, 24, 48, 96, 160, 192]
 TOL = 1e-6
 
 
 def test_kernel_head_dim_rounds_up_and_refuses_past_128():
+    """Up to 128 the next of 32 / 64 / 128; past it, where the kernels
+    refused until their wide variants came, the next multiple of 128."""
     assert [native.kernel_head_dim(d) for d in (1, 4, 8, 16, 24, 32, 33,
                                                 48, 64, 65, 96, 128)] \
         == [32, 32, 32, 32, 32, 32, 64, 64, 64, 128, 128, 128]
-    with pytest.raises(ValueError, match="limit of 128.*JAX package"):
-        native.kernel_head_dim(160)
+    assert [native.kernel_head_dim(d) for d in (129, 160, 192, 256, 257,
+                                                384, 1000)] \
+        == [256, 256, 256, 256, 384, 384, 1024]
 
 
 def _qkv(D, seed, B=2, T=37, H=3, masked=True):
@@ -126,9 +130,13 @@ def test_padded_pool_decode_equals_unpadded(D):
 
 
 def test_head_dim_past_128_keeps_a_plain_pool_on_the_cpu():
-    for padded in (None, True):
-        p = tda.zero_kv_pool(2, 4, 1, 160, padded=padded)
-        assert p.shape == (2, 4, 1, 160) and p.is_contiguous()
+    """On the CPU a pool is plain at any head dim; laid out for the card
+    (``padded``), a head dim past 128 gets the wide kernels' width."""
+    p = tda.zero_kv_pool(2, 4, 1, 160)
+    assert p.shape == (2, 4, 1, 160) and p.is_contiguous()
+    p = tda.zero_kv_pool(2, 4, 1, 160, padded=True)
+    assert p.shape == (2, 4, 1, 160)
+    assert p.stride() == (4 * 256, 256, 256, 1)
 
 
 # ------------------------------------------ LMs at small head dims vs JAX

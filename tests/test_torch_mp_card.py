@@ -4,8 +4,9 @@ Two gloo ranks share card 0 (``tests/torch_mp_worker.py``'s ``card``
 scenario): the ring's kernel path (every chunk through the flash
 forward and the dq / dk-dv kernels) against the flash attention's
 plain versions over the whole sequence on the same CUDA inputs,
-forward and gradients, causal and not, with a key mask (tolerance
-2e-5, the kernels' f32 tolerance in ``tests/test_torch_attention.py``);
+forward and gradients, causal and not, with a key mask, and causal at
+head dim 160 (the kernels' wide variants; tolerance 2e-5, the kernels'
+f32 tolerance in ``tests/test_torch_attention.py``);
 the ring's plain chunks refused on the card; and the tp=2 eager step
 of a small LM (3 SGD steps) against the one-rank step on the same card
 (2e-5 of the parameters' largest entry). Needs a card: skipped without
@@ -62,15 +63,17 @@ def test_ring_kernels_and_tp_step_on_the_card(tmp_path, cuda_device):
     mask[1, :100] = 0.0
     ids = rng.integers(0, 64, (4, 128)).astype(np.float32)
     y = np.eye(64, dtype=np.float32)[rng.integers(0, 64, (4, 128))]
+    wide = {n + "_d160": rng.normal(size=(2, 256, 2, 160)).astype(
+        np.float32) for n in ("q", "k", "v", "do")}
     np.savez(tmp_path / "card.npz", q=q, k=k, v=v, do=do, mask=mask,
-             ids=ids, y=y)
+             ids=ids, y=y, **wide)
     _card_lm(str(tmp_path / "card.zip"))
     worker.launch(2, tmp_path, ["card"], timeout=240,
                   argv=[sys.executable, mp.__file__, str(tmp_path), "card"])
     for r in worker.load(tmp_path, "card", 2):
-        for causal in (0, 1):
-            errs = r[f"ring_c{causal}"]
-            assert (errs <= 2e-5).all(), (causal, errs)
+        for key in ("ring_c0", "ring_c1", "ring_c1_d160"):
+            errs = r[key]
+            assert (errs <= 2e-5).all(), (key, errs)
         assert "CPU tensors only" in str(r["refused"])
         assert int(r["fwd_launches"]) > 0
         assert float(r["tp_vs_one"]) <= 2e-5 * float(r["scale"]), \

@@ -509,6 +509,27 @@ def sc_estimator(rank, world):
     return {"flat": _flat(model.network), "probs": model.transform(d["xt"])}
 
 
+def sc_long_context(rank, world):
+    """The long-context example's training at data=2 x seq=2 from
+    long_context.zip (the JAX example's ``make_net(seed=3)``) on the
+    port example's data, for long_context.npz's epochs: the final
+    parameters and loss."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.examples.long_context_lm import make_data
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
+    epochs = int(np.load("long_context.npz")["epochs"])
+    x, y, mask = make_data()
+    net = _net("long_context")
+    pw = ParallelWrapper(net, build_mesh(MeshSpec(data=2, seq=2)),
+                         prefetch_buffer=0)
+    loc = pw.local_shard
+    ds = DataSet(loc(x), loc(y), loc(mask), loc(mask))
+    pw.fit(ListDataSetIterator([ds]), epochs=epochs)
+    return {"flat": _flat(net), "loss": np.float32(net.score_value)}
+
+
 SCENARIOS = {n[3:]: f for n, f in list(globals().items())
              if n.startswith("sc_")}
 

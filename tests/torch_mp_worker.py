@@ -340,7 +340,8 @@ def sc_card(rank, world, arg):
     card.zip (3 Adam steps) against the one-rank step on the same card;
     the ring's kernel path (sp=2) against the flash attention's plain
     versions over the whole sequence on the same CUDA inputs (this
-    rank's chunk of the output and of the q/k/v gradients)."""
+    rank's chunk of the output and of the q/k/v gradients), at head dim
+    64 and, causal, at 160."""
     import torch
     from deeplearning4j_tpu_torch.data.dataset import DataSet
     from deeplearning4j_tpu_torch.ops import attention as attn
@@ -356,20 +357,25 @@ def sc_card(rank, world, arg):
     full = {n: torch.from_numpy(d[n]).cuda() for n in ("q", "k", "v", "do",
                                                        "mask")}
     loc = lambda t: ctx.local_shard(t).contiguous()
-    for causal in (False, True):
-        q, k, v = (loc(full[n]).requires_grad_(True) for n in "qkv")
-        o = ring_self_attention(q, k, v, group=grp, causal=causal,
-                                kv_mask=loc(full["mask"]))
-        (o * loc(full["do"])).sum().backward()
-        got = [o.detach()] + [t.grad for t in (q, k, v)]
-        o_p, lse_p = attn.flash_attention_fwd_plain(
-            full["q"], full["k"], full["v"], full["mask"], causal=causal)
-        grads_p = attn.flash_attention_bwd_plain(
-            full["q"], full["k"], full["v"], o_p, lse_p, full["do"],
-            full["mask"], causal=causal)
-        want = [loc(t) for t in (o_p,) + tuple(grads_p)]
-        out[f"ring_c{int(causal)}"] = np.array(
-            [float((a - b).abs().max()) for a, b in zip(got, want)])
+    # the LM's head dim, and one past 128 (the kernels' wide variants)
+    for suffix, causals in (("", (False, True)), ("_d160", (True,))):
+        qkv = {n: full[n] if n == "mask" else
+               torch.from_numpy(d[n + suffix]).cuda()
+               for n in ("q", "k", "v", "do", "mask")}
+        for causal in causals:
+            q, k, v = (loc(qkv[n]).requires_grad_(True) for n in "qkv")
+            o = ring_self_attention(q, k, v, group=grp, causal=causal,
+                                    kv_mask=loc(qkv["mask"]))
+            (o * loc(qkv["do"])).sum().backward()
+            got = [o.detach()] + [t.grad for t in (q, k, v)]
+            o_p, lse_p = attn.flash_attention_fwd_plain(
+                qkv["q"], qkv["k"], qkv["v"], qkv["mask"], causal=causal)
+            grads_p = attn.flash_attention_bwd_plain(
+                qkv["q"], qkv["k"], qkv["v"], o_p, lse_p, qkv["do"],
+                qkv["mask"], causal=causal)
+            want = [loc(t) for t in (o_p,) + tuple(grads_p)]
+            out[f"ring_c{int(causal)}{suffix}"] = np.array(
+                [float((a - b).abs().max()) for a, b in zip(got, want)])
     from deeplearning4j_tpu_torch.parallel.ring_attention import (
         make_ring_attention_fn)
     try:
