@@ -6,14 +6,19 @@
 Builds every hand-written kernel of ``deeplearning4j_tpu_torch/csrc``
 for sm_90a (and fails if ``ptxas`` reports a spill), counts the
 tensor-core (HMMA) instructions of each kernel function in the built
-libraries (and fails if any of the twelve, three kernels at D = 32, 64
-and 128 and their wide variants, has none), holds each kernel
+libraries (and fails if any of the fourteen, three kernels at D = 32,
+64 and 128, their chunked wide variants and the backward's two-warpgroup
+kernels at 256, has none), holds each kernel
 (the flash-attention forward, dq and dk/dv, the paged decode attention)
 against its plain PyTorch version on the card, at those head dims, at
 4, 8, 16, 48 and 96, which the wrappers zero-pad to the next of them,
-and at 160, 192 and 256, which the wide variants run at 256 (times and
-bounds at the true D, and at the LM's width over 4 heads; every kernel
-time is held against its bound, and a time under it fails the run),
+at 160, 192 and 256, which run at 256, and (the flash kernels) at 384,
+where the backward keeps its chunked kernels (times and bounds at the
+true D, and over 4 heads at the LM's width and, the backward's, at 384,
+beside
+``scaled_dot_product_attention``'s forward and backward at each width;
+every kernel time is held against its bound, and a time under it fails
+the run),
 serves the full-width
 transformer LM (V=2048, D=1024, L=8, H=16, T=1024; random weights from
 a seed) through ``ModelServer`` ``/v1/predict`` and checks what comes
@@ -275,9 +280,14 @@ PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 # 32, 64 and 128): zero-padded to the next of those, at the true D's
 # scale (ops/native.kernel_head_dim)
 PAD_DIMS = (4, 8, 16, 48, 96)
-# past 128 the kernels' wide variants (each CTA owns 128 of the output's
-# columns): 160 and 192 zero-padded to 256, and 256 itself
+# past 128, zero-padded to 256 (160, 192) or run as they are (256): the
+# forward's wide variant (each CTA owns 128 of o's columns) and the
+# backward's two-warpgroup kernels (each warpgroup 128 columns)
 WIDE_DIMS = (160, 192, 256)
+# past 256 the backward keeps its chunked wide kernels (each CTA 128 of
+# the output's columns, s and dp over the whole width): one such width
+# checked (padded_cases) and timed (backward_kernel_phase)
+CHUNKED_DIM = 384
 # the widths timed a kernel: the padded ones and, beside them, 32 and 128
 # unpadded (64 is the LM shape's, timed on its own), and the wide ones
 TIMED_DIMS = (4, 8, 16, 32, 48, 96, 128) + WIDE_DIMS
@@ -340,7 +350,8 @@ def attention_bound(B, T_, H, D, causal, kv_mask=None):
 def padded_cases(pad):
     """The head-dim cases of the flash kernels' checks at every PAD_DIMS
     and WIDE_DIMS width: causal at the LM's T, and a ragged T with a key
-    mask (row 5 fully masked), causal and not."""
+    mask (row 5 fully masked), causal and not; at CHUNKED_DIM the ragged,
+    masked, causal case."""
     ragged = pad[:, :333]
     dims = PAD_DIMS + WIDE_DIMS
     return [((2, T, HEADS, D), True, None, f"D={D}, causal")
@@ -348,15 +359,19 @@ def padded_cases(pad):
         ((8, 333, 4, D), causal, ragged,
          f"D={D}, ragged T=333, kv_mask, "
          + ("causal" if causal else "non-causal"))
-        for D in dims for causal in (True, False)]
+        for D in dims for causal in (True, False)] + [
+        ((8, 333, 4, CHUNKED_DIM), True, ragged,
+         f"D={CHUNKED_DIM} (the chunked wide kernels), ragged T=333, "
+         "kv_mask, causal")]
 
 
 def kernel_phase(attn):
     """Hold flash_attention_fwd against its plain version on the card,
     at D = 32, 64, 128 and every PAD_DIMS and WIDE_DIMS width; time it
     at the LM shape, at each of those widths and at the LM's width over
-    WIDE_LM_HEADS heads (the bound at the true D). Returns the kernel's
-    record (without launches)."""
+    WIDE_LM_HEADS heads (the bound at the true D), each beside
+    scaled_dot_product_attention on the same inputs (its backend logged).
+    Returns the kernel's record (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -414,32 +429,29 @@ def kernel_phase(attn):
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     by_dim = {}
-    for D in TIMED_DIMS:
-        qd, kd, vd = (rand(B, T, HEADS, D) for _ in range(3))
+    Hw = WIDE_LM_HEADS
+    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
+        qd, kd, vd = (rand(B, T, H, D) for _ in range(3))
         ms_d = time_ms(lambda: attn.flash_attention_fwd(qd, kd, vd,
                                                         causal=True))
-        b_d = attention_bound(B, T, HEADS, D, True)
-        check_bound(ms_d, b_d, f"flash_attention_fwd at D={D}")
-        by_dim[str(D)] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
-                          "bound_by": b_d["bound_by"],
-                          "max_abs_err": err_by_dim[D]}
-        log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D={D}) "
+        b_d = attention_bound(B, T, H, D, True)
+        check_bound(ms_d, b_d, f"flash_attention_fwd at H={H}, D={D}")
+        # the library yardstick at this width (the port never calls it)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qd, kd, vd))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        lib_d = time_ms(sdpa)
+        backend = sdpa_backend(sdpa)
+        key = str(D) if H == HEADS else f"{D}@H{H}"
+        by_dim[key] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
+                       "bound_by": b_d["bound_by"],
+                       "max_abs_err": err_by_dim[D], "library_ms": lib_d,
+                       "library_kernel": backend}
+        log(f"flash_attention_fwd at (B={B}, T={T}, H={H}, D={D}) "
             f"causal{padded_note(D)}: {ms_d:.4f} ms a call, bound at "
-            f"the true D {b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
-        del qd, kd, vd
-    # the LM's width over WIDE_LM_HEADS heads
-    Hw, Dw = WIDE_LM_HEADS, D_MODEL // WIDE_LM_HEADS
-    qd, kd, vd = (rand(B, T, Hw, Dw) for _ in range(3))
-    ms_d = time_ms(lambda: attn.flash_attention_fwd(qd, kd, vd, causal=True))
-    b_d = attention_bound(B, T, Hw, Dw, True)
-    check_bound(ms_d, b_d, f"flash_attention_fwd at H={Hw}, D={Dw}")
-    by_dim[f"{Dw}@H{Hw}"] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
-                             "bound_by": b_d["bound_by"],
-                             "max_abs_err": err_by_dim[Dw]}
-    log(f"flash_attention_fwd at the LM's width over {Hw} heads (B={B}, "
-        f"T={T}, H={Hw}, D={Dw}) causal: {ms_d:.4f} ms a call, bound "
-        f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
-    del qd, kd, vd
+            f"the true D {b_d['bound_ms']:.4f} ms ({b_d['bound_by']}); "
+            f"scaled_dot_product_attention {lib_d:.4f} ms ({backend})")
+        del qd, kd, vd, qt, kt, vt
     b = attention_bound(B, T, HEADS, 64, True)
     check_bound(ms, b, "flash_attention_fwd at D=64")
     log(f"flash_attention_fwd at (B={B}, T={T}, H={HEADS}, D=64) causal: "
@@ -482,13 +494,55 @@ def backward_bound(B, T_, H, D, causal, which):
     return bound(flops, nbytes)
 
 
+def backward_kernel_names(Dp):
+    """{"dq": ..., "dkv": ...}: the backward kernel functions the C
+    entries launch at padded head dim Dp (csrc/flash_attention_bwd.cu):
+    the narrow kernels to 128, the two-warpgroup kernels at 256, the
+    chunked wide kernels at the multiples of 128 past it."""
+    kind = "_" if Dp <= 128 else "_pair_" if Dp == 256 else "_wide_"
+    return {"dq": f"dq{kind}kernel", "dkv": f"dkv{kind}kernel"}
+
+
+def sdpa_backend(fn, tries=3):
+    """Which of scaled_dot_product_attention's backends one call of
+    ``fn`` ran: the name of its longest device kernel (torch.profiler),
+    with the backend it names (flash, memory-efficient / cutlass fmha,
+    cuDNN; else the math route's GEMMs and softmax). A window that holds
+    no device event (the profiler loses some) is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted(((e.self_device_time_total, e.key)
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        reverse=True)
+        if events:
+            name = events[0][1]
+            low = " ".join(k for _, k in events).lower()
+            kind = ("flash" if "flash" in low else "cudnn" if "cudnn" in low
+                    else "memory-efficient" if ("fmha" in low
+                                                or "efficient" in low)
+                    else "math")
+            return f"{kind}: {name[:80]}"
+    return "not seen (the profiler lost the window's events)"
+
+
 def backward_kernel_phase(attn):
     """Hold the dq and dk/dv kernels against their plain versions on the
     card in the forward's cases (the PAD_DIMS and WIDE_DIMS widths among
-    them), and ``flash_attention_bwd_cuda`` (the path's route) against
-    them; time them at the LM shape and, inside the path's route, at
-    each width of TIMED_DIMS and at the LM's width over WIDE_LM_HEADS
-    heads. Returns their records (without launches)."""
+    them, and CHUNKED_DIM), and ``flash_attention_bwd_cuda`` (the path's
+    route) against them; time them at the LM shape and, inside the
+    path's route, at each width of TIMED_DIMS and, over WIDE_LM_HEADS
+    heads, at the LM's width and at CHUNKED_DIM (the chunked kernels'
+    profiler names), each width beside scaled_dot_product_attention's
+    autograd backward (its backend logged). Returns their records (without
+    launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -557,19 +611,27 @@ def backward_kernel_phase(attn):
     B = 8
     by_dim = {"dq": {}, "dkv": {}}
     Hw = WIDE_LM_HEADS
-    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
+    for H, D in ([(HEADS, D) for D in TIMED_DIMS]
+                 + [(Hw, D_MODEL // Hw), (Hw, CHUNKED_DIM)]):
         # at each width, the backward as the path runs it: one pad for
         # both kernels, dq, dk/dv, the slices; each kernel's device time
-        # and the whole call's (past 128, the wide variants')
+        # and the whole call's (past 128, the pair or chunked kernels')
         qd, kd, vd, dod = (rand(B, T, H, D) for _ in range(4))
         od, lsed = attn.flash_attention_fwd(qd, kd, vd, causal=True)
-        wide = native_head_dim(D) > 128
-        names = {"dq": "dq_wide_kernel" if wide else "dq_kernel",
-                 "dkv": "dkv_wide_kernel" if wide else "dkv_kernel"}
+        names = backward_kernel_names(native_head_dim(D))
         route_ms, kern = device_times(
             lambda: attn.flash_attention_bwd_cuda(qd, kd, vd, od, lsed, dod,
                                                   causal=True),
             iters=20, kernels=tuple(names.values()))
+        # the library yardstick at this width: scaled_dot_product_
+        # attention's autograd backward, its forward outside the window
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (qd, kd, vd))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        grad = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dod.transpose(1, 2), retain_graph=True)
+        lib_d = time_ms(grad)
+        backend = sdpa_backend(grad)
         key = str(D) if H == HEADS else f"{D}@H{H}"
         for which in ("dq", "dkv"):
             b_d = backward_bound(B, T, H, D, True, which)
@@ -577,16 +639,20 @@ def backward_kernel_phase(attn):
             check_bound(ms_d, b_d,
                         f"flash_attention_bwd_{which} at H={H}, D={D}")
             by_dim[which][key] = {
-                "ms": ms_d, "route_ms": route_ms,
+                "kernel": names[which], "ms": ms_d, "route_ms": route_ms,
                 "bound_ms": b_d["bound_ms"], "bound_by": b_d["bound_by"],
-                "max_abs_err": err_by_dim[which][D]}
+                "max_abs_err": err_by_dim[which][D], "library_ms": lib_d,
+                "library_kernel": backend}
             log(f"flash_attention_bwd_{which} at (B={B}, T={T}, "
                 f"H={H}, D={D}) causal{padded_note(D, once=True)}: "
-                f"the kernel {ms_d:.4f} ms of device time a call "
+                f"{names[which]} {ms_d:.4f} ms of device time a call "
                 f"(torch.profiler) of flash_attention_bwd_cuda's "
                 f"{route_ms:.4f} ms, bound at the true D "
                 f"{b_d['bound_ms']:.4f} ms ({b_d['bound_by']})")
-        del qd, kd, vd, dod, od, lsed
+        log(f"scaled_dot_product_attention's backward at (B={B}, T={T}, "
+            f"H={H}, D={D}) causal: {lib_d:.4f} ms a call ({backend}; the "
+            f"library_ms of both records' width)")
+        del qd, kd, vd, dod, od, lsed, qt, kt, vt, out
     q, k, v, do = (rand(B, T, HEADS, 64) for _ in range(4))
     o, lse = attn.flash_attention_fwd(q, k, v, causal=True)
     _, delta = attn.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do,
@@ -824,10 +890,12 @@ def slice_phase(attn, card):
 
 def kernel_family(name):
     name = name.lower()
-    for key, family in (("flash_fwd_kernel", "flash_attention_fwd"),
-                        ("dkv_kernel", "flash_attention_bwd_dkv"),
-                        ("dq_kernel", "flash_attention_bwd_dq")):
-        if key in name:
+    for key, family in ((r"flash_fwd_(wide_)?kernel", "flash_attention_fwd"),
+                        (r"dkv_(wide_|pair_)?kernel",
+                         "flash_attention_bwd_dkv"),
+                        (r"\bdq_(wide_|pair_)?kernel",
+                         "flash_attention_bwd_dq")):
+        if re.search(key, name):
             return family
     if any(s in name for s in ("gemm", "cutlass", "xmma")):
         return "gemm"
@@ -9960,7 +10028,8 @@ WIDE_GEN_PROMPT, WIDE_GEN_TOKENS, WIDE_CAP = 64, 8, 128
 
 def wide_head_phase(attn, da, card):
     """The LM's config (V, D_MODEL, T) over WIDE_LM_HEADS heads, head dim
-    D_MODEL / WIDE_LM_HEADS = 256 (the kernels' wide variants), at depth
+    D_MODEL / WIDE_LM_HEADS = 256 (the forward's wide variant, the
+    backward's two-warpgroup kernels), at depth
     WIDE_LAYERS: a predict (``output``) and one step's loss and gradients
     held against the same model on the plain attention on the card, one
     Adam step through ``fit``, then WIDE_GEN_REQUESTS concurrent greedy
@@ -10220,32 +10289,73 @@ def rank_examples_phase(attn, card):
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
-    Fails unless all twelve kernel functions (the forward, dq and dk/dv,
-    each at D = 32, 64 and 128, and their wide variants at 128-wide
-    chunks) are there and each has at least one (a build that fell back
-    to FMA code has none)."""
+    Fails unless all fourteen kernel functions (the forward, dq and
+    dk/dv, each at D = 32, 64 and 128, their wide variants at 128-wide
+    chunks, and the two-warpgroup dq and dk/dv at 256) are there and
+    each has at least one (a build that fell back to FMA code has
+    none)."""
     tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
     counts = {}
     kernels = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel",
-               "flash_fwd_wide_kernel", "dq_wide_kernel", "dkv_wide_kernel")
+               "flash_fwd_wide_kernel", "dq_wide_kernel", "dkv_wide_kernel",
+               "dq_pair_kernel", "dkv_pair_kernel")
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         sass = subprocess.run([tool, "-sass", native._target(name)],
                               capture_output=True, text=True,
                               check=True).stdout
         for part in re.split(r"\n\s*Function : ", sass)[1:]:
-            m = re.search(r"(" + "|".join(kernels) + r")ILi(\d+)E",
-                          part.split("\n", 1)[0])
-            counts[f"{m.group(1)}<{m.group(2)}>"] = len(
-                re.findall(r"\bHMMA\b", part))
+            name = kernel_name(part.split("\n", 1)[0])
+            counts[name] = len(re.findall(r"\bHMMA\b", part))
     log("tensor-core (HMMA) instructions per kernel function (cuobjdump "
         "-sass): " + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
-    expected = {f"{kernel}<{d}>" for kernel in kernels[:3]
-                for d in (32, 64, 128)} | {f"{kernel}<128>"
-                                           for kernel in kernels[3:]}
+    expected = ({f"{kernel}<{d}>" for kernel in kernels[:3]
+                 for d in (32, 64, 128)}
+                | {f"{kernel}<128>" for kernel in kernels[3:6]}
+                | set(kernels[6:]))
     assert set(counts) == expected, counts
     for k, n in counts.items():
         assert n > 0, f"{k} has no tensor-core instruction"
     return counts
+
+
+# a flash kernel function in a mangled symbol: its name and, for a
+# template, its head dim or chunk width
+FLASH_KERNEL = re.compile(
+    r"(flash_fwd_kernel|dq_kernel|dkv_kernel|flash_fwd_wide_kernel"
+    r"|dq_wide_kernel|dkv_wide_kernel|dq_pair_kernel|dkv_pair_kernel)"
+    r"(?:ILi(\d+)E)?")
+
+
+def kernel_name(sym):
+    """"dq_kernel<64>" or "dq_pair_kernel" from a flash kernel function's
+    mangled symbol; any other symbol as it is."""
+    m = FLASH_KERNEL.search(sym)
+    if not m:
+        return sym.strip()
+    return f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)
+
+
+def ptxas_functions(report):
+    """{"dq_pair_kernel": (registers, spill store bytes, spill load
+    bytes), ...} of every kernel function in an ``nvcc -Xptxas -v``
+    report (a function's spills summed with those of the functions it
+    calls, which ptxas reports after it)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = [None, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1] += int(m.group(1))
+            out[name][2] += int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 PHASE_S = {}               # wall seconds of each phase of main()
@@ -10291,13 +10401,16 @@ def main():
     t0 = time.perf_counter()
     for name, report in native.build_all().items():
         log(f"built {name}.cu for sm_90a:")
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                               r"spill loads", line)
-            assert not spills or spills.groups() == ("0", "0"), \
-                f"{name}.cu spills registers: {line.strip()}"
+        functions = ptxas_functions(report)
+        for fn, (regs, stores, loads) in functions.items():
+            log(f"  {fn}: {regs} registers, {stores} bytes spill stores, "
+                f"{loads} bytes spill loads")
+            assert (stores, loads) == (0, 0), \
+                f"{name}.cu: {fn} spills registers"
+        if name == "flash_attention_bwd":
+            # the two-warpgroup kernels (Dp = 256) among them
+            for fn in ("dq_pair_kernel", "dkv_pair_kernel"):
+                assert fn in functions, (fn, sorted(functions))
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
     hmma = tensor_core_ops(native)
     # first: the port keeps float32 float32 whatever the caller set;

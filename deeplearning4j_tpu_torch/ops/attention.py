@@ -24,7 +24,9 @@ kernel or an error. There is no fallback from one to the other.
 Head dims: the kernels are instantiated at D = 32, 64 and 128
 (``native.HEAD_DIMS``), and their wide variants run any multiple of 128
 past that (each CTA owns 128 of the output's columns and sums q.k over
-the whole width). Any other D runs at the next of those, Dp
+the whole width), but for the backward at 256: there dq and dk/dv run
+kernels of two warpgroups, each CTA 64 rows at the whole width with s
+and dp computed once a tile. Any other D runs at the next of those, Dp
 (``native.kernel_head_dim``): the wrappers zero-pad q, k, v (and o, do)
 along D into contiguous (B, T, H, Dp) buffers, launch with the scale of
 the TRUE D, and slice o, dq, dk, dv back to D (lse and delta need no
@@ -334,7 +336,8 @@ def flash_attention_bwd_dq_cuda(q, k, v, o, lse, do, kv_mask=None, *,
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dq kernel of ``csrc/flash_attention_bwd.cu``, which
     also writes delta, on the current stream (at a head dim it is not
-    built for, on zero-padded operands). Returns (dq, delta).
+    built for, on zero-padded operands; at 256, and 160 and 192 padded
+    to it, the two-warpgroup ``dq_pair_kernel``). Returns (dq, delta).
     ``flash_attention_bwd_dq_cuda.launches`` counts the launches."""
     _check_bwd(q, k, v, lse, do, kv_mask, o)
     D = q.shape[3]
@@ -370,7 +373,8 @@ def flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do, kv_mask=None,
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dk/dv kernel of ``csrc/flash_attention_bwd.cu`` on the
     current stream, with the dq pass's delta (at a head dim it is not
-    built for, on zero-padded operands). Returns (dk, dv).
+    built for, on zero-padded operands; at 256, and 160 and 192 padded
+    to it, the two-warpgroup ``dkv_pair_kernel``). Returns (dk, dv).
     ``flash_attention_bwd_dkv_cuda.launches`` counts the launches."""
     _check_bwd(q, k, v, lse, do, kv_mask)
     if tuple(delta.shape) != tuple(lse.shape) \

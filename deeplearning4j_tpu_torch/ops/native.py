@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # csrc/decode_attention.cu) is instantiated for
 HEAD_DIMS = (32, 64, 128)
 # past the largest, the kernels' wide variants run any multiple of this:
-# each CTA owns one such chunk of the output's columns
+# each CTA (at 256 in the backward, each of a CTA's two warpgroups) owns
+# one such chunk of the output's columns
 WIDE_CHUNK = 128
 
 _lock = threading.Lock()

@@ -8,7 +8,8 @@ in turns, on one NVIDIA card.
 Builds every ``csrc/*.cu`` of this checkout and of the other directory
 with the same ``nvcc`` flags, then times each kernel entry (the
 flash-attention forward, dq and dk/dv) at the LM shape (B=8, T=1024,
-H=16, D=64, causal, float32) with CUDA events, and the paged decode
+H=16, D=64, causal, float32) and at head dim 256 (B=8, T=1024, H=16,
+causal: the wide kernels) with CUDA events, and the paged decode
 attention at its decode shape (S=8 slots, t=1, H=16, D=64, every slot
 at position 511 of 64 pages of 16 tokens) by its kernels' device time
 (torch.profiler: a call's host work outlasts them), in the order other,
@@ -25,6 +26,7 @@ import subprocess
 import sys
 
 B, T, H, D = 8, 1024, 16, 64
+WIDE_D = 256      # the wide kernels' head dim, timed at (B, T, H)
 
 
 def main(argv):
@@ -84,20 +86,30 @@ def main(argv):
         return t0.elapsed_time(t1) / iters
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v, do = (torch.randn(B, T, H, D, device="cuda", generator=g)
-                   for _ in range(4))
-    o, lse = attn.flash_attention_fwd_plain(q, k, v, causal=True)
-    _, delta = attn.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
-                                                 causal=True)
-    entries = {
-        "flash_attention_fwd": lambda: attn.flash_attention_fwd_cuda(
-            q, k, v, causal=True),
-        "flash_attention_bwd_dq": lambda: attn.flash_attention_bwd_dq_cuda(
-            q, k, v, o, lse, do, causal=True),
-        "flash_attention_bwd_dkv": lambda: attn.flash_attention_bwd_dkv_cuda(
-            q, k, v, lse, delta, do, causal=True)}
-    plain = (o, lse, *attn.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                     causal=True))
+
+    def flash_entries(Dh, tag):
+        """The three flash entries at (B, T, H, Dh), causal, named with
+        ``tag``, and the plain versions' (o, lse, dq, dk, dv)."""
+        q, k, v, do = (torch.randn(B, T, H, Dh, device="cuda", generator=g)
+                       for _ in range(4))
+        o, lse = attn.flash_attention_fwd_plain(q, k, v, causal=True)
+        _, delta = attn.flash_attention_bwd_dq_plain(q, k, v, o, lse, do,
+                                                     causal=True)
+        fns = {
+            "flash_attention_fwd": lambda: attn.flash_attention_fwd_cuda(
+                q, k, v, causal=True),
+            "flash_attention_bwd_dq": lambda:
+                attn.flash_attention_bwd_dq_cuda(q, k, v, o, lse, do,
+                                                 causal=True),
+            "flash_attention_bwd_dkv": lambda:
+                attn.flash_attention_bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                  causal=True)}
+        plain = (o, lse, *attn.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal=True))
+        return {n + tag: fn for n, fn in fns.items()}, plain
+
+    entries, plain = flash_entries(D, "")
+    wide_entries, wide_plain = flash_entries(WIDE_D, f"@{WIDE_D}")
     S, P, PS = 8, 64, 16
     N = S * P + 1
     kp, vp = (torch.randn(N, PS, H, D, device="cuda", generator=g)
@@ -111,11 +123,11 @@ def main(argv):
                                               host_pos=host)
     for side in ("other", "this"):
         use(side)
-        got = (*entries["flash_attention_fwd"](),
-               entries["flash_attention_bwd_dq"]()[0],
-               *entries["flash_attention_bwd_dkv"]())
-        for a, b in zip(got, plain):
-            torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
+        for fns, want in ((entries, plain), (wide_entries, wide_plain)):
+            fwd, dq, dkv = fns.values()
+            got = (*fwd(), dq()[0], *dkv())
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-4)
         torch.testing.assert_close(
             decode(), da.decode_attention_plain(q1, kp, vp, table, host),
             atol=2e-5, rtol=2e-4)
@@ -133,6 +145,7 @@ def main(argv):
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if "decode_" in e.key) / 1e3 / iters
 
+    entries.update(wide_entries)
     times = {name: [] for name in entries}
     times["decode_attention"] = []
     order = ("other", "this", "this", "other")
@@ -142,7 +155,8 @@ def main(argv):
             times[name].append(time_ms(fn))
         times["decode_attention"].append(device_ms(decode))
     use("this")
-    print(json.dumps({"card": card, "shape": [B, T, H, D], "causal": True,
+    print(json.dumps({"card": card, "shape": [B, T, H, D],
+                      "wide_shape": [B, T, H, WIDE_D], "causal": True,
                       "order": order, "ms": times}), flush=True)
     return 0
 

@@ -436,6 +436,60 @@ def test_forward_three_tf32_passes_meet_the_f32_tolerance(causal, masked):
     assert not torch.allclose(one, want_o, atol=ATOL, rtol=RTOL)
 
 
+def _bwd_pair_tf32(q, k, v, o, lse, do, kv_mask, causal, passes, R=16):
+    """The pair kernels' backward at D = 256 (csrc/flash_attention_bwd.cu):
+    s and dp each the f32 sum of two 128-column products (one a
+    warpgroup), dq summed over tiles of R keys into tile partials added
+    in f32, dk and dv in one sum; products in ``passes`` TF32 passes."""
+    T, D = q.shape[1], q.shape[3]
+    C, scale = D // 2, 1.0 / np.sqrt(D)
+
+    def mm(eq, a, b):
+        return _mm_tf32(eq, a, b, passes)
+
+    def halves(a, b):
+        return (mm("bqhd,bkhd->bhqk", a[..., :C], b[..., :C])
+                + mm("bqhd,bkhd->bhqk", a[..., C:], b[..., C:]))
+    s = halves(q, k)
+    live = torch.ones((1, 1, T, T), dtype=torch.bool)
+    if causal:
+        live = torch.tril(live)
+    if kv_mask is not None:
+        live = live & (kv_mask > 0)[:, None, None, :]
+    live = live & (lse > -1e30 / 2)[..., None]
+    p = torch.where(live, torch.exp(s * scale - lse[..., None]),
+                    torch.zeros(()))
+    delta = (do * o).sum(-1).permute(0, 2, 1)
+    ds = p * (halves(do, v) - delta[..., None]) * scale
+    dq = sum(mm("bhqk,bkhd->bqhd", ds[..., j:j + R], k[:, j:j + R])
+             for j in range(0, T, R))
+    return (dq, mm("bhqk,bqhd->bkhd", ds, q),
+            mm("bhqk,bqhd->bkhd", p, do))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_pair_kernels_sums_meet_the_f32_tolerance(causal, masked):
+    """At D = 256 the pair kernels split s's and dp's sums over two
+    warpgroups' 128 columns and add them in f32: in three TF32 passes
+    that meets the tolerance the card is held to, in one it does not."""
+    q, k, v, do, mask = _bwd_inputs(80 + 2 * causal + masked, 2, 48, 2,
+                                    256, masked)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    g = torch.from_numpy(do)
+    m = None if mask is None else torch.from_numpy(mask)
+    o, lse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    want = tattn.flash_attention_bwd_plain(*t, o, lse, g, m, causal=causal)
+    three = _bwd_pair_tf32(*t, o, lse, g, m, causal, passes=3)
+    for got, ref in zip(three, want):
+        torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+    if masked:                        # the row that saw no key
+        assert torch.all(three[0][1] == 0)
+    one = _bwd_pair_tf32(*t, o, lse, g, m, causal, passes=1)
+    for name, got, ref in zip(("dq", "dk", "dv"), one, want):
+        assert not torch.allclose(got, ref, atol=ATOL, rtol=RTOL), name
+
+
 def test_c_fragment_feeds_the_next_product_as_a():
     """tf32_mma.cuh's as_a / load_b_pairs, lane by lane in numpy: with
     A = (c0, c2, c1, c3) and B's depth rows (2t, 2t + 1), the m16n8k8
@@ -618,6 +672,76 @@ def test_bwd_kernels_read_strided_inputs(cuda_device):
     want = tattn.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+# (B, T, H, masked, causal): the backward past 128 at D = 160, 192 (both
+# padded to 256) and 256, where the two-warpgroup kernels run: causal,
+# non-causal, a key mask with batch 1 fully masked, ragged T = 333 and
+# 1000, and 4 heads at the LM's T
+PAIR_CASES = [(2, 512, 3, False, True), (2, 512, 3, False, False),
+              (3, 256, 2, True, True), (3, 333, 2, True, False),
+              (2, 1000, 2, True, True), (2, 1024, 4, False, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [160, 192, 256])
+@pytest.mark.parametrize("B,T,H,masked,causal", PAIR_CASES)
+def test_pair_bwd_kernels_match_plain_on_card(cuda_device, D, B, T, H,
+                                              masked, causal):
+    """dq/delta and dk/dv of the pair kernels (one launch each) against
+    the plain versions at D, dq = 0 on the fully masked batch, and a
+    second launch giving the same bits."""
+    q, k, v, do, mask = _bwd_inputs(D + T + H + causal, B, T, H, D, masked)
+    t, g, m, o, lse = _bwd_on_card(cuda_device, q, k, v, do, mask, causal)
+    runs = []
+    for _ in range(2):
+        before = (tattn.flash_attention_bwd_dq_cuda.launches,
+                  tattn.flash_attention_bwd_dkv_cuda.launches)
+        dq, delta = tattn.flash_attention_bwd_dq_cuda(*t, o, lse, g, m,
+                                                      causal=causal)
+        dk, dv = tattn.flash_attention_bwd_dkv_cuda(*t, lse, delta, g, m,
+                                                    causal=causal)
+        assert (tattn.flash_attention_bwd_dq_cuda.launches,
+                tattn.flash_attention_bwd_dkv_cuda.launches) == (
+            before[0] + 1, before[1] + 1)
+        runs.append((dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    pdq, pdelta = tattn.flash_attention_bwd_dq_plain(*t, o, lse, g, m,
+                                                     causal=causal)
+    pdk, pdv = tattn.flash_attention_bwd_dkv_plain(*t, lse, pdelta, g, m,
+                                                   causal=causal)
+    for a, b in ((dq, pdq), (delta, pdelta), (dk, pdk), (dv, pdv)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    if masked:
+        assert torch.all(dq[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,masked,causal", [
+    (3, 77, 2, True, True), (3, 77, 2, False, False),
+    # 32 causal first rows, whose dq is 0 (dp = delta): the case that
+    # one tensor-core accumulator over the 384 columns left past the
+    # tolerance
+    (8, 333, 4, True, True)])
+def test_chunked_bwd_kernels_past_256_on_card(cuda_device, B, T, H, masked,
+                                              causal):
+    """D = 384 keeps the chunked wide kernels (three 128-wide chunks of
+    the output's columns): against the plain versions, twice the same
+    bits."""
+    q, k, v, do, mask = _bwd_inputs(384 + causal, B, T, H, 384, masked)
+    t, g, m, o, lse = _bwd_on_card(cuda_device, q, k, v, do, mask, causal)
+    runs = [tattn.flash_attention_bwd_cuda(*t, o, lse, g, m, causal=causal)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    want = tattn.flash_attention_bwd_plain(*t, o, lse, g, m, causal=causal)
+    for a, b in zip(runs[0], want):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+    if masked:
+        assert torch.all(runs[0][0][1] == 0)
 
 
 # dq's first causal query row sees one key, so its exact gradient is 0:
