@@ -6,16 +6,17 @@
 Builds every hand-written kernel of ``deeplearning4j_tpu_torch/csrc``
 for sm_90a (and fails if ``ptxas`` reports a spill), counts the
 tensor-core (HMMA) instructions of each kernel function in the built
-libraries (and fails if any of the fourteen, three kernels at D = 32,
-64 and 128, their chunked wide variants and the backward's two-warpgroup
-kernels at 256, has none), holds each kernel
+libraries (and fails if any of the fifteen, three kernels at D = 32,
+64 and 128, their chunked wide variants and the two-warpgroup kernels,
+the forward's past 128 up to 256 and the backward's at 256, has none),
+holds each kernel
 (the flash-attention forward, dq and dk/dv, the paged decode attention)
 against its plain PyTorch version on the card, at those head dims, at
 4, 8, 16, 48 and 96, which the wrappers zero-pad to the next of them,
-at 160, 192 and 256, which run at 256, and (the flash kernels) at 384,
-where the backward keeps its chunked kernels (times and bounds at the
-true D, and over 4 heads at the LM's width and, the backward's, at 384,
-beside
+at 160, 192 and 256, which the forward reads in place and the backward
+runs at 256, and (the flash kernels) at 384, where both keep their
+chunked kernels (times and bounds at the true D, and over 4 heads at
+the LM's width and at 384, beside
 ``scaled_dot_product_attention``'s forward and backward at each width;
 every kernel time is held against its bound, and a time under it fails
 the run),
@@ -280,13 +281,14 @@ PEAK_F32_ACCURATE_FLOPS = PEAK_TF32_FLOPS / 3
 # 32, 64 and 128): zero-padded to the next of those, at the true D's
 # scale (ops/native.kernel_head_dim)
 PAD_DIMS = (4, 8, 16, 48, 96)
-# past 128, zero-padded to 256 (160, 192) or run as they are (256): the
-# forward's wide variant (each CTA owns 128 of o's columns) and the
-# backward's two-warpgroup kernels (each warpgroup 128 columns)
+# past 128: the two-warpgroup kernels, the forward's reading each of
+# these in place (ops/native.forward_reads_in_place), the backward's at
+# 256 with 160 and 192 zero-padded to it
 WIDE_DIMS = (160, 192, 256)
-# past 256 the backward keeps its chunked wide kernels (each CTA 128 of
-# the output's columns, s and dp over the whole width): one such width
-# checked (padded_cases) and timed (backward_kernel_phase)
+# past 256 the forward and backward keep their chunked wide kernels
+# (each CTA 128 of the output's columns, s and dp over the whole width):
+# one such width checked (padded_cases) and timed over WIDE_LM_HEADS
+# heads (kernel_phase, backward_kernel_phase, decode_kernel_phase)
 CHUNKED_DIM = 384
 # the widths timed a kernel: the padded ones and, beside them, 32 and 128
 # unpadded (64 is the LM shape's, timed on its own), and the wide ones
@@ -367,11 +369,12 @@ def padded_cases(pad):
 
 def kernel_phase(attn):
     """Hold flash_attention_fwd against its plain version on the card,
-    at D = 32, 64, 128 and every PAD_DIMS and WIDE_DIMS width; time it
-    at the LM shape, at each of those widths and at the LM's width over
-    WIDE_LM_HEADS heads (the bound at the true D), each beside
-    scaled_dot_product_attention on the same inputs (its backend logged).
-    Returns the kernel's record (without launches)."""
+    at D = 32, 64, 128 and every PAD_DIMS and WIDE_DIMS width (and
+    CHUNKED_DIM); time it at the LM shape, at each of those widths and,
+    over WIDE_LM_HEADS heads, at the LM's width and at CHUNKED_DIM (the
+    bound at the true D), each beside scaled_dot_product_attention on
+    the same inputs (its backend logged), and name the kernel function
+    each width ran. Returns the kernel's record (without launches)."""
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -430,7 +433,8 @@ def kernel_phase(attn):
         qt, kt, vt, is_causal=True))
     by_dim = {}
     Hw = WIDE_LM_HEADS
-    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
+    for H, D in ([(HEADS, D) for D in TIMED_DIMS]
+                 + [(Hw, D_MODEL // Hw), (Hw, CHUNKED_DIM)]):
         qd, kd, vd = (rand(B, T, H, D) for _ in range(3))
         ms_d = time_ms(lambda: attn.flash_attention_fwd(qd, kd, vd,
                                                         causal=True))
@@ -443,14 +447,17 @@ def kernel_phase(attn):
         lib_d = time_ms(sdpa)
         backend = sdpa_backend(sdpa)
         key = str(D) if H == HEADS else f"{D}@H{H}"
-        by_dim[key] = {"ms": ms_d, "bound_ms": b_d["bound_ms"],
+        name = forward_kernel_name(D)
+        by_dim[key] = {"kernel": name, "ms": ms_d,
+                       "bound_ms": b_d["bound_ms"],
                        "bound_by": b_d["bound_by"],
                        "max_abs_err": err_by_dim[D], "library_ms": lib_d,
                        "library_kernel": backend}
         log(f"flash_attention_fwd at (B={B}, T={T}, H={H}, D={D}) "
-            f"causal{padded_note(D)}: {ms_d:.4f} ms a call, bound at "
-            f"the true D {b_d['bound_ms']:.4f} ms ({b_d['bound_by']}); "
-            f"scaled_dot_product_attention {lib_d:.4f} ms ({backend})")
+            f"causal{forward_note(D)}: {name} {ms_d:.4f} ms a call, "
+            f"bound at the true D {b_d['bound_ms']:.4f} ms "
+            f"({b_d['bound_by']}); scaled_dot_product_attention "
+            f"{lib_d:.4f} ms ({backend})")
         del qd, kd, vd, qt, kt, vt
     b = attention_bound(B, T, HEADS, 64, True)
     check_bound(ms, b, "flash_attention_fwd at D=64")
@@ -471,6 +478,23 @@ def kernel_phase(attn):
 def native_head_dim(D):
     from deeplearning4j_tpu_torch.ops.native import kernel_head_dim
     return kernel_head_dim(D)
+
+
+def forward_kernel_name(D):
+    """The forward kernel function the C entry launches at head dim D
+    (csrc/flash_attention_fwd.cu): the narrow kernel to 128, the
+    two-warpgroup kernel past it up to 256 (in place, or at 256 on
+    padded operands), the chunked wide kernel past 256."""
+    Dp = native_head_dim(D)
+    return ("flash_fwd_kernel" if Dp <= 128 else "flash_fwd_pair_kernel"
+            if Dp <= 256 else "flash_fwd_wide_kernel")
+
+
+def forward_note(D):
+    from deeplearning4j_tpu_torch.ops.native import forward_reads_in_place
+    if forward_reads_in_place(D):
+        return ", read in place at the true D (no pad, no slice)"
+    return padded_note(D)
 
 
 def padded_note(D, once=False):
@@ -890,7 +914,8 @@ def slice_phase(attn, card):
 
 def kernel_family(name):
     name = name.lower()
-    for key, family in ((r"flash_fwd_(wide_)?kernel", "flash_attention_fwd"),
+    for key, family in ((r"flash_fwd_(wide_|pair_)?kernel",
+                         "flash_attention_fwd"),
                         (r"dkv_(wide_|pair_)?kernel",
                          "flash_attention_bwd_dkv"),
                         (r"\bdq_(wide_|pair_)?kernel",
@@ -1202,7 +1227,8 @@ def decode_kernel_phase(da):
     launches on the same inputs give the same bits, and time it at the
     decode shape (S=8 slots, H=16, D=64, t=1, every slot at position 511
     of a 1024-token page table of 16-token pages), at each width of
-    TIMED_DIMS and at the LM's width over WIDE_LM_HEADS heads (the bound
+    TIMED_DIMS and, over WIDE_LM_HEADS heads, at the LM's width and at
+    CHUNKED_DIM (held against the plain version there first; the bound
     at the true D). Returns its record (without launches)."""
     import torch
     import torch.nn.functional as F
@@ -1273,10 +1299,24 @@ def decode_kernel_phase(da):
     pos_list = [511] * S
     by_dim = {}
     Hw = WIDE_LM_HEADS
-    for H, D in [(HEADS, D) for D in TIMED_DIMS] + [(Hw, D_MODEL // Hw)]:
+    for H, D in ([(HEADS, D) for D in TIMED_DIMS]
+                 + [(Hw, D_MODEL // Hw), (Hw, CHUNKED_DIM)]):
         q, kp, vp, table, host = paged_inputs(g, S, 1, D, pos_list, H=H)
         kp, vp = session_pools(da, kp, vp)
         pos = host.cuda()
+        if D not in err_by_dim:
+            # a width the checks above do not reach (CHUNKED_DIM): the
+            # timed inputs held against the plain version once
+            o = da.decode_attention_cuda(q, kp, vp, table, pos,
+                                         host_pos=host)
+            ref = da.decode_attention_plain(q, kp, vp, table, host)
+            torch.testing.assert_close(o, ref, atol=ATOL, rtol=RTOL)
+            err_by_dim[D] = (o - ref).abs().max().item()
+            max_err = max(max_err, err_by_dim[D])
+            log(f"decode kernel D={D} (H={H}, S={S}, t=1, pos 511): max "
+                f"|kernel - plain| = {err_by_dim[D]:.3e} (atol {ATOL}, "
+                f"rtol {RTOL})")
+            del o, ref
         ms_d = device_ms(lambda: da.decode_attention_cuda(
             q, kp, vp, table, pos, host_pos=host), kernels=DECODE_KERNELS)
         b_d = decode_bound(S, 1, H, D, pos_list, P)
@@ -10028,8 +10068,8 @@ WIDE_GEN_PROMPT, WIDE_GEN_TOKENS, WIDE_CAP = 64, 8, 128
 
 def wide_head_phase(attn, da, card):
     """The LM's config (V, D_MODEL, T) over WIDE_LM_HEADS heads, head dim
-    D_MODEL / WIDE_LM_HEADS = 256 (the forward's wide variant, the
-    backward's two-warpgroup kernels), at depth
+    D_MODEL / WIDE_LM_HEADS = 256 (the forward's and the backward's
+    two-warpgroup kernels), at depth
     WIDE_LAYERS: a predict (``output``) and one step's loss and gradients
     held against the same model on the plain attention on the card, one
     Adam step through ``fit``, then WIDE_GEN_REQUESTS concurrent greedy
@@ -10289,16 +10329,16 @@ def rank_examples_phase(attn, card):
 def tensor_core_ops(native):
     """HMMA (tensor-core) instructions in each kernel function of the
     built libraries, from ``cuobjdump -sass``: {"dq_kernel<64>": n, ...}.
-    Fails unless all fourteen kernel functions (the forward, dq and
+    Fails unless all fifteen kernel functions (the forward, dq and
     dk/dv, each at D = 32, 64 and 128, their wide variants at 128-wide
-    chunks, and the two-warpgroup dq and dk/dv at 256) are there and
-    each has at least one (a build that fell back to FMA code has
-    none)."""
+    chunks, the two-warpgroup forward past 128 up to 256, and the
+    two-warpgroup dq and dk/dv at 256) are there and each has at least
+    one (a build that fell back to FMA code has none)."""
     tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
     counts = {}
     kernels = ("flash_fwd_kernel", "dq_kernel", "dkv_kernel",
                "flash_fwd_wide_kernel", "dq_wide_kernel", "dkv_wide_kernel",
-               "dq_pair_kernel", "dkv_pair_kernel")
+               "flash_fwd_pair_kernel", "dq_pair_kernel", "dkv_pair_kernel")
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         sass = subprocess.run([tool, "-sass", native._target(name)],
                               capture_output=True, text=True,
@@ -10322,7 +10362,8 @@ def tensor_core_ops(native):
 # template, its head dim or chunk width
 FLASH_KERNEL = re.compile(
     r"(flash_fwd_kernel|dq_kernel|dkv_kernel|flash_fwd_wide_kernel"
-    r"|dq_wide_kernel|dkv_wide_kernel|dq_pair_kernel|dkv_pair_kernel)"
+    r"|dq_wide_kernel|dkv_wide_kernel|flash_fwd_pair_kernel"
+    r"|dq_pair_kernel|dkv_pair_kernel)"
     r"(?:ILi(\d+)E)?")
 
 
@@ -10407,10 +10448,11 @@ def main():
                 f"{loads} bytes spill loads")
             assert (stores, loads) == (0, 0), \
                 f"{name}.cu: {fn} spills registers"
-        if name == "flash_attention_bwd":
-            # the two-warpgroup kernels (Dp = 256) among them
-            for fn in ("dq_pair_kernel", "dkv_pair_kernel"):
-                assert fn in functions, (fn, sorted(functions))
+        # the two-warpgroup kernels among them
+        for fn in {"flash_attention_fwd": ("flash_fwd_pair_kernel",),
+                   "flash_attention_bwd": ("dq_pair_kernel",
+                                           "dkv_pair_kernel")}.get(name, ()):
+            assert fn in functions, (fn, sorted(functions))
     log(f"kernel build {time.perf_counter() - t0:.1f} s")
     hmma = tensor_core_ops(native)
     # first: the port keeps float32 float32 whatever the caller set;

@@ -967,12 +967,6 @@ struct PairLayout {
   static_assert(kBytes <= 232448, "over a block's shared memory");
 };
 
-// warps w and w + kWarps (the two warpgroups' warps over the same rows)
-// meet at named barrier 1 + w; barrier 0 is __syncthreads'
-__device__ __forceinline__ void pair_sync(int w) {
-  asm volatile("bar.sync %0, %1;" :: "r"(1 + w), "n"(2 * 32) : "memory");
-}
-
 // s and dp summed over both warpgroups' columns: each warp leaves its
 // partial C fragments in its slot, meets its partner (the other
 // warpgroup's warp over the same rows and keys: the same lane holds the
@@ -991,7 +985,7 @@ __device__ __forceinline__ void sum_pair(float4* xch, int wg, int w,
     mine[(NF + n) * 32] = make_float4(dp[n][0], dp[n][1], dp[n][2],
                                       dp[n][3]);
   }
-  pair_sync(w);
+  tf32mma::pair_sync(w);
 #pragma unroll
   for (int n = 0; n < NF; ++n) {
     const float4 a = theirs[n * 32], d = theirs[(NF + n) * 32];

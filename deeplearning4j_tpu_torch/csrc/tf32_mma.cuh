@@ -168,4 +168,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
+// The two-warpgroup kernels' meeting of warps w and w + 4 (the two
+// warpgroups' warps over the same rows): named barrier 1 + w for their
+// 64 threads; barrier 0 is __syncthreads'.
+__device__ __forceinline__ void pair_sync(int w) {
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + w), "n"(2 * 32) : "memory");
+}
+
 }  // namespace tf32mma

@@ -22,16 +22,21 @@ Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
 kernel or an error. There is no fallback from one to the other.
 
 Head dims: the kernels are instantiated at D = 32, 64 and 128
-(``native.HEAD_DIMS``), and their wide variants run any multiple of 128
-past that (each CTA owns 128 of the output's columns and sums q.k over
-the whole width), but for the backward at 256: there dq and dk/dv run
-kernels of two warpgroups, each CTA 64 rows at the whole width with s
-and dp computed once a tile. Any other D runs at the next of those, Dp
-(``native.kernel_head_dim``): the wrappers zero-pad q, k, v (and o, do)
-along D into contiguous (B, T, H, Dp) buffers, launch with the scale of
-the TRUE D, and slice o, dq, dk, dv back to D (lse and delta need no
-slicing: zero columns change no q.k and no rowsum(do * o)). The LM's
-D = 64 takes the kernels as it is, without a copy.
+(``native.HEAD_DIMS``). Past 128 up to 256 (``native.PAIR_DIM``) the
+forward and backward run kernels of two warpgroups, each CTA 64 rows at
+the whole width, each warpgroup 128 of the output's columns, with s
+(and in the backward dp) computed once a tile; past 256 their chunked
+wide variants run any multiple of 128 (each CTA owns 128 of the
+output's columns and sums q.k over the whole width). The forward's
+pair kernel reads any D in (128, 256] with D % 4 == 0 in place, as it
+is, and writes o at D (``native.forward_reads_in_place``). Any other D
+runs at the next width a kernel is built for, Dp
+(``native.kernel_head_dim``; the backward at 256 for every D in (128,
+256]): the wrappers zero-pad q, k, v (and o, do) along D into
+contiguous (B, T, H, Dp) buffers, launch with the scale of the TRUE D,
+and slice o, dq, dk, dv back to D (lse and delta need no slicing: zero
+columns change no q.k and no rowsum(do * o)). The LM's D = 64 takes the
+kernels as it is, without a copy.
 
 Both ``precision`` values give float32 results here ('highest'
 semantics): inputs are f32; all three kernels multiply on the tensor
@@ -147,18 +152,19 @@ def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
-def _kernel_inputs(q, tensors):
+def _kernel_inputs(q, tensors, Dp=None):
     """The CUDA kernels' checks and operand layout: CUDA tensors, a grid
     they can launch, and every (B, T, H, Dp) operand with a contiguous
-    last dimension and 16-byte aligned rows: at a head dim the kernels
-    are built for, copied only where that does not hold already; at any
-    other, zero-padded to ``native.kernel_head_dim(D)`` (a fresh buffer,
-    so aligned)."""
+    last dimension and 16-byte aligned rows: at a head dim the kernel
+    reads as it is (``Dp`` = D), copied only where that does not hold
+    already; at any other, zero-padded to ``Dp``, by default
+    ``native.kernel_head_dim(D)`` (a fresh buffer, so aligned)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{q.device}")
     B, T, H, D = q.shape
-    Dp = native.kernel_head_dim(D)
+    if Dp is None:
+        Dp = native.kernel_head_dim(D)
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the kernel grid's 65535")
     out = []
@@ -205,13 +211,16 @@ def _ptr(t: Optional[torch.Tensor]):
 def flash_attention_fwd_cuda(q, k, v, kv_mask=None, *, causal=False,
                              precision="default"
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream
-    (at a head dim it is not built for, on zero-padded operands).
-    Returns (o, lse). ``flash_attention_fwd_cuda.launches`` counts the
-    launches."""
+    """Launch ``csrc/flash_attention_fwd.cu`` on the current stream.
+    Returns (o, lse). Past 128 up to 256 (D % 4 == 0) the two-warpgroup
+    ``flash_fwd_pair_kernel`` reads q, k, v in place at their true D and
+    writes o at D (``native.forward_reads_in_place``); at any other head
+    dim the kernels are not built for, it runs on zero-padded operands.
+    ``flash_attention_fwd_cuda.launches`` counts the launches."""
     _check(q, k, v, kv_mask, precision)
     D = q.shape[3]
-    q, k, v = _kernel_inputs(q, (q, k, v))
+    Dp = D if native.forward_reads_in_place(D) else None
+    q, k, v = _kernel_inputs(q, (q, k, v), Dp)
     o, lse = _fwd_launch(q, k, v, kv_mask, causal, _scale(D))
     return _unpad(o, D), lse
 

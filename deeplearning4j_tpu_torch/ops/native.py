@@ -22,8 +22,8 @@ from typing import Dict, List, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
            "count_launch", "capture_launches", "count_replay",
-           "launch_counts", "HEAD_DIMS", "WIDE_CHUNK",
-           "kernel_head_dim"]
+           "launch_counts", "HEAD_DIMS", "WIDE_CHUNK", "PAIR_DIM",
+           "kernel_head_dim", "forward_reads_in_place"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -35,9 +35,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # csrc/decode_attention.cu) is instantiated for
 HEAD_DIMS = (32, 64, 128)
 # past the largest, the kernels' wide variants run any multiple of this:
-# each CTA (at 256 in the backward, each of a CTA's two warpgroups) owns
-# one such chunk of the output's columns
+# each CTA (up to PAIR_DIM, each of a CTA's two warpgroups) owns one such
+# chunk of the output's columns
 WIDE_CHUNK = 128
+# the widest head dim of the two-warpgroup kernels (the forward's
+# flash_fwd_pair_kernel, the backward's dq / dk-dv pair kernels); the
+# forward's reads any D past HEAD_DIMS up to it in place
+# (forward_reads_in_place), the backward's at PAIR_DIM, zero-padded
+PAIR_DIM = 2 * WIDE_CHUNK
 
 _lock = threading.Lock()
 _launch_lock = threading.Lock()
@@ -60,6 +65,16 @@ def kernel_head_dim(D: int) -> int:
         if D <= Dp:
             return Dp
     return -(-D // WIDE_CHUNK) * WIDE_CHUNK
+
+
+def forward_reads_in_place(D: int) -> bool:
+    """Whether the forward kernel reads head dim ``D`` as it is, without
+    a padded copy: past :data:`HEAD_DIMS` up to :data:`PAIR_DIM`, where
+    the two-warpgroup kernel zero-fills the columns past ``D`` as it
+    copies and stores only o's first ``D``, for ``D % 4 == 0`` (so every
+    row stays 16-byte aligned). Any other ``D`` runs at
+    :func:`kernel_head_dim`."""
+    return HEAD_DIMS[-1] < D <= PAIR_DIM and D % 4 == 0
 
 
 def count_launch(wrapper) -> None:

@@ -9,7 +9,8 @@ Builds every ``csrc/*.cu`` of this checkout and of the other directory
 with the same ``nvcc`` flags, then times each kernel entry (the
 flash-attention forward, dq and dk/dv) at the LM shape (B=8, T=1024,
 H=16, D=64, causal, float32) and at head dim 256 (B=8, T=1024, H=16,
-causal: the wide kernels) with CUDA events, and the paged decode
+causal: the two-warpgroup kernels, or an older checkout's chunked wide
+ones) with CUDA events, and the paged decode
 attention at its decode shape (S=8 slots, t=1, H=16, D=64, every slot
 at position 511 of 64 pages of 16 tokens) by its kernels' device time
 (torch.profiler: a call's host work outlasts them), in the order other,

@@ -490,6 +490,82 @@ def test_pair_kernels_sums_meet_the_f32_tolerance(causal, masked):
         assert not torch.allclose(got, ref, atol=ATOL, rtol=RTOL), name
 
 
+def _fwd_pair_tf32(q, k, v, kv_mask, causal, passes, R=32):
+    """The pair forward's arithmetic at 128 < D <= 256
+    (csrc/flash_attention_fwd.cu, flash_fwd_pair_kernel): q scaled by
+    scale * log2(e) before its split, s in base 2 as the f32 sum of two
+    products, one a warpgroup: the first half of the 8-column groups
+    below D rounded up to a block of 4 (columns [0, 128) at D = 256,
+    [0, 96) at 160) and the rest; the masks, then the key loop in tiles
+    of R: the running max, exp2, and p.v of the tile into a partial
+    added to acc * corr; products in ``passes`` TF32 passes."""
+    T, D = q.shape[1], q.shape[3]
+    qs = q * (np.log2(np.e) / np.sqrt(D))
+    c = 8 * ((-(-D // 8) + 7) // 8 * 4)      # warpgroup 1's first column
+    s = (_mm_tf32("bqhd,bkhd->bhqk", qs[..., :c], k[..., :c], passes)
+         + _mm_tf32("bqhd,bkhd->bhqk", qs[..., c:], k[..., c:], passes))
+    live = torch.ones((1, 1, T, T), dtype=torch.bool)
+    if causal:
+        live = torch.tril(live)
+    if kv_mask is not None:
+        live = live & (kv_mask > 0)[:, None, None, :]
+    s = s.masked_fill(~live, -1e30)
+    B, H = q.shape[0], q.shape[2]
+    m = torch.full((B, H, T, 1), -1e30)
+    l = torch.zeros((B, H, T, 1))
+    acc = torch.zeros((B, H, T, D))
+    for k0 in range(0, T, R):
+        st = s[..., k0:k0 + R]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_sub = torch.where(m_new <= -1e30 / 2, torch.zeros(()), m_new)
+        corr = torch.exp2(m - m_sub)
+        p = torch.exp2(st - m_sub)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm_tf32("bhqk,bkhd->bhqd", p,
+                                    v[:, k0:k0 + R], passes)
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)).permute(0, 2, 1, 3)
+    lse = torch.where(l > 0, m * np.log(2) + torch.log(l.clamp_min(1e-30)),
+                      torch.full((), -1e30))[..., 0]
+    return o, lse
+
+
+@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_pair_forward_sums_meet_the_f32_tolerance(D, causal, masked):
+    """At 128 < D <= 256 the pair forward splits s's sum over two
+    warpgroups' columns and adds the halves in f32, and sums p.v in
+    32-key tile partials: in three TF32 passes that meets the tolerance
+    the card is held to, in one it does not."""
+    q, k, v, mask = _inputs(90 + D + 2 * causal + masked, 2, 40, 2, D,
+                            masked)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask)
+    want_o, want_lse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    o, lse = _fwd_pair_tf32(*t, m, causal, passes=3)
+    torch.testing.assert_close(o, want_o, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, want_lse, atol=ATOL, rtol=RTOL)
+    if masked:                        # the row that saw no key
+        assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
+    one, _ = _fwd_pair_tf32(*t, m, causal, passes=1)
+    assert not torch.allclose(one, want_o, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("D,in_place", [(160, True), (192, True),
+                                        (256, True), (132, True),
+                                        (130, False), (384, False),
+                                        (128, False), (64, False)])
+def test_forward_width_rule(D, in_place):
+    """The forward reads 128 < D <= 256 with D % 4 == 0 as it is; 130
+    (rows not 16-byte aligned) is padded to 256, 384 runs the chunked
+    kernel, and the narrow widths are the kernels' own."""
+    assert native.forward_reads_in_place(D) is in_place
+    assert native.PAIR_DIM == 256
+    if D == 130:
+        assert native.kernel_head_dim(D) == 256
+
+
 def test_c_fragment_feeds_the_next_product_as_a():
     """tf32_mma.cuh's as_a / load_b_pairs, lane by lane in numpy: with
     A = (c0, c2, c1, c3) and B's depth rows (2t, 2t + 1), the m16n8k8
@@ -603,9 +679,10 @@ def test_kernel_refuses_unsupported_head_dim(cuda_device, D, masked,
 def test_padded_head_dims_match_plain_on_card(cuda_device, D, masked,
                                               causal, T):
     """A head dim the kernels are not built for runs at the next of
-    32/64/128 (past 128, the next multiple of 128), zero-padded, with
-    the true D's scale: the forward, dq and
-    dk/dv launches (one each) against the plain versions at D."""
+    32/64/128 (the backward past 128 at 256), zero-padded, with the true
+    D's scale, and the forward at 160 and 192 reads D in place: the
+    forward, dq and dk/dv launches (one each) against the plain versions
+    at D."""
     q, k, v, do, mask = _bwd_inputs(D + T, 2, T, 3, D, masked)
     t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
     g = torch.from_numpy(do).to(cuda_device)
@@ -628,6 +705,61 @@ def test_padded_head_dims_match_plain_on_card(cuda_device, D, masked,
                                            causal=causal)
     for a, b in zip((dq, dk, dv), want):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 63, 64, 65, 333])
+@pytest.mark.parametrize("D", [136, 160, 192, 256, 130])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_pair_fwd_kernel_matches_plain_on_card(cuda_device, T, D, masked,
+                                               causal):
+    """The forward past 128 (flash_fwd_pair_kernel; 130 through the
+    padded route, at 256): one launch, against the plain version at D,
+    with ragged T at the 16-key tile's and the 64-row CTA's edges; with
+    the mask batch 0 tail-padded and batch 1 fully masked (o = 0,
+    lse = -1e30)."""
+    q, k, v, mask = _inputs(T + D + 2 * masked + causal, 3, T, 2, D,
+                            masked)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
+    m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
+    before = tattn.flash_attention_fwd_cuda.launches
+    o, lse = tattn.flash_attention_fwd_cuda(*t, m, causal=causal)
+    torch.cuda.synchronize()
+    assert tattn.flash_attention_fwd_cuda.launches == before + 1
+    assert o.shape == (3, T, 2, D) and o.is_contiguous()
+    po, plse = tattn.flash_attention_fwd_plain(*t, m, causal=causal)
+    torch.testing.assert_close(o, po, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, plse, atol=ATOL, rtol=RTOL)
+    if masked:
+        assert torch.all(o[1] == 0) and torch.all(lse[1] == -1e30)
+
+
+@pytest.mark.cuda
+def test_pair_fwd_kernel_reads_a_view_in_place(cuda_device, monkeypatch):
+    """q, k, v as (B, T, H, 160) views of one wider buffer reach the
+    kernel as they are: no pad, no copy (the launch gets their
+    pointers), and o comes back at 160."""
+    buf = torch.randn(2, 100, 3, 4, 256, device=cuda_device)
+    q, k, v = buf[..., :160].unbind(2)
+    want = tattn.flash_attention_fwd_plain(q, k, v, causal=True)
+
+    def no_pad(*a, **kw):
+        raise AssertionError("pad_head_dim called on the in-place path")
+    launched = []
+    launch = tattn._launch
+
+    def spy(fn, name, q_, pointers, *rest):
+        launched.append(pointers)
+        return launch(fn, name, q_, pointers, *rest)
+    monkeypatch.setattr(tattn, "pad_head_dim", no_pad)
+    monkeypatch.setattr(tattn, "_launch", spy)
+    o, lse = tattn.flash_attention_fwd_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert launched[0][:3] == [x.data_ptr() for x in (q, k, v)]
+    assert o.shape == (2, 100, 4, 160)
+    torch.testing.assert_close(o, want[0], atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, want[1], atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.cuda
@@ -852,11 +984,13 @@ def test_bwd_kernels_at_tile_edges_on_card(cuda_device, T, D, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 160, 256])
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-def test_kernel_gives_the_same_bits_twice(cuda_device, masked, causal):
-    # no atomics: the sums run in one order on every launch
-    q, k, v, mask = _inputs(13 + causal, 2, 333, 4, 64, masked)
+def test_kernel_gives_the_same_bits_twice(cuda_device, masked, causal, D):
+    # no atomics: the sums run in one order on every launch (past 128 the
+    # pair kernel's two warps over a row add the same two partials)
+    q, k, v, mask = _inputs(13 + causal, 2, 333, 4, D, masked)
     t = [torch.from_numpy(a).to(cuda_device) for a in (q, k, v)]
     m = None if mask is None else torch.from_numpy(mask).to(cuda_device)
     runs = [tattn.flash_attention_fwd_cuda(*t, m, causal=causal)
